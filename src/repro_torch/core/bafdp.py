@@ -1,0 +1,406 @@
+"""BAFDP — the paper's algorithm (Algorithm 1, Eq. 15-22) as one round
+function over stacked client trees; the port of the JAX package's
+``core/bafdp.py`` for the dense round with ``consensus_scope="all"``.
+
+* Step 1 (active clients): the omega step Eq. (18) — gradient of the local
+  DRO objective ``g(w_i) + rho_i G(w_i)`` plus the Lagrangian terms
+  ``-phi_i`` and ``psi sign(w_i - z)`` — and the eps step Eq. (19).
+* Step 2 (server): the consensus step Eq. (20) over every client's last
+  message (Byzantine corruption included), through
+  :func:`repro_torch.kernels.ops.sign_consensus` — the hand-written CUDA
+  kernels on the GPU — and the dual step Eq. (21).
+* Step 3 (active clients): the pairwise dual step Eq. (22), then sync.
+
+Per-client gradients come from ONE backward pass of ``sum_i obj_i`` over
+the stacked ``(C, ...)`` leaves: ``obj_i`` reads only row ``i``, so the
+gradient of the sum in row ``i`` is client ``i``'s own gradient.
+
+Randomness (the internal active-set sampler, the LDP input noise, the
+``gaussian`` attack) is drawn in that order from the round's
+``torch.Generator``.  Knobs whose code is not ported yet raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import FedConfig
+from repro_torch.core import byzantine as byz_lib
+from repro_torch.core import dro
+from repro_torch.core.fed_state import FedState, consensus_gap
+from repro_torch.core.privacy import eps_feasible
+from repro_torch.distributed import collectives
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import jsign
+from repro_torch.tree import tree_leaves, tree_map
+
+# local_loss(W_stack, batch, gen, eps) -> (C,) per-client data loss; row i
+# may read only row i of W_stack, batch and eps
+LocalLoss = Callable[[Any, Any, torch.Generator, torch.Tensor], torch.Tensor]
+
+ROBUST_CONSENSUS_RULES = ("none", "trimmed_mean", "median", "krum",
+                          "centered_clip")
+
+
+def _not_ported(knob: str) -> ValueError:
+    return ValueError(f"{knob} is not yet ported to repro_torch "
+                      "(see ROADMAP.md, Queue A)")
+
+
+def check_ported(fed: FedConfig) -> None:
+    """Reject the knobs whose code this package does not carry yet, and
+    unknown values, rather than ignore them."""
+    if fed.consensus_scope == "active":
+        raise _not_ported("consensus_scope='active'")
+    if fed.consensus_scope != "all":
+        raise ValueError(f"unknown consensus_scope: {fed.consensus_scope!r} "
+                         "(expected 'all' or 'active')")
+    if fed.consensus_streaming:
+        raise _not_ported("consensus_streaming")
+    if fed.robust_consensus not in ROBUST_CONSENSUS_RULES:
+        raise ValueError(f"unknown robust_consensus: {fed.robust_consensus!r}"
+                         f" (expected one of {ROBUST_CONSENSUS_RULES})")
+    if fed.robust_consensus != "none":
+        raise _not_ported(f"robust_consensus={fed.robust_consensus!r}")
+    if fed.staleness_compensation not in ("none", "taylor"):
+        raise ValueError(
+            f"unknown staleness_compensation: {fed.staleness_compensation!r}")
+
+
+def reg_decay(alpha: float, t: torch.Tensor, power: float) -> torch.Tensor:
+    """a^t = 1 / (alpha (t+1)^power)  (Setting 1), in f32."""
+    return 1.0 / (alpha * torch.pow(t.float() + 1.0, power))
+
+
+def active_mask(gen: torch.Generator, n_clients: int, active_frac: float,
+                device=None) -> torch.Tensor:
+    """S-of-M participation: a uniformly random active set."""
+    s = max(1, int(round(n_clients * active_frac)))
+    perm = torch.randperm(n_clients, generator=gen, device=device)
+    return torch.argsort(perm) < s
+
+
+def default_age_threshold(n_clients: int, active_frac: float) -> int:
+    """2 * ceil(C / S)."""
+    s = max(1, int(round(n_clients * active_frac)))
+    return 2 * math.ceil(n_clients / s)
+
+
+def active_mask_age_aware(gen: torch.Generator, n_clients: int,
+                          active_frac: float, age: torch.Tensor,
+                          age_threshold: float) -> torch.Tensor:
+    """Age-aware S-of-M sampler: overdue clients (age >= threshold) first,
+    oldest first; ties and the remaining slots uniformly at random."""
+    s = max(1, int(round(n_clients * active_frac)))
+    u = torch.rand((n_clients,), generator=gen, device=age.device)
+    agef = age.float()
+    prim = torch.where(agef >= age_threshold, agef,
+                       torch.full_like(agef, -1.0))
+    # lexsort: primary key -prim, secondary key u (two stable sorts)
+    by_u = torch.argsort(u, stable=True)
+    idx = by_u[torch.argsort(-prim[by_u], stable=True)]
+    mask = torch.zeros((n_clients,), dtype=torch.bool, device=age.device)
+    mask[idx[:s]] = True
+    return mask
+
+
+def compensate_stale(W_msg: Any, comp: Any, age: torch.Tensor,
+                     fed: FedConfig) -> Any:
+    """First-order Taylor correction of stale messages (DC-ASGD flavour):
+    ``w~_i = w_i - alpha_w * compensation_scale * min(d, clip) * comp_i``,
+    optionally damped per client by ``ref / (rms_i + ref)``.  f32 leaves."""
+    a = (torch.clamp_max(age.float(), fed.compensation_clip)
+         * fed.alpha_w * fed.compensation_scale)
+    if fed.compensation_scale_mode == "per_client":
+        R = age.shape[0]
+        sq = torch.zeros((R,), dtype=torch.float32, device=age.device)
+        n_inner = 0
+        for c in tree_leaves(comp):
+            cf = c.float().reshape(R, -1)
+            sq = sq + torch.sum(torch.square(cf), dim=1)
+            n_inner += cf.shape[1]
+        rms = torch.sqrt(sq / float(max(n_inner, 1)))
+        den = rms + fed.compensation_ref
+        a = a * (torch.full_like(den, fed.compensation_ref) / den)
+    elif fed.compensation_scale_mode != "global":
+        raise ValueError(
+            f"unknown compensation_scale_mode: "
+            f"{fed.compensation_scale_mode!r} "
+            "(expected 'global' or 'per_client')")
+
+    def f(w, c):
+        al = a.reshape((-1,) + (1,) * (w.ndim - 1))
+        return w.float() - al * c
+
+    return tree_map(f, W_msg, comp)
+
+
+def staleness_weights(stale: torch.Tensor, fed: FedConfig) -> torch.Tensor:
+    """FedAsync staleness decay s(d), d = t - tau_i."""
+    d = torch.clamp_min(stale.float(), 0.0)
+    if fed.staleness_decay == "constant":
+        return torch.ones_like(d)
+    if fed.staleness_decay == "hinge":
+        a, b = fed.staleness_hinge_a, fed.staleness_hinge_b
+        return torch.where(d <= b, torch.ones_like(d),
+                           1.0 / (a * (d - b) + 1.0))
+    if fed.staleness_decay == "poly":
+        return torch.pow(d + 1.0, -fed.staleness_poly_a)
+    raise ValueError(f"unknown staleness_decay: {fed.staleness_decay!r}")
+
+
+def _client_block_updates(W, z_local, phi, eps, lam, opt, comp, batch,
+                          gen, cnt_inc, *, local_loss: LocalLoss,
+                          fed: FedConfig, c3: float, n_samples: int,
+                          d_dim: int, taylor: bool):
+    """Steps 1 + 3-prep of Algorithm 1 for every row of the stack:
+    gradients of the DP-perturbed DRO objective, optional Adam, the Taylor
+    EWMA proposal and the Eq. (19) eps proposal.  Returns ``(W_prop,
+    new_opt, comp_prop, eps_prop, loss_i, g_i, G_i)``, unmasked.
+    """
+    Wg = tree_map(lambda w: w.detach().requires_grad_(True), W)
+    with torch.enable_grad():
+        g_i = local_loss(Wg, batch, gen, eps)
+        G_i = dro.lipschitz_surrogate(Wg, fed.lipschitz_surrogate)
+        rho_i = fed.dro_weight * dro.rho(eps, n_samples, d_dim, c3, fed)
+        loss_i = g_i + rho_i * G_i
+        flat = torch.autograd.grad(loss_i.sum(), tree_leaves(Wg))
+    it = iter(flat)
+    grads = tree_map(lambda _: next(it), Wg)
+    loss_i, g_i, G_i = loss_i.detach(), g_i.detach(), G_i.detach()
+
+    R = eps.shape[0]
+    if fed.grad_clip:
+        sq = torch.zeros((R,), dtype=torch.float32, device=eps.device)
+        for g in tree_leaves(grads):
+            sq = sq + torch.sum(torch.square(g.float()),
+                                dim=tuple(range(1, g.ndim)))
+        norm = torch.clamp_min(torch.sqrt(sq), 1e-9)
+        scale = torch.clamp_max(torch.full_like(norm, fed.grad_clip) / norm,
+                                1.0)
+        grads = tree_map(
+            lambda g: g * scale.reshape((-1,) + (1,) * (g.ndim - 1))
+            .to(g.dtype), grads)
+
+    # Lagrangian pieces of Eq. 18, added OUTSIDE the Adam preconditioner:
+    # -phi_i + psi * sign(w_i - z_local_i)
+    lag_grad = tree_map(
+        lambda w, zl, p: fed.psi * jsign(w.float() - zl.float()) - p.float(),
+        W, z_local, phi)
+    full_grad = tree_map(lambda a, b: a.float() + b, grads, lag_grad)
+
+    new_opt = opt
+    if fed.omega_optimizer == "adam" and opt is not None:
+        cnt = opt["count"] + cnt_inc.to(torch.int32)
+        b1, b2 = fed.adam_b1, fed.adam_b2
+        m = tree_map(lambda m_l, g: b1 * m_l + (1 - b1) * g.float(),
+                     opt["m"], grads)
+        v = tree_map(lambda v_l, g: b2 * v_l + (1 - b2)
+                     * torch.square(g.float()), opt["v"], grads)
+        steps = torch.clamp_min(cnt, 1).float()
+        bc1 = 1 - torch.pow(b1, steps)
+        bc2 = 1 - torch.pow(b2, steps)
+
+        def adam_step(w, m_l, v_l, lg):
+            r1 = bc1.reshape((-1,) + (1,) * (w.ndim - 1))
+            r2 = bc2.reshape((-1,) + (1,) * (w.ndim - 1))
+            upd = (m_l / r1) / (torch.sqrt(v_l / r2) + fed.adam_eps)
+            return w.float() - fed.alpha_w * (upd + lg)
+
+        W_prop = tree_map(adam_step, W, m, v, lag_grad)
+        new_opt = {"m": m, "v": v, "count": cnt}
+    else:
+        W_prop = tree_map(lambda w, g: w.float() - fed.alpha_w * g,
+                          W, full_grad)
+
+    comp_prop = None
+    if taylor:
+        cb = fed.compensation_beta
+        comp_prop = tree_map(lambda c, g: cb * c + (1.0 - cb) * g,
+                             comp, full_grad)
+
+    # Eq. (19):  d/deps [ (eta + c3/eps) G ] = -c3 G / eps^2
+    d_eps = -fed.dro_weight * c3 * G_i \
+        / torch.square(torch.clamp_min(eps, fed.eps_min)) + lam
+    eps_prop = eps_feasible(eps - fed.alpha_eps * d_eps, fed)
+    return W_prop, new_opt, comp_prop, eps_prop, loss_i, g_i, G_i
+
+
+@torch.no_grad()
+def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
+                local_loss: LocalLoss, fed: FedConfig, c3: float,
+                n_samples: int, d_dim: int, byz_mask: torch.Tensor,
+                act: Optional[Any] = None, stale: Optional[Any] = None,
+                arrivals: Optional[Any] = None
+                ) -> Tuple[FedState, Dict[str, torch.Tensor]]:
+    """One asynchronous BAFDP round.  ``batch``: a tuple of (C, b, ...)
+    tensors on the state's device.
+
+    ``act`` (C,) bool: an externally supplied active set (``None`` draws
+    one with the internal sampler, ``fed.internal_select``).  ``stale``
+    (C,): the staleness weighting the Eq. (20) sum (default: 0 for active
+    clients, ``t - tau_i`` for the frozen params of inactive ones).
+    ``arrivals``: the round's consumed-update count, read only by
+    ``fed.fedbuff_lr_norm`` (default ``sum(act)``).
+    """
+    sign_message = fed.resolved_sign_message      # validates the knob
+    dual_message = fed.resolved_dual_message      # validates the knob
+    check_ported(fed)
+    taylor = fed.staleness_compensation == "taylor"
+    if taylor and state.comp is None:
+        raise ValueError(
+            "staleness_compensation='taylor' needs FedState.comp — "
+            "init_fed_state with the same FedConfig")
+    C = byz_mask.shape[0]
+    dev = state.eps.device
+    if act is None:
+        if fed.internal_select == "uniform":
+            act = active_mask(gen, C, fed.active_frac, device=dev)
+        elif fed.internal_select == "age_aware":
+            thr = fed.internal_age_threshold if \
+                fed.internal_age_threshold > 0 \
+                else default_age_threshold(C, fed.active_frac)
+            act = active_mask_age_aware(gen, C, fed.active_frac,
+                                        state.t - state.tau, thr)
+        else:
+            raise ValueError(
+                f"unknown internal_select: {fed.internal_select!r}")
+    else:
+        act = torch.as_tensor(act, device=dev).bool()
+
+    t = state.t
+    tau_new = torch.where(act, t, state.tau)
+    stale_v = (t - tau_new).float() if stale is None \
+        else torch.as_tensor(stale, device=dev).float()
+    s_w = staleness_weights(stale_v, fed)                      # (C,)
+    s_w_dual = staleness_weights((t - state.tau).float(), fed)
+
+    # ---------------- Step 1: active clients update (w_i, eps_i) ----------
+    batch = byz_lib.poison_batch(fed.attack, batch, byz_mask,
+                                 shift=fed.traffic_shift_steps)
+    (W_prop, new_opt, comp_prop, eps_prop, loss_i, g_i,
+     G_i) = _client_block_updates(
+        state.W, state.z_local, state.phi, state.eps, state.lam, state.opt,
+        state.comp, batch, gen, act, local_loss=local_loss, fed=fed, c3=c3,
+        n_samples=n_samples, d_dim=d_dim, taylor=taylor)
+
+    def mask_leaves(new, old):
+        m = act.reshape((-1,) + (1,) * (new.ndim - 1))
+        return torch.where(m, new, old.float()).to(old.dtype)
+
+    W_new = tree_map(mask_leaves, W_prop, state.W)
+    if fed.omega_optimizer == "adam" and state.opt is not None:
+        new_opt = {"m": tree_map(mask_leaves, new_opt["m"], state.opt["m"]),
+                   "v": tree_map(mask_leaves, new_opt["v"], state.opt["v"]),
+                   "count": new_opt["count"]}
+    new_comp = state.comp
+    if taylor:
+        new_comp = tree_map(mask_leaves, comp_prop, state.comp)
+    eps_new = torch.where(act, eps_prop, state.eps)
+
+    # ---------------- Step 2: server updates (z, lambda) -------------------
+    W_sent = byz_lib.apply_attack(fed.attack, gen, W_new, byz_mask,
+                                  scale=fed.attack_scale)
+
+    def act_mean(x):
+        return torch.sum(x * act) / torch.clamp_min(torch.sum(act), 1)
+
+    a1_t = reg_decay(fed.alpha_lambda, t, fed.reg_decay_pow)
+    lam_new = torch.clamp_min(state.lam + fed.alpha_lambda * (
+        (eps_new - fed.privacy_budget_a) - a1_t * state.lam), 0.0)
+
+    if fed.local_steps == 0:
+        # consensus-free round: no sign all-reduce at all
+        new_state = FedState(W=W_new, z=state.z, z_local=state.z_local,
+                             phi=state.phi, lam=lam_new, eps=eps_new,
+                             t=t + 1, opt=new_opt, tau=tau_new, comp=new_comp)
+        zero = torch.zeros((), device=dev)
+        return new_state, {
+            "loss": act_mean(loss_i), "data_loss": act_mean(g_i),
+            "lipschitz": torch.mean(G_i), "eps_mean": torch.mean(eps_new),
+            "lambda_mean": torch.mean(lam_new), "consensus_gap": zero,
+            "n_active": torch.sum(act),
+            "staleness_mean": torch.mean(stale_v),
+            "staleness_weight_mean": torch.mean(s_w),
+            "compensation_norm": zero}
+
+    do_consensus = (t % fed.local_steps) == (fed.local_steps - 1)
+
+    # Taylor-correct the stale messages the server consumes, AFTER the
+    # corruption (the server cannot tell honest from malicious)
+    comp_norm = torch.zeros((), device=dev)
+    W_srv = W_sent
+    if taylor:
+        W_srv = compensate_stale(W_sent, new_comp, stale_v, fed)
+        num = sum(torch.sum(torch.abs(a - b.float()))
+                  for a, b in zip(tree_leaves(W_srv), tree_leaves(W_sent)))
+        den = float(sum(l.numel() for l in tree_leaves(W_sent)))
+        comp_norm = torch.where(do_consensus, num / max(den, 1.0),
+                                torch.zeros_like(num))
+
+    # Eq. (20): one dispatch for every sign-sum flavour — the CUDA kernels
+    # for CUDA tensors.  The decayed sum divides by C, not sum(s_i).
+    z_weights = None if fed.staleness_decay == "constant" else s_w
+    if fed.fedbuff_lr_norm:
+        k_arr = torch.sum(act).float() if arrivals is None \
+            else torch.as_tensor(arrivals, device=dev).float()
+        lr_scale = k_arr / C
+
+    def z_step(z_l, w_l, phi_l):
+        zf = z_l.reshape(-1)
+        if dual_message == "int8":
+            # the server averages the DECODED dual uploads
+            dec = collectives.decode_dual_message(
+                collectives.encode_dual_message(phi_l.reshape(C, -1)))
+            phi_m = torch.mean(dec, dim=0)
+        else:
+            phi_m = torch.mean(phi_l.float(), dim=0).reshape(-1)
+        z_upd = kops.sign_consensus(zf, w_l.reshape(C, -1), phi_m,
+                                    z_weights, fed.psi, fed.alpha_z,
+                                    message=sign_message)
+        if fed.fedbuff_lr_norm:
+            z_upd = (zf.float() + lr_scale * (z_upd.float() - zf.float())
+                     ).to(z_l.dtype)
+        return torch.where(do_consensus, z_upd, zf).reshape(z_l.shape)
+
+    z_new = tree_map(z_step, state.z, W_srv, state.phi)
+
+    # ---------------- Step 3: active clients update phi, sync z -----------
+    a2_t = reg_decay(fed.alpha_phi, t, fed.reg_decay_pow)
+    # a client returning after absence d took ONE local step from its
+    # stale base, so its remaining lag is d - 1
+    W_dual = W_new
+    if taylor:
+        lag = torch.clamp_min((t - state.tau).float() - 1.0, 0.0)
+        W_dual = compensate_stale(W_new, new_comp, lag, fed)
+
+    def phi_step(phi_l, z_l, w_l):
+        upd = (z_l[None].float() - w_l.float()) - a2_t * phi_l.float()
+        if fed.staleness_decay != "constant":
+            upd = upd * s_w_dual.reshape((-1,) + (1,) * (phi_l.ndim - 1))
+        new = phi_l.float() + fed.alpha_phi * upd
+        m = act.reshape((-1,) + (1,) * (phi_l.ndim - 1))
+        return torch.where(m, new, phi_l.float()).to(phi_l.dtype)
+
+    phi_new = tree_map(phi_step, state.phi, z_new, W_dual)
+
+    def zsync(zl_l, z_l):
+        m = act.reshape((-1,) + (1,) * (zl_l.ndim - 1))
+        return torch.where(m, z_l[None].float(), zl_l.float()).to(zl_l.dtype)
+
+    z_local_new = tree_map(zsync, state.z_local, z_new)
+
+    new_state = FedState(W=W_new, z=z_new, z_local=z_local_new, phi=phi_new,
+                         lam=lam_new, eps=eps_new, t=t + 1, opt=new_opt,
+                         tau=tau_new, comp=new_comp)
+    return new_state, {
+        "loss": act_mean(loss_i), "data_loss": act_mean(g_i),
+        "lipschitz": torch.mean(G_i), "eps_mean": torch.mean(eps_new),
+        "lambda_mean": torch.mean(lam_new),
+        "consensus_gap": consensus_gap(new_state),
+        "n_active": torch.sum(act),
+        "staleness_mean": torch.mean(stale_v),
+        "staleness_weight_mean": torch.mean(s_w),
+        "compensation_norm": comp_norm}

@@ -1,0 +1,84 @@
+"""Public dispatch of the Eq. (20) consensus kernels (the port of the JAX
+package's ``kernels/ops.py``, consensus part).
+
+``impl``:
+  * ``"auto"``  — the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors (the wrappers' own rule);
+  * ``"cuda"``  — the CUDA kernel; raises for tensors off the GPU;
+  * ``"torch"`` — the plain PyTorch version (``kernels/ref.py``) on any
+    device: the yardstick, never chosen by ``"auto"`` for a CUDA tensor.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.distributed import collectives
+from repro_torch.kernels import ref
+from repro_torch.kernels import sign_agg as sa_k
+
+IMPLS = ("auto", "cuda", "torch")
+
+
+def _resolve(impl: str, z: torch.Tensor) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (expected one of {IMPLS})")
+    if impl == "cuda" and z.device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {z.device}")
+    return impl
+
+
+def sign_consensus(z: torch.Tensor, W: torch.Tensor, phi_mean: torch.Tensor,
+                   weights: Optional[torch.Tensor], psi: float,
+                   alpha_z: float, message: str = "f32", impl: str = "auto",
+                   n_total: Optional[int] = None) -> torch.Tensor:
+    """The one Eq. (20) dispatch for every sign-sum flavour: plain mean
+    (``weights=None``, B1), staleness-decayed (B2), and the int8 wire
+    format (B3).
+
+    z: (D,); W: (C, D) stacked client params (corruption and compensation
+    already applied); phi_mean: (D,); weights: (C,) f32 or None.
+    ``message="int8"`` encodes each client's ``s_i * sign(z - w_i)`` to an
+    int8 payload plus per-client f32 scale on the client side (in f32,
+    whatever ``impl``) and reduces from the wire.  Returns
+    ``z - alpha_z * (phi_mean + psi * sum_i s_i sign(z - w_i) / n)`` with
+    ``n = n_total or C``; ``n_total`` (the active-subset divisor) needs
+    ``weights``.
+    """
+    impl = _resolve(impl, z)
+    if n_total is not None and weights is None:
+        raise ValueError("n_total (active-subset reduction) needs weights "
+                         "(the padding/activity mask at minimum)")
+    n = n_total or 0
+    if message == "int8":
+        msg = collectives.encode_sign_message(z, W, weights)
+        if impl == "torch":
+            return ref.sign_agg_int8_fold_ref(z, msg.payload, msg.scale,
+                                              phi_mean, psi, alpha_z,
+                                              n or W.shape[0])
+        return sa_k.sign_agg_weighted_int8(z, msg.payload, msg.scale,
+                                           phi_mean, psi, alpha_z, n_total=n)
+    if message != "f32":
+        raise ValueError(f"unknown sign message format: {message!r}")
+    if weights is None:
+        if impl == "torch":
+            return ref.sign_agg_ref(z, W, phi_mean, psi, alpha_z)
+        return sa_k.sign_agg(z, W, phi_mean, psi, alpha_z)
+    if impl == "torch":
+        return ref.sign_agg_fold_ref(z, W, phi_mean, weights, psi, alpha_z,
+                                     n or W.shape[0])
+    return sa_k.sign_agg_weighted(z, W, phi_mean, weights, psi, alpha_z,
+                                  n_total=n)
+
+
+def sign_agg(z, W, phi_mean, psi: float, alpha_z: float,
+             impl: str = "auto") -> torch.Tensor:
+    """B1 through ``impl`` (see the module docstring)."""
+    return sign_consensus(z, W, phi_mean, None, psi, alpha_z, impl=impl)
+
+
+def sign_agg_weighted(z, W, phi_mean, weights, psi: float, alpha_z: float,
+                      impl: str = "auto") -> torch.Tensor:
+    """B2 through ``impl``; ``weights``: (C,) staleness weights."""
+    return sign_consensus(z, W, phi_mean, weights, psi, alpha_z, impl=impl)

@@ -1,0 +1,181 @@
+"""Wrappers of the Eq. (20) server-consensus CUDA kernels (B1-B3).
+
+    z' = z - alpha_z * (phi_mean + psi * sum_i s_i sign(z - w_i) / n)
+
+Each wrapper replaces one Pallas TPU kernel of the JAX package's
+``kernels/sign_agg.py`` (file:line of the ``pl.pallas_call`` caller):
+
+* :func:`sign_agg` — B1, ``sign_agg`` (sign_agg.py:58): plain mean, n = C;
+* :func:`sign_agg_weighted` — B2, ``sign_agg_weighted`` (sign_agg.py:100):
+  staleness weights ``s_i``, n = ``n_total or C``;
+* :func:`sign_agg_weighted_int8` — B3, ``sign_agg_weighted_int8``
+  (sign_agg.py:160): the int8 wire payload with an f32 ``scale`` (or none:
+  an int32 sum), n = ``n_total or C``.
+
+What bounds them on the H100 is bytes: reading W once and z, phi_mean in,
+z' out — ``4*C*D + 12*D`` bytes for B1/B2 in f32, ``C*D + 12*D + 4*C``
+for B3 — over 3.35 TB/s.  The kernels (``csrc/sign_agg.cu``) give each
+thread one column and loop the C rows in order: coalesced loads of each
+row, one pass over W, and the row-order fold of the plain versions in
+``kernels/ref.py``, bit for bit.
+
+A tensor on the CPU goes to the plain version; a CUDA tensor launches the
+kernel or raises.  ``LAUNCHES`` counts kernel launches per wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+LAUNCHES: Dict[str, int] = {"sign_agg": 0, "sign_agg_weighted": 0,
+                            "sign_agg_weighted_int8": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with its C signatures."""
+    lib = _build.load("sign_agg")
+    i, ll, f = ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.repro_sign_agg.argtypes = [i, _P, _P, _P, _P, i, ll, f, f, _P]
+    lib.repro_sign_agg_weighted.argtypes = [
+        i, _P, _P, _P, _P, _P, i, ll, i, f, f, _P]
+    lib.repro_sign_agg_int8.argtypes = [
+        i, _P, _P, _P, _P, _P, i, ll, i, f, f, _P]
+    for fn in (lib.repro_sign_agg, lib.repro_sign_agg_weighted,
+               lib.repro_sign_agg_int8):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_vectors(z: torch.Tensor, phi_mean: torch.Tensor,
+                   rows: torch.Tensor, rows_dtype: torch.dtype) -> int:
+    """Validate the (D,) vectors and the (C, D) rows; returns the dtype
+    code of z.  Raises on what the kernels do not take."""
+    if z.dtype not in _DTYPES:
+        raise TypeError(f"z must be float32 or bfloat16, got {z.dtype}")
+    if phi_mean.dtype != z.dtype:
+        raise TypeError(f"phi_mean dtype {phi_mean.dtype} != z {z.dtype}")
+    if rows.dtype != rows_dtype:
+        raise TypeError(f"message rows must be {rows_dtype}, got "
+                        f"{rows.dtype}")
+    if z.ndim != 1 or z.shape[0] < 1:
+        raise ValueError(f"z must be (D,) with D >= 1, got {tuple(z.shape)}")
+    if phi_mean.shape != z.shape:
+        raise ValueError(f"phi_mean {tuple(phi_mean.shape)} != z "
+                         f"{tuple(z.shape)}")
+    if rows.ndim != 2 or rows.shape[1] != z.shape[0] or rows.shape[0] < 1:
+        raise ValueError(f"message rows must be (C, {z.shape[0]}) with "
+                         f"C >= 1, got {tuple(rows.shape)}")
+    for name, t in (("z", z), ("phi_mean", phi_mean), ("rows", rows)):
+        if t.device != z.device:
+            raise ValueError(f"{name} is on {t.device}, z on {z.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if z.device.type != "cuda":
+        raise ValueError(f"the kernels need CUDA tensors, got {z.device}")
+    return _DTYPES[z.dtype]
+
+
+def _check_column(name: str, col: torch.Tensor, z: torch.Tensor,
+                  C: int) -> None:
+    if col.dtype != torch.float32 or col.shape != (C,):
+        raise ValueError(f"{name} must be float32 ({C},), got {col.dtype} "
+                         f"{tuple(col.shape)}")
+    if col.device != z.device or not col.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {z.device}")
+
+
+def _divisor(n_total: int, C: int) -> int:
+    if n_total < 0:
+        raise ValueError(f"n_total must be >= 0, got {n_total}")
+    return n_total or C
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError_t "
+                           f"{err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sign_agg(z: torch.Tensor, W: torch.Tensor, phi_mean: torch.Tensor,
+             psi: float, alpha_z: float) -> torch.Tensor:
+    """B1.  z, phi_mean: (D,); W: (C, D), all f32 or all bf16.  Returns
+    z' (D,) in z's dtype."""
+    if z.device.type == "cpu":
+        return ref.sign_agg_ref(z, W, phi_mean, psi, alpha_z)
+    code = _check_vectors(z, phi_mean, W, z.dtype)
+    C, D = W.shape
+    out = torch.empty_like(z)
+    err = _lib().repro_sign_agg(code, z.data_ptr(), W.data_ptr(),
+                                phi_mean.data_ptr(), out.data_ptr(), C, D,
+                                psi, alpha_z, _stream(z))
+    _raise_on(err, "sign_agg")
+    LAUNCHES["sign_agg"] += 1
+    return out
+
+
+def sign_agg_weighted(z: torch.Tensor, W: torch.Tensor,
+                      phi_mean: torch.Tensor, weights: torch.Tensor,
+                      psi: float, alpha_z: float, *,
+                      n_total: int = 0) -> torch.Tensor:
+    """B2.  As :func:`sign_agg` with ``weights``: (C,) f32 staleness
+    weights; the sum is divided by ``n_total`` (default: C)."""
+    if z.device.type == "cpu":
+        return ref.sign_agg_fold_ref(z, W, phi_mean, weights, psi, alpha_z,
+                                     _divisor(n_total, W.shape[0]))
+    code = _check_vectors(z, phi_mean, W, z.dtype)
+    C, D = W.shape
+    _check_column("weights", weights, z, C)
+    out = torch.empty_like(z)
+    err = _lib().repro_sign_agg_weighted(
+        code, z.data_ptr(), W.data_ptr(), phi_mean.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), C, D, _divisor(n_total, C), psi,
+        alpha_z, _stream(z))
+    _raise_on(err, "sign_agg_weighted")
+    LAUNCHES["sign_agg_weighted"] += 1
+    return out
+
+
+def sign_agg_weighted_int8(z: torch.Tensor, payload: torch.Tensor,
+                           scale: Optional[torch.Tensor],
+                           phi_mean: torch.Tensor, psi: float,
+                           alpha_z: float, *, n_total: int = 0
+                           ) -> torch.Tensor:
+    """B3.  ``payload``: (C, D) int8 signs; ``scale``: (C,) f32 or ``None``
+    (the unweighted message, summed in int32); z, phi_mean: (D,) f32 or
+    bf16.  The sum is divided by ``n_total`` (default: C)."""
+    if z.device.type == "cpu":
+        return ref.sign_agg_int8_fold_ref(z, payload, scale, phi_mean, psi,
+                                          alpha_z,
+                                          _divisor(n_total, payload.shape[0]))
+    code = _check_vectors(z, phi_mean, payload, torch.int8)
+    C, D = payload.shape
+    scale_ptr = None
+    if scale is not None:
+        _check_column("scale", scale, z, C)
+        scale_ptr = scale.data_ptr()
+    out = torch.empty_like(z)
+    err = _lib().repro_sign_agg_int8(
+        code, z.data_ptr(), payload.data_ptr(), phi_mean.data_ptr(),
+        scale_ptr, out.data_ptr(), C, D, _divisor(n_total, C), psi, alpha_z,
+        _stream(z))
+    _raise_on(err, "sign_agg_weighted_int8")
+    LAUNCHES["sign_agg_weighted_int8"] += 1
+    return out
