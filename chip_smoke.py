@@ -3,17 +3,35 @@
 
     python3 chip_smoke.py
 
-In order: prints the card's name and power limit; builds the Eq. (20)
-consensus kernels (``src/repro_torch/kernels/csrc/sign_agg.cu``) with
-nvcc for sm_90a; holds each kernel against its plain PyTorch version on
-the card, bit for bit, at the main path's shapes, on the reference's TPU
-test grid and at one bandwidth-bound shape; times kernel and plain
-version with CUDA events; trains the BAFDP MLP_H24 traffic forecaster
-(``repro_torch.train.train_bafdp``, 10 clients, full width) for 20 rounds
-four times, once through each kernel, checking each run's launch count;
-and runs 3 rounds on the CPU and on the card from one state and compares
-them.  Any failed check raises.  The last line is the JSON result; the
-line before it lists the kernels with their launches and times.
+In order: prints the card's name and power limit; builds every kernel
+of the port with nvcc for sm_90a, one nvcc per source, all at once
+(``src/repro_torch/kernels/csrc/``: the Eq. (20) consensus kernels B1-B3
+in ``sign_agg.cu``, prefill attention B4 in ``flash_attention.cu``,
+decode attention B5 in ``decode_attention.cu``).
+
+Training path (B1-B3): holds each kernel against its plain PyTorch
+version on the card, bit for bit, at the main path's shapes, on the
+reference's TPU test grid and at one bandwidth-bound shape; times kernel
+and plain version with CUDA events; trains the BAFDP MLP_H24 traffic
+forecaster (``repro_torch.train.train_bafdp``, 10 clients, full width)
+for 20 rounds four times, once through each kernel, checking each run's
+launch count; and runs 3 rounds on the CPU and on the card from one state
+and compares them.
+
+Serving path (B4, B5): holds both attention kernels against their plain
+versions (the reference's TPU test grid in f32 and bf16, Sq < Sk, ragged
+lengths, the full-width SmolLM-360M shapes; abs/rel 3e-5 in f32, one
+bf16 rounding of the output in bf16: see ``attn_tol``); times them at
+full width beside their bound, the plain version and PyTorch's
+``scaled_dot_product_attention``; runs a full-width SmolLM-360M prefill
+step (B=4, S=4096: 32 B4 launches) and a ``ServeEngine.generate`` of 8
+requests (32 B5 calls per step, each one launch or two with the combine
+pass), counting launches; and runs the
+same weights on the CPU and on the card through a prefill step and 40
+decode steps and compares the logits and the greedy tokens.
+
+Any failed check raises.  The last line is the JSON result; the line
+before it lists the kernels with their launches and times.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -36,10 +54,21 @@ import torch  # noqa: E402
 PSI, ALPHA = 0.005, 0.01
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_CLIENTS, ROUNDS = 10, 20
 MAIN_LEAF_D = [128, 2816, 128, 16384, 64, 8192, 24, 1536]   # MLP_H24
-SOURCE = "src/repro_torch/kernels/csrc/sign_agg.cu"
+CSRC = "src/repro_torch/kernels/csrc"
+SOURCE = f"{CSRC}/sign_agg.cu"
 TPU_SRC = "src/repro/kernels/sign_agg.py"
+KERNEL_SOURCES = ("sign_agg", "flash_attention", "decode_attention")
+
+# The serving path: SmolLM-360M at full width (configs/smollm_360m.py).
+ARCH = "smollm-360m"
+PREFILL_B, PREFILL_S = 4, 4096              # one full-width prefill step
+DECODE_B, DECODE_L = 8, 4096                # B5 timed at this cache
+SERVE_REQUESTS, SERVE_PROMPT = 8, (16, 256)  # prompt lengths drawn in range
+SERVE_MAX_NEW, SERVE_CACHE = 32, 512
+VS_ROWS, VS_PROMPT, VS_STEPS = 2, 32, 8     # serve_cpu_vs_cuda
 
 
 def log(msg: str) -> None:
@@ -318,15 +347,13 @@ def train_runs(specs, report):
     each run must launch its kernel rounds x 8 leaves times and no other."""
     from repro_torch import train
     from repro_torch.configs import FedConfig
-    from repro_torch.kernels import sign_agg as sa
-
     train.problem("milano", 24, N_CLIENTS, 0)              # data set-up
     train.train_bafdp("milano", 24, FedConfig(n_clients=N_CLIENTS),
                       rounds=2, device="cuda")             # CUDA warm-up
     runs = []
     for spec in specs:
         fed = FedConfig(n_clients=N_CLIENTS, **spec["knobs"])
-        sa.reset_launch_counts()
+        reset_all_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, cfg, hist = train.train_bafdp(
@@ -334,12 +361,9 @@ def train_runs(specs, report):
             collect=("data_loss",), device="cuda")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = dict(sa.LAUNCHES)
-        want = {k: 0 for k in counts}
-        want[spec["counter"]] = ROUNDS * len(MAIN_LEAF_D)
-        if counts != want:
-            raise AssertionError(f"{spec['name']} run: launches {counts}, "
-                                 f"expected {want}")
+        counts = all_counts()
+        check_path_counts(f"{spec['name']} run", counts,
+                          {spec["counter"]: ROUNDS * len(MAIN_LEAF_D)})
         spec["launches"] = counts[spec["counter"]]
         _, test, scalers = train.problem("milano", 24, N_CLIENTS, 0)
         rmse, mae = train.eval_fed_state(state, cfg, test, scalers)
@@ -440,12 +464,457 @@ def _to_numpy(tree):
     return tree_map(lambda t: t.numpy(), tree)
 
 
+def build_kernels(report):
+    """One nvcc per source, all started together; nvcc's register and
+    spill lines are printed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = list(pool.map(_build.build, KERNEL_SOURCES))
+    report["build_s"] = time.perf_counter() - t0
+    for lib in libs:
+        log(f"build: {lib.name}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  nvcc: {line.strip()}")
+    log(f"build: {len(libs)} libraries in {report['build_s']:.1f} s")
+
+
+def reset_all_counts() -> None:
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import sign_agg as sa
+
+    for mod in (sa, fa_k, dec_k):
+        mod.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import sign_agg as sa
+
+    return {**sa.LAUNCHES, **fa_k.LAUNCHES, **dec_k.LAUNCHES}
+
+
+def check_path_counts(path: str, counts: dict, want: dict) -> None:
+    """Every kernel's launches in one main-path run: ``want`` for the
+    kernels it names, 0 for the others."""
+    expected = {k: want.get(k, 0) for k in counts}
+    if counts != expected:
+        raise AssertionError(f"{path}: launches {counts}, expected "
+                             f"{expected}")
+
+
+def _attn_inputs(B, Sq, Sk, H, Hkv, D, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    return mk(B, Sq, H, D), mk(B, Sk, Hkv, D), mk(B, Sk, Hkv, D)
+
+
+def kept_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """Query-key pairs the mask keeps (queries end-aligned with keys)."""
+    qa = np.arange(Sq) + (Sk - Sq)
+    hi = np.minimum(qa, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qa - window + 1, 0) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(q, k, causal, window):
+    """B4's least time: operations (4 B H D per kept pair) over the peak
+    rate of the inputs' type, or q, k, v, out bytes over 3.35 TB/s."""
+    B, Sq, H, D = q.shape
+    ops = 4 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window)
+    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return _bound(ops / peak, nbytes / HBM_BYTES_PER_S)
+
+
+def decode_bound(q, k, length):
+    """B5's least time: the valid K and V positions, q and out bytes over
+    3.35 TB/s, or 4 H D flops per valid position over the peak rate."""
+    B, H, D = q.shape
+    Hkv, L = k.shape[2], k.shape[1]
+    valid = int(length.clamp(max=L).sum())
+    nbytes = (2 * valid * Hkv * D + 2 * q.numel()) * q.element_size() \
+        + 4 * B
+    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    return _bound(4 * H * D * valid / peak, nbytes / HBM_BYTES_PER_S)
+
+
+def _bound(t_ops, t_bytes):
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_tol(want: torch.Tensor) -> torch.Tensor:
+    """Per-element bound of |kernel - plain version| for B4/B5.  f32:
+    abs/rel 3e-5, the reference's own bound between kernel and oracle
+    (tests/test_kernels.py).  bf16: both compute in f32 from the same bf16
+    inputs and round the output once, so they may differ by one bf16 ulp
+    (<= 2^-7 relative) plus f32 sum-order noise: 1e-2 relative plus 1e-3
+    of the output's RMS.  A bare 3e-2 (the reference's bf16 bound) is the
+    size of a typical output at the full-width shapes (|out| ~ 0.03 over
+    ~1000 keys), so it could not tell a wrong mask from a right one."""
+    w = want.float()
+    if want.dtype == torch.float32:
+        return 3e-5 + 3e-5 * w.abs()
+    return 1e-2 * w.abs() + 1e-3 * float(w.pow(2).mean().sqrt())
+
+
+def sdpa_flash(q, k, v, causal):
+    """``library_ms`` yardstick for B4 (never called by the port)."""
+    import torch.nn.functional as F
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def sdpa_decode(q, k, v, mask):
+    """``library_ms`` yardstick for B5; ``mask``: (B, 1, 1, L) bool."""
+    import torch.nn.functional as F
+    out = F.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True)
+    return out[:, :, 0]
+
+
+def expand_heads(k, H):
+    """K or V (B, S, Hkv, D) repeated to H heads: the input of the second
+    SDPA yardstick, which then needs no GQA support."""
+    return k.repeat_interleave(H // k.shape[2], dim=2).contiguous()
+
+
+def check_attention(report):
+    """B4 and B5 against their plain versions on the card: the reference's
+    TPU test grid (tests/test_kernels.py) in f32 and bf16, Sq < Sk,
+    ragged lengths and an odd cache, head dim 256, the full-width shapes."""
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    rows = []
+
+    def hold(name, got, want, dtype, tag):
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name} {tag}: {got.dtype}"
+                                 f"{tuple(got.shape)}")
+        err = max_abs_err(got, want)
+        excess = (got.float() - want.float()).abs() - attn_tol(want)
+        if not (bool(torch.isfinite(got.float()).all())
+                and bool((excess <= 0).all())):
+            raise AssertionError(f"{name} {tag}: kernel != plain version "
+                                 f"(max |err| {err:.3e}, worst excess over "
+                                 f"attn_tol {float(excess.max()):.3e})")
+        errs[name] = max(errs[name], err)
+        rows.append(dict(kernel=name, shape=tag, max_abs_err=err))
+
+    flash = [(2, S, S, H, Hkv, D, c, w) for S, H, Hkv, D in
+             [(128, 4, 2, 64), (256, 2, 2, 128), (256, 6, 2, 64)]
+             for c, w in [(True, 0), (True, 64), (False, 0)]]
+    flash += [(1, 128, 128, 4, 2, 64, True, 0),         # dtype test shape
+              (2, 100, 300, 6, 2, 64, True, 0),         # Sq < Sk, ragged
+              (2, 64, 192, 6, 2, 64, False, 32),
+              (1, 77, 77, 3, 1, 256, True, 32),         # Gemma's head dim
+              (PREFILL_B, PREFILL_S, PREFILL_S, 15, 5, 64, True, 0)]
+    for i, (B, Sq, Sk, H, Hkv, D, c, w) in enumerate(flash):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, dt, seed=i)
+            hold("flash_attention",
+                 fa_k.flash_attention(q, k, v, causal=c, window=w),
+                 ref.flash_attention_ref(q, k, v, causal=c, window=w), dt,
+                 f"B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} D={D} causal={c} "
+                 f"window={w} {dt}")
+            del q, k, v
+    decode = [(3, L, H, Hkv, D, [1, L // 2, L]) for L, H, Hkv, D in
+              [(256, 4, 2, 64), (512, 8, 8, 128), (1024, 2, 1, 64)]]
+    decode += [(3, 777, 15, 5, 64, [1, 388, 777]),      # odd cache
+               (2, 300, 16, 16, 256, [300, 17]),
+               (DECODE_B, SERVE_CACHE, 15, 5, 64,
+                [16, 40, 100, 200, 256, 300, 400, 512]),
+               (DECODE_B, DECODE_L, 15, 5, 64, [DECODE_L] * DECODE_B)]
+    for i, (B, L, H, Hkv, D, lens) in enumerate(decode):
+        for dt in (torch.float32, torch.bfloat16):
+            _, k, v = _attn_inputs(B, 1, L, H, Hkv, D, dt, seed=100 + i)
+            q = _attn_inputs(B, 1, 1, H, Hkv, D, dt, seed=200 + i)[0][:, 0]
+            length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            hold("decode_attention",
+                 dec_k.decode_attention(q.contiguous(), k, v, length),
+                 ref.decode_attention_ref(q, k, v, length), dt,
+                 f"B={B} L={L} H={H}/{Hkv} D={D} length={lens} {dt}")
+            del q, k, v
+    report["attention_checks"] = rows
+    report["attention_max_abs_err"] = errs
+    log(f"attention checks: {len(rows)} kernel calls within attn_tol "
+        f"(abs/rel 3e-5 f32; bf16 1e-2 rel + 1e-3 RMS) of their plain "
+        f"versions; max |err| {errs}")
+    return errs
+
+
+def time_attention(report):
+    """B4 and B5 at the full-width shapes: device ms of the kernel, of the
+    plain version and of PyTorch's SDPA (``library_ms``: one call with
+    ``enable_gqa=True`` on the same inputs; ``library_expanded_ms``: on
+    K/V expanded to H heads beforehand, which lets SDPA pick a backend
+    without GQA support), and the bound."""
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+
+    cpm = sleep_cycles_per_ms()
+    out = {}
+    q, k, v = _attn_inputs(PREFILL_B, PREFILL_S, PREFILL_S, 15, 5, 64,
+                           torch.float32, seed=7)
+    lib_err = max_abs_err(sdpa_flash(q, k, v, True),
+                          ref.flash_attention_ref(q, k, v))
+    kx, vx = expand_heads(k, 15), expand_heads(v, 15)
+    row = dict(shape=f"B={PREFILL_B} S={PREFILL_S} H=15/5 D=64 f32 causal",
+               ms=device_ms(lambda: fa_k.flash_attention(q, k, v), cpm,
+                            reps=10, inner=3),
+               plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v),
+                                  cpm, reps=5, inner=1),
+               library_ms=device_ms(lambda: sdpa_flash(q, k, v, True), cpm,
+                                    reps=10, inner=3),
+               library_max_abs_err=lib_err,
+               library_expanded_ms=device_ms(
+                   lambda: sdpa_flash(q, kx, vx, True), cpm, reps=10,
+                   inner=3),
+               library_expanded_max_abs_err=max_abs_err(
+                   sdpa_flash(q, kx, vx, True),
+                   ref.flash_attention_ref(q, k, v)))
+    row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
+    out["flash_attention"] = row
+    del q, k, v, kx, vx
+    _, k, v = _attn_inputs(DECODE_B, 1, DECODE_L, 15, 5, 64, torch.float32,
+                           seed=8)
+    q = _attn_inputs(DECODE_B, 1, 1, 15, 5, 64, torch.float32,
+                     seed=9)[0][:, 0].contiguous()
+    length = torch.full((DECODE_B,), DECODE_L, dtype=torch.int32,
+                        device="cuda")
+    mask = (torch.arange(DECODE_L, device="cuda")[None, :]
+            < length[:, None])[:, None, None, :]
+    lib_err = max_abs_err(sdpa_decode(q, k, v, mask),
+                          ref.decode_attention_ref(q, k, v, length))
+    kx, vx = expand_heads(k, 15), expand_heads(v, 15)
+    row = dict(shape=f"B={DECODE_B} L={DECODE_L} (all valid) H=15/5 D=64 "
+                     "f32",
+               ms=device_ms(lambda: dec_k.decode_attention(q, k, v, length),
+                            cpm),
+               launches_per_call=dec_k.launches_per_call(
+                   DECODE_B, 5, DECODE_L,
+                   torch.cuda.get_device_properties(0).multi_processor_count),
+               plain_ms=device_ms(lambda: ref.decode_attention_ref(
+                   q, k, v, length), cpm, reps=10, inner=3),
+               library_ms=device_ms(lambda: sdpa_decode(q, k, v, mask), cpm),
+               call_ms=call_ms(lambda: dec_k.decode_attention(q, k, v,
+                                                              length)),
+               library_max_abs_err=lib_err,
+               library_expanded_ms=device_ms(
+                   lambda: sdpa_decode(q, kx, vx, mask), cpm),
+               library_expanded_max_abs_err=max_abs_err(
+                   sdpa_decode(q, kx, vx, mask),
+                   ref.decode_attention_ref(q, k, v, length)))
+    row["bound_ms"], row["bound_by"] = decode_bound(q, k, length)
+    out["decode_attention"] = row
+    del q, k, v, kx, vx
+    for name, r in out.items():
+        log(f"time {name:18s} {r['shape']}: kernel_ms={r['ms']:.6f} "
+            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+            f"plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']:.6f} "
+            f"(SDPA enable_gqa, max |err| vs plain "
+            f"{r['library_max_abs_err']:.2e}) library_expanded_ms="
+            f"{r['library_expanded_ms']:.6f} (SDPA on K/V expanded to 15 "
+            f"heads, max |err| {r['library_expanded_max_abs_err']:.2e})"
+            + (f" call_ms={r['call_ms']:.6f} launches_per_call="
+               f"{r['launches_per_call']}" if "call_ms" in r else ""))
+    report["attention_timings"] = out
+    return out
+
+
+def serve_model():
+    """SmolLM-360M at full width, random weights from seed 0, on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+
+    cfg = get_arch(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, tr.init_lm(gen, cfg, device="cuda")
+
+
+def prefill_run(cfg, params, report):
+    """One full-width prefill step (B4 in each of the 32 layers)."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    step = make_prefill_step(cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                         generator=g, device="cuda")
+    step(params, {"tokens": toks[:, :256]})                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = all_counts()
+    check_path_counts("prefill", counts, {"flash_attention": cfg.n_layers})
+    if logits.shape != (PREFILL_B, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill: logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    report["prefill"] = dict(B=PREFILL_B, S=PREFILL_S, ms=ms,
+                             launches=counts, peak_gb=peak_gb)
+    log(f"prefill {ARCH} B={PREFILL_B} S={PREFILL_S}: {ms:.3f} ms, "
+        f"{PREFILL_B * PREFILL_S / ms * 1e3:.1f} tokens/s, launches "
+        f"flash_attention={counts['flash_attention']}, peak "
+        f"{peak_gb:.2f} GB")
+    return counts["flash_attention"]
+
+
+def generate_run(cfg, params, report):
+    """``ServeEngine.generate``: 8 requests, half greedy and half sampled,
+    prompts of 16-256 tokens (prefilled token by token through the decode
+    step, as the reference does), 32 new tokens each."""
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.serving import ServeEngine, ServeRequest
+
+    rng = np.random.RandomState(2)
+    reqs = [ServeRequest(
+        prompt=rng.randint(0, cfg.vocab_size,
+                           rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)
+                           ).astype(np.int32),
+        max_new=SERVE_MAX_NEW, temperature=0.0 if i % 2 == 0 else 0.7,
+        rid=i) for i in range(SERVE_REQUESTS)]
+    reqs[0].prompt = reqs[0].prompt[:SERVE_PROMPT[0]]
+    reqs[1].prompt = rng.randint(0, cfg.vocab_size, SERVE_PROMPT[1]).astype(
+        np.int32)
+    ServeEngine(params, cfg, batch=SERVE_REQUESTS, cache_len=SERVE_CACHE,
+                device="cuda").generate(
+        [ServeRequest(prompt=r.prompt[:8], max_new=2) for r in reqs])
+    eng = ServeEngine(params, cfg, batch=SERVE_REQUESTS,
+                      cache_len=SERVE_CACHE, seed=3, device="cuda")
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = all_counts()
+    per_call = dec_k.launches_per_call(
+        SERVE_REQUESTS, cfg.n_kv_heads, SERVE_CACHE,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    check_path_counts("generate", counts, {
+        "decode_attention": cfg.n_layers * eng.steps * per_call})
+    for r, o in zip(reqs, outs):
+        if len(o) != r.max_new or not ((o >= 0) & (o < cfg.vocab_size)).all():
+            raise AssertionError(f"generate: request {r.rid} gave {o}")
+    new = sum(len(o) for o in outs)
+    ms_step = secs * 1e3 / eng.steps
+    report["generate"] = dict(
+        requests=len(reqs), prompt_lens=[len(r.prompt) for r in reqs],
+        max_new=SERVE_MAX_NEW, cache_len=SERVE_CACHE, steps=eng.steps,
+        s=secs, ms_per_step=ms_step, new_tokens=new,
+        new_tokens_per_s=new / secs, launches=counts,
+        decode_launches_per_call=per_call)
+    log(f"generate {ARCH}: {len(reqs)} requests, prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)} tokens, {SERVE_MAX_NEW} new "
+        f"each, cache {SERVE_CACHE}: {eng.steps} decode steps in "
+        f"{secs:.3f} s = {ms_step:.3f} ms per step, {new / secs:.1f} new "
+        f"tokens/s, launches decode_attention="
+        f"{counts['decode_attention']} ({cfg.n_layers} calls per step, "
+        f"{per_call} launches per call)")
+    return counts["decode_attention"]
+
+
+def serve_cpu_vs_cuda(cfg, report):
+    """The same full-width weights on the CPU and on the card: a prefill
+    step over a 2 x 32-token greedy prompt, then the prompt token by token
+    through the decode step and 8 greedy steps (both devices fed the
+    CPU's tokens, so every step compares like with like).
+
+    Bound: |logit difference| <= 2e-3.  The devices sum in other orders
+    (matmul blocking over d = 960 and d_ff = 2560, the attention core's
+    key order), each f32 sum off by ~sqrt(n) ulp relative; through 32
+    residual layers that is ~1e-4 relative on the hidden state, and the
+    random-weight logits here are O(1) (|logit| < 10).  A greedy token
+    may differ only where the CPU's top-2 margin is inside that bound."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as tr
+
+    bound = 2e-3
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {"cuda": tr.init_lm(gen, cfg, device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params["cpu"] = tr.init_lm(gen, cfg, device="cpu")
+    prompt = np.random.RandomState(4).randint(0, cfg.vocab_size,
+                                              (VS_ROWS, VS_PROMPT))
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        toks = torch.from_numpy(prompt).to(dev)
+        logits[dev] = [prefill(params[dev], {"tokens": toks}).cpu()]
+    states = {dev: tr.init_decode_state(cfg, VS_ROWS, VS_PROMPT + VS_STEPS,
+                                        torch.float32, device=dev)
+              for dev in ("cpu", "cuda")}
+    seq = prompt
+    flips, greedy_equal = [], 0
+    for t in range(VS_PROMPT + VS_STEPS):
+        step_logits = {}
+        for dev in ("cpu", "cuda"):
+            tok = torch.from_numpy(np.ascontiguousarray(seq[:, t:t + 1]))
+            out, states[dev] = decode(params[dev], states[dev], tok.to(dev),
+                                      t)
+            step_logits[dev] = out[:, 0].cpu()
+            logits[dev].append(step_logits[dev])
+        if t < VS_PROMPT - 1:
+            continue
+        a = step_logits["cpu"][:, :cfg.vocab_size]
+        b = step_logits["cuda"][:, :cfg.vocab_size]
+        top2 = a.topk(2, dim=-1).values
+        ga, gb = a.argmax(-1), b.argmax(-1)
+        for r in range(VS_ROWS):
+            if int(ga[r]) == int(gb[r]):
+                greedy_equal += 1
+                continue
+            margin = float(top2[r, 0] - top2[r, 1])
+            flips.append(dict(step=t, row=r, margin=margin))
+            if margin > bound:
+                raise AssertionError(
+                    f"serve cpu vs cuda: greedy token differs at step {t} "
+                    f"row {r} with top-2 margin {margin:.3e} > {bound}")
+        seq = np.concatenate([seq, ga.numpy()[:, None]], axis=1)
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(logits["cpu"], logits["cuda"]))
+    scale = max(float(a.abs().max()) for a in logits["cpu"])
+    if not diff <= bound:
+        raise AssertionError(f"serve cpu vs cuda: max logit difference "
+                             f"{diff:.3e} > {bound}")
+    report["serve_cpu_vs_cuda"] = dict(
+        max_logit_diff=diff, max_abs_logit=scale, bound=bound,
+        greedy_equal=greedy_equal, greedy_compared=greedy_equal + len(flips),
+        flips=flips)
+    log(f"serve cpu vs cuda ({ARCH} full width, {VS_ROWS} x {VS_PROMPT} "
+        f"prompt, prefill + {VS_PROMPT + VS_STEPS} decode steps): max "
+        f"|logit diff| = {diff:.3e} (bound {bound}, max |logit| "
+        f"{scale:.3f}); greedy tokens equal {greedy_equal}/"
+        f"{greedy_equal + len(flips)}; flips inside the bound: {flips}")
+    del params, states
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from repro_torch.kernels import _build
-
     torch.backends.cuda.matmul.allow_tf32 = False     # full f32 matmuls
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -458,13 +927,7 @@ def main() -> int:
         f"{sys.version.split()[0]}")
     report = {"card": card}
 
-    t0 = time.perf_counter()
-    lib = _build.build("sign_agg")
-    report["build_s"] = time.perf_counter() - t0
-    log(f"build: {lib.name} in {report['build_s']:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  nvcc: {line.strip()}")
+    build_kernels(report)
 
     from repro_torch.configs import MLP_H24
     from repro_torch.models.forecasting import init_forecaster
@@ -485,12 +948,32 @@ def main() -> int:
     cpu_vs_cuda(report)
     report["train_phase_s"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    errs = check_attention(report)
+    times = time_attention(report)
+    cfg, params = serve_model()
+    launches = {"flash_attention": prefill_run(cfg, params, report),
+                "decode_attention": generate_run(cfg, params, report)}
+    del params
+    serve_cpu_vs_cuda(cfg, report)
+    report["serve_phase_s"] = time.perf_counter() - t0
+
     kernels = [dict(name=s["name"], route="cuda", source=SOURCE,
                     replaces=s["replaces"], launches=s["launches"],
                     max_abs_err=s["max_abs_err"], ms=s["ms"],
                     plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                     bound_by=s["bound_by"], library_ms=None)
                for s in specs]
+    for name, replaces in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:84"),
+            ("decode_attention", "src/repro/kernels/decode_attention.py:66")):
+        r = times[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"{CSRC}/{name}.cu",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
     report["kernels"] = kernels
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

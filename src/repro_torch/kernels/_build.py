@@ -1,4 +1,5 @@
-"""Build the hand-written CUDA kernels at first use and load them.
+"""Build the hand-written CUDA kernels at first use, load them, and the
+helpers every ``ctypes`` wrapper shares.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, bound with ``ctypes``.  The build
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -63,5 +66,17 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built if it is not yet; callers
-    keep the handle (``kernels/sign_agg._lib`` caches it)."""
+    keep the handle (each wrapper module's ``_lib`` caches it)."""
     return ctypes.CDLL(str(build(name)))
+
+
+def check_launch(err: int, kernel: str) -> None:
+    """Raise unless a library call returned ``cudaSuccess`` (0)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError_t "
+                           f"{err}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a ``ctypes`` int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,7 +1,10 @@
-"""Public dispatch of the Eq. (20) consensus kernels (the port of the JAX
-package's ``kernels/ops.py``, consensus part).
+"""Public dispatch of the port's kernels (the port of the JAX package's
+``kernels/ops.py``): the Eq. (20) consensus kernels B1-B3 and the
+attention kernels B4 (prefill) and B5 (decode), in the model's layout.
+B4 and B5 go straight to their wrappers, which launch the CUDA kernel for
+CUDA tensors and run the plain version for CPU tensors.
 
-``impl``:
+``impl`` of the consensus dispatch (B1-B3):
   * ``"auto"``  — the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors (the wrappers' own rule);
   * ``"cuda"``  — the CUDA kernel; raises for tensors off the GPU;
@@ -15,6 +18,8 @@ from typing import Optional
 import torch
 
 from repro_torch.distributed import collectives
+from repro_torch.kernels import decode_attention as dec_k
+from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import sign_agg as sa_k
 
@@ -82,3 +87,17 @@ def sign_agg_weighted(z, W, phi_mean, weights, psi: float, alpha_z: float,
                       impl: str = "auto") -> torch.Tensor:
     """B2 through ``impl``; ``weights``: (C,) staleness weights."""
     return sign_consensus(z, W, phi_mean, weights, psi, alpha_z, impl=impl)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """B4.  q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D) — the model's layout,
+    which the kernel reads as it is.  Returns (B, Sq, H, D)."""
+    return fa_k.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: torch.Tensor) -> torch.Tensor:
+    """B5.  q: (B, H, D); k/v: (B, L, Hkv, D) — the model's cache layout;
+    length: (B,) int32 valid positions.  Returns (B, H, D)."""
+    return dec_k.decode_attention(q, k, v, length)

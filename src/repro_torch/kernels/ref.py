@@ -1,11 +1,16 @@
-"""Plain PyTorch versions of the Eq. (20) consensus kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
-Each function here is the plain version of one CUDA kernel in
-``csrc/sign_agg.cu``: the CPU path of its wrapper (``kernels/sign_agg.py``)
-and the yardstick the kernel is held to on the card.  They mirror the
-consensus oracles of the JAX package's ``kernels/ref.py``.
+Each function here is the plain version of one CUDA kernel: the CPU path
+of its wrapper and the yardstick the kernel is held to on the card.  They
+mirror the oracles of the JAX package's ``kernels/ref.py``:
 
-Every cross-client sum adds rows strictly in order (a Python loop of
+* the Eq. (20) consensus kernels B1-B3 (``csrc/sign_agg.cu``, wrappers in
+  ``kernels/sign_agg.py``);
+* prefill attention B4 (``csrc/flash_attention.cu``) and decode attention
+  B5 (``csrc/decode_attention.cu``), in the model's layout, computed in
+  f32 and returned in the query's dtype.
+
+In B1-B3 every cross-client sum adds rows strictly in order (a Python loop of
 ``acc = acc + w[j] * X[j]`` in f32), never through ``torch.sum``, which
 regroups.  The kernels loop rows in the same order with the same
 roundings, so they agree with these folds bit for bit.  Divisions by the
@@ -13,6 +18,7 @@ client count are true divisions (see :func:`true_div`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -118,3 +124,58 @@ def sign_agg_int8_ref(z: torch.Tensor, payload: torch.Tensor,
     (a sign message quantizes losslessly)."""
     return sign_agg_int8_fold_ref(z, payload, scale, phi_mean, psi, alpha_z,
                                   payload.shape[0])
+
+
+@functools.lru_cache(maxsize=None)
+def attention_scale(D: int) -> float:
+    """``1 / sqrt(D)`` in f32 (an f32 sqrt, then an f32 division), as the
+    oracles compute it; the kernels are handed the same value."""
+    d = torch.tensor(float(D), dtype=torch.float32)
+    return float(1.0 / torch.sqrt(d))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """B4: plain softmax attention, GQA-aware, in f32.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, H, D) in q's
+    dtype.  Queries are end-aligned with the keys: query i sits at
+    absolute position ``i + Sk - Sq``.  Masked logits are -1e30, so a row
+    with no key left (causal and Sq > Sk) averages every value."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D).float()
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg * attention_scale(D),
+                          k.float())
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    ki = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= ki <= qi
+    if window:
+        ok &= ki > qi - window
+    logits = torch.where(ok, logits, torch.tensor(-1e30, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length: torch.Tensor) -> torch.Tensor:
+    """B5: one query token per head against a KV cache, in f32.
+
+    q: (B, H, D); k, v: (B, L, Hkv, D) (the model's cache layout);
+    length: (B,) valid positions per row (positions >= length are
+    masked).  Returns (B, H, D) in q's dtype."""
+    B, H, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, D).float()
+    logits = torch.einsum("bkgd,bskd->bkgs", qg * attention_scale(D),
+                          k.float())
+    length = torch.as_tensor(length, device=q.device).expand(B)
+    valid = torch.arange(L, device=q.device)[None, :] < length[:, None]
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.tensor(-1e30, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
+    return out.reshape(B, H, D).to(q.dtype)

@@ -104,16 +104,6 @@ def _divisor(n_total: int, C: int) -> int:
     return n_total or C
 
 
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError_t "
-                           f"{err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def sign_agg(z: torch.Tensor, W: torch.Tensor, phi_mean: torch.Tensor,
              psi: float, alpha_z: float) -> torch.Tensor:
     """B1.  z, phi_mean: (D,); W: (C, D), all f32 or all bf16.  Returns
@@ -125,8 +115,8 @@ def sign_agg(z: torch.Tensor, W: torch.Tensor, phi_mean: torch.Tensor,
     out = torch.empty_like(z)
     err = _lib().repro_sign_agg(code, z.data_ptr(), W.data_ptr(),
                                 phi_mean.data_ptr(), out.data_ptr(), C, D,
-                                psi, alpha_z, _stream(z))
-    _raise_on(err, "sign_agg")
+                                psi, alpha_z, _build.stream_of(z))
+    _build.check_launch(err, "sign_agg")
     LAUNCHES["sign_agg"] += 1
     return out
 
@@ -147,8 +137,8 @@ def sign_agg_weighted(z: torch.Tensor, W: torch.Tensor,
     err = _lib().repro_sign_agg_weighted(
         code, z.data_ptr(), W.data_ptr(), phi_mean.data_ptr(),
         weights.data_ptr(), out.data_ptr(), C, D, _divisor(n_total, C), psi,
-        alpha_z, _stream(z))
-    _raise_on(err, "sign_agg_weighted")
+        alpha_z, _build.stream_of(z))
+    _build.check_launch(err, "sign_agg_weighted")
     LAUNCHES["sign_agg_weighted"] += 1
     return out
 
@@ -175,7 +165,7 @@ def sign_agg_weighted_int8(z: torch.Tensor, payload: torch.Tensor,
     err = _lib().repro_sign_agg_int8(
         code, z.data_ptr(), payload.data_ptr(), phi_mean.data_ptr(),
         scale_ptr, out.data_ptr(), C, D, _divisor(n_total, C), psi, alpha_z,
-        _stream(z))
-    _raise_on(err, "sign_agg_weighted_int8")
+        _build.stream_of(z))
+    _build.check_launch(err, "sign_agg_weighted_int8")
     LAUNCHES["sign_agg_weighted_int8"] += 1
     return out

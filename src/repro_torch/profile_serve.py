@@ -1,0 +1,100 @@
+"""Where a serving step's time goes on the GPU.
+
+    python -m repro_torch.profile_serve [--arch smollm-360m]
+        [--prefill-batch 4] [--prefill-len 4096] [--batch 8] [--prompt 16]
+        [--max-new 16] [--cache-len 512]
+
+With full-width random weights (seed 0), under ``torch.profiler`` after a
+warm-up: one prefill step (``launch.steps.make_prefill_step``) and one
+``ServeEngine.generate`` (prompts of ``--prompt`` tokens, prefilled token
+by token, then ``--max-new`` new tokens; half greedy, half sampled).
+Prints for each: wall ms (host clock, synchronized, profiler on), ms and
+kernels per step, the device busy share (summed kernel time over wall
+time), the attention kernels' share of the device time, and the top
+operators by device and by host time.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_arch
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import transformer as tr
+from repro_torch.serving import ServeEngine, ServeRequest
+from repro_torch.tree import resolve_device
+
+# kernel names of B4 (csrc/flash_attention.cu) and B5 (decode_attention.cu)
+ATTENTION_KERNELS = ("flash_fwd", "decode_split", "decode_combine")
+
+
+def _profiled(fn, dev, steps: int, label: str) -> None:
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    attn_ms = sum(e.time_range.elapsed_us() for e in kernels
+                  if any(n in e.name for n in ATTENTION_KERNELS)) / 1e3
+    print(f"{label}: wall_ms={wall_ms:.3f} (profiler on) steps={steps} "
+          f"ms_per_step={wall_ms / steps:.3f} "
+          f"kernels_per_step={len(kernels) / steps:.1f} "
+          f"device_busy_ms_per_step={busy_ms / steps:.4f} "
+          f"device_busy_share={busy_ms / wall_ms:.4f} "
+          f"attention_kernel_ms_per_step={attn_ms / steps:.4f} "
+          f"attention_share_of_busy={attn_ms / max(busy_ms, 1e-9):.4f}")
+    averages = prof.key_averages()
+    print(averages.table(sort_by="self_device_time_total", row_limit=12))
+    print(averages.table(sort_by="self_cpu_time_total", row_limit=15))
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--prefill-batch", type=int, default=4)
+    ap.add_argument("--prefill-len", type=int, default=4096)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=512)
+    args = ap.parse_args(argv)
+    dev = resolve_device(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(args.arch)
+    params = tr.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    print(f"card: {torch.cuda.get_device_name(dev)}")
+    print(f"config: {vars(args)}")
+
+    prefill = make_prefill_step(cfg)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (args.prefill_batch, args.prefill_len), device=dev)
+    prefill(params, {"tokens": toks[:, :256]})                 # warm-up
+    _profiled(lambda: prefill(params, {"tokens": toks}), dev, 1,
+              f"prefill B={args.prefill_batch} S={args.prefill_len}")
+
+    rng = np.random.RandomState(0)
+    reqs = [ServeRequest(prompt=rng.randint(0, cfg.vocab_size, args.prompt)
+                         .astype(np.int32), max_new=args.max_new,
+                         temperature=0.0 if i % 2 == 0 else 0.7, rid=i)
+            for i in range(args.batch)]
+    ServeEngine(params, cfg, args.batch, args.cache_len, device=dev
+                ).generate([ServeRequest(prompt=r.prompt, max_new=2)
+                            for r in reqs])                    # warm-up
+    eng = ServeEngine(params, cfg, args.batch, args.cache_len, device=dev)
+    _profiled(lambda: eng.generate(reqs), dev, args.prompt + args.max_new,
+              f"generate batch={args.batch} prompt={args.prompt} "
+              f"max_new={args.max_new} cache={args.cache_len}")
+
+
+if __name__ == "__main__":
+    main()
