@@ -7,7 +7,8 @@ In order: prints the card's name and power limit; builds every kernel
 of the port with nvcc for sm_90a, one nvcc per source, all at once
 (``src/repro_torch/kernels/csrc/``: the Eq. (20) consensus kernels B1-B3
 in ``sign_agg.cu``, prefill attention B4 in ``flash_attention.cu``,
-decode attention B5 in ``decode_attention.cu``).
+decode attention B5 in ``decode_attention.cu``, the Mamba selective scan
+B6 in ``ssm_scan.cu``).
 
 Training path (B1-B3): holds each kernel against its plain PyTorch
 version on the card, bit for bit, at the main path's shapes, on the
@@ -30,8 +31,22 @@ pass), counting launches; and runs the
 same weights on the CPU and on the card through a prefill step and 40
 decode steps and compares the logits and the greedy tokens.
 
-Any failed check raises.  The last line is the JSON result; the line
-before it lists the kernels with their launches and times.
+Hymba path (B4, B5, B6): holds B6 against its plain version on the card,
+bit for bit (the reference's TPU test grid, the prefill chunk shape
+(4, 128, 1600, 16), a nonzero initial state, bf16 inputs, odd shapes),
+and B4/B5 at Hymba's heads (25/5) in bf16 within ``attn_tol``; times B6
+at the chunk shape and at (1, 4096, 1600, 16) and B4/B5 at Hymba's
+shapes; runs a full-width Hymba-1.5B prefill step (B=4, S=4096: 32 B4
+and 32 x 32 = 1,024 B6 launches) and a ``ServeEngine.generate`` of the
+same 8 requests as SmolLM's (B5 in every layer, no B6), counting
+launches; and, in an f32 copy of the config, compares the CPU and the
+card (a 2 x 160-token prompt, which crosses a 128-step chunk and needs
+padding, then 24 decode steps) and the card's prefill against its
+token-by-token decode of the same prompt (5e-4, the reference's bound).
+
+Any failed check raises.  Each phase prints its seconds.  The last line
+is the JSON result; the line before it lists the kernels with their
+launches (summed over the main-path runs) and times.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -60,7 +75,6 @@ MAIN_LEAF_D = [128, 2816, 128, 16384, 64, 8192, 24, 1536]   # MLP_H24
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCE = f"{CSRC}/sign_agg.cu"
 TPU_SRC = "src/repro/kernels/sign_agg.py"
-KERNEL_SOURCES = ("sign_agg", "flash_attention", "decode_attention")
 
 # The serving path: SmolLM-360M at full width (configs/smollm_360m.py).
 ARCH = "smollm-360m"
@@ -69,6 +83,14 @@ DECODE_B, DECODE_L = 8, 4096                # B5 timed at this cache
 SERVE_REQUESTS, SERVE_PROMPT = 8, (16, 256)  # prompt lengths drawn in range
 SERVE_MAX_NEW, SERVE_CACHE = 32, 512
 VS_ROWS, VS_PROMPT, VS_STEPS = 2, 32, 8     # serve_cpu_vs_cuda
+
+# The Hymba path: Hymba-1.5B at full width (configs/hymba_1_5b.py), the
+# same prefill and generate traffic as SmolLM's.
+HYMBA = "hymba-1.5b"
+SCAN_CHUNK = 128                            # models/ssm.MAMBA_CHUNK
+SCAN_TIMED = [(PREFILL_B, SCAN_CHUNK, 1600, 16), (1, 4096, 1600, 16)]
+HYMBA_VS_ROWS, HYMBA_VS_PROMPT = 2, 160     # crosses one chunk, padded
+HYMBA_VS_DECODE, HYMBA_VS_STEPS = 16, 8     # decode: prompt + greedy steps
 
 
 def log(msg: str) -> None:
@@ -467,13 +489,10 @@ def _to_numpy(tree):
 def build_kernels(report):
     """One nvcc per source, all started together; nvcc's register and
     spill lines are printed."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        libs = list(pool.map(_build.build, KERNEL_SOURCES))
+    libs = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     for lib in libs:
         log(f"build: {lib.name}")
@@ -483,21 +502,25 @@ def build_kernels(report):
     log(f"build: {len(libs)} libraries in {report['build_s']:.1f} s")
 
 
-def reset_all_counts() -> None:
+def _counted_modules():
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import sign_agg as sa
+    from repro_torch.kernels import ssm_scan as ssm_k
 
-    for mod in (sa, fa_k, dec_k):
+    return sa, fa_k, dec_k, ssm_k
+
+
+def reset_all_counts() -> None:
+    for mod in _counted_modules():
         mod.reset_launch_counts()
 
 
 def all_counts() -> dict:
-    from repro_torch.kernels import decode_attention as dec_k
-    from repro_torch.kernels import flash_attention as fa_k
-    from repro_torch.kernels import sign_agg as sa
-
-    return {**sa.LAUNCHES, **fa_k.LAUNCHES, **dec_k.LAUNCHES}
+    out = {}
+    for mod in _counted_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def check_path_counts(path: str, counts: dict, want: dict) -> None:
@@ -592,7 +615,8 @@ def expand_heads(k, H):
 def check_attention(report):
     """B4 and B5 against their plain versions on the card: the reference's
     TPU test grid (tests/test_kernels.py) in f32 and bf16, Sq < Sk,
-    ragged lengths and an odd cache, head dim 256, the full-width shapes."""
+    ragged lengths and an odd cache, head dim 256, the full-width shapes
+    of SmolLM-360M (15/5 heads) and Hymba-1.5B (25/5)."""
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import ref
@@ -622,7 +646,10 @@ def check_attention(report):
               (2, 100, 300, 6, 2, 64, True, 0),         # Sq < Sk, ragged
               (2, 64, 192, 6, 2, 64, False, 32),
               (1, 77, 77, 3, 1, 256, True, 32),         # Gemma's head dim
-              (PREFILL_B, PREFILL_S, PREFILL_S, 15, 5, 64, True, 0)]
+              (PREFILL_B, PREFILL_S, PREFILL_S, 15, 5, 64, True, 0),
+              (2, 300, 300, 25, 5, 64, True, 0),        # Hymba's heads
+              (2, 100, 300, 25, 5, 64, True, 0),
+              (PREFILL_B, PREFILL_S, PREFILL_S, 25, 5, 64, True, 0)]
     for i, (B, Sq, Sk, H, Hkv, D, c, w) in enumerate(flash):
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, dt, seed=i)
@@ -638,7 +665,10 @@ def check_attention(report):
                (2, 300, 16, 16, 256, [300, 17]),
                (DECODE_B, SERVE_CACHE, 15, 5, 64,
                 [16, 40, 100, 200, 256, 300, 400, 512]),
-               (DECODE_B, DECODE_L, 15, 5, 64, [DECODE_L] * DECODE_B)]
+               (DECODE_B, DECODE_L, 15, 5, 64, [DECODE_L] * DECODE_B),
+               (3, 777, 25, 5, 64, [1, 388, 777]),      # Hymba's heads
+               (DECODE_B, SERVE_CACHE, 25, 5, 64,
+                [16, 40, 100, 200, 256, 300, 400, 512])]
     for i, (B, L, H, Hkv, D, lens) in enumerate(decode):
         for dt in (torch.float32, torch.bfloat16):
             _, k, v = _attn_inputs(B, 1, L, H, Hkv, D, dt, seed=100 + i)
@@ -737,18 +767,30 @@ def time_attention(report):
     return out
 
 
-def serve_model():
-    """SmolLM-360M at full width, random weights from seed 0, on the card."""
+def serve_model(arch):
+    """``arch`` at full width, random weights from seed 0, on the card."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tr
 
-    cfg = get_arch(ARCH)
+    cfg = get_arch(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     return cfg, tr.init_lm(gen, cfg, device="cuda")
 
 
+def layer_counts(cfg):
+    """(attention layers, Mamba layers) of ``cfg``: a Hymba layer is
+    both."""
+    from repro_torch.configs.base import HYMBA as HYMBA_KIND, MAMBA
+
+    kinds = cfg.pattern()
+    return (sum(k != MAMBA for k in kinds),
+            sum(k in (MAMBA, HYMBA_KIND) for k in kinds))
+
+
 def prefill_run(cfg, params, report):
-    """One full-width prefill step (B4 in each of the 32 layers)."""
+    """One full-width prefill step: B4 once in each attention layer, B6
+    once per 128-token chunk in each Mamba layer.  Returns the launch
+    counts."""
     from repro_torch.launch.steps import make_prefill_step
 
     step = make_prefill_step(cfg)
@@ -764,25 +806,31 @@ def prefill_run(cfg, params, report):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = all_counts()
-    check_path_counts("prefill", counts, {"flash_attention": cfg.n_layers})
+    n_attn, n_mamba = layer_counts(cfg)
+    check_path_counts(f"{cfg.name} prefill", counts, {
+        "flash_attention": n_attn,
+        "ssm_scan": n_mamba * -(-PREFILL_S // SCAN_CHUNK)})
     if logits.shape != (PREFILL_B, cfg.padded_vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"prefill: logits {tuple(logits.shape)}, "
                              f"finite {bool(torch.isfinite(logits).all())}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    report["prefill"] = dict(B=PREFILL_B, S=PREFILL_S, ms=ms,
-                             launches=counts, peak_gb=peak_gb)
-    log(f"prefill {ARCH} B={PREFILL_B} S={PREFILL_S}: {ms:.3f} ms, "
+    report.setdefault("prefill", {})[cfg.name] = dict(
+        B=PREFILL_B, S=PREFILL_S, compute_dtype=cfg.compute_dtype, ms=ms,
+        launches=counts, peak_gb=peak_gb)
+    log(f"prefill {cfg.name} B={PREFILL_B} S={PREFILL_S} "
+        f"({cfg.compute_dtype}): {ms:.3f} ms, "
         f"{PREFILL_B * PREFILL_S / ms * 1e3:.1f} tokens/s, launches "
-        f"flash_attention={counts['flash_attention']}, peak "
-        f"{peak_gb:.2f} GB")
-    return counts["flash_attention"]
+        f"flash_attention={counts['flash_attention']} "
+        f"ssm_scan={counts['ssm_scan']}, peak {peak_gb:.2f} GB")
+    return counts
 
 
 def generate_run(cfg, params, report):
     """``ServeEngine.generate``: 8 requests, half greedy and half sampled,
     prompts of 16-256 tokens (prefilled token by token through the decode
-    step, as the reference does), 32 new tokens each."""
+    step, as the reference does), 32 new tokens each.  B5 in every
+    attention layer of every step, no B6.  Returns the launch counts."""
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.serving import ServeEngine, ServeRequest
 
@@ -811,28 +859,28 @@ def generate_run(cfg, params, report):
     per_call = dec_k.launches_per_call(
         SERVE_REQUESTS, cfg.n_kv_heads, SERVE_CACHE,
         torch.cuda.get_device_properties(0).multi_processor_count)
-    check_path_counts("generate", counts, {
-        "decode_attention": cfg.n_layers * eng.steps * per_call})
+    check_path_counts(f"{cfg.name} generate", counts, {
+        "decode_attention": layer_counts(cfg)[0] * eng.steps * per_call})
     for r, o in zip(reqs, outs):
         if len(o) != r.max_new or not ((o >= 0) & (o < cfg.vocab_size)).all():
             raise AssertionError(f"generate: request {r.rid} gave {o}")
     new = sum(len(o) for o in outs)
     ms_step = secs * 1e3 / eng.steps
-    report["generate"] = dict(
+    report.setdefault("generate", {})[cfg.name] = dict(
         requests=len(reqs), prompt_lens=[len(r.prompt) for r in reqs],
         max_new=SERVE_MAX_NEW, cache_len=SERVE_CACHE, steps=eng.steps,
         s=secs, ms_per_step=ms_step, new_tokens=new,
         new_tokens_per_s=new / secs, launches=counts,
         decode_launches_per_call=per_call)
-    log(f"generate {ARCH}: {len(reqs)} requests, prompts "
+    log(f"generate {cfg.name}: {len(reqs)} requests, prompts "
         f"{min(len(r.prompt) for r in reqs)}-"
         f"{max(len(r.prompt) for r in reqs)} tokens, {SERVE_MAX_NEW} new "
         f"each, cache {SERVE_CACHE}: {eng.steps} decode steps in "
         f"{secs:.3f} s = {ms_step:.3f} ms per step, {new / secs:.1f} new "
         f"tokens/s, launches decode_attention="
-        f"{counts['decode_attention']} ({cfg.n_layers} calls per step, "
-        f"{per_call} launches per call)")
-    return counts["decode_attention"]
+        f"{counts['decode_attention']} ({layer_counts(cfg)[0]} calls per "
+        f"step, {per_call} launches per call) ssm_scan={counts['ssm_scan']}")
+    return counts
 
 
 def serve_cpu_vs_cuda(cfg, report):
@@ -879,20 +927,9 @@ def serve_cpu_vs_cuda(cfg, report):
         if t < VS_PROMPT - 1:
             continue
         a = step_logits["cpu"][:, :cfg.vocab_size]
-        b = step_logits["cuda"][:, :cfg.vocab_size]
-        top2 = a.topk(2, dim=-1).values
-        ga, gb = a.argmax(-1), b.argmax(-1)
-        for r in range(VS_ROWS):
-            if int(ga[r]) == int(gb[r]):
-                greedy_equal += 1
-                continue
-            margin = float(top2[r, 0] - top2[r, 1])
-            flips.append(dict(step=t, row=r, margin=margin))
-            if margin > bound:
-                raise AssertionError(
-                    f"serve cpu vs cuda: greedy token differs at step {t} "
-                    f"row {r} with top-2 margin {margin:.3e} > {bound}")
-        seq = np.concatenate([seq, ga.numpy()[:, None]], axis=1)
+        greedy_equal += greedy_check(a, step_logits["cuda"][:, :cfg.vocab_size],
+                                     bound, t, "serve cpu vs cuda", flips)
+        seq = np.concatenate([seq, a.argmax(-1).numpy()[:, None]], axis=1)
     diff = max(float((a - b).abs().max())
                for a, b in zip(logits["cpu"], logits["cuda"]))
     scale = max(float(a.abs().max()) for a in logits["cpu"])
@@ -911,6 +948,276 @@ def serve_cpu_vs_cuda(cfg, report):
     del params, states
 
 
+def time_attention_hymba(report):
+    """B4 and B5 at Hymba-1.5B's shapes in bf16 (25/5 heads): its prefill
+    step's (B=4, S=4096, causal) and its generate's (B=8, cache 512 at
+    the serving lengths): kernel, plain version, SDPA (``enable_gqa``) and
+    bound, device ms."""
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+
+    cpm = sleep_cycles_per_ms()
+    bf = torch.bfloat16
+    out = {}
+    q, k, v = _attn_inputs(PREFILL_B, PREFILL_S, PREFILL_S, 25, 5, 64, bf,
+                           seed=17)
+    row = dict(shape=f"B={PREFILL_B} S={PREFILL_S} H=25/5 D=64 bf16 causal",
+               ms=device_ms(lambda: fa_k.flash_attention(q, k, v), cpm,
+                            reps=10, inner=3),
+               plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v),
+                                  cpm, reps=5, inner=1),
+               library_ms=device_ms(lambda: sdpa_flash(q, k, v, True), cpm,
+                                    reps=10, inner=3))
+    row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
+    out["flash_attention"] = row
+    del q, k, v
+    lens = [16, 40, 100, 200, 256, 300, 400, 512]
+    _, k, v = _attn_inputs(DECODE_B, 1, SERVE_CACHE, 25, 5, 64, bf, seed=18)
+    q = _attn_inputs(DECODE_B, 1, 1, 25, 5, 64, bf, seed=19)[0][:, 0]
+    q = q.contiguous()
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(SERVE_CACHE, device="cuda")[None, :]
+            < length[:, None])[:, None, None, :]
+    row = dict(shape=f"B={DECODE_B} L={SERVE_CACHE} length={lens} H=25/5 "
+                     "D=64 bf16",
+               ms=device_ms(lambda: dec_k.decode_attention(q, k, v, length),
+                            cpm),
+               launches_per_call=dec_k.launches_per_call(
+                   DECODE_B, 5, SERVE_CACHE,
+                   torch.cuda.get_device_properties(0).multi_processor_count),
+               plain_ms=device_ms(lambda: ref.decode_attention_ref(
+                   q, k, v, length), cpm, reps=10, inner=3),
+               library_ms=device_ms(lambda: sdpa_decode(q, k, v, mask), cpm))
+    row["bound_ms"], row["bound_by"] = decode_bound(q, k, length)
+    out["decode_attention"] = row
+    for name, r in out.items():
+        log(f"time {name:18s} hymba {r['shape']}: kernel_ms={r['ms']:.6f} "
+            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+            f"plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']:.6f} "
+            f"(SDPA enable_gqa)")
+    report["attention_timings_hymba"] = out
+
+
+def scan_inputs(B, S, D, N, dtype, seed, with_h0=True):
+    """a in [0.2, 0.999) (decays, as exp(delta A) gives), b ~ 0.1 N(0, 1),
+    in ``dtype``; h0 ~ N(0, 1) f32 or None."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand((B, S, D, N), generator=g, device="cuda") * 0.799 + 0.2
+    b = torch.randn((B, S, D, N), generator=g, device="cuda") * 0.1
+    h0 = (torch.randn((B, D, N), generator=g, device="cuda") if with_h0
+          else None)
+    return a.to(dtype), b.to(dtype), h0
+
+
+def scan_bound(a, h0):
+    """B6's least time: a and b read once, hs (f32) written once, h0 read
+    once, over 3.35 TB/s; or two flops per element over the f32 rate."""
+    nbytes = a.numel() * (2 * a.element_size() + 4) + (
+        0 if h0 is None else 4 * h0.numel())
+    return _bound(2 * a.numel() / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+
+
+def check_scan(report):
+    """B6 against its plain version on the card, bit for bit: the
+    reference's TPU test grid (tests/test_kernels.py, B=2), the prefill
+    chunk shape, shapes that are multiples of nothing; f32 and bf16 a, b;
+    from zeros and from a nonzero h0; one launch per call.  And two
+    chained calls (h0 = the first's last state) against one call over the
+    whole sequence, as the model's chunk loop chains them."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm_k
+
+    shapes = [(2, S, D, N) for S, D, N in [(128, 64, 8), (256, 256, 16),
+                                           (64, 128, 4)]]
+    shapes += [SCAN_TIMED[0], (3, 77, 100, 5), (5, 33, 7, 3), (1, 1, 1, 1)]
+    n, err = 0, 0.0
+    for i, shape in enumerate(shapes):
+        for dt in (torch.float32, torch.bfloat16):
+            for with_h0 in (False, True):
+                a, b, h0 = scan_inputs(*shape, dt, seed=300 + i,
+                                       with_h0=with_h0)
+                ssm_k.reset_launch_counts()
+                got = ssm_k.ssm_scan(a, b, h0)
+                want = ref.ssm_scan_ref(a, b, h0)
+                torch.cuda.synchronize()
+                tag = f"ssm_scan {shape} {dt} h0={with_h0}"
+                if got.dtype != torch.float32 or got.shape != a.shape:
+                    raise AssertionError(f"{tag}: {got.dtype}"
+                                         f"{tuple(got.shape)}")
+                if ssm_k.LAUNCHES["ssm_scan"] != 1:
+                    raise AssertionError(f"{tag}: {ssm_k.LAUNCHES}")
+                if not bits_equal(got, want):
+                    raise AssertionError(f"{tag}: kernel != plain version "
+                                         f"(max |err| "
+                                         f"{max_abs_err(got, want)})")
+                err = max(err, max_abs_err(got, want))
+                n += 1
+    B, _, D, N = SCAN_TIMED[0]
+    a, b, _ = scan_inputs(B, 2 * SCAN_CHUNK, D, N, torch.float32, seed=399,
+                          with_h0=False)
+    first = ssm_k.ssm_scan(a[:, :SCAN_CHUNK].contiguous(),
+                           b[:, :SCAN_CHUNK].contiguous())
+    second = ssm_k.ssm_scan(a[:, SCAN_CHUNK:].contiguous(),
+                            b[:, SCAN_CHUNK:].contiguous(),
+                            first[:, -1].contiguous())
+    if not bits_equal(torch.cat([first, second], 1), ssm_k.ssm_scan(a, b)):
+        raise AssertionError("ssm_scan: two chained chunks != one scan")
+    n += 3
+    report["scan_checks"] = n
+    log(f"scan checks: {n} B6 calls equal their plain versions bit for bit "
+        f"({len(shapes)} shapes x f32/bf16 x zeros/h0, and a chain of two "
+        f"chunks against one scan)")
+    return err
+
+
+def time_scan(report):
+    """B6 at the prefill chunk shape (the main path's) and at one
+    bandwidth shape, f32 with a nonzero h0: device ms of kernel and plain
+    version, and the bound.  No single PyTorch call computes the
+    recurrence (a cumprod/cumsum rewrite underflows at these decays), so
+    there is no library time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm_k
+
+    cpm = sleep_cycles_per_ms()
+    rows = []
+    for i, shape in enumerate(SCAN_TIMED):
+        a, b, h0 = scan_inputs(*shape, torch.float32, seed=500 + i)
+        inner = 10 if shape[1] == SCAN_CHUNK else 3
+        row = dict(shape=shape, ms=device_ms(
+            lambda: ssm_k.ssm_scan(a, b, h0), cpm, reps=20, inner=inner),
+                   plain_ms=device_ms(lambda: ref.ssm_scan_ref(a, b, h0),
+                                      cpm, reps=5, inner=1),
+                   call_ms=call_ms(lambda: ssm_k.ssm_scan(a, b, h0),
+                                   inner=inner),
+                   library_ms=None)
+        row["bound_ms"], row["bound_by"] = scan_bound(a, h0)
+        rows.append(row)
+        log(f"time ssm_scan {shape} f32 h0: kernel_ms={row['ms']:.6f} "
+            f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['ms']:.3f} of it) "
+            f"plain_ms={row['plain_ms']:.6f} call_ms={row['call_ms']:.6f} "
+            f"library_ms=null")
+        del a, b, h0
+    report["scan_timings"] = rows
+    return rows[0]
+
+
+def greedy_check(a, b, bound, step, label, flips):
+    """Greedy tokens of the CPU's logits ``a`` and the card's ``b`` (rows
+    x vocab) agree, or the CPU's top-2 margin is inside ``bound``; each
+    such flip is appended to ``flips``.  Returns how many rows agree."""
+    top2 = a.topk(2, dim=-1).values
+    ga, gb = a.argmax(-1), b.argmax(-1)
+    equal = 0
+    for r in range(a.shape[0]):
+        if int(ga[r]) == int(gb[r]):
+            equal += 1
+            continue
+        margin = float(top2[r, 0] - top2[r, 1])
+        flips.append(dict(step=step, row=r, margin=margin))
+        if margin > bound:
+            raise AssertionError(
+                f"{label}: greedy token differs at step {step} row {r} "
+                f"with top-2 margin {margin:.3e} > {bound}")
+    return equal
+
+
+def hymba_cpu_vs_cuda(cfg, params, report):
+    """Hymba-1.5B at full width in an f32 copy of its config (the weights
+    are f32 already; the compute, bf16 in the timed runs, is f32 here so
+    the bounds stay tight).
+
+    * CPU vs card, same weights: the prefill forward over a 2 x 160-token
+      prompt (B6 over one whole chunk and one padded chunk; the logits of
+      every position), then the first 16 prompt tokens token by token
+      through the decode step and 8 greedy steps (both devices fed the
+      CPU's tokens).  Bound |logit difference| <= 2e-3, the argument of
+      ``serve_cpu_vs_cuda``: f32 sums in other orders (d = 1600, d_ff =
+      5504, the scan's f32 state) through 32 residual layers give ~1e-4
+      relative, on logits of O(1).  A greedy token may differ only where
+      the CPU's top-2 margin is inside the bound.
+    * Prefill vs decode on the card: the same 2 x 160 prompt token by
+      token through the decode step against the card's prefill logits,
+      within abs/rel 5e-4, the reference's bound for Hymba
+      (tests/test_arch_smoke.py).  This checks h carried across the chunk
+      boundary and the Mamba decode state (h, the conv window)."""
+    import dataclasses
+
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import transformer as tr
+
+    bound, pd_tol = 2e-3, 5e-4
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    both = {"cuda": params, "cpu": tr.init_lm(gen, cfg, device="cpu")}
+    prompt = np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (HYMBA_VS_ROWS, HYMBA_VS_PROMPT))
+    full = {dev: tr.forward_logits(
+        both[dev], {"tokens": torch.from_numpy(prompt).to(dev)}, cfg32)[0]
+        for dev in ("cpu", "cuda")}
+    prefill_diff = float((full["cpu"] - full["cuda"].cpu()).abs().max())
+    if not prefill_diff <= bound:
+        raise AssertionError(f"hymba cpu vs cuda: prefill logits differ by "
+                             f"{prefill_diff:.3e} > {bound}")
+
+    decode = make_decode_step(cfg32)
+    steps = HYMBA_VS_DECODE + HYMBA_VS_STEPS
+    states = {dev: tr.init_decode_state(cfg32, HYMBA_VS_ROWS, steps,
+                                        torch.float32, device=dev)
+              for dev in ("cpu", "cuda")}
+    seq = prompt[:, :HYMBA_VS_DECODE]
+    decode_diff, flips, greedy_equal = 0.0, [], 0
+    for t in range(steps):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tok = torch.from_numpy(np.ascontiguousarray(seq[:, t:t + 1]))
+            lg, states[dev] = decode(both[dev], states[dev], tok.to(dev), t)
+            out[dev] = lg[:, 0, :cfg.vocab_size].cpu()
+        decode_diff = max(decode_diff,
+                          float((out["cpu"] - out["cuda"]).abs().max()))
+        if t >= HYMBA_VS_DECODE - 1:
+            greedy_equal += greedy_check(out["cpu"], out["cuda"], bound, t,
+                                         "hymba cpu vs cuda", flips)
+            seq = np.concatenate([seq, out["cpu"].argmax(-1).numpy()[:, None]],
+                                 axis=1)
+    if not decode_diff <= bound:
+        raise AssertionError(f"hymba cpu vs cuda: decode logits differ by "
+                             f"{decode_diff:.3e} > {bound}")
+    del both["cpu"], states
+
+    state = tr.init_decode_state(cfg32, HYMBA_VS_ROWS, HYMBA_VS_PROMPT,
+                                 torch.float32, device="cuda")
+    toks = torch.from_numpy(prompt).cuda()
+    pd_diff = 0.0
+    for t in range(HYMBA_VS_PROMPT):
+        lg, state = decode(params, state, toks[:, t:t + 1], t)
+        want = full["cuda"][:, t]
+        d = (lg[:, 0] - want).abs()
+        pd_diff = max(pd_diff, float(d.max()))
+        if bool((d > pd_tol + pd_tol * want.abs()).any()):
+            raise AssertionError(f"hymba prefill vs decode: position {t} "
+                                 f"differs by {float(d.max()):.3e} > abs/rel "
+                                 f"{pd_tol}")
+    scale = float(full["cpu"].abs().max())
+    report["hymba_cpu_vs_cuda"] = dict(
+        prefill_max_logit_diff=prefill_diff,
+        decode_max_logit_diff=decode_diff, bound=bound,
+        max_abs_logit=scale, greedy_equal=greedy_equal,
+        greedy_compared=greedy_equal + len(flips), flips=flips,
+        prefill_vs_decode_max_diff=pd_diff, prefill_vs_decode_tol=pd_tol)
+    log(f"hymba cpu vs cuda ({HYMBA} full width, f32 copy of the config): "
+        f"prefill {HYMBA_VS_ROWS} x {HYMBA_VS_PROMPT} max |logit diff| = "
+        f"{prefill_diff:.3e}, {HYMBA_VS_DECODE} + {HYMBA_VS_STEPS} decode "
+        f"steps max |logit diff| = {decode_diff:.3e} (bound {bound}, max "
+        f"|logit| {scale:.3f}); greedy tokens equal {greedy_equal}/"
+        f"{greedy_equal + len(flips)}; flips inside the bound: {flips}")
+    log(f"hymba prefill vs token-by-token decode on the card, "
+        f"{HYMBA_VS_ROWS} x {HYMBA_VS_PROMPT} positions: max |diff| = "
+        f"{pd_diff:.3e} (abs/rel {pd_tol})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -927,6 +1234,7 @@ def main() -> int:
         f"{sys.version.split()[0]}")
     report = {"card": card}
 
+    t_start = time.perf_counter()
     build_kernels(report)
 
     from repro_torch.configs import MLP_H24
@@ -943,20 +1251,37 @@ def main() -> int:
     check_kernels(specs, report)
     time_kernels(specs, report)
     report["kernel_phase_s"] = time.perf_counter() - t0
+    log(f"phase: consensus kernels {report['kernel_phase_s']:.1f} s")
     t0 = time.perf_counter()
     train_runs(specs, report)
     cpu_vs_cuda(report)
     report["train_phase_s"] = time.perf_counter() - t0
+    log(f"phase: training {report['train_phase_s']:.1f} s")
 
     t0 = time.perf_counter()
     errs = check_attention(report)
     times = time_attention(report)
-    cfg, params = serve_model()
-    launches = {"flash_attention": prefill_run(cfg, params, report),
-                "decode_attention": generate_run(cfg, params, report)}
+    cfg, params = serve_model(ARCH)
+    launches = dict(prefill_run(cfg, params, report))
+    for name, n in generate_run(cfg, params, report).items():
+        launches[name] += n
     del params
     serve_cpu_vs_cuda(cfg, report)
     report["serve_phase_s"] = time.perf_counter() - t0
+    log(f"phase: serving SmolLM-360M {report['serve_phase_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    errs["ssm_scan"] = check_scan(report)
+    scan = time_scan(report)
+    time_attention_hymba(report)
+    cfg, params = serve_model(HYMBA)
+    for run in (prefill_run, generate_run):
+        for name, n in run(cfg, params, report).items():
+            launches[name] += n
+    hymba_cpu_vs_cuda(cfg, params, report)
+    del params
+    report["hymba_phase_s"] = time.perf_counter() - t0
+    log(f"phase: serving Hymba-1.5B {report['hymba_phase_s']:.1f} s")
 
     kernels = [dict(name=s["name"], route="cuda", source=SOURCE,
                     replaces=s["replaces"], launches=s["launches"],
@@ -974,7 +1299,15 @@ def main() -> int:
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+    kernels.append(dict(
+        name="ssm_scan", route="cuda", source=f"{CSRC}/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:44",
+        launches=launches["ssm_scan"], max_abs_err=errs["ssm_scan"],
+        ms=scan["ms"], plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
+        bound_by=scan["bound_by"], library_ms=None))
     report["kernels"] = kernels
+    report["total_s"] = time.perf_counter() - t_start
+    log(f"chip_smoke: {report['total_s']:.1f} s in all")
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -7,7 +7,8 @@ goes into ``build/repro_torch_kernels/`` at the root of the checkout
 (listed in ``.gitignore``), named by a hash of the source so an edited
 source is rebuilt.  Importing this module does nothing; the first
 :func:`load` of a library builds it.  A failed build raises: there is no
-fallback to the plain versions.
+fallback to the plain versions.  :func:`build_all` compiles every source
+at once, one ``nvcc`` each.
 """
 from __future__ import annotations
 
@@ -16,11 +17,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import List
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("sign_agg", "flash_attention", "decode_attention", "ssm_scan")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
@@ -62,6 +66,13 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)       # atomic: a concurrent loader sees all or none
     return out
+
+
+def build_all() -> List[Path]:
+    """Build every source of ``SOURCES``, one ``nvcc`` each, all started
+    together; returns the libraries in ``SOURCES`` order."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return list(pool.map(build, SOURCES))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,8 +1,9 @@
 """Public dispatch of the port's kernels (the port of the JAX package's
-``kernels/ops.py``): the Eq. (20) consensus kernels B1-B3 and the
-attention kernels B4 (prefill) and B5 (decode), in the model's layout.
-B4 and B5 go straight to their wrappers, which launch the CUDA kernel for
-CUDA tensors and run the plain version for CPU tensors.
+``kernels/ops.py``): the Eq. (20) consensus kernels B1-B3, the
+attention kernels B4 (prefill) and B5 (decode), in the model's layout,
+and the Mamba recurrence B6.  B4-B6 go straight to their wrappers, which
+launch the CUDA kernel for CUDA tensors and run the plain version for CPU
+tensors.
 
 ``impl`` of the consensus dispatch (B1-B3):
   * ``"auto"``  — the CUDA kernel for CUDA tensors, the plain version for
@@ -22,6 +23,7 @@ from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import sign_agg as sa_k
+from repro_torch.kernels import ssm_scan as ssm_k
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -101,3 +103,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """B5.  q: (B, H, D); k/v: (B, L, Hkv, D) — the model's cache layout;
     length: (B,) int32 valid positions.  Returns (B, H, D)."""
     return dec_k.decode_attention(q, k, v, length)
+
+
+def ssm_scan(a: torch.Tensor, b: torch.Tensor,
+             h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B6.  a, b: (B, S, D, N); h0: (B, D, N) f32 or None (zeros).
+    Returns hs: (B, S, D, N) f32, ``h_t = a_t * h_{t-1} + b_t``."""
+    return ssm_k.ssm_scan(a, b, h0)

@@ -8,7 +8,8 @@ mirror the oracles of the JAX package's ``kernels/ref.py``:
   ``kernels/sign_agg.py``);
 * prefill attention B4 (``csrc/flash_attention.cu``) and decode attention
   B5 (``csrc/decode_attention.cu``), in the model's layout, computed in
-  f32 and returned in the query's dtype.
+  f32 and returned in the query's dtype;
+* the Mamba recurrence B6 (``csrc/ssm_scan.cu``), a fold over time in f32.
 
 In B1-B3 every cross-client sum adds rows strictly in order (a Python loop of
 ``acc = acc + w[j] * X[j]`` in f32), never through ``torch.sum``, which
@@ -179,3 +180,23 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B6: the diagonal linear recurrence ``h_t = a_t * h_{t-1} + b_t``.
+
+    a, b: (B, S, D, N), any float type, read as f32; h0: (B, D, N) or
+    ``None`` (zeros, the Pallas kernel's start).  Returns hs: (B, S, D, N)
+    in f32.  Each step is ``a_t * h`` and then ``+ b_t``, two rounded
+    operations as the oracle writes them; the kernel does the same, so the
+    two agree bit for bit."""
+    B, S, D, N = a.shape
+    h = (torch.zeros((B, D, N), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    hs = torch.empty((B, S, D, N), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t].float() * h
+        h = h + b[:, t].float()
+        hs[:, t] = h
+    return hs

@@ -1,11 +1,12 @@
 """Serving launcher: batched generation with the decode engine.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         [--smoke] [--requests 4] [--max-new 16] [--window 0] \
         [--cache-len 256] [--device cpu]
 
-Full width unless ``--smoke``; on the GPU unless ``--device cpu`` (raises
-when there is no GPU).  The weights are random, drawn from seed 0.
+``--arch``: a ported config (``smollm-360m``, ``hymba-1.5b``, ...).  Full
+width unless ``--smoke``; on the GPU unless ``--device cpu`` (raises when
+there is no GPU).  The weights are random, drawn from seed 0.
 """
 from __future__ import annotations
 

@@ -1,16 +1,18 @@
 """The LM stack for serving: the port of the JAX package's
-``models/transformer.py`` for ATTN/SWA blocks with a dense (or no) FFN.
+``models/transformer.py`` for ATTN/SWA blocks, Mamba blocks and Hymba's
+parallel attention + Mamba blocks, with a dense (or no) FFN.
 
 Parameters live in an ``nn.ModuleDict`` with the reference's names:
 ``embed`` (``tok`` [, ``head``]), ``layers`` (an ``nn.ModuleList``, one
-entry per layer: ``ln1``, ``attn``, ``ln2``, ``ffn``) and ``final_norm``.
+entry per layer: ``ln1``, ``attn`` and/or ``mamba``, ``ln2``, ``ffn``) and
+``final_norm``.
 The reference's layer ``scan`` over stacked weights becomes a loop over
 the list; ``lm_params_from_numpy`` unstacks the reference's ``unit``
 tree into it.  The parameters carry no gradient: the LM side of the port
 serves; LM training (``remat``, the LDP ``noise=``) comes later.
 
-Other block kinds (Mamba, xLSTM, Hymba), MoE, a multimodal frontend and
-an encoder raise a ``ValueError`` naming them "not yet ported".
+The xLSTM block kinds (mLSTM, sLSTM), MoE, a multimodal frontend and an
+encoder raise a ``ValueError`` naming them "not yet ported".
 
 Public API:
     init_lm(gen, cfg, device)                       -> params
@@ -28,8 +30,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN, FFN_DENSE, FFN_MOE, SWA, ArchConfig
+from repro_torch.configs.base import (
+    ATTN,
+    FFN_DENSE,
+    FFN_MOE,
+    HYMBA,
+    MAMBA,
+    SWA,
+    ArchConfig,
+)
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     embed,
     ffn,
@@ -41,7 +52,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.tree import resolve_device, tree_map
 
-PORTED_KINDS = (ATTN, SWA)
+PORTED_KINDS = (ATTN, SWA, MAMBA, HYMBA)
 
 
 def _not_ported(what: str) -> ValueError:
@@ -89,11 +100,20 @@ def factor_pattern(pattern: Tuple[str, ...]) -> Tuple[Tuple[str, ...], int]:
 
 # ---------------------------------------------------------------------------
 # Single sub-layer
+def _mamba_d_in(kind: str, cfg: ArchConfig) -> int:
+    """Inner width of the Mamba mixer: 2 d for a MAMBA block, d for the
+    Mamba heads of a HYMBA block."""
+    return 2 * cfg.d_model if kind == MAMBA else cfg.d_model
+
+
 def init_sublayer(gen: torch.Generator, kind: str, cfg: ArchConfig,
                   cross: bool = False) -> Dict[str, Any]:
     _check_kind(kind, cross)
-    p: Dict[str, Any] = {"ln1": init_rmsnorm(cfg.d_model, device=gen.device),
-                         "attn": attn_lib.init_attention(gen, cfg)}
+    p: Dict[str, Any] = {"ln1": init_rmsnorm(cfg.d_model, device=gen.device)}
+    if kind in (ATTN, SWA, HYMBA):
+        p["attn"] = attn_lib.init_attention(gen, cfg)
+    if kind in (MAMBA, HYMBA):
+        p["mamba"] = ssm_lib.init_mamba(gen, cfg, d_in=_mamba_d_in(kind, cfg))
     if cfg.ffn_kind == FFN_MOE:
         raise _not_ported("the MoE FFN")
     if cfg.ffn_kind == FFN_DENSE and cfg.d_ff:
@@ -108,8 +128,14 @@ def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
     """Full-sequence (prefill) form. Returns (x, aux_loss)."""
     _check_kind(kind, memory is not None)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn_lib.self_attention(p["attn"], h, cfg, causal=causal,
-                                    window=window)
+    if kind == MAMBA:
+        mix = ssm_lib.mamba_scan(p["mamba"], h, cfg)
+    else:
+        mix = attn_lib.self_attention(p["attn"], h, cfg, causal=causal,
+                                      window=window)
+        if kind == HYMBA:
+            mix = 0.5 * (mix + ssm_lib.mamba_scan(p["mamba"], h, cfg))
+    x = x + mix
     if "ffn" in p:
         x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -117,11 +143,20 @@ def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
 
 def sublayer_state(kind: str, cfg: ArchConfig, batch: int, cache_len: int,
                    dtype: torch.dtype, device=None) -> Dict[str, Any]:
-    """One layer's decode state: its K and V caches, (B, L, Hkv, hd)."""
+    """One layer's decode state: the K and V caches (B, L, Hkv, hd) of an
+    attention or Hymba layer, and the ``mamba`` state of a Mamba or Hymba
+    layer (``h`` (B, d_in, N) f32, ``conv`` (B, CONV_WIDTH - 1, d_in) in
+    ``dtype``)."""
     _check_kind(kind)
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    s: Dict[str, Any] = {}
+    if kind in (ATTN, SWA, HYMBA):
+        shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        s["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        s["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if kind in (MAMBA, HYMBA):
+        s["mamba"] = ssm_lib.mamba_state_init(
+            cfg, batch, _mamba_d_in(kind, cfg), dtype, device=device)
+    return s
 
 
 def apply_sublayer_decode(p, kind: str, x: torch.Tensor, state, step: int,
@@ -131,8 +166,14 @@ def apply_sublayer_decode(p, kind: str, x: torch.Tensor, state, step: int,
     returns (x, state)."""
     _check_kind(kind, memory is not None)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    mix, state = attn_lib.decode_attention(p["attn"], h, state, step, cfg,
+    if kind == MAMBA:
+        mix, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg)
+    else:
+        mix, _ = attn_lib.decode_attention(p["attn"], h, state, step, cfg,
                                            window=window)
+        if kind == HYMBA:
+            m, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg)
+            mix = 0.5 * (mix + m)
     x = x + mix
     if "ffn" in p:
         x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)

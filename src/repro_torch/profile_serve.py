@@ -10,8 +10,9 @@ warm-up: one prefill step (``launch.steps.make_prefill_step``) and one
 by token, then ``--max-new`` new tokens; half greedy, half sampled).
 Prints for each: wall ms (host clock, synchronized, profiler on), ms and
 kernels per step, the device busy share (summed kernel time over wall
-time), the attention kernels' share of the device time, and the top
-operators by device and by host time.  Needs a CUDA device.
+time), the attention kernels' (B4, B5) and the selective scan's (B6,
+Mamba and Hymba layers) shares of the device time, and the top operators
+by device and by host time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.tree import resolve_device
 
 # kernel names of B4 (csrc/flash_attention.cu) and B5 (decode_attention.cu)
 ATTENTION_KERNELS = ("flash_fwd", "decode_split", "decode_combine")
+SCAN_KERNELS = ("ssm_scan_kernel",)          # B6 (csrc/ssm_scan.cu)
 
 
 def _profiled(fn, dev, steps: int, label: str) -> None:
@@ -43,15 +45,19 @@ def _profiled(fn, dev, steps: int, label: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    attn_ms = sum(e.time_range.elapsed_us() for e in kernels
-                  if any(n in e.name for n in ATTENTION_KERNELS)) / 1e3
+    attn_ms, scan_ms = (
+        sum(e.time_range.elapsed_us() for e in kernels
+            if any(n in e.name for n in names)) / 1e3
+        for names in (ATTENTION_KERNELS, SCAN_KERNELS))
     print(f"{label}: wall_ms={wall_ms:.3f} (profiler on) steps={steps} "
           f"ms_per_step={wall_ms / steps:.3f} "
           f"kernels_per_step={len(kernels) / steps:.1f} "
           f"device_busy_ms_per_step={busy_ms / steps:.4f} "
           f"device_busy_share={busy_ms / wall_ms:.4f} "
           f"attention_kernel_ms_per_step={attn_ms / steps:.4f} "
-          f"attention_share_of_busy={attn_ms / max(busy_ms, 1e-9):.4f}")
+          f"attention_share_of_busy={attn_ms / max(busy_ms, 1e-9):.4f} "
+          f"scan_kernel_ms_per_step={scan_ms / steps:.4f} "
+          f"scan_share_of_busy={scan_ms / max(busy_ms, 1e-9):.4f}")
     averages = prof.key_averages()
     print(averages.table(sort_by="self_device_time_total", row_limit=12))
     print(averages.table(sort_by="self_cpu_time_total", row_limit=15))

@@ -4,9 +4,10 @@ within abs/rel 3e-5 in f32 (the reference's own bound between its
 kernels and oracles, tests/test_kernels.py) and, in bf16, within one
 rounding of the output: 1e-2 relative plus 1e-3 of the output's RMS
 (kernel and plain version both compute in f32 from the same bf16 inputs
-and round once, so they may differ by one bf16 ulp, <= 2^-7).  And a
-full-width SmolLM-360M generate through both attention kernels, its
-launches counted.  Needs a CUDA device and nvcc; skips without a device.
+and round once, so they may differ by one bf16 ulp, <= 2^-7); B6 (the
+Mamba selective scan) bit for bit.  And a full-width SmolLM-360M
+generate through both attention kernels, its launches counted, and the
+Hymba smoke model on the card against the CPU.  Needs a CUDA device and nvcc; skips without a device.
 Imports no JAX, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -18,7 +19,7 @@ import torch
 from repro_torch.distributed import collectives
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
-from repro_torch.kernels import ref, sign_agg
+from repro_torch.kernels import ref, sign_agg, ssm_scan
 
 GRID_D = [128, 1024, 5000, 8193]
 GRID_C = [2, 16]
@@ -200,3 +201,84 @@ def test_cuda_full_width_generate_launches_the_attention_kernels():
     assert fa_k.LAUNCHES["flash_attention"] == 32
     assert logits.shape == (2, cfg.padded_vocab)
     assert bool(torch.isfinite(logits).all())
+
+
+def _scan_inputs(shape, dtype, with_h0, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, S, D, N = shape
+    a = torch.rand(shape, generator=g, device="cuda") * 0.799 + 0.2
+    b = torch.randn(shape, generator=g, device="cuda") * 0.1
+    h0 = (torch.randn((B, D, N), generator=g, device="cuda") if with_h0
+          else None)
+    return a.to(getattr(torch, dtype)), b.to(getattr(torch, dtype)), h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 128, 64, 8), (2, 256, 256, 16), (2, 64, 128, 4),   # the TPU grid
+    (4, 128, 1600, 16), (3, 77, 100, 5), (1, 1, 1, 1)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_cuda_ssm_scan_matches_plain_version_bitwise(shape, dtype, with_h0):
+    """B6 on the card equals its plain version on the card bit for bit,
+    from zeros and from a nonzero h0; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b, h0 = _scan_inputs(shape, dtype, with_h0, sum(shape))
+    ssm_scan.reset_launch_counts()
+    got = ssm_scan.ssm_scan(a, b, h0)
+    want = ref.ssm_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    assert ssm_scan.LAUNCHES == {"ssm_scan": 1}
+    assert got.dtype == torch.float32 and got.shape == a.shape
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_scan_raises_on_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b, h0 = _scan_inputs((2, 8, 4, 3), "float32", True, 0)
+    with pytest.raises(TypeError):
+        ssm_scan.ssm_scan(a.double(), b.double(), h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan.ssm_scan(a.transpose(2, 3).contiguous().transpose(2, 3), b,
+                          h0)
+    with pytest.raises(ValueError, match="h0"):
+        ssm_scan.ssm_scan(a, b, h0.bfloat16())
+
+
+@pytest.mark.cuda
+def test_cuda_hymba_smoke_model_matches_the_cpu():
+    """The Hymba smoke model (2 layers, d 256, f32) with the same weights
+    on the card and on the CPU: the prefill forward over 200 tokens (two
+    B6 chunks per layer, the second padded) within abs/rel 5e-5 (f32 sums
+    in the devices' own orders, ~1e-6 relative each, through two layers),
+    and greedy tokens of a ``ServeEngine.generate`` equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import ServeEngine, ServeRequest
+
+    cfg = reduce_for_smoke(get_arch("hymba-1.5b"))
+    cpu = tr.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = tr.lm_params_from_numpy(tr.lm_params_to_numpy(cpu, cfg), cfg,
+                                  device="cuda")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 200)))
+    for mod in (fa_k, dec_k, ssm_scan):
+        mod.reset_launch_counts()
+    got, _ = tr.forward_logits(gpu, {"tokens": toks.cuda()}, cfg)
+    want, _ = tr.forward_logits(cpu, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    assert fa_k.LAUNCHES["flash_attention"] == 2
+    assert ssm_scan.LAUNCHES["ssm_scan"] == 2 * 2
+    torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=5e-5)
+    prompts = [np.arange(1, 9, dtype=np.int32), np.arange(5, 8,
+                                                          dtype=np.int32)]
+    outs = [ServeEngine(p, cfg, batch=2, cache_len=32, device=dev).generate(
+        [ServeRequest(prompt=q, max_new=6) for q in prompts])
+        for p, dev in ((cpu, "cpu"), (gpu, "cuda"))]
+    assert ssm_scan.LAUNCHES["ssm_scan"] == 2 * 2      # decode runs no B6
+    assert [o.tolist() for o in outs[0]] == [o.tolist() for o in outs[1]]

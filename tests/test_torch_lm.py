@@ -311,7 +311,7 @@ def test_serve_cli_runs_the_smoke_model_on_the_cpu():
 # ---------------------------------------------------------------------------
 # what is not ported yet
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "granite-moe-3b-a800m",
-                                  "llava-next-mistral-7b", "hymba-1.5b",
+                                  "llava-next-mistral-7b",
                                   "seamless-m4t-medium", "olmoe-1b-7b"])
 def test_other_families_raise_not_yet_ported(arch):
     cfg = reduce_for_smoke(get_arch(arch))
@@ -330,4 +330,4 @@ def test_training_and_cross_attention_raise_not_yet_ported():
     with pytest.raises(ValueError, match="not yet ported"):
         attn.cross_attention(None, None, None, cfg)
     with pytest.raises(ValueError, match="not yet ported"):
-        tr.sublayer_state("mamba", cfg, 1, 8, torch.float32)
+        tr.sublayer_state("mlstm", cfg, 1, 8, torch.float32)
