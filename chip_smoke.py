@@ -6,9 +6,11 @@
 In order: prints the card's name and power limit; builds every kernel
 of the port with nvcc for sm_90a, one nvcc per source, all at once
 (``src/repro_torch/kernels/csrc/``: the Eq. (20) consensus kernels B1-B3
-in ``sign_agg.cu``, prefill attention B4 in ``flash_attention.cu``,
-decode attention B5 in ``decode_attention.cu``, the Mamba selective scan
-B6 in ``ssm_scan.cu``).
+in ``sign_agg.cu``, prefill attention B4 in ``flash_attention.cu`` --
+two kernels by dtype, f32 on the CUDA cores and bf16 on the tensor cores,
+whose registers and spills per head dim are printed --, decode attention
+B5 in ``decode_attention.cu``, the Mamba selective scan B6 in
+``ssm_scan.cu``).
 
 Training path (B1-B3): holds each kernel against its plain PyTorch
 version on the card, bit for bit, at the main path's shapes, on the
@@ -46,7 +48,10 @@ token-by-token decode of the same prompt (5e-4, the reference's bound).
 
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
-launches (summed over the main-path runs) and times.
+launches (summed over the main-path runs) and times.  Its
+``flash_attention`` entry gives B4's f32 kernel at SmolLM-360M's prefill
+shape and, as ``bf16_ms``, ``bf16_bound_ms`` and ``bf16_library_ms``, the
+bf16 kernel at Hymba-1.5B's.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -54,6 +59,7 @@ checkout of the repository.  Per-shape details also go to
 """
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -486,19 +492,46 @@ def _to_numpy(tree):
     return tree_map(lambda t: t.numpy(), tree)
 
 
+def _kernel_label(mangled):
+    """``flash_fwd_bf16<64,128,64,4>`` from a mangled kernel name: its
+    last (nested) name and its integer template arguments; an unmangled
+    name as it is."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    names = []
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        end = len(digits) + int(digits)
+        names.append(rest[len(digits):end])
+        rest = rest[end:]
+    if not names:
+        return mangled
+    args = re.findall(r"Li(\d+)E", rest) if rest.startswith("I") else []
+    return names[-1] + (f"<{','.join(args)}>" if args else "")
+
+
 def build_kernels(report):
-    """One nvcc per source, all started together; nvcc's register and
-    spill lines are printed."""
+    """One nvcc per source, all started together.  Prints one line per
+    kernel instance with ptxas's registers and spill bytes, labelled with
+    the kernel and its template arguments (for B4's bf16 kernel: head dim,
+    query rows, keys per tile, warps)."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     libs = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
+    report["ptxas"] = {}
     for lib in libs:
         log(f"build: {lib.name}")
+        label = None
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  nvcc: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                label = _kernel_label(entry.group(1))
+            elif "registers" in line or "spill" in line or "error" in line:
+                text = line.replace("ptxas info    :", "").strip()
+                if label:
+                    report["ptxas"].setdefault(label, []).append(text)
+                log(f"  nvcc: {label}: {text}" if label else f"  nvcc: {text}")
     log(f"build: {len(libs)} libraries in {report['build_s']:.1f} s")
 
 
@@ -997,6 +1030,7 @@ def time_attention_hymba(report):
             f"plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']:.6f} "
             f"(SDPA enable_gqa)")
     report["attention_timings_hymba"] = out
+    return out
 
 
 def scan_inputs(B, S, D, N, dtype, seed, with_h0=True):
@@ -1273,7 +1307,7 @@ def main() -> int:
     t0 = time.perf_counter()
     errs["ssm_scan"] = check_scan(report)
     scan = time_scan(report)
-    time_attention_hymba(report)
+    times_hymba = time_attention_hymba(report)
     cfg, params = serve_model(HYMBA)
     for run in (prefill_run, generate_run):
         for name, n in run(cfg, params, report).items():
@@ -1299,6 +1333,12 @@ def main() -> int:
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+    # B4's two kernels: the fields above are the f32 one's (SmolLM-360M's
+    # prefill); the bf16 tensor-core one's at Hymba-1.5B's prefill shape
+    hb = times_hymba["flash_attention"]
+    next(k for k in kernels if k["name"] == "flash_attention").update(
+        bf16_ms=hb["ms"], bf16_bound_ms=hb["bound_ms"],
+        bf16_library_ms=hb["library_ms"])
     kernels.append(dict(
         name="ssm_scan", route="cuda", source=f"{CSRC}/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:44",

@@ -8,10 +8,13 @@ end-aligned with the keys, as in the plain version
 ``ref.flash_attention_ref``.
 
 What bounds it on the H100 is operations: ``4*B*H*D`` flops per kept
-query-key pair in f32 CUDA-core math (67 TFLOP/s; no TF32).  The kernel
-(``csrc/flash_attention.cu``) runs one block per (query tile, head,
-batch), loops over the key tiles itself with the online softmax in
-registers, and skips key tiles the mask removes whole.
+query-key pair.  ``csrc/flash_attention.cu`` holds two kernels behind one
+entry point, by dtype: float32 on the CUDA cores (67 TFLOP/s; no TF32),
+bfloat16 on the tensor cores (``mma.sync``, 989 TFLOP/s), with P split
+into two bf16 halves so that the output stays within one bf16 rounding
+of the plain version.  Both run one block per (query tile, head, batch),
+loop over the key tiles with the online softmax in registers, and skip
+key tiles the mask removes whole.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises.  ``LAUNCHES["flash_attention"]`` counts launches.

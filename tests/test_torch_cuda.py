@@ -128,7 +128,11 @@ def _assert_close(got, want, dtype):
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", [
     (2, 128, 128, 4, 2, 64, True, 0), (2, 256, 256, 2, 2, 128, True, 64),
     (2, 256, 256, 6, 2, 64, False, 0), (2, 100, 300, 6, 2, 64, True, 0),
-    (1, 77, 77, 3, 1, 256, True, 32), (2, 1, 65, 15, 5, 64, True, 0)])
+    (1, 77, 77, 3, 1, 256, True, 32), (2, 1, 65, 15, 5, 64, True, 0),
+    (2, 300, 300, 25, 5, 64, True, 0),                  # Hymba's heads
+    (2, 100, 300, 25, 5, 64, True, 64),                 # Sq < Sk, window
+    (1, 4097, 4097, 5, 1, 64, True, 0),                 # no whole tile
+    (1, 200, 520, 4, 2, 128, False, 0), (1, 300, 300, 2, 1, 256, False, 100)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_flash_attention_matches_plain_version(B, Sq, Sk, H, Hkv, D,
                                                     causal, window, dtype):
