@@ -7,8 +7,9 @@ In order: prints the card's name and power limit; builds every kernel
 of the port with nvcc for sm_90a, one nvcc per source, all at once
 (``src/repro_torch/kernels/csrc/``: the Eq. (20) consensus kernels B1-B3
 in ``sign_agg.cu``, prefill attention B4 in ``flash_attention.cu`` --
-two kernels by dtype, f32 on the CUDA cores and bf16 on the tensor cores,
-whose registers and spills per head dim are printed --, decode attention
+two kernels by dtype, both on the tensor cores: f32 by 3xTF32
+(``flash_fwd_tf32x3``) and bf16 (``flash_fwd_bf16``), whose registers and
+spills per head dim are printed --, decode attention
 B5 in ``decode_attention.cu``, the Mamba selective scan B6 in
 ``ssm_scan.cu``).
 
@@ -49,9 +50,11 @@ token-by-token decode of the same prompt (5e-4, the reference's bound).
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
 launches (summed over the main-path runs) and times.  Its
-``flash_attention`` entry gives B4's f32 kernel at SmolLM-360M's prefill
-shape and, as ``bf16_ms``, ``bf16_bound_ms`` and ``bf16_library_ms``, the
-bf16 kernel at Hymba-1.5B's.
+``flash_attention`` entry gives B4's f32 kernel (``f32_kernel``) at
+SmolLM-360M's prefill shape, with ``bound_ms`` its 3xTF32 tensor-core
+roof and ``simt_bound_ms`` the f32 CUDA cores' roof of the same work,
+and, as ``bf16_ms``, ``bf16_bound_ms`` and ``bf16_library_ms``, the bf16
+kernel (``bf16_kernel``) at Hymba-1.5B's.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -75,6 +78,7 @@ import torch  # noqa: E402
 PSI, ALPHA = 0.005, 0.01
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 494.7e12      # H100 SXM tf32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_CLIENTS, ROUNDS = 10, 20
 MAIN_LEAF_D = [128, 2816, 128, 16384, 64, 8192, 24, 1536]   # MLP_H24
@@ -512,8 +516,8 @@ def _kernel_label(mangled):
 def build_kernels(report):
     """One nvcc per source, all started together.  Prints one line per
     kernel instance with ptxas's registers and spill bytes, labelled with
-    the kernel and its template arguments (for B4's bf16 kernel: head dim,
-    query rows, keys per tile, warps)."""
+    the kernel and its template arguments (for B4's f32 kernel: head dim,
+    query rows, keys per tile; for its bf16 kernel the same and warps)."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -579,14 +583,22 @@ def kept_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_bound(q, k, causal, window):
-    """B4's least time: operations (4 B H D per kept pair) over the peak
-    rate of the inputs' type, or q, k, v, out bytes over 3.35 TB/s."""
+def flash_flops(q, k, causal, window):
+    """B4's operations: 4 B H D per kept query-key pair."""
     B, Sq, H, D = q.shape
-    ops = 4 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window)
-    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    return 4 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window)
+
+
+def flash_bound(q, k, causal, window):
+    """B4's least time: its operations over the tensor cores' peak rate
+    for the inputs' type, or q, k, v, out bytes over 3.35 TB/s.  f32 runs
+    as 3xTF32, three TF32 products for each f32 one: 3 x the operations
+    over 494.7 TFLOP/s.  bf16: the operations over 989 TFLOP/s."""
+    ops = flash_flops(q, k, causal, window)
+    t_ops = (3 * ops / TF32_FLOPS_PER_S if q.dtype == torch.float32
+             else ops / BF16_FLOPS_PER_S)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return _bound(ops / peak, nbytes / HBM_BYTES_PER_S)
+    return _bound(t_ops, nbytes / HBM_BYTES_PER_S)
 
 
 def decode_bound(q, k, length):
@@ -670,7 +682,8 @@ def check_attention(report):
                                  f"(max |err| {err:.3e}, worst excess over "
                                  f"attn_tol {float(excess.max()):.3e})")
         errs[name] = max(errs[name], err)
-        rows.append(dict(kernel=name, shape=tag, max_abs_err=err))
+        rows.append(dict(kernel=name, shape=tag, max_abs_err=err,
+                         worst_excess=float(excess.max())))
 
     flash = [(2, S, S, H, Hkv, D, c, w) for S, H, Hkv, D in
              [(128, 4, 2, 64), (256, 2, 2, 128), (256, 6, 2, 64)]
@@ -714,9 +727,14 @@ def check_attention(report):
             del q, k, v
     report["attention_checks"] = rows
     report["attention_max_abs_err"] = errs
+    f32 = [r for r in rows if r["kernel"] == "flash_attention"
+           and r["shape"].endswith("torch.float32")]
+    worst = max(f32, key=lambda r: r["worst_excess"])
     log(f"attention checks: {len(rows)} kernel calls within attn_tol "
         f"(abs/rel 3e-5 f32; bf16 1e-2 rel + 1e-3 RMS) of their plain "
-        f"versions; max |err| {errs}")
+        f"versions; max |err| {errs}; flash_attention f32 alone: max "
+        f"|err| {max(r['max_abs_err'] for r in f32):.3e}, worst excess over "
+        f"attn_tol {worst['worst_excess']:.3e} at {worst['shape']}")
     return errs
 
 
@@ -752,6 +770,8 @@ def time_attention(report):
                    sdpa_flash(q, kx, vx, True),
                    ref.flash_attention_ref(q, k, v)))
     row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
+    # the f32 CUDA cores' roof of the same work, the SIMT design's bound
+    row["simt_bound_ms"] = flash_flops(q, k, True, 0) / F32_FLOPS_PER_S * 1e3
     out["flash_attention"] = row
     del q, k, v, kx, vx
     _, k, v = _attn_inputs(DECODE_B, 1, DECODE_L, 15, 5, 64, torch.float32,
@@ -795,7 +815,9 @@ def time_attention(report):
             f"{r['library_expanded_ms']:.6f} (SDPA on K/V expanded to 15 "
             f"heads, max |err| {r['library_expanded_max_abs_err']:.2e})"
             + (f" call_ms={r['call_ms']:.6f} launches_per_call="
-               f"{r['launches_per_call']}" if "call_ms" in r else ""))
+               f"{r['launches_per_call']}" if "call_ms" in r else "")
+            + (f" simt_bound_ms={r['simt_bound_ms']:.6f} (f32 CUDA cores)"
+               if "simt_bound_ms" in r else ""))
     report["attention_timings"] = out
     return out
 
@@ -1334,11 +1356,13 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
     # B4's two kernels: the fields above are the f32 one's (SmolLM-360M's
-    # prefill); the bf16 tensor-core one's at Hymba-1.5B's prefill shape
+    # prefill); the bf16 one's at Hymba-1.5B's prefill shape
     hb = times_hymba["flash_attention"]
     next(k for k in kernels if k["name"] == "flash_attention").update(
-        bf16_ms=hb["ms"], bf16_bound_ms=hb["bound_ms"],
-        bf16_library_ms=hb["library_ms"])
+        f32_kernel="flash_fwd_tf32x3",
+        simt_bound_ms=times["flash_attention"]["simt_bound_ms"],
+        bf16_kernel="flash_fwd_bf16", bf16_ms=hb["ms"],
+        bf16_bound_ms=hb["bound_ms"], bf16_library_ms=hb["library_ms"])
     kernels.append(dict(
         name="ssm_scan", route="cuda", source=f"{CSRC}/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:44",

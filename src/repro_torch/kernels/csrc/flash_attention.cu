@@ -10,25 +10,46 @@
 // What bounds it on the H100: operations, 4*B*H*D flops per kept
 // query-key pair against 2 bytes per flop or less.
 //
-// float32: `flash_fwd`, CUDA-core SIMT.  The f32 path must stay f32 (no
-// TF32: it would move results past the 3e-5 tolerance), so the roof is
-// the CUDA cores' 67 TFLOP/s.
-//  * One block per (query tile, head, batch).  The block loops over the
-//    key tiles itself and keeps the online softmax (m, l, acc) in
-//    registers, so nothing but the output is written; K/V tiles are staged
-//    in shared memory and read from there by every query row of the tile.
-//  * GQA: query head h reads KV head h / (H / Hkv) in place, no copy.
-//  * Key tiles wholly in the future (causal) or wholly before the window
-//    are never loaded: the loop bounds come from absolute indices.  Query
-//    tiles run heaviest first (blockIdx.x reversed) so the causal
-//    triangle's long tiles start early.
-//  * Register tiling: 128 threads as 16 row groups x 8 column groups; a
-//    thread holds a TM x TS tile of scores and a TM x TN tile of the output
-//    (TM = BQ/16, TS = BK/8, TN = D/8), so each shared-memory load feeds
-//    several FMAs.  Q and K rows are padded by one float (no bank
-//    conflicts on the strided reads); row statistics are reduced across
-//    the 8 lanes of a row group with shuffles.
-//  * f32 FMA throughout (explicit fmaf: the build uses -fmad=false).
+// float32: `flash_fwd_tf32x3`, tensor cores by 3xTF32, at every head dim
+// (64, 128, 256).  One TF32 rounding of the operands moves results past
+// the 3e-5 bound the kernel is held to.  So each operand x is split into
+// hi = tf32(x) and lo = tf32(x - hi), and each product is lo*hi + hi*lo +
+// hi*hi (lo*lo dropped), which holds it (tests/test_torch_flash_tf32.py
+// repeats the recipe on the CPU).  The roof is 3x the kept flops over the
+// TF32 tensor cores' 494.7 TFLOP/s; the f32 CUDA cores' 67 TFLOP/s over
+// the kept flops was the roof of the SIMT kernel this one replaced.
+//  * The bf16 kernel's grid, GQA reads, tile skipping, heaviest-first order
+//    and edge-tile mask (below).  A warp owns 16 query rows.
+//  * Q is scaled in f32, as the plain version does, then split.  At D=64
+//    its halves stay in registers; at 128 and 256 they do not fit beside
+//    the accumulators, and each key tile reads Q from shared memory and
+//    splits it again.
+//  * ldmatrix on f32 rows read as b16 pairs gives the m16n8k8 tf32
+//    fragments of Q (A) and K (B).  ldmatrix.trans moves 16-bit halves, so
+//    it cannot transpose f32 V: V's B fragments are plain 32-bit shared
+//    loads.  Rows are padded by 4 floats, so each ldmatrix phase and each
+//    V load hits 32 distinct banks.
+//  * K and V tiles are double-buffered by cp.async.cg (zero-filled past
+//    Sk) and split once per block as they land: each thread splits the
+//    chunks it copied itself (visible to it after cp.async.wait_group, so
+//    no extra barrier), hi in place and lo into a second array.  Split per
+//    fragment in registers, every warp repeated the work, and the splits
+//    took ~40 % of the kernel's time (PERF.md §6); the price is 1.5x the
+//    K/V shared memory.  At D=64 Q's staging space is the lo arrays'.
+//  * Tiles (BQ, BK): D=64 (128, 64), D=128 (128, 32), D=256 (64, 16), 16
+//    query rows per warp; at each, one block of 8 or 4 warps per SM (by
+//    registers or shared memory).
+//  * P stays in registers: the S accumulator holds keys 2t, 2t + 1 where
+//    the A fragment wants t, t + 4, so the keys of a k-step are relabeled
+//    and V is read at keys 2t, 2t + 1.
+//  * Per k-step of each product, the cross terms of every accumulator go
+//    first, then hi*hi.  The tensor cores truncate their f32 sums: at D=64
+//    and 128 each key tile's P V is summed in registers of its own and
+//    added to the output by one rounded f32 add, since one mma chain over
+//    the whole row grew its error with the row's length (PERF.md §6); at
+//    D=256 those registers spill, and P V goes straight into the output.
+//    Softmax, corrections and acc / l stay f32, with expf(s - m) (the
+//    build keeps -fmad=false).
 //
 // bfloat16: `flash_fwd_bf16`, tensor cores; the roof is 989 TFLOP/s of
 // bf16 mma.  The same grid, GQA reads, tile skipping and heaviest-first
@@ -65,210 +86,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-}
-
-template <int D, int BQ, int BK>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D +
-          size_t(BQ) * (BK + 1));
-}
-
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
-          int H, int Hkv, int causal, int window, float scale) {
-  constexpr int TM = BQ / 16;   // query rows per thread
-  constexpr int TS = BK / 8;    // key columns per thread
-  constexpr int TN = D / 8;     // output columns per thread
-  constexpr int DP = D + 1;     // padded row stride of Qs and Ks
-  constexpr int BKP = BK + 1;   // padded row stride of Ps
-  static_assert(BQ % 16 == 0 && BK % 8 == 0 && D % 8 == 0, "tile shape");
-
-  extern __shared__ float smem[];
-  float* Qs = smem;             // BQ x DP, pre-scaled
-  float* Ks = Qs + BQ * DP;     // BK x DP
-  float* Vs = Ks + BK * DP;     // BK x D
-  float* Ps = Vs + BK * D;      // BQ x BKP, probabilities of the tile
-
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  const int q0 = (n_qt - 1 - int(blockIdx.x)) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;      // row group 0..15
-  const int tx = tid & 7;       // column group 0..7
-  const int off = Sk - Sq;      // absolute position of query row i: i + off
-
-  const long long q_stride = (long long)H * D;
-  const long long kv_stride = (long long)Hkv * D;
-  const float* qb = q + (long long)b * Sq * q_stride + (long long)h * D;
-  const float* kb = k + (long long)b * Sk * kv_stride + (long long)hk * D;
-  const float* vb = v + (long long)b * Sk * kv_stride + (long long)hk * D;
-
-  for (int e = tid * 4; e < BQ * D; e += kThreads * 4) {
-    const int r = e / D, c = e % D;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < Sq) load4(qb + (q0 + r) * q_stride + c, x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Qs[r * DP + c + i] = x[i] * scale;
-  }
-
-  // The key range any row of this tile keeps.
-  const int qa_lo = q0 + off;
-  const int qa_hi = min(q0 + BQ, Sq) - 1 + off;
-  const int k_begin = window ? max(0, qa_lo - window + 1) : 0;
-  const int k_end = causal ? min(Sk, qa_hi + 1) : Sk;
-
-  float m[TM], l[TM], acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's Ks/Vs/Ps reads are done
-    for (int e = tid * 4; e < BK * D; e += kThreads * 4) {
-      const int r = e / D, c = e % D;
-      float xk[4] = {0.f, 0.f, 0.f, 0.f}, xv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + r < Sk) {
-        load4(kb + (k0 + r) * kv_stride + c, xk);
-        load4(vb + (k0 + r) * kv_stride + c, xv);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        Ks[r * DP + c + i] = xk[i];
-        Vs[r * D + c + i] = xv[i];
-      }
-    }
-    __syncthreads();
-
-    float s[TM][TS];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TS; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[TM], kv[TS];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) qv[i] = Qs[(ty * TM + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < TS; ++j) kv[j] = Ks[(tx + 8 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int qa = q0 + ty * TM + i + off;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        const int ka = k0 + tx + 8 * j;
-        const bool ok = ka < Sk && (!causal || ka <= qa) &&
-                        (!window || ka > qa - window);
-        s[i][j] = ok ? s[i][j] : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      // a row with no key kept so far keeps m = -inf; exp(-inf) = 0
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = expf(m[i] - m_use);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        const float p = expf(s[i][j] - m_use);
-        Ps[(ty * TM + i) * BKP + tx + 8 * j] = p;
-        rs += p;
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < TN; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[TM], vv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) pv[i] = Ps[(ty * TM + i) * BKP + j];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) vv[c] = Vs[j * D + tx + 8 * c];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-  float* ob = o + (long long)b * Sq * q_stride + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = q0 + ty * TM + i;
-    if (r >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < TN; ++c)
-      ob[r * q_stride + tx + 8 * c] = acc[i][c] / denom;
-  }
-}
-
-template <int D, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int Hkv, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, BQ, BK>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<D, BQ, BK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, Hkv,
-      causal, window, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v,
-                         void* o, int B, int Sq, int Sk, int H, int Hkv,
-                         int causal, int window, float scale,
-                         cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<64, 64, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
-                                window, scale, stream);
-    case 128:
-      return launch<128, 64, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
-                                 window, scale, stream);
-    case 256:
-      return launch<256, 32, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
-                                 window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------
 // bfloat16 on tensor cores
@@ -648,9 +465,407 @@ cudaError_t dispatch_bf16(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------
+// float32 on tensor cores: 3xTF32
+// ---------------------------------------------------------------------
+
+// x rounded to tf32 (round to nearest, ties away from zero), returned as
+// the bits of an f32 whose low 13 bits are zero.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// hi = tf32(x), lo = tf32(x - hi); x - hi is exact in f32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// The four floats at p (shared) become their hi halves in place; their lo
+// halves go to lo.
+__device__ __forceinline__ void split_tf32_4(float* p, float* lo) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  uint32_t in[4] = {x.x, x.y, x.z, x.w}, hi[4], l[4];
+  split_tf32(in, hi, l);
+  *reinterpret_cast<uint4*>(p) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// c += a b: a 16x8 row-major, b 8x8 column-major, tf32 in, f32 sum.
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Tile shape: BQ query rows per block, 16 per warp; BK keys per tile;
+// shared rows padded to D + 4 floats.  Shared memory: K and V in two
+// stages (their hi halves once split), the lo halves of the current tile,
+// and Q; at D=64 Q's halves are kept in registers, and Q's staging space
+// is the lo halves' (BQ <= 2 BK).
+template <int D, int BQ, int BK>
+struct F32Tile {
+  static constexpr int kWarps = BQ / 16;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int DP = D + 4;
+  static constexpr bool kQReg = D == 64;
+  static constexpr size_t kSmem =
+      sizeof(float) * size_t(6 * BK + (kQReg ? 0 : BQ)) * DP;
+};
+
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(F32Tile<D, BQ, BK>::kThreads, 1)
+flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq,
+                 int Sk, int H, int Hkv, int causal, int window,
+                 float scale) {
+  using Tile = F32Tile<D, BQ, BK>;
+  constexpr int NT = Tile::kThreads, DP = Tile::DP;
+  constexpr int CH = D / 4;    // 16-byte chunks per row
+  constexpr int KD = D / 8;    // k-steps of S = Q K^T
+  constexpr int NS = BK / 8;   // 8-key column tiles of S = k-steps of P V
+  constexpr int NO = D / 8;    // 8-wide column tiles of the output
+  constexpr int NG = 8;        // output tiles per V pass
+  // Each key tile's P V is summed in registers of its own, then added to
+  // acc in f32; at D=256 those registers spill, and P V goes into acc.
+  constexpr bool kTileSum = D <= 128;
+  constexpr bool kQReg = Tile::kQReg;  // Q's halves stay in registers
+  static_assert(BQ % 16 == 0 && BK % 16 == 0 && D % 64 == 0 &&
+                (!kQReg || BQ <= 2 * BK), "tile shape");
+
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Ks = smem_f32;          // 2 stages x BK x DP
+  float* Vs = Ks + 2 * BK * DP;  // 2 stages x BK x DP
+  float* Kl = Vs + 2 * BK * DP;  // BK x DP, lo halves of this tile's K
+  float* Vl = Kl + BK * DP;      // BK x DP, lo halves of this tile's V
+  float* Qs = kQReg ? Kl : Vl + BK * DP;  // BQ x DP, pre-scaled
+
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - int(blockIdx.x)) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wr = (tid >> 5) * 16;  // the warp's first row in the tile
+  const int g = lane >> 2;         // fragment row (and row + 8)
+  const int t = lane & 3;          // fragment column
+  const int off = Sk - Sq;         // query row i sits at i + off
+
+  const long long q_stride = (long long)H * D;
+  const long long kv_stride = (long long)Hkv * D;
+  const float* qb = q + (long long)b * Sq * q_stride + (long long)h * D;
+  const float* kb = k + (long long)b * Sk * kv_stride + (long long)hk * D;
+  const float* vb = v + (long long)b * Sk * kv_stride + (long long)hk * D;
+
+  // K/V copies: this thread moves the 16 bytes at column cc of rows cr,
+  // cr + RS, ...; rows past Sk are zero-filled.
+  constexpr int RS = NT / CH;
+  static_assert(NT % CH == 0 && BK % RS == 0, "copy shape");
+  const int cr = tid / CH, cc = (tid % CH) * 4;
+  const uint32_t kdst = smem_addr(Ks + cr * DP + cc);
+  const uint32_t vdst = smem_addr(Vs + cr * DP + cc);
+  auto load_kv = [&](int k0, int stage) {
+#pragma unroll
+    for (int i = 0; i < BK / RS; ++i) {
+      const int r = k0 + cr + i * RS;
+      // a row past Sk reads nothing; its address stays inside the tensor
+      const long long o = (long long)min(r, Sk - 1) * kv_stride + cc;
+      const uint32_t d = uint32_t((stage * BK + i * RS) * DP * sizeof(float));
+      cp_async16(kdst + d, kb + o, r < Sk);
+      cp_async16(vdst + d, vb + o, r < Sk);
+    }
+  };
+
+  // The key range any row of this tile keeps, in whole tiles.
+  const int qa_lo = q0 + off;
+  const int qa_hi = min(q0 + BQ, Sq) - 1 + off;
+  const int k_begin = window ? max(0, qa_lo - window + 1) : 0;
+  const int k_end = causal ? min(Sk, qa_hi + 1) : Sk;
+  const int kt0 = k_begin / BK;
+  const int n_kt = (k_end + BK - 1) / BK - kt0;
+
+  if (n_kt > 0) load_kv(kt0 * BK, 0);
+  cp_async_commit();
+  // Q times the scale in f32, as the plain version computes it, while the
+  // first K/V tile flies
+  for (int e = tid * 4; e < BQ * D; e += NT * 4) {
+    const int r = e / D, c = e % D;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq)
+      x = *reinterpret_cast<const float4*>(qb + (q0 + r) * q_stride + c);
+    x.x *= scale;
+    x.y *= scale;
+    x.z *= scale;
+    x.w *= scale;
+    *reinterpret_cast<float4*>(Qs + r * DP + c) = x;
+  }
+  __syncthreads();
+
+  // ldmatrix on f32 rows read as pairs of b16: an 8x8 b16 matrix is 8 rows
+  // of 4 floats, and lane i receives row i / 4, float i % 4 -- the
+  // m16n8k8 tf32 layouts.  Q's A fragment of k-step kd: rows g, g + 8 at
+  // columns t, t + 4; lane i addresses row i % 8 + 8 (i / 8 % 2), column
+  // 4 (i / 16).  K's B fragments (key g, d t and t + 4) of two 8-key
+  // tiles: key i % 8 + 8 (i / 16), d 4 (i / 8 % 2), hi and lo halves from
+  // their two arrays.
+  const uint32_t q_ld = smem_addr(Qs + (wr + (lane & 7) + ((lane >> 3) & 1) * 8)
+                                           * DP + (lane >> 4) * 4);
+  auto q_frag = [&](int kd, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    uint32_t x[4];
+    ldsm_x4(x, q_ld + uint32_t(kd * 8 * sizeof(float)));
+    split_tf32(x, hi, lo);
+  };
+  uint32_t qh[kQReg ? KD : 1][4], ql[kQReg ? KD : 1][4];
+  if (kQReg) {
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) q_frag(kd, qh[kd], ql[kd]);
+    __syncthreads();  // Q's space becomes the lo halves'
+  }
+  constexpr uint32_t kStage = uint32_t(BK * DP * sizeof(float));
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * DP + ((lane >> 3) & 1) * 4;
+  const uint32_t k_ld = smem_addr(Ks + k_off), kl_ld = smem_addr(Kl + k_off);
+  // V's B fragment of P V (see the key order below): keys 2t and 2t + 1 of
+  // the k-step, column g of the output tile; plain 32-bit loads
+  const int v_off = 2 * t * DP + g;
+
+  float m[2], l[2], acc[NO][4];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    m[hr] = -INFINITY;
+    l[hr] = 0.f;  // this lane's share of the row sum
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = (kt0 + it) * BK;
+    const int stage = it & 1;
+    if (it + 1 < n_kt) load_kv(k0 + BK, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of this tile have landed
+    // Split the chunks this thread copied (its own copies are visible to it
+    // without a barrier): hi in place, lo beside, once for the whole block.
+#pragma unroll
+    for (int i = 0; i < BK / RS; ++i) {
+      const int r = (cr + i * RS) * DP + cc;
+      split_tf32_4(Ks + stage * BK * DP + r, Kl + r);
+      split_tf32_4(Vs + stage * BK * DP + r, Vl + r);
+    }
+    __syncthreads();
+    const uint32_t ks = k_ld + stage * kStage;
+
+    // S = Q K^T: per k-step the three products of every 8-key tile, cross
+    // terms first (lo(Q) hi(K), hi(Q) lo(K), hi(Q) hi(K))
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qfh[4], qfl[4];
+      if (kQReg) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qfh[i] = qh[kQReg ? kd : 0][i];
+          qfl[i] = ql[kQReg ? kd : 0][i];
+        }
+      } else {
+        q_frag(kd, qfh, qfl);
+      }
+      uint32_t kh[NS / 2][4], kl[NS / 2][4];
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        const uint32_t o = uint32_t((np * 16 * DP + kd * 8) * sizeof(float));
+        ldsm_x4(kh[np], ks + o);
+        ldsm_x4(kl[np], kl_ld + o);
+      }
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          const uint32_t (&a)[4] = pass == 0 ? qfl : qfh;
+          const uint32_t (&bb)[4] = pass == 1 ? kl[np] : kh[np];
+          mma1688(s[2 * np], a, bb[0], bb[1]);
+          mma1688(s[2 * np + 1], a, bb[2], bb[3]);
+        }
+    }
+
+    // Mask element by element only where the mask cuts into this tile
+    // for some row of the warp (the diagonal, the window edge, Sk).
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > q0 + wr + off) ||
+        (window && k0 <= q0 + wr + 15 + off - window)) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        // the keys query qa keeps, relative to this lane's first column
+        const int qa = q0 + wr + g + 8 * hr + off;
+        const int first = (window ? qa - window + 1 : 0) - (k0 + 2 * t);
+        const int last = (causal ? min(qa, Sk - 1) : Sk - 1) - (k0 + 2 * t);
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (j * 8 + c < first || j * 8 + c > last)
+              s[j][2 * hr + c] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {  // rows g and g + 8 of the mma tile
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      // a row with no key kept so far keeps m = -inf; exp(-inf) = 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = expf(m[hr] - m_use);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[j][2 * hr + c];
+          x = expf(x - m_use);
+          rs += x;
+        }
+      l[hr] = l[hr] * corr + rs;
+      m[hr] = m_new;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * hr] *= corr;
+        acc[n][2 * hr + 1] *= corr;
+      }
+    }
+
+    // O += P V, k-step j = the 8 keys of S tile j.  The S accumulator holds
+    // keys 2t, 2t + 1 where the A fragment wants t, t + 4; the sum over
+    // keys does not care about their order, so the k-step's key slot t is
+    // key 2t and slot t + 4 is key 2t + 1: P's A fragment is (s0, s2, s1,
+    // s3) with no shuffle, and V's B fragment is read at keys 2t, 2t + 1.
+    // By groups of NG output tiles, P split again per group; the tile's
+    // products go to pv and then to acc where kTileSum (see the header).
+    const float* vh_s = Vs + stage * BK * DP + v_off;
+    const float* vl_s = Vl + v_off;
+#pragma unroll
+    for (int n0 = 0; n0 < NO; n0 += NG) {
+      float pv[kTileSum ? NG : 1][4];
+#pragma unroll
+      for (int n = 0; n < (kTileSum ? NG : 1); ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        uint32_t vh[NG][2], vl[NG][2];
+#pragma unroll
+        for (int n = 0; n < NG; ++n)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = (j * 8 + r) * DP + (n0 + n) * 8;
+            vh[n][r] = __float_as_uint(vh_s[e]);
+            vl[n][r] = __float_as_uint(vl_s[e]);
+          }
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int n = 0; n < NG; ++n) {
+            const uint32_t (&a)[4] = pass == 0 ? pl : ph;
+            const uint32_t (&bb)[2] = pass == 1 ? vl[n] : vh[n];
+            mma1688(kTileSum ? pv[kTileSum ? n : 0] : acc[n0 + n], a, bb[0],
+                    bb[1]);
+          }
+      }
+      if (kTileSum) {
+#pragma unroll
+        for (int n = 0; n < NG; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[n0 + n][i] += pv[kTileSum ? n : 0][i];
+      }
+    }
+    __syncthreads();  // this tile is read: the next split and the
+                      // next-but-one load reuse its space
+  }
+
+  float* ob = o + (long long)b * Sq * q_stride + (long long)h * D;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float sum = l[hr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float denom = fmaxf(sum, 1e-30f);
+    const int r = q0 + wr + g + 8 * hr;
+    if (r >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(ob + r * q_stride + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * hr] / denom, acc[n][2 * hr + 1] / denom);
+  }
+}
+
+template <int D, int BQ, int BK>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int Sq, int Sk, int H, int Hkv, int causal,
+                       int window, float scale, cudaStream_t stream) {
+  using Tile = F32Tile<D, BQ, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32x3<D, BQ, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile::kSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_tf32x3<D, BQ, BK><<<grid, Tile::kThreads, Tile::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, Hkv,
+      causal, window, scale);
+  return cudaGetLastError();
+}
+
+// The f32 tiles <D, BQ, BK> by head dim (BQ / 16 warps); PERF.md §6 has
+// what the alternatives measured.
+cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v,
+                         void* o, int B, int Sq, int Sk, int H, int Hkv,
+                         int causal, int window, float scale,
+                         cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch_f32<64, 128, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
+                                     window, scale, stream);
+    case 128:
+      return launch_f32<128, 128, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
+                                      window, scale, stream);
+    case 256:
+      return launch_f32<256, 64, 16>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
+                                     window, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32 (`flash_fwd`), 1 = bfloat16 (`flash_fwd_bf16`).
+// dtype: 0 = float32 (`flash_fwd_tf32x3`), 1 = bfloat16 (`flash_fwd_bf16`).
 // q, o: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); all contiguous.  Returns
 // the launch's cudaError_t.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,

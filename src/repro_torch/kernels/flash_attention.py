@@ -9,12 +9,14 @@ end-aligned with the keys, as in the plain version
 
 What bounds it on the H100 is operations: ``4*B*H*D`` flops per kept
 query-key pair.  ``csrc/flash_attention.cu`` holds two kernels behind one
-entry point, by dtype: float32 on the CUDA cores (67 TFLOP/s; no TF32),
-bfloat16 on the tensor cores (``mma.sync``, 989 TFLOP/s), with P split
-into two bf16 halves so that the output stays within one bf16 rounding
-of the plain version.  Both run one block per (query tile, head, batch),
-loop over the key tiles with the online softmax in registers, and skip
-key tiles the mask removes whole.
+entry point, by dtype, both on the tensor cores (``mma.sync``): float32 by
+3xTF32 (each operand split into two TF32 halves, three TF32 products for
+each f32 one, at 494.7 TFLOP/s), so that the output stays within abs/rel
+3e-5 of the plain version; bfloat16 (989 TFLOP/s) with P split into two
+bf16 halves, so that the output stays within one bf16 rounding of it.
+Both run one block per (query tile, head, batch), loop over the key
+tiles with the online softmax in registers, and skip key tiles the mask
+removes whole.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises.  ``LAUNCHES["flash_attention"]`` counts launches.
