@@ -25,14 +25,15 @@ and compares them.
 Serving path (B4, B5): holds both attention kernels against their plain
 versions (the reference's TPU test grid in f32 and bf16, Sq < Sk, ragged
 lengths, the full-width SmolLM-360M shapes; abs/rel 3e-5 in f32, one
-bf16 rounding of the output in bf16: see ``attn_tol``); times them at
+bf16 rounding of the output in bf16: see ``attn_tol``), and B4 f32 over
+16,384-key rows within a stated max |err| (``LONG_ROW``); times them at
 full width beside their bound, the plain version and PyTorch's
-``scaled_dot_product_attention``; runs a full-width SmolLM-360M prefill
-step (B=4, S=4096: 32 B4 launches) and a ``ServeEngine.generate`` of 8
-requests (32 B5 calls per step, each one launch or two with the combine
-pass), counting launches; and runs the
-same weights on the CPU and on the card through a prefill step and 40
-decode steps and compares the logits and the greedy tokens.
+``scaled_dot_product_attention``, and B4 f32 at head dims 128 and 256;
+runs a full-width SmolLM-360M prefill step (B=4, S=4096: 32 B4 launches)
+and a ``ServeEngine.generate`` of 8 requests (32 B5 calls per step, each
+one launch or two with the combine pass), counting launches; and runs
+the same weights on the CPU and on the card through a prefill step and
+40 decode steps and compares the logits and the greedy tokens.
 
 Hymba path (B4, B5, B6): holds B6 against its plain version on the card,
 bit for bit (the reference's TPU test grid, the prefill chunk shape
@@ -50,11 +51,12 @@ token-by-token decode of the same prompt (5e-4, the reference's bound).
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
 launches (summed over the main-path runs) and times.  Its
-``flash_attention`` entry gives B4's f32 kernel (``f32_kernel``) at
-SmolLM-360M's prefill shape, with ``bound_ms`` its 3xTF32 tensor-core
-roof and ``simt_bound_ms`` the f32 CUDA cores' roof of the same work,
-and, as ``bf16_ms``, ``bf16_bound_ms`` and ``bf16_library_ms``, the bf16
-kernel (``bf16_kernel``) at Hymba-1.5B's.
+``flash_attention`` entry gives B4's f32 kernel (``f32_kernel``, its
+ptxas label: name and tiles at head dim 64) at SmolLM-360M's prefill
+shape, with ``bound_ms`` its 3xTF32 tensor-core roof and
+``simt_bound_ms`` the f32 CUDA cores' roof of the same work, and, as
+``bf16_ms``, ``bf16_bound_ms`` and ``bf16_library_ms``, the bf16 kernel
+(``bf16_kernel``) at Hymba-1.5B's.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -99,6 +101,17 @@ VS_ROWS, VS_PROMPT, VS_STEPS = 2, 32, 8     # serve_cpu_vs_cuda
 HYMBA = "hymba-1.5b"
 SCAN_CHUNK = 128                            # models/ssm.MAMBA_CHUNK
 SCAN_TIMED = [(PREFILL_B, SCAN_CHUNK, 1600, 16), (1, 4096, 1600, 16)]
+
+# B4 f32 at the other head dims it takes, causal S=4096 (B, S, H, Hkv, D):
+# LLaVA-NeXT-Mistral-7B's heads and Gemma-7B's; no served model uses them.
+FLASH_HEAD_DIMS = [(2, 4096, 32, 8, 128), (1, 4096, 16, 16, 256)]
+# B4 f32 over long rows: one KV group of SmolLM-360M's heads, causal.  The
+# tensor cores truncate their f32 sums, so one mma chain over a row grows
+# its error with the row; the f32 kernel sums each key tile's P V on its
+# own.  Max |err| on the H100: 1.8e-6 summed per tile, 8.5e-6 on one chain
+# (PERF.md §6); LONG_ROW_MAX_ERR lies between and fails the latter.
+LONG_ROW = (1, 16384, 16384, 3, 1, 64)
+LONG_ROW_MAX_ERR = 4e-6
 HYMBA_VS_ROWS, HYMBA_VS_PROMPT = 2, 160     # crosses one chunk, padded
 HYMBA_VS_DECODE, HYMBA_VS_STEPS = 16, 8     # decode: prompt + greedy steps
 
@@ -539,6 +552,28 @@ def build_kernels(report):
     log(f"build: {len(libs)} libraries in {report['build_s']:.1f} s")
 
 
+def dispatch_tiles(fn: str) -> dict:
+    """{head dim: template arguments} of the kernels that ``fn``
+    (``dispatch_f32`` or ``dispatch_bf16`` in ``flash_attention.cu``)
+    launches, read from its ``case D: return launch_...<D, ...>`` lines."""
+    src = (ROOT / CSRC / "flash_attention.cu").read_text()
+    body = src[src.index(f"cudaError_t {fn}("):]
+    body = body[:body.index("\n}\n")]
+    return {int(d): tuple(int(x) for x in args.split(","))
+            for d, args in re.findall(
+                r"case (\d+):\s*return launch_\w+<([\d, ]+)>", body)}
+
+
+def kernel_label(report, fn: str, D: int) -> str:
+    """The ptxas label (``name<args>``, see :func:`build_kernels`) of the
+    kernel that ``fn`` launches at head dim ``D``."""
+    args = "<" + ",".join(map(str, dispatch_tiles(fn)[D])) + ">"
+    hits = [label for label in report["ptxas"] if label.endswith(args)]
+    if len(hits) != 1:
+        raise AssertionError(f"{fn} at D={D}: ptxas labels {hits} for {args}")
+    return hits[0]
+
+
 def _counted_modules():
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
@@ -736,6 +771,56 @@ def check_attention(report):
         f"|err| {max(r['max_abs_err'] for r in f32):.3e}, worst excess over "
         f"attn_tol {worst['worst_excess']:.3e} at {worst['shape']}")
     return errs
+
+
+def check_long_row(report):
+    """B4 f32 over ``LONG_ROW`` (causal) against its plain version: within
+    ``attn_tol`` and, over the whole output, max |err| at most
+    ``LONG_ROW_MAX_ERR``.  Returns the max |err|."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+
+    B, S, _, H, Hkv, D = LONG_ROW
+    q, k, v = _attn_inputs(*LONG_ROW, torch.float32, seed=300)
+    got = fa_k.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    excess = float(((got - want).abs() - attn_tol(want)).max())
+    del q, k, v, want
+    tag = f"B={B} S={S} H={H}/{Hkv} D={D} causal f32"
+    report["long_row"] = dict(shape=tag, max_abs_err=err, worst_excess=excess)
+    log(f"long-row check {tag}: max |err| {err:.3e} (at most "
+        f"{LONG_ROW_MAX_ERR:.0e}), worst excess over attn_tol {excess:.3e}")
+    if not (bool(torch.isfinite(got).all()) and excess <= 0
+            and err <= LONG_ROW_MAX_ERR):
+        raise AssertionError(f"flash_attention {tag}: max |err| {err:.3e}, "
+                             f"worst excess over attn_tol {excess:.3e}")
+    return err
+
+
+def time_head_dims(report):
+    """B4 f32 at ``FLASH_HEAD_DIMS``: device ms beside the 3xTF32 bound.
+    Uses only the wrapper's public call, so the same function times
+    another checkout's package (put this file at that checkout's root)."""
+    from repro_torch.kernels import flash_attention as fa_k
+
+    cpm = sleep_cycles_per_ms()
+    rows = []
+    for i, (B, S, H, Hkv, D) in enumerate(FLASH_HEAD_DIMS):
+        q, k, v = _attn_inputs(B, S, S, H, Hkv, D, torch.float32,
+                               seed=400 + i)
+        row = dict(shape=f"B={B} S={S} H={H}/{Hkv} D={D} f32 causal",
+                   ms=device_ms(lambda: fa_k.flash_attention(q, k, v), cpm,
+                                reps=10, inner=3))
+        row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
+        rows.append(row)
+        log(f"time flash_attention  {row['shape']}: kernel_ms="
+            f"{row['ms']:.6f} bound_ms={row['bound_ms']:.6f} "
+            f"({row['bound_by']})")
+        del q, k, v
+    report["flash_head_dims"] = rows
+    return rows
 
 
 def time_attention(report):
@@ -1292,6 +1377,9 @@ def main() -> int:
 
     t_start = time.perf_counter()
     build_kernels(report)
+    # B4's kernels at head dim 64, as dispatched: name and tiles
+    b4 = {fn: kernel_label(report, fn, 64)
+          for fn in ("dispatch_f32", "dispatch_bf16")}
 
     from repro_torch.configs import MLP_H24
     from repro_torch.models.forecasting import init_forecaster
@@ -1316,7 +1404,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     errs = check_attention(report)
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  check_long_row(report))
     times = time_attention(report)
+    time_head_dims(report)
     cfg, params = serve_model(ARCH)
     launches = dict(prefill_run(cfg, params, report))
     for name, n in generate_run(cfg, params, report).items():
@@ -1359,9 +1450,10 @@ def main() -> int:
     # prefill); the bf16 one's at Hymba-1.5B's prefill shape
     hb = times_hymba["flash_attention"]
     next(k for k in kernels if k["name"] == "flash_attention").update(
-        f32_kernel="flash_fwd_tf32x3",
+        f32_kernel=b4["dispatch_f32"],
         simt_bound_ms=times["flash_attention"]["simt_bound_ms"],
-        bf16_kernel="flash_fwd_bf16", bf16_ms=hb["ms"],
+        bf16_kernel=b4["dispatch_bf16"],
+        bf16_ms=hb["ms"],
         bf16_bound_ms=hb["bound_ms"], bf16_library_ms=hb["library_ms"])
     kernels.append(dict(
         name="ssm_scan", route="cuda", source=f"{CSRC}/ssm_scan.cu",

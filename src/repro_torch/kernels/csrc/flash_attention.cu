@@ -34,8 +34,12 @@
 //    chunks it copied itself (visible to it after cp.async.wait_group, so
 //    no extra barrier), hi in place and lo into a second array.  Split per
 //    fragment in registers, every warp repeated the work, and the splits
-//    took ~40 % of the kernel's time (PERF.md §6); the price is 1.5x the
-//    K/V shared memory.  At D=64 Q's staging space is the lo arrays'.
+//    took ~40 % of the kernel's time: at D=64, tiles (64, 64), B=4,
+//    S=4096, 15/5 heads, causal, 3.28 ms against 1.94 ms for a copy that
+//    issued the same mma's with no split instructions (H100 80GB HBM3,
+//    700 W; PERF.md §6, "Every variant timed"; the probe copies are not in
+//    the repo).  The price is 1.5x the K/V shared memory.  At D=64 Q's
+//    staging space is the lo arrays'.
 //  * Tiles (BQ, BK): D=64 (128, 64), D=128 (128, 32), D=256 (64, 16), 16
 //    query rows per warp; at each, one block of 8 or 4 warps per SM (by
 //    registers or shared memory).
@@ -43,13 +47,14 @@
 //    the A fragment wants t, t + 4, so the keys of a k-step are relabeled
 //    and V is read at keys 2t, 2t + 1.
 //  * Per k-step of each product, the cross terms of every accumulator go
-//    first, then hi*hi.  The tensor cores truncate their f32 sums: at D=64
-//    and 128 each key tile's P V is summed in registers of its own and
-//    added to the output by one rounded f32 add, since one mma chain over
-//    the whole row grew its error with the row's length (PERF.md §6); at
-//    D=256 those registers spill, and P V goes straight into the output.
-//    Softmax, corrections and acc / l stay f32, with expf(s - m) (the
-//    build keeps -fmad=false).
+//    first, then hi*hi.  The tensor cores truncate their f32 sums, so each
+//    key tile's P V is summed in registers of its own and added to the
+//    output by one rounded f32 add: one mma chain over the whole row grew
+//    its error with the row's length (PERF.md §6; chip_smoke.py's
+//    long-row check fails on it).  At D=256 those registers spill
+//    (ptxas: 255 registers, 356 bytes of spill stores).  Softmax,
+//    corrections and acc / l stay f32, with expf(s - m) (the build keeps
+//    -fmad=false).
 //
 // bfloat16: `flash_fwd_bf16`, tensor cores; the roof is 989 TFLOP/s of
 // bf16 mma.  The same grid, GQA reads, tile skipping and heaviest-first
@@ -539,9 +544,6 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NS = BK / 8;   // 8-key column tiles of S = k-steps of P V
   constexpr int NO = D / 8;    // 8-wide column tiles of the output
   constexpr int NG = 8;        // output tiles per V pass
-  // Each key tile's P V is summed in registers of its own, then added to
-  // acc in f32; at D=256 those registers spill, and P V goes into acc.
-  constexpr bool kTileSum = D <= 128;
   constexpr bool kQReg = Tile::kQReg;  // Q's halves stay in registers
   static_assert(BQ % 16 == 0 && BK % 16 == 0 && D % 64 == 0 &&
                 (!kQReg || BQ <= 2 * BK), "tile shape");
@@ -761,14 +763,14 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     // key 2t and slot t + 4 is key 2t + 1: P's A fragment is (s0, s2, s1,
     // s3) with no shuffle, and V's B fragment is read at keys 2t, 2t + 1.
     // By groups of NG output tiles, P split again per group; the tile's
-    // products go to pv and then to acc where kTileSum (see the header).
+    // products are summed in pv, then added to acc in f32 (see the header).
     const float* vh_s = Vs + stage * BK * DP + v_off;
     const float* vl_s = Vl + v_off;
 #pragma unroll
     for (int n0 = 0; n0 < NO; n0 += NG) {
-      float pv[kTileSum ? NG : 1][4];
+      float pv[NG][4];
 #pragma unroll
-      for (int n = 0; n < (kTileSum ? NG : 1); ++n)
+      for (int n = 0; n < NG; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
 #pragma unroll
@@ -793,17 +795,13 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
           for (int n = 0; n < NG; ++n) {
             const uint32_t (&a)[4] = pass == 0 ? pl : ph;
             const uint32_t (&bb)[2] = pass == 1 ? vl[n] : vh[n];
-            mma1688(kTileSum ? pv[kTileSum ? n : 0] : acc[n0 + n], a, bb[0],
-                    bb[1]);
+            mma1688(pv[n], a, bb[0], bb[1]);
           }
       }
-      if (kTileSum) {
 #pragma unroll
-        for (int n = 0; n < NG; ++n)
+      for (int n = 0; n < NG; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[n0 + n][i] += pv[kTileSum ? n : 0][i];
-      }
+        for (int i = 0; i < 4; ++i) acc[n0 + n][i] += pv[n][i];
     }
     __syncthreads();  // this tile is read: the next split and the
                       // next-but-one load reuse its space
@@ -843,7 +841,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // The f32 tiles <D, BQ, BK> by head dim (BQ / 16 warps); PERF.md §6 has
-// what the alternatives measured.
+// what the alternatives measured.  tests/test_torch_flash_tf32.py (the
+// recipe's keys per tile) and chip_smoke.py (the kernel's ptxas label)
+// read the tiles from these case lines: keep one `launch_f32<D, BQ, BK>`
+// per case.
 cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v,
                          void* o, int B, int Sq, int Sk, int H, int Hkv,
                          int causal, int window, float scale,

@@ -13,8 +13,7 @@ repeats its arithmetic here in PyTorch:
   sum: the cross terms first, ``lo lo`` dropped;
 * the online softmax over key tiles of the kernel's BK, ``expf(s - m)``;
 * each key tile's P V the same way, P split like the other operands, by
-  k-steps of 8 keys, summed on its own and then added to the output in f32
-  at D <= 128 (at D=256 the kernel adds it to the output's sum directly);
+  k-steps of 8 keys, summed on its own and then added to the output in f32;
 * ``acc / l`` in f32.
 
 The tests hold it to the plain version ``ref.flash_attention_ref`` within
@@ -38,7 +37,19 @@ import torch
 
 from repro_torch.kernels import ref
 
-KERNEL_BK = {64: 64, 128: 32, 256: 16}     # keys per tile, by head dim
+
+def _load_chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = _load_chip_smoke()
+# keys per tile by head dim, as the kernel's dispatch_f32 launches it
+KERNEL_BK = {D: args[2]
+             for D, args in chip_smoke.dispatch_tiles("dispatch_f32").items()}
 K_STEP = 8                                 # the depth of mma m16n8k8
 
 # (B, Sq, Sk, H, Hkv, D, causal, window); the cases of
@@ -118,9 +129,10 @@ def kernel_recipe(q, k, v, causal: bool, window: int, bk: int,
         corr = torch.exp(m - m_use)
         p = torch.exp(s - m_use[..., None])
         l = l * corr + p.sum(-1)
-        pv = lambda a: mma_sum(a, "bkgqs,bskd->bkgqd", p, vt, 4, 1, split_ops)
-        acc = acc * corr[..., None]
-        acc = acc + pv(torch.zeros_like(acc)) if D <= 128 else pv(acc)
+        # this key tile's P V on its own, then added to the output
+        pv = mma_sum(torch.zeros_like(acc), "bkgqs,bskd->bkgqd", p, vt, 4, 1,
+                     split_ops)
+        acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
@@ -174,14 +186,18 @@ def test_one_tf32_product_does_not_hold_the_kernel_bound():
 
 def test_bound_is_attn_tol():
     """The bound here is ``chip_smoke.py::attn_tol``'s for f32."""
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
     got, want = run_case("ragged-s77", split_ops=False)
     torch.testing.assert_close(
         excess(got, want), (got - want).abs() - chip_smoke.attn_tol(want),
         rtol=0, atol=0)
+
+
+def test_kernel_tiles_read_from_the_dispatch():
+    """Every head dim of the cases has the kernel's keys per tile, a whole
+    number of mma k-steps, read from ``dispatch_f32``'s launches."""
+    assert set(KERNEL_BK) == {64, 128, 256}
+    assert {c[5] for c in CASES.values()} <= set(KERNEL_BK)
+    assert all(bk % K_STEP == 0 for bk in KERNEL_BK.values())
 
 
 if __name__ == "__main__":
