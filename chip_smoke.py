@@ -10,7 +10,8 @@ in ``sign_agg.cu``, prefill attention B4 in ``flash_attention.cu`` --
 two kernels by dtype, both on the tensor cores: f32 by 3xTF32
 (``flash_fwd_tf32x3``) and bf16 (``flash_fwd_bf16``), whose registers and
 spills per head dim are printed --, decode attention
-B5 in ``decode_attention.cu``, the Mamba selective scan B6 in
+B5 in ``decode_attention.cu`` -- one kernel, ``decode_cluster``, one
+cluster launch per call --, the Mamba selective scan B6 in
 ``ssm_scan.cu``).
 
 Training path (B1-B3): holds each kernel against its plain PyTorch
@@ -28,10 +29,11 @@ lengths, the full-width SmolLM-360M shapes; abs/rel 3e-5 in f32, one
 bf16 rounding of the output in bf16: see ``attn_tol``), and B4 f32 over
 16,384-key rows within a stated max |err| (``LONG_ROW``); times them at
 full width beside their bound, the plain version and PyTorch's
-``scaled_dot_product_attention``, and B4 f32 at head dims 128 and 256;
-runs a full-width SmolLM-360M prefill step (B=4, S=4096: 32 B4 launches)
-and a ``ServeEngine.generate`` of 8 requests (32 B5 calls per step, each
-one launch or two with the combine pass), counting launches; and runs
+``scaled_dot_product_attention`` (B5 at B=8 x 4096 and at the serving
+lengths), and B4 f32 at head dims 128 and 256; runs a full-width
+SmolLM-360M prefill step (B=4, S=4096: 32 B4 launches) and a
+``ServeEngine.generate`` of 8 requests (32 B5 calls per step, one launch
+each: 9,216 in 288 steps), counting launches; and runs
 the same weights on the CPU and on the card through a prefill step and
 40 decode steps and compares the logits and the greedy tokens.
 
@@ -56,7 +58,10 @@ ptxas label: name and tiles at head dim 64) at SmolLM-360M's prefill
 shape, with ``bound_ms`` its 3xTF32 tensor-core roof and
 ``simt_bound_ms`` the f32 CUDA cores' roof of the same work, and, as
 ``bf16_ms``, ``bf16_bound_ms`` and ``bf16_library_ms``, the bf16 kernel
-(``bf16_kernel``) at Hymba-1.5B's.
+(``bf16_kernel``) at Hymba-1.5B's.  Its ``decode_attention`` entry gives
+B5 at B=8 x 4096 valid positions (f32), then as ``serving_*`` at
+SmolLM-360M's serving shape (f32) and as ``bf16_*`` at Hymba-1.5B's, with
+``ptxas``: registers and spills of the two instances those launch.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -94,6 +99,7 @@ PREFILL_B, PREFILL_S = 4, 4096              # one full-width prefill step
 DECODE_B, DECODE_L = 8, 4096                # B5 timed at this cache
 SERVE_REQUESTS, SERVE_PROMPT = 8, (16, 256)  # prompt lengths drawn in range
 SERVE_MAX_NEW, SERVE_CACHE = 32, 512
+SERVE_LENS = [16, 40, 100, 200, 256, 300, 400, 512]   # B5's serving rows
 VS_ROWS, VS_PROMPT, VS_STEPS = 2, 32, 8     # serve_cpu_vs_cuda
 
 # The Hymba path: Hymba-1.5B at full width (configs/hymba_1_5b.py), the
@@ -510,9 +516,10 @@ def _to_numpy(tree):
 
 
 def _kernel_label(mangled):
-    """``flash_fwd_bf16<64,128,64,4>`` from a mangled kernel name: its
-    last (nested) name and its integer template arguments; an unmangled
-    name as it is."""
+    """``flash_fwd_bf16<64,128,64,4>`` or ``decode_cluster<64,bf16,5>`` from
+    a mangled kernel name: its last (nested) name and its template
+    arguments (integers, ``float``, ``bf16``); an unmangled name as it
+    is."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     names = []
     while rest[:1].isdigit():
@@ -522,7 +529,20 @@ def _kernel_label(mangled):
         rest = rest[end:]
     if not names:
         return mangled
-    args = re.findall(r"Li(\d+)E", rest) if rest.startswith("I") else []
+    args, i = [], 1
+    while rest.startswith("I") and i < len(rest) and rest[i] != "E":
+        if rest.startswith("Li", i):
+            j = rest.index("E", i)
+            args.append(rest[i + 2:j])
+            i = j + 1
+        elif rest[i].isdigit():
+            digits = re.match(r"\d+", rest[i:]).group()
+            name = rest[i + len(digits):i + len(digits) + int(digits)]
+            args.append("bf16" if name == "__nv_bfloat16" else name)
+            i += len(digits) + int(digits)
+        else:
+            args.append({"f": "float", "i": "int"}.get(rest[i], rest[i]))
+            i += 1
     return names[-1] + (f"<{','.join(args)}>" if args else "")
 
 
@@ -744,12 +764,10 @@ def check_attention(report):
               [(256, 4, 2, 64), (512, 8, 8, 128), (1024, 2, 1, 64)]]
     decode += [(3, 777, 15, 5, 64, [1, 388, 777]),      # odd cache
                (2, 300, 16, 16, 256, [300, 17]),
-               (DECODE_B, SERVE_CACHE, 15, 5, 64,
-                [16, 40, 100, 200, 256, 300, 400, 512]),
+               (DECODE_B, SERVE_CACHE, 15, 5, 64, SERVE_LENS),
                (DECODE_B, DECODE_L, 15, 5, 64, [DECODE_L] * DECODE_B),
                (3, 777, 25, 5, 64, [1, 388, 777]),      # Hymba's heads
-               (DECODE_B, SERVE_CACHE, 25, 5, 64,
-                [16, 40, 100, 200, 256, 300, 400, 512])]
+               (DECODE_B, SERVE_CACHE, 25, 5, 64, SERVE_LENS)]
     for i, (B, L, H, Hkv, D, lens) in enumerate(decode):
         for dt in (torch.float32, torch.bfloat16):
             _, k, v = _attn_inputs(B, 1, L, H, Hkv, D, dt, seed=100 + i)
@@ -823,13 +841,52 @@ def time_head_dims(report):
     return rows
 
 
-def time_attention(report):
-    """B4 and B5 at the full-width shapes: device ms of the kernel, of the
-    plain version and of PyTorch's SDPA (``library_ms``: one call with
-    ``enable_gqa=True`` on the same inputs; ``library_expanded_ms``: on
-    K/V expanded to H heads beforehand, which lets SDPA pick a backend
-    without GQA support), and the bound."""
+def time_decode(H, dtype, lens, L, seed, cpm):
+    """B5 at (B=len(lens), L, H/5 heads, D=64) with valid ``lens``: device
+    ms of the kernel, of the plain version and of SDPA (``library_ms``,
+    ``enable_gqa``; ``library_expanded_ms`` on K/V expanded to H heads),
+    host-inclusive ``call_ms``, and the bound."""
     from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import ref
+
+    B, Hkv = len(lens), 5
+    _, k, v = _attn_inputs(B, 1, L, H, Hkv, 64, dtype, seed=seed)
+    q = _attn_inputs(B, 1, 1, H, Hkv, 64, dtype,
+                     seed=seed + 1)[0][:, 0].contiguous()
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < length[:, None])[:, None, None, :]
+    kx, vx = expand_heads(k, H), expand_heads(v, H)
+    plain = ref.decode_attention_ref(q, k, v, length)
+    kernel = lambda: dec_k.decode_attention(q, k, v, length)
+    valid = "(all valid)" if lens == [L] * B else f"length={lens}"
+    row = dict(shape=f"B={B} L={L} {valid} H={H}/{Hkv} D=64 "
+                     f"{str(dtype).split('.')[-1]}",
+               ms=device_ms(kernel, cpm),
+               launches_per_call=dec_k.launches_per_call(
+                   B, Hkv, L,
+                   torch.cuda.get_device_properties(0).multi_processor_count),
+               plain_ms=device_ms(lambda: ref.decode_attention_ref(
+                   q, k, v, length), cpm, reps=10, inner=3),
+               library_ms=device_ms(lambda: sdpa_decode(q, k, v, mask), cpm),
+               call_ms=call_ms(kernel),
+               library_max_abs_err=max_abs_err(sdpa_decode(q, k, v, mask),
+                                               plain),
+               library_expanded_ms=device_ms(
+                   lambda: sdpa_decode(q, kx, vx, mask), cpm),
+               library_expanded_max_abs_err=max_abs_err(
+                   sdpa_decode(q, kx, vx, mask), plain))
+    row["bound_ms"], row["bound_by"] = decode_bound(q, k, length)
+    return row
+
+
+def time_attention(report):
+    """B4 and B5 at SmolLM-360M's full-width shapes (B5 at B=8 x 4096
+    valid positions and at the serving lengths in a 512 cache): device ms
+    of the kernel, of the plain version and of PyTorch's SDPA
+    (``library_ms``: one call with ``enable_gqa=True`` on the same inputs;
+    ``library_expanded_ms``: on K/V expanded to H heads beforehand, which
+    lets SDPA pick a backend without GQA support), and the bound."""
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import ref
 
@@ -859,40 +916,12 @@ def time_attention(report):
     row["simt_bound_ms"] = flash_flops(q, k, True, 0) / F32_FLOPS_PER_S * 1e3
     out["flash_attention"] = row
     del q, k, v, kx, vx
-    _, k, v = _attn_inputs(DECODE_B, 1, DECODE_L, 15, 5, 64, torch.float32,
-                           seed=8)
-    q = _attn_inputs(DECODE_B, 1, 1, 15, 5, 64, torch.float32,
-                     seed=9)[0][:, 0].contiguous()
-    length = torch.full((DECODE_B,), DECODE_L, dtype=torch.int32,
-                        device="cuda")
-    mask = (torch.arange(DECODE_L, device="cuda")[None, :]
-            < length[:, None])[:, None, None, :]
-    lib_err = max_abs_err(sdpa_decode(q, k, v, mask),
-                          ref.decode_attention_ref(q, k, v, length))
-    kx, vx = expand_heads(k, 15), expand_heads(v, 15)
-    row = dict(shape=f"B={DECODE_B} L={DECODE_L} (all valid) H=15/5 D=64 "
-                     "f32",
-               ms=device_ms(lambda: dec_k.decode_attention(q, k, v, length),
-                            cpm),
-               launches_per_call=dec_k.launches_per_call(
-                   DECODE_B, 5, DECODE_L,
-                   torch.cuda.get_device_properties(0).multi_processor_count),
-               plain_ms=device_ms(lambda: ref.decode_attention_ref(
-                   q, k, v, length), cpm, reps=10, inner=3),
-               library_ms=device_ms(lambda: sdpa_decode(q, k, v, mask), cpm),
-               call_ms=call_ms(lambda: dec_k.decode_attention(q, k, v,
-                                                              length)),
-               library_max_abs_err=lib_err,
-               library_expanded_ms=device_ms(
-                   lambda: sdpa_decode(q, kx, vx, mask), cpm),
-               library_expanded_max_abs_err=max_abs_err(
-                   sdpa_decode(q, kx, vx, mask),
-                   ref.decode_attention_ref(q, k, v, length)))
-    row["bound_ms"], row["bound_by"] = decode_bound(q, k, length)
-    out["decode_attention"] = row
-    del q, k, v, kx, vx
+    out["decode_attention"] = time_decode(
+        15, torch.float32, [DECODE_L] * DECODE_B, DECODE_L, 8, cpm)
+    out["decode_attention_serving"] = time_decode(
+        15, torch.float32, SERVE_LENS, SERVE_CACHE, 10, cpm)
     for name, r in out.items():
-        log(f"time {name:18s} {r['shape']}: kernel_ms={r['ms']:.6f} "
+        log(f"time {name:24s} {r['shape']}: kernel_ms={r['ms']:.6f} "
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
             f"plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']:.6f} "
             f"(SDPA enable_gqa, max |err| vs plain "
@@ -1093,7 +1122,6 @@ def time_attention_hymba(report):
     step's (B=4, S=4096, causal) and its generate's (B=8, cache 512 at
     the serving lengths): kernel, plain version, SDPA (``enable_gqa``) and
     bound, device ms."""
-    from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import ref
 
@@ -1112,25 +1140,8 @@ def time_attention_hymba(report):
     row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
     out["flash_attention"] = row
     del q, k, v
-    lens = [16, 40, 100, 200, 256, 300, 400, 512]
-    _, k, v = _attn_inputs(DECODE_B, 1, SERVE_CACHE, 25, 5, 64, bf, seed=18)
-    q = _attn_inputs(DECODE_B, 1, 1, 25, 5, 64, bf, seed=19)[0][:, 0]
-    q = q.contiguous()
-    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(SERVE_CACHE, device="cuda")[None, :]
-            < length[:, None])[:, None, None, :]
-    row = dict(shape=f"B={DECODE_B} L={SERVE_CACHE} length={lens} H=25/5 "
-                     "D=64 bf16",
-               ms=device_ms(lambda: dec_k.decode_attention(q, k, v, length),
-                            cpm),
-               launches_per_call=dec_k.launches_per_call(
-                   DECODE_B, 5, SERVE_CACHE,
-                   torch.cuda.get_device_properties(0).multi_processor_count),
-               plain_ms=device_ms(lambda: ref.decode_attention_ref(
-                   q, k, v, length), cpm, reps=10, inner=3),
-               library_ms=device_ms(lambda: sdpa_decode(q, k, v, mask), cpm))
-    row["bound_ms"], row["bound_by"] = decode_bound(q, k, length)
-    out["decode_attention"] = row
+    out["decode_attention"] = time_decode(25, bf, SERVE_LENS, SERVE_CACHE,
+                                          18, cpm)
     for name, r in out.items():
         log(f"time {name:18s} hymba {r['shape']}: kernel_ms={r['ms']:.6f} "
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
@@ -1380,6 +1391,10 @@ def main() -> int:
     # B4's kernels at head dim 64, as dispatched: name and tiles
     b4 = {fn: kernel_label(report, fn, 64)
           for fn in ("dispatch_f32", "dispatch_bf16")}
+    # B5's instances on the serving path: D=64, SmolLM-360M's 3 query heads
+    # per KV head in f32, Hymba-1.5B's 5 in bf16
+    b5 = {label: report["ptxas"][label] for label in
+          ("decode_cluster<64,float,3>", "decode_cluster<64,bf16,5>")}
 
     from repro_torch.configs import MLP_H24
     from repro_torch.models.forecasting import init_forecaster
@@ -1446,6 +1461,16 @@ def main() -> int:
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+    # B5: the fields above are at B=8 x 4096 valid positions (f32); the
+    # serving rows of SmolLM-360M (f32) and Hymba-1.5B (bf16), and ptxas's
+    # registers and spills of the instances they launch
+    sv, hd = times["decode_attention_serving"], times_hymba["decode_attention"]
+    next(k for k in kernels if k["name"] == "decode_attention").update(
+        kernel="decode_cluster<D,T,GP>", ptxas=b5,
+        serving_ms=sv["ms"], serving_bound_ms=sv["bound_ms"],
+        serving_plain_ms=sv["plain_ms"], serving_library_ms=sv["library_ms"],
+        bf16_ms=hd["ms"], bf16_bound_ms=hd["bound_ms"],
+        bf16_plain_ms=hd["plain_ms"], bf16_library_ms=hd["library_ms"])
     # B4's two kernels: the fields above are the f32 one's (SmolLM-360M's
     # prefill); the bf16 one's at Hymba-1.5B's prefill shape
     hb = times_hymba["flash_attention"]

@@ -7,55 +7,109 @@
 //
 // What bounds it on the H100: bytes.  Each valid cache position is read
 // once (K and V: 2 * Hkv * D elements per position and row) for about one
-// flop per byte, against a ridge of ~20 flop/byte; the roof is 3.35 TB/s.
+// flop per byte, against a ridge of ~20 flop/byte; the roof is the valid
+// K/V over 3.35 TB/s.  At the serving shapes (B=8, cache 512) that roof is
+// under a microsecond, so what the call costs besides the bytes -- launches,
+// syncs, exposed load latency -- is what the design cuts:
 //
-// What the design does about it:
-//  * The cache is read in the model's layout (B, L, Hkv, D) directly, and
-//    nothing at or past length[b] is read.
-//  * One block serves a KV head's whole query-head group (G = H / Hkv),
-//    so each cache position is read from memory once, not G times.
-//  * Split-L (flash-decoding): one (batch, KV head) pair is far too little
-//    parallelism for 132 SMs (SmolLM at batch 8 has 40 such pairs), so the
-//    cache is cut into n_split ranges of `split_len` positions, one block
-//    each; the wrapper picks split_len so that about four blocks per SM
-//    are in flight.  Each block writes its partial (m, l, acc) to a scratch
-//    buffer and a second, tiny kernel merges the splits per (row, head).
-//    With n_split == 1 the first kernel writes the output itself.
-//  * Inside a block, 64-position chunks of K and V are staged in shared
-//    memory with 16-byte coalesced loads; scores (G x 64), the per-head
-//    online softmax and the accumulator (G x D, in shared memory) are
-//    computed from there, so G is a runtime value and no register array
-//    depends on it.
-//  * f32 math throughout (explicit fmaf); bf16 caches are widened when
-//    staged and the output rounded once.
+//  * One launch per call.  The cache is cut into n_split <= 8 ranges of
+//    `split_len` positions (flash-decoding: one (row, KV head) pair is far
+//    too little work for 132 SMs), one block each, and the n_split blocks
+//    of one (row, KV head) pair form one thread-block cluster.  Each block
+//    leaves its split's partial (m, l, acc) in its own shared memory; after
+//    cluster.sync() each block merges a fixed share of the G x D outputs
+//    from every peer's partials, read in rank order through distributed
+//    shared memory, and writes them.  No second kernel, no global scratch,
+//    no per-call allocation; the fixed merge order makes two calls on the
+//    same inputs agree bit for bit.
+//  * Splits sized on the cluster, and empty splits cost nothing but their
+//    syncs: a split past length[b] reads no K or V and weighs 0 in the
+//    merge (m = -inf, l = 0).  Nothing at or past length[b] is read.
+//  * Loads in flight, state in registers.  Q for the group is held in
+//    registers, pre-scaled, in f32.  A lane reads 16 bytes of one key (8
+//    bf16 or 4 f32), so a warp reads 32 / kLanes keys per load, and each
+//    key's dot product is summed by __shfl_xor_sync within its lane group.
+//    K and V go straight into registers, kSteps loads of each outstanding
+//    per lane: every byte is used by one lane only, so staging through
+//    shared memory would add a store, a load and a barrier per byte with no
+//    reuse to gain.  The online softmax (m, l) and the lane's slice of acc
+//    live in registers per query head; lane groups merge by shuffles and
+//    warps once through shared memory, at the end of the split.
+//  * One block serves a KV head's whole query-head group, so each cache
+//    position is read once, not G times.  Register arrays need a
+//    compile-time width, so the group runs in passes of GP <= 8 heads (GP =
+//    G when G <= 8); a short last pass recomputes its last head rather
+//    than branch in the inner loop, and stores it once.
+//  * f32 math throughout (explicit fmaf in the dot products and the
+//    accumulator, exponentials by ex2.approx in log2 units); bf16 caches
+//    are widened in registers and the output is rounded once.
+//  * Registers bound the blocks per SM, and a serving call's 320 blocks
+//    need three per SM to run in one wave: ptxas is asked for three where
+//    a pass's registers allow it (Tile::min_blocks).  ptxas (sm_90a, -O3,
+//    chip_smoke.py prints every instance at build): the serving instances
+//    decode_cluster<64, float, 3> (SmolLM-360M) 121 registers and
+//    <64, bf16, 5> (Hymba-1.5B) 168, no spills.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kChunk = 64;     // cache positions staged per iteration
 constexpr int kWarps = kThreads / 32;
+constexpr int kSteps = 4;       // key loads of K and of V in flight per lane
+constexpr int kMaxSplits = 8;   // the portable cluster size
+constexpr int kMaxGroup = 8;    // query heads per pass
 
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+// Per (D, T): a lane reads kVec elements (16 bytes) per load, kLanes lanes
+// share one key, each lane holds kEl of its D columns (kNv loads per key),
+// and a warp reads kKeys keys per load.
+template <int D, typename T>
+struct Tile {
+  static constexpr int kVec = 16 / int(sizeof(T));
+  static constexpr int kLanes = D / kVec < 32 ? D / kVec : 32;
+  static constexpr int kNv = D / (kVec * kLanes);
+  static constexpr int kEl = kNv * kVec;
+  static constexpr int kKeys = 32 / kLanes;
+  // Blocks per SM asked of ptxas: 3 (at most 168 registers a thread) where
+  // the registers a pass of GP heads holds across a batch -- q, acc, m, l
+  // and the scores per head, the raw K and V loads -- leave room for that,
+  // so the 320 blocks of a serving call run in one wave; else 1 (no cap).
+  static constexpr int min_blocks(int GP) {
+    return GP * (2 * kEl + 2 + kSteps) + kSteps * kNv * 8 <= 150 ? 3 : 1;
+  }
+};
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+template <typename T>
+__device__ __forceinline__ void widen(const uint4& raw, float* out);
+
+template <>
+__device__ __forceinline__ void widen<float>(const uint4& raw, float* out) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
 }
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+template <>
+__device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& raw,
+                                                     float* out) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
 }
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
@@ -63,215 +117,295 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// 2^x by the SFU's ex2.approx (relative error ~2^-22, far inside attn_tol's
+// 3e-5; exp2f adds range handling that costs registers and time here).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// Weight of a partial with max m in a merge whose max is M (both in log2
+// units); an empty partial (m = -inf) weighs 0, also when every partial
+// is empty.
+__device__ __forceinline__ float weight(float m, float M) {
+  return m == -INFINITY ? 0.f : ex2(m - M);
 }
 
-template <int D>
-size_t smem_bytes(int G) {
-  return sizeof(float) * (size_t(kChunk) * (D + 1) + size_t(kChunk) * D +
-                          2 * size_t(G) * D + size_t(G) * kChunk +
-                          3 * size_t(G));
-}
+// grid (n_split, Hkv, B), cluster (n_split, 1, 1), kThreads threads.
+// q, out: (B, H, D); k, v: (B, L, Hkv, D); G = H / Hkv query heads per KV
+// head, in passes of GP.
+template <int D, typename T, int GP>
+__global__ void __launch_bounds__(kThreads, Tile<D, T>::min_blocks(GP))
+decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const int* __restrict__ length,
+               T* __restrict__ out, int L, int H, int Hkv, int split_len,
+               float scale) {
+  using S = Tile<D, T>;
+  constexpr int kEl = S::kEl, kNv = S::kNv, kVec = S::kVec;
+  constexpr int kLanes = S::kLanes, kKeys = S::kKeys;
+  constexpr int kSpan = kSteps * kWarps * kKeys;   // keys per block batch
 
-// grid (n_split, Hkv, B).  q, out: (B, H, D); k, v: (B, L, Hkv, D).
-// part_acc: (B, H, n_split, D) and part_ml: (B, H, n_split, 2) f32 when
-// n_split > 1 (the split's unnormalised acc, and its m and l).
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_split(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ length,
-             T* __restrict__ out, float* __restrict__ part_acc,
-             float* __restrict__ part_ml, int L, int H, int Hkv,
-             int split_len, float scale) {
-  const int G = H / Hkv;
-  const int split = blockIdx.x, n_split = gridDim.x;
+  // warp partials; warp 0's acc slot then holds the block's (the split's)
+  __shared__ float ws_m[kWarps][GP], ws_l[kWarps][GP];
+  __shared__ __align__(16) float ws_acc[kWarps][GP * D];
+  __shared__ float part_m[GP], part_l[GP];
+  float* part_acc = ws_acc[0];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = int(cluster.block_rank());
+  const int n_split = int(cluster.num_blocks());
   const int hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int DP = D + 1;
+  const int kg = lane / kLanes, li = lane % kLanes;
+  const int G = H / Hkv;
+  const float scale_log2 = scale * 1.4426950408889634f;   // scale * log2(e)
 
-  extern __shared__ float smem[];
-  float* Ks = smem;                 // kChunk x DP
-  float* Vs = Ks + kChunk * DP;     // kChunk x D
-  float* Qs = Vs + kChunk * D;      // G x D, pre-scaled
-  float* Acc = Qs + G * D;          // G x D
-  float* Ss = Acc + G * D;          // G x kChunk
-  float* Ms = Ss + G * kChunk;      // G running max
-  float* Ls = Ms + G;               // G running sum
-  float* Cs = Ls + G;               // G rescale of the chunk
-
-  const int len = min(length[b], L);
+  const int len = min(__ldg(length + b), L);
   const int start = split * split_len;
   const int stop = min(start + split_len, len);
-
-  const T* qb = q + ((long long)b * H + (long long)hk * G) * D;
-  for (int e = tid; e < G * D; e += kThreads) {
-    Qs[e] = load1(qb + e) * scale;
-    Acc[e] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    Ms[g] = -INFINITY;
-    Ls[g] = 0.f;
-  }
 
   const long long row = (long long)Hkv * D;
   const T* kb = k + (long long)b * L * row + (long long)hk * D;
   const T* vb = v + (long long)b * L * row + (long long)hk * D;
+  // this lane's columns: load nv covers [col(nv), col(nv) + kVec)
+  auto col = [&](int nv) { return (nv * kLanes + li) * kVec; };
 
-  for (int p0 = start; p0 < stop; p0 += kChunk) {
-    const int n = min(kChunk, stop - p0);
-    __syncthreads();  // Qs/Acc ready; the previous chunk's reads are done
-    for (int e = tid * 4; e < kChunk * D; e += kThreads * 4) {
-      const int r = e / D, c = e % D;
-      float xk[4] = {0.f, 0.f, 0.f, 0.f}, xv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < n) {
-        load4(kb + (p0 + r) * row + c, xk);
-        load4(vb + (p0 + r) * row + c, xv);
+  for (int g0 = 0; g0 < G; g0 += GP) {
+    float qr[GP][kEl], acc[GP][kEl], m[GP], l[GP];
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      const int h = hk * G + min(g0 + g, G - 1);
+      const T* qh = q + ((long long)b * H + h) * D;
+#pragma unroll
+      for (int nv = 0; nv < kNv; ++nv) {
+        widen<T>(load16(qh + col(nv)), &qr[g][nv * kVec]);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) qr[g][nv * kVec + e] *= scale_log2;
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        Ks[r * DP + c + i] = xk[i];
-        Vs[r * D + c + i] = xv[i];
+      for (int e = 0; e < kEl; ++e) acc[g][e] = 0.f;
+      m[g] = -INFINITY;
+      l[g] = 0.f;
+    }
+
+    for (int base = start; base < stop; base += kSpan) {
+      uint4 kr[kSteps][kNv], vr[kSteps][kNv];
+      bool ok[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int p = base + (u * kWarps + warp) * kKeys + kg;
+        ok[u] = p < stop;
+#pragma unroll
+        for (int nv = 0; nv < kNv; ++nv) {
+          kr[u][nv] = vr[u][nv] = make_uint4(0u, 0u, 0u, 0u);
+          if (ok[u]) {
+            kr[u][nv] = load16(kb + (long long)p * row + col(nv));
+            vr[u][nv] = load16(vb + (long long)p * row + col(nv));
+          }
+        }
+      }
+      // scores, in log2 units (q carries log2(e)), then the online softmax
+      float sc[GP][kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        float kf[kEl];
+#pragma unroll
+        for (int nv = 0; nv < kNv; ++nv) widen<T>(kr[u][nv], &kf[nv * kVec]);
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          float s = 0.f;
+#pragma unroll
+          for (int e = 0; e < kEl; ++e) s = fmaf(qr[g][e], kf[e], s);
+#pragma unroll
+          for (int o = 1; o < kLanes; o <<= 1)
+            s += __shfl_xor_sync(0xffffffffu, s, o);
+          sc[g][u] = ok[u] ? s : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        float mx = m[g];
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) mx = fmaxf(mx, sc[g][u]);
+        const float mc = mx == -INFINITY ? 0.f : mx;
+        const float corr = ex2(m[g] - mc);
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) {
+          sc[g][u] = ex2(sc[g][u] - mc);      // the key's weight p
+          sum += sc[g][u];
+        }
+        l[g] = fmaf(l[g], corr, sum);
+        m[g] = mx;
+#pragma unroll
+        for (int e = 0; e < kEl; ++e) acc[g][e] *= corr;
+      }
+      // P V, one key step at a time: one widened V live at once
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        float vf[kEl];
+#pragma unroll
+        for (int nv = 0; nv < kNv; ++nv) widen<T>(vr[u][nv], &vf[nv * kVec]);
+#pragma unroll
+        for (int g = 0; g < GP; ++g)
+#pragma unroll
+          for (int e = 0; e < kEl; ++e)
+            acc[g][e] = fmaf(sc[g][u], vf[e], acc[g][e]);
+      }
+    }
+
+    // lane groups of the warp, by shuffles (both lanes of a pair compute
+    // the same sums, so every group ends with the warp's partial)
+#pragma unroll
+    for (int o = kLanes; o < 32; o <<= 1) {
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+        const float M = fmaxf(m[g], mo);
+        const float wa = weight(m[g], M), wb = weight(mo, M);
+        l[g] = l[g] * wa + lo * wb;
+        m[g] = M;
+#pragma unroll
+        for (int e = 0; e < kEl; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+          acc[g][e] = acc[g][e] * wa + ao * wb;
+        }
+      }
+    }
+    if (lane < kLanes) {
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+#pragma unroll
+        for (int nv = 0; nv < kNv; ++nv)
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            ws_acc[warp][g * D + col(nv) + e] = acc[g][nv * kVec + e];
+        if (lane == 0) {
+          ws_m[warp][g] = m[g];
+          ws_l[warp][g] = l[g];
+        }
       }
     }
     __syncthreads();
 
-    for (int it = tid; it < G * kChunk; it += kThreads) {
-      const int g = it / kChunk, p = it % kChunk;
-      float s = -INFINITY;
-      if (p < n) {
-        s = 0.f;
-        const float* qg = Qs + g * D;
-        const float* kp = Ks + p * DP;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) s = fmaf(qg[d], kp[d], s);
-      }
-      Ss[it] = s;
+    // warps, in order, into the split's partial (acc in place of warp 0's)
+    for (int e = tid; e < GP * D; e += kThreads) {
+      const int g = e / D;
+      float M = ws_m[0][g];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) M = fmaxf(M, ws_m[w][g]);
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        a = fmaf(ws_acc[w][e], weight(ws_m[w][g], M), a);
+      part_acc[e] = a;
     }
-    __syncthreads();
+    if (tid < GP) {
+      float M = ws_m[0][tid];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) M = fmaxf(M, ws_m[w][tid]);
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        s = fmaf(ws_l[w][tid], weight(ws_m[w][tid], M), s);
+      part_m[tid] = M;
+      part_l[tid] = s;
+    }
+    cluster.sync();
 
-    for (int g = warp; g < G; g += kWarps) {
-      float* sg = Ss + g * kChunk;
-      float mx = -INFINITY;
-      for (int p = lane; p < kChunk; p += 32) mx = fmaxf(mx, sg[p]);
-      mx = warp_max(mx);                 // finite: the chunk has n >= 1
-      const float m_new = fmaxf(Ms[g], mx);
-      float sum = 0.f;
-      for (int p = lane; p < kChunk; p += 32) {
-        const float e = expf(sg[p] - m_new);
-        sg[p] = e;
-        sum += e;
+    // the splits, in rank order, through distributed shared memory: this
+    // block merges and writes outputs [rank * kThreads, ...) by strides
+    for (int e = split * kThreads + tid; e < GP * D;
+         e += n_split * kThreads) {
+      const int g = e / D;
+      float ms[kMaxSplits], ls[kMaxSplits], as[kMaxSplits];
+      float M = -INFINITY;
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s) {
+        if (s < n_split) {
+          ms[s] = *cluster.map_shared_rank(&part_m[g], s);
+          ls[s] = *cluster.map_shared_rank(&part_l[g], s);
+          as[s] = *cluster.map_shared_rank(&part_acc[e], s);
+          M = fmaxf(M, ms[s]);
+        }
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(Ms[g] - m_new);
-        Ls[g] = Ls[g] * corr + sum;
-        Ms[g] = m_new;
-        Cs[g] = corr;
+      float lsum = 0.f, a = 0.f;
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s) {
+        if (s < n_split) {
+          const float w = weight(ms[s], M);
+          lsum = fmaf(ls[s], w, lsum);
+          a = fmaf(as[s], w, a);
+        }
       }
+      if (g0 + g < G)
+        store1(out + ((long long)b * H + hk * G + g0 + g) * D + e % D,
+               a / fmaxf(lsum, 1e-30f));
     }
-    __syncthreads();
-
-    for (int it = tid; it < G * D; it += kThreads) {
-      const int g = it / D, d = it % D;
-      const float* sg = Ss + g * kChunk;
-      float a = Acc[it] * Cs[g];
-      for (int p = 0; p < n; ++p) a = fmaf(sg[p], Vs[p * D + d], a);
-      Acc[it] = a;
-    }
-  }
-  __syncthreads();
-
-  const long long bh0 = (long long)b * H + (long long)hk * G;
-  if (n_split == 1) {
-    for (int it = tid; it < G * D; it += kThreads) {
-      const int g = it / D;
-      store1(out + bh0 * D + it, Acc[it] / fmaxf(Ls[g], 1e-30f));
-    }
-    return;
-  }
-  for (int it = tid; it < G * D; it += kThreads) {
-    const int g = it / D, d = it % D;
-    part_acc[((bh0 + g) * n_split + split) * D + d] = Acc[it];
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    part_ml[((bh0 + g) * n_split + split) * 2] = Ms[g];
-    part_ml[((bh0 + g) * n_split + split) * 2 + 1] = Ls[g];
+    cluster.sync();   // peers' partials stay alive until every read is done
   }
 }
 
-// grid (B * H), block D: merge the n_split partials of one (row, head).
-// A split with no position has m = -inf, l = 0 and weighs 0.
-template <typename T>
-__global__ void decode_combine(const float* __restrict__ part_acc,
-                               const float* __restrict__ part_ml,
-                               T* __restrict__ out, int n_split, int D) {
-  const long long bh = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* ml = part_ml + bh * n_split * 2;
-  float M = -INFINITY;
-  for (int s = 0; s < n_split; ++s) M = fmaxf(M, ml[2 * s]);
-  float l = 0.f, a = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float w = expf(ml[2 * s] - M);
-    l = fmaf(ml[2 * s + 1], w, l);
-    a = fmaf(part_acc[(bh * n_split + s) * D + d], w, a);
-  }
-  store1(out + bh * D + d, a / fmaxf(l, 1e-30f));
+template <int D, typename T, int GP>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* length, void* out, int B, int L, int H, int Hkv,
+                   int split_len, float scale, cudaStream_t stream) {
+  const int n_split = (L + split_len - 1) / split_len;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_cluster<D, T, GP>,
+                            static_cast<const T*>(q),
+                            static_cast<const T*>(k),
+                            static_cast<const T*>(v), length,
+                            static_cast<T*>(out), L, H, Hkv, split_len,
+                            scale);
 }
 
 template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* length, void* out, float* part_acc,
-                   float* part_ml, int B, int L, int H, int Hkv, int split_len,
-                   float scale, cudaStream_t stream, int* launched) {
-  const int G = H / Hkv;
-  const size_t smem = smem_bytes<D>(G);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_split<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const int n_split = (L + split_len - 1) / split_len;
-  decode_split<D, T><<<dim3(n_split, Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), length, static_cast<T*>(out), part_acc,
-      part_ml, L, H, Hkv, split_len, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  *launched = 1;
-  if (n_split == 1) return err;
-  decode_combine<T><<<B * H, D, 0, stream>>>(part_acc, part_ml,
-                                             static_cast<T*>(out), n_split, D);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) *launched = 2;
-  return err;
+cudaError_t by_group(int GP, const void* q, const void* k, const void* v,
+                     const int* length, void* out, int B, int L, int H,
+                     int Hkv, int split_len, float scale,
+                     cudaStream_t stream) {
+#define REPRO_GP(n)                                                       \
+  case n:                                                                 \
+    return launch<D, T, n>(q, k, v, length, out, B, L, H, Hkv, split_len, \
+                           scale, stream);
+  switch (GP) {
+    REPRO_GP(1) REPRO_GP(2) REPRO_GP(3) REPRO_GP(4)
+    REPRO_GP(5) REPRO_GP(6) REPRO_GP(7) REPRO_GP(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_GP
 }
 
 template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     const int* length, void* out, float* part_acc,
-                     float* part_ml, int B, int L, int H, int Hkv,
-                     int split_len, float scale, cudaStream_t stream,
-                     int* launched) {
+cudaError_t dispatch(int D, int GP, const void* q, const void* k,
+                     const void* v, const int* length, void* out, int B,
+                     int L, int H, int Hkv, int split_len, float scale,
+                     cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<64, T>(q, k, v, length, out, part_acc, part_ml, B, L, H,
-                           Hkv, split_len, scale, stream, launched);
+      return by_group<64, T>(GP, q, k, v, length, out, B, L, H, Hkv,
+                             split_len, scale, stream);
     case 128:
-      return launch<128, T>(q, k, v, length, out, part_acc, part_ml, B, L, H,
-                            Hkv, split_len, scale, stream, launched);
+      return by_group<128, T>(GP, q, k, v, length, out, B, L, H, Hkv,
+                              split_len, scale, stream);
     case 256:
-      return launch<256, T>(q, k, v, length, out, part_acc, part_ml, B, L, H,
-                            Hkv, split_len, scale, stream, launched);
+      return by_group<256, T>(GP, q, k, v, length, out, B, L, H, Hkv,
+                              split_len, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -281,27 +415,29 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16.  q, out: (B, H, D); k, v: (B, L, Hkv,
 // D); length: (B,) int32 with 1 <= length[b] (values past L read as L).
-// The cache is cut into n = ceil(L / split_len) splits of split_len
-// positions; part_acc: (B, H, n, D) f32 and part_ml: (B, H, n, 2) f32 are
-// scratch for n > 1 (unused when n == 1).  Writes the number of kernels it
-// launched (1, or 2 with the combine pass) to *launched and returns the
-// launches' cudaError_t.
+// The cache is cut into n = ceil(L / split_len) <= 8 splits, one cluster
+// of n blocks per (row, KV head).  Writes the number of kernels it
+// launched (1) to *launched and returns the launch's cudaError_t.
 extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
                                       const void* v, const int* length,
-                                      void* out, float* part_acc,
-                                      float* part_ml, int B, int L, int H,
-                                      int Hkv, int D, int split_len,
-                                      float scale, void* stream,
-                                      int* launched) {
+                                      void* out, int B, int L, int H, int Hkv,
+                                      int D, int split_len, float scale,
+                                      void* stream, int* launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *launched = 0;
-  if (split_len < 1) return cudaErrorInvalidValue;
+  if (split_len < 1 || (L + split_len - 1) / split_len > kMaxSplits ||
+      Hkv < 1 || H % Hkv)
+    return cudaErrorInvalidValue;
+  const int G = H / Hkv;
+  const int GP = G < kMaxGroup ? G : kMaxGroup;
+  cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(D, q, k, v, length, out, part_acc, part_ml, B, L,
-                           H, Hkv, split_len, scale, s, launched);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, length, out, part_acc,
-                                   part_ml, B, L, H, Hkv, split_len, scale, s,
-                                   launched);
-  return cudaErrorInvalidValue;
+    err = dispatch<float>(D, GP, q, k, v, length, out, B, L, H, Hkv,
+                          split_len, scale, s);
+  else if (dtype == 1)
+    err = dispatch<__nv_bfloat16>(D, GP, q, k, v, length, out, B, L, H, Hkv,
+                                  split_len, scale, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = 1;
+  return err;
 }

@@ -9,15 +9,16 @@ KV cache with a per-row valid ``length``, in the model's layout — q
 What bounds it on the H100 is bytes: the valid part of the cache, read
 once, over 3.35 TB/s.  The kernel (``csrc/decode_attention.cu``) reads
 the cache in place, once per KV head for the whole query-head group, and
-cuts the cache into splits of ``split_len`` positions, one block each,
-merged by a second small kernel: one call is two launches when there is
-more than one split.  ``length[b]`` must be >= 1 (the model's is
-``min(step + 1, L)``); nothing at or past it is read.
+cuts the cache into at most ``MAX_SPLITS`` splits of ``split_len``
+positions, one block each; the splits of one (row, KV head) pair form a
+thread-block cluster and merge through its distributed shared memory, so
+one call is one launch at every shape.  ``length[b]`` must be >= 1 (the
+model's is ``min(step + 1, L)``); nothing at or past it is read.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises.  ``LAUNCHES["decode_attention"]`` counts kernel
-launches, as the C entry point reports them: ``launches_per_call`` of
-them per call (2 with the combine pass, else 1).
+launches, as the C entry point reports them: ``launches_per_call`` (1)
+per call.
 """
 from __future__ import annotations
 
@@ -31,8 +32,9 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import check_attention_args
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0}
-CHUNK = 64              # cache positions a block stages at a time (.cu)
+CHUNK = 64              # splits hold whole chunks of this many positions
 BLOCKS_PER_SM = 4       # splits are sized for this many blocks per SM
+MAX_SPLITS = 8          # blocks per cluster, the portable cluster size (.cu)
 
 
 def reset_launch_counts() -> None:
@@ -45,9 +47,8 @@ def _lib() -> ctypes.CDLL:
     """The kernels' library, built at first use, with its C signature."""
     lib = _build.load("decode_attention")
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    lib.repro_decode_attention.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
-                                           i, i, i, f, p,
-                                           ctypes.POINTER(i)]
+    lib.repro_decode_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
+                                           i, f, p, ctypes.POINTER(i)]
     lib.repro_decode_attention.restype = ctypes.c_int
     return lib
 
@@ -62,18 +63,19 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def split_len(B: int, Hkv: int, L: int, n_sm: int) -> int:
-    """Positions per split: whole chunks, as few splits as give about
-    ``BLOCKS_PER_SM`` blocks per SM over the B * Hkv (row, KV head)
-    pairs, and never more splits than chunks."""
-    n = min(_cdiv(BLOCKS_PER_SM * n_sm, B * Hkv), _cdiv(L, CHUNK))
+    """Positions per split: whole chunks, covering L in at most
+    ``MAX_SPLITS`` splits (one cluster per (row, KV head) pair), as few
+    as give about ``BLOCKS_PER_SM`` blocks per SM over the B * Hkv pairs,
+    and never more splits than chunks."""
+    n = min(_cdiv(BLOCKS_PER_SM * n_sm, B * Hkv), _cdiv(L, CHUNK),
+            MAX_SPLITS)
     return _cdiv(_cdiv(L, n), CHUNK) * CHUNK
 
 
 def launches_per_call(B: int, Hkv: int, L: int, n_sm: int) -> int:
-    """Kernel launches one call makes on a card of ``n_sm`` SMs: the split
-    pass, and the combine pass when the cache is cut into more than one
-    split."""
-    return 1 if split_len(B, Hkv, L, n_sm) >= L else 2
+    """Kernel launches one call makes on a card of ``n_sm`` SMs: one, at
+    every shape (the splits merge inside the launch)."""
+    return 1
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,20 +109,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, D = q.shape
     L, Hkv = k.shape[1], k.shape[2]
     sl = split_len(B, Hkv, L, _sm_count(q.device))
-    n_split = _cdiv(L, sl)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if n_split > 1:
-        part_acc = torch.empty((B, H, n_split, D), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32,
-                              device=q.device)
     launched = ctypes.c_int(0)
     err = _lib().repro_decode_attention(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-        out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(), B, L, H, Hkv, D, sl,
-        ref.attention_scale(D), _build.stream_of(q), ctypes.byref(launched))
+        out.data_ptr(), B, L, H, Hkv, D, sl, ref.attention_scale(D),
+        _build.stream_of(q), ctypes.byref(launched))
     _build.check_launch(err, "decode_attention")
     LAUNCHES["decode_attention"] += launched.value
     return out

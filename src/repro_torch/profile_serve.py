@@ -31,11 +31,14 @@ from repro_torch.serving import ServeEngine, ServeRequest
 from repro_torch.tree import resolve_device
 
 # kernel names of B4 (csrc/flash_attention.cu) and B5 (decode_attention.cu)
-ATTENTION_KERNELS = ("flash_fwd", "decode_split", "decode_combine")
+FLASH_KERNEL, DECODE_KERNEL = "flash_fwd", "decode_cluster"
+ATTENTION_KERNELS = (FLASH_KERNEL, DECODE_KERNEL)
 SCAN_KERNELS = ("ssm_scan_kernel",)          # B6 (csrc/ssm_scan.cu)
 
 
-def _profiled(fn, dev, steps: int, label: str) -> None:
+def _profiled(fn, dev, steps: int, label: str, required: str) -> None:
+    """Profile ``fn`` and print its breakdown; raises if no kernel whose
+    name holds ``required`` ran, so a renamed kernel cannot count as 0 ms."""
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -44,6 +47,8 @@ def _profiled(fn, dev, steps: int, label: str) -> None:
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not any(required in e.name for e in kernels):
+        raise RuntimeError(f"{label}: no {required} kernel in the trace")
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     attn_ms, scan_ms = (
         sum(e.time_range.elapsed_us() for e in kernels
@@ -86,7 +91,8 @@ def main(argv=None) -> None:
                          (args.prefill_batch, args.prefill_len), device=dev)
     prefill(params, {"tokens": toks[:, :256]})                 # warm-up
     _profiled(lambda: prefill(params, {"tokens": toks}), dev, 1,
-              f"prefill B={args.prefill_batch} S={args.prefill_len}")
+              f"prefill B={args.prefill_batch} S={args.prefill_len}",
+              FLASH_KERNEL)
 
     rng = np.random.RandomState(0)
     reqs = [ServeRequest(prompt=rng.randint(0, cfg.vocab_size, args.prompt)
@@ -99,7 +105,8 @@ def main(argv=None) -> None:
     eng = ServeEngine(params, cfg, args.batch, args.cache_len, device=dev)
     _profiled(lambda: eng.generate(reqs), dev, args.prompt + args.max_new,
               f"generate batch={args.batch} prompt={args.prompt} "
-              f"max_new={args.max_new} cache={args.cache_len}")
+              f"max_new={args.max_new} cache={args.cache_len}",
+              DECODE_KERNEL)
 
 
 if __name__ == "__main__":

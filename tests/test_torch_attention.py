@@ -134,21 +134,26 @@ def test_decode_attention_plain_odd_cache_matches_oracle(jref):
 
 
 def test_decode_split_len_covers_the_cache_in_whole_chunks():
+    """Whole chunks, covering L, at most ``MAX_SPLITS`` splits (one
+    cluster), and no more splits than give ``BLOCKS_PER_SM`` blocks per
+    SM."""
     for B, Hkv, L in [(8, 5, 4096), (8, 5, 512), (3, 2, 256), (1, 1, 1),
-                      (8, 5, 777), (128, 8, 32768)]:
+                      (8, 5, 777), (128, 8, 32768), (1, 1, 32768)]:
         sl = dec_k.split_len(B, Hkv, L, 132)
         n = -(-L // sl)
         assert sl % dec_k.CHUNK == 0 and (n - 1) * sl < L <= n * sl
+        assert n <= dec_k.MAX_SPLITS == 8
         assert n == 1 or B * Hkv * (n - 1) < dec_k.BLOCKS_PER_SM * 132
-    assert dec_k.split_len(8, 5, 4096, 132) == 320       # 13 splits
+    assert dec_k.split_len(8, 5, 4096, 132) == 512       # 8 splits
+    assert dec_k.split_len(8, 5, 512, 132) == 64         # 8 splits
 
 
 @pytest.mark.parametrize("B,Hkv,L,launches", [
-    (8, 5, 512, 2), (8, 5, 4096, 2), (2, 5, 64, 1), (1, 1, 1, 1),
-    (2, 5, 65, 2), (128, 8, 32768, 1)])
+    (8, 5, 512, 1), (8, 5, 4096, 1), (2, 5, 64, 1), (1, 1, 1, 1),
+    (2, 5, 65, 1), (128, 8, 32768, 1)])
 def test_decode_launches_per_call(B, Hkv, L, launches):
-    """One launch when the cache is one split, two (split pass + combine)
-    otherwise."""
+    """One launch per call at every shape: the splits merge through the
+    cluster's shared memory, with no combine pass."""
     assert dec_k.launches_per_call(B, Hkv, L, 132) == launches
 
 
