@@ -16,12 +16,15 @@ cluster launch per call --, the Mamba selective scan B6 in
 
 Training path (B1-B3): holds each kernel against its plain PyTorch
 version on the card, bit for bit, at the main path's shapes, on the
-reference's TPU test grid and at one bandwidth-bound shape; times kernel
-and plain version with CUDA events; trains the BAFDP MLP_H24 traffic
-forecaster (``repro_torch.train.train_bafdp``, 10 clients, full width)
-for 20 rounds four times, once through each kernel, checking each run's
-launch count; and runs 3 rounds on the CPU and on the card from one state
-and compares them.
+reference's TPU test grid and at one bandwidth-bound shape, and B1/B2
+(one kernel, ``sign_agg_group``) also as the round calls them, one
+grouped launch over many leaves (``check_groups``); times kernel and
+plain version with CUDA events, B1/B2 per round as one grouped call
+beside eight one-leaf calls (``time_round``); trains the BAFDP MLP_H24
+traffic forecaster (``repro_torch.train.train_bafdp``, 10 clients, full
+width) for 20 rounds four times, once through each kernel, checking each
+run's launch count (B1/B2 one a round, B3 one a leaf a round); and runs
+3 rounds on the CPU and on the card from one state and compares them.
 
 Serving path (B4, B5): holds both attention kernels against their plain
 versions (the reference's TPU test grid in f32 and bf16, Sq < Sk, ragged
@@ -52,7 +55,12 @@ token-by-token decode of the same prompt (5e-4, the reference's bound).
 
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
-launches (summed over the main-path runs) and times.  Its
+launches (summed over the main-path runs) and times.  Its B1-B3 entries
+give ``kernel`` (the CUDA kernel), the time per round of the 8 leaves
+and, as ``bandwidth_ms``/``bandwidth_bound_ms``, the bandwidth shape;
+B1/B2's add ``call_ms`` (host time of the grouped call) and, as
+``one_leaf_ms``/``one_leaf_call_ms``, the same round in eight one-leaf
+calls.  Its
 ``flash_attention`` entry gives B4's f32 kernel (``f32_kernel``, its
 ptxas label: name and tiles at head dim 64) at SmolLM-360M's prefill
 shape, with ``bound_ms`` its 3xTF32 tensor-core roof and
@@ -220,8 +228,10 @@ def make_inputs(C: int, D: int, dtype: torch.dtype, seed: int,
 
 
 def kernel_specs():
-    """The four ways the main path reaches B1-B3: wrapper, plain version,
-    bytes moved, the FedConfig knobs that select it."""
+    """The four ways the main path reaches B1-B3: one-leaf wrapper, plain
+    version, bytes moved, the FedConfig knobs that select it and the
+    launches a round makes (B1/B2: one grouped launch over every leaf;
+    B3: one a leaf)."""
     from repro_torch.kernels import ref, sign_agg as sa
 
     def vec_bytes(x):
@@ -229,8 +239,9 @@ def kernel_specs():
 
     return [
         dict(name="sign_agg", counter="sign_agg",
-             replaces=f"{TPU_SRC}:58",
+             replaces=f"{TPU_SRC}:58", kernel_name="sign_agg_group<T,false>",
              knobs=dict(sign_message="f32", staleness_decay="constant"),
+             per_round=1, weighted=False,
              kernel=lambda x: sa.sign_agg(x["z"], x["W"], x["phi"], PSI,
                                           ALPHA),
              plain=lambda x: ref.sign_agg_ref(x["z"], x["W"], x["phi"], PSI,
@@ -239,8 +250,9 @@ def kernel_specs():
              + vec_bytes(x),
              flops=lambda x: 2 * x["W"].numel()),
         dict(name="sign_agg_weighted", counter="sign_agg_weighted",
-             replaces=f"{TPU_SRC}:100",
+             replaces=f"{TPU_SRC}:100", kernel_name="sign_agg_group<T,true>",
              knobs=dict(sign_message="f32", staleness_decay="poly"),
+             per_round=1, weighted=True,
              kernel=lambda x: sa.sign_agg_weighted(
                  x["z"], x["W"], x["phi"], x["sw"], PSI, ALPHA),
              plain=lambda x: ref.sign_agg_weighted_ref(
@@ -250,7 +262,9 @@ def kernel_specs():
              flops=lambda x: 3 * x["W"].numel()),
         dict(name="sign_agg_weighted_int8/weighted",
              counter="sign_agg_weighted_int8", replaces=f"{TPU_SRC}:160",
+             kernel_name="sign_agg_int8_kernel<T>",
              knobs=dict(sign_message="int8", staleness_decay="poly"),
+             per_round=len(MAIN_LEAF_D),
              kernel=lambda x: sa.sign_agg_weighted_int8(
                  x["z"], x["payload"], x["sw"], x["phi"], PSI, ALPHA),
              plain=lambda x: ref.sign_agg_int8_ref(
@@ -260,7 +274,9 @@ def kernel_specs():
              flops=lambda x: 2 * x["payload"].numel()),
         dict(name="sign_agg_weighted_int8/unweighted",
              counter="sign_agg_weighted_int8", replaces=f"{TPU_SRC}:160",
+             kernel_name="sign_agg_int8_kernel<T>",
              knobs=dict(sign_message="int8", staleness_decay="constant"),
+             per_round=len(MAIN_LEAF_D),
              kernel=lambda x: sa.sign_agg_weighted_int8(
                  x["z"], x["payload"], None, x["phi"], PSI, ALPHA),
              plain=lambda x: ref.sign_agg_int8_ref(
@@ -336,6 +352,96 @@ def check_kernels(specs, report):
         f"({len(shapes)} shapes, NaN and tie columns included)")
 
 
+def group_inputs(sizes, C, dtype, seed, shifted=()):
+    """z, W and phi_mean lists of one grouped call (:func:`make_inputs`
+    per leaf, so NaN and tie columns in every leaf of 16 columns or more)
+    and the first leaf's weights.  The leaves numbered in ``shifted`` lie
+    one element into their storage: no address of theirs is 16-byte
+    aligned."""
+    zs, Ws, phis = [], [], []
+    for l, D in enumerate(sizes):
+        x = make_inputs(C, D, dtype, seed=seed + l)
+        t = [x["z"], x["W"], x["phi"]]
+        if l in shifted:
+            t = [torch.empty(a.numel() + 1, dtype=dtype, device="cuda")[1:]
+                 .view(a.shape).copy_(a) for a in t]
+        zs.append(t[0])
+        Ws.append(t[1])
+        phis.append(t[2])
+        if l == 0:
+            sw = x["sw"]
+    return zs, Ws, phis, sw
+
+
+def vector_flags(zs, Ws, phis):
+    """Which leaves the grouped call would give 16-byte vectors (its
+    output is 16-byte aligned by construction)."""
+    from repro_torch.kernels import sign_agg as sa
+
+    table = sa.leaf_table([(z.data_ptr(), W.data_ptr(), p.data_ptr(), 0,
+                            z.numel()) for z, W, p in zip(zs, Ws, phis)],
+                          zs[0].element_size())
+    return table[6::sa.TABLE_COLS]
+
+
+def check_groups(specs, report):
+    """B1/B2 as the main path calls them: one grouped launch (two past
+    ``MAX_LEAVES`` leaves) over the leaves of a tree, each leaf bit for
+    bit against its plain version: the 8 MLP_H24 leaves (all on the
+    16-byte vector path), the TPU grid's leaves, odd sizes beside a leaf
+    offset by one element (scalar path), and 65 leaves; without weights,
+    with them and with ``n_total``."""
+    from repro_torch.kernels import ref, sign_agg as sa
+
+    dts = (torch.float32, torch.bfloat16)
+    cases = [("main", MAIN_LEAF_D, N_CLIENTS, dt, ()) for dt in dts]
+    cases += [("tpu_grid", [128, 1024, 5000, 8193], c, dt, ())
+              for c in (2, 16) for dt in dts]
+    cases += [("tpu_grid", [600, 8193], 200, dt, ()) for dt in dts]
+    cases += [("odd", [1, 3, 8193, 4096, 4096, 24], N_CLIENTS, dt, (3,))
+              for dt in dts]
+    cases += [("65_leaves", [(37 * l) % 300 + 1 for l in range(65)], 16,
+               torch.float32, ())]
+    by_counter = {s["counter"]: s for s in specs}
+    n = 0
+    for i, (tag, sizes, C, dt, shifted) in enumerate(cases):
+        zs, Ws, phis, sw = group_inputs(sizes, C, dt, 1000 + 100 * i,
+                                        shifted)
+        flags = vector_flags(zs, Ws, phis)
+        if tag == "main" and flags != [1] * len(sizes):
+            raise AssertionError(f"group {tag} {dt}: vector flags {flags}")
+        if any(flags[l] for l in shifted):
+            raise AssertionError(f"group {tag} {dt}: a shifted leaf is "
+                                 f"vectorized ({flags})")
+        launches = -(-len(sizes) // sa.MAX_LEAVES)
+        for weights, n_total in ((None, 0), (sw, 0), (sw, 3 * C)):
+            name = "sign_agg" if weights is None else "sign_agg_weighted"
+            reset_all_counts()
+            got = sa.sign_agg_group(zs, Ws, phis, weights, PSI, ALPHA,
+                                    n_total=n_total)
+            torch.cuda.synchronize()
+            check_path_counts(f"group {tag} C={C} {dt}", all_counts(),
+                              {name: launches})
+            want = ref.sign_agg_group_ref(zs, Ws, phis, weights, PSI, ALPHA,
+                                          n_total=n_total)
+            spec = by_counter[name]
+            for l, (g, w) in enumerate(zip(got, want)):
+                if (g.dtype != w.dtype or g.shape != w.shape
+                        or not bits_equal(g, w)):
+                    raise AssertionError(
+                        f"{name} group {tag} C={C} {dt} n_total={n_total} "
+                        f"leaf {l} (D={sizes[l]}, vector {flags[l]}): "
+                        f"kernel != plain version (max |err| "
+                        f"{max_abs_err(g, w)})")
+                spec["max_abs_err"] = max(spec["max_abs_err"],
+                                          max_abs_err(g, w))
+            n += 1
+        del zs, Ws, phis
+    report["group_checks"] = n
+    log(f"checks: {n} grouped calls (B1/B2, {len(cases)} leaf sets, up to "
+        f"65 leaves) equal their plain versions bit for bit")
+
+
 def time_grid_shape(spec, x, C, D, dtype, cpm):
     """Device time of kernel and plain version at one shape of the TPU
     test grid (fewer samples than the main path's).  At C=200 the plain
@@ -354,10 +460,11 @@ def time_grid_shape(spec, x, C, D, dtype, cpm):
 
 
 def time_kernels(specs, report):
-    """Kernel, plain version and bound at the main path's shapes (one
-    round: the 8 leaves) and at the bandwidth-bound shape.  ``*_ms`` is
-    device time (:func:`device_ms`); ``*_call_ms`` includes the host's
-    time per call (:func:`call_ms`), what an eager round pays."""
+    """Kernel, plain version and bound at the main path's shapes (each of
+    the 8 leaves in a one-leaf call; B1/B2 also in one grouped call, as a
+    round makes it: :func:`time_round`) and at the bandwidth-bound shape.
+    ``*_ms`` is device time (:func:`device_ms`); ``*_call_ms`` includes the
+    host's time per call (:func:`call_ms`), what an eager round pays."""
     cpm = sleep_cycles_per_ms()
     rows = []
     for spec in specs:
@@ -389,13 +496,64 @@ def time_kernels(specs, report):
                 spec["plain_ms"] += row["plain_ms"]
                 spec["bound_ms"] += row["bound_ms"]
                 spec["bound_by"] = row["bound_by"]
+            else:
+                spec["bandwidth_ms"] = row["kernel_ms"]
+                spec["bandwidth_bound_ms"] = row["bound_ms"]
             del x
+    rows += time_round(specs, cpm)
     report["timings"] = rows
+
+
+def time_round(specs, cpm):
+    """B1/B2 per round as the main path calls them: one grouped call over
+    the 8 MLP_H24 leaves (device ms and ``call_ms``) beside the same leaves
+    in eight one-leaf calls and the plain version (one call a sample: its
+    ~500 launches fit the launch queue, ten would not).  The grouped
+    call's times become the spec's ``ms`` and ``plain_ms``."""
+    from repro_torch.kernels import ref, sign_agg as sa
+
+    xs = [make_inputs(N_CLIENTS, d, torch.float32, seed=d, edge_cases=False)
+          for d in MAIN_LEAF_D]
+    for x in xs:
+        x["sw"] = xs[0]["sw"]
+    zs, Ws, phis = ([x[k] for x in xs] for k in ("z", "W", "phi"))
+    rows = []
+    for spec in specs:
+        if "weighted" not in spec:
+            continue
+        w = xs[0]["sw"] if spec["weighted"] else None
+        group = lambda: sa.sign_agg_group(zs, Ws, phis, w, PSI, ALPHA)
+        plain = lambda: ref.sign_agg_group_ref(zs, Ws, phis, w, PSI, ALPHA)
+        one_leaf = lambda: [spec["kernel"](x) for x in xs]
+        row = dict(kernel=spec["name"], shape="round", C=N_CLIENTS,
+                   D=sum(MAIN_LEAF_D), leaves=len(MAIN_LEAF_D),
+                   kernel_ms=device_ms(group, cpm),
+                   plain_ms=device_ms(plain, cpm, reps=21, inner=1),
+                   kernel_call_ms=call_ms(group),
+                   plain_call_ms=call_ms(plain, reps=21),
+                   one_leaf_ms=device_ms(one_leaf, cpm),
+                   one_leaf_call_ms=call_ms(one_leaf),
+                   bytes=sum(spec["nbytes"](x) for x in xs),
+                   bound_ms=spec["bound_ms"], bound_by=spec["bound_by"])
+        rows.append(row)
+        spec.update(ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+                    call_ms=row["kernel_call_ms"],
+                    one_leaf_ms=row["one_leaf_ms"],
+                    one_leaf_call_ms=row["one_leaf_call_ms"])
+        log(f"time {spec['name']:34s} round     C={N_CLIENTS:3d} "
+            f"{len(MAIN_LEAF_D)} leaves: grouped kernel_ms="
+            f"{row['kernel_ms']:.6f} call_ms={row['kernel_call_ms']:.6f}; "
+            f"8 one-leaf calls kernel_ms={row['one_leaf_ms']:.6f} "
+            f"call_ms={row['one_leaf_call_ms']:.6f}; plain_ms="
+            f"{row['plain_ms']:.6f} bound_ms={row['bound_ms']:.6f} "
+            f"({row['bound_by']})")
+    return rows
 
 
 def train_runs(specs, report):
     """The main path: train_bafdp on the card, once through each kernel;
-    each run must launch its kernel rounds x 8 leaves times and no other."""
+    each run must launch its kernel rounds x its launches a round (B1/B2
+    1, B3 8 leaves) times and no other."""
     from repro_torch import train
     from repro_torch.configs import FedConfig
     train.problem("milano", 24, N_CLIENTS, 0)              # data set-up
@@ -414,7 +572,7 @@ def train_runs(specs, report):
         secs = time.perf_counter() - t0
         counts = all_counts()
         check_path_counts(f"{spec['name']} run", counts,
-                          {spec["counter"]: ROUNDS * len(MAIN_LEAF_D)})
+                          {spec["counter"]: ROUNDS * spec["per_round"]})
         spec["launches"] = counts[spec["counter"]]
         _, test, scalers = train.problem("milano", 24, N_CLIENTS, 0)
         rmse, mae = train.eval_fed_state(state, cfg, test, scalers)
@@ -518,8 +676,8 @@ def _to_numpy(tree):
 def _kernel_label(mangled):
     """``flash_fwd_bf16<64,128,64,4>`` or ``decode_cluster<64,bf16,5>`` from
     a mangled kernel name: its last (nested) name and its template
-    arguments (integers, ``float``, ``bf16``); an unmangled name as it
-    is."""
+    arguments (integers, booleans, ``float``, ``bf16``); an unmangled name
+    as it is."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     names = []
     while rest[:1].isdigit():
@@ -535,6 +693,9 @@ def _kernel_label(mangled):
             j = rest.index("E", i)
             args.append(rest[i + 2:j])
             i = j + 1
+        elif rest.startswith("Lb", i):
+            args.append("true" if rest[i + 2] == "1" else "false")
+            i = rest.index("E", i) + 1
         elif rest[i].isdigit():
             digits = re.match(r"\d+", rest[i:]).group()
             name = rest[i + len(digits):i + len(digits) + int(digits)]
@@ -1408,6 +1569,7 @@ def main() -> int:
     specs = kernel_specs()
     t0 = time.perf_counter()
     check_kernels(specs, report)
+    check_groups(specs, report)
     time_kernels(specs, report)
     report["kernel_phase_s"] = time.perf_counter() - t0
     log(f"phase: consensus kernels {report['kernel_phase_s']:.1f} s")
@@ -1445,11 +1607,18 @@ def main() -> int:
     report["hymba_phase_s"] = time.perf_counter() - t0
     log(f"phase: serving Hymba-1.5B {report['hymba_phase_s']:.1f} s")
 
+    # B1-B3: per round of the 8 MLP_H24 leaves (B1/B2 one grouped call,
+    # with call_ms and the same leaves in eight one-leaf calls beside it),
+    # and at the bandwidth shape (C=64, D=4,194,304 f32)
     kernels = [dict(name=s["name"], route="cuda", source=SOURCE,
                     replaces=s["replaces"], launches=s["launches"],
                     max_abs_err=s["max_abs_err"], ms=s["ms"],
                     plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
-                    bound_by=s["bound_by"], library_ms=None)
+                    bound_by=s["bound_by"], library_ms=None,
+                    kernel=s["kernel_name"], bandwidth_ms=s["bandwidth_ms"],
+                    bandwidth_bound_ms=s["bandwidth_bound_ms"],
+                    **{k: s[k] for k in ("call_ms", "one_leaf_ms",
+                                         "one_leaf_call_ms") if k in s})
                for s in specs]
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:84"),

@@ -6,9 +6,9 @@ function over stacked client trees; the port of the JAX package's
   DRO objective ``g(w_i) + rho_i G(w_i)`` plus the Lagrangian terms
   ``-phi_i`` and ``psi sign(w_i - z)`` — and the eps step Eq. (19).
 * Step 2 (server): the consensus step Eq. (20) over every client's last
-  message (Byzantine corruption included), through
-  :func:`repro_torch.kernels.ops.sign_consensus` — the hand-written CUDA
-  kernels on the GPU — and the dual step Eq. (21).
+  message (Byzantine corruption included), every leaf at once through
+  :func:`repro_torch.kernels.ops.sign_consensus_leaves` — the hand-written
+  CUDA kernels on the GPU — and the dual step Eq. (21).
 * Step 3 (active clients): the pairwise dual step Eq. (22), then sync.
 
 Per-client gradients come from ONE backward pass of ``sum_i obj_i`` over
@@ -348,24 +348,30 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
             else torch.as_tensor(arrivals, device=dev).float()
         lr_scale = k_arr / C
 
-    def z_step(z_l, w_l, phi_l):
-        zf = z_l.reshape(-1)
+    def phi_mean(phi_l):
         if dual_message == "int8":
             # the server averages the DECODED dual uploads
             dec = collectives.decode_dual_message(
                 collectives.encode_dual_message(phi_l.reshape(C, -1)))
-            phi_m = torch.mean(dec, dim=0)
-        else:
-            phi_m = torch.mean(phi_l.float(), dim=0).reshape(-1)
-        z_upd = kops.sign_consensus(zf, w_l.reshape(C, -1), phi_m,
-                                    z_weights, fed.psi, fed.alpha_z,
-                                    message=sign_message)
-        if fed.fedbuff_lr_norm:
-            z_upd = (zf.float() + lr_scale * (z_upd.float() - zf.float())
-                     ).to(z_l.dtype)
-        return torch.where(do_consensus, z_upd, zf).reshape(z_l.shape)
+            return torch.mean(dec, dim=0)
+        return torch.mean(phi_l.float(), dim=0).reshape(-1)
 
-    z_new = tree_map(z_step, state.z, W_srv, state.phi)
+    # one call over every leaf: B1/B2 launch once a round, B3 once a leaf
+    z_upd = iter(kops.sign_consensus_leaves(
+        [z_l.reshape(-1) for z_l in tree_leaves(state.z)],
+        [w_l.reshape(C, -1) for w_l in tree_leaves(W_srv)],
+        [phi_mean(phi_l) for phi_l in tree_leaves(state.phi)],
+        z_weights, fed.psi, fed.alpha_z, message=sign_message))
+
+    def z_step(z_l):
+        zf = z_l.reshape(-1)
+        z_u = next(z_upd)
+        if fed.fedbuff_lr_norm:
+            z_u = (zf.float() + lr_scale * (z_u.float() - zf.float())
+                   ).to(z_l.dtype)
+        return torch.where(do_consensus, z_u, zf).reshape(z_l.shape)
+
+    z_new = tree_map(z_step, state.z)
 
     # ---------------- Step 3: active clients update phi, sync z -----------
     a2_t = reg_decay(fed.alpha_phi, t, fed.reg_decay_pow)

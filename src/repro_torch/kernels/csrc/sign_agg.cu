@@ -4,29 +4,51 @@
 //
 // They replace the three Pallas TPU kernels of the JAX package's
 // kernels/sign_agg.py:
-//   B1 repro_sign_agg        <- sign_agg               (_kernel)
-//   B2 repro_sign_agg_weighted <- sign_agg_weighted    (_weighted_kernel)
-//   B3 repro_sign_agg_int8   <- sign_agg_weighted_int8 (_int8_kernel)
+//   B1 sign_agg_group<T, false> <- sign_agg               (_kernel)
+//   B2 sign_agg_group<T, true>  <- sign_agg_weighted      (_weighted_kernel)
+//   B3 sign_agg_int8_kernel     <- sign_agg_weighted_int8 (_int8_kernel)
 //
 // Bound on the H100: bytes.  Each kernel reads the (C, D) message matrix
 // once plus z and phi_mean, and writes z'; a few flops per element of W
-// are far below the card's compute rate.  Design: one thread per column
-// d; it walks the C rows in order, so a warp's loads of row i are 32
-// neighbouring addresses (coalesced), and the sum is the strict row-order
-// left-fold of the plain versions (kernels/ref.py).  Every operation uses
-// an explicit round-to-nearest intrinsic (no FMA contraction), so the
-// result equals the plain fold bit for bit.  Nothing is staged in shared
-// memory: each element of W is used once.
+// are far below the card's compute rate.  Every operation uses an explicit
+// round-to-nearest intrinsic (no FMA contraction; the build also passes
+// -fmad=false), and every thread folds its columns over the C rows
+// strictly in row order, so the result equals the row-order left fold of
+// the plain versions (kernels/ref.py) bit for bit.
+//
+// B1/B2 (repro_sign_agg_group): one launch updates every leaf of a
+// parameter tree -- a round of the MLP_H24 forecaster has 8 leaves of
+// 24-16,384 columns, each a few microseconds of launch for well under a
+// microsecond of bytes.  The host passes a table of the leaves (pointers,
+// D, each leaf's first block, a vector flag) by value as a
+// __grid_constant__ parameter, at most kMaxLeaves leaves per launch; each
+// block finds its leaf in it by binary search.  A thread owns one 16-byte
+// vector of columns (4 f32 or 8 bf16) where the leaf's four pointers are
+// 16-byte aligned and D is a multiple of the vector width, else one
+// column.  Every input goes through the read-only path; each thread loads
+// kRows rows of W before it folds them, in order, which changes which
+// loads are in flight, never the order of an addition.
+// repro_sign_agg and repro_sign_agg_weighted are one-leaf calls of it.
+//
+// B3 gives each thread one column and loops the C rows in order: a warp's
+// loads of a row are 32 neighbouring addresses.
 //
 // Plain C interface for ctypes: each entry returns the cudaError_t of the
 // launch (0 = success) and takes the stream as a pointer.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxLeaves = 64;   // leaves per launch of sign_agg_group
+constexpr int kRows = 4;         // rows of W loaded before they are folded
+constexpr int kMinBlocks = 4;    // blocks per SM asked of ptxas (<= 64 regs)
+constexpr int kTableCols = 7;    // z, W, phi, out, D, first block, vector
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -54,41 +76,203 @@ __device__ __forceinline__ float epilogue(float zf, float phif, float sum,
   return __fsub_rn(zf, __fmul_rn(alpha_z, dz));
 }
 
-template <typename T>
-__global__ void sign_agg_kernel(const T* __restrict__ z,
-                                const T* __restrict__ W,
-                                const T* __restrict__ phi,
-                                T* __restrict__ out, int C, int64_t D,
-                                float psi, float alpha_z) {
-  const int64_t d = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
-  const float zf = to_f32(z[d]);
-  float acc = 0.f;
-  for (int i = 0; i < C; ++i) {
-    acc = __fadd_rn(acc, jsign(__fsub_rn(zf, to_f32(W[(int64_t)i * D + d]))));
+// ---------------------------------------------------------------- B1/B2 --
+
+struct Leaf {
+  const void* z;
+  const void* W;
+  const void* phi;
+  void* out;
+  long long D;
+  int vec;       // 1: 16-byte vectors of columns; 0: one column a thread
+  int unused;
+};
+
+struct Group {
+  Leaf leaf[kMaxLeaves];
+  int first[kMaxLeaves + 1];   // each leaf's first block; first[n] = grid
+  int n_leaves;
+  int C;
+  const float* weights;        // (C,) f32, or nullptr for B1
+  float n;                     // the divisor: C, or B2's n_total
+  float psi;
+  float alpha_z;
+};
+static_assert(sizeof(Group) <= 4096, "the table must fit the 4 KB of "
+                                     "kernel parameters");
+
+// V columns of T as one load: a 16-byte vector, or one T
+template <typename T, int V>
+using Raw = typename std::conditional<V == 1, T, uint4>::type;
+
+// through the read-only path (an L1 no-allocate hint on W's rows timed
+// slower on the H100)
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_ro(const T* p) {
+  if constexpr (V == 1) {
+    return __ldg(p);
+  } else {
+    return __ldg(reinterpret_cast<const uint4*>(p));
   }
-  out[d] = from_f32<T>(epilogue(zf, to_f32(phi[d]), acc, (float)C, psi,
-                                alpha_z));
+}
+
+// bf16 -> f32 is exact: the 16 bits become the high half
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void unpack(Raw<T, V> r, float (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = to_f32(r);
+  } else if constexpr (std::is_same<T, float>::value) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  } else {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = bf16_lo(w[k]);
+      v[2 * k + 1] = bf16_hi(w[k]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store(T* p, const float (&v)[V]) {
+  if constexpr (V == 1) {
+    *p = from_f32<T>(v[0]);
+  } else if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                   __float_as_uint(v[2]), __float_as_uint(v[3]));
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = bf16_bits(v[2 * k]) | (bf16_bits(v[2 * k + 1]) << 16);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Columns d .. d+V-1 of one leaf: the strict row-order fold over the C
+// rows, kRows rows loaded before they are folded.
+template <typename T, bool kWeighted, int V>
+__device__ __forceinline__ void fold_columns(const Group& g, const Leaf& L,
+                                             int64_t d) {
+  if (d >= L.D) return;
+  const T* W = static_cast<const T*>(L.W) + d;
+  float zf[V], phif[V], acc[V];
+  unpack<T, V>(load_ro<T, V>(static_cast<const T*>(L.z) + d), zf);
+  unpack<T, V>(load_ro<T, V>(static_cast<const T*>(L.phi) + d), phif);
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  for (int i0 = 0; i0 < g.C; i0 += kRows) {
+    Raw<T, V> w[kRows];
+    float s[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (i0 + r < g.C) {
+        w[r] = load_ro<T, V>(W + (int64_t)(i0 + r) * L.D);
+        if (kWeighted) s[r] = __ldg(g.weights + i0 + r);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (i0 + r < g.C) {
+        float wv[V];
+        unpack<T, V>(w[r], wv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float sg = jsign(__fsub_rn(zf[j], wv[j]));
+          acc[j] = __fadd_rn(acc[j], kWeighted ? __fmul_rn(s[r], sg) : sg);
+        }
+      }
+    }
+  }
+  float o[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    o[j] = epilogue(zf[j], phif[j], acc[j], g.n, g.psi, g.alpha_z);
+  }
+  store<T, V>(static_cast<T*>(L.out) + d, o);
+}
+
+template <typename T, bool kWeighted>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sign_agg_group(const __grid_constant__ Group g) {
+  // this block's leaf: the last l with first[l] <= blockIdx.x
+  const int b = (int)blockIdx.x;
+  int lo = 0, hi = g.n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (g.first[mid] <= b) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const Leaf& L = g.leaf[lo];
+  const int64_t t = (int64_t)(b - g.first[lo]) * kThreads + threadIdx.x;
+  constexpr int kVec = 16 / sizeof(T);
+  if (L.vec) {
+    fold_columns<T, kWeighted, kVec>(g, L, t * kVec);
+  } else {
+    fold_columns<T, kWeighted, 1>(g, L, t);
+  }
+}
+
+// blocks of one leaf; the Python wrapper's table builder counts the same
+inline long long leaf_blocks(long long D, bool vec, int elem) {
+  const long long per_block = (long long)kThreads * (vec ? 16 / elem : 1);
+  return (D + per_block - 1) / per_block;
+}
+
+inline bool vector_ok(const long long* row, int elem) {
+  const uintptr_t any = (uintptr_t)(row[0] | row[1] | row[2] | row[3]);
+  return (any & 15) == 0 && row[4] % (16 / elem) == 0;
+}
+
+// the table the Python wrapper builds (sign_agg.leaf_table): D >= 1, the
+// vector flag only where vector_ok, first blocks counted from 0 at every
+// kMaxLeaves-th leaf, every launch's grid within an int
+bool table_ok(const long long* table, int n_leaves, int elem) {
+  long long first = 0;
+  for (int l = 0; l < n_leaves; ++l) {
+    const long long* row = table + (long long)l * kTableCols;
+    if (l % kMaxLeaves == 0) first = 0;
+    if (row[4] < 1 || row[5] != first || (row[6] != 0 && row[6] != 1) ||
+        (row[6] == 1 && !vector_ok(row, elem))) {
+      return false;
+    }
+    first += leaf_blocks(row[4], row[6] == 1, elem);
+    if (first > INT_MAX) return false;
+  }
+  return true;
 }
 
 template <typename T>
-__global__ void sign_agg_weighted_kernel(const T* __restrict__ z,
-                                         const T* __restrict__ W,
-                                         const T* __restrict__ phi,
-                                         const float* __restrict__ weights,
-                                         T* __restrict__ out, int C,
-                                         int64_t D, float n, float psi,
-                                         float alpha_z) {
-  const int64_t d = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
-  const float zf = to_f32(z[d]);
-  float acc = 0.f;
-  for (int i = 0; i < C; ++i) {
-    const float s = jsign(__fsub_rn(zf, to_f32(W[(int64_t)i * D + d])));
-    acc = __fadd_rn(acc, __fmul_rn(weights[i], s));
+cudaError_t launch_group(const Group& g, cudaStream_t s) {
+  const unsigned grid = (unsigned)g.first[g.n_leaves];
+  if (g.weights != nullptr) {
+    sign_agg_group<T, true><<<grid, kThreads, 0, s>>>(g);
+  } else {
+    sign_agg_group<T, false><<<grid, kThreads, 0, s>>>(g);
   }
-  out[d] = from_f32<T>(epilogue(zf, to_f32(phi[d]), acc, n, psi, alpha_z));
+  return cudaGetLastError();
 }
+
+// ------------------------------------------------------------------- B3 --
 
 // scale == nullptr: the unweighted message, an exact int32 sum
 template <typename T>
@@ -123,24 +307,75 @@ inline unsigned blocks_for(int64_t D) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (z, W, phi_mean and out share it)
+// B1 (weights == nullptr, divisor n = C) or B2 (weights (C,) f32, divisor
+// n) over n_leaves leaves, one launch per kMaxLeaves of them.  dtype: 0 =
+// float32, 1 = bfloat16 (every z, W, phi_mean and out).  table: kTableCols
+// int64 per leaf -- z, W (C, D), phi_mean, out, D, the leaf's first block
+// (counted from 0 again at every kMaxLeaves-th leaf) and its vector flag.
+// A table this code would not build is refused, launching nothing.
+// *launches: the launches made.
+extern "C" int repro_sign_agg_group(int dtype, int n_leaves,
+                                    const long long* table, int C,
+                                    const void* weights, int n, float psi,
+                                    float alpha_z, void* stream,
+                                    int* launches) {
+  *launches = 0;
+  if ((dtype != 0 && dtype != 1) || n_leaves < 1 || C < 1 || n < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int elem = dtype == 0 ? 4 : 2;
+  if (!table_ok(table, n_leaves, elem)) return (int)cudaErrorInvalidValue;
+  Group g;
+  g.C = C;
+  g.weights = (const float*)weights;
+  g.n = (float)n;
+  g.psi = psi;
+  g.alpha_z = alpha_z;
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int l0 = 0; l0 < n_leaves; l0 += kMaxLeaves) {
+    g.n_leaves = n_leaves - l0 < kMaxLeaves ? n_leaves - l0 : kMaxLeaves;
+    for (int k = 0; k < g.n_leaves; ++k) {
+      const long long* row = table + (long long)(l0 + k) * kTableCols;
+      g.leaf[k] = Leaf{(const void*)row[0], (const void*)row[1],
+                       (const void*)row[2], (void*)row[3], row[4],
+                       (int)row[6], 0};
+      g.first[k] = (int)row[5];
+    }
+    const Leaf& last = g.leaf[g.n_leaves - 1];
+    g.first[g.n_leaves] =
+        g.first[g.n_leaves - 1] + (int)leaf_blocks(last.D, last.vec, elem);
+    const cudaError_t err = dtype == 0 ? launch_group<float>(g, s)
+                                       : launch_group<__nv_bfloat16>(g, s);
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
+  }
+  return (int)cudaSuccess;
+}
+
+namespace {
+
+// one leaf through repro_sign_agg_group, its vector flag decided here
+int one_leaf(int dtype, const void* z, const void* W, const void* phi,
+             const void* weights, void* out, int C, long long D, int n,
+             float psi, float alpha_z, void* stream) {
+  long long row[kTableCols] = {(long long)(uintptr_t)z,
+                               (long long)(uintptr_t)W,
+                               (long long)(uintptr_t)phi,
+                               (long long)(uintptr_t)out, D, 0, 0};
+  row[6] = (dtype == 0 || dtype == 1) && vector_ok(row, dtype == 0 ? 4 : 2);
+  int launches = 0;
+  return repro_sign_agg_group(dtype, 1, row, C, weights, n, psi, alpha_z,
+                              stream, &launches);
+}
+
+}  // namespace
+
 extern "C" int repro_sign_agg(int dtype, const void* z, const void* W,
                               const void* phi, void* out, int C,
                               long long D, float psi, float alpha_z,
                               void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    sign_agg_kernel<float><<<blocks_for(D), kThreads, 0, s>>>(
-        (const float*)z, (const float*)W, (const float*)phi, (float*)out, C,
-        D, psi, alpha_z);
-  } else if (dtype == 1) {
-    sign_agg_kernel<__nv_bfloat16><<<blocks_for(D), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)z, (const __nv_bfloat16*)W,
-        (const __nv_bfloat16*)phi, (__nv_bfloat16*)out, C, D, psi, alpha_z);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return one_leaf(dtype, z, W, phi, nullptr, out, C, D, C, psi, alpha_z,
+                  stream);
 }
 
 extern "C" int repro_sign_agg_weighted(int dtype, const void* z,
@@ -148,21 +383,8 @@ extern "C" int repro_sign_agg_weighted(int dtype, const void* z,
                                        const void* weights, void* out, int C,
                                        long long D, int n, float psi,
                                        float alpha_z, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    sign_agg_weighted_kernel<float><<<blocks_for(D), kThreads, 0, s>>>(
-        (const float*)z, (const float*)W, (const float*)phi,
-        (const float*)weights, (float*)out, C, D, (float)n, psi, alpha_z);
-  } else if (dtype == 1) {
-    sign_agg_weighted_kernel<__nv_bfloat16>
-        <<<blocks_for(D), kThreads, 0, s>>>(
-            (const __nv_bfloat16*)z, (const __nv_bfloat16*)W,
-            (const __nv_bfloat16*)phi, (const float*)weights,
-            (__nv_bfloat16*)out, C, D, (float)n, psi, alpha_z);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return one_leaf(dtype, z, W, phi, weights, out, C, D, n, psi, alpha_z,
+                  stream);
 }
 
 extern "C" int repro_sign_agg_int8(int dtype, const void* z,

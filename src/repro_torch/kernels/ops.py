@@ -1,9 +1,10 @@
 """Public dispatch of the port's kernels (the port of the JAX package's
-``kernels/ops.py``): the Eq. (20) consensus kernels B1-B3, the
-attention kernels B4 (prefill) and B5 (decode), in the model's layout,
-and the Mamba recurrence B6.  B4-B6 go straight to their wrappers, which
-launch the CUDA kernel for CUDA tensors and run the plain version for CPU
-tensors.
+``kernels/ops.py``): the Eq. (20) consensus kernels B1-B3 (one leaf:
+:func:`sign_consensus`; every leaf of a tree at once:
+:func:`sign_consensus_leaves`), the attention kernels B4 (prefill) and B5
+(decode), in the model's layout, and the Mamba recurrence B6.  B4-B6 go
+straight to their wrappers, which launch the CUDA kernel for CUDA tensors
+and run the plain version for CPU tensors.
 
 ``impl`` of the consensus dispatch (B1-B3):
   * ``"auto"``  — the CUDA kernel for CUDA tensors, the plain version for
@@ -14,7 +15,7 @@ tensors.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -77,6 +78,36 @@ def sign_consensus(z: torch.Tensor, W: torch.Tensor, phi_mean: torch.Tensor,
                                      n or W.shape[0])
     return sa_k.sign_agg_weighted(z, W, phi_mean, weights, psi, alpha_z,
                                   n_total=n)
+
+
+def sign_consensus_leaves(zs: Sequence[torch.Tensor],
+                          Ws: Sequence[torch.Tensor],
+                          phis: Sequence[torch.Tensor],
+                          weights: Optional[torch.Tensor], psi: float,
+                          alpha_z: float, message: str = "f32",
+                          impl: str = "auto",
+                          n_total: Optional[int] = None
+                          ) -> List[torch.Tensor]:
+    """:func:`sign_consensus` over every leaf of a tree, with the same
+    arguments per leaf (``zs[l]``: (D_l,), ``Ws[l]``: (C, D_l),
+    ``phis[l]``: (D_l,)) and the same ``impl`` rules.  ``message="f32"``
+    is one grouped call (B1/B2 over all leaves, one launch); ``"int8"``
+    encodes and reduces each leaf on its own (B3 per leaf)."""
+    if message == "int8":
+        return [sign_consensus(z, W, phi, weights, psi, alpha_z,
+                               message=message, impl=impl, n_total=n_total)
+                for z, W, phi in zip(zs, Ws, phis)]
+    impl = _resolve(impl, zs[0])
+    if n_total is not None and weights is None:
+        raise ValueError("n_total (active-subset reduction) needs weights "
+                         "(the padding/activity mask at minimum)")
+    if message != "f32":
+        raise ValueError(f"unknown sign message format: {message!r}")
+    if impl == "torch":
+        return ref.sign_agg_group_ref(zs, Ws, phis, weights, psi, alpha_z,
+                                      n_total=n_total or 0)
+    return sa_k.sign_agg_group(zs, Ws, phis, weights, psi, alpha_z,
+                               n_total=n_total or 0)
 
 
 def sign_agg(z, W, phi_mean, psi: float, alpha_z: float,

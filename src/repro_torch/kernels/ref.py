@@ -5,7 +5,8 @@ of its wrapper and the yardstick the kernel is held to on the card.  They
 mirror the oracles of the JAX package's ``kernels/ref.py``:
 
 * the Eq. (20) consensus kernels B1-B3 (``csrc/sign_agg.cu``, wrappers in
-  ``kernels/sign_agg.py``);
+  ``kernels/sign_agg.py``; B1/B2 over many leaves at once:
+  :func:`sign_agg_group_ref`);
 * prefill attention B4 (``csrc/flash_attention.cu``) and decode attention
   B5 (``csrc/decode_attention.cu``), in the model's layout, computed in
   f32 and returned in the query's dtype;
@@ -20,7 +21,7 @@ client count are true divisions (see :func:`true_div`).
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -94,6 +95,23 @@ def sign_agg_weighted_ref(z: torch.Tensor, W: torch.Tensor,
     C, not by ``sum(s_i)``); all-ones weights reduce to B1."""
     return sign_agg_fold_ref(z, W, phi_mean, weights, psi, alpha_z,
                              W.shape[0])
+
+
+def sign_agg_group_ref(zs: Sequence[torch.Tensor],
+                       Ws: Sequence[torch.Tensor],
+                       phis: Sequence[torch.Tensor],
+                       weights: Optional[torch.Tensor], psi: float,
+                       alpha_z: float, n_total: int = 0
+                       ) -> List[torch.Tensor]:
+    """B1/B2 over a list of leaves (the group kernel's plain version):
+    :func:`sign_agg_ref` per leaf without ``weights``, else
+    :func:`sign_agg_fold_ref` with the divisor ``n_total or C``."""
+    if weights is None:
+        return [sign_agg_ref(z, W, phi, psi, alpha_z)
+                for z, W, phi in zip(zs, Ws, phis)]
+    return [sign_agg_fold_ref(z, W, phi, weights, psi, alpha_z,
+                              n_total or W.shape[0])
+            for z, W, phi in zip(zs, Ws, phis)]
 
 
 def int8_sign_sum(payload: torch.Tensor,

@@ -5,28 +5,37 @@
 Each wrapper replaces one Pallas TPU kernel of the JAX package's
 ``kernels/sign_agg.py`` (file:line of the ``pl.pallas_call`` caller):
 
-* :func:`sign_agg` — B1, ``sign_agg`` (sign_agg.py:58): plain mean, n = C;
-* :func:`sign_agg_weighted` — B2, ``sign_agg_weighted`` (sign_agg.py:100):
-  staleness weights ``s_i``, n = ``n_total or C``;
+* :func:`sign_agg_group` — B1 and B2 over every leaf of a parameter tree
+  in one launch: ``sign_agg`` (sign_agg.py:58, plain mean, n = C) without
+  ``weights``, ``sign_agg_weighted`` (sign_agg.py:100: staleness weights
+  ``s_i``, n = ``n_total or C``) with them;
+* :func:`sign_agg` / :func:`sign_agg_weighted` — B1 / B2 on one leaf (a
+  one-leaf call of the same kernel);
 * :func:`sign_agg_weighted_int8` — B3, ``sign_agg_weighted_int8``
   (sign_agg.py:160): the int8 wire payload with an f32 ``scale`` (or none:
   an int32 sum), n = ``n_total or C``.
 
 What bounds them on the H100 is bytes: reading W once and z, phi_mean in,
 z' out — ``4*C*D + 12*D`` bytes for B1/B2 in f32, ``C*D + 12*D + 4*C``
-for B3 — over 3.35 TB/s.  The kernels (``csrc/sign_agg.cu``) give each
-thread one column and loop the C rows in order: coalesced loads of each
-row, one pass over W, and the row-order fold of the plain versions in
+for B3 — over 3.35 TB/s.  A leaf of a forecaster's round is far smaller
+than what a launch costs, so B1/B2 (``sign_agg_group<T, kWeighted>`` in
+``csrc/sign_agg.cu``) take a table of leaves (:func:`leaf_table`) and
+launch once per ``MAX_LEAVES`` leaves.  A thread owns one 16-byte vector
+of columns where the leaf allows it (else one column) and folds the C rows
+in order, loading four rows before it folds them; B3 gives each thread
+one column.  Both give the row-order fold of the plain versions in
 ``kernels/ref.py``, bit for bit.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES`` counts kernel launches per wrapper.
+kernel or raises.  ``LAUNCHES`` counts kernel launches per wrapper
+(:func:`sign_agg_group` adds to ``sign_agg`` or ``sign_agg_weighted``).
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,6 +46,12 @@ LAUNCHES: Dict[str, int] = {"sign_agg": 0, "sign_agg_weighted": 0,
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
+
+# The group kernel's constants (csrc/sign_agg.cu: kThreads, kMaxLeaves,
+# kTableCols); the C entry refuses a table built with others.
+THREADS = 256          # threads per block
+MAX_LEAVES = 64        # leaves per launch: the table is a kernel parameter
+TABLE_COLS = 7         # z, W, phi_mean, out, D, first block, vector flag
 
 
 def reset_launch_counts() -> None:
@@ -54,10 +69,48 @@ def _lib() -> ctypes.CDLL:
         i, _P, _P, _P, _P, _P, i, ll, i, f, f, _P]
     lib.repro_sign_agg_int8.argtypes = [
         i, _P, _P, _P, _P, _P, i, ll, i, f, f, _P]
+    lib.repro_sign_agg_group.argtypes = [
+        i, i, _P, i, _P, i, f, f, _P, ctypes.POINTER(i)]
     for fn in (lib.repro_sign_agg, lib.repro_sign_agg_weighted,
-               lib.repro_sign_agg_int8):
+               lib.repro_sign_agg_int8, lib.repro_sign_agg_group):
         fn.restype = ctypes.c_int
     return lib
+
+
+def leaf_table(leaves: Sequence[Tuple[int, int, int, int, int]],
+               itemsize: int) -> List[int]:
+    """The group kernel's table, ``TABLE_COLS`` ints per leaf.
+
+    ``leaves``: ``(z, W, phi_mean, out, D)`` per leaf, the first four as
+    addresses.  A leaf takes 16-byte vectors of ``16 // itemsize`` columns
+    a thread when its four addresses are 16-byte aligned and D is a
+    multiple of that width (each row of W then starts aligned), else one
+    column a thread; it gets ``ceil(D / (THREADS * columns a thread))``
+    blocks, numbered from 0 again at every ``MAX_LEAVES``-th leaf, where a
+    new launch starts."""
+    width = 16 // itemsize
+    table: List[int] = []
+    first = 0
+    for k, (z, W, phi, out, D) in enumerate(leaves):
+        if k % MAX_LEAVES == 0:
+            first = 0
+        vec = int(D % width == 0 and (z | W | phi | out) % 16 == 0)
+        table += [z, W, phi, out, D, first, vec]
+        first += -(-D // (THREADS * (width if vec else 1)))
+    return table
+
+
+def out_offsets(sizes: Sequence[int], itemsize: int) -> Tuple[List[int],
+                                                              int]:
+    """Where each leaf's z' starts in the one output of
+    :func:`sign_agg_group`: offsets rounded up to 16 bytes, so every leaf
+    whose own inputs allow it takes the vector path; and the total size."""
+    width = 16 // itemsize
+    offs, total = [], 0
+    for D in sizes:
+        offs.append(total)
+        total += -(-D // width) * width
+    return offs, total
 
 
 def _check_vectors(z: torch.Tensor, phi_mean: torch.Tensor,
@@ -141,6 +194,56 @@ def sign_agg_weighted(z: torch.Tensor, W: torch.Tensor,
     _build.check_launch(err, "sign_agg_weighted")
     LAUNCHES["sign_agg_weighted"] += 1
     return out
+
+
+def sign_agg_group(zs: Sequence[torch.Tensor], Ws: Sequence[torch.Tensor],
+                   phis: Sequence[torch.Tensor],
+                   weights: Optional[torch.Tensor], psi: float,
+                   alpha_z: float, *, n_total: int = 0
+                   ) -> List[torch.Tensor]:
+    """B1 (``weights=None``) or B2 over every leaf at once.  ``zs[l]``,
+    ``phis[l]``: (D_l,); ``Ws[l]``: (C, D_l); one dtype (f32 or bf16) and
+    one C for all leaves; ``weights``: (C,) f32; the sum is divided by
+    ``n_total`` (default: C; only with ``weights``).  Returns each leaf's
+    z' (D_l,), views of one output.  One launch per ``MAX_LEAVES``
+    leaves."""
+    if not zs or not (len(zs) == len(Ws) == len(phis)):
+        raise ValueError(f"need one or more leaves and as many z, W and "
+                         f"phi_mean: {len(zs)}, {len(Ws)}, {len(phis)}")
+    if weights is None and n_total:
+        raise ValueError("n_total needs weights")
+    if zs[0].device.type == "cpu":
+        return ref.sign_agg_group_ref(zs, Ws, phis, weights, psi, alpha_z,
+                                      n_total=_divisor(n_total, 0))
+    z0 = zs[0]
+    code = _check_vectors(z0, phis[0], Ws[0], z0.dtype)
+    C = Ws[0].shape[0]
+    for z, W, phi in zip(zs[1:], Ws[1:], phis[1:]):
+        _check_vectors(z, phi, W, z0.dtype)
+        if z.dtype != z0.dtype:
+            raise TypeError(f"every leaf must be {z0.dtype}, got {z.dtype}")
+        if W.shape[0] != C or z.device != z0.device:
+            raise ValueError(f"every leaf needs C={C} rows on {z0.device}, "
+                             f"got {tuple(W.shape)} on {z.device}")
+    if weights is not None:
+        _check_column("weights", weights, z0, C)
+    isz = z0.element_size()
+    offs, total = out_offsets([z.shape[0] for z in zs], isz)
+    out = torch.empty(total, dtype=z0.dtype, device=z0.device)
+    base = out.data_ptr()
+    table = array.array("q", leaf_table(
+        [(z.data_ptr(), W.data_ptr(), phi.data_ptr(), base + o * isz,
+          z.shape[0]) for z, W, phi, o in zip(zs, Ws, phis, offs)], isz))
+    launched = ctypes.c_int(0)
+    err = _lib().repro_sign_agg_group(
+        code, len(zs), table.buffer_info()[0], C,
+        None if weights is None else weights.data_ptr(),
+        _divisor(n_total, C), psi, alpha_z,
+        _build.stream_of(z0), ctypes.byref(launched))
+    name = "sign_agg" if weights is None else "sign_agg_weighted"
+    _build.check_launch(err, name)
+    LAUNCHES[name] += launched.value
+    return [out[o:o + z.shape[0]] for z, o in zip(zs, offs)]
 
 
 def sign_agg_weighted_int8(z: torch.Tensor, payload: torch.Tensor,

@@ -6,9 +6,12 @@
 Trains the MLP_H24 forecaster on synthetic Milano traffic through
 ``train.train_bafdp`` (after a 2-round warm-up) under ``torch.profiler``
 and prints: ms per round (host clock, synchronized, profiler on), the
-kernels launched per round, the device busy share (summed kernel time
-over wall time) and the top operators by device and by host time.  Needs
-a CUDA device.
+kernels launched per round, beside them each consensus kernel's
+launches per round as its wrapper counts them (``sign_agg.LAUNCHES``:
+B1/B2 one grouped launch a round, B3 one a leaf) and the consensus
+kernels' device ms per round and share of busy time, the device busy share
+(summed kernel time over wall time) and the top operators by device and
+by host time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import train
 from repro_torch.configs import FedConfig
+from repro_torch.kernels import sign_agg
 from repro_torch.tree import resolve_device
 
 
@@ -37,6 +41,7 @@ def main(argv=None) -> None:
     train.problem("milano", 24, fed.n_clients, 0)
     train.train_bafdp("milano", 24, fed, rounds=2, device=dev)
     torch.cuda.synchronize(dev)
+    sign_agg.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -52,6 +57,13 @@ def main(argv=None) -> None:
           f"kernels_per_round={len(kernels) / args.rounds:.1f} "
           f"device_busy_ms_per_round={busy_ms / args.rounds:.4f} "
           f"device_busy_share={busy_ms / wall_ms:.4f}")
+    consensus_ms = sum(e.time_range.elapsed_us() for e in kernels
+                       if "sign_agg" in e.name) / 1e3
+    print("consensus launches_per_round: " + " ".join(
+        f"{name}={n / args.rounds:.1f}"
+        for name, n in sign_agg.LAUNCHES.items())
+        + f" device_ms_per_round={consensus_ms / args.rounds:.4f} "
+        f"share_of_busy={consensus_ms / busy_ms:.4f}")
     averages = prof.key_averages()
     print(averages.table(sort_by="self_device_time_total", row_limit=12))
     print(averages.table(sort_by="self_cpu_time_total", row_limit=15))

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card against their plain versions on the card:
-B1-B3 bit for bit; B4 (prefill attention) and B5 (decode attention)
+B1-B3 bit for bit (B1/B2 also as one grouped launch over many leaves,
+and inside training rounds against one-leaf calls); B4 (prefill attention) and B5 (decode attention)
 within abs/rel 3e-5 in f32 (the reference's own bound between its
 kernels and oracles, tests/test_kernels.py) and, in bf16, within one
 rounding of the output: 1e-2 relative plus 1e-3 of the output's RMS
@@ -101,6 +102,146 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
         sign_agg.sign_agg_weighted(z, W, phi, sw[:3], PSI, ALPHA)
     with pytest.raises(TypeError):
         sign_agg.sign_agg_weighted_int8(z, W, None, phi, PSI, ALPHA)
+
+
+MAIN_LEAF_D = [128, 2816, 128, 16384, 64, 8192, 24, 1536]   # MLP_H24
+
+
+def _group_leaves(sizes, C, dtype, seed, offset=()):
+    """(z, W, phi) per leaf on the card, NaN and tie columns included;
+    the leaves numbered in ``offset`` are views one element into their
+    storage (misaligned for 16-byte vectors)."""
+    leaves = []
+    for l, D in enumerate(sizes):
+        z, W, phi, _ = _problem(D, C, seed + l)
+        W[0, :min(D, 2)] = np.nan
+        W[C - 1, 2:4] = z[2:4]
+        k = 1 if l in offset else 0
+        t = [_torch(np.concatenate([np.zeros(k, np.float32), a.ravel()]),
+                    dtype).cuda()[k:] for a in (z, W, phi)]
+        leaves.append((t[0], t[1].view(C, D), t[2]))
+    return leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "weighted", "n_total"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_sign_agg_group_matches_plain_version_bitwise(mode, dtype):
+    """One grouped launch over the MLP_H24 leaves, odd sizes, misaligned
+    views and the TPU grid's sizes equals the plain version bit for bit;
+    the main-path leaves take the vector path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    C = 10
+    sizes = MAIN_LEAF_D + [1, 3, 8193, 1000, 1024] + GRID_D
+    n = len(MAIN_LEAF_D)
+    zs, Ws, phis = map(list, zip(*_group_leaves(
+        sizes, C, dtype, 7, offset=(n + 3, n + 4))))
+    sw = torch.from_numpy(_problem(1, C, 1)[3]).cuda()
+    weights = None if mode == "plain" else sw
+    n_total = 3 * C if mode == "n_total" else 0
+    isz = zs[0].element_size()
+    table = sign_agg.leaf_table(
+        [(z.data_ptr(), W.data_ptr(), p.data_ptr(), 0, z.numel())
+         for z, W, p in zip(zs, Ws, phis)], isz)
+    flags = table[6::sign_agg.TABLE_COLS]
+    assert flags[:n] == [1] * n and flags[n + 3:n + 5] == [0, 0]
+    sign_agg.reset_launch_counts()
+    got = sign_agg.sign_agg_group(zs, Ws, phis, weights, PSI, ALPHA,
+                                  n_total=n_total)
+    torch.cuda.synchronize()
+    want = ref.sign_agg_group_ref(zs, Ws, phis, weights, PSI, ALPHA,
+                                  n_total=n_total)
+    name = "sign_agg" if weights is None else "sign_agg_weighted"
+    assert sign_agg.LAUNCHES[name] == 1
+    assert sum(sign_agg.LAUNCHES.values()) == 1
+    for l, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _bits_equal(g, w), f"leaf {l} D={sizes[l]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [2, 16, 200])
+def test_cuda_sign_agg_group_splits_past_max_leaves(C):
+    """65 leaves take two launches and still equal the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sizes = [(37 * l) % 300 + 1 for l in range(sign_agg.MAX_LEAVES + 1)]
+    zs, Ws, phis = map(list, zip(*_group_leaves(sizes, C, "float32", 3)))
+    sw = torch.from_numpy(_problem(1, C, 2)[3]).cuda()
+    sign_agg.reset_launch_counts()
+    got = sign_agg.sign_agg_group(zs, Ws, phis, sw, PSI, ALPHA)
+    torch.cuda.synchronize()
+    assert sign_agg.LAUNCHES["sign_agg_weighted"] == 2
+    want = ref.sign_agg_group_ref(zs, Ws, phis, sw, PSI, ALPHA)
+    assert all(_bits_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_sign_agg_group_raises_on_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    zs, Ws, phis = map(list, zip(*_group_leaves([128, 64], 4, "float32",
+                                                0)))
+    with pytest.raises(TypeError):                      # mixed dtypes
+        sign_agg.sign_agg_group(zs, [Ws[0], Ws[1].bfloat16()],
+                                [phis[0], phis[1].bfloat16()], None, PSI,
+                                ALPHA)
+    with pytest.raises(TypeError):
+        sign_agg.sign_agg_group([zs[0], zs[1].bfloat16()], Ws,
+                                [phis[0], phis[1].bfloat16()], None, PSI,
+                                ALPHA)
+    with pytest.raises(ValueError, match="C=4"):        # mixed C
+        sign_agg.sign_agg_group(zs, [Ws[0], Ws[1][:3].contiguous()], phis,
+                                None, PSI, ALPHA)
+    with pytest.raises(ValueError, match="CUDA"):       # a CPU leaf
+        sign_agg.sign_agg_group([zs[0], zs[1].cpu()], [Ws[0], Ws[1].cpu()],
+                                [phis[0], phis[1].cpu()], None, PSI, ALPHA)
+    with pytest.raises(ValueError):                     # weights (C,)
+        sign_agg.sign_agg_group(zs, Ws, phis, torch.ones(3, device="cuda"),
+                                PSI, ALPHA)
+    with pytest.raises(ValueError, match="contiguous"):
+        sign_agg.sign_agg_group(zs, [Ws[0], Ws[1].t().contiguous().t()],
+                                phis, None, PSI, ALPHA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    dict(staleness_decay="constant"), dict(staleness_decay="poly"),
+    dict(staleness_decay="hinge", fedbuff_lr_norm=True)])
+def test_cuda_sign_agg_group_in_rounds_equals_one_leaf_calls(monkeypatch,
+                                                             knobs):
+    """In 3 training rounds on the card, each grouped consensus call
+    equals one-leaf kernel calls on the same leaves, bit for bit; B1/B2
+    launch once a round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+    from repro_torch.kernels import ops
+
+    grouped = ops.sign_consensus_leaves
+    calls = []
+
+    def checked(zs, Ws, phis, weights, psi, alpha_z, **kwargs):
+        got = grouped(zs, Ws, phis, weights, psi, alpha_z, **kwargs)
+        for z, W, p, g in zip(zs, Ws, phis, got):
+            one = (sign_agg.sign_agg(z, W, p, psi, alpha_z)
+                   if weights is None else
+                   sign_agg.sign_agg_weighted(z, W, p, weights, psi,
+                                              alpha_z))
+            assert _bits_equal(g, one)
+        calls.append([z.numel() for z in zs])
+        return got
+
+    monkeypatch.setattr(ops, "sign_consensus_leaves", checked)
+    sign_agg.reset_launch_counts()
+    train.train_bafdp("milano", 24, FedConfig(n_clients=10, **knobs),
+                      rounds=3, device="cuda")
+    assert calls == [MAIN_LEAF_D] * 3
+    name = ("sign_agg" if knobs["staleness_decay"] == "constant"
+            else "sign_agg_weighted")
+    assert sign_agg.LAUNCHES[name] == 3 + 3 * len(MAIN_LEAF_D)
 
 
 def _randn(shape, dtype, seed):

@@ -224,3 +224,281 @@ def test_sign_agg_entry_points_match_reference(reference):
                                   impl=impl).numpy(),
             np.asarray(reference.ops.sign_agg_weighted(
                 z, W, phi, sw, PSI, ALPHA, impl="xla")), rtol=0, atol=1e-6)
+
+
+# ---- B1/B2 over every leaf of a tree (sign_agg_group) -------------------
+
+MAIN_LEAF_D = [128, 2816, 128, 16384, 64, 8192, 24, 1536]   # MLP_H24
+ODD_LEAF_D = [1, 3, 8193]
+
+
+def _leaves(sizes, C, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for D in sizes:
+        z = rng.randn(D).astype(np.float32)
+        W = rng.randn(C, D).astype(np.float32)
+        W[0, :2] = np.nan                     # NaN and tie columns
+        W[C - 1, 2:4] = z[2:4]
+        out.append((z, W, (rng.randn(D) * 0.01).astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["plain", "weighted", "n_total"])
+def test_sign_agg_group_matches_reference_per_leaf(reference, dtype, mode):
+    """The grouped call on the CPU against the reference's per-leaf
+    oracles (``sign_agg_ref`` without weights, ``sign_agg_fold_ref`` with
+    them), over the 8 MLP_H24 leaves and odd sizes."""
+    C = 10
+    leaves = _leaves(MAIN_LEAF_D + ODD_LEAF_D, C, 3)
+    sw = np.random.RandomState(4).uniform(0.05, 1.0, C).astype(np.float32)
+    n_total = 3 * C if mode == "n_total" else 0
+    weights = None if mode == "plain" else torch.from_numpy(sw)
+    got = sign_agg.sign_agg_group(
+        [_torch(z, dtype) for z, _, _ in leaves],
+        [_torch(W, dtype) for _, W, _ in leaves],
+        [_torch(p, dtype) for _, _, p in leaves], weights, PSI, ALPHA,
+        n_total=n_total)
+    assert len(got) == len(leaves)
+    for (z, W, phi), g in zip(leaves, got):
+        jz, jW, jphi = (_jax(a, dtype) for a in (z, W, phi))
+        if mode == "plain":
+            want = reference.ref.sign_agg_ref(jz, jW, jphi, PSI, ALPHA)
+        else:
+            want = reference.ref.sign_agg_fold_ref(
+                jz, jW, jphi, _jax(sw, "float32"), PSI, ALPHA, n_total or C)
+        assert g.dtype == getattr(torch, dtype) and g.shape == (z.size,)
+        assert np.isnan(g[:2].float().numpy()).all()
+        _close(g, want, dtype)
+
+
+@pytest.mark.parametrize("decay", ["constant", "hinge", "poly"])
+@pytest.mark.parametrize("message", ["f32", "int8"])
+def test_sign_consensus_leaves_equals_per_leaf_dispatch(reference, decay,
+                                                        message):
+    """``ops.sign_consensus_leaves`` equals ``ops.sign_consensus`` leaf by
+    leaf, bit for bit, for both wire formats and every decay, with and
+    without ``n_total``, through ``impl="auto"`` and ``"torch"``."""
+    C = 12
+    fed = reference.configs.FedConfig(staleness_decay=decay)
+    weights = None if decay == "constant" else torch.from_numpy(np.array(
+        reference.bafdp.staleness_weights(np.arange(C, dtype=np.float32),
+                                          fed)))
+    leaves = [tuple(map(torch.from_numpy, leaf))
+              for leaf in _leaves(MAIN_LEAF_D + ODD_LEAF_D, C, 5)]
+    zs, Ws, phis = map(list, zip(*leaves))
+    for n_total in [None] if weights is None else [None, 2 * C]:
+        for impl in ("auto", "torch"):
+            got = ops.sign_consensus_leaves(zs, Ws, phis, weights, PSI,
+                                            ALPHA, message=message,
+                                            impl=impl, n_total=n_total)
+            for (z, W, phi), g in zip(leaves, got):
+                want = ops.sign_consensus(z, W, phi, weights, PSI, ALPHA,
+                                          message=message, impl=impl,
+                                          n_total=n_total)
+                assert g.dtype == want.dtype
+                assert g.numpy().tobytes() == want.numpy().tobytes()
+
+
+def _kernel_columns(table, width, n_leaves):
+    """Which (leaf, column) each thread of the group kernel writes: block
+    b of a launch belongs to the last leaf whose first block is <= b, and
+    thread t of its k-th block owns ``width`` (vector) or 1 columns from
+    ``(k * THREADS + t) * width`` on, up to the leaf's D."""
+    cols = sign_agg.TABLE_COLS
+    seen = {}
+    for l0 in range(0, n_leaves, sign_agg.MAX_LEAVES):
+        rows = [table[l * cols:(l + 1) * cols]
+                for l in range(l0, min(n_leaves, l0 + sign_agg.MAX_LEAVES))]
+        last = rows[-1]
+        grid = last[5] + -(-last[4] // (sign_agg.THREADS
+                                        * (width if last[6] else 1)))
+        for b in range(grid):
+            k = max(i for i, r in enumerate(rows) if r[5] <= b)
+            D, first, vec = rows[k][4], rows[k][5], rows[k][6]
+            v = width if vec else 1
+            for t in range(sign_agg.THREADS):
+                d0 = ((b - first) * sign_agg.THREADS + t) * v
+                for d in range(d0, min(d0 + v, D)):
+                    seen[(l0 + k, d)] = seen.get((l0 + k, d), 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_leaf_table_covers_every_column_exactly_once(itemsize):
+    """Each column of each leaf is written by exactly one thread, on the
+    vector path and the scalar one, across a split at MAX_LEAVES."""
+    width = 16 // itemsize
+    sizes = MAIN_LEAF_D + ODD_LEAF_D + [width, width + 1, 4096, 4097]
+    sizes = (sizes * 6)[:sign_agg.MAX_LEAVES + 3]
+    base = 1 << 20
+    leaves = [(base, base + 256, base + 512, base + 768 + 4 * (l % 3), D)
+              for l, D in enumerate(sizes)]
+    table = sign_agg.leaf_table(leaves, itemsize)
+    assert len(table) == sign_agg.TABLE_COLS * len(sizes)
+    seen = _kernel_columns(table, width, len(sizes))
+    assert set(seen.values()) == {1}
+    assert sorted(seen) == [(l, d) for l, D in enumerate(sizes)
+                            for d in range(D)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_leaf_table_flags_the_vector_path_only_where_it_is_safe(itemsize):
+    """A leaf is vectorized only when all four addresses are 16-byte
+    aligned and D is a multiple of the vector width (4 f32, 8 bf16)."""
+    width = 16 // itemsize
+    a = 1 << 20
+    cases = [((a, a, a, a, 8 * width), 1),
+             ((a, a, a, a, 8 * width + 1), 0),
+             ((a, a, a, a, width // 2), 0),
+             ((a + itemsize, a, a, a, 8 * width), 0),     # a view, offset 1
+             ((a, a + itemsize, a, a, 8 * width), 0),
+             ((a, a, a + 8, a, 8 * width), 0),
+             ((a, a, a, a + itemsize, 8 * width), 0),
+             ((a, a, a, a, 1), 0), ((a, a, a, a, 3), 0)]
+    table = sign_agg.leaf_table([leaf for leaf, _ in cases], itemsize)
+    flags = table[6::sign_agg.TABLE_COLS]
+    assert flags == [vec for _, vec in cases]
+    if itemsize == 2:                       # bf16: D a multiple of 8, not 4
+        assert sign_agg.leaf_table([(a, a, a, a, 12)], 2)[6] == 0
+
+
+def test_leaf_table_splits_at_max_leaves():
+    """65 leaves: two launches, the second's blocks counted from 0."""
+    n = sign_agg.MAX_LEAVES + 1
+    table = sign_agg.leaf_table([(0, 0, 0, 0, 1024)] * n, 4)
+    firsts = table[5::sign_agg.TABLE_COLS]
+    assert firsts[:3] == [0, 1, 2]
+    assert firsts[sign_agg.MAX_LEAVES - 1] == sign_agg.MAX_LEAVES - 1
+    assert firsts[sign_agg.MAX_LEAVES] == 0
+    assert -(-n // sign_agg.MAX_LEAVES) == 2
+
+
+def test_table_constants_match_the_kernel_source():
+    """THREADS, MAX_LEAVES and TABLE_COLS are the .cu's constants, and
+    the out offsets keep every leaf's z' on a 16-byte boundary."""
+    import re
+    from pathlib import Path
+
+    src = (Path(sign_agg.__file__).parent / "csrc" / "sign_agg.cu"
+           ).read_text()
+    for name, value in (("kThreads", sign_agg.THREADS),
+                        ("kMaxLeaves", sign_agg.MAX_LEAVES),
+                        ("kTableCols", sign_agg.TABLE_COLS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1)) == value
+    for itemsize in (4, 2):
+        offs, total = sign_agg.out_offsets([1, 3, 24, 8193, 5], itemsize)
+        assert all(o * itemsize % 16 == 0 for o in offs)
+        assert total >= offs[-1] + 5 and total * itemsize % 16 == 0
+
+
+def test_round_leaves_take_the_vector_path(monkeypatch):
+    """The leaves a forecaster round hands the grouped call (MLP_H24,
+    f32) all qualify for 16-byte vectors, as the 8 MLP_H24 sizes do in
+    bf16."""
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+
+    calls = []
+    grouped = ops.sign_consensus_leaves
+
+    def spy(zs, Ws, phis, *args, **kwargs):
+        calls.append([(z.data_ptr(), W.data_ptr(), p.data_ptr(), z.numel())
+                      for z, W, p in zip(zs, Ws, phis)])
+        return grouped(zs, Ws, phis, *args, **kwargs)
+
+    monkeypatch.setattr(ops, "sign_consensus_leaves", spy)
+    train.train_bafdp("milano", 24, FedConfig(n_clients=4), rounds=1,
+                      device="cpu")
+    assert [D for *_, D in calls[0]] == MAIN_LEAF_D
+    for itemsize in (4, 2):
+        offs, _ = sign_agg.out_offsets(MAIN_LEAF_D, itemsize)
+        if itemsize == 4:
+            leaves = [(z, W, p, 4096 + o * 4, D)
+                      for (z, W, p, D), o in zip(calls[0], offs)]
+        else:
+            leaves = [(256, 256, 256, 4096 + o * 2, D)
+                      for D, o in zip(MAIN_LEAF_D, offs)]
+        flags = sign_agg.leaf_table(leaves, itemsize)[6::sign_agg.TABLE_COLS]
+        assert flags == [1] * len(MAIN_LEAF_D)
+
+
+def test_group_dispatch_validation_errors():
+    leaves = [tuple(map(torch.from_numpy, leaf))
+              for leaf in _leaves([128, 64], 4, 0)]
+    zs, Ws, phis = map(list, zip(*leaves))
+    with pytest.raises(ValueError, match="n_total"):
+        ops.sign_consensus_leaves(zs, Ws, phis, None, PSI, ALPHA, n_total=8)
+    with pytest.raises(ValueError, match="n_total"):
+        sign_agg.sign_agg_group(zs, Ws, phis, None, PSI, ALPHA, n_total=8)
+    with pytest.raises(ValueError, match="sign message"):
+        ops.sign_consensus_leaves(zs, Ws, phis, None, PSI, ALPHA,
+                                  message="int4")
+    with pytest.raises(ValueError, match="impl"):
+        ops.sign_consensus_leaves(zs, Ws, phis, None, PSI, ALPHA,
+                                  impl="pallas")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.sign_consensus_leaves(zs, Ws, phis, None, PSI, ALPHA,
+                                  impl="cuda")
+    with pytest.raises(ValueError, match="leaves"):
+        sign_agg.sign_agg_group([], [], [], None, PSI, ALPHA)
+    with pytest.raises(ValueError, match="leaves"):
+        sign_agg.sign_agg_group(zs, Ws[:1], phis, None, PSI, ALPHA)
+
+
+def test_cpu_group_never_reaches_the_kernel_build(monkeypatch):
+    """On the CPU the grouped call runs the plain version, builds nothing
+    and counts no launch."""
+    from repro_torch.kernels import _build
+
+    def refuse(name):
+        raise AssertionError("the CPU path tried to build a kernel")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    sign_agg.reset_launch_counts()
+    leaves = [tuple(map(torch.from_numpy, leaf))
+              for leaf in _leaves(MAIN_LEAF_D, 4, 0)]
+    zs, Ws, phis = map(list, zip(*leaves))
+    sign_agg.sign_agg_group(zs, Ws, phis, None, PSI, ALPHA)
+    ops.sign_consensus_leaves(zs, Ws, phis, torch.ones(4), PSI, ALPHA)
+    assert set(sign_agg.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("name", ["constant-f32-sgd", "poly-f32-adam",
+                                  "poly-int8-adam", "hinge-int8-dualint8",
+                                  "taylor-global"])
+def test_round_grouped_dispatch_equals_per_leaf_dispatch(monkeypatch, name):
+    """3 rounds of ``bafdp_round`` through the grouped consensus call
+    equal 3 rounds through a per-leaf dispatch, over the whole state, bit
+    for bit."""
+    from test_torch_reference import flat_items, port_state_arrays
+    from test_torch_round import CFG, GRID, _rows, _run_port
+
+    from repro_torch.configs import FedConfig
+    from repro_torch.core.fed_state import init_fed_state
+    from repro_torch.models.forecasting import init_forecaster
+
+    knobs = GRID[name]
+    act, stale, batches = _rows(seed=1)
+    init = port_state_arrays(init_fed_state(
+        torch.Generator().manual_seed(2), lambda g: init_forecaster(g, CFG),
+        FedConfig(n_clients=5, **knobs), device="cpu"))
+    grouped, _ = _run_port(knobs, init, act, stale, batches)
+
+    def per_leaf(zs, Ws, phis, weights, psi, alpha_z, message="f32",
+                 impl="auto", n_total=None):
+        return [ops.sign_consensus(z, W, p, weights, psi, alpha_z,
+                                   message=message, impl=impl,
+                                   n_total=n_total)
+                for z, W, p in zip(zs, Ws, phis)]
+
+    monkeypatch.setattr(ops, "sign_consensus_leaves", per_leaf)
+    split, _ = _run_port(knobs, init, act, stale, batches)
+    for t in range(len(grouped)):
+        a, b = dict(flat_items(grouped[t])), dict(flat_items(split[t]))
+        assert sorted(a) == sorted(b)
+        for path in a:
+            assert np.asarray(a[path]).tobytes() == \
+                np.asarray(b[path]).tobytes(), f"round {t} {path}"
