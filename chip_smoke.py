@@ -16,15 +16,15 @@ cluster launch per call --, the Mamba selective scan B6 in
 
 Training path (B1-B3): holds each kernel against its plain PyTorch
 version on the card, bit for bit, at the main path's shapes, on the
-reference's TPU test grid and at one bandwidth-bound shape, and B1/B2
-(one kernel, ``sign_agg_group``) also as the round calls them, one
-grouped launch over many leaves (``check_groups``); times kernel and
-plain version with CUDA events, B1/B2 per round as one grouped call
-beside eight one-leaf calls (``time_round``); trains the BAFDP MLP_H24
-traffic forecaster (``repro_torch.train.train_bafdp``, 10 clients, full
-width) for 20 rounds four times, once through each kernel, checking each
-run's launch count (B1/B2 one a round, B3 one a leaf a round); and runs
-3 rounds on the CPU and on the card from one state and compares them.
+reference's TPU test grid and at one bandwidth-bound shape, and each
+also as the round calls it, one grouped launch over many leaves
+(``check_groups``: B1/B2 ``sign_agg_group``, B3 ``sign_agg_int8_group``);
+times kernel and plain version with CUDA events, each per round as one
+grouped call beside eight one-leaf calls (``time_round``); trains the
+BAFDP MLP_H24 traffic forecaster (``repro_torch.train.train_bafdp``, 10
+clients, full width) for 20 rounds four times, once through each kernel,
+checking each run's launch count (one a round); and runs 3 rounds on the
+CPU and on the card from one state and compares them.
 
 Serving path (B4, B5): holds both attention kernels against their plain
 versions (the reference's TPU test grid in f32 and bf16, Sq < Sk, ragged
@@ -56,11 +56,12 @@ token-by-token decode of the same prompt (5e-4, the reference's bound).
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
 launches (summed over the main-path runs) and times.  Its B1-B3 entries
-give ``kernel`` (the CUDA kernel), the time per round of the 8 leaves
-and, as ``bandwidth_ms``/``bandwidth_bound_ms``, the bandwidth shape;
-B1/B2's add ``call_ms`` (host time of the grouped call) and, as
+give ``kernel`` (the f32 instance's ptxas label) with ``ptxas`` (its
+and the bf16 instance's registers and spills), the time per round of the
+8 leaves as one grouped call, ``call_ms`` (its host time) and, as
 ``one_leaf_ms``/``one_leaf_call_ms``, the same round in eight one-leaf
-calls.  Its
+calls, and, as ``bandwidth_ms``/``bandwidth_bound_ms``, the bandwidth
+shape.  Its
 ``flash_attention`` entry gives B4's f32 kernel (``f32_kernel``, its
 ptxas label: name and tiles at head dim 64) at SmolLM-360M's prefill
 shape, with ``bound_ms`` its 3xTF32 tensor-core roof and
@@ -229,19 +230,33 @@ def make_inputs(C: int, D: int, dtype: torch.dtype, seed: int,
 
 def kernel_specs():
     """The four ways the main path reaches B1-B3: one-leaf wrapper, plain
-    version, bytes moved, the FedConfig knobs that select it and the
-    launches a round makes (B1/B2: one grouped launch over every leaf;
-    B3: one a leaf)."""
+    version, grouped call over every leaf of a round (``group``: the round
+    ``r`` of lists, weights, ``n_total``) and its plain version, bytes
+    moved, the FedConfig knobs that select it and the launches a round
+    makes (one grouped launch over every leaf)."""
     from repro_torch.kernels import ref, sign_agg as sa
 
     def vec_bytes(x):
         return 3 * x["z"].numel() * x["z"].element_size()
 
+    f32_group = dict(
+        kernel_name="sign_agg_group", rows="W", per_round=1,
+        group=lambda r, w, n: sa.sign_agg_group(
+            r["z"], r["W"], r["phi"], w, PSI, ALPHA, n_total=n),
+        group_plain=lambda r, w, n: ref.sign_agg_group_ref(
+            r["z"], r["W"], r["phi"], w, PSI, ALPHA, n_total=n))
+    int8_group = dict(
+        kernel_name="sign_agg_int8_group", rows="payload", per_round=1,
+        counter="sign_agg_weighted_int8", replaces=f"{TPU_SRC}:160",
+        group=lambda r, w, n: sa.sign_agg_int8_group(
+            r["z"], r["payload"], r["phi"], w, PSI, ALPHA, n_total=n),
+        group_plain=lambda r, w, n: ref.sign_agg_int8_group_ref(
+            r["z"], r["payload"], r["phi"], w, PSI, ALPHA, n_total=n))
     return [
-        dict(name="sign_agg", counter="sign_agg",
-             replaces=f"{TPU_SRC}:58", kernel_name="sign_agg_group<T,false>",
+        dict(f32_group, name="sign_agg", counter="sign_agg",
+             replaces=f"{TPU_SRC}:58",
              knobs=dict(sign_message="f32", staleness_decay="constant"),
-             per_round=1, weighted=False,
+             weighted=False,
              kernel=lambda x: sa.sign_agg(x["z"], x["W"], x["phi"], PSI,
                                           ALPHA),
              plain=lambda x: ref.sign_agg_ref(x["z"], x["W"], x["phi"], PSI,
@@ -249,10 +264,10 @@ def kernel_specs():
              nbytes=lambda x: x["W"].numel() * x["W"].element_size()
              + vec_bytes(x),
              flops=lambda x: 2 * x["W"].numel()),
-        dict(name="sign_agg_weighted", counter="sign_agg_weighted",
-             replaces=f"{TPU_SRC}:100", kernel_name="sign_agg_group<T,true>",
+        dict(f32_group, name="sign_agg_weighted",
+             counter="sign_agg_weighted", replaces=f"{TPU_SRC}:100",
              knobs=dict(sign_message="f32", staleness_decay="poly"),
-             per_round=1, weighted=True,
+             weighted=True,
              kernel=lambda x: sa.sign_agg_weighted(
                  x["z"], x["W"], x["phi"], x["sw"], PSI, ALPHA),
              plain=lambda x: ref.sign_agg_weighted_ref(
@@ -260,11 +275,9 @@ def kernel_specs():
              nbytes=lambda x: x["W"].numel() * x["W"].element_size()
              + vec_bytes(x) + 4 * x["sw"].numel(),
              flops=lambda x: 3 * x["W"].numel()),
-        dict(name="sign_agg_weighted_int8/weighted",
-             counter="sign_agg_weighted_int8", replaces=f"{TPU_SRC}:160",
-             kernel_name="sign_agg_int8_kernel<T>",
+        dict(int8_group, name="sign_agg_weighted_int8/weighted",
              knobs=dict(sign_message="int8", staleness_decay="poly"),
-             per_round=len(MAIN_LEAF_D),
+             weighted=True,
              kernel=lambda x: sa.sign_agg_weighted_int8(
                  x["z"], x["payload"], x["sw"], x["phi"], PSI, ALPHA),
              plain=lambda x: ref.sign_agg_int8_ref(
@@ -272,11 +285,9 @@ def kernel_specs():
              nbytes=lambda x: x["payload"].numel() + vec_bytes(x)
              + 4 * x["sw"].numel(),
              flops=lambda x: 2 * x["payload"].numel()),
-        dict(name="sign_agg_weighted_int8/unweighted",
-             counter="sign_agg_weighted_int8", replaces=f"{TPU_SRC}:160",
-             kernel_name="sign_agg_int8_kernel<T>",
+        dict(int8_group, name="sign_agg_weighted_int8/unweighted",
              knobs=dict(sign_message="int8", staleness_decay="constant"),
-             per_round=len(MAIN_LEAF_D),
+             weighted=False,
              kernel=lambda x: sa.sign_agg_weighted_int8(
                  x["z"], x["payload"], None, x["phi"], PSI, ALPHA),
              plain=lambda x: ref.sign_agg_int8_ref(
@@ -353,44 +364,46 @@ def check_kernels(specs, report):
 
 
 def group_inputs(sizes, C, dtype, seed, shifted=()):
-    """z, W and phi_mean lists of one grouped call (:func:`make_inputs`
-    per leaf, so NaN and tie columns in every leaf of 16 columns or more)
-    and the first leaf's weights.  The leaves numbered in ``shifted`` lie
-    one element into their storage: no address of theirs is 16-byte
-    aligned."""
-    zs, Ws, phis = [], [], []
+    """The round ``r`` of one grouped call: z, W, phi_mean and int8
+    payload lists (:func:`make_inputs` per leaf, so NaN and tie columns in
+    every leaf of 16 columns or more), and the first leaf's weights.  The
+    leaves numbered in ``shifted`` lie one element into their storage: no
+    address of theirs is 16-byte aligned."""
+    r = {k: [] for k in ("z", "W", "phi", "payload")}
     for l, D in enumerate(sizes):
         x = make_inputs(C, D, dtype, seed=seed + l)
-        t = [x["z"], x["W"], x["phi"]]
-        if l in shifted:
-            t = [torch.empty(a.numel() + 1, dtype=dtype, device="cuda")[1:]
-                 .view(a.shape).copy_(a) for a in t]
-        zs.append(t[0])
-        Ws.append(t[1])
-        phis.append(t[2])
+        for k in r:
+            t = x[k]
+            if l in shifted:
+                t = torch.empty(t.numel() + 1, dtype=t.dtype,
+                                device="cuda")[1:].view(t.shape).copy_(t)
+            r[k].append(t)
         if l == 0:
             sw = x["sw"]
-    return zs, Ws, phis, sw
+    return r, sw
 
 
-def vector_flags(zs, Ws, phis):
-    """Which leaves the grouped call would give 16-byte vectors (its
-    output is 16-byte aligned by construction)."""
+def vector_flags(r, rows):
+    """Which leaves a grouped call with message rows ``r[rows]`` would put
+    on the vector path (its output is 16-byte aligned by
+    construction)."""
     from repro_torch.kernels import sign_agg as sa
 
-    table = sa.leaf_table([(z.data_ptr(), W.data_ptr(), p.data_ptr(), 0,
-                            z.numel()) for z, W, p in zip(zs, Ws, phis)],
-                          zs[0].element_size())
+    table = sa.leaf_table([(z.data_ptr(), q.data_ptr(), p.data_ptr(), 0,
+                            z.numel())
+                           for z, q, p in zip(r["z"], r[rows], r["phi"])],
+                          r[rows][0].element_size())
     return table[6::sa.TABLE_COLS]
 
 
 def check_groups(specs, report):
-    """B1/B2 as the main path calls them: one grouped launch (two past
+    """B1-B3 as the main path calls them: one grouped launch (two past
     ``MAX_LEAVES`` leaves) over the leaves of a tree, each leaf bit for
     bit against its plain version: the 8 MLP_H24 leaves (all on the
-    16-byte vector path), the TPU grid's leaves, odd sizes beside a leaf
-    offset by one element (scalar path), and 65 leaves; without weights,
-    with them and with ``n_total``."""
+    vector path: D a multiple of the vector width), the TPU grid's leaves,
+    odd sizes beside a leaf offset by one element (scalar path), and 65
+    leaves; without weights, with them and with ``n_total``; and B3 with
+    C=200 all-ones payloads, past the int8 range."""
     from repro_torch.kernels import ref, sign_agg as sa
 
     dts = (torch.float32, torch.bfloat16)
@@ -402,44 +415,57 @@ def check_groups(specs, report):
               for dt in dts]
     cases += [("65_leaves", [(37 * l) % 300 + 1 for l in range(65)], 16,
                torch.float32, ())]
-    by_counter = {s["counter"]: s for s in specs}
     n = 0
     for i, (tag, sizes, C, dt, shifted) in enumerate(cases):
-        zs, Ws, phis, sw = group_inputs(sizes, C, dt, 1000 + 100 * i,
-                                        shifted)
-        flags = vector_flags(zs, Ws, phis)
-        if tag == "main" and flags != [1] * len(sizes):
-            raise AssertionError(f"group {tag} {dt}: vector flags {flags}")
-        if any(flags[l] for l in shifted):
-            raise AssertionError(f"group {tag} {dt}: a shifted leaf is "
-                                 f"vectorized ({flags})")
+        r, sw = group_inputs(sizes, C, dt, 1000 + 100 * i, shifted)
         launches = -(-len(sizes) // sa.MAX_LEAVES)
-        for weights, n_total in ((None, 0), (sw, 0), (sw, 3 * C)):
-            name = "sign_agg" if weights is None else "sign_agg_weighted"
-            reset_all_counts()
-            got = sa.sign_agg_group(zs, Ws, phis, weights, PSI, ALPHA,
-                                    n_total=n_total)
-            torch.cuda.synchronize()
-            check_path_counts(f"group {tag} C={C} {dt}", all_counts(),
-                              {name: launches})
-            want = ref.sign_agg_group_ref(zs, Ws, phis, weights, PSI, ALPHA,
-                                          n_total=n_total)
-            spec = by_counter[name]
-            for l, (g, w) in enumerate(zip(got, want)):
-                if (g.dtype != w.dtype or g.shape != w.shape
-                        or not bits_equal(g, w)):
-                    raise AssertionError(
-                        f"{name} group {tag} C={C} {dt} n_total={n_total} "
-                        f"leaf {l} (D={sizes[l]}, vector {flags[l]}): "
-                        f"kernel != plain version (max |err| "
-                        f"{max_abs_err(g, w)})")
-                spec["max_abs_err"] = max(spec["max_abs_err"],
-                                          max_abs_err(g, w))
-            n += 1
-        del zs, Ws, phis
+        for spec in specs:
+            flags = vector_flags(r, spec["rows"])
+            if tag == "main" and flags != [1] * len(sizes):
+                raise AssertionError(f"{spec['name']} group {tag} {dt}: "
+                                     f"vector flags {flags}")
+            if any(flags[l] for l in shifted):
+                raise AssertionError(f"group {tag} {dt}: a shifted leaf is "
+                                     f"vectorized ({flags})")
+            modes = ([(sw, 0), (sw, 3 * C)] if spec["weighted"]
+                     else [(None, 0)])
+            for weights, n_total in modes:
+                reset_all_counts()
+                got = spec["group"](r, weights, n_total)
+                torch.cuda.synchronize()
+                check_path_counts(f"{spec['name']} group {tag} C={C} {dt}",
+                                  all_counts(), {spec["counter"]: launches})
+                want = spec["group_plain"](r, weights, n_total)
+                for l, (g, w) in enumerate(zip(got, want)):
+                    if (g.dtype != w.dtype or g.shape != w.shape
+                            or not bits_equal(g, w)):
+                        raise AssertionError(
+                            f"{spec['name']} group {tag} C={C} {dt} "
+                            f"n_total={n_total} leaf {l} (D={sizes[l]}, "
+                            f"vector {flags[l]}): kernel != plain version "
+                            f"(max |err| {max_abs_err(g, w)})")
+                    spec["max_abs_err"] = max(spec["max_abs_err"],
+                                              max_abs_err(g, w))
+                n += 1
+        del r
+    # B3 past the int8 range: 200 clients on one side of z sum to 200
+    for dt in dts:
+        r, _ = group_inputs([600, 8193], 1, dt, 7, ())
+        qs = [torch.ones(200, z.numel(), dtype=torch.int8, device="cuda")
+              for z in r["z"]]
+        got = sa.sign_agg_int8_group(r["z"], qs, r["phi"], None, PSI, ALPHA)
+        for z, q, p, g in zip(r["z"], qs, r["phi"], got):
+            below = (z.float()[None] - 1000.0).expand(200, -1).to(dt)
+            if not (bits_equal(g, ref.sign_agg_ref(z, below, p, PSI, ALPHA))
+                    and bits_equal(g, ref.sign_agg_int8_fold_ref(
+                        z, q, None, p, PSI, ALPHA, 200))):
+                raise AssertionError(f"sign_agg_int8_group C=200 {dt}: the "
+                                     f"sum wrapped")
+        n += 1
     report["group_checks"] = n
-    log(f"checks: {n} grouped calls (B1/B2, {len(cases)} leaf sets, up to "
-        f"65 leaves) equal their plain versions bit for bit")
+    log(f"checks: {n} grouped calls (B1-B3, {len(cases)} leaf sets, up to "
+        f"65 leaves, and B3 at C=200) equal their plain versions bit for "
+        f"bit")
 
 
 def time_grid_shape(spec, x, C, D, dtype, cpm):
@@ -505,25 +531,21 @@ def time_kernels(specs, report):
 
 
 def time_round(specs, cpm):
-    """B1/B2 per round as the main path calls them: one grouped call over
+    """B1-B3 per round as the main path calls them: one grouped call over
     the 8 MLP_H24 leaves (device ms and ``call_ms``) beside the same leaves
     in eight one-leaf calls and the plain version (one call a sample: its
     ~500 launches fit the launch queue, ten would not).  The grouped
     call's times become the spec's ``ms`` and ``plain_ms``."""
-    from repro_torch.kernels import ref, sign_agg as sa
-
     xs = [make_inputs(N_CLIENTS, d, torch.float32, seed=d, edge_cases=False)
           for d in MAIN_LEAF_D]
     for x in xs:
         x["sw"] = xs[0]["sw"]
-    zs, Ws, phis = ([x[k] for x in xs] for k in ("z", "W", "phi"))
+    r = {k: [x[k] for x in xs] for k in ("z", "W", "phi", "payload")}
     rows = []
     for spec in specs:
-        if "weighted" not in spec:
-            continue
         w = xs[0]["sw"] if spec["weighted"] else None
-        group = lambda: sa.sign_agg_group(zs, Ws, phis, w, PSI, ALPHA)
-        plain = lambda: ref.sign_agg_group_ref(zs, Ws, phis, w, PSI, ALPHA)
+        group = lambda: spec["group"](r, w, 0)
+        plain = lambda: spec["group_plain"](r, w, 0)
         one_leaf = lambda: [spec["kernel"](x) for x in xs]
         row = dict(kernel=spec["name"], shape="round", C=N_CLIENTS,
                    D=sum(MAIN_LEAF_D), leaves=len(MAIN_LEAF_D),
@@ -552,8 +574,8 @@ def time_round(specs, cpm):
 
 def train_runs(specs, report):
     """The main path: train_bafdp on the card, once through each kernel;
-    each run must launch its kernel rounds x its launches a round (B1/B2
-    1, B3 8 leaves) times and no other."""
+    each run must launch its kernel rounds x its launches a round (one
+    grouped launch) times and no other."""
     from repro_torch import train
     from repro_torch.configs import FedConfig
     train.problem("milano", 24, N_CLIENTS, 0)              # data set-up
@@ -1607,19 +1629,28 @@ def main() -> int:
     report["hymba_phase_s"] = time.perf_counter() - t0
     log(f"phase: serving Hymba-1.5B {report['hymba_phase_s']:.1f} s")
 
-    # B1-B3: per round of the 8 MLP_H24 leaves (B1/B2 one grouped call,
-    # with call_ms and the same leaves in eight one-leaf calls beside it),
-    # and at the bandwidth shape (C=64, D=4,194,304 f32)
-    kernels = [dict(name=s["name"], route="cuda", source=SOURCE,
-                    replaces=s["replaces"], launches=s["launches"],
-                    max_abs_err=s["max_abs_err"], ms=s["ms"],
-                    plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
-                    bound_by=s["bound_by"], library_ms=None,
-                    kernel=s["kernel_name"], bandwidth_ms=s["bandwidth_ms"],
-                    bandwidth_bound_ms=s["bandwidth_bound_ms"],
-                    **{k: s[k] for k in ("call_ms", "one_leaf_ms",
-                                         "one_leaf_call_ms") if k in s})
-               for s in specs]
+    # B1-B3: per round of the 8 MLP_H24 leaves as one grouped call, with
+    # call_ms and the same leaves in eight one-leaf calls beside it, and
+    # at the bandwidth shape (C=64, D=4,194,304 f32); the kernel named by
+    # ptxas's label of its f32 instance
+    kernels = []
+    for s in specs:
+        flag = "true" if s["weighted"] else "false"
+        labels = [f"{s['kernel_name']}<{t},{flag}>" for t in ("float",
+                                                               "bf16")]
+        if not all(label in report["ptxas"] for label in labels):
+            raise AssertionError(f"{s['name']}: no ptxas lines for {labels}")
+        kernels.append(dict(
+            name=s["name"], route="cuda", source=SOURCE,
+            replaces=s["replaces"], launches=s["launches"],
+            max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
+            bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=None,
+            kernel=labels[0],
+            ptxas={label: report["ptxas"][label] for label in labels},
+            call_ms=s["call_ms"], one_leaf_ms=s["one_leaf_ms"],
+            one_leaf_call_ms=s["one_leaf_call_ms"],
+            bandwidth_ms=s["bandwidth_ms"],
+            bandwidth_bound_ms=s["bandwidth_bound_ms"]))
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:84"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:66")):

@@ -356,7 +356,7 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
             return torch.mean(dec, dim=0)
         return torch.mean(phi_l.float(), dim=0).reshape(-1)
 
-    # one call over every leaf: B1/B2 launch once a round, B3 once a leaf
+    # one call over every leaf: B1/B2 or B3 launch once a round
     z_upd = iter(kops.sign_consensus_leaves(
         [z_l.reshape(-1) for z_l in tree_leaves(state.z)],
         [w_l.reshape(C, -1) for w_l in tree_leaves(W_srv)],

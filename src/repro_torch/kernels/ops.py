@@ -90,24 +90,33 @@ def sign_consensus_leaves(zs: Sequence[torch.Tensor],
                           ) -> List[torch.Tensor]:
     """:func:`sign_consensus` over every leaf of a tree, with the same
     arguments per leaf (``zs[l]``: (D_l,), ``Ws[l]``: (C, D_l),
-    ``phis[l]``: (D_l,)) and the same ``impl`` rules.  ``message="f32"``
-    is one grouped call (B1/B2 over all leaves, one launch); ``"int8"``
-    encodes and reduces each leaf on its own (B3 per leaf)."""
-    if message == "int8":
-        return [sign_consensus(z, W, phi, weights, psi, alpha_z,
-                               message=message, impl=impl, n_total=n_total)
-                for z, W, phi in zip(zs, Ws, phis)]
+    ``phis[l]``: (D_l,)) and the same ``impl`` rules: one grouped call
+    (one launch) over all leaves.  ``message="f32"`` runs B1/B2;
+    ``"int8"`` encodes each leaf on the client side as
+    :func:`sign_consensus` does and runs B3 over every payload with the
+    round's one scale column."""
     impl = _resolve(impl, zs[0])
     if n_total is not None and weights is None:
         raise ValueError("n_total (active-subset reduction) needs weights "
                          "(the padding/activity mask at minimum)")
+    n = n_total or 0
+    if message == "int8":
+        msgs = [collectives.encode_sign_message(z, W, weights)
+                for z, W in zip(zs, Ws)]
+        payloads = [m.payload for m in msgs]
+        if impl == "torch":
+            return ref.sign_agg_int8_group_ref(zs, payloads, phis,
+                                               msgs[0].scale, psi, alpha_z,
+                                               n_total=n)
+        return sa_k.sign_agg_int8_group(zs, payloads, phis, msgs[0].scale,
+                                        psi, alpha_z, n_total=n)
     if message != "f32":
         raise ValueError(f"unknown sign message format: {message!r}")
     if impl == "torch":
         return ref.sign_agg_group_ref(zs, Ws, phis, weights, psi, alpha_z,
-                                      n_total=n_total or 0)
+                                      n_total=n)
     return sa_k.sign_agg_group(zs, Ws, phis, weights, psi, alpha_z,
-                               n_total=n_total or 0)
+                               n_total=n)
 
 
 def sign_agg(z, W, phi_mean, psi: float, alpha_z: float,

@@ -5,8 +5,9 @@ of its wrapper and the yardstick the kernel is held to on the card.  They
 mirror the oracles of the JAX package's ``kernels/ref.py``:
 
 * the Eq. (20) consensus kernels B1-B3 (``csrc/sign_agg.cu``, wrappers in
-  ``kernels/sign_agg.py``; B1/B2 over many leaves at once:
-  :func:`sign_agg_group_ref`);
+  ``kernels/sign_agg.py``; over many leaves at once:
+  :func:`sign_agg_group_ref` for B1/B2, :func:`sign_agg_int8_group_ref`
+  for B3);
 * prefill attention B4 (``csrc/flash_attention.cu``) and decode attention
   B5 (``csrc/decode_attention.cu``), in the model's layout, computed in
   f32 and returned in the query's dtype;
@@ -133,6 +134,19 @@ def sign_agg_int8_fold_ref(z: torch.Tensor, payload: torch.Tensor,
     ``None``."""
     return _epilogue(z, phi_mean, int8_sign_sum(payload, scale), n_total,
                      psi, alpha_z)
+
+
+def sign_agg_int8_group_ref(zs: Sequence[torch.Tensor],
+                            payloads: Sequence[torch.Tensor],
+                            phis: Sequence[torch.Tensor],
+                            scale: Optional[torch.Tensor], psi: float,
+                            alpha_z: float, n_total: int = 0
+                            ) -> List[torch.Tensor]:
+    """B3 over a list of leaves (the group kernel's plain version):
+    :func:`sign_agg_int8_fold_ref` per leaf, divisor ``n_total or C``."""
+    return [sign_agg_int8_fold_ref(z, q, scale, phi, psi, alpha_z,
+                                   n_total or q.shape[0])
+            for z, q, phi in zip(zs, payloads, phis)]
 
 
 def sign_agg_int8_ref(z: torch.Tensor, payload: torch.Tensor,

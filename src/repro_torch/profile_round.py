@@ -8,7 +8,8 @@ Trains the MLP_H24 forecaster on synthetic Milano traffic through
 and prints: ms per round (host clock, synchronized, profiler on), the
 kernels launched per round, beside them each consensus kernel's
 launches per round as its wrapper counts them (``sign_agg.LAUNCHES``:
-B1/B2 one grouped launch a round, B3 one a leaf) and the consensus
+one grouped launch a round of B1/B2 or, with ``--sign-message int8``,
+of B3) and the consensus
 kernels' device ms per round and share of busy time, the device busy share
 (summed kernel time over wall time) and the top operators by device and
 by host time.  Needs a CUDA device.

@@ -1,5 +1,5 @@
 """The CUDA kernels on the card against their plain versions on the card:
-B1-B3 bit for bit (B1/B2 also as one grouped launch over many leaves,
+B1-B3 bit for bit (each also as one grouped launch over many leaves,
 and inside training rounds against one-leaf calls); B4 (prefill attention) and B5 (decode attention)
 within abs/rel 3e-5 in f32 (the reference's own bound between its
 kernels and oracles, tests/test_kernels.py) and, in bf16, within one
@@ -242,6 +242,162 @@ def test_cuda_sign_agg_group_in_rounds_equals_one_leaf_calls(monkeypatch,
     name = ("sign_agg" if knobs["staleness_decay"] == "constant"
             else "sign_agg_weighted")
     assert sign_agg.LAUNCHES[name] == 3 + 3 * len(MAIN_LEAF_D)
+
+
+def _payloads(zs, C, seed, offset=()):
+    """A (C, D) int8 payload per leaf on the card, full-range values (the
+    kernel sign-extends every byte); the leaves numbered in ``offset`` are
+    views one element into their storage."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for l, z in enumerate(zs):
+        k = 1 if l in offset else 0
+        q = rng.randint(-128, 128, C * z.numel() + k).astype(np.int8)
+        out.append(torch.from_numpy(q).cuda()[k:].view(C, z.numel()))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "weighted", "n_total"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_sign_agg_int8_group_matches_plain_version_bitwise(mode, dtype):
+    """One grouped B3 launch over the MLP_H24 leaves, odd sizes,
+    misaligned views and the TPU grid's sizes equals the plain version
+    bit for bit; the main-path leaves take the vector path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    C = 10
+    sizes = MAIN_LEAF_D + [1, 3, 8193, 1000, 1024] + GRID_D
+    n = len(MAIN_LEAF_D)
+    zs, _, phis = map(list, zip(*_group_leaves(
+        sizes, C, dtype, 11, offset=(n + 3, n + 4))))
+    qs = _payloads(zs, C, 12, offset=(n + 3, n + 4))
+    sw = torch.from_numpy(_problem(1, C, 1)[3]).cuda()
+    scale = None if mode == "plain" else sw
+    n_total = 3 * C if mode == "n_total" else 0
+    table = sign_agg.leaf_table(
+        [(z.data_ptr(), q.data_ptr(), p.data_ptr(), 0, z.numel())
+         for z, q, p in zip(zs, qs, phis)], 1)
+    flags = table[6::sign_agg.TABLE_COLS]
+    assert flags[:n] == [1] * n
+    assert flags[n + 3:n + 5] == [0, 0]
+    sign_agg.reset_launch_counts()
+    got = sign_agg.sign_agg_int8_group(zs, qs, phis, scale, PSI, ALPHA,
+                                       n_total=n_total)
+    torch.cuda.synchronize()
+    want = ref.sign_agg_int8_group_ref(zs, qs, phis, scale, PSI, ALPHA,
+                                       n_total=n_total)
+    assert sign_agg.LAUNCHES["sign_agg_weighted_int8"] == 1
+    assert sum(sign_agg.LAUNCHES.values()) == 1
+    for l, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _bits_equal(g, w), f"leaf {l} D={sizes[l]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [2, 16, 200])
+def test_cuda_sign_agg_int8_group_splits_past_max_leaves(C):
+    """65 leaves take two B3 launches and still equal the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sizes = [(37 * l) % 300 + 1 for l in range(sign_agg.MAX_LEAVES + 1)]
+    zs, _, phis = map(list, zip(*_group_leaves(sizes, C, "float32", 3)))
+    qs = _payloads(zs, C, 4)
+    sw = torch.from_numpy(_problem(1, C, 2)[3]).cuda()
+    sign_agg.reset_launch_counts()
+    got = sign_agg.sign_agg_int8_group(zs, qs, phis, sw, PSI, ALPHA)
+    torch.cuda.synchronize()
+    assert sign_agg.LAUNCHES["sign_agg_weighted_int8"] == 2
+    want = ref.sign_agg_int8_group_ref(zs, qs, phis, sw, PSI, ALPHA)
+    assert all(_bits_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_sign_agg_int8_group_sums_past_the_int8_range(dtype):
+    """C=200 all-ones payloads sum to 200 (an int8 sum would wrap to -56)
+    on both paths: the update equals B1's with every client 1000 below z,
+    and the plain version, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    C = 200
+    zs, _, phis = map(list, zip(*_group_leaves([600, 8193, 4096], 1, dtype,
+                                               5)))
+    qs = [torch.ones(C, z.numel(), dtype=torch.int8, device="cuda")
+          for z in zs]
+    got = sign_agg.sign_agg_int8_group(zs, qs, phis, None, PSI, ALPHA)
+    torch.cuda.synchronize()
+    for z, q, p, g in zip(zs, qs, phis, got):
+        below = (z.float()[None] - 1000.0).expand(C, -1).to(z.dtype)
+        assert _bits_equal(g, ref.sign_agg_ref(z, below, p, PSI, ALPHA))
+        assert _bits_equal(g, ref.sign_agg_int8_fold_ref(z, q, None, p, PSI,
+                                                         ALPHA, C))
+
+
+@pytest.mark.cuda
+def test_cuda_sign_agg_int8_group_raises_on_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    zs, Ws, phis = map(list, zip(*_group_leaves([128, 64], 4, "float32",
+                                                0)))
+    qs = _payloads(zs, 4, 0)
+    with pytest.raises(TypeError):                      # float rows
+        sign_agg.sign_agg_int8_group(zs, Ws, phis, None, PSI, ALPHA)
+    with pytest.raises(TypeError):                      # mixed z dtypes
+        sign_agg.sign_agg_int8_group([zs[0], zs[1].bfloat16()], qs,
+                                     [phis[0], phis[1].bfloat16()], None,
+                                     PSI, ALPHA)
+    with pytest.raises(ValueError, match="C=4"):        # mixed C
+        sign_agg.sign_agg_int8_group(zs, [qs[0], qs[1][:3].contiguous()],
+                                     phis, None, PSI, ALPHA)
+    with pytest.raises(ValueError, match="CUDA"):       # a CPU leaf
+        sign_agg.sign_agg_int8_group([zs[0], zs[1].cpu()],
+                                     [qs[0], qs[1].cpu()],
+                                     [phis[0], phis[1].cpu()], None, PSI,
+                                     ALPHA)
+    with pytest.raises(ValueError):                     # scale (C,)
+        sign_agg.sign_agg_int8_group(zs, qs, phis,
+                                     torch.ones(3, device="cuda"), PSI,
+                                     ALPHA)
+    with pytest.raises(ValueError, match="contiguous"):
+        sign_agg.sign_agg_int8_group(zs, [qs[0], qs[1].t().contiguous().t()],
+                                     phis, None, PSI, ALPHA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["constant", "poly", "hinge"])
+def test_cuda_sign_agg_int8_group_in_rounds_equals_one_leaf_calls(
+        monkeypatch, decay):
+    """In 3 training rounds on the card with the int8 wire, each grouped
+    consensus call equals one-leaf B3 calls on the same leaves' payloads,
+    bit for bit; B3 launches once a round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+    from repro_torch.kernels import ops
+
+    grouped = ops.sign_consensus_leaves
+    calls = []
+
+    def checked(zs, Ws, phis, weights, psi, alpha_z, **kwargs):
+        got = grouped(zs, Ws, phis, weights, psi, alpha_z, **kwargs)
+        for z, W, p, g in zip(zs, Ws, phis, got):
+            msg = collectives.encode_sign_message(z, W, weights)
+            one = sign_agg.sign_agg_weighted_int8(z, msg.payload, msg.scale,
+                                                  p, psi, alpha_z)
+            assert _bits_equal(g, one)
+        calls.append([z.numel() for z in zs])
+        return got
+
+    monkeypatch.setattr(ops, "sign_consensus_leaves", checked)
+    sign_agg.reset_launch_counts()
+    train.train_bafdp("milano", 24, FedConfig(
+        n_clients=10, sign_message="int8", staleness_decay=decay), rounds=3,
+        device="cuda")
+    assert calls == [MAIN_LEAF_D] * 3
+    assert sign_agg.LAUNCHES["sign_agg_weighted_int8"] == \
+        3 + 3 * len(MAIN_LEAF_D)
 
 
 def _randn(shape, dtype, seed):

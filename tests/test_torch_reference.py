@@ -53,6 +53,7 @@ def load_reference() -> SimpleNamespace:
         "collectives": "repro.distributed.collectives",
         "data": "repro.data", "windowing": "repro.data.windowing",
         "ops": "repro.kernels.ops", "ref": "repro.kernels.ref",
+        "sign_agg": "repro.kernels.sign_agg",
         "forecasting": "repro.models.forecasting",
         "layers": "repro.models.layers", "common": "benchmarks.common",
     }

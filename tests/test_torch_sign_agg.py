@@ -325,11 +325,11 @@ def _kernel_columns(table, width, n_leaves):
     return seen
 
 
-@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
 def test_leaf_table_covers_every_column_exactly_once(itemsize):
     """Each column of each leaf is written by exactly one thread, on the
     vector path and the scalar one, across a split at MAX_LEAVES."""
-    width = 16 // itemsize
+    width = sign_agg.vec_width(itemsize)
     sizes = MAIN_LEAF_D + ODD_LEAF_D + [width, width + 1, 4096, 4097]
     sizes = (sizes * 6)[:sign_agg.MAX_LEAVES + 3]
     base = 1 << 20
@@ -343,11 +343,12 @@ def test_leaf_table_covers_every_column_exactly_once(itemsize):
                             for d in range(D)]
 
 
-@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
 def test_leaf_table_flags_the_vector_path_only_where_it_is_safe(itemsize):
     """A leaf is vectorized only when all four addresses are 16-byte
-    aligned and D is a multiple of the vector width (4 f32, 8 bf16)."""
-    width = 16 // itemsize
+    aligned and D is a multiple of the vector width (4 f32, 8 bf16, 8
+    int8 message columns)."""
+    width = sign_agg.vec_width(itemsize)
     a = 1 << 20
     cases = [((a, a, a, a, 8 * width), 1),
              ((a, a, a, a, 8 * width + 1), 0),
@@ -362,6 +363,8 @@ def test_leaf_table_flags_the_vector_path_only_where_it_is_safe(itemsize):
     assert flags == [vec for _, vec in cases]
     if itemsize == 2:                       # bf16: D a multiple of 8, not 4
         assert sign_agg.leaf_table([(a, a, a, a, 12)], 2)[6] == 0
+    if itemsize == 1:                       # int8: D a multiple of 8, not 4
+        assert sign_agg.leaf_table([(a, a, a, a, 12)], 1)[6] == 0
 
 
 def test_leaf_table_splits_at_max_leaves():
@@ -385,9 +388,21 @@ def test_table_constants_match_the_kernel_source():
            ).read_text()
     for name, value in (("kThreads", sign_agg.THREADS),
                         ("kMaxLeaves", sign_agg.MAX_LEAVES),
-                        ("kTableCols", sign_agg.TABLE_COLS)):
+                        ("kTableCols", sign_agg.TABLE_COLS),
+                        ("kVecBytes", sign_agg.VEC_BYTES),
+                        ("kInt8Cols", sign_agg.INT8_COLS)):
         assert int(re.search(rf"constexpr int {name} = (\d+);",
                              src).group(1)) == value
+    # both kernels take their vector width from vec_width of their
+    # message rows' element size, as leaf_table does
+    assert "return elem == 1 ? kInt8Cols : kVecBytes / elem;" in src
+    assert "kVec = vec_width(sizeof(T));" in src
+    assert "kVec = vec_width(sizeof(int8_t));" in src
+    assert [sign_agg.vec_width(i) for i in (4, 2, 1)] == [4, 8, 8]
+    D = sign_agg.THREADS * sign_agg.INT8_COLS     # one int8 block's columns
+    table = sign_agg.leaf_table([(0, 0, 0, 0, d) for d in (D, D + 8, 1)],
+                                1)
+    assert table[5::sign_agg.TABLE_COLS] == [0, 1, 3]
     for itemsize in (4, 2):
         offs, total = sign_agg.out_offsets([1, 3, 24, 8193, 5], itemsize)
         assert all(o * itemsize % 16 == 0 for o in offs)
@@ -502,3 +517,126 @@ def test_round_grouped_dispatch_equals_per_leaf_dispatch(monkeypatch, name):
         for path in a:
             assert np.asarray(a[path]).tobytes() == \
                 np.asarray(b[path]).tobytes(), f"round {t} {path}"
+
+
+# ---- B3 over every leaf of a tree (sign_agg_int8_group) -----------------
+
+INT8_LEAF_D = MAIN_LEAF_D + [1, 3, 24, 8193]
+
+
+def _int8_leaves(sizes, C, seed):
+    """(z, payload, phi_mean) per leaf: ternary int8 signs, as the wire
+    carries them."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(D).astype(np.float32),
+             rng.randint(-1, 2, (C, D)).astype(np.int8),
+             (rng.randn(D) * 0.01).astype(np.float32)) for D in sizes]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["plain", "weighted", "n_total"])
+def test_sign_agg_int8_group_matches_reference_pallas_per_leaf(reference,
+                                                               dtype, mode):
+    """The grouped B3 call on the CPU against the reference's Pallas B3
+    (``sign_agg_weighted_int8`` in interpret mode, as the reference's own
+    tests run it), leaf by leaf over the 8 MLP_H24 leaves and odd sizes:
+    unweighted (int32 sum), with the scale column, and with ``n_total``."""
+    import jax.numpy as jnp
+
+    C = 10
+    leaves = _int8_leaves(INT8_LEAF_D, C, 6)
+    sw = np.random.RandomState(7).uniform(0.05, 1.0, C).astype(np.float32)
+    scale = None if mode == "plain" else sw
+    n_total = 3 * C if mode == "n_total" else 0
+    got = sign_agg.sign_agg_int8_group(
+        [_torch(z, dtype) for z, _, _ in leaves],
+        [torch.from_numpy(q) for _, q, _ in leaves],
+        [_torch(p, dtype) for _, _, p in leaves], _torch(scale, "float32"),
+        PSI, ALPHA, n_total=n_total)
+    assert len(got) == len(leaves)
+    for (z, q, phi), g in zip(leaves, got):
+        want = reference.sign_agg.sign_agg_weighted_int8(
+            _jax(z, dtype), jnp.asarray(q), _jax(scale, "float32"),
+            _jax(phi, dtype), PSI, ALPHA, n_total=n_total, interpret=True)
+        assert g.dtype == getattr(torch, dtype) and g.shape == (z.size,)
+        _close(g, want, dtype)
+
+
+@pytest.mark.parametrize("decay", ["constant", "poly"])
+def test_int8_round_makes_one_grouped_call(monkeypatch, decay):
+    """With the int8 wire, each round of ``train_bafdp`` makes one grouped
+    B3 call over all 8 leaves and no one-leaf call, and each round's
+    ``ops.sign_consensus_leaves`` equals ``ops.sign_consensus`` leaf by
+    leaf on the same inputs, bit for bit."""
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+
+    grouped = sign_agg.sign_agg_int8_group
+    one = sign_agg.sign_agg_weighted_int8
+    leaves_of = ops.sign_consensus_leaves
+    group_calls, one_leaf_calls, rounds = [], [], []
+
+    def group_spy(zs, *args, **kwargs):
+        group_calls.append([z.numel() for z in zs])
+        return grouped(zs, *args, **kwargs)
+
+    def one_spy(*args, **kwargs):
+        one_leaf_calls.append(1)
+        return one(*args, **kwargs)
+
+    def captured(zs, Ws, phis, weights, psi, alpha_z, **kwargs):
+        got = leaves_of(zs, Ws, phis, weights, psi, alpha_z, **kwargs)
+        rounds.append(([t.clone() for t in zs], [t.clone() for t in Ws],
+                       [t.clone() for t in phis],
+                       None if weights is None else weights.clone(), psi,
+                       alpha_z, kwargs, [t.clone() for t in got]))
+        return got
+
+    monkeypatch.setattr(sign_agg, "sign_agg_int8_group", group_spy)
+    monkeypatch.setattr(sign_agg, "sign_agg_weighted_int8", one_spy)
+    monkeypatch.setattr(ops, "sign_consensus_leaves", captured)
+    train.train_bafdp("milano", 24, FedConfig(
+        n_clients=4, sign_message="int8", staleness_decay=decay), rounds=3,
+        device="cpu")
+    assert group_calls == [MAIN_LEAF_D] * 3 and not one_leaf_calls
+    assert len(rounds) == 3 and rounds[0][6] == {"message": "int8"}
+    for zs, Ws, phis, weights, psi, alpha_z, kwargs, got in rounds:
+        for z, W, p, g in zip(zs, Ws, phis, got):
+            want = ops.sign_consensus(z, W, p, weights, psi, alpha_z,
+                                      **kwargs)
+            assert g.numpy().tobytes() == want.numpy().tobytes()
+
+
+def test_cpu_int8_group_never_reaches_the_kernel_build(monkeypatch):
+    """On the CPU the grouped B3 call and the int8 dispatch over leaves run
+    the plain version, build nothing and count no launch."""
+    from repro_torch.kernels import _build
+
+    def refuse(name):
+        raise AssertionError("the CPU path tried to build a kernel")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    sign_agg.reset_launch_counts()
+    leaves = _int8_leaves(MAIN_LEAF_D, 4, 0)
+    zs, qs, phis = ([torch.from_numpy(leaf[k]) for leaf in leaves]
+                    for k in range(3))
+    sign_agg.sign_agg_int8_group(zs, qs, phis, None, PSI, ALPHA)
+    sign_agg.sign_agg_int8_group(zs, qs, phis, torch.ones(4), PSI, ALPHA,
+                                 n_total=8)
+    Ws = [torch.randn(4, z.numel()) for z in zs]
+    ops.sign_consensus_leaves(zs, Ws, phis, torch.ones(4), PSI, ALPHA,
+                              message="int8")
+    assert set(sign_agg.LAUNCHES.values()) == {0}
+
+
+def test_int8_group_validation_errors():
+    leaves = _int8_leaves([128, 64], 4, 0)
+    zs, qs, phis = ([torch.from_numpy(leaf[k]) for leaf in leaves]
+                    for k in range(3))
+    with pytest.raises(ValueError, match="leaves"):
+        sign_agg.sign_agg_int8_group([], [], [], None, PSI, ALPHA)
+    with pytest.raises(ValueError, match="leaves"):
+        sign_agg.sign_agg_int8_group(zs, qs[:1], phis, None, PSI, ALPHA)
+    with pytest.raises(ValueError, match="n_total"):
+        ops.sign_consensus_leaves(zs, [q.float() for q in qs], phis, None,
+                                  PSI, ALPHA, message="int8", n_total=8)
