@@ -26,6 +26,20 @@ clients, full width) for 20 rounds four times, once through each kernel,
 checking each run's launch count (one a round); and runs 3 rounds on the
 CPU and on the card from one state and compares them.
 
+Sparse path (B2, B3 over the gathered block): trains through the O(S)
+round on an event-driven schedule (``train_bafdp(schedule=build_schedule
+(...), round_impl="sparse")``, MLP_H24 at full width, 10 clients, 20
+rounds) three times: the f32 wire (B2, 20 launches), the int8 wire (B3
+weighted, 20) and the streamed fold (no launch), the int8 and streamed
+z bit-identical to the f32 run's (``sparse_runs``); holds B2 and B3 over
+a gathered (64, D_l) block with ``n_total`` = 65,536 against their plain
+versions bit for bit (``time_sparse_block``); runs 3 sparse rounds on the CPU and on the
+card from one state under ``cpu_vs_cuda``'s drift rule, and the dense
+active-scope round against the sparse one on the card
+(``sparse_cpu_vs_cuda``); and runs 5 rounds on each wire at C=65,536
+clients (38.4 GB of state), holding the peak memory to 2 GiB above the
+state and checking that only the admitted rows move (``scale_round``).
+
 Serving path (B4, B5): holds both attention kernels against their plain
 versions (the reference's TPU test grid in f32 and bf16, Sq < Sk, ragged
 lengths, the full-width SmolLM-360M shapes; abs/rel 3e-5 in f32, one
@@ -55,13 +69,16 @@ token-by-token decode of the same prompt (5e-4, the reference's bound).
 
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
-launches (summed over the main-path runs) and times.  Its B1-B3 entries
+launches (summed over the main-path runs: B2's and B3's include the
+sparse runs and the scale rounds) and times.  Its B1-B3 entries
 give ``kernel`` (the f32 instance's ptxas label) with ``ptxas`` (its
 and the bf16 instance's registers and spills), the time per round of the
 8 leaves as one grouped call, ``call_ms`` (its host time) and, as
 ``one_leaf_ms``/``one_leaf_call_ms``, the same round in eight one-leaf
 calls, and, as ``bandwidth_ms``/``bandwidth_bound_ms``, the bandwidth
-shape.  Its
+shape, and (B2, B3 weighted) as ``sparse_block_ms``/
+``sparse_block_bound_ms`` the grouped call over a gathered (64, D_l)
+block of the 8 leaves with ``n_total`` = 65,536 (``scale_round``'s).  Its
 ``flash_attention`` entry gives B4's f32 kernel (``f32_kernel``, its
 ptxas label: name and tiles at head dim 64) at SmolLM-360M's prefill
 shape, with ``bound_ms`` its 3xTF32 tensor-core roof and
@@ -97,6 +114,11 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TF32_FLOPS_PER_S = 494.7e12      # H100 SXM tf32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_CLIENTS, ROUNDS = 10, 20
+# scale_round: C clients of MLP_H24, S_max deliveries a round, rounds per
+# wire, and the bound on the peak above the state (one dense (C, D) f32
+# intermediate is 7.67 GB)
+SCALE_C, SCALE_S, SCALE_ROUNDS = 65_536, 64, 5
+SCALE_PEAK_BYTES = 2 << 30
 MAIN_LEAF_D = [128, 2816, 128, 16384, 64, 8192, 24, 1536]   # MLP_H24
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCE = f"{CSRC}/sign_agg.cu"
@@ -527,6 +549,7 @@ def time_kernels(specs, report):
                 spec["bandwidth_bound_ms"] = row["bound_ms"]
             del x
     rows += time_round(specs, cpm)
+    rows += time_sparse_block(specs, cpm)
     report["timings"] = rows
 
 
@@ -572,6 +595,50 @@ def time_round(specs, cpm):
     return rows
 
 
+def time_sparse_block(specs, cpm):
+    """B2 and B3 (weighted) as the sparse round calls them in
+    ``scale_round``: one grouped call over the 8 MLP_H24 leaves of a
+    gathered (SCALE_S, D_l) block with the divisor ``n_total = SCALE_C``,
+    each leaf first held bit for bit against its plain version; device ms
+    beside the bound of the same work.  Becomes the spec's
+    ``sparse_block_ms`` / ``sparse_block_bound_ms``."""
+    xs = [make_inputs(SCALE_S, d, torch.float32, seed=d, edge_cases=False)
+          for d in MAIN_LEAF_D]
+    for x in xs:
+        x["sw"] = xs[0]["sw"]
+    r = {k: [x[k] for x in xs] for k in ("z", "W", "phi", "payload")}
+    rows = []
+    for spec in specs:
+        if not spec["weighted"]:
+            continue
+        got = spec["group"](r, xs[0]["sw"], SCALE_C)
+        want = spec["group_plain"](r, xs[0]["sw"], SCALE_C)
+        for l, (g, w) in enumerate(zip(got, want)):
+            if (g.dtype != w.dtype or g.shape != w.shape
+                    or not bits_equal(g, w)):
+                raise AssertionError(
+                    f"{spec['name']} sparse block S={SCALE_S} n_total="
+                    f"{SCALE_C} leaf {l} (D={MAIN_LEAF_D[l]}): kernel != "
+                    f"plain version (max |err| {max_abs_err(g, w)})")
+            spec["max_abs_err"] = max(spec["max_abs_err"], max_abs_err(g, w))
+        t_bytes = sum(spec["nbytes"](x) for x in xs) / HBM_BYTES_PER_S * 1e3
+        t_ops = sum(spec["flops"](x) for x in xs) / F32_FLOPS_PER_S * 1e3
+        row = dict(kernel=spec["name"], shape="sparse_block", C=SCALE_S,
+                   D=sum(MAIN_LEAF_D), n_total=SCALE_C,
+                   kernel_ms=device_ms(
+                       lambda: spec["group"](r, xs[0]["sw"], SCALE_C), cpm),
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rows.append(row)
+        spec.update(sparse_block_ms=row["kernel_ms"],
+                    sparse_block_bound_ms=row["bound_ms"])
+        log(f"time {spec['name']:34s} sparse    S={SCALE_S:3d} "
+            f"{len(MAIN_LEAF_D)} leaves, n_total={SCALE_C}: grouped "
+            f"kernel_ms={row['kernel_ms']:.6f} bound_ms="
+            f"{row['bound_ms']:.6f} ({row['bound_by']})")
+    return rows
+
+
 def train_runs(specs, report):
     """The main path: train_bafdp on the card, once through each kernel;
     each run must launch its kernel rounds x its launches a round (one
@@ -614,33 +681,63 @@ def train_runs(specs, report):
     report["train"] = runs
 
 
-def cpu_vs_cuda(report):
-    """3 rounds of the f32 + poly config on the CPU and on the card from
-    one state, input_sigma=0, explicit activity rows.
-
-    The devices order matmul and reduction sums differently, a few ulp
-    per round, so every element of every state leaf agrees within DRIFT
-    = 2e-5 + 1e-4 |x| — except where that drift decided a discontinuity:
-    a sign(w - z) or sign(z - w) at a tie, or the direction of an Adam
-    step on a near-zero gradient (m / sqrt(v) is +-1 whatever the
+def drift_check(label, a, b, rounds, alpha_w):
+    """Two final states of the same rounds (``a`` on the CPU, ``b`` on the
+    card) agree within the drift rule: every element of every leaf within
+    DRIFT = 2e-5 + 1e-4 |x|, except where that drift decided a
+    discontinuity (a sign(w - z) or sign(z - w) at a tie, the direction of
+    an Adam step on a near-zero gradient: m / sqrt(v) is +-1 whatever the
     gradient's size).  Such an element may differ by up to what Adam can
     move a weight, 2 alpha_w per round (BOUND), and at most 1 % of a
-    leaf's elements (at least one) may exceed DRIFT.  The per-round
-    losses and the final RMSE / MAE agree within rtol 1e-4."""
-    from repro_torch import train
-    from repro_torch.configs import FedConfig
-    from repro_torch.core.fed_state import fed_state_from_numpy, init_fed_state
+    leaf's elements (at least one) may exceed DRIFT.  Returns ((max |diff|,
+    its leaf), elements beyond DRIFT)."""
+    drift = 2e-5
+    bound = rounds * 2 * alpha_w
+    worst, n_off = (0.0, ""), 0
+    for (path, x), (_, y) in zip(_named_leaves(a._asdict()),
+                                 _named_leaves(b._asdict())):
+        x, y = x.cpu().double(), y.cpu().double()
+        d = (x - y).abs()
+        scale = 1e-4 * x.abs()
+        if bool((d > bound + scale).any()):
+            raise AssertionError(f"{label}: {path} differs by "
+                                 f"{float(d.max()):.3e} > {bound:.1e}")
+        off = int((d > drift + scale).sum())
+        if off > max(1, x.numel() // 100):
+            raise AssertionError(f"{label}: {path} has {off} of "
+                                 f"{x.numel()} elements off by > {drift}")
+        n_off += off
+        if float(d.max()) > worst[0]:
+            worst = (float(d.max()), path)
+    return worst, n_off
+
+
+def _init_arrays(fed, cfg):
+    """A fresh Adam state of ``fed`` as numpy arrays (seed 0, CPU draws)."""
+    from repro_torch.core.fed_state import init_fed_state
     from repro_torch.models.forecasting import init_forecaster
 
-    rounds = 3
-    fed = FedConfig(n_clients=N_CLIENTS, staleness_decay="poly")
-    cfg = train.forecast_cfg("mlp", 24)
     init = init_fed_state(torch.Generator().manual_seed(0),
                           lambda g: init_forecaster(g, cfg),
                           dataclasses.replace(fed, omega_optimizer="adam"),
                           device="cpu")
-    arrays = {k: None if v is None else _to_numpy(v)
-              for k, v in init._asdict().items()}
+    return {k: None if v is None else _to_numpy(v)
+            for k, v in init._asdict().items()}
+
+
+def cpu_vs_cuda(report):
+    """3 rounds of the f32 + poly config on the CPU and on the card from
+    one state, input_sigma=0, explicit activity rows, held to
+    :func:`drift_check`; the per-round losses and the final RMSE / MAE
+    agree within rtol 1e-4."""
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+    from repro_torch.core.fed_state import fed_state_from_numpy
+
+    rounds = 3
+    fed = FedConfig(n_clients=N_CLIENTS, staleness_decay="poly")
+    cfg = train.forecast_cfg("mlp", 24)
+    arrays = _init_arrays(fed, cfg)
     rows = np.random.RandomState(1).rand(rounds, N_CLIENTS) < 0.6
     rows[:, 0] = True
     _, test, scalers = train.problem("milano", 24, N_CLIENTS, 0)
@@ -652,24 +749,8 @@ def cpu_vs_cuda(report):
             state=fed_state_from_numpy(arrays, device=dev), device=dev)
         out[dev] = (state, hist["data_loss"],
                     train.eval_fed_state(state, cfg, test, scalers))
-    drift = 2e-5
-    bound = rounds * 2 * fed.alpha_w
-    worst, n_off = (0.0, ""), 0
-    for (path, a), (_, b) in zip(_named_leaves(out["cpu"][0]._asdict()),
-                                 _named_leaves(out["cuda"][0]._asdict())):
-        a, b = a.double(), b.cpu().double()
-        d = (a - b).abs()
-        scale = 1e-4 * a.abs()
-        if bool((d > bound + scale).any()):
-            raise AssertionError(f"cpu vs cuda: {path} differs by "
-                                 f"{float(d.max()):.3e} > {bound:.1e}")
-        off = int((d > drift + scale).sum())
-        if off > max(1, a.numel() // 100):
-            raise AssertionError(f"cpu vs cuda: {path} has {off} of "
-                                 f"{a.numel()} elements off by > {drift}")
-        n_off += off
-        if float(d.max()) > worst[0]:
-            worst = (float(d.max()), path)
+    worst, n_off = drift_check("cpu vs cuda", out["cpu"][0], out["cuda"][0],
+                               rounds, fed.alpha_w)
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
     np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4)
     report["cpu_vs_cuda"] = dict(max_abs_state_diff=worst[0],
@@ -678,8 +759,313 @@ def cpu_vs_cuda(report):
                                  rmse_mae_cpu=out["cpu"][2],
                                  rmse_mae_cuda=out["cuda"][2])
     log(f"cpu vs cuda, {rounds} rounds: max |state diff| = {worst[0]:.3e} "
-        f"at {worst[1]}; {n_off} elements beyond the {drift} drift bound; "
+        f"at {worst[1]}; {n_off} elements beyond the 2e-05 drift bound; "
         f"rmse/mae cpu {out['cpu'][2]} cuda {out['cuda'][2]}")
+
+
+def sparse_schedule(rounds: int):
+    """The event-driven fleet of the sparse runs: 10 clients of
+    heterogeneous latency under the quickstart's quorum server (adaptive
+    quorum, age-aware selection)."""
+    from repro_torch import train
+    from repro_torch.core.async_engine import DelayModel
+    from repro_torch.core.schedule import build_schedule
+
+    return build_schedule(rounds, DelayModel(n_clients=N_CLIENTS, hetero=1.0,
+                                             seed=0),
+                          train.make_trigger("quorum", 0.6))
+
+
+def sparse_runs(specs, report):
+    """The schedule path: ``train_bafdp(schedule=, round_impl="sparse")``
+    on the card, MLP_H24 at full width, 20 rounds of one schedule, three
+    times: the f32 wire (B2, one launch a round), the int8 wire (B3
+    weighted, one a round) and the f32 wire streamed in chunks of 3 rows
+    (the plain streamed fold, no consensus launch).  The streamed z and
+    the int8 z must equal the f32 run's bit for bit: the sign wire loses
+    nothing, and B3's weighted fold is B2's.  Adds each run's launches to
+    its spec."""
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+    from repro_torch.tree import tree_leaves
+
+    sched = sparse_schedule(ROUNDS)
+    spec_of = {s["name"]: s for s in specs}
+    cases = [("f32", {}, "sign_agg_weighted"),
+             ("int8", dict(sign_message="int8"),
+              "sign_agg_weighted_int8/weighted"),
+             ("streamed", dict(consensus_streaming=True, consensus_chunk=3),
+              None)]
+    _, test, scalers = train.problem("milano", 24, N_CLIENTS, 0)
+    runs, z = [], {}
+    for tag, knobs, spec_name in cases:
+        fed = FedConfig(n_clients=N_CLIENTS, staleness_decay="poly", **knobs)
+        counter = spec_of[spec_name]["counter"] if spec_name else None
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, cfg, hist = train.train_bafdp(
+            "milano", 24, fed, rounds=ROUNDS, seed=0, schedule=sched,
+            round_impl="sparse", collect=("data_loss",), device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = all_counts()
+        check_path_counts(f"sparse {tag} run", counts,
+                          {counter: ROUNDS} if counter else {})
+        if spec_name:
+            spec_of[spec_name]["launches"] += counts[counter]
+        z[tag] = tree_leaves(state.z)
+        rmse, mae = train.eval_fed_state(state, cfg, test, scalers)
+        loss = np.asarray(hist["data_loss"])
+        if not (np.isfinite(loss).all() and np.isfinite([rmse, mae]).all()):
+            raise AssertionError(f"sparse {tag} run: non-finite loss {loss} "
+                                 f"rmse {rmse} mae {mae}")
+        ms = secs * 1e3 / ROUNDS
+        runs.append(dict(wire=tag, knobs=knobs, rounds=ROUNDS,
+                         arrivals=int(sched.arrivals.sum()),
+                         s_max=sched.s_max, ms_per_round=ms,
+                         launches=counts, data_loss_first=float(loss[0]),
+                         data_loss_last=float(loss[-1]), rmse=rmse, mae=mae))
+        log(f"sparse {tag:8s} {ROUNDS} rounds (S_max={sched.s_max}, "
+            f"{int(sched.arrivals.sum())} deliveries): ms_per_round={ms:.3f} "
+            f"launches={ {k: v for k, v in counts.items() if v} } "
+            f"data_loss {loss[0]:.5f}->{loss[-1]:.5f} rmse={rmse:.3f} "
+            f"mae={mae:.3f}")
+    for tag in ("streamed", "int8"):
+        if not all(bits_equal(a, b) for a, b in zip(z[tag], z["f32"])):
+            raise AssertionError(f"sparse runs: the {tag} z differs from "
+                                 f"the f32 (B2) z")
+    log("sparse runs: the streamed z and the int8 (B3) z equal the f32 (B2) "
+        "z bit for bit")
+    report["sparse_runs"] = runs
+
+
+def sparse_cpu_vs_cuda(report):
+    """3 sparse rounds of the f32 + poly config on the CPU and on the card
+    from one state, input_sigma=0, fed the schedule's padded rows, held to
+    :func:`drift_check`; then, on the card, the dense active-scope round
+    fed the same deliveries as (C,) rows from the same state, against the
+    sparse round: bit identity is printed, the drift rule asserted (the
+    CPU tests are the bitwise gate: cuBLAS may pick other batched-GEMM
+    kernels for a batch of C and a batch of S)."""
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+    from repro_torch.core.fed_state import fed_state_from_numpy
+
+    rounds = 3
+    fed = FedConfig(n_clients=N_CLIENTS, staleness_decay="poly")
+    cfg = train.forecast_cfg("mlp", 24)
+    arrays = _init_arrays(fed, cfg)
+    sched = sparse_schedule(rounds)
+    _, test, scalers = train.problem("milano", 24, N_CLIENTS, 0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, _, hist = train.train_bafdp(
+            "milano", 24, fed, rounds=rounds, seed=0, input_sigma=0.0,
+            schedule=sched, round_impl="sparse", collect=("data_loss",),
+            state=fed_state_from_numpy(arrays, device=dev), device=dev)
+        out[dev] = (state, hist["data_loss"],
+                    train.eval_fed_state(state, cfg, test, scalers))
+    worst, n_off = drift_check("sparse cpu vs cuda", out["cpu"][0],
+                               out["cuda"][0], rounds, fed.alpha_w)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4)
+    log(f"sparse cpu vs cuda, {rounds} rounds: max |state diff| = "
+        f"{worst[0]:.3e} at {worst[1]}; {n_off} elements beyond the 2e-05 "
+        f"drift bound; rmse/mae cpu {out['cpu'][2]} cuda {out['cuda'][2]}")
+
+    acts = np.zeros((rounds, N_CLIENTS), bool)
+    stales = np.zeros((rounds, N_CLIENTS), np.float32)
+    for r, (idx, stale, weight) in enumerate(sched.padded_rows()):
+        k = int(weight.sum())
+        acts[r, idx[:k]] = True
+        stales[r, idx[:k]] = stale[:k]
+    dense, _, _ = train.train_bafdp(
+        "milano", 24, dataclasses.replace(fed, consensus_scope="active"),
+        rounds=rounds, seed=0, input_sigma=0.0, active_masks=acts,
+        staleness=stales, state=fed_state_from_numpy(arrays, device="cuda"),
+        device="cuda")
+    sparse = out["cuda"][0]
+    same = all(bits_equal(a, b) for (_, a), (_, b) in zip(
+        _named_leaves(dense._asdict()), _named_leaves(sparse._asdict())))
+    d_worst, d_off = drift_check("dense active vs sparse", dense, sparse,
+                                 rounds, fed.alpha_w)
+    report["sparse_cpu_vs_cuda"] = dict(
+        max_abs_state_diff=worst[0], worst_leaf=worst[1],
+        elements_beyond_drift=n_off, rmse_mae_cpu=out["cpu"][2],
+        rmse_mae_cuda=out["cuda"][2], dense_active_vs_sparse_bitwise=same,
+        dense_active_vs_sparse_max_diff=d_worst[0],
+        dense_active_vs_sparse_worst_leaf=d_worst[1],
+        dense_active_vs_sparse_beyond_drift=d_off)
+    log(f"dense active vs sparse on the card, {rounds} rounds: bit-identical"
+        f" {same}; max |state diff| = {d_worst[0]:.3e} at {d_worst[1]}; "
+        f"{d_off} elements beyond the drift bound")
+
+
+def scale_state(C, cfg, fed, seed):
+    """A full-width Adam state of ``C`` clients on the card from stacked
+    seeded draws (one draw per weight leaf of all clients at once, no
+    per-client loop): fan-in normal weights, zero biases, z = client 0."""
+    from repro_torch.core.fed_state import FedState
+    from repro_torch.tree import tree_map
+
+    dims = (cfg.d_x,) + tuple(cfg.hidden) + (cfg.d_y,)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    W = {f"l{i}": {
+        "b": torch.zeros((C, dims[i + 1]), device="cuda"),
+        "w": torch.randn((C, dims[i], dims[i + 1]), generator=g,
+                         device="cuda") / float(np.sqrt(dims[i]))}
+        for i in range(len(dims) - 1)}
+    z = tree_map(lambda l: l[0].clone(), W)
+    vec = dict(dtype=torch.float32, device="cuda")
+    return FedState(
+        W=W, z=z,
+        z_local=tree_map(lambda l: l[None].expand((C,) + l.shape).clone(),
+                         z),
+        phi=tree_map(torch.zeros_like, W),
+        lam=torch.zeros((C,), **vec),
+        eps=torch.full((C,), max(fed.privacy_budget_a * fed.eps_init_frac,
+                                 fed.eps_min), **vec),
+        t=torch.zeros((), dtype=torch.int32, device="cuda"),
+        opt={"m": tree_map(torch.zeros_like, W),
+             "v": tree_map(torch.zeros_like, W),
+             "count": torch.zeros((C,), dtype=torch.int32, device="cuda")},
+        tau=torch.zeros((C,), dtype=torch.int32, device="cuda"))
+
+
+def scale_round(specs, report):
+    """The O(S) round at a size no dense round could hold: MLP_H24 at full
+    width, C = 65,536 clients, Adam, no Taylor compensation, so W,
+    z_local, phi, m and v hold 5 x 7.67 GB = 38.4 GB of state.  Each round
+    admits S_max = 64 deliveries of a streamed quorum schedule, with
+    pre-gathered (64, 32, 22) batches from the Milano windows of client id
+    mod 10 (``batch_gathered=True``); 5 rounds on the f32 wire, then 5 on
+    the int8 wire, on the same state.  Asserts that the peak of
+    ``torch.cuda.max_memory_allocated()`` stays within SCALE_PEAK_BYTES of
+    the state's bytes (one dense (C, D) f32 intermediate is 7.67 GB), that
+    each round launches its consensus kernel once, that tau of the
+    admitted rows is the round, and that exactly the admitted rows of W
+    changed."""
+    import functools
+
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+    from repro_torch.core import bafdp
+    from repro_torch.core.async_engine import DelayModel
+    from repro_torch.core.privacy import gaussian_c3
+    from repro_torch.core.schedule import (QuorumTrigger, build_schedule,
+                                           round_generator)
+    from repro_torch.data import client_batches
+    from repro_torch.tree import tree_leaves
+
+    C, S, rounds = SCALE_C, SCALE_S, 2 * SCALE_ROUNDS
+    cfg = train.forecast_cfg("mlp", 24)
+    base = FedConfig(n_clients=C, consensus_scope="active",
+                     staleness_decay="poly", omega_optimizer="adam",
+                     dro_weight=0.01, attack="none")
+    spec_of = {s["name"]: s for s in specs}
+    wires = [("f32", "sign_agg_weighted"),
+             ("int8", "sign_agg_weighted_int8/weighted")]
+    train_w, _, _ = train.problem("milano", 24, N_CLIENTS, 0)
+    sched = build_schedule(rounds, DelayModel(n_clients=C, hetero=1.0,
+                                              seed=0),
+                           QuorumTrigger(s_target=S), stream=True)
+    rows = list(sched.padded_rows(S))
+    torch.cuda.synchronize()
+    before_state = torch.cuda.memory_allocated()
+    state = scale_state(C, cfg, base, seed=0)
+    state_bytes = sum(l.numel() * l.element_size() for f in state
+                      if f is not None for l in tree_leaves(f))
+    if tree_leaves(state.W)[0].shape[0] != C \
+            or sum(l[0].numel() for l in tree_leaves(state.W)) != 29_272:
+        raise AssertionError("scale_round: not MLP_H24 at full width")
+    W_before = [l.to("cpu", copy=True) for l in tree_leaves(state.W)]
+    c3 = gaussian_c3(cfg.d_x + cfg.d_y, base.dp_delta, 0.05)
+    rng = np.random.RandomState(0)
+    zero_byz = torch.zeros((C,), dtype=torch.bool, device="cuda")
+
+    def local_loss(W, batch, gen, eps):
+        from repro_torch.core.privacy import perturb_inputs
+        from repro_torch.models.forecasting import mse_loss
+        x, y = batch
+        return mse_loss(W, perturb_inputs(gen, x, eps, 0.02, base.eps_min),
+                        y, cfg)
+
+    def gathered_batch(idx):
+        xs = np.zeros((S, train.BATCH, cfg.d_x), np.float32)
+        ys = np.zeros((S, train.BATCH, cfg.d_y), np.float32)
+        for j, cid in enumerate(idx):
+            if cid < C:
+                x, y = client_batches(rng, train_w, train.BATCH)
+                xs[j], ys[j] = x[cid % N_CLIENTS], y[cid % N_CLIENTS]
+        return (torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {w: [] for w, _ in wires}
+    tau_want = np.zeros(C, np.int64)
+    for t, (idx, stale, weight) in enumerate(rows):
+        wire, spec_name = wires[t // SCALE_ROUNDS]
+        fed = dataclasses.replace(base, sign_message=wire)
+        step = functools.partial(
+            bafdp.bafdp_round_sparse, local_loss=local_loss, fed=fed, c3=c3,
+            n_samples=train_w["x"].shape[1], d_dim=cfg.d_x + cfg.d_y,
+            byz_mask=zero_byz, batch_gathered=True)
+        batch = gathered_batch(idx)
+        counter = spec_of[spec_name]["counter"]
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, round_generator(0, t, "cuda"),
+                        idx=idx, stale=stale, weight=weight)
+        torch.cuda.synchronize()
+        times[wire].append((time.perf_counter() - t0) * 1e3)
+        check_path_counts(f"scale round {t} ({wire})", all_counts(),
+                          {counter: 1})
+        spec_of[spec_name]["launches"] += 1
+        ids = idx[weight > 0].astype(np.int64)
+        tau_want[ids] = t
+        if not bool((state.tau[torch.from_numpy(ids).cuda()] == t).all()):
+            raise AssertionError(f"scale round {t}: tau of the admitted "
+                                 "rows is not the round")
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"scale round {t}: loss {m['loss']}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    extra = peak - state_bytes
+    if extra > SCALE_PEAK_BYTES:
+        raise AssertionError(f"scale_round: peak {peak} B is {extra} B above"
+                             f" the {state_bytes} B state (> "
+                             f"{SCALE_PEAK_BYTES} B): a dense (C, D) "
+                             "intermediate?")
+    if not np.array_equal(state.tau.cpu().numpy(), tau_want):
+        raise AssertionError("scale_round: tau outside the admitted rows")
+    moved = torch.zeros((C,), dtype=torch.bool)
+    chunk = 4096
+    for old, new in zip(W_before, tree_leaves(state.W)):
+        for a in range(0, C, chunk):
+            diff = new[a:a + chunk].cpu() != old[a:a + chunk]
+            moved[a:a + chunk] |= diff.reshape(diff.shape[0], -1).any(1)
+    admitted = np.unique(np.concatenate(
+        [i[w > 0] for i, _, w in rows])).astype(np.int64)
+    if not np.array_equal(moved.nonzero().flatten().numpy(), admitted):
+        raise AssertionError(f"scale_round: {int(moved.sum())} rows of W "
+                             f"moved, {admitted.size} were admitted")
+    report["scale_round"] = dict(
+        n_clients=C, s_max=S, rounds=rounds, state_bytes=state_bytes,
+        allocated_before_state=before_state, peak_bytes=peak,
+        peak_above_state=extra, admitted_rows=int(admitted.size),
+        ms_per_round={w: statistics.median(v) for w, v in times.items()},
+        ms_rounds=times)
+    log(f"scale round: C={C} S_max={S}, state {state_bytes / 1e9:.2f} GB "
+        f"(allocated before it {before_state / 1e9:.3f} GB); peak "
+        f"{peak / 1e9:.3f} GB, {extra / 2**30:.3f} GiB above the state; "
+        f"{admitted.size} rows of W moved, all admitted; ms per round "
+        + ", ".join(f"{w} {statistics.median(v):.3f} (rounds "
+                    f"{' '.join(f'{x:.1f}' for x in v)})"
+                    for w, v in times.items()))
+    del state, W_before
+    torch.cuda.empty_cache()
 
 
 def _named_leaves(tree, prefix=""):
@@ -1600,6 +1986,12 @@ def main() -> int:
     cpu_vs_cuda(report)
     report["train_phase_s"] = time.perf_counter() - t0
     log(f"phase: training {report['train_phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    sparse_runs(specs, report)
+    sparse_cpu_vs_cuda(report)
+    scale_round(specs, report)
+    report["sparse_phase_s"] = time.perf_counter() - t0
+    log(f"phase: sparse round and schedules {report['sparse_phase_s']:.1f} s")
 
     t0 = time.perf_counter()
     errs = check_attention(report)
@@ -1650,7 +2042,9 @@ def main() -> int:
             call_ms=s["call_ms"], one_leaf_ms=s["one_leaf_ms"],
             one_leaf_call_ms=s["one_leaf_call_ms"],
             bandwidth_ms=s["bandwidth_ms"],
-            bandwidth_bound_ms=s["bandwidth_bound_ms"]))
+            bandwidth_bound_ms=s["bandwidth_bound_ms"],
+            **{k: s[k] for k in ("sparse_block_ms", "sparse_block_bound_ms")
+               if k in s}))
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:84"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:66")):

@@ -1,6 +1,7 @@
 """BAFDP — the paper's algorithm (Algorithm 1, Eq. 15-22) as one round
 function over stacked client trees; the port of the JAX package's
-``core/bafdp.py`` for the dense round with ``consensus_scope="all"``.
+``core/bafdp.py``: the dense round (:func:`bafdp_round`) and the
+active-subset round (:func:`bafdp_round_sparse`).
 
 * Step 1 (active clients): the omega step Eq. (18) — gradient of the local
   DRO objective ``g(w_i) + rho_i G(w_i)`` plus the Lagrangian terms
@@ -15,30 +16,48 @@ Per-client gradients come from ONE backward pass of ``sum_i obj_i`` over
 the stacked ``(C, ...)`` leaves: ``obj_i`` reads only row ``i``, so the
 gradient of the sum in row ``i`` is client ``i``'s own gradient.
 
-Randomness (the internal active-set sampler, the LDP input noise, the
-``gaussian`` attack) is drawn in that order from the round's
-``torch.Generator``.  Knobs whose code is not ported yet raise.
+Randomness: the ``"all"``-scope round draws the internal active-set
+sampler, the LDP input noise and the ``gaussian`` attack in that order from
+the round's ``torch.Generator``.  The active-subset round (and the
+``"active"`` scope, which runs it) draws the noise and the attack per
+client row instead (``privacy.RowGenerators``, seeded from the round
+generator's ``initial_seed()`` and the client id), so a client's draws
+do not depend on the block it sits in.  Knobs whose code is not ported
+yet raise.
+
+:func:`bafdp_round_sparse` is the O(S) round: it gathers the round's S
+delivered rows of every per-client leaf, runs the same per-client math
+on the (S_max, ...) blocks, and writes the rows back into the state's
+(C, ...) leaves in place.  ``bafdp_round`` with
+``consensus_scope="active"`` runs it over the full-width block (every
+client a row, ``weight`` the activity mask) on a copy of the state; that
+masked O(C) round is the bit-for-bit oracle of the gathered one.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import byzantine as byz_lib
 from repro_torch.core import dro
-from repro_torch.core.fed_state import FedState, consensus_gap
-from repro_torch.core.privacy import eps_feasible
+from repro_torch.core.fed_state import (FedState, consensus_gap,
+                                        gather_clients, scatter_clients)
+from repro_torch.core.privacy import NOISE_STREAM, RowGenerators, eps_feasible
 from repro_torch.distributed import collectives
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import jsign
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.ref import jsign, true_div
+from repro_torch.tree import host_array, tree_leaves, tree_map
 
-# local_loss(W_stack, batch, gen, eps) -> (C,) per-client data loss; row i
-# may read only row i of W_stack, batch and eps
-LocalLoss = Callable[[Any, Any, torch.Generator, torch.Tensor], torch.Tensor]
+# local_loss(W_stack, batch, gen, eps) -> (R,) per-row data loss; row i may
+# read only row i of W_stack, batch and eps.  ``gen`` is the round's
+# torch.Generator (the "all"-scope round) or a privacy.RowGenerators (the
+# active-subset round), which privacy.perturb_inputs takes either way.
+LocalLoss = Callable[[Any, Any, Any, torch.Tensor], torch.Tensor]
 
 ROBUST_CONSENSUS_RULES = ("none", "trimmed_mean", "median", "krum",
                           "centered_clip")
@@ -52,13 +71,13 @@ def _not_ported(knob: str) -> ValueError:
 def check_ported(fed: FedConfig) -> None:
     """Reject the knobs whose code this package does not carry yet, and
     unknown values, rather than ignore them."""
-    if fed.consensus_scope == "active":
-        raise _not_ported("consensus_scope='active'")
-    if fed.consensus_scope != "all":
+    if fed.consensus_scope not in ("all", "active"):
         raise ValueError(f"unknown consensus_scope: {fed.consensus_scope!r} "
                          "(expected 'all' or 'active')")
-    if fed.consensus_streaming:
-        raise _not_ported("consensus_streaming")
+    if fed.consensus_streaming and fed.consensus_scope != "active":
+        raise ValueError(
+            "consensus_streaming streams the active-scope left-fold; the "
+            "'all' scope reduces by mean — set consensus_scope='active'")
     if fed.robust_consensus not in ROBUST_CONSENSUS_RULES:
         raise ValueError(f"unknown robust_consensus: {fed.robust_consensus!r}"
                          f" (expected one of {ROBUST_CONSENSUS_RULES})")
@@ -244,6 +263,12 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
     clients, ``t - tau_i`` for the frozen params of inactive ones).
     ``arrivals``: the round's consumed-update count, read only by
     ``fed.fedbuff_lr_norm`` (default ``sum(act)``).
+
+    ``fed.consensus_scope="active"`` consumes only this round's delivered
+    messages: the round then runs :func:`bafdp_round_sparse` over the
+    full-width block (``idx = arange(C)``, ``weight`` = the activity mask)
+    on a copy of ``state`` (so ``state`` is left as it was), with that
+    round's block metrics.
     """
     sign_message = fed.resolved_sign_message      # validates the knob
     dual_message = fed.resolved_dual_message      # validates the knob
@@ -269,6 +294,15 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
                 f"unknown internal_select: {fed.internal_select!r}")
     else:
         act = torch.as_tensor(act, device=dev).bool()
+
+    if fed.consensus_scope == "active":
+        # the masked O(C) round IS the sparse round over the full-width
+        # block: one code path, so the two cannot drift apart
+        return bafdp_round_sparse(
+            _clone_state(state), batch, gen, local_loss=local_loss, fed=fed,
+            c3=c3, n_samples=n_samples, d_dim=d_dim, byz_mask=byz_mask,
+            idx=np.arange(C), stale=stale, weight=act.float(),
+            arrivals=arrivals)
 
     t = state.t
     tau_new = torch.where(act, t, state.tau)
@@ -410,3 +444,298 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
         "staleness_mean": torch.mean(stale_v),
         "staleness_weight_mean": torch.mean(s_w),
         "compensation_norm": comp_norm}
+
+
+def _clone_state(state: FedState) -> FedState:
+    """A copy of every tensor of ``state`` (the sparse round writes into
+    the state it is given)."""
+    return FedState(*(tree_map(torch.clone, f) if f is not None else None
+                      for f in state))
+
+
+def _canonical_rows(idx, stale, weight, C: int):
+    """The padded row contract, normalized on the host: an id outside
+    ``[0, C)`` gets weight 0, a row of weight <= 0 becomes the sentinel
+    ``C``, and the rows are stably sorted by client id (padding last,
+    FedBuff arrival order kept between equal ids).  Returns ``(idx, stale,
+    weight, order, write_idx)``: ``order`` the sort permutation and
+    ``write_idx`` the ids with every delivery but each client's last one
+    (and padding) set to ``C``."""
+    idx = host_array(idx).astype(np.int64).reshape(-1)
+    S = idx.shape[0]
+    w = np.ones(S, np.float32) if weight is None \
+        else host_array(weight).astype(np.float32).reshape(-1)
+    st = np.zeros(S, np.float32) if stale is None \
+        else host_array(stale).astype(np.float32).reshape(-1)
+    w = np.where((idx < 0) | (idx >= C), np.float32(0.0), w)
+    idx = np.where(w > 0.0, idx, C)
+    order = np.argsort(idx, kind="stable")
+    idx, st, w = idx[order], st[order], w[order]
+    is_last = np.append(idx[:-1] != idx[1:], True)
+    write_idx = np.where(is_last, idx, C)
+    return idx, st, w, order, write_idx
+
+
+@torch.no_grad()
+def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
+                       local_loss: LocalLoss, fed: FedConfig, c3: float,
+                       n_samples: int, d_dim: int, byz_mask: torch.Tensor,
+                       idx: Any, stale: Optional[Any] = None,
+                       weight: Optional[Any] = None,
+                       arrivals: Optional[Any] = None,
+                       batch_gathered: Optional[bool] = None
+                       ) -> Tuple[FedState, Dict[str, torch.Tensor]]:
+    """The active-subset round: one BAFDP round in O(S) compute and memory
+    over the per-client leaves.
+
+    It gathers the round's S delivered rows of every per-client leaf
+    (``W``, ``z_local``, ``phi``, ``lam``, ``eps``, ``tau``,
+    ``opt.{m,v,count}``, ``comp``) into (S_max, ...) blocks, runs the
+    per-client math of :func:`bafdp_round` on them, and writes the rows
+    back.  **It consumes the state it is given**: the new rows are written
+    in place into ``state``'s (C, ...) leaves and (C,) vectors, which the
+    returned state shares; only ``z``, ``lam`` and ``t`` are new tensors.
+    Keep a copy (``bafdp_round`` with ``consensus_scope="active"`` makes
+    one) if the old state is still needed.  Only (C,) vectors are touched
+    fleet-wide; no (C, D) intermediate exists.
+
+    The padded row contract (``Schedule.padded_rows``):
+
+    * ``idx`` (S_max,) int client ids; the sentinel ``C`` (and any id
+      outside ``[0, C)``) marks padding;
+    * ``stale`` (S_max,) admission age of each delivery (decay ``s(d)``
+      and the Taylor extrapolation); ``None`` = all fresh;
+    * ``weight`` (S_max,) 1 for a delivery, 0 for padding; ``None`` = all
+      real.  Padding adds exact zeros to every reduction and is never
+      written back.
+
+    The rows may come in any order: they are stably sorted by client id,
+    so the Eq. (20) left-fold visits clients in ascending order whatever
+    the block, and the full-width masked round gives the same bits.  A
+    FedBuff duplicate delivery (the same id twice) enters the sum with its
+    own decay weight, in arrival order; only each client's last delivery
+    is written back.  ``batch`` leaves are per client ``(C, b, ...)``
+    (gathered here) or pre-gathered ``(S_max, b, ...)`` in ``idx``'s order;
+    ``batch_gathered`` forces the reading (``None``: a leading dim of C
+    means per client).
+
+    The Eq. (20) step is ONE ``sign_consensus_leaves(..., n_total=C)``
+    call over all leaves: B2 (f32 wire) or B3 (int8 wire, weighted) once a
+    round on the card; ``fed.consensus_streaming`` folds the messages
+    ``consensus_chunk`` rows at a time with the plain streamed fold
+    instead.  Metrics: ``loss``, ``data_loss``, ``eps_mean``,
+    ``lambda_mean``, ``n_active`` as the dense round; block statistics
+    under ``_block`` keys with their divisor ``metrics_k``.
+    """
+    sign_message = fed.resolved_sign_message      # validates the knob
+    dual_message = fed.resolved_dual_message      # validates the knob
+    if fed.consensus_streaming and fed.consensus_chunk < 1:
+        raise ValueError(
+            f"consensus_chunk must be >= 1, got {fed.consensus_chunk}")
+    if fed.consensus_scope != "active":
+        raise ValueError(
+            "bafdp_round_sparse needs consensus_scope='active' (the 'all' "
+            "scope sums every client's last message — inherently O(C); use "
+            "the dense bafdp_round for it)")
+    check_ported(fed)
+    taylor = fed.staleness_compensation == "taylor"
+    if taylor and state.comp is None:
+        raise ValueError(
+            "staleness_compensation='taylor' needs FedState.comp — "
+            "init_fed_state with the same FedConfig")
+    C = byz_mask.shape[0]
+    dev = state.eps.device
+    idx_h, stale_h, w_h, order_h, write_idx = _canonical_rows(
+        idx, stale, weight, C)
+    S = idx_h.shape[0]
+    gid_h = np.minimum(idx_h, C - 1)        # padding reads client C - 1
+    gid = torch.from_numpy(gid_h).to(dev)
+    w_row = torch.from_numpy(w_h).to(dev)
+    stale_v = torch.from_numpy(stale_h).to(dev)
+
+    t = state.t
+    s_w = staleness_weights(stale_v, fed) * w_row           # decay + mask
+    tau_g = state.tau.index_select(0, gid)
+    s_w_dual = staleness_weights((t - tau_g).float(), fed)
+    noise_rows = RowGenerators(gen.initial_seed(), NOISE_STREAM, gid_h, dev)
+    byz_g = byz_mask.index_select(0, gid.to(byz_mask.device)).to(dev) \
+        & (w_row > 0.0)
+
+    # ---------------- gather the round's S rows of every big leaf ---------
+    W_g = gather_clients(state.W, gid)
+    zl_g = gather_clients(state.z_local, gid)
+    phi_g = gather_clients(state.phi, gid)
+    eps_g = state.eps.index_select(0, gid)
+    lam_g = state.lam.index_select(0, gid)
+    opt_g = None
+    if state.opt is not None:
+        opt_g = {"m": gather_clients(state.opt["m"], gid),
+                 "v": gather_clients(state.opt["v"], gid),
+                 "count": state.opt["count"].index_select(0, gid)}
+    comp_g = gather_clients(state.comp, gid) if state.comp is not None \
+        else None
+
+    def pick_batch(l):
+        if batch_gathered is None:
+            per_client = l.shape[0] == C           # wins when S == C
+            if not per_client and l.shape[0] != S:
+                raise ValueError(
+                    f"batch leaf leading dim {l.shape[0]} is neither "
+                    f"n_clients={C} nor the padded block size {S}")
+        else:
+            per_client = not batch_gathered
+            want = C if per_client else S
+            if l.shape[0] != want:
+                raise ValueError(
+                    f"batch_gathered={batch_gathered}: expected batch leaf "
+                    f"leading dim {want}, got {l.shape[0]}")
+        if per_client:
+            return l.index_select(0, gid.to(l.device))
+        # pre-gathered rows come in idx's order: permute them with the rows
+        return l.index_select(0, torch.from_numpy(order_h).to(l.device))
+
+    batch_g = tuple(pick_batch(l) for l in batch)
+    batch_g = byz_lib.poison_batch(fed.attack, batch_g, byz_g,
+                                   shift=fed.traffic_shift_steps)
+
+    # ---------------- Step 1 on the gathered block ------------------------
+    (W_prop, opt_prop, comp_prop, eps_prop, loss_i, g_i,
+     G_i) = _client_block_updates(
+        W_g, zl_g, phi_g, eps_g, lam_g, opt_g, comp_g, batch_g, noise_rows,
+        torch.ones((S,), dtype=torch.int32, device=dev),
+        local_loss=local_loss, fed=fed, c3=c3, n_samples=n_samples,
+        d_dim=d_dim, taylor=taylor)
+
+    # ---------------- write the state's rows back, in place ---------------
+    tau_new = scatter_clients(state.tau, write_idx, t.expand(S))
+    W_new = scatter_clients(state.W, write_idx, W_prop)
+    new_opt = state.opt
+    if fed.omega_optimizer == "adam" and state.opt is not None:
+        new_opt = {k: scatter_clients(state.opt[k], write_idx, opt_prop[k])
+                   for k in ("m", "v", "count")}
+    new_comp = state.comp
+    comp_blocks = comp_g
+    if taylor:
+        new_comp = scatter_clients(state.comp, write_idx, comp_prop)
+        comp_blocks = comp_prop
+    eps_new = scatter_clients(state.eps, write_idx, eps_prop)
+
+    wsum_act = torch.clamp_min(torch.sum(w_row), 1.0)
+
+    def act_mean(x):
+        return torch.sum(x * w_row) / wsum_act
+
+    a1_t = reg_decay(fed.alpha_lambda, t, fed.reg_decay_pow)
+    lam_new = torch.clamp_min(state.lam + fed.alpha_lambda * (
+        (eps_new - fed.privacy_budget_a) - a1_t * state.lam), 0.0)
+    block_metrics = {
+        "loss": act_mean(loss_i), "data_loss": act_mean(g_i),
+        "lipschitz_block": act_mean(G_i), "eps_mean": torch.mean(eps_new),
+        "lambda_mean": torch.mean(lam_new), "n_active": torch.sum(w_row),
+        "staleness_mean_block": act_mean(stale_v),
+        "staleness_weight_mean_block": act_mean(
+            staleness_weights(stale_v, fed)),
+        "metrics_k": wsum_act}
+
+    if fed.local_steps == 0:
+        # consensus-free round: no sign all-reduce at all
+        new_state = FedState(W=W_new, z=state.z, z_local=state.z_local,
+                             phi=state.phi, lam=lam_new, eps=eps_new,
+                             t=t + 1, opt=new_opt, tau=tau_new,
+                             comp=new_comp)
+        zero = torch.zeros((), device=dev)
+        return new_state, dict(block_metrics, consensus_gap_block=zero,
+                               compensation_norm_block=zero)
+
+    do_consensus = (t % fed.local_steps) == (fed.local_steps - 1)
+
+    # ---------------- Step 2: server consensus over the S messages --------
+    # fleet-indexed corruption: each row's draw keys off its client id and
+    # alie's statistics read only the delivered rows
+    W_sent = byz_lib.apply_attack(fed.attack, gen, W_prop, byz_g,
+                                  scale=fed.attack_scale, client_ids=gid_h,
+                                  weight=w_row)
+    comp_norm = torch.zeros((), device=dev)
+    W_srv = W_sent
+    if taylor:
+        W_srv = compensate_stale(W_sent, comp_blocks, stale_v, fed)
+        # delivered-weighted per-element movement (padding drops out)
+        per_row = torch.zeros((S,), dtype=torch.float32, device=dev)
+        for a, b in zip(tree_leaves(W_srv), tree_leaves(W_sent)):
+            per_row = per_row + torch.sum(
+                torch.abs(a - b.float()).reshape(S, -1), dim=1)
+        den = float(sum(l.numel() for l in tree_leaves(W_sent))) / S
+        num = torch.sum(per_row * w_row) / (wsum_act * max(den, 1.0))
+        comp_norm = torch.where(do_consensus, num, torch.zeros_like(num))
+
+    if fed.fedbuff_lr_norm:
+        # sum(weight) is the realized K, duplicate deliveries included
+        k_arr = torch.sum(w_row) if arrivals is None \
+            else torch.as_tensor(arrivals, device=dev).float()
+        lr_scale = true_div(k_arr, C)
+
+    # the dual term sum_j w_j phi_j / C, the same left-fold over the block
+    chunk = fed.consensus_chunk if fed.consensus_streaming else 0
+
+    def phi_mean(phi_l):
+        rows = phi_l.reshape(S, -1)
+        if dual_message == "int8":
+            acc = kref.fold_dual_rowsum(rows, w_row, chunk_size=chunk)
+        elif chunk:
+            acc = kref.fold_weighted_rowsum_stream(rows, w_row, chunk)
+        else:
+            acc = kref.fold_weighted_rowsum(rows, w_row)
+        return true_div(acc, C)
+
+    # one call over every leaf: B2 or B3 launch once a round
+    z_upd = iter(kops.sign_consensus_leaves(
+        [z_l.reshape(-1) for z_l in tree_leaves(state.z)],
+        [w_l.reshape(S, -1) for w_l in tree_leaves(W_srv)],
+        [phi_mean(phi_l) for phi_l in tree_leaves(phi_g)],
+        s_w, fed.psi, fed.alpha_z, message=sign_message, n_total=C,
+        streaming=fed.consensus_streaming, chunk_size=fed.consensus_chunk))
+
+    def z_step(z_l):
+        zf = z_l.reshape(-1)
+        z_u = next(z_upd)
+        if fed.fedbuff_lr_norm:
+            z_u = (zf.float() + lr_scale * (z_u.float() - zf.float())
+                   ).to(z_l.dtype)
+        return torch.where(do_consensus, z_u, zf).reshape(z_l.shape)
+
+    z_new = tree_map(z_step, state.z)
+
+    # ---------------- Step 3: delivered clients update phi, sync z --------
+    a2_t = reg_decay(fed.alpha_phi, t, fed.reg_decay_pow)
+    W_dual = W_prop
+    if taylor:
+        lag = torch.clamp_min((t - tau_g).float() - 1.0, 0.0)
+        W_dual = compensate_stale(W_prop, comp_blocks, lag, fed)
+
+    def phi_step(phi_l, z_l, w_l):
+        upd = (z_l[None].float() - w_l.float()) - a2_t * phi_l.float()
+        if fed.staleness_decay != "constant":
+            upd = upd * s_w_dual.reshape((-1,) + (1,) * (phi_l.ndim - 1))
+        return phi_l.float() + fed.alpha_phi * upd
+
+    phi_new = scatter_clients(state.phi, write_idx,
+                              tree_map(phi_step, phi_g, z_new, W_dual))
+    z_local_new = scatter_clients(
+        state.z_local, write_idx,
+        tree_map(lambda z_l: z_l[None].float().expand((S,) + z_l.shape),
+                 z_new))
+
+    new_state = FedState(W=W_new, z=z_new, z_local=z_local_new, phi=phi_new,
+                         lam=lam_new, eps=eps_new, t=t + 1, opt=new_opt,
+                         tau=tau_new, comp=new_comp)
+
+    # mean ||z - w_i||^2 / D over the delivered block
+    sq, n = torch.zeros((), device=dev), 0
+    for z_l, w_l in zip(tree_leaves(z_new), tree_leaves(W_prop)):
+        diff = z_l[None].float() - w_l.float()
+        d = torch.sum(torch.square(diff), dim=tuple(range(1, w_l.ndim)))
+        sq = sq + act_mean(d)
+        n += z_l.numel()
+    return new_state, dict(block_metrics,
+                           consensus_gap_block=sq / float(max(n, 1)),
+                           compensation_norm_block=comp_norm)

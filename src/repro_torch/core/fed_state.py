@@ -9,7 +9,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.tree import resolve_device, tree_leaves, tree_map
+from repro_torch.tree import (host_array, resolve_device, tree_leaves,
+                              tree_map)
 
 
 class FedState(NamedTuple):
@@ -80,6 +81,51 @@ def fed_state_from_numpy(arrays: Mapping[str, Any], device=None) -> FedState:
 
     return FedState(**{name: conv(arrays.get(name))
                        for name in FedState._fields})
+
+
+def gather_clients(tree: Any, idx: torch.Tensor) -> Any:
+    """Rows ``idx`` of every (C, ...) leaf as an (S, ...) block.  Indices
+    past either end clip to the first or last row, like the reference's
+    ``take(mode="clip")``: the padding sentinel ``C`` reads row ``C - 1``,
+    so padding rows must be neutralized downstream (weight 0 in every
+    reduction, never written back)."""
+    def take(l):
+        i = torch.clamp(idx.to(l.device, torch.long), 0, l.shape[0] - 1)
+        return l.index_select(0, i)
+
+    return tree_map(take, tree)
+
+
+def scatter_clients(tree: Any, idx: Any, updates: Any) -> Any:
+    """Write an (S, ...) block of rows back into the (C, ...) leaves IN
+    PLACE, at rows ``idx`` (a numpy array or tensor), cast to each leaf's
+    dtype; returns ``tree``, whose leaves now hold the new rows.  Rows whose
+    index lies outside ``[0, C)`` (the padding sentinel ``C``) are dropped
+    before the copy: ``index_copy_`` has no drop mode.  The in-bounds
+    indices must be distinct (``index_copy_`` applies repeated indices in
+    no fixed order on CUDA); the active-subset round keeps only each
+    client's last delivery.
+
+    Writing into the resident stack is what keeps the round O(S) in
+    memory, as XLA's buffer donation does for the reference; a functional
+    copy would allocate a (C, ...) tree every round."""
+    ids = host_array(idx).astype(np.int64).reshape(-1)
+    leaf0 = tree_leaves(tree)[0]
+    keep = np.flatnonzero((ids >= 0) & (ids < leaf0.shape[0]))
+    if keep.size == 0:
+        return tree
+    dev = leaf0.device
+    rows = None if keep.size == ids.size \
+        else torch.from_numpy(keep).to(dev)
+    at = torch.from_numpy(ids[keep]).to(dev)
+
+    def put(l, u):
+        if rows is not None:
+            u = u.index_select(0, rows.to(u.device))
+        l.index_copy_(0, at, u.to(l.device, l.dtype).contiguous())
+        return l
+
+    return tree_map(put, tree, updates)
 
 
 def consensus_gap(state: FedState) -> torch.Tensor:

@@ -5,11 +5,17 @@ Each client adds ``v ~ N(0, sigma^2)`` to its training inputs, with
 ``sigma = c3 / eps_i`` and ``c3 = sqrt(2 d log(1.25/delta)) * Delta``.
 The privacy level ``eps_i`` is a decision variable of the optimization,
 constrained to ``[eps_min, a]`` (Eq. 3).
+
+Randomness comes from the round's ``torch.Generator``, or, in the
+active-subset round, from a :class:`RowGenerators`: one generator per
+client row, seeded from the round generator's seed and the client id, so
+a client's draw does not depend on the block it sits in (the counterpart
+of the reference's ``jax.random.split(key, C)[client]``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,15 +37,64 @@ def sigma_for_eps(eps: torch.Tensor, c3: float,
     return torch.full_like(e, c3) / e
 
 
-def perturb_inputs(gen: torch.Generator, x: torch.Tensor, eps: torch.Tensor,
-                   c3: float, eps_min: float = FedConfig.eps_min
-                   ) -> torch.Tensor:
-    """``x + v``, ``v ~ N(0, sigma^2 I)`` drawn from ``gen``.  ``eps``
-    carries the leading (client) axes of ``x`` and broadcasts from the
-    left."""
+# stream tags of the row generators (core/byzantine.py has its own)
+NOISE_STREAM = 1
+
+
+class RowGenerators:
+    """Fleet-indexed randomness for a block of client rows: row ``r``
+    draws from its own ``torch.Generator``, seeded from ``(seed, stream,
+    leaf, client_ids[r])`` by numpy's ``SeedSequence``.  A client's draw
+    is then the same whether its row sits in a full-width block or a
+    gathered one, and whatever the padding (duplicate ids draw alike).
+
+    ``seed`` is the round generator's ``initial_seed()``; ``stream`` tells
+    the uses of one round apart (the LDP noise, an attack's draws)."""
+
+    def __init__(self, seed: int, stream: int, client_ids: Sequence[int],
+                 device) -> None:
+        self.seed = int(seed)
+        self.stream = int(stream)
+        self.client_ids = np.asarray(client_ids, np.int64).reshape(-1)
+        self.device = torch.device(device)
+
+    def __len__(self) -> int:
+        return int(self.client_ids.size)
+
+    def generator(self, row: int, leaf: int = 0) -> torch.Generator:
+        """Row ``row``'s generator for ``leaf``."""
+        mixed = int(np.random.SeedSequence(
+            [self.seed, self.stream, int(leaf),
+             int(self.client_ids[row])]).generate_state(1)[0])
+        return torch.Generator(device=self.device).manual_seed(mixed)
+
+    def randn(self, shape: Sequence[int], dtype=torch.float32,
+              leaf: int = 0) -> torch.Tensor:
+        """``(R, *shape)`` standard normals, row ``r`` from its own
+        generator."""
+        out = torch.empty((len(self),) + tuple(shape), dtype=dtype,
+                          device=self.device)
+        for r in range(len(self)):
+            out[r].normal_(generator=self.generator(r, leaf))
+        return out
+
+
+def perturb_inputs(gen: Union[torch.Generator, RowGenerators],
+                   x: torch.Tensor, eps: torch.Tensor, c3: float,
+                   eps_min: float = FedConfig.eps_min) -> torch.Tensor:
+    """``x + v``, ``v ~ N(0, sigma^2 I)`` drawn from ``gen``: one block
+    from a ``torch.Generator``, or row by row (``x``'s leading axis) from
+    a :class:`RowGenerators`.  ``eps`` carries the leading (client) axes
+    of ``x`` and broadcasts from the left."""
     sigma = sigma_for_eps(eps, c3, eps_min).to(x.dtype)
-    noise = torch.randn(x.shape, generator=gen, dtype=x.dtype,
-                        device=x.device)
+    if isinstance(gen, RowGenerators):
+        if len(gen) != x.shape[0]:
+            raise ValueError(f"{len(gen)} row generators for a block of "
+                             f"{x.shape[0]} rows")
+        noise = gen.randn(x.shape[1:], dtype=x.dtype)
+    else:
+        noise = torch.randn(x.shape, generator=gen, dtype=x.dtype,
+                            device=x.device)
     while sigma.ndim < x.ndim:
         sigma = sigma[..., None]
     return x + noise * sigma

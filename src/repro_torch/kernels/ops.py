@@ -37,10 +37,21 @@ def _resolve(impl: str, z: torch.Tensor) -> str:
     return impl
 
 
+def _check_fold(weights, n_total, streaming: bool) -> None:
+    if n_total is not None and weights is None:
+        raise ValueError("n_total (active-subset reduction) needs weights "
+                         "(the padding/activity mask at minimum)")
+    if streaming and n_total is None:
+        raise ValueError(
+            "streaming=True is the chunked active-subset left-fold — "
+            "it needs n_total (and weights)")
+
+
 def sign_consensus(z: torch.Tensor, W: torch.Tensor, phi_mean: torch.Tensor,
                    weights: Optional[torch.Tensor], psi: float,
                    alpha_z: float, message: str = "f32", impl: str = "auto",
-                   n_total: Optional[int] = None) -> torch.Tensor:
+                   n_total: Optional[int] = None, streaming: bool = False,
+                   chunk_size: int = 8) -> torch.Tensor:
     """The one Eq. (20) dispatch for every sign-sum flavour: plain mean
     (``weights=None``, B1), staleness-decayed (B2), and the int8 wire
     format (B3).
@@ -52,12 +63,16 @@ def sign_consensus(z: torch.Tensor, W: torch.Tensor, phi_mean: torch.Tensor,
     whatever ``impl``) and reduces from the wire.  Returns
     ``z - alpha_z * (phi_mean + psi * sum_i s_i sign(z - w_i) / n)`` with
     ``n = n_total or C``; ``n_total`` (the active-subset divisor) needs
-    ``weights``.
+    ``weights``.  ``streaming=True`` (needs ``n_total``) folds
+    ``chunk_size`` rows at a time with the plain version on every device
+    (see the module docstring); bit-identical to the materialized fold.
     """
     impl = _resolve(impl, z)
-    if n_total is not None and weights is None:
-        raise ValueError("n_total (active-subset reduction) needs weights "
-                         "(the padding/activity mask at minimum)")
+    _check_fold(weights, n_total, streaming)
+    if streaming:
+        return ref.sign_agg_fold_stream_ref(z, W, phi_mean, weights, psi,
+                                            alpha_z, n_total, chunk_size,
+                                            message=message)
     n = n_total or 0
     if message == "int8":
         msg = collectives.encode_sign_message(z, W, weights)
@@ -86,7 +101,8 @@ def sign_consensus_leaves(zs: Sequence[torch.Tensor],
                           weights: Optional[torch.Tensor], psi: float,
                           alpha_z: float, message: str = "f32",
                           impl: str = "auto",
-                          n_total: Optional[int] = None
+                          n_total: Optional[int] = None,
+                          streaming: bool = False, chunk_size: int = 8
                           ) -> List[torch.Tensor]:
     """:func:`sign_consensus` over every leaf of a tree, with the same
     arguments per leaf (``zs[l]``: (D_l,), ``Ws[l]``: (C, D_l),
@@ -94,11 +110,15 @@ def sign_consensus_leaves(zs: Sequence[torch.Tensor],
     (one launch) over all leaves.  ``message="f32"`` runs B1/B2;
     ``"int8"`` encodes each leaf on the client side as
     :func:`sign_consensus` does and runs B3 over every payload with the
-    round's one scale column."""
+    round's one scale column.  ``streaming=True`` runs the streamed plain
+    fold per leaf instead, launching nothing."""
     impl = _resolve(impl, zs[0])
-    if n_total is not None and weights is None:
-        raise ValueError("n_total (active-subset reduction) needs weights "
-                         "(the padding/activity mask at minimum)")
+    _check_fold(weights, n_total, streaming)
+    if streaming:
+        return [ref.sign_agg_fold_stream_ref(z, W, phi, weights, psi,
+                                             alpha_z, n_total, chunk_size,
+                                             message=message)
+                for z, W, phi in zip(zs, Ws, phis)]
     n = n_total or 0
     if message == "int8":
         msgs = [collectives.encode_sign_message(z, W, weights)

@@ -18,6 +18,14 @@ In B1-B3 every cross-client sum adds rows strictly in order (a Python loop of
 regroups.  The kernels loop rows in the same order with the same
 roundings, so they agree with these folds bit for bit.  Divisions by the
 client count are true divisions (see :func:`true_div`).
+
+The streamed folds (:func:`fold_weighted_rowsum_stream`,
+:func:`sign_agg_fold_stream_ref`, :func:`fold_dual_rowsum` with a chunk)
+are the same left-folds consumed a chunk of rows at a time, the
+reference's ``consensus_streaming``; a chunk boundary never regroups an
+addition, so they equal the one-pass folds bit for bit.  They are no
+kernel's plain version: the reference's streamed path reaches no Pallas
+kernel, and the port's runs them on every device.
 """
 from __future__ import annotations
 
@@ -87,6 +95,92 @@ def sign_agg_fold_ref(z: torch.Tensor, W: torch.Tensor,
     for j in range(W.shape[0]):
         acc = acc + wf[j] * jsign(zf - Wf[j])
     return _epilogue(z, phi_mean, acc, n_total, psi, alpha_z)
+
+
+def _fold_chunks(R: int, chunk_size: int, fold_chunk, init):
+    """Drive ``fold_chunk(start, size, acc)`` over ``[0, R)`` in row order:
+    the full ``chunk_size``-row chunks, then the tail (``R % chunk_size``
+    rows) as one short chunk.  A chunk boundary never reorders a
+    left-fold's additions, so the result is bit-identical to the one-pass
+    fold for any ``chunk_size >= 1``."""
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    acc = init
+    for start in range(0, R, chunk_size):
+        acc = fold_chunk(start, min(chunk_size, R - start), acc)
+    return acc
+
+
+def fold_weighted_rowsum_stream(X: torch.Tensor, weights: torch.Tensor,
+                                chunk_size: int) -> torch.Tensor:
+    """:func:`fold_weighted_rowsum` consumed ``chunk_size`` rows at a time
+    (the arrival-event shape); bit-identical to it."""
+    wf = weights.float()
+
+    def fold_chunk(start, size, acc):
+        Xc = X[start:start + size].float()
+        for j in range(size):
+            acc = acc + wf[start + j] * Xc[j]
+        return acc
+
+    return _fold_chunks(X.shape[0], chunk_size, fold_chunk,
+                        torch.zeros(X.shape[1:], dtype=torch.float32,
+                                    device=X.device))
+
+
+def sign_agg_fold_stream_ref(z: torch.Tensor, W: torch.Tensor,
+                             phi_mean: torch.Tensor, weights: torch.Tensor,
+                             psi: float, alpha_z: float, n_total: int,
+                             chunk_size: int,
+                             message: str = "f32") -> torch.Tensor:
+    """:func:`sign_agg_fold_ref` as an online reduction over chunks of
+    ``chunk_size`` rows: no more than one ``(chunk_size, D)`` message block
+    exists at a time.  ``message="int8"`` round-trips each chunk's signs
+    through the int8 wire (lossless), so the whole payload never exists
+    either.  Bit-identical to :func:`sign_agg_fold_ref` and to
+    :func:`sign_agg_int8_fold_ref` on the encoded message."""
+    if message not in ("f32", "int8"):
+        raise ValueError(f"unknown sign message format: {message!r}")
+    zf = z.float()
+    wf = weights.float()
+
+    def fold_chunk(start, size, acc):
+        sgn = jsign(zf[None, :] - W[start:start + size].float())
+        if message == "int8":
+            sgn = sgn.to(torch.int8).float()
+        for j in range(size):
+            acc = acc + wf[start + j] * sgn[j]
+        return acc
+
+    acc = _fold_chunks(W.shape[0], chunk_size, fold_chunk,
+                       torch.zeros_like(zf))
+    return _epilogue(z, phi_mean, acc, n_total, psi, alpha_z)
+
+
+def fold_dual_rowsum(phi_rows: torch.Tensor, weights: torch.Tensor,
+                     chunk_size: int = 0) -> torch.Tensor:
+    """``sum_j weights[j] * decode(encode(phi_rows[j]))``: the Eq. (22)
+    dual-side left-fold through the int8 dual wire.  The quantizer is
+    row-local, so ``chunk_size >= 1`` (encode, decode and fold one chunk
+    at a time) is bit-identical to ``chunk_size=0`` (the whole block)."""
+    from repro_torch.distributed import collectives
+
+    if chunk_size == 0:
+        dec = collectives.decode_dual_message(
+            collectives.encode_dual_message(phi_rows))
+        return fold_weighted_rowsum(dec, weights)
+    wf = weights.float()
+
+    def fold_chunk(start, size, acc):
+        dec = collectives.decode_dual_message(
+            collectives.encode_dual_message(phi_rows[start:start + size]))
+        for j in range(size):
+            acc = acc + wf[start + j] * dec[j]
+        return acc
+
+    return _fold_chunks(phi_rows.shape[0], chunk_size, fold_chunk,
+                        torch.zeros(phi_rows.shape[1:], dtype=torch.float32,
+                                    device=phi_rows.device))
 
 
 def sign_agg_weighted_ref(z: torch.Tensor, W: torch.Tensor,

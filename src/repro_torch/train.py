@@ -2,10 +2,13 @@
 port of ``benchmarks/common.train_bafdp`` and ``examples/quickstart.py``).
 
     python -m repro_torch.train [--rounds 200] [--device cuda|cpu]
+        [--server quorum|fedbuff|sync] [--round-impl dense|sparse]
 
 runs on the GPU unless ``--device cpu`` is given, and fails when there is
-no GPU.  The round's active set comes from the internal sampler
-(``FedConfig.active_frac``); event-driven schedules are not ported yet.
+no GPU.  As the quickstart, an event-driven fleet (``DelayModel``, hetero
+1.0) builds a ``Schedule`` under the ``--server`` trigger, and the rounds
+train on it: the dense round fed its ``act``/``stale`` rows, or with
+``--round-impl sparse`` the O(S) round fed its padded rows.
 """
 from __future__ import annotations
 
@@ -20,11 +23,15 @@ import torch
 
 from repro_torch.configs import MLP_H1, MLP_H24, FedConfig, ForecastConfig
 from repro_torch.core import bafdp
+from repro_torch.core.async_engine import DelayModel
 from repro_torch.core.byzantine import byz_mask
 from repro_torch.core.fed_state import FedState, init_fed_state
 from repro_torch.core.privacy import (gaussian_c3, perturb_inputs,
                                       privacy_accountant)
-from repro_torch.core.schedule import FederatedRun
+from repro_torch.core.schedule import (AdaptiveQuorum, AgeAwareSelection,
+                                       FedBuffTrigger, FederatedRun,
+                                       QuorumTrigger, Schedule, SyncTrigger,
+                                       build_schedule)
 from repro_torch.data import build_windows, client_batches, make_dataset
 from repro_torch.data.windowing import rmse_mae
 from repro_torch.models.forecasting import (Forecaster, init_forecaster,
@@ -79,35 +86,70 @@ def _rows(arr, rounds: int, n_clients: int, name: str, dtype, device):
     return out
 
 
+def _legacy_round_kwargs(schedule, active_masks, staleness, rounds: int,
+                         n_clients: int, device):
+    """The dense ``active_masks=``/``staleness=`` arrays -> a per-round
+    kwargs hook for :class:`FederatedRun`; ``None`` without them."""
+    if active_masks is None and staleness is None:
+        return None
+    if schedule is not None:
+        raise ValueError(
+            "pass either schedule= or the deprecated active_masks=/"
+            "staleness= arrays, not both")
+    masks = _rows(active_masks, rounds, n_clients, "active_masks",
+                  torch.bool, device)
+    stale_v = _rows(staleness, rounds, n_clients, "staleness",
+                    torch.float32, device)
+
+    def round_kwargs(t):
+        kw = {} if masks is None else {"act": masks[t]}
+        if stale_v is not None:
+            kw["stale"] = stale_v[t]
+        return kw
+
+    return round_kwargs
+
+
 def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
                 rounds: int = ROUNDS, seed: int = 0,
-                input_sigma: float = 0.02, schedule: Optional[Any] = None,
+                input_sigma: float = 0.02,
+                schedule: Optional[Schedule] = None,
                 active_masks: Optional[np.ndarray] = None,
                 staleness: Optional[np.ndarray] = None,
                 collect: Tuple[str, ...] = (), optimizer: str = "adam",
-                round_impl: str = "dense", state: Optional[FedState] = None,
-                device=None):
+                feed_arrivals: Optional[bool] = None,
+                round_impl: str = "dense", ledger: Optional[Any] = None,
+                state: Optional[FedState] = None, device=None):
     """Returns ``(state, cfg, history)``.
 
     As the reference: Adam on the data/DRO gradient, ``dro_weight=0.01``,
     LDP noise ``input_sigma`` on the inputs, batches of 32 per client.
-    ``active_masks``/``staleness``: explicit ``(rounds, C)`` rows fed as
-    ``act=``/``stale=``; ``None`` uses the internal sampler.  ``state``:
-    a starting state (default: a fresh one from ``seed``).  ``device``:
-    ``None`` = the GPU.  ``schedule=`` and ``round_impl="sparse"`` are not
-    ported yet and raise.
+
+    * ``schedule``: a :class:`repro_torch.core.schedule.Schedule` (e.g.
+      from ``build_schedule``) fed into every round; ``None`` uses the
+      internal sampler.  ``active_masks``/``staleness``: explicit ``(rounds,
+      C)`` rows fed as ``act=``/``stale=`` instead.
+    * ``feed_arrivals``: feed each round's admitted-update count as
+      ``arrivals=``; default on exactly when ``fed.fedbuff_lr_norm`` needs
+      it and a schedule is given.
+    * ``round_impl="sparse"`` trains through
+      ``bafdp.bafdp_round_sparse`` fed ``Schedule.padded_rows()`` (needs a
+      ``schedule=``; ``fed.consensus_scope`` is promoted to ``"active"``).
+    * ``ledger``: a ``privacy.EpsLedger`` charged once per delivery; the
+      history gains ``dp_eps_basic``/``dp_eps_adv`` (at ``fed.dp_delta``).
+    * ``state``: a starting state (default: a fresh one from ``seed``).
+      The sparse round writes into it.  ``device``: ``None`` = the GPU.
     """
-    if schedule is not None:
-        raise ValueError("train_bafdp(schedule=...) is not yet ported to "
-                         "repro_torch (see ROADMAP.md, Queue A)")
-    if round_impl == "sparse":
-        raise ValueError("round_impl='sparse' (bafdp_round_sparse) is not "
-                         "yet ported to repro_torch (see ROADMAP.md, Queue A)")
-    if round_impl != "dense":
+    if round_impl not in ("dense", "sparse"):
         raise ValueError(f"unknown round_impl: {round_impl!r}")
     dev = resolve_device(device)
     fed = dataclasses.replace(fed, omega_optimizer=optimizer,
                               dro_weight=0.01)
+    if round_impl == "sparse":
+        if schedule is None:
+            raise ValueError("round_impl='sparse' needs a schedule=")
+        if fed.consensus_scope != "active":
+            fed = dataclasses.replace(fed, consensus_scope="active")
     bafdp.check_ported(fed)
     cfg = forecast_cfg("mlp", horizon)
     train, test, scalers = problem(dataset, horizon, fed.n_clients, seed)
@@ -122,8 +164,10 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
         gen = torch.Generator(device=dev).manual_seed(seed)
         state = init_fed_state(gen, lambda g: init_forecaster(g, cfg, dev),
                                fed, device=dev)
+    round_fn = bafdp.bafdp_round_sparse if round_impl == "sparse" \
+        else bafdp.bafdp_round
     step = functools.partial(
-        bafdp.bafdp_round, local_loss=local_loss, fed=fed, c3=c3,
+        round_fn, local_loss=local_loss, fed=fed, c3=c3,
         n_samples=train["x"].shape[1], d_dim=cfg.d_x + cfg.d_y,
         byz_mask=byz_mask(fed.n_clients, fed.n_byzantine, device=dev))
     rng = np.random.RandomState(seed)
@@ -133,20 +177,15 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
         return (torch.from_numpy(x).to(dev, torch.float32),
                 torch.from_numpy(y).to(dev, torch.float32))
 
-    masks = _rows(active_masks, rounds, fed.n_clients, "active_masks",
-                  torch.bool, dev)
-    stale_v = _rows(staleness, rounds, fed.n_clients, "staleness",
-                    torch.float32, dev)
-    round_kwargs = None
-    if masks is not None or stale_v is not None:
-        def round_kwargs(t):
-            kw = {} if masks is None else {"act": masks[t]}
-            if stale_v is not None:
-                kw["stale"] = stale_v[t]
-            return kw
-
-    run = FederatedRun(step=step, rounds=rounds, round_kwargs=round_kwargs,
-                       device=dev)
+    if feed_arrivals is None:
+        feed_arrivals = fed.fedbuff_lr_norm and schedule is not None
+    run = FederatedRun(
+        step=step, rounds=rounds, schedule=schedule,
+        n_clients=fed.n_clients, feed_arrivals=feed_arrivals,
+        round_impl=round_impl, ledger=ledger, ledger_delta=fed.dp_delta,
+        round_kwargs=_legacy_round_kwargs(schedule, active_masks, staleness,
+                                          rounds, fed.n_clients, dev),
+        device=dev)
     state, hist = run.run(
         state, batch_fn, seed, collect=collect,
         derive={
@@ -157,6 +196,20 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
     return state, cfg, hist
 
 
+def make_trigger(server: str, active_frac: float):
+    """The quickstart's server modes: ``quorum`` (adaptive quorum with
+    age-aware selection), ``fedbuff`` (buffers of 4) or ``sync``."""
+    if server == "quorum":
+        return QuorumTrigger(active_frac=active_frac,
+                             quorum=AdaptiveQuorum(s_min=2),
+                             selection=AgeAwareSelection())
+    if server == "fedbuff":
+        return FedBuffTrigger(buffer_k=4)
+    if server == "sync":
+        return SyncTrigger()
+    raise ValueError(f"unknown server {server!r}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=200)
@@ -165,6 +218,10 @@ def main(argv=None) -> None:
     ap.add_argument("--attack", default="sign_flip")
     ap.add_argument("--horizon", type=int, default=1, choices=[1, 24])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--server", default="quorum",
+                    choices=["quorum", "fedbuff", "sync"])
+    ap.add_argument("--round-impl", default="dense",
+                    choices=["dense", "sparse"])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -176,11 +233,24 @@ def main(argv=None) -> None:
                     eps_init_frac=0.05, staleness_decay="poly")
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"BAFDP on {name}: {fed.n_normal} honest + {fed.n_byzantine} "
-          f"byzantine ({args.attack}), S/M={fed.active_frac}")
+          f"byzantine ({args.attack}), S/M={fed.active_frac}, "
+          f"server={args.server}, round={args.round_impl}")
+    # event-driven fleet: heterogeneous latencies -> sparse schedule
+    sched = build_schedule(args.rounds,
+                           DelayModel(n_clients=fed.n_clients, hetero=1.0,
+                                      seed=0),
+                           make_trigger(args.server, fed.active_frac))
+    if sched.n_rounds:
+        print(f"schedule: {sched.n_rounds} rounds, mean quorum "
+              f"{sched.quorum.mean():.1f}, "
+              f"est. wall-clock {sched.times[-1]:.0f}s")
+    gap = "consensus_gap_block" if args.round_impl == "sparse" \
+        else "consensus_gap"
     t0 = time.perf_counter()
     state, cfg, hist = train_bafdp(
         "milano", args.horizon, fed, rounds=args.rounds, seed=args.seed,
-        collect=("data_loss", "consensus_gap", "eps_mean"), device=dev)
+        schedule=sched, round_impl=args.round_impl,
+        collect=("data_loss", gap, "eps_mean"), device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
@@ -188,7 +258,7 @@ def main(argv=None) -> None:
     for t in range(0, args.rounds, every):
         print(f"  round {t:4d}  loss={hist['data_loss'][t]:.4f} "
               f"eps={hist['eps_mean'][t]:.3f}  "
-              f"gap={hist['consensus_gap'][t]:.2e}")
+              f"gap={hist[gap][t]:.2e}")
     print(f"{args.rounds} rounds in {secs:.2f} s (set-up included)")
 
     _, test, scalers = problem("milano", args.horizon, fed.n_clients,

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional
 
+import numpy as np
 import torch
 
 
@@ -30,6 +31,14 @@ def tree_map(f: Callable[..., Any], tree: Any, *rest: Any) -> Any:
         return {k: tree_map(f, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     return f(tree, *rest)
+
+
+def host_array(x: Any) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array on the
+    host: the rows of a schedule, client ids, weights."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def resolve_device(device: Optional[Any] = None) -> torch.device:

@@ -15,7 +15,9 @@ from test_torch_reference import reference  # noqa: F401  (fixture)
 from repro_torch.configs import FedConfig, ForecastConfig
 from repro_torch.core import bafdp, byzantine, dro, privacy
 from repro_torch.core.fed_state import params_from_numpy
-from repro_torch.core.schedule import FederatedRun, round_generator
+from repro_torch.core.async_engine import DelayModel
+from repro_torch.core.schedule import (FederatedRun, SyncTrigger,
+                                       build_schedule, round_generator)
 from repro_torch.models.forecasting import (Forecaster, apply_forecaster,
                                             init_forecaster, mse_loss)
 from repro_torch.models.layers import dense_init
@@ -263,7 +265,10 @@ def test_federated_run_loop_contract():
     assert all(np.isnan(hist["nope"]))
     with pytest.raises(KeyError, match="nope"):
         run.run(0, lambda t: t, seed=3, collect=("nope",))
-    with pytest.raises(ValueError, match="not yet ported"):
-        FederatedRun(step=step, rounds=1, schedule=object()).run(0, None, 0)
+    sched = build_schedule(1, DelayModel(n_clients=3), SyncTrigger())
+    with pytest.raises(ValueError, match="pass either schedule or "
+                                         "round_kwargs"):
+        FederatedRun(step=step, rounds=1, schedule=sched,
+                     round_kwargs=lambda t: {}).run(0, None, 0)
     with pytest.raises(ValueError, match="seed"):
         FederatedRun(step=step, rounds=1, device="cpu").run(0, None)

@@ -589,3 +589,80 @@ def test_cuda_hymba_smoke_model_matches_the_cpu():
         for p, dev in ((cpu, "cpu"), (gpu, "cuda"))]
     assert ssm_scan.LAUNCHES["ssm_scan"] == 2 * 2      # decode runs no B6
     assert [o.tolist() for o in outs[0]] == [o.tolist() for o in outs[1]]
+
+
+def _quorum_schedule(rounds):
+    """The quickstart's quorum server over 10 clients of heterogeneous
+    latency."""
+    from repro_torch import train
+    from repro_torch.core.async_engine import DelayModel
+    from repro_torch.core.schedule import build_schedule
+
+    return build_schedule(rounds, DelayModel(n_clients=10, hetero=1.0,
+                                             seed=0),
+                          train.make_trigger("quorum", 0.6))
+
+
+def _sparse_train(rounds, **knobs):
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+
+    state, _, _ = train.train_bafdp(
+        "milano", 24, FedConfig(n_clients=10, staleness_decay="poly",
+                                **knobs), rounds=rounds,
+        schedule=_quorum_schedule(rounds), round_impl="sparse",
+        device="cuda")
+    return state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "int8"])
+def test_cuda_sparse_round_launches_its_kernel_once_a_round(wire):
+    """The sparse round's Eq. (20) step is one grouped launch a round: B2
+    on the f32 wire, B3 (weighted) on the int8 wire, nothing else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sign_agg.reset_launch_counts()
+    _sparse_train(3, sign_message=wire)
+    assert sign_agg.LAUNCHES == {
+        "sign_agg": 0, "sign_agg_weighted": 3 if wire == "f32" else 0,
+        "sign_agg_weighted_int8": 3 if wire == "int8" else 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "int8"])
+def test_cuda_streamed_sparse_z_equals_materialized_bitwise(wire):
+    """consensus_streaming runs the plain streamed fold (no launch) and
+    gives the materialized (B2/B3) round's z bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.tree import tree_leaves
+
+    want = _sparse_train(3, sign_message=wire)
+    sign_agg.reset_launch_counts()
+    got = _sparse_train(3, sign_message=wire, consensus_streaming=True,
+                        consensus_chunk=3)
+    assert sum(sign_agg.LAUNCHES.values()) == 0
+    for a, b in zip(tree_leaves(got.z), tree_leaves(want.z)):
+        assert _bits_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "int8"])
+def test_cuda_materialized_sparse_path_never_runs_the_plain_fold(
+        monkeypatch, wire):
+    """On CUDA tensors the materialized consensus launches the kernel; the
+    plain versions of B1-B3 are never called."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain consensus fold ran on CUDA tensors")
+
+    for name in ("sign_agg_ref", "sign_agg_fold_ref", "sign_agg_group_ref",
+                 "sign_agg_int8_fold_ref", "sign_agg_int8_group_ref",
+                 "int8_sign_sum"):
+        monkeypatch.setattr(ref, name, refuse)
+    sign_agg.reset_launch_counts()
+    _sparse_train(2, sign_message=wire)
+    assert sum(sign_agg.LAUNCHES.values()) == 2

@@ -112,9 +112,10 @@ def ref_state_arrays(ref_state) -> dict:
 
 
 def port_state_arrays(state: FedState) -> dict:
-    """The port's ``FedState`` as a dict of numpy trees."""
+    """The port's ``FedState`` as a dict of numpy trees (copies: the
+    sparse round writes into the state it is given)."""
     return {k: None if v is None else tree_map(
-        lambda t: t.detach().cpu().numpy(), v)
+        lambda t: t.detach().cpu().numpy().copy(), v)
         for k, v in state._asdict().items()}
 
 

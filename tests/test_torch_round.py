@@ -151,8 +151,9 @@ def test_round_is_deterministic_inside_the_port():
 
 
 @pytest.mark.parametrize("knobs,match", [
-    (dict(consensus_scope="active"), "not yet ported"),
-    (dict(consensus_streaming=True), "not yet ported"),
+    (dict(consensus_scope="active", consensus_streaming=True,
+          consensus_chunk=0), "consensus_chunk must be >= 1"),
+    (dict(consensus_streaming=True), "streams the active-scope left-fold"),
     (dict(robust_consensus="median"), "not yet ported"),
     (dict(robust_consensus="bogus"), "unknown robust_consensus"),
     (dict(consensus_scope="bogus"), "unknown consensus_scope"),

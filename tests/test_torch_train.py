@@ -19,6 +19,8 @@ from test_torch_reference import ref_state_arrays, reference  # noqa: F401
 
 from repro_torch import train
 from repro_torch.configs import FedConfig
+from repro_torch.core.async_engine import DelayModel
+from repro_torch.core.schedule import SyncTrigger, build_schedule
 from repro_torch.core.fed_state import fed_state_from_numpy
 
 C, ROUNDS, SEED = 4, 4, 0
@@ -76,10 +78,14 @@ def test_default_device_raises_without_a_gpu():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(schedule=object()), "not yet ported"),
-    (dict(round_impl="sparse"), "not yet ported"),
+    (dict(schedule=build_schedule(1, DelayModel(n_clients=3),
+                                  SyncTrigger())),
+     "Schedule is for 3 clients"),
+    (dict(round_impl="sparse"), "needs a schedule"),
     (dict(round_impl="bogus"), "unknown round_impl"),
-    (dict(fed=FedConfig(n_clients=2, consensus_scope="active")),
+    (dict(fed=FedConfig(n_clients=2, consensus_streaming=True)),
+     "streams the active-scope left-fold"),
+    (dict(fed=FedConfig(n_clients=2, robust_consensus="median")),
      "not yet ported"),
 ])
 def test_unported_train_options_raise(kwargs, match):
