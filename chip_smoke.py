@@ -37,8 +37,22 @@ versions bit for bit (``time_sparse_block``); runs 3 sparse rounds on the CPU an
 card from one state under ``cpu_vs_cuda``'s drift rule, and the dense
 active-scope round against the sparse one on the card
 (``sparse_cpu_vs_cuda``); and runs 5 rounds on each wire at C=65,536
-clients (38.4 GB of state), holding the peak memory to 2 GiB above the
-state and checking that only the admitted rows move (``scale_round``).
+clients (38.4 GB of state), then 5 more on the f32 wire under each of
+``robust_consensus="krum"`` and ``"trimmed_mean"``, holding the peak
+memory to 2 GiB above the state over each wire's rounds and checking
+that only the admitted rows move (``scale_round``).
+
+Byzantine-robust path (B1, B2, B3): trains with every
+``robust_consensus`` rule (trimmed mean, median, krum, centered clip)
+under ``sign_flip`` at a Byzantine fraction of 0.3, MLP_H24 at full
+width, 20 rounds, in the dense ``"all"`` scope (B1, one launch a round)
+and in the sparse round on the schedule above (B2), and the trimmed mean
+on the int8 wire (B3 weighted), its z bit-identical to the f32 run's
+(``robust_runs``); runs the dense active scope against the sparse round
+per rule (drift rule, bit identity printed) and the trimmed mean on the
+CPU against the card (``robust_cpu_vs_cuda``); trains every baseline of
+``train.METHODS`` for 10 rounds (no consensus launch) and prints Table IV
+(quick, 20 rounds: 40 B1 launches) (``baseline_runs``).
 
 Serving path (B4, B5): holds both attention kernels against their plain
 versions (the reference's TPU test grid in f32 and bf16, Sq < Sk, ragged
@@ -69,8 +83,9 @@ token-by-token decode of the same prompt (5e-4, the reference's bound).
 
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
-launches (summed over the main-path runs: B2's and B3's include the
-sparse runs and the scale rounds) and times.  Its B1-B3 entries
+launches (summed over the main-path runs: B1's include the robust dense
+runs and Table IV's BAFDP rows, B2's and B3's the sparse, robust and
+scale runs) and times.  Its B1-B3 entries
 give ``kernel`` (the f32 instance's ptxas label) with ``ptxas`` (its
 and the bf16 instance's registers and spills), the time per round of the
 8 leaves as one grouped call, ``call_ms`` (its host time) and, as
@@ -120,6 +135,15 @@ N_CLIENTS, ROUNDS = 10, 20
 SCALE_C, SCALE_S, SCALE_ROUNDS = 65_536, 64, 5
 SCALE_PEAK_BYTES = 2 << 30
 MAIN_LEAF_D = [128, 2816, 128, 16384, 64, 8192, 24, 1536]   # MLP_H24
+# robust_runs: every robust_consensus rule in Table IV's setting (sign_flip
+# at a Byzantine fraction of 0.3, trim 0.35), dense and sparse; the dense
+# active scope against the sparse round over PARITY_ROUNDS; the baselines
+# at H=1 over BASELINE_ROUNDS; Table IV (quick) over TABLE4_ROUNDS
+ROBUST_RULES = ("trimmed_mean", "median", "krum", "centered_clip")
+ROBUST_TRIM = 0.35
+ROBUST_KNOBS = dict(attack="sign_flip", byzantine_frac=0.3,
+                    robust_trim_frac=ROBUST_TRIM)
+PARITY_ROUNDS, BASELINE_ROUNDS, TABLE4_ROUNDS = 3, 10, 20
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCE = f"{CSRC}/sign_agg.cu"
 TPU_SRC = "src/repro/kernels/sign_agg.py"
@@ -874,22 +898,8 @@ def sparse_cpu_vs_cuda(report):
         f"{worst[0]:.3e} at {worst[1]}; {n_off} elements beyond the 2e-05 "
         f"drift bound; rmse/mae cpu {out['cpu'][2]} cuda {out['cuda'][2]}")
 
-    acts = np.zeros((rounds, N_CLIENTS), bool)
-    stales = np.zeros((rounds, N_CLIENTS), np.float32)
-    for r, (idx, stale, weight) in enumerate(sched.padded_rows()):
-        k = int(weight.sum())
-        acts[r, idx[:k]] = True
-        stales[r, idx[:k]] = stale[:k]
-    dense, _, _ = train.train_bafdp(
-        "milano", 24, dataclasses.replace(fed, consensus_scope="active"),
-        rounds=rounds, seed=0, input_sigma=0.0, active_masks=acts,
-        staleness=stales, state=fed_state_from_numpy(arrays, device="cuda"),
-        device="cuda")
-    sparse = out["cuda"][0]
-    same = all(bits_equal(a, b) for (_, a), (_, b) in zip(
-        _named_leaves(dense._asdict()), _named_leaves(sparse._asdict())))
-    d_worst, d_off = drift_check("dense active vs sparse", dense, sparse,
-                                 rounds, fed.alpha_w)
+    same, d_worst, d_off = dense_active_vs_sparse(
+        "dense active vs sparse", fed, arrays, sched, rounds, out["cuda"][0])
     report["sparse_cpu_vs_cuda"] = dict(
         max_abs_state_diff=worst[0], worst_leaf=worst[1],
         elements_beyond_drift=n_off, rmse_mae_cpu=out["cpu"][2],
@@ -900,6 +910,33 @@ def sparse_cpu_vs_cuda(report):
     log(f"dense active vs sparse on the card, {rounds} rounds: bit-identical"
         f" {same}; max |state diff| = {d_worst[0]:.3e} at {d_worst[1]}; "
         f"{d_off} elements beyond the drift bound")
+
+
+def dense_active_vs_sparse(label, fed, arrays, sched, rounds, sparse):
+    """The dense active-scope round on the card, fed the deliveries of
+    ``sched`` as (C,) rows from the state ``arrays``, against ``sparse``
+    (the sparse rounds' final state from the same state): bit identity
+    and :func:`drift_check`'s ((max |diff|, its leaf), elements beyond the
+    drift).  The CPU tests are the bitwise gate: cuBLAS may pick other
+    batched-GEMM kernels for a batch of C and a batch of S."""
+    from repro_torch import train
+    from repro_torch.core.fed_state import fed_state_from_numpy
+
+    acts = np.zeros((rounds, N_CLIENTS), bool)
+    stales = np.zeros((rounds, N_CLIENTS), np.float32)
+    for r, (idx, stale, weight) in zip(range(rounds), sched.padded_rows()):
+        k = int(weight.sum())
+        acts[r, idx[:k]] = True
+        stales[r, idx[:k]] = stale[:k]
+    dense, _, _ = train.train_bafdp(
+        "milano", 24, dataclasses.replace(fed, consensus_scope="active"),
+        rounds=rounds, seed=0, input_sigma=0.0, active_masks=acts,
+        staleness=stales, state=fed_state_from_numpy(arrays, device="cuda"),
+        device="cuda")
+    same = all(bits_equal(a, b) for (_, a), (_, b) in zip(
+        _named_leaves(dense._asdict()), _named_leaves(sparse._asdict())))
+    d_worst, d_off = drift_check(label, dense, sparse, rounds, fed.alpha_w)
+    return same, d_worst, d_off
 
 
 def scale_state(C, cfg, fed, seed):
@@ -939,13 +976,15 @@ def scale_round(specs, report):
     z_local, phi, m and v hold 5 x 7.67 GB = 38.4 GB of state.  Each round
     admits S_max = 64 deliveries of a streamed quorum schedule, with
     pre-gathered (64, 32, 22) batches from the Milano windows of client id
-    mod 10 (``batch_gathered=True``); 5 rounds on the f32 wire, then 5 on
-    the int8 wire, on the same state.  Asserts that the peak of
+    mod 10 (``batch_gathered=True``); 5 rounds on the f32 wire, 5 on the
+    int8 wire, then 5 on the f32 wire with ``robust_consensus="krum"``
+    (its pairwise distances over the (64, 29,272) block) and 5 with
+    ``"trimmed_mean"``, on the same state.  Asserts that the peak of
     ``torch.cuda.max_memory_allocated()`` stays within SCALE_PEAK_BYTES of
-    the state's bytes (one dense (C, D) f32 intermediate is 7.67 GB), that
-    each round launches its consensus kernel once, that tau of the
-    admitted rows is the round, and that exactly the admitted rows of W
-    changed."""
+    the state's bytes (one dense (C, D) f32 intermediate is 7.67 GB) over
+    each wire's rounds, that each round launches its consensus kernel
+    once, that tau of the admitted rows is the round, and that exactly the
+    admitted rows of W changed."""
     import functools
 
     from repro_torch import train
@@ -958,14 +997,20 @@ def scale_round(specs, report):
     from repro_torch.data import client_batches
     from repro_torch.tree import tree_leaves
 
-    C, S, rounds = SCALE_C, SCALE_S, 2 * SCALE_ROUNDS
+    C, S = SCALE_C, SCALE_S
     cfg = train.forecast_cfg("mlp", 24)
     base = FedConfig(n_clients=C, consensus_scope="active",
                      staleness_decay="poly", omega_optimizer="adam",
                      dro_weight=0.01, attack="none")
     spec_of = {s["name"]: s for s in specs}
-    wires = [("f32", "sign_agg_weighted"),
-             ("int8", "sign_agg_weighted_int8/weighted")]
+    wires = [("f32", "sign_agg_weighted", {}),
+             ("int8", "sign_agg_weighted_int8/weighted", {}),
+             ("f32-krum", "sign_agg_weighted",
+              dict(robust_consensus="krum")),
+             ("f32-trimmed_mean", "sign_agg_weighted",
+              dict(robust_consensus="trimmed_mean",
+                   robust_trim_frac=ROBUST_TRIM))]
+    rounds = len(wires) * SCALE_ROUNDS
     train_w, _, _ = train.problem("milano", 24, N_CLIENTS, 0)
     sched = build_schedule(rounds, DelayModel(n_clients=C, hetero=1.0,
                                               seed=0),
@@ -1000,13 +1045,16 @@ def scale_round(specs, report):
                 xs[j], ys[j] = x[cid % N_CLIENTS], y[cid % N_CLIENTS]
         return (torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda())
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = {w: [] for w, _ in wires}
+    times = {w: [] for w, _, _ in wires}
+    peaks = {}
     tau_want = np.zeros(C, np.int64)
     for t, (idx, stale, weight) in enumerate(rows):
-        wire, spec_name = wires[t // SCALE_ROUNDS]
-        fed = dataclasses.replace(base, sign_message=wire)
+        wire, spec_name, knobs = wires[t // SCALE_ROUNDS]
+        if t % SCALE_ROUNDS == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        fed = dataclasses.replace(base, sign_message=wire.split("-")[0],
+                                  **knobs)
         step = functools.partial(
             bafdp.bafdp_round_sparse, local_loss=local_loss, fed=fed, c3=c3,
             n_samples=train_w["x"].shape[1], d_dim=cfg.d_x + cfg.d_y,
@@ -1030,14 +1078,17 @@ def scale_round(specs, report):
                                  "rows is not the round")
         if not np.isfinite(float(m["loss"])):
             raise AssertionError(f"scale round {t}: loss {m['loss']}")
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+        if t % SCALE_ROUNDS == SCALE_ROUNDS - 1:
+            torch.cuda.synchronize()
+            peaks[wire] = torch.cuda.max_memory_allocated()
+            if peaks[wire] - state_bytes > SCALE_PEAK_BYTES:
+                raise AssertionError(
+                    f"scale_round ({wire}): peak {peaks[wire]} B is "
+                    f"{peaks[wire] - state_bytes} B above the {state_bytes} "
+                    f"B state (> {SCALE_PEAK_BYTES} B): a dense (C, D) "
+                    "intermediate?")
+    peak = max(peaks.values())
     extra = peak - state_bytes
-    if extra > SCALE_PEAK_BYTES:
-        raise AssertionError(f"scale_round: peak {peak} B is {extra} B above"
-                             f" the {state_bytes} B state (> "
-                             f"{SCALE_PEAK_BYTES} B): a dense (C, D) "
-                             "intermediate?")
     if not np.array_equal(state.tau.cpu().numpy(), tau_want):
         raise AssertionError("scale_round: tau outside the admitted rows")
     moved = torch.zeros((C,), dtype=torch.bool)
@@ -1055,17 +1106,211 @@ def scale_round(specs, report):
         n_clients=C, s_max=S, rounds=rounds, state_bytes=state_bytes,
         allocated_before_state=before_state, peak_bytes=peak,
         peak_above_state=extra, admitted_rows=int(admitted.size),
+        peak_above_state_by_wire={w: p - state_bytes
+                                  for w, p in peaks.items()},
         ms_per_round={w: statistics.median(v) for w, v in times.items()},
         ms_rounds=times)
     log(f"scale round: C={C} S_max={S}, state {state_bytes / 1e9:.2f} GB "
         f"(allocated before it {before_state / 1e9:.3f} GB); peak "
-        f"{peak / 1e9:.3f} GB, {extra / 2**30:.3f} GiB above the state; "
+        f"{peak / 1e9:.3f} GB, {extra / 2**30:.3f} GiB above the state "
+        "(" + ", ".join(f"{w} {(p - state_bytes) / 2**30:.3f}"
+                        for w, p in peaks.items()) + " GiB); "
         f"{admitted.size} rows of W moved, all admitted; ms per round "
         + ", ".join(f"{w} {statistics.median(v):.3f} (rounds "
                     f"{' '.join(f'{x:.1f}' for x in v)})"
                     for w, v in times.items()))
     del state, W_before
     torch.cuda.empty_cache()
+
+
+def robust_runs(specs, report):
+    """The Byzantine-robust path: ``train_bafdp`` on the card, MLP_H24 at
+    full width, 10 clients, ``sign_flip`` at 0.3, 20 rounds, once per
+    ``robust_consensus`` rule: the dense ``"all"`` scope (constant decay,
+    B1, exactly one launch a round) and the sparse round on the schedule
+    of ``sparse_runs`` (poly decay, B2, one a round), plus the trimmed
+    mean on the int8 wire (B3 weighted, one a round), whose z must equal
+    the f32 run's bit for bit (the wire is lossless and the broadcast
+    aggregate folds alike).  Then per rule 3 rounds of the dense active
+    scope against the sparse round from one state (``drift_check``; bit
+    identity printed).  Adds each run's launches to its spec."""
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+    from repro_torch.core.fed_state import fed_state_from_numpy
+    from repro_torch.tree import tree_leaves
+
+    spec_of = {s["name"]: s for s in specs}
+    sched = sparse_schedule(ROUNDS)
+    _, test, scalers = train.problem("milano", 24, N_CLIENTS, 0)
+    cases = [("dense", rule, {}, "sign_agg") for rule in ROBUST_RULES]
+    cases += [("sparse", rule, {}, "sign_agg_weighted")
+              for rule in ROBUST_RULES]
+    cases += [("sparse", "trimmed_mean", dict(sign_message="int8"),
+               "sign_agg_weighted_int8/weighted")]
+    runs, z = [], {}
+    for path, rule, knobs, spec_name in cases:
+        sparse = path == "sparse"
+        tag = f"{path} {rule}" + (" int8" if knobs else "")
+        fed = FedConfig(n_clients=N_CLIENTS, robust_consensus=rule,
+                        staleness_decay="poly" if sparse else "constant",
+                        **ROBUST_KNOBS, **knobs)
+        counter = spec_of[spec_name]["counter"]
+        route = dict(schedule=sched, round_impl="sparse") if sparse else {}
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, cfg, hist = train.train_bafdp(
+            "milano", 24, fed, rounds=ROUNDS, seed=0,
+            collect=("data_loss",), device="cuda", **route)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = all_counts()
+        check_path_counts(f"robust {tag} run", counts, {counter: ROUNDS})
+        spec_of[spec_name]["launches"] += counts[counter]
+        z[tag] = tree_leaves(state.z)
+        rmse, mae = train.eval_fed_state(state, cfg, test, scalers)
+        rmse_z, _ = train.eval_rmse_mae(state.z, cfg, test, scalers)
+        loss = np.asarray(hist["data_loss"])
+        if not (np.isfinite(loss).all()
+                and np.isfinite([rmse, mae, rmse_z]).all()):
+            raise AssertionError(f"robust {tag} run: non-finite loss {loss}"
+                                 f" rmse {rmse} mae {mae} rmse_z {rmse_z}")
+        ms = secs * 1e3 / ROUNDS
+        runs.append(dict(path=path, rule=rule, knobs=knobs, rounds=ROUNDS,
+                         ms_per_round=ms, launches=counts,
+                         data_loss_first=float(loss[0]),
+                         data_loss_last=float(loss[-1]), rmse=rmse, mae=mae,
+                         consensus_rmse=rmse_z))
+        log(f"robust {tag:26s} {ROUNDS} rounds: ms_per_round={ms:.3f} "
+            f"launches={ {k: v for k, v in counts.items() if v} } "
+            f"data_loss {loss[0]:.5f}->{loss[-1]:.5f} rmse={rmse:.3f} "
+            f"mae={mae:.3f} consensus rmse={rmse_z:.3f}")
+    if not all(bits_equal(a, b) for a, b in zip(
+            z["sparse trimmed_mean int8"], z["sparse trimmed_mean"])):
+        raise AssertionError("robust runs: the int8 (B3) trimmed-mean z "
+                             "differs from the f32 (B2) z")
+    log("robust runs: the int8 (B3) trimmed-mean z equals the f32 (B2) z "
+        "bit for bit")
+
+    cfg = train.forecast_cfg("mlp", 24)
+    psched = sparse_schedule(PARITY_ROUNDS)
+    parity = {}
+    for rule in ROBUST_RULES:
+        fed = FedConfig(n_clients=N_CLIENTS, staleness_decay="poly",
+                        robust_consensus=rule, **ROBUST_KNOBS)
+        arrays = _init_arrays(fed, cfg)
+        sparse_state, _, _ = train.train_bafdp(
+            "milano", 24, fed, rounds=PARITY_ROUNDS, seed=0,
+            input_sigma=0.0, schedule=psched, round_impl="sparse",
+            state=fed_state_from_numpy(arrays, device="cuda"),
+            device="cuda")
+        same, worst, n_off = dense_active_vs_sparse(
+            f"robust {rule}: dense active vs sparse", fed, arrays, psched,
+            PARITY_ROUNDS, sparse_state)
+        parity[rule] = dict(bitwise=same, max_abs_state_diff=worst[0],
+                            worst_leaf=worst[1], elements_beyond_drift=n_off)
+        log(f"robust {rule}: dense active vs sparse on the card, "
+            f"{PARITY_ROUNDS} rounds: bit-identical {same}; max |state "
+            f"diff| = {worst[0]:.3e} at {worst[1]}; {n_off} elements beyond "
+            "the drift bound")
+    report["robust_runs"] = dict(runs=runs, dense_active_vs_sparse=parity)
+
+
+def robust_cpu_vs_cuda(report):
+    """3 dense rounds with ``robust_consensus="trimmed_mean"`` under
+    ``sign_flip`` at 0.3 on the CPU and on the card from one state,
+    input_sigma=0, explicit activity rows, held to :func:`drift_check`;
+    the losses and the final RMSE / MAE within rtol 1e-4."""
+    from repro_torch import train
+    from repro_torch.configs import FedConfig
+    from repro_torch.core.fed_state import fed_state_from_numpy
+
+    rounds = 3
+    fed = FedConfig(n_clients=N_CLIENTS, robust_consensus="trimmed_mean",
+                    **ROBUST_KNOBS)
+    cfg = train.forecast_cfg("mlp", 24)
+    arrays = _init_arrays(fed, cfg)
+    rows = np.random.RandomState(2).rand(rounds, N_CLIENTS) < 0.6
+    rows[:, 0] = True
+    _, test, scalers = train.problem("milano", 24, N_CLIENTS, 0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, _, hist = train.train_bafdp(
+            "milano", 24, fed, rounds=rounds, seed=0, input_sigma=0.0,
+            active_masks=rows, collect=("data_loss",),
+            state=fed_state_from_numpy(arrays, device=dev), device=dev)
+        out[dev] = (state, hist["data_loss"],
+                    train.eval_fed_state(state, cfg, test, scalers))
+    worst, n_off = drift_check("robust cpu vs cuda", out["cpu"][0],
+                               out["cuda"][0], rounds, fed.alpha_w)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4)
+    report["robust_cpu_vs_cuda"] = dict(
+        max_abs_state_diff=worst[0], worst_leaf=worst[1],
+        elements_beyond_drift=n_off, rmse_mae_cpu=out["cpu"][2],
+        rmse_mae_cuda=out["cuda"][2])
+    log(f"robust cpu vs cuda (trimmed_mean), {rounds} rounds: max |state "
+        f"diff| = {worst[0]:.3e} at {worst[1]}; {n_off} elements beyond the "
+        f"2e-05 drift bound; rmse/mae cpu {out['cpu'][2]} cuda "
+        f"{out['cuda'][2]}")
+
+
+def baseline_runs(specs, report):
+    """Every baseline of ``train.METHODS`` (all but BAFDP) through
+    ``train.train_baseline`` on the card, H=1, 10 clients, 10 rounds:
+    finite loss and RMSE, and no consensus launch (the baselines'
+    aggregation is plain PyTorch, as the reference's is plain XLA).  Then
+    ``bench.table4_byzantine.main(rounds=20, quick=True)``, which prints
+    its rows; its two BAFDP runs launch B1 once a round, 40 in all, which
+    are added to B1's spec."""
+    from repro_torch import train
+    from repro_torch.bench import table4_byzantine
+    from repro_torch.configs import FedConfig
+
+    runs = []
+    for method, (kind, backbone, _) in train.METHODS.items():
+        if kind == "bafdp":
+            continue
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, cfg, (test, scalers), hist = train.train_baseline(
+            method, "milano", 1, FedConfig(n_clients=N_CLIENTS),
+            rounds=BASELINE_ROUNDS, collect=("loss",), device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check_path_counts(f"baseline {method} run", all_counts(), {})
+        rmse, mae = train.eval_rmse_mae(params, cfg, test, scalers)
+        loss = np.asarray(hist["loss"])
+        if not (np.isfinite(loss).all() and np.isfinite([rmse, mae]).all()):
+            raise AssertionError(f"baseline {method}: non-finite loss "
+                                 f"{loss} rmse {rmse} mae {mae}")
+        ms = secs * 1e3 / BASELINE_ROUNDS
+        runs.append(dict(method=method, trainer=kind, backbone=backbone,
+                         rounds=BASELINE_ROUNDS, ms_per_round=ms,
+                         loss_first=float(loss[0]),
+                         loss_last=float(loss[-1]), rmse=rmse, mae=mae))
+        log(f"baseline {method:12s} ({kind}, {backbone}) {BASELINE_ROUNDS} "
+            f"rounds: ms_per_round={ms:.3f} (set-up included) loss "
+            f"{loss[0]:.5f}->{loss[-1]:.5f} rmse={rmse:.3f} mae={mae:.3f}")
+    b1 = next(s for s in specs if s["name"] == "sign_agg")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    rows = table4_byzantine.main(rounds=TABLE4_ROUNDS, quick=True,
+                                 device="cuda")
+    secs = time.perf_counter() - t0
+    counts = all_counts()
+    check_path_counts("table4 (quick)", counts,
+                      {b1["counter"]: 2 * TABLE4_ROUNDS})
+    b1["launches"] += counts[b1["counter"]]
+    for row in rows:
+        values = [float(kv.split("=")[1])
+                  for kv in row.split(",")[2].split(";")]
+        if not np.isfinite(values).all():
+            raise AssertionError(f"table4: non-finite row {row}")
+    log(f"table4 (quick, {TABLE4_ROUNDS} rounds): {len(rows)} rows in "
+        f"{secs:.1f} s; launches { {k: v for k, v in counts.items() if v} }")
+    report["baselines"] = dict(runs=runs, table4=rows, table4_s=secs)
 
 
 def _named_leaves(tree, prefix=""):
@@ -1992,6 +2237,13 @@ def main() -> int:
     scale_round(specs, report)
     report["sparse_phase_s"] = time.perf_counter() - t0
     log(f"phase: sparse round and schedules {report['sparse_phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    robust_runs(specs, report)
+    robust_cpu_vs_cuda(report)
+    baseline_runs(specs, report)
+    report["robust_phase_s"] = time.perf_counter() - t0
+    log(f"phase: robust consensus and baselines "
+        f"{report['robust_phase_s']:.1f} s")
 
     t0 = time.perf_counter()
     errs = check_attention(report)

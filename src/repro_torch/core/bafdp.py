@@ -9,7 +9,9 @@ active-subset round (:func:`bafdp_round_sparse`).
 * Step 2 (server): the consensus step Eq. (20) over every client's last
   message (Byzantine corruption included), every leaf at once through
   :func:`repro_torch.kernels.ops.sign_consensus_leaves` — the hand-written
-  CUDA kernels on the GPU — and the dual step Eq. (21).
+  CUDA kernels on the GPU — and the dual step Eq. (21).  With
+  ``FedConfig.robust_consensus`` the messages first collapse to one
+  robust aggregate, given to every row of that same call.
 * Step 3 (active clients): the pairwise dual step Eq. (22), then sync.
 
 Per-client gradients come from ONE backward pass of ``sum_i obj_i`` over
@@ -22,8 +24,7 @@ the round's ``torch.Generator``.  The active-subset round (and the
 ``"active"`` scope, which runs it) draws the noise and the attack per
 client row instead (``privacy.RowGenerators``, seeded from the round
 generator's ``initial_seed()`` and the client id), so a client's draws
-do not depend on the block it sits in.  Knobs whose code is not ported
-yet raise.
+do not depend on the block it sits in.  Unknown knob values raise.
 
 :func:`bafdp_round_sparse` is the O(S) round: it gathers the round's S
 delivered rows of every per-client leaf, runs the same per-client math
@@ -42,8 +43,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
+from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import byzantine as byz_lib
 from repro_torch.core import dro
+from repro_torch.core.aggregators import ROBUST_CONSENSUS_RULES
 from repro_torch.core.fed_state import (FedState, consensus_gap,
                                         gather_clients, scatter_clients)
 from repro_torch.core.privacy import NOISE_STREAM, RowGenerators, eps_feasible
@@ -59,18 +62,10 @@ from repro_torch.tree import host_array, tree_leaves, tree_map
 # active-subset round), which privacy.perturb_inputs takes either way.
 LocalLoss = Callable[[Any, Any, Any, torch.Tensor], torch.Tensor]
 
-ROBUST_CONSENSUS_RULES = ("none", "trimmed_mean", "median", "krum",
-                          "centered_clip")
-
-
-def _not_ported(knob: str) -> ValueError:
-    return ValueError(f"{knob} is not yet ported to repro_torch "
-                      "(see ROADMAP.md, Queue A)")
-
 
 def check_ported(fed: FedConfig) -> None:
-    """Reject the knobs whose code this package does not carry yet, and
-    unknown values, rather than ignore them."""
+    """Reject unknown values of the round's knobs rather than ignore
+    them."""
     if fed.consensus_scope not in ("all", "active"):
         raise ValueError(f"unknown consensus_scope: {fed.consensus_scope!r} "
                          "(expected 'all' or 'active')")
@@ -81,8 +76,6 @@ def check_ported(fed: FedConfig) -> None:
     if fed.robust_consensus not in ROBUST_CONSENSUS_RULES:
         raise ValueError(f"unknown robust_consensus: {fed.robust_consensus!r}"
                          f" (expected one of {ROBUST_CONSENSUS_RULES})")
-    if fed.robust_consensus != "none":
-        raise _not_ported(f"robust_consensus={fed.robust_consensus!r}")
     if fed.staleness_compensation not in ("none", "taylor"):
         raise ValueError(
             f"unknown staleness_compensation: {fed.staleness_compensation!r}")
@@ -168,6 +161,25 @@ def staleness_weights(stale: torch.Tensor, fed: FedConfig) -> torch.Tensor:
     if fed.staleness_decay == "poly":
         return torch.pow(d + 1.0, -fed.staleness_poly_a)
     raise ValueError(f"unknown staleness_decay: {fed.staleness_decay!r}")
+
+
+def _robust_broadcast(W_srv: Any, weight: Optional[torch.Tensor], z: Any,
+                      fed: FedConfig) -> Any:
+    """``FedConfig.robust_consensus``: collapse the round's consensus
+    messages to ONE weight-aware robust aggregate
+    (``aggregators.robust_block``) and give it to every block row.  The
+    unchanged Eq. (20) fold then computes
+    ``z - alpha_z (phi_mean + psi (sum_j s_j) sign(z - w_rob) / C)``, so
+    decay, ``fedbuff_lr_norm`` and the int8 wire compose untouched, and the
+    round still makes its one consensus launch.  The rows are materialized
+    (the kernels take contiguous rows, not a stride-0 view)."""
+    w_rob = agg_lib.robust_block(
+        fed.robust_consensus, W_srv, weight, z,
+        trim_frac=fed.robust_trim_frac, n_byzantine=fed.n_byzantine,
+        clip_tau=fed.robust_clip_tau, clip_iters=fed.robust_clip_iters)
+    return tree_map(
+        lambda w_l, r_l: r_l.float()[None].expand(w_l.shape)
+        .to(w_l.dtype).contiguous(), W_srv, w_rob)
 
 
 def _client_block_updates(W, z_local, phi, eps, lam, opt, comp, batch,
@@ -373,6 +385,11 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
         den = float(sum(l.numel() for l in tree_leaves(W_sent)))
         comp_norm = torch.where(do_consensus, num / max(den, 1.0),
                                 torch.zeros_like(num))
+
+    # Byzantine-robust pre-aggregation: this scope consumes every client's
+    # last message, so every row is valid
+    if fed.robust_consensus != "none":
+        W_srv = _robust_broadcast(W_srv, None, state.z, fed)
 
     # Eq. (20): one dispatch for every sign-sum flavour — the CUDA kernels
     # for CUDA tensors.  The decayed sum divides by C, not sum(s_i).
@@ -667,6 +684,11 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
         den = float(sum(l.numel() for l in tree_leaves(W_sent))) / S
         num = torch.sum(per_row * w_row) / (wsum_act * max(den, 1.0))
         comp_norm = torch.where(do_consensus, num, torch.zeros_like(num))
+
+    # Byzantine-robust pre-aggregation over the S delivered messages
+    # (padding rows are invisible to the robust statistics)
+    if fed.robust_consensus != "none":
+        W_srv = _robust_broadcast(W_srv, w_row, state.z, fed)
 
     if fed.fedbuff_lr_norm:
         # sum(weight) is the realized K, duplicate deliveries included

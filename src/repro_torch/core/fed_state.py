@@ -83,6 +83,24 @@ def fed_state_from_numpy(arrays: Mapping[str, Any], device=None) -> FedState:
                        for name in FedState._fields})
 
 
+def baseline_state_from_numpy(arrays: Mapping[str, Any],
+                              device=None) -> dict:
+    """The reference's ``BaselineTrainer`` state as numpy arrays (a
+    mapping: ``server`` params, ``t``, and per method ``p``, ``quasi``,
+    ``tau``) -> the port's dict state on ``device``, dtypes and layout
+    kept."""
+    dev = resolve_device(device)
+    missing = [f for f in ("server", "t") if arrays.get(f) is None]
+    if missing:
+        raise ValueError(f"baseline state arrays missing {missing}")
+    known = ("server", "t", "p", "quasi", "tau")
+    unknown = sorted(set(arrays) - set(known))
+    if unknown:
+        raise ValueError(f"unknown baseline state fields {unknown}")
+    return {k: params_from_numpy(arrays[k], dev) for k in known
+            if arrays.get(k) is not None}
+
+
 def gather_clients(tree: Any, idx: torch.Tensor) -> Any:
     """Rows ``idx`` of every (C, ...) leaf as an (S, ...) block.  Indices
     past either end clip to the first or last row, like the reference's

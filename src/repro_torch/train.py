@@ -1,5 +1,6 @@
-"""Train the paper's MLP traffic forecaster with BAFDP, end to end (the
-port of ``benchmarks/common.train_bafdp`` and ``examples/quickstart.py``).
+"""Train the paper's MLP traffic forecaster with BAFDP, end to end, and
+the baselines it is compared with (the port of ``benchmarks/common.py``
+and ``examples/quickstart.py``).
 
     python -m repro_torch.train [--rounds 200] [--device cuda|cpu]
         [--server quorum|fedbuff|sync] [--round-impl dense|sparse]
@@ -9,6 +10,10 @@ no GPU.  As the quickstart, an event-driven fleet (``DelayModel``, hetero
 1.0) builds a ``Schedule`` under the ``--server`` trigger, and the rounds
 train on it: the dense round fed its ``act``/``stale`` rows, or with
 ``--round-impl sparse`` the O(S) round fed its padded rows.
+
+:func:`run_method` trains and evaluates any method of :data:`METHODS`:
+BAFDP through :func:`train_bafdp`, every baseline through
+:func:`train_baseline` (``core/trainers.BaselineTrainer``).
 """
 from __future__ import annotations
 
@@ -32,15 +37,32 @@ from repro_torch.core.schedule import (AdaptiveQuorum, AgeAwareSelection,
                                        FedBuffTrigger, FederatedRun,
                                        QuorumTrigger, Schedule, SyncTrigger,
                                        build_schedule)
+from repro_torch.core.trainers import BaselineTrainer
 from repro_torch.data import build_windows, client_batches, make_dataset
 from repro_torch.data.windowing import rmse_mae
-from repro_torch.models.forecasting import (Forecaster, init_forecaster,
-                                            mse_loss)
-from repro_torch.tree import resolve_device, tree_map
+from repro_torch.models.forecasting import (Forecaster, apply_forecaster,
+                                            init_forecaster, mse_loss)
+from repro_torch.tree import resolve_device, tree_leaves, tree_map
 
 ROUNDS = 150
 N_CLIENTS = 8
 BATCH = 32
+
+# paper method -> (trainer method, forecaster backbone, dp sigma)
+METHODS = {
+    "FedGRU": ("fedavg", "gru", 0.0),
+    "Fed-NTP": ("fedavg", "lstm", 0.0),
+    "FedAtt": ("fedatt", "attn", 0.0),
+    "FedDA": ("fedda", "attn", 0.0),
+    "AFL": ("afl", "mlp", 0.0),
+    "ASPIRE-EASE": ("aspire", "mlp", 0.0),
+    "UDP": ("udp", "mlp", 0.01),
+    "NbAFL": ("nbafl", "mlp", 0.01),
+    "RSA": ("rsa", "mlp", 0.0),
+    "DP-RSA": ("dp_rsa", "mlp", 0.01),
+    "FedAsync": ("fedasync", "mlp", 0.0),
+    "BAFDP": ("bafdp", "mlp", 0.0),
+}
 
 
 def forecast_cfg(model: str, horizon: int) -> ForecastConfig:
@@ -56,20 +78,33 @@ def problem(dataset: str, horizon: int, n_clients: int = N_CLIENTS,
     return build_windows(data, forecast_cfg("mlp", horizon))
 
 
+def _rmse_mae(predict, test, scalers, device) -> Tuple[float, float]:
+    """RMSE/MAE in raw traffic units of ``predict(c, x)`` over every
+    client's test windows."""
+    preds, ys = [], []
+    with torch.no_grad():
+        for c in range(test["x"].shape[0]):
+            x = torch.from_numpy(test["x"][c]).to(device, torch.float32)
+            preds.append(scalers[c].inverse_y(predict(c, x).cpu().numpy()))
+            ys.append(test["y_raw"][c])
+    return rmse_mae(np.concatenate(preds), np.concatenate(ys))
+
+
 def eval_fed_state(state: FedState, cfg: ForecastConfig, test,
                    scalers) -> Tuple[float, float]:
     """RMSE/MAE in raw traffic units, each client serving its own cell
     with its own omega_i (Algorithm 1's output)."""
-    preds, ys = [], []
-    dev = state.eps.device
-    with torch.no_grad():
-        for c in range(test["x"].shape[0]):
-            model = Forecaster(tree_map(lambda l: l[c], state.W), cfg)
-            x = torch.from_numpy(test["x"][c]).to(dev, torch.float32)
-            p = model(x).cpu().numpy()
-            preds.append(scalers[c].inverse_y(p))
-            ys.append(test["y_raw"][c])
-    return rmse_mae(np.concatenate(preds), np.concatenate(ys))
+    return _rmse_mae(
+        lambda c, x: Forecaster(tree_map(lambda l: l[c], state.W), cfg)(x),
+        test, scalers, state.eps.device)
+
+
+def eval_rmse_mae(params, cfg: ForecastConfig, test,
+                  scalers) -> Tuple[float, float]:
+    """RMSE/MAE in raw traffic units of one model (a baseline's server
+    params, BAFDP's consensus z) serving every client's cell."""
+    return _rmse_mae(lambda c, x: apply_forecaster(params, x, cfg), test,
+                     scalers, tree_leaves(params)[0].device)
 
 
 def _rows(arr, rounds: int, n_clients: int, name: str, dtype, device):
@@ -196,6 +231,67 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
     return state, cfg, hist
 
 
+def train_baseline(method: str, dataset: str, horizon: int, fed: FedConfig,
+                   rounds: int = ROUNDS, seed: int = 0,
+                   collect: Tuple[str, ...] = (),
+                   schedule: Optional[Schedule] = None,
+                   active_masks: Optional[np.ndarray] = None, device=None):
+    """Train the baseline ``method`` (a :data:`METHODS` key other than
+    BAFDP) on its backbone.  Returns ``(server params, cfg, (test,
+    scalers), history)``.  ``schedule`` / ``active_masks`` feed ``act=``
+    rows (baseline rounds take no ``stale=``); ``device``: ``None`` = the
+    GPU."""
+    trainer_kind, backbone, dp_sigma = METHODS[method]
+    if trainer_kind == "bafdp":
+        raise ValueError("train_baseline trains the baselines; use "
+                         "train_bafdp for BAFDP")
+    dev = resolve_device(device)
+    cfg = forecast_cfg(backbone, horizon)
+    data = make_dataset(dataset, fed.n_clients, seed=seed)
+    train, test, scalers = build_windows(data, cfg)
+
+    def loss(W, batch, gen):
+        x, y = batch
+        return mse_loss(W, x, y, cfg)
+
+    tr = BaselineTrainer(method=trainer_kind, loss=loss, fed=fed,
+                         dp_sigma=dp_sigma)
+    st = tr.init(init_forecaster(torch.Generator(device=dev).manual_seed(
+        seed), cfg, dev))
+    rng = np.random.RandomState(seed)
+
+    def batch_fn(t):
+        x, y = client_batches(rng, train, BATCH)
+        return (torch.from_numpy(x).to(dev, torch.float32),
+                torch.from_numpy(y).to(dev, torch.float32))
+
+    run = FederatedRun(
+        step=tr.round, rounds=rounds, schedule=schedule,
+        feed_staleness=False, n_clients=fed.n_clients,
+        round_kwargs=_legacy_round_kwargs(schedule, active_masks, None,
+                                          rounds, fed.n_clients, dev),
+        device=dev)
+    st, hist = run.run(st, batch_fn, seed, collect=collect,
+                       skip_missing=True)
+    return st["server"], cfg, (test, scalers), hist
+
+
+def run_method(method: str, dataset: str, horizon: int,
+               fed: Optional[FedConfig] = None, rounds: int = ROUNDS,
+               seed: int = 0, device=None) -> Tuple[float, float]:
+    """Train and evaluate ``method``; returns (RMSE, MAE) in raw traffic
+    units: BAFDP's per-client models, a baseline's server model."""
+    fed = fed or FedConfig(n_clients=N_CLIENTS)
+    if METHODS[method][0] == "bafdp":
+        state, cfg, _ = train_bafdp(dataset, horizon, fed, rounds, seed,
+                                    device=device)
+        _, test, scalers = problem(dataset, horizon, fed.n_clients, seed)
+        return eval_fed_state(state, cfg, test, scalers)
+    params, cfg, (test, scalers), _ = train_baseline(
+        method, dataset, horizon, fed, rounds, seed, device=device)
+    return eval_rmse_mae(params, cfg, test, scalers)
+
+
 def make_trigger(server: str, active_frac: float):
     """The quickstart's server modes: ``quorum`` (adaptive quorum with
     age-aware selection), ``fedbuff`` (buffers of 4) or ``sync``."""
@@ -263,14 +359,7 @@ def main(argv=None) -> None:
 
     _, test, scalers = problem("milano", args.horizon, fed.n_clients,
                                args.seed)
-    consensus = Forecaster(state.z, cfg)
-    preds, ys = [], []
-    with torch.no_grad():
-        for c in range(fed.n_clients):
-            x = torch.from_numpy(test["x"][c]).to(dev, torch.float32)
-            preds.append(scalers[c].inverse_y(consensus(x).cpu().numpy()))
-            ys.append(test["y_raw"][c])
-    rmse, mae = rmse_mae(np.concatenate(preds), np.concatenate(ys))
+    rmse, mae = eval_rmse_mae(state.z, cfg, test, scalers)
     print(f"\nconsensus-model test RMSE={rmse:.3f}  MAE={mae:.3f} "
           "(raw traffic units)")
     rmse_c, mae_c = eval_fed_state(state, cfg, test, scalers)

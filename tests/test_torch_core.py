@@ -69,8 +69,8 @@ def test_forecaster_matches_reference(reference):
     p = init_forecaster(torch.Generator().manual_seed(0), CFG)
     assert sorted(p) == ["l0", "l1", "l2"]
     assert p["l0"]["w"].shape == (CFG.d_x, 16)
-    with pytest.raises(ValueError, match="not yet ported"):
-        init_forecaster(torch.Generator(), ForecastConfig(model="gru"))
+    with pytest.raises(ValueError, match="unknown forecaster model"):
+        init_forecaster(torch.Generator(), ForecastConfig(model="tcn"))
 
 
 @pytest.mark.parametrize("kind", ["spectral", "frobenius"])

@@ -1,0 +1,46 @@
+"""The port stands alone: no module of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (the card's
+machine has no jax; the port keeps copies of what it needs).  Checked by
+parsing every file, so an import inside a function is caught too."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def forbidden_imports(source: str) -> list:
+    """``(line, module)`` of every import of ``jax...`` or ``repro...``
+    (but ``repro_torch...``) in ``source``."""
+    out = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                out.append((node.lineno, name))
+    return out
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    assert forbidden_imports(path.read_text()) == []
+
+
+def test_the_guard_catches_each_form():
+    src = ("import jax\nimport jax.numpy as jnp\nfrom jax import lax\n"
+           "from repro.core import bafdp\nimport repro\n"
+           "def f():\n    from repro.kernels import ref\n"
+           "import repro_torch\nfrom repro_torch.core import bafdp\n"
+           "from . import tree\nimport numpy\n")
+    assert [m for _, m in forbidden_imports(src)] == [
+        "jax", "jax.numpy", "jax", "repro.core", "repro", "repro.kernels"]
+    assert len(FILES) > 40

@@ -47,6 +47,8 @@ def load_reference() -> SimpleNamespace:
         sys.path.insert(0, REPO_ROOT)
     names = {
         "configs": "repro.configs", "bafdp": "repro.core.bafdp",
+        "aggregators": "repro.core.aggregators",
+        "trainers": "repro.core.trainers",
         "byzantine": "repro.core.byzantine", "dro": "repro.core.dro",
         "fed_state": "repro.core.fed_state",
         "privacy": "repro.core.privacy", "schedule": "repro.core.schedule",
@@ -78,6 +80,19 @@ def loaded_reference():
                 del sys.modules[name]
         for name in added:
             delattr(jax.core, name)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Run torch on one intra-op thread for the block.  A federated round
+    on the CPU is thousands of small ops, which run fastest on one thread,
+    and the test workers then do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -190,6 +205,30 @@ def test_state_round_trip_keeps_layout_and_dtypes(reference):
     for g, w in zip(got_paths, ref_paths):
         assert g.split("/")[1:] == [s.strip("[]'") for s in
                                     w.split("][")], (g, w)
+
+
+@pytest.mark.parametrize("model", ["gru", "lstm", "attn"])
+def test_state_round_trip_of_every_backbone(reference, model):
+    """``fed_state_from_numpy`` carries the reference's state of a GRU,
+    LSTM or attention forecaster (``w_x``, ``w_h``, ``b``, ``w_meta``,
+    ``w_out.{w,b}``; ``w_emb``, ``w_q``, ``w_k``, ``w_v``) exactly, in
+    sorted-key leaf order."""
+    from repro_torch.core.fed_state import fed_state_from_numpy
+
+    r = reference
+    cfg = r.configs.ForecastConfig(model=model, rnn_hidden=8)
+    fed = r.configs.FedConfig(n_clients=3, omega_optimizer="adam")
+    ref_state = r.fed_state.init_fed_state(
+        jax.random.PRNGKey(0),
+        lambda k: r.forecasting.init_forecaster(k, cfg), fed)
+    want = ref_state_arrays(ref_state)
+    state = fed_state_from_numpy(want, device="cpu")
+    assert_states_close(port_state_arrays(state), want, rtol=0, atol=0)
+    got_paths = [p for p, _ in flat_items(port_state_arrays(state)["W"])]
+    ref_paths = [jax.tree_util.keystr(p) for p, _ in
+                 jax.tree_util.tree_flatten_with_path(ref_state.W)[0]]
+    assert [g.split("/")[1:] for g in got_paths] == [
+        [s.strip("[]'") for s in w.split("][")] for w in ref_paths]
 
 
 def test_fed_state_from_numpy_rejects_missing_fields():

@@ -65,6 +65,23 @@ REF_GRID = {
                               omega_optimizer="adam"),
     "fedbuff-dups": dict(staleness_decay="poly", fedbuff_lr_norm=True),
 }
+# each case's seed: its index in the sorted grid above, then 100 on
+REF_SEEDS = {name: i for i, name in enumerate(sorted(REF_GRID))}
+# every robust_consensus rule under sign_flip at 0.3, on both wires
+REF_GRID.update({f"robust-{rule}-{wire}": dict(
+    attack="sign_flip", byzantine_frac=0.3, robust_consensus=rule,
+    robust_trim_frac=0.35, robust_clip_tau=0.5, sign_message=wire,
+    staleness_decay="poly", omega_optimizer="adam")
+    for rule in ("trimmed_mean", "median", "krum", "centered_clip")
+    for wire in ("f32", "int8")})
+# the deterministic attacks without a rule
+REF_GRID.update({f"attack-{a}": dict(attack=a, byzantine_frac=0.3,
+                                     attack_scale=3.0,
+                                     staleness_decay="poly")
+                 for a in ("same_value", "scaled", "zero", "alie",
+                           "label_flip", "traffic_shift")})
+REF_SEEDS.update({name: 100 + i for i, name in
+                  enumerate(n for n in REF_GRID if n not in REF_SEEDS)})
 
 
 def _ref_rows(seed, dups: bool):
@@ -149,8 +166,7 @@ def _run_port(knobs, init, rows, batches):
 @pytest.mark.parametrize("name", sorted(REF_GRID))
 def test_sparse_round_matches_reference(reference, name):
     knobs = REF_GRID[name]
-    rows, batches = _ref_rows(sorted(REF_GRID).index(name),
-                              dups=name == "fedbuff-dups")
+    rows, batches = _ref_rows(REF_SEEDS[name], dups=name == "fedbuff-dups")
     init, ref_states, ref_metrics = _run_reference(reference, knobs, rows,
                                                    batches)
     states, metrics = _run_port(knobs, init, rows, batches)
@@ -359,6 +375,21 @@ def test_dense_sparse_bit_parity_under_attack(attack):
                     byzantine_frac=1 / 3, attack_scale=3.0,
                     staleness_decay="poly", staleness_compensation="taylor")
     _parity(fed, np.random.RandomState(11), force=C - 1, msg=attack)
+
+
+@pytest.mark.parametrize("attack", ["sign_flip", "same_value"])
+@pytest.mark.parametrize("rule", ["trimmed_mean", "median", "krum",
+                                  "centered_clip"])
+def test_dense_sparse_bit_parity_robust_consensus(rule, attack):
+    """Every robust rule runs through the one shared code path: the
+    aggregate comes from weight-masked block statistics, so the masked
+    dense round and the gathered round stay bit-identical."""
+    fed = FedConfig(n_clients=C, active_frac=0.5, attack=attack,
+                    byzantine_frac=1 / 3, attack_scale=3.0,
+                    robust_consensus=rule, robust_clip_tau=0.5,
+                    staleness_decay="hinge", staleness_hinge_b=0.0)
+    _parity(fed, np.random.RandomState(23), force=C - 1,
+            msg=f"{rule} under {attack}")
 
 
 def test_randomized_attacks_depend_on_the_client_not_the_row():
@@ -634,7 +665,10 @@ def test_scope_all_and_active_differ():
     (dict(consensus_scope="all"), "needs consensus_scope='active'"),
     (dict(consensus_streaming=True, consensus_chunk=0),
      "consensus_chunk must be >= 1"),
-    (dict(robust_consensus="median"), "not yet ported"),
+    # ``geomed`` is an aggregator, not a consensus rule (the case id is
+    # the one it had while the rules were still to port)
+    pytest.param(dict(robust_consensus="geomed"), "unknown robust_consensus",
+                 id="knobs2-not yet ported"),
     (dict(staleness_compensation="bogus"), "unknown staleness_compensation"),
 ])
 def test_sparse_round_rejects(knobs, match):
@@ -685,12 +719,13 @@ class RowContract(TorchDispatchMode):
         return out
 
 
-def test_million_client_round_smoke():
-    """C=1,000,000, S=8, a tiny model: one sparse round moves exactly the
-    S delivered rows, and no op builds a (C, D) tensor."""
+def _million_client_round(robust: str):
+    """One sparse round at C=1,000,000, S=8, a tiny model, under the
+    :class:`RowContract` mode; returns (state, W before, the mode)."""
     C_BIG, S, D = 1_000_000, 8, 8
     fed = FedConfig(n_clients=C_BIG, active_frac=S / C_BIG,
-                    consensus_scope="active", omega_optimizer="sgd")
+                    consensus_scope="active", omega_optimizer="sgd",
+                    robust_consensus=robust)
     rng = np.random.RandomState(0)
     w = (0.01 * rng.randn(C_BIG, D)).astype(np.float32)
     zeros = np.zeros((C_BIG, D), np.float32)
@@ -728,7 +763,21 @@ def test_million_client_round_smoke():
     assert changed.flatten().tolist() == sorted(idx.tolist())
     assert new_state.tau[torch.from_numpy(idx)].tolist() == [0] * S
     assert int(new_state.t) == 1
+    return new_state, mode
+
+
+def test_million_client_round_smoke():
+    """C=1,000,000, S=8, a tiny model: one sparse round moves exactly the
+    S delivered rows, and no op builds a (C, D) tensor."""
+    state, mode = _million_client_round("none")
     # the contract check is live: a dense (C, D) op is caught
     with mode:
         state.W["w"] + 1.0
-    assert mode.violations and mode.violations[0][1] == (C_BIG, D)
+    assert mode.violations and mode.violations[0][1] == (1_000_000, 8)
+
+
+def test_million_client_round_smoke_krum():
+    """The same round with ``robust_consensus="krum"``: the robust
+    aggregate (pairwise distances included) reads only the gathered
+    block, so no op builds a (C, D) tensor either."""
+    _million_client_round("krum")

@@ -15,7 +15,8 @@ import jax
 import numpy as np
 import pytest
 import torch
-from test_torch_reference import ref_state_arrays, reference  # noqa: F401
+from test_torch_reference import one_thread, ref_state_arrays
+from test_torch_reference import reference  # noqa: F401  (fixture)
 
 from repro_torch import train
 from repro_torch.configs import FedConfig
@@ -85,8 +86,10 @@ def test_default_device_raises_without_a_gpu():
     (dict(round_impl="bogus"), "unknown round_impl"),
     (dict(fed=FedConfig(n_clients=2, consensus_streaming=True)),
      "streams the active-scope left-fold"),
-    (dict(fed=FedConfig(n_clients=2, robust_consensus="median")),
-     "not yet ported"),
+    # ``geomed`` is an aggregator, not a consensus rule (the case id is
+    # the one it had while the rules were still to port)
+    pytest.param(dict(fed=FedConfig(n_clients=2, robust_consensus="geomed")),
+                 "unknown robust_consensus", id="kwargs4-not yet ported"),
 ])
 def test_unported_train_options_raise(kwargs, match):
     kwargs = {"fed": FedConfig(n_clients=2), **kwargs}
@@ -99,3 +102,74 @@ def test_main_runs_on_the_cpu(capsys):
     train.main(["--rounds", "3", "--clients", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "BAFDP on cpu" in out and "consensus-model test RMSE" in out
+
+
+# ---------------------------------------------------------------------------
+# the table / figure entry points and the showdown, on the CPU
+# ---------------------------------------------------------------------------
+BENCH = ["table1_prediction", "table4_byzantine", "fig8_robust_convergence"]
+
+
+def _reference_labels(name, monkeypatch):
+    """The row labels of the reference's ``benchmarks/<name>.py`` with
+    ``quick=True``: its training calls replaced by stand-ins, so only the
+    table's layout runs."""
+    import importlib
+
+    mod = importlib.import_module(f"benchmarks.{name}")
+    if hasattr(mod, "run_method"):
+        monkeypatch.setattr(mod, "run_method", lambda *a, **k: (1.0, 1.0))
+    if hasattr(mod, "train_bafdp"):
+        monkeypatch.setattr(mod, "train_bafdp", lambda *a, **k: (
+            None, None, {"data_loss": [1.0, 1.0]}))
+    return [row.split(",")[0] for row in mod.main(rounds=2, quick=True)]
+
+
+@pytest.mark.parametrize("name", BENCH)
+def test_bench_entry_point_prints_the_reference_rows(reference, name,
+                                                     capsys, monkeypatch):
+    """``main(rounds=2, quick=True, device="cpu")`` prints the reference's
+    row labels in its order, each with finite values."""
+    import importlib
+
+    want = _reference_labels(name, monkeypatch)
+    capsys.readouterr()
+    mod = importlib.import_module(f"repro_torch.bench.{name}")
+    with one_thread():
+        rows = mod.main(rounds=2, quick=True, device="cpu")
+    assert capsys.readouterr().out.splitlines() == rows
+    assert [row.split(",")[0] for row in rows] == want
+    for row in rows:
+        _, us, derived = row.split(",")
+        values = [float(kv.split("=")[1]) for kv in derived.split(";")]
+        assert np.isfinite([float(us)] + values).all(), row
+
+
+def test_bench_cli_takes_rounds_quick_device():
+    from repro_torch.bench import cli
+
+    seen = {}
+    assert cli(lambda **kw: seen.update(kw) or ["row"], "doc",
+               ["--rounds", "3", "--quick", "--device", "cpu"]) == ["row"]
+    assert seen == dict(rounds=3, quick=True, device="cpu")
+    cli(lambda **kw: seen.update(kw) or [], "doc", [])
+    assert seen == dict(rounds=train.ROUNDS, quick=False, device=None)
+
+
+def test_byzantine_showdown_prints_the_full_grid(capsys):
+    """``--rounds 2 --device cpu``: every defence x attack cell holds a
+    number (or DIVERGED), none an ERROR."""
+    from repro_torch import byzantine_showdown as bs
+
+    with one_thread():
+        bs.main(["--rounds", "2", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].split() == ["defense"] + bs.ATTACKS
+    n = len(bs.ATTACKS)
+    for d, line in zip(bs.DEFENSES, lines[1:1 + len(bs.DEFENSES)]):
+        # fixed-width cells (a large RMSE may fill its cell)
+        cells = [line[14 + 12 * i:14 + 12 * (i + 1)].strip()
+                 for i in range(n)]
+        assert line[:14].strip() == d and len(line) == 14 + 12 * n, line
+        for c in cells:
+            assert c == "DIVERGED" or np.isfinite(float(c)), line
