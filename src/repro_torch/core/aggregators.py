@@ -9,15 +9,19 @@ return the aggregated tree.  Distance-based rules flatten clients to
 :func:`robust_block` is the weight-aware, padding-safe family the round
 paths use (``FedConfig.robust_consensus``): the same rules over a padded
 block whose rows may be padding (``weight == 0``), built so the aggregate
-of the valid rows is bit-identical for any block width.  The mechanisms:
+depends only on the valid rows and their order.  The mechanisms:
 a finite ``_BIG`` sentinel pushes invalid entries past every sort
 (``0 * _BIG`` is an exact +0.0, where an ``inf`` sentinel would give
 NaN), counts are exact 0/1 sums, rank masks are functions of the valid
 count K, and every cross-row reduction is the row-order left-fold
 :func:`repro_torch.kernels.ref.fold_weighted_rowsum` (a zero-weight row
-adds an exact zero).  Per-row reductions over the feature axis (norms,
-pairwise distances) run one row at a time, so each row's sum is the same
-whatever the block width.
+adds an exact zero).  The reductions over the feature axis are not
+built that way: row norms are one ``sum(dim=1)`` over the (R, D) block,
+and krum's distances one such sum per row of pairs.  Each row's sum then
+follows torch's reduction plan for an (R, D) block.  On the CPU that
+plan reduces every contiguous row alike for any R, so the dense-active
+and sparse rounds agree bit for bit (tested); on CUDA nothing promises
+it, and the two are held to a drift rule there.
 
 Two differences from the obvious torch calls, both kept on purpose:
 ``torch.median`` returns the lower of the two middle values where
@@ -126,7 +130,8 @@ def trimmed_mean(stacked: Any, trim_frac: float = 0.2) -> Any:
 def _pair_sq_dists(X: torch.Tensor) -> torch.Tensor:
     """(R, R) squared distances ``sum_d (X_i - X_j)^2``, the difference
     form (the Gram form cancels), one row of pairs at a time: never an
-    (R, R, D) tensor, and row i's sums are the same for any R."""
+    (R, R, D) tensor.  Each row of pairs is one ``sum(dim=1)`` over an
+    (R, D) block (see the module docstring on width invariance)."""
     return torch.stack([torch.sum(torch.square(X[i][None] - X), dim=1)
                         for i in range(X.shape[0])])
 

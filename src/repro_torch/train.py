@@ -234,13 +234,11 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
 def train_baseline(method: str, dataset: str, horizon: int, fed: FedConfig,
                    rounds: int = ROUNDS, seed: int = 0,
                    collect: Tuple[str, ...] = (),
-                   schedule: Optional[Schedule] = None,
                    active_masks: Optional[np.ndarray] = None, device=None):
     """Train the baseline ``method`` (a :data:`METHODS` key other than
     BAFDP) on its backbone.  Returns ``(server params, cfg, (test,
-    scalers), history)``.  ``schedule`` / ``active_masks`` feed ``act=``
-    rows (baseline rounds take no ``stale=``); ``device``: ``None`` = the
-    GPU."""
+    scalers), history)``.  ``active_masks`` feeds ``act=`` rows (baseline
+    rounds take no ``stale=``); ``device``: ``None`` = the GPU."""
     trainer_kind, backbone, dp_sigma = METHODS[method]
     if trainer_kind == "bafdp":
         raise ValueError("train_baseline trains the baselines; use "
@@ -266,10 +264,10 @@ def train_baseline(method: str, dataset: str, horizon: int, fed: FedConfig,
                 torch.from_numpy(y).to(dev, torch.float32))
 
     run = FederatedRun(
-        step=tr.round, rounds=rounds, schedule=schedule,
-        feed_staleness=False, n_clients=fed.n_clients,
-        round_kwargs=_legacy_round_kwargs(schedule, active_masks, None,
-                                          rounds, fed.n_clients, dev),
+        step=tr.round, rounds=rounds, feed_staleness=False,
+        n_clients=fed.n_clients,
+        round_kwargs=_legacy_round_kwargs(None, active_masks, None, rounds,
+                                          fed.n_clients, dev),
         device=dev)
     st, hist = run.run(st, batch_fn, seed, collect=collect,
                        skip_missing=True)

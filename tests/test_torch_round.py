@@ -12,7 +12,9 @@ the state by a few ulp per round: the largest state difference seen over
 this grid is 9e-8, the largest metric difference 2e-6 on values of order
 1.  The bound leaves room for that drift to grow over three rounds, but
 not for a flipped sign(z - w) near a tie, which would move a coordinate by
-up to 2 * psi * alpha = 1e-4 / C: these inputs have none.
+up to 2 * psi * alpha = 1e-4 / C: the grid's inputs have none.  The
+median case at seed 12 meets one, and is held element by element around
+it (:func:`test_round_matches_reference_up_to_sign_ties`).
 Bit identity is held only inside the port (the kernel tests)."""
 import dataclasses
 import functools
@@ -23,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_reference import (  # noqa: F401  (fixture)
-    assert_states_close, port_state_arrays, ref_state_arrays, reference)
+    assert_states_close, flat_items, port_state_arrays, ref_state_arrays,
+    reference)
 
 from repro_torch.configs import FedConfig, ForecastConfig
 from repro_torch.core import bafdp
@@ -152,6 +155,90 @@ def test_round_matches_reference(reference, name):
                 err_msg=f"round {t} metric {k}")
 
 
+# the sign tie that seed 12 meets in the median case (the seed that case
+# had while every case took its index in the sorted grid)
+TIE_CASE, TIE_SEED = "robust-median", 12
+TIE = 1e-12          # |w - z_local| this close to 0 is a tie of the sign
+
+
+def _param_coords(leaf_path, shape, params):
+    """The parameter (path, shape) that a state leaf at ``leaf_path`` of
+    ``shape`` carries on its trailing axes, or None."""
+    for path, pshape in params.items():
+        if leaf_path.endswith(path) and \
+                tuple(shape[len(shape) - len(pshape):]) == pshape:
+            return path, pshape
+    return None
+
+
+def test_round_matches_reference_up_to_sign_ties(reference):
+    """``robust-median`` at seed 12 meets a tie of ``sign(w - z_local)``.
+    After round 1, client 3's ``l1.b[1]`` differs by one f32 ulp between
+    the packages (0.0099999318 vs 0.0099999309), so phi's mean over that
+    coordinate is exactly 0 in the port and -1.8e-18 in the reference.
+    After round 2, z_local there sits at 0 in the port and at -1.8e-15 in
+    the reference, against client 0's w = 0 in both (a bias whose ReLU
+    is dead: zero gradient).  In round 3 sign(w - z_local) is 0 in the
+    port and +1 in the reference, so that w moves by alpha_w psi = 5e-5
+    in the reference only, and z follows.
+
+    Every state element and metric agrees at the grid's tolerance except
+    on a tied coordinate.  A coordinate (a parameter leaf and an index
+    into it) is tied from the round in which some client's W differs
+    beyond the tolerance there while, before that round, w - z_local
+    was within TIE of 0 in both packages.  On a tied coordinate every
+    state leaf may differ by alpha_w psi per round since the tie (plus
+    the tolerance's atol), and at most one coordinate per parameter leaf
+    is tied.  The case asserts that the tie is there."""
+    knobs = GRID[TIE_CASE]
+    fed = FedConfig(n_clients=C, **knobs)
+    act, stale, batches = _rows(seed=TIE_SEED)
+    init, ref_states, ref_metrics = _run_reference(reference, knobs, act,
+                                                   stale, batches)
+    states, metrics = _run_port(knobs, init, act, stale, batches)
+    params = {p: np.shape(v) for p, v in flat_items(init["z"])}
+    since = {}                           # (param path, index) -> round
+    for t in range(ROUNDS):
+        prev = (init, init) if t == 0 else (states[t - 1], ref_states[t - 1])
+        # new ties: a W element off beyond the tolerance at a tie
+        zl = [dict(flat_items(s["z_local"])) for s in prev]
+        w_prev = [dict(flat_items(s["W"])) for s in prev]
+        for (path, a), (_, b) in zip(flat_items(states[t]["W"]),
+                                     flat_items(ref_states[t]["W"])):
+            for ix in map(tuple, np.argwhere(
+                    ~np.isclose(a, b, rtol=RTOL, atol=ATOL))):
+                gaps = [abs(float(w[path][ix]) - float(z[path][ix]))
+                        for w, z in zip(w_prev, zl)]
+                assert max(gaps) <= TIE, \
+                    f"round {t} W{path}{ix}: {a[ix]} vs {b[ix]}, no tie " \
+                    f"before it (|w - z_local| = {gaps})"
+                since.setdefault((path, ix[1:]), t)
+        for path in params:
+            n = sum(1 for p, _ in since if p == path)
+            assert n <= 1, f"{n} tied coordinates in {path}"
+        for key in states[t]:
+            if states[t][key] is None:
+                continue
+            for (path, a), (_, b) in zip(flat_items(states[t][key]),
+                                         flat_items(ref_states[t][key])):
+                a, b = np.asarray(a), np.asarray(b)
+                coords = _param_coords(path, a.shape, params)
+                for ix in map(tuple, np.argwhere(
+                        ~np.isclose(a, b, rtol=RTOL, atol=ATOL))):
+                    where = f"round {t} {key}{path}{ix}: {a[ix]} vs {b[ix]}"
+                    assert coords is not None, where
+                    tie = (coords[0], ix[len(ix) - len(coords[1]):])
+                    assert tie in since, f"{where}, not a tied coordinate"
+                    bound = (t - since[tie] + 1) * fed.alpha_w * fed.psi
+                    assert abs(float(a[ix]) - float(b[ix])) <= bound + ATOL, \
+                        f"{where}, beyond {bound} since the tie"
+        for k in metrics[t]:
+            np.testing.assert_allclose(
+                metrics[t][k], ref_metrics[t][k], rtol=RTOL, atol=ATOL,
+                err_msg=f"round {t} metric {k}")
+    assert list(since) == [("/l1/b", (1,))], since
+
+
 def test_round_is_deterministic_inside_the_port():
     """Same state, rows and generator seed -> bit-identical state."""
     knobs = GRID["poly-int8-adam"]
@@ -172,10 +259,9 @@ def test_round_is_deterministic_inside_the_port():
     (dict(consensus_scope="active", consensus_streaming=True,
           consensus_chunk=0), "consensus_chunk must be >= 1"),
     (dict(consensus_streaming=True), "streams the active-scope left-fold"),
-    # ``geomed`` is an aggregator, not a consensus rule (the case id is
-    # the one it had while the rules were still to port)
+    # ``geomed`` is an aggregator, not a consensus rule
     pytest.param(dict(robust_consensus="geomed"), "unknown robust_consensus",
-                 id="knobs2-not yet ported"),
+                 id="geomed-unknown-rule"),
     (dict(robust_consensus="bogus"), "unknown robust_consensus"),
     (dict(consensus_scope="bogus"), "unknown consensus_scope"),
     (dict(sign_message="int4"), "unknown sign_message"),

@@ -665,10 +665,9 @@ def test_scope_all_and_active_differ():
     (dict(consensus_scope="all"), "needs consensus_scope='active'"),
     (dict(consensus_streaming=True, consensus_chunk=0),
      "consensus_chunk must be >= 1"),
-    # ``geomed`` is an aggregator, not a consensus rule (the case id is
-    # the one it had while the rules were still to port)
+    # ``geomed`` is an aggregator, not a consensus rule
     pytest.param(dict(robust_consensus="geomed"), "unknown robust_consensus",
-                 id="knobs2-not yet ported"),
+                 id="geomed-unknown-rule"),
     (dict(staleness_compensation="bogus"), "unknown staleness_compensation"),
 ])
 def test_sparse_round_rejects(knobs, match):

@@ -86,10 +86,9 @@ def test_default_device_raises_without_a_gpu():
     (dict(round_impl="bogus"), "unknown round_impl"),
     (dict(fed=FedConfig(n_clients=2, consensus_streaming=True)),
      "streams the active-scope left-fold"),
-    # ``geomed`` is an aggregator, not a consensus rule (the case id is
-    # the one it had while the rules were still to port)
+    # ``geomed`` is an aggregator, not a consensus rule
     pytest.param(dict(fed=FedConfig(n_clients=2, robust_consensus="geomed")),
-                 "unknown robust_consensus", id="kwargs4-not yet ported"),
+                 "unknown robust_consensus", id="geomed-unknown-rule"),
 ])
 def test_unported_train_options_raise(kwargs, match):
     kwargs = {"fed": FedConfig(n_clients=2), **kwargs}
