@@ -54,6 +54,17 @@ CPU against the card (``robust_cpu_vs_cuda``); trains every baseline of
 ``train.METHODS`` for 10 rounds (no consensus launch) and prints Table IV
 (quick, 20 rounds: 40 B1 launches) (``baseline_runs``).
 
+Paper evaluation (B1, B2, B3): runs each of the paper's evaluation
+suites on the card through its entry point, ``main(rounds=20,
+quick=True)``: Tables II/III (the privacy budget), Fig. 3 (the privacy
+level), Figs. 4-6 (synchronous against asynchronous on simulated
+wall-clock, and the eight fleet scenarios), Fig. 7, Theorem 1 (the
+convergence order) and Fig. 8, checking each suite's row labels, finite
+values and B1/B2/B3 launches (one a round a run, the kernel chosen by the
+run's wire and decay), and that each Figs. 4-6 run saw its schedule's
+active clients; then prints the claim verdicts of ``summarize_claims``
+over these rows and Table IV's (``paper_runs``).
+
 Serving path (B4, B5): holds both attention kernels against their plain
 versions (the reference's TPU test grid in f32 and bf16, Sq < Sk, ragged
 lengths, the full-width SmolLM-360M shapes; abs/rel 3e-5 in f32, one
@@ -84,8 +95,9 @@ token-by-token decode of the same prompt (5e-4, the reference's bound).
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
 launches (summed over the main-path runs: B1's include the robust dense
-runs and Table IV's BAFDP rows, B2's and B3's the sparse, robust and
-scale runs) and times.  Its B1-B3 entries
+runs, Table IV's BAFDP rows and the paper suites' constant-decay runs,
+B2's and B3's the sparse, robust and scale runs and the Figs. 4-6
+scenarios) and times.  Its B1-B3 entries
 give ``kernel`` (the f32 instance's ptxas label) with ``ptxas`` (its
 and the bf16 instance's registers and spills), the time per round of the
 8 leaves as one grouped call, ``call_ms`` (its host time) and, as
@@ -144,6 +156,26 @@ ROBUST_TRIM = 0.35
 ROBUST_KNOBS = dict(attack="sign_flip", byzantine_frac=0.3,
                     robust_trim_frac=ROBUST_TRIM)
 PARITY_ROUNDS, BASELINE_ROUNDS, TABLE4_ROUNDS = 3, 10, 20
+# paper_runs: each evaluation suite's quick grid at PAPER_ROUNDS rounds,
+# with the row labels the CPU tests hold to the reference's
+# (tests/test_torch_train.py::test_chip_smoke_holds_the_reference_labels)
+PAPER_ROUNDS = 20
+FIG456_SCENARIOS = ("age_adaptive", "battery_tail", "diurnal", "fedbuff",
+                    "flap", "flash_crowd", "regional_outage", "surge")
+PAPER_LABELS = {
+    "table23": ["table23/milano/H1/a10", "table23/milano/H1/a40"],
+    "fig3": ["fig3/milano"],
+    "fig456": ["fig456/milano"] + [f"fig456/milano:{name}"
+                                   for name in FIG456_SCENARIOS],
+    "fig7": [f"fig7/ratio{r}" for r in (0.2, 0.4, 0.6, 0.8, 1.0)],
+    "theorem1": ["theorem1/slope"],
+    "fig8": ["fig8/ratio0.8", "fig8/ratio0.4", "fig8/ratio0.0",
+             "fig8/ratio0.4-tm"],
+}
+# the claims of summarize_claims that the quick rows give: claim 1 needs
+# Table I, claim 2 Table IV's BAFDP rows at ratios 0 and 0.3 (quick has
+# 0.1 only), claim 8 a sweep of at least 3 budgets (quick has 2)
+PAPER_CLAIMS = ["3", "4", "5", "6", "7"]
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCE = f"{CSRC}/sign_agg.cu"
 TPU_SRC = "src/repro/kernels/sign_agg.py"
@@ -1313,6 +1345,129 @@ def baseline_runs(specs, report):
     report["baselines"] = dict(runs=runs, table4=rows, table4_s=secs)
 
 
+def consensus_spec(specs, fed):
+    """The B1-B3 spec that a BAFDP round under ``fed`` launches once
+    (``bafdp_round`` -> ``ops.sign_consensus_leaves``): the int8 sign wire
+    B3, else B1/B2; weighted (B2, B3 weighted) unless the staleness decay
+    is constant."""
+    for s in specs:
+        k = s["knobs"]
+        if k["sign_message"] == fed.sign_message and (
+                k["staleness_decay"] == "constant") == (
+                fed.staleness_decay == "constant"):
+            return s
+    raise AssertionError(f"no consensus kernel for {fed}")
+
+
+def paper_configs():
+    """{suite: the FedConfig of every training run of its quick grid, in
+    order}, read off the suites' code: each run trains PAPER_ROUNDS rounds
+    and launches one consensus kernel a round (:func:`consensus_spec`)."""
+    from repro_torch.bench import fig3_privacy_level as fig3
+    from repro_torch.bench import fig456_async_efficiency as fig456
+    from repro_torch.bench import table23_privacy_budget as table23
+    from repro_torch.bench import theorem1_convergence as theorem1
+    from repro_torch.configs import FedConfig
+
+    return {
+        "table23": [table23.budget_config(a) for a in (10, 40)],
+        "fig3": [FedConfig(**fig3.FIG3_KNOBS)],
+        # the headline pair (S of M, then every client; constant decay, f32
+        # wire), then every scenario with its own decay and wire
+        "fig456": [FedConfig(n_clients=8, active_frac=fig456.ACTIVE_FRAC),
+                   FedConfig(n_clients=8, active_frac=1.0)]
+        + [fig456.scenario_config(name, 8) for name in FIG456_SCENARIOS],
+        "fig7": [],
+        "theorem1": [FedConfig(**theorem1.THEOREM1_KNOBS)],
+        # ratios 0.8, 0.4, 0 and the trimmed-mean series: constant decay,
+        # f32 wire (a robust rule adds no launch)
+        "fig8": [FedConfig(n_clients=10, active_frac=1.0)] * 4,
+    }
+
+
+def paper_runs(specs, report):
+    """The paper's evaluation on the card: each suite's ``main(rounds=20,
+    quick=True, device=None)`` (Tables II/III, Fig. 3, Figs. 4-6 with
+    ``with_meta=True``, Fig. 7, Theorem 1, and Fig. 8).  Per suite: the row
+    labels of :data:`PAPER_LABELS`, every value finite, the B1/B2/B3
+    launches those of :func:`paper_configs` (one a round a run); for
+    Figs. 4-6 the ``n_active`` each run saw equal to its schedule's mask
+    row sums.  Then :mod:`summarize_claims` over these rows and Table IV's
+    quick rows (``baseline_runs``), its verdict lines printed."""
+    from repro_torch.bench import (fig3_privacy_level, fig456_async_efficiency,
+                                   fig7_distributiveness,
+                                   fig8_robust_convergence, summarize_claims,
+                                   table23_privacy_budget,
+                                   theorem1_convergence)
+
+    mains = {
+        "table23": table23_privacy_budget.main,
+        "fig3": fig3_privacy_level.main,
+        "fig456": lambda **kw: fig456_async_efficiency.main(
+            with_meta=True, **kw),
+        "fig7": fig7_distributiveness.main,
+        "theorem1": theorem1_convergence.main,
+        "fig8": fig8_robust_convergence.main,
+    }
+    spec_of = {s["name"]: s for s in specs}
+    all_rows, suites = [], {}
+    for suite, configs in paper_configs().items():
+        want, by_spec = {}, {}
+        for fed in configs:
+            s = consensus_spec(specs, fed)
+            want[s["counter"]] = want.get(s["counter"], 0) + PAPER_ROUNDS
+            by_spec[s["name"]] = by_spec.get(s["name"], 0) + PAPER_ROUNDS
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = mains[suite](rounds=PAPER_ROUNDS, quick=True, device=None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = all_counts()
+        check_path_counts(f"paper {suite} (quick)", counts, want)
+        for name, n in by_spec.items():
+            spec_of[name]["launches"] += n
+        if suite == "fig456":
+            rows, metas = rows
+            meta = metas[0]
+            runs = [("async", meta["n_active_async"], meta["masks_async"]),
+                    ("sync", meta["n_active_sync"], meta["masks_sync"])]
+            runs += [(name, v["n_active"], v["masks"])
+                     for name, v in sorted(meta["variants"].items())]
+            for name, n_active, masks in runs:
+                if not np.array_equal(n_active, masks.sum(1)):
+                    raise AssertionError(
+                        f"fig456 {name}: n_active {n_active} != the "
+                        f"schedule's mask row sums {masks.sum(1)}")
+        labels = [row.split(",")[0] for row in rows]
+        if labels != PAPER_LABELS[suite]:
+            raise AssertionError(f"paper {suite}: labels {labels}, expected "
+                                 f"{PAPER_LABELS[suite]}")
+        for row in rows:
+            _, us, derived = row.split(",")
+            values = [float(us)] + [
+                float(x) for kv in derived.split(";")
+                for x in kv.split("=")[1].split("/")]
+            if not np.isfinite(values).all():
+                raise AssertionError(f"paper {suite}: non-finite row {row}")
+        all_rows += rows
+        suites[suite] = dict(rows=rows, seconds=secs, launches={
+            k: v for k, v in counts.items() if v})
+        log(f"paper {suite} (quick, {PAPER_ROUNDS} rounds): {len(rows)} rows "
+            f"in {secs:.1f} s; launches { {k: v for k, v in counts.items() if v} }")
+    summary = summarize_claims.main(
+        rows=all_rows + report["baselines"]["table4"])
+    verdicts = [line for line in summary.splitlines()
+                if line[:2].rstrip(".").isdigit()]
+    for line in verdicts:
+        log(f"claim {line}")
+    if [v.split(".")[0] for v in verdicts] != PAPER_CLAIMS:
+        raise AssertionError(f"claim summary: claims "
+                             f"{[v.split('.')[0] for v in verdicts]}, "
+                             f"expected {PAPER_CLAIMS}")
+    report["paper_runs"] = dict(suites=suites, verdicts=verdicts)
+
+
 def _named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -2244,6 +2399,10 @@ def main() -> int:
     report["robust_phase_s"] = time.perf_counter() - t0
     log(f"phase: robust consensus and baselines "
         f"{report['robust_phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    paper_runs(specs, report)
+    report["paper_phase_s"] = time.perf_counter() - t0
+    log(f"phase: paper evaluation {report['paper_phase_s']:.1f} s")
 
     t0 = time.perf_counter()
     errs = check_attention(report)

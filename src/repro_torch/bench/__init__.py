@@ -5,13 +5,30 @@ reference's labels) and returns them, and runs as
 
     python -m repro_torch.bench.<module> [--rounds N] [--quick] [--device cpu]
 
-on the GPU unless ``--device cpu`` is given."""
+on the GPU unless ``--device cpu`` is given.  ``python -m
+repro_torch.bench.run`` runs every suite (``run.SUITES``) and
+``python -m repro_torch.bench.summarize_claims`` turns its rows into the
+paper's claim verdicts."""
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Callable, List, Optional, Sequence
 
+import torch
+
 from repro_torch.train import ROUNDS
+from repro_torch.tree import resolve_device
+
+
+def synced_time(device=None) -> float:
+    """``time.time()`` once the device's queued work has finished (a
+    ``torch.cuda.synchronize`` on the GPU), so a span between two calls is
+    the work's time on the card, not the time it took to enqueue it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.time()
 
 
 def cli(main: Callable[..., List[str]], doc: str,

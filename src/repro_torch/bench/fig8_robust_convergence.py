@@ -5,12 +5,11 @@ ratio for contrast (the port of
 ``benchmarks/fig8_robust_convergence.py``)."""
 from __future__ import annotations
 
-import time
 from typing import List
 
 import numpy as np
 
-from repro_torch.bench import cli
+from repro_torch.bench import cli, synced_time
 from repro_torch.configs import FedConfig
 from repro_torch.train import ROUNDS, train_bafdp
 
@@ -27,10 +26,10 @@ def main(rounds: int = ROUNDS, quick: bool = False,
                         attack="sign_flip" if ratio else "none",
                         active_frac=1.0, robust_consensus=rule,
                         robust_trim_frac=0.45)
-        t0 = time.time()
+        t0 = synced_time(device)
         _, _, hist = train_bafdp("milano", 1, fed, rounds,
                                  collect=("data_loss",), device=device)
-        us = (time.time() - t0) * 1e6 / max(rounds, 1)
+        us = (synced_time(device) - t0) * 1e6 / max(rounds, 1)
         loss = np.asarray(hist["data_loss"])
         target = np.nanmin(loss) * 1.2
         idx = np.nonzero(loss <= target)[0]

@@ -4,12 +4,11 @@ plus each method's average rank (the port of
 the ordering, BAFDP's rank above all, not Table I's absolute values)."""
 from __future__ import annotations
 
-import time
 from typing import Dict, List
 
 import numpy as np
 
-from repro_torch.bench import cli
+from repro_torch.bench import cli, synced_time
 from repro_torch.train import ROUNDS, run_method
 
 DATASETS = ("milano", "trento", "lte")
@@ -28,9 +27,9 @@ def main(rounds: int = ROUNDS, quick: bool = False,
     for m in methods:
         for d in datasets:
             for h in horizons:
-                t0 = time.time()
+                t0 = synced_time(device)
                 rmse, mae = run_method(m, d, h, rounds=rounds, device=device)
-                us = (time.time() - t0) * 1e6 / max(rounds, 1)
+                us = (synced_time(device) - t0) * 1e6 / max(rounds, 1)
                 results[f"{m}|{d}|{h}"] = rmse
                 rows.append(f"table1/{m}/{d}/H{h},{us:.1f},"
                             f"rmse={rmse:.4f};mae={mae:.4f}")

@@ -5,10 +5,9 @@ guarding the sign fold at the highest ratio (the port of
 ``benchmarks/table4_byzantine.py``)."""
 from __future__ import annotations
 
-import time
 from typing import List
 
-from repro_torch.bench import cli
+from repro_torch.bench import cli, synced_time
 from repro_torch.configs import FedConfig
 from repro_torch.train import ROUNDS, run_method
 
@@ -34,10 +33,10 @@ def main(rounds: int = ROUNDS, quick: bool = False,
             fed = FedConfig(n_clients=10, byzantine_frac=ratio,
                             attack="sign_flip" if ratio else "none",
                             robust_consensus=rule, robust_trim_frac=0.35)
-            t0 = time.time()
+            t0 = synced_time(device)
             rmse, mae = run_method(method, "milano", h, fed=fed,
                                    rounds=rounds, device=device)
-            us = (time.time() - t0) * 1e6 / max(rounds, 1)
+            us = (synced_time(device) - t0) * 1e6 / max(rounds, 1)
             rows.append(f"table4/{label}/ratio{ratio}/H{h},{us:.1f},"
                         f"rmse={rmse:.4f};mae={mae:.4f}")
             print(rows[-1], flush=True)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (the card's
-machine has no jax; the port keeps copies of what it needs).  Checked by
+``chip_smoke.py`` imports ``jax``, the JAX package ``repro`` or its
+``benchmarks`` scripts (the card's machine has no jax; the port keeps
+copies of what it needs, ``bench/summarize_claims.py`` too).  Checked by
 parsing every file, so an import inside a function is caught too."""
 import ast
 from pathlib import Path
@@ -13,8 +14,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
 
 
 def forbidden_imports(source: str) -> list:
-    """``(line, module)`` of every import of ``jax...`` or ``repro...``
-    (but ``repro_torch...``) in ``source``."""
+    """``(line, module)`` of every import of ``jax...``, ``repro...``
+    (but ``repro_torch...``) or ``benchmarks...`` in ``source``."""
     out = []
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
@@ -25,7 +26,7 @@ def forbidden_imports(source: str) -> list:
             continue
         for name in names:
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "repro"):
+            if top in ("jax", "jaxlib", "repro", "benchmarks"):
                 out.append((node.lineno, name))
     return out
 
@@ -40,7 +41,9 @@ def test_the_guard_catches_each_form():
            "from repro.core import bafdp\nimport repro\n"
            "def f():\n    from repro.kernels import ref\n"
            "import repro_torch\nfrom repro_torch.core import bafdp\n"
-           "from . import tree\nimport numpy\n")
+           "from . import tree\nimport numpy\n"
+           "from benchmarks import summarize_claims\n")
     assert [m for _, m in forbidden_imports(src)] == [
-        "jax", "jax.numpy", "jax", "repro.core", "repro", "repro.kernels"]
+        "jax", "jax.numpy", "jax", "repro.core", "repro", "benchmarks",
+        "repro.kernels"]
     assert len(FILES) > 40

@@ -160,6 +160,54 @@ def assert_states_close(got: dict, want: dict, *, rtol: float, atol: float,
                                        err_msg=path)
 
 
+class StandInTraining:
+    """A stand-in for either package's ``train_bafdp`` and
+    ``eval_rmse_mae``, so that a paper script's layout and arithmetic run
+    without training.  Call ``k`` of an instance draws its numbers from
+    ``RandomState(k)``: two instances handed to the two packages' scripts,
+    which train in the same order, give both the same histories.
+
+    The histories hold every metric the scripts collect: ``data_loss``,
+    ``consensus_gap`` (a decaying series), ``eps_all`` (one (C,) array a
+    round) and ``n_active`` (the schedule's mask row sums, or every
+    client without a schedule).  The state's ``z`` and the config are
+    ``None``; ``feds`` records each call's ``FedConfig``."""
+
+    def __init__(self):
+        self.calls = 0
+        self.evals = 0
+        self.feds = []
+
+    def train_bafdp(self, dataset, horizon, fed, rounds=150, *args,
+                    schedule=None, **kwargs):
+        rng = np.random.RandomState(self.calls)
+        self.calls += 1
+        self.feds.append(fed)
+        decay = np.exp(-np.arange(rounds) / 5.0)
+        if schedule is not None:
+            n_active = schedule.to_sim().active[:rounds].sum(1)
+        else:
+            n_active = np.full(rounds, fed.n_clients)
+        hist = {
+            "data_loss": list(0.02 + 0.1 * decay * rng.rand(rounds)),
+            "consensus_gap": list(decay * (1.0 + 0.1 * rng.rand(rounds))),
+            "eps_all": list(0.5 + rng.rand(rounds, fed.n_clients)),
+            "n_active": [float(n) for n in n_active],
+        }
+        return SimpleNamespace(z=None), None, hist
+
+    def eval_rmse_mae(self, *args, **kwargs):
+        rng = np.random.RandomState(1000 + self.evals)
+        self.evals += 1
+        return tuple(float(v) for v in 50.0 + 10.0 * rng.rand(2))
+
+    def install(self, mod, monkeypatch) -> None:
+        """Replace the module's training and evaluation calls."""
+        for name in ("train_bafdp", "eval_rmse_mae"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, getattr(self, name))
+
+
 def test_alias_is_not_installed_at_collection():
     """Collecting the port's tests must not make ``repro.core``
     importable: the reference's own broken test files stay as they are.

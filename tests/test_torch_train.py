@@ -15,7 +15,8 @@ import jax
 import numpy as np
 import pytest
 import torch
-from test_torch_reference import one_thread, ref_state_arrays
+from test_torch_reference import (StandInTraining, one_thread,
+                                  ref_state_arrays)
 from test_torch_reference import reference  # noqa: F401  (fixture)
 
 from repro_torch import train
@@ -106,22 +107,32 @@ def test_main_runs_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 # the table / figure entry points and the showdown, on the CPU
 # ---------------------------------------------------------------------------
-BENCH = ["table1_prediction", "table4_byzantine", "fig8_robust_convergence"]
+BENCH = ["table1_prediction", "table4_byzantine", "fig8_robust_convergence",
+         "table23_privacy_budget", "fig3_privacy_level",
+         "fig456_async_efficiency", "fig7_distributiveness",
+         "theorem1_convergence"]
 
 
 def _reference_labels(name, monkeypatch):
     """The row labels of the reference's ``benchmarks/<name>.py`` with
-    ``quick=True``: its training calls replaced by stand-ins, so only the
-    table's layout runs."""
+    ``quick=True``: its training and evaluation calls replaced by
+    stand-ins (``run_method``; ``train_bafdp`` and ``eval_rmse_mae`` by
+    :class:`StandInTraining`, whose histories hold every metric the
+    scripts collect), so only the table's layout runs."""
     import importlib
 
     mod = importlib.import_module(f"benchmarks.{name}")
     if hasattr(mod, "run_method"):
         monkeypatch.setattr(mod, "run_method", lambda *a, **k: (1.0, 1.0))
-    if hasattr(mod, "train_bafdp"):
-        monkeypatch.setattr(mod, "train_bafdp", lambda *a, **k: (
-            None, None, {"data_loss": [1.0, 1.0]}))
+    StandInTraining().install(mod, monkeypatch)
     return [row.split(",")[0] for row in mod.main(rounds=2, quick=True)]
+
+
+def row_values(derived: str) -> list:
+    """The numbers of a row's ``k=v;...`` part (``T_at_ladder=2/2/2/2``
+    gives four)."""
+    return [float(x) for kv in derived.split(";")
+            for x in kv.split("=")[1].split("/")]
 
 
 @pytest.mark.parametrize("name", BENCH)
@@ -140,8 +151,49 @@ def test_bench_entry_point_prints_the_reference_rows(reference, name,
     assert [row.split(",")[0] for row in rows] == want
     for row in rows:
         _, us, derived = row.split(",")
-        values = [float(kv.split("=")[1]) for kv in derived.split(";")]
-        assert np.isfinite([float(us)] + values).all(), row
+        assert np.isfinite([float(us)] + row_values(derived)).all(), row
+
+
+def _load_chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+PAPER_SUITES = {"table23": "table23_privacy_budget",
+                "fig3": "fig3_privacy_level",
+                "fig456": "fig456_async_efficiency",
+                "fig7": "fig7_distributiveness",
+                "theorem1": "theorem1_convergence",
+                "fig8": "fig8_robust_convergence"}
+
+
+@pytest.mark.parametrize("suite", sorted(PAPER_SUITES))
+def test_chip_smoke_holds_the_reference_labels(reference, suite,
+                                               monkeypatch):
+    """``chip_smoke.py``'s ``paper_runs`` holds each suite's quick rows to
+    ``PAPER_LABELS``, the reference's labels; and the launches it expects
+    come from ``paper_configs``, whose runs select the same consensus
+    kernels (wire and decay) as the FedConfigs the suite trains with."""
+    import importlib
+
+    smoke = _load_chip_smoke()
+    name = PAPER_SUITES[suite]
+    assert smoke.PAPER_LABELS[suite] == _reference_labels(name, monkeypatch)
+    stand_in = StandInTraining()
+    mod = importlib.import_module(f"repro_torch.bench.{name}")
+    stand_in.install(mod, monkeypatch)
+    mod.main(rounds=smoke.PAPER_ROUNDS, quick=True, device="cpu")
+    specs = smoke.kernel_specs()
+    assert [smoke.consensus_spec(specs, f)["name"]
+            for f in stand_in.feds] == [
+        smoke.consensus_spec(specs, f)["name"]
+        for f in smoke.paper_configs()[suite]]
 
 
 def test_bench_cli_takes_rounds_quick_device():
@@ -172,3 +224,73 @@ def test_byzantine_showdown_prints_the_full_grid(capsys):
         assert line[:14].strip() == d and len(line) == 14 + 12 * n, line
         for c in cells:
             assert c == "DIVERGED" or np.isfinite(float(c)), line
+
+
+def test_bench_run_prints_rows_refuses_unported_and_fails_on_error(
+        monkeypatch, capsys):
+    """``python -m repro_torch.bench.run``: the CSV header, then the rows
+    of the ``--only`` suites in order; ``kernels`` and ``roofline``
+    refused by argparse; a suite that raises gives one ERROR row, the
+    others still run, and the exit code is 1.  The claim summary and each
+    suite's seconds go to stderr."""
+    from repro_torch.bench import run
+
+    assert list(run.SUITES) == ["table1", "table23", "fig3", "fig456",
+                                "table4", "fig7", "fig8", "theorem1"]
+    seen = []
+
+    def suite(name):
+        def main(rounds, quick, device):
+            seen.append((name, rounds, quick, device))
+            row = f"stand-in-{name},1.0,x=1"
+            print(row)
+            return [row]
+        return main
+
+    def broken(rounds, quick, device):
+        raise RuntimeError("boom")
+
+    monkeypatch.setattr(run, "SUITES", {**{k: suite(k) for k in run.SUITES},
+                                        "fig3": broken})
+    assert run.main(["--only", "fig7,table23", "--rounds", "3", "--quick",
+                     "--device", "cpu"]) == 0
+    out, err = capsys.readouterr()
+    assert out.splitlines() == ["name,us_per_call,derived",
+                                "stand-in-fig7,1.0,x=1",
+                                "stand-in-table23,1.0,x=1"]
+    assert seen == [("fig7", 3, True, "cpu"), ("table23", 3, True, "cpu")]
+    assert "# fig7 done in" in err and "Paper-claims" in err
+
+    seen.clear()
+    assert run.main(["--device", "cpu", "--rounds", "2"]) == 1
+    out, err = capsys.readouterr()
+    assert out.splitlines()[0] == "name,us_per_call,derived"
+    assert "fig3/ERROR,0.0,failed" in out.splitlines()
+    assert [s[0] for s in seen] == [k for k in run.SUITES if k != "fig3"]
+    assert "RuntimeError: boom" in err
+
+    for name in ("kernels", "roofline", "fig7,roofline"):
+        with pytest.raises(SystemExit) as exc:
+            run.main(["--only", name, "--device", "cpu"])
+        assert exc.value.code == 2
+        assert "not yet ported (ROADMAP Queue A item 8)" in \
+            capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        run.main(["--only", "table9", "--device", "cpu"])
+    assert "unknown suite 'table9'" in capsys.readouterr().err
+
+
+def test_bench_run_needs_a_gpu_unless_told_the_cpu(capsys):
+    """Without ``--device`` the runner runs on the GPU: without one it
+    stops before any suite; ``--device cpu`` runs Fig. 7 for real."""
+    from repro_torch.bench import run
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run.main(["--only", "fig7"])
+        assert capsys.readouterr().out == ""
+    assert run.main(["--only", "fig7", "--device", "cpu"]) == 0
+    rows = capsys.readouterr().out.splitlines()
+    assert rows[0] == "name,us_per_call,derived" and len(rows) == 6
+    assert rows[1] == ("fig7/ratio0.2,0.0,transfer_gb=68750;"
+                       "sign_compressed_gb=42969;participants=8")
