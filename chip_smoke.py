@@ -147,6 +147,11 @@ N_CLIENTS, ROUNDS = 10, 20
 SCALE_C, SCALE_S, SCALE_ROUNDS = 65_536, 64, 5
 SCALE_PEAK_BYTES = 2 << 30
 MAIN_LEAF_D = [128, 2816, 128, 16384, 64, 8192, 24, 1536]   # MLP_H24
+# MLP_H1, the model of every paper suite (paper_runs), and the client
+# counts its runs launch B1-B3 at: Tables II/III, Figs. 3 and 8 C=10,
+# Figs. 4-6 C=8, Theorem 1 C=6
+PAPER_LEAF_D = [128, 2816, 128, 16384, 64, 8192, 1, 64]
+PAPER_CLIENTS = (10, 8, 6)
 # robust_runs: every robust_consensus rule in Table IV's setting (sign_flip
 # at a Byzantine fraction of 0.3, trim 0.35), dense and sparse; the dense
 # active scope against the sparse round over PARITY_ROUNDS; the baselines
@@ -160,13 +165,13 @@ PARITY_ROUNDS, BASELINE_ROUNDS, TABLE4_ROUNDS = 3, 10, 20
 # with the row labels the CPU tests hold to the reference's
 # (tests/test_torch_train.py::test_chip_smoke_holds_the_reference_labels)
 PAPER_ROUNDS = 20
-FIG456_SCENARIOS = ("age_adaptive", "battery_tail", "diurnal", "fedbuff",
-                    "flap", "flash_crowd", "regional_outage", "surge")
 PAPER_LABELS = {
     "table23": ["table23/milano/H1/a10", "table23/milano/H1/a40"],
     "fig3": ["fig3/milano"],
-    "fig456": ["fig456/milano"] + [f"fig456/milano:{name}"
-                                   for name in FIG456_SCENARIOS],
+    "fig456": ["fig456/milano"] + [
+        f"fig456/milano:{name}" for name in (
+            "age_adaptive", "battery_tail", "diurnal", "fedbuff", "flap",
+            "flash_crowd", "regional_outage", "surge")],
     "fig7": [f"fig7/ratio{r}" for r in (0.2, 0.4, 0.6, 0.8, 1.0)],
     "theorem1": ["theorem1/slope"],
     "fig8": ["fig8/ratio0.8", "fig8/ratio0.4", "fig8/ratio0.0",
@@ -174,7 +179,11 @@ PAPER_LABELS = {
 }
 # the claims of summarize_claims that the quick rows give: claim 1 needs
 # Table I, claim 2 Table IV's BAFDP rows at ratios 0 and 0.3 (quick has
-# 0.1 only), claim 8 a sweep of at least 3 budgets (quick has 2)
+# 0.1 only), claim 8 a sweep of at least 3 budgets (quick has 2).  At
+# PAPER_ROUNDS rounds claims 5 and 6 cannot fail: claim 5 lets a ratio
+# take 30 rounds more than the next, and Theorem 1's ladder is anchored
+# at round 20 (the last), so its slope is at most log 20 / log 8 < 2.2.
+# Only the full run's verdicts count for them.
 PAPER_CLAIMS = ["3", "4", "5", "6", "7"]
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCE = f"{CSRC}/sign_agg.cu"
@@ -480,8 +489,10 @@ def check_groups(specs, report):
     bit against its plain version: the 8 MLP_H24 leaves (all on the
     vector path: D a multiple of the vector width), the TPU grid's leaves,
     odd sizes beside a leaf offset by one element (scalar path), and 65
-    leaves; without weights, with them and with ``n_total``; and B3 with
-    C=200 all-ones payloads, past the int8 range."""
+    leaves, and the MLP_H1 leaves at the client counts of the paper
+    suites (:data:`PAPER_CLIENTS`); without weights, with them and with
+    ``n_total``; and B3 with C=200 all-ones payloads, past the int8
+    range."""
     from repro_torch.kernels import ref, sign_agg as sa
 
     dts = (torch.float32, torch.bfloat16)
@@ -493,6 +504,8 @@ def check_groups(specs, report):
               for dt in dts]
     cases += [("65_leaves", [(37 * l) % 300 + 1 for l in range(65)], 16,
                torch.float32, ())]
+    cases += [("paper", PAPER_LEAF_D, c, dt, ()) for c in PAPER_CLIENTS
+              for dt in dts]
     n = 0
     for i, (tag, sizes, C, dt, shifted) in enumerate(cases):
         r, sw = group_inputs(sizes, C, dt, 1000 + 100 * i, shifted)
@@ -541,9 +554,9 @@ def check_groups(specs, report):
                                      f"sum wrapped")
         n += 1
     report["group_checks"] = n
-    log(f"checks: {n} grouped calls (B1-B3, {len(cases)} leaf sets, up to "
-        f"65 leaves, and B3 at C=200) equal their plain versions bit for "
-        f"bit")
+    log(f"checks: {n} grouped calls (B1-B3, {len(cases)} leaf sets: "
+        f"MLP_H24 at C={N_CLIENTS}, MLP_H1 at C={PAPER_CLIENTS}, up to 65 "
+        f"leaves, and B3 at C=200) equal their plain versions bit for bit")
 
 
 def time_grid_shape(spec, x, C, D, dtype, cpm):
@@ -1359,30 +1372,46 @@ def consensus_spec(specs, fed):
     raise AssertionError(f"no consensus kernel for {fed}")
 
 
-def paper_configs():
-    """{suite: the FedConfig of every training run of its quick grid, in
-    order}, read off the suites' code: each run trains PAPER_ROUNDS rounds
-    and launches one consensus kernel a round (:func:`consensus_spec`)."""
-    from repro_torch.bench import fig3_privacy_level as fig3
-    from repro_torch.bench import fig456_async_efficiency as fig456
-    from repro_torch.bench import table23_privacy_budget as table23
-    from repro_torch.bench import theorem1_convergence as theorem1
-    from repro_torch.configs import FedConfig
+class RecordedRuns:
+    """Wraps a suite module's ``train_bafdp`` (if it has one) while
+    entered: ``runs`` holds the FedConfig and round count of every run it
+    trains, in order, bound by the port's own signature."""
 
-    return {
-        "table23": [table23.budget_config(a) for a in (10, 40)],
-        "fig3": [FedConfig(**fig3.FIG3_KNOBS)],
-        # the headline pair (S of M, then every client; constant decay, f32
-        # wire), then every scenario with its own decay and wire
-        "fig456": [FedConfig(n_clients=8, active_frac=fig456.ACTIVE_FRAC),
-                   FedConfig(n_clients=8, active_frac=1.0)]
-        + [fig456.scenario_config(name, 8) for name in FIG456_SCENARIOS],
-        "fig7": [],
-        "theorem1": [FedConfig(**theorem1.THEOREM1_KNOBS)],
-        # ratios 0.8, 0.4, 0 and the trimmed-mean series: constant decay,
-        # f32 wire (a robust rule adds no launch)
-        "fig8": [FedConfig(n_clients=10, active_frac=1.0)] * 4,
-    }
+    def __init__(self, mod):
+        import inspect
+
+        from repro_torch import train
+
+        self.mod, self.runs = mod, []
+        self.signature = inspect.signature(train.train_bafdp)
+
+    def __enter__(self):
+        self.saved = getattr(self.mod, "train_bafdp", None)
+        if self.saved is not None:
+            self.mod.train_bafdp = self.run
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is not None:
+            self.mod.train_bafdp = self.saved
+
+    def run(self, *args, **kwargs):
+        bound = self.signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        self.runs.append((bound.arguments["fed"], bound.arguments["rounds"]))
+        return self.saved(*args, **kwargs)
+
+
+def expected_launches(specs, runs):
+    """{counter: launches} and {spec name: launches} of B1-B3 for the
+    ``(fed, rounds)`` runs: one consensus launch a round
+    (:func:`consensus_spec`)."""
+    want, by_spec = {}, {}
+    for fed, rounds in runs:
+        s = consensus_spec(specs, fed)
+        want[s["counter"]] = want.get(s["counter"], 0) + rounds
+        by_spec[s["name"]] = by_spec.get(s["name"], 0) + rounds
+    return want, by_spec
 
 
 def paper_runs(specs, report):
@@ -1390,7 +1419,8 @@ def paper_runs(specs, report):
     quick=True, device=None)`` (Tables II/III, Fig. 3, Figs. 4-6 with
     ``with_meta=True``, Fig. 7, Theorem 1, and Fig. 8).  Per suite: the row
     labels of :data:`PAPER_LABELS`, every value finite, the B1/B2/B3
-    launches those of :func:`paper_configs` (one a round a run); for
+    launches those of the runs it trained (:class:`RecordedRuns`, one a
+    round a run); for
     Figs. 4-6 the ``n_active`` each run saw equal to its schedule's mask
     row sums.  Then :mod:`summarize_claims` over these rows and Table IV's
     quick rows (``baseline_runs``), its verdict lines printed."""
@@ -1400,30 +1430,33 @@ def paper_runs(specs, report):
                                    table23_privacy_budget,
                                    theorem1_convergence)
 
-    mains = {
-        "table23": table23_privacy_budget.main,
-        "fig3": fig3_privacy_level.main,
-        "fig456": lambda **kw: fig456_async_efficiency.main(
-            with_meta=True, **kw),
-        "fig7": fig7_distributiveness.main,
-        "theorem1": theorem1_convergence.main,
-        "fig8": fig8_robust_convergence.main,
+    mods = {
+        "table23": table23_privacy_budget,
+        "fig3": fig3_privacy_level,
+        "fig456": fig456_async_efficiency,
+        "fig7": fig7_distributiveness,
+        "theorem1": theorem1_convergence,
+        "fig8": fig8_robust_convergence,
     }
     spec_of = {s["name"]: s for s in specs}
     all_rows, suites = [], {}
-    for suite, configs in paper_configs().items():
-        want, by_spec = {}, {}
-        for fed in configs:
-            s = consensus_spec(specs, fed)
-            want[s["counter"]] = want.get(s["counter"], 0) + PAPER_ROUNDS
-            by_spec[s["name"]] = by_spec.get(s["name"], 0) + PAPER_ROUNDS
+    for suite, mod in mods.items():
+        kw = dict(with_meta=True) if suite == "fig456" else {}
+        recorded = RecordedRuns(mod)
         reset_all_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rows = mains[suite](rounds=PAPER_ROUNDS, quick=True, device=None)
+        with recorded:
+            rows = mod.main(rounds=PAPER_ROUNDS, quick=True, device=None,
+                            **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = all_counts()
+        if [r for _, r in recorded.runs] != [PAPER_ROUNDS] * len(
+                recorded.runs) or (suite != "fig7") != bool(recorded.runs):
+            raise AssertionError(f"paper {suite}: trained rounds "
+                                 f"{[r for _, r in recorded.runs]}")
+        want, by_spec = expected_launches(specs, recorded.runs)
         check_path_counts(f"paper {suite} (quick)", counts, want)
         for name, n in by_spec.items():
             spec_of[name]["launches"] += n
@@ -1461,6 +1494,8 @@ def paper_runs(specs, report):
                 if line[:2].rstrip(".").isdigit()]
     for line in verdicts:
         log(f"claim {line}")
+    log(f"claims 5 and 6 cannot fail at {PAPER_ROUNDS} rounds; only the "
+        f"full run's verdicts count for them")
     if [v.split(".")[0] for v in verdicts] != PAPER_CLAIMS:
         raise AssertionError(f"claim summary: claims "
                              f"{[v.split('.')[0] for v in verdicts]}, "
@@ -2365,14 +2400,16 @@ def main() -> int:
     b5 = {label: report["ptxas"][label] for label in
           ("decode_cluster<64,float,3>", "decode_cluster<64,bf16,5>")}
 
-    from repro_torch.configs import MLP_H24
+    from repro_torch.configs import MLP_H1, MLP_H24
     from repro_torch.models.forecasting import init_forecaster
     from repro_torch.tree import tree_leaves
 
-    leaf_d = [l.numel() for l in tree_leaves(
-        init_forecaster(torch.Generator(), MLP_H24))]
-    if leaf_d != MAIN_LEAF_D:
-        raise AssertionError(f"MLP_H24 leaves {leaf_d} != {MAIN_LEAF_D}")
+    for name, cfg, want in (("MLP_H24", MLP_H24, MAIN_LEAF_D),
+                            ("MLP_H1", MLP_H1, PAPER_LEAF_D)):
+        leaf_d = [l.numel() for l in tree_leaves(
+            init_forecaster(torch.Generator(), cfg))]
+        if leaf_d != want:
+            raise AssertionError(f"{name} leaves {leaf_d} != {want}")
 
     specs = kernel_specs()
     t0 = time.perf_counter()

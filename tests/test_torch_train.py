@@ -177,9 +177,9 @@ PAPER_SUITES = {"table23": "table23_privacy_budget",
 def test_chip_smoke_holds_the_reference_labels(reference, suite,
                                                monkeypatch):
     """``chip_smoke.py``'s ``paper_runs`` holds each suite's quick rows to
-    ``PAPER_LABELS``, the reference's labels; and the launches it expects
-    come from ``paper_configs``, whose runs select the same consensus
-    kernels (wire and decay) as the FedConfigs the suite trains with."""
+    ``PAPER_LABELS``, the reference's labels; and its ``RecordedRuns``
+    sees every run the suite trains, each of ``PAPER_ROUNDS`` rounds and
+    with a consensus kernel (wire and decay) to count."""
     import importlib
 
     smoke = _load_chip_smoke()
@@ -188,12 +188,15 @@ def test_chip_smoke_holds_the_reference_labels(reference, suite,
     stand_in = StandInTraining()
     mod = importlib.import_module(f"repro_torch.bench.{name}")
     stand_in.install(mod, monkeypatch)
-    mod.main(rounds=smoke.PAPER_ROUNDS, quick=True, device="cpu")
-    specs = smoke.kernel_specs()
-    assert [smoke.consensus_spec(specs, f)["name"]
-            for f in stand_in.feds] == [
-        smoke.consensus_spec(specs, f)["name"]
-        for f in smoke.paper_configs()[suite]]
+    with smoke.RecordedRuns(mod) as recorded:
+        mod.main(rounds=smoke.PAPER_ROUNDS, quick=True, device="cpu")
+    assert [fed for fed, _ in recorded.runs] == stand_in.feds
+    assert [r for _, r in recorded.runs] == [smoke.PAPER_ROUNDS] * len(
+        stand_in.feds)
+    want, by_spec = smoke.expected_launches(smoke.kernel_specs(),
+                                            recorded.runs)
+    assert sum(want.values()) == sum(by_spec.values()) == (
+        smoke.PAPER_ROUNDS * len(stand_in.feds))
 
 
 def test_bench_cli_takes_rounds_quick_device():
