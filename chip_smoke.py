@@ -92,6 +92,20 @@ card (a 2 x 160-token prompt, which crosses a 128-step chunk and needs
 padding, then 24 decode steps) and the card's prefill against its
 token-by-token decode of the same prompt (5e-4, the reference's bound).
 
+MoE path (B4, B5 in bf16 at head dims 64 and 128): holds B4 and B5 at
+Granite-MoE-3B-a800m's heads (24/8 x 64) and OLMoE-1B-7B's (16/16 x 128)
+against their plain versions within ``attn_tol`` and times them there
+(``time_attention_moe``); serves each model at full width (32 and 16
+layers, bf16 compute, ``models/moe.py``'s scatter form): a prefill step
+(B=4, S=4096: B4 once per layer, the (token, slot) pairs its capacity
+drops counted) and the same generate as SmolLM's (B5 once per layer per
+step); runs one Granite MoE layer in both forms, scatter and einsum, at
+capacity factor 4 (no drops), f32 within 1e-4 of each other and bf16
+each within 2^-5 (RMS) of the f32 result (``moe_forms``); and runs a
+2-layer f32 copy of Granite on the CPU and on the card from the same
+weights, the routing equal but at near-ties (gap < 1e-5, counted) and
+the logits within 2e-3 where nothing flipped.
+
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
 launches (summed over the main-path runs: B1's include the robust dense
@@ -114,7 +128,10 @@ shape, with ``bound_ms`` its 3xTF32 tensor-core roof and
 (``bf16_kernel``) at Hymba-1.5B's.  Its ``decode_attention`` entry gives
 B5 at B=8 x 4096 valid positions (f32), then as ``serving_*`` at
 SmolLM-360M's serving shape (f32) and as ``bf16_*`` at Hymba-1.5B's, with
-``ptxas``: registers and spills of the two instances those launch.
+``ptxas``: registers and spills of the instances those and the MoE
+models launch.  B4's and B5's ``moe`` lists give each at each MoE
+model's shape, bf16 (``kernel``: the instance, ms, bound, plain and
+SDPA ms); their launches include the MoE runs.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -216,6 +233,18 @@ LONG_ROW = (1, 16384, 16384, 3, 1, 64)
 LONG_ROW_MAX_ERR = 4e-6
 HYMBA_VS_ROWS, HYMBA_VS_PROMPT = 2, 160     # crosses one chunk, padded
 HYMBA_VS_DECODE, HYMBA_VS_STEPS = 16, 8     # decode: prompt + greedy steps
+
+# The MoE path: Granite-MoE-3B-a800m (24/8 heads x 64) and OLMoE-1B-7B
+# (16/16 x 128) at full width (configs/granite_moe_3b_a800m.py,
+# olmoe_1b_7b.py), bf16 compute, the same prefill and generate traffic as
+# SmolLM's.  CPU vs card: an f32 copy of Granite cut to MOE_VS_LAYERS
+# layers over a MOE_VS_ROWS x MOE_VS_PROMPT prompt; routing may differ only
+# where the CPU's top-k gap is below MOE_NEAR_TIE.  Scatter vs einsum: one
+# Granite MoE layer over MOE_FORMS_BS tokens at capacity factor 4.
+MOE_ARCHS = ("granite-moe-3b-a800m", "olmoe-1b-7b")
+MOE_VS_LAYERS, MOE_VS_ROWS, MOE_VS_PROMPT = 2, 2, 64
+MOE_NEAR_TIE = 1e-5
+MOE_FORMS_BS = (4, 1024)
 
 
 def log(msg: str) -> None:
@@ -1716,6 +1745,25 @@ def expand_heads(k, H):
     return k.repeat_interleave(H // k.shape[2], dim=2).contiguous()
 
 
+def hold_attention(name, got, want, tag, errs, rows):
+    """Kernel ``got`` against plain version ``want`` within ``attn_tol``:
+    raises on a miss; records the max |err| in ``errs[name]`` and a row."""
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name} {tag}: {got.dtype}"
+                             f"{tuple(got.shape)}")
+    err = max_abs_err(got, want)
+    excess = (got.float() - want.float()).abs() - attn_tol(want)
+    if not (bool(torch.isfinite(got.float()).all())
+            and bool((excess <= 0).all())):
+        raise AssertionError(f"{name} {tag}: kernel != plain version "
+                             f"(max |err| {err:.3e}, worst excess over "
+                             f"attn_tol {float(excess.max()):.3e})")
+    errs[name] = max(errs[name], err)
+    rows.append(dict(kernel=name, shape=tag, max_abs_err=err,
+                     worst_excess=float(excess.max())))
+
+
 def check_attention(report):
     """B4 and B5 against their plain versions on the card: the reference's
     TPU test grid (tests/test_kernels.py) in f32 and bf16, Sq < Sk,
@@ -1727,22 +1775,6 @@ def check_attention(report):
 
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     rows = []
-
-    def hold(name, got, want, dtype, tag):
-        torch.cuda.synchronize()
-        if got.dtype != want.dtype or got.shape != want.shape:
-            raise AssertionError(f"{name} {tag}: {got.dtype}"
-                                 f"{tuple(got.shape)}")
-        err = max_abs_err(got, want)
-        excess = (got.float() - want.float()).abs() - attn_tol(want)
-        if not (bool(torch.isfinite(got.float()).all())
-                and bool((excess <= 0).all())):
-            raise AssertionError(f"{name} {tag}: kernel != plain version "
-                                 f"(max |err| {err:.3e}, worst excess over "
-                                 f"attn_tol {float(excess.max()):.3e})")
-        errs[name] = max(errs[name], err)
-        rows.append(dict(kernel=name, shape=tag, max_abs_err=err,
-                         worst_excess=float(excess.max())))
 
     flash = [(2, S, S, H, Hkv, D, c, w) for S, H, Hkv, D in
              [(128, 4, 2, 64), (256, 2, 2, 128), (256, 6, 2, 64)]
@@ -1758,11 +1790,12 @@ def check_attention(report):
     for i, (B, Sq, Sk, H, Hkv, D, c, w) in enumerate(flash):
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, dt, seed=i)
-            hold("flash_attention",
-                 fa_k.flash_attention(q, k, v, causal=c, window=w),
-                 ref.flash_attention_ref(q, k, v, causal=c, window=w), dt,
-                 f"B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} D={D} causal={c} "
-                 f"window={w} {dt}")
+            hold_attention(
+                "flash_attention",
+                fa_k.flash_attention(q, k, v, causal=c, window=w),
+                ref.flash_attention_ref(q, k, v, causal=c, window=w),
+                f"B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} D={D} causal={c} "
+                f"window={w} {dt}", errs, rows)
             del q, k, v
     decode = [(3, L, H, Hkv, D, [1, L // 2, L]) for L, H, Hkv, D in
               [(256, 4, 2, 64), (512, 8, 8, 128), (1024, 2, 1, 64)]]
@@ -1777,10 +1810,12 @@ def check_attention(report):
             _, k, v = _attn_inputs(B, 1, L, H, Hkv, D, dt, seed=100 + i)
             q = _attn_inputs(B, 1, 1, H, Hkv, D, dt, seed=200 + i)[0][:, 0]
             length = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            hold("decode_attention",
-                 dec_k.decode_attention(q.contiguous(), k, v, length),
-                 ref.decode_attention_ref(q, k, v, length), dt,
-                 f"B={B} L={L} H={H}/{Hkv} D={D} length={lens} {dt}")
+            hold_attention(
+                "decode_attention",
+                dec_k.decode_attention(q.contiguous(), k, v, length),
+                ref.decode_attention_ref(q, k, v, length),
+                f"B={B} L={L} H={H}/{Hkv} D={D} length={lens} {dt}", errs,
+                rows)
             del q, k, v
     report["attention_checks"] = rows
     report["attention_max_abs_err"] = errs
@@ -1845,17 +1880,17 @@ def time_head_dims(report):
     return rows
 
 
-def time_decode(H, dtype, lens, L, seed, cpm):
-    """B5 at (B=len(lens), L, H/5 heads, D=64) with valid ``lens``: device
+def time_decode(H, dtype, lens, L, seed, cpm, Hkv=5, D=64):
+    """B5 at (B=len(lens), L, H/Hkv heads, D) with valid ``lens``: device
     ms of the kernel, of the plain version and of SDPA (``library_ms``,
     ``enable_gqa``; ``library_expanded_ms`` on K/V expanded to H heads),
     host-inclusive ``call_ms``, and the bound."""
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import ref
 
-    B, Hkv = len(lens), 5
-    _, k, v = _attn_inputs(B, 1, L, H, Hkv, 64, dtype, seed=seed)
-    q = _attn_inputs(B, 1, 1, H, Hkv, 64, dtype,
+    B = len(lens)
+    _, k, v = _attn_inputs(B, 1, L, H, Hkv, D, dtype, seed=seed)
+    q = _attn_inputs(B, 1, 1, H, Hkv, D, dtype,
                      seed=seed + 1)[0][:, 0].contiguous()
     length = torch.tensor(lens, dtype=torch.int32, device="cuda")
     mask = (torch.arange(L, device="cuda")[None, :]
@@ -1864,7 +1899,7 @@ def time_decode(H, dtype, lens, L, seed, cpm):
     plain = ref.decode_attention_ref(q, k, v, length)
     kernel = lambda: dec_k.decode_attention(q, k, v, length)
     valid = "(all valid)" if lens == [L] * B else f"length={lens}"
-    row = dict(shape=f"B={B} L={L} {valid} H={H}/{Hkv} D=64 "
+    row = dict(shape=f"B={B} L={L} {valid} H={H}/{Hkv} D={D} "
                      f"{str(dtype).split('.')[-1]}",
                ms=device_ms(kernel, cpm),
                launches_per_call=dec_k.launches_per_call(
@@ -2373,6 +2408,326 @@ def hymba_cpu_vs_cuda(cfg, params, report):
         f"{HYMBA_VS_ROWS} x {HYMBA_VS_PROMPT} positions: max |diff| = "
         f"{pd_diff:.3e} (abs/rel {pd_tol})")
 
+def decode_label(cfg, dtype="bf16"):
+    """B5's instance for ``cfg``'s heads: ``decode_cluster<D,T,GP>``, GP
+    the query heads per KV head, at most 8 a pass (``kMaxGroup``)."""
+    return (f"decode_cluster<{cfg.resolved_head_dim},{dtype},"
+            f"{min(cfg.n_heads // cfg.n_kv_heads, 8)}>")
+
+
+def check_attention_moe(report):
+    """B4 and B5 in bf16 at the MoE models' heads against their plain
+    versions within ``attn_tol``: each prefill step's shape (B=4, S=4096,
+    causal), Sq < Sk, the serving lengths in a 512 cache and an odd
+    cache.  Returns the max |err| of each kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    rows = []
+    bf = torch.bfloat16
+    for i, arch in enumerate(MOE_ARCHS):
+        c = get_arch(arch)
+        H, Hkv, D = c.n_heads, c.n_kv_heads, c.resolved_head_dim
+        for j, (B, Sq, Sk) in enumerate([(PREFILL_B, PREFILL_S, PREFILL_S),
+                                         (2, 100, 300)]):
+            q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, bf,
+                                   seed=500 + 10 * i + j)
+            hold_attention("flash_attention", fa_k.flash_attention(q, k, v),
+                           ref.flash_attention_ref(q, k, v),
+                           f"{arch} B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} D={D} "
+                           f"causal bf16", errs, rows)
+            del q, k, v
+        for j, (B, L, lens) in enumerate([(DECODE_B, SERVE_CACHE, SERVE_LENS),
+                                          (3, 777, [1, 388, 777])]):
+            _, k, v = _attn_inputs(B, 1, L, H, Hkv, D, bf,
+                                   seed=520 + 10 * i + j)
+            q = _attn_inputs(B, 1, 1, H, Hkv, D, bf,
+                             seed=540 + 10 * i + j)[0][:, 0].contiguous()
+            length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            hold_attention("decode_attention",
+                           dec_k.decode_attention(q, k, v, length),
+                           ref.decode_attention_ref(q, k, v, length),
+                           f"{arch} B={B} L={L} H={H}/{Hkv} D={D} "
+                           f"length={lens} bf16", errs, rows)
+            del q, k, v
+    report["attention_checks_moe"] = rows
+    log(f"attention checks at the MoE heads: {len(rows)} bf16 kernel calls "
+        f"within attn_tol of their plain versions; max |err| {errs}")
+    return errs
+
+
+def time_attention_moe(report):
+    """B4 and B5 in bf16 at each MoE model's heads: its prefill step's
+    (B=4, S=4096, causal) and its generate's (B=8, cache 512 at the
+    serving lengths): kernel, plain version, SDPA (``enable_gqa``) and
+    bound, device ms."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+
+    cpm = sleep_cycles_per_ms()
+    bf = torch.bfloat16
+    out = {}
+    for i, arch in enumerate(MOE_ARCHS):
+        c = get_arch(arch)
+        H, Hkv, D = c.n_heads, c.n_kv_heads, c.resolved_head_dim
+        q, k, v = _attn_inputs(PREFILL_B, PREFILL_S, PREFILL_S, H, Hkv, D,
+                               bf, seed=27 + i)
+        row = dict(shape=f"B={PREFILL_B} S={PREFILL_S} H={H}/{Hkv} D={D} "
+                         f"bf16 causal",
+                   ms=device_ms(lambda: fa_k.flash_attention(q, k, v), cpm,
+                                reps=10, inner=3),
+                   plain_ms=device_ms(
+                       lambda: ref.flash_attention_ref(q, k, v), cpm, reps=5,
+                       inner=1),
+                   library_ms=device_ms(lambda: sdpa_flash(q, k, v, True),
+                                        cpm, reps=10, inner=3),
+                   library_max_abs_err=max_abs_err(
+                       sdpa_flash(q, k, v, True),
+                       ref.flash_attention_ref(q, k, v)))
+        row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
+        del q, k, v
+        out[arch] = {"flash_attention": row,
+                     "decode_attention": time_decode(
+                         H, bf, SERVE_LENS, SERVE_CACHE, 37 + 2 * i, cpm,
+                         Hkv=Hkv, D=D)}
+        for name, r in out[arch].items():
+            log(f"time {name:18s} {arch} {r['shape']}: kernel_ms="
+                f"{r['ms']:.6f} bound_ms={r['bound_ms']:.6f} "
+                f"({r['bound_by']}) plain_ms={r['plain_ms']:.6f} "
+                f"library_ms={r['library_ms']:.6f} (SDPA enable_gqa, max "
+                f"|err| vs plain {r['library_max_abs_err']:.2e})")
+    report["attention_timings_moe"] = out
+    return out
+
+
+class RouteLog:
+    """Wraps ``models.moe.route`` while active and keeps each call's
+    ``Routing`` (on its device; nothing is read until asked)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.calls = moe, moe.route, []
+
+    def __enter__(self):
+        def spy(*args, **kwargs):
+            r = self.real(*args, **kwargs)
+            self.calls.append(r)
+            return r
+        self.moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def moe_prefill_run(cfg, params, report):
+    """:func:`prefill_run` on an MoE model, also counting the (token,
+    slot) pairs its capacity dropped in the timed step (the last
+    ``n_layers`` routings).  Returns the launch counts."""
+    from repro_torch.models import moe
+
+    with RouteLog() as routes:
+        counts = prefill_run(cfg, params, report)
+    timed = routes.calls[-cfg.n_layers:]
+    pairs = PREFILL_B * PREFILL_S * cfg.moe.top_k
+    if len(routes.calls) != 2 * cfg.n_layers or any(
+            r.keep.numel() != pairs for r in timed):
+        raise AssertionError(f"{cfg.name} prefill: {len(routes.calls)} "
+                             f"routings, expected {2 * cfg.n_layers}")
+    dropped = [int((~r.keep).sum()) for r in timed]
+    cap = moe.capacity(PREFILL_B * PREFILL_S, cfg)
+    report["prefill"][cfg.name].update(
+        capacity=cap, dropped_pairs=sum(dropped),
+        dropped_pairs_per_layer=dropped, pairs_per_layer=pairs)
+    log(f"prefill {cfg.name}: capacity {cap} slots per expert; (token, slot) "
+        f"pairs dropped {sum(dropped)} of {pairs * cfg.n_layers} "
+        f"({100 * sum(dropped) / (pairs * cfg.n_layers):.3f} %; per layer "
+        f"min {min(dropped)} max {max(dropped)})")
+    return counts
+
+
+def moe_forms(cfg, params, report):
+    """The scatter and einsum forms of one of ``cfg``'s MoE layers on the
+    card, over ``MOE_FORMS_BS`` tokens at capacity factor 4 (neither
+    drops: checked).  f32: the two within abs/rel 1e-4, the reference's
+    bound between them (tests/test_variants_and_perf.py).  bf16: the two
+    round at other places (the scatter form each gated product, the
+    einsum form their sum, and the expert products by their own batch
+    shapes), and where the k gated terms cancel an element misses
+    ``attn_tol``'s bf16 form (the share is printed; ~1-3 % in a CPU run at
+    this width), so each bf16 form is held to the f32 scatter form on the
+    same inputs: RMS error <= 2^-5 and max error <= 2^-2 of the output's
+    RMS (CPU, full width: 0.0057 and 0.040).  The aux losses come from one
+    routing, so they are equal."""
+    from repro_torch.models import moe
+
+    c = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    p = params["layers"][0]["moe"]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    xb = torch.randn(*MOE_FORMS_BS, cfg.d_model, generator=g,
+                     device="cuda").bfloat16()
+    out, ys = {}, {}
+    for x in (xb.float(), xb):
+        with RouteLog() as routes:
+            y1, a1 = moe.moe_ffn(p, x, c)
+            y2, a2 = moe.moe_ffn_einsum(p, x, c)
+        torch.cuda.synchronize()
+        name = str(x.dtype).split(".")[-1]
+        ys[name] = (y1.float(), y2.float())
+        out[name] = dict(
+            dropped=[int((~r.keep).sum()) for r in routes.calls],
+            max_abs_err=max_abs_err(y1, y2), aux=[float(a1), float(a2)],
+            finite=bool(torch.isfinite(y1).all() & torch.isfinite(y2).all()))
+        if out[name]["dropped"] != [0, 0] or not (
+                out[name]["finite"] and torch.equal(a1, a2)):
+            raise AssertionError(f"moe scatter vs einsum {name}: "
+                                 f"{out[name]}")
+    y32 = ys["float32"][0]
+    rms = float(y32.pow(2).mean().sqrt())
+    miss = (ys["float32"][0] - ys["float32"][1]).abs() - (1e-4 + 1e-4
+                                                          * y32.abs())
+    out["float32"]["worst_excess"] = float(miss.max())
+    errs = [(yb - y32) for yb in ys["bfloat16"]]
+    out["bfloat16"].update(
+        rms_err_over_rms=[float(e.pow(2).mean().sqrt()) / rms for e in errs],
+        max_err_over_rms=[float(e.abs().max()) / rms for e in errs],
+        over_attn_tol=float(((ys["bfloat16"][0] - ys["bfloat16"][1]).abs()
+                             > attn_tol(ys["bfloat16"][0].bfloat16()))
+                            .float().mean()))
+    cpm = sleep_cycles_per_ms()
+    ms = {name: device_ms(lambda f=f: f(p, xb, c), cpm, reps=5, inner=2)
+          for name, f in (("scatter", moe.moe_ffn),
+                          ("einsum", moe.moe_ffn_einsum))}
+    report["moe_forms"] = dict(arch=cfg.name, tokens=list(MOE_FORMS_BS),
+                               bf16_ms=ms, **out)
+    b = out["bfloat16"]
+    log(f"moe scatter vs einsum ({cfg.name} layer 0, {MOE_FORMS_BS[0]} x "
+        f"{MOE_FORMS_BS[1]} tokens, capacity factor 4, no drops, equal "
+        f"aux): f32 max |diff| {out['float32']['max_abs_err']:.3e} (abs/rel "
+        f"1e-4); bf16 vs the f32 scatter form, scatter / einsum: RMS error "
+        f"{b['rms_err_over_rms'][0]:.4f} / {b['rms_err_over_rms'][1]:.4f}, "
+        f"max {b['max_err_over_rms'][0]:.4f} / {b['max_err_over_rms'][1]:.4f}"
+        f" of the output's RMS (bounds 2^-5, 2^-2); bf16 forms' share over "
+        f"attn_tol {b['over_attn_tol']:.4f}; bf16 device ms scatter "
+        f"{ms['scatter']:.3f} einsum {ms['einsum']:.3f}")
+    if (out["float32"]["worst_excess"] > 0
+            or max(b["rms_err_over_rms"]) > 2.0 ** -5
+            or max(b["max_err_over_rms"]) > 2.0 ** -2):
+        raise AssertionError(f"moe scatter vs einsum: {out}")
+
+
+def routing_flips(cpu, gpu, S, bound):
+    """Compare two devices' routings layer by layer (``Routing``s over B x
+    S tokens).  Returns (near-ties, downstream flips, keep pairs compared,
+    keep pairs equal): a token whose experts differ must be a near-tie
+    (the CPU's gap at the first differing slot below ``bound``) unless an
+    earlier layer's flip reached it (its position or an earlier one of
+    its row); the keep masks are compared over the (token, slot) pairs
+    ahead of the first flip of the layer in token order (a flip shifts
+    the positions of every later pair in two experts).  Raises on a flip
+    beyond a near-tie."""
+    B = cpu[0].idx.shape[0] // S
+    first = np.full(B, S)
+    ties, downstream, compared, equal = [], [], 0, 0
+    for layer, (a, b) in enumerate(zip(cpu, gpu)):
+        ia, ib = a.idx.cpu(), b.idx.cpu()
+        ka, kb = a.keep.cpu(), b.keep.cpu()
+        top = a.probs.cpu().sort(dim=-1, descending=True).values
+        reached = first.copy()
+        rows = torch.nonzero((ia != ib).any(1)).flatten().tolist()
+        for t in rows:
+            r, s = divmod(t, S)
+            j = int(torch.nonzero(ia[t] != ib[t])[0])
+            gap = float(top[t, j] - top[t, j + 1])
+            flip = dict(layer=layer, token=t, slot=j, gap=gap)
+            if s >= reached[r]:
+                downstream.append(flip)
+            elif gap < bound:
+                ties.append(flip)
+            else:
+                raise AssertionError(
+                    f"moe cpu vs cuda: layer {layer} token {t} routes to "
+                    f"{ia[t].tolist()} on the CPU, {ib[t].tolist()} on the "
+                    f"card, at a gap of {gap:.3e} (near-tie: < {bound})")
+            first[r] = min(first[r], s)
+        n = rows[0] if rows else ia.shape[0]
+        compared += ka[:n].numel()
+        equal += int((ka[:n] == kb[:n]).sum())
+    if equal != compared:
+        raise AssertionError(f"moe cpu vs cuda: keep masks differ at "
+                             f"{compared - equal} of {compared} (token, slot) "
+                             f"pairs ahead of any flip")
+    return ties, downstream, compared, equal
+
+
+def moe_cpu_vs_cuda(report):
+    """Granite-MoE at full width, cut to ``MOE_VS_LAYERS`` layers, in an
+    f32 copy of its config, with the same weights on the CPU and on the
+    card: the prefill forward over a ``MOE_VS_ROWS`` x ``MOE_VS_PROMPT``
+    prompt.  The routing (top-k experts, keep mask) must agree but at
+    near-ties (:func:`routing_flips`, each counted and printed); the
+    logits are then held to ``serve_cpu_vs_cuda``'s bound, 2e-3, and only
+    when no token flipped (else that comparison is reported skipped)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+
+    bound = 2e-3
+    cfg = dataclasses.replace(get_arch(MOE_ARCHS[0]), n_layers=MOE_VS_LAYERS,
+                              compute_dtype="float32")
+    prompt = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab_size, (MOE_VS_ROWS, MOE_VS_PROMPT)))
+    logits, routes = {}, {}
+    for dev in ("cuda", "cpu"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tr.init_lm(gen, cfg, device=dev)
+        with RouteLog() as log_:
+            logits[dev] = tr.forward_logits(
+                params, {"tokens": prompt.to(dev)}, cfg)[0].cpu()
+        routes[dev] = log_.calls
+        del params
+    ties, downstream, compared, equal = routing_flips(
+        routes["cpu"], routes["cuda"], MOE_VS_PROMPT, MOE_NEAR_TIE)
+    diff = float((logits["cpu"] - logits["cuda"]).abs().max())
+    flipped = bool(ties or downstream)
+    if not flipped and not diff <= bound:
+        raise AssertionError(f"moe cpu vs cuda: logits differ by {diff:.3e} "
+                             f"> {bound}")
+    if not bool(torch.isfinite(logits["cuda"]).all()):
+        raise AssertionError("moe cpu vs cuda: non-finite logits on the card")
+    report["moe_cpu_vs_cuda"] = dict(
+        arch=cfg.name, layers=MOE_VS_LAYERS, rows=MOE_VS_ROWS,
+        prompt=MOE_VS_PROMPT, near_ties=ties, downstream_flips=downstream,
+        keep_pairs_compared=compared, keep_pairs_equal=equal,
+        max_logit_diff=diff, bound=bound,
+        logits_compared=not flipped)
+    log(f"moe cpu vs cuda ({cfg.name} full width, {MOE_VS_LAYERS} layers, "
+        f"f32 copy of the config, {MOE_VS_ROWS} x {MOE_VS_PROMPT} prompt): "
+        f"routing near-ties (gap < {MOE_NEAR_TIE}) {len(ties)} {ties}, "
+        f"flips downstream of them {len(downstream)}; keep masks equal at "
+        f"{equal}/{compared} pairs ahead of any flip; max |logit diff| = "
+        f"{diff:.3e} " + (f"(bound {bound})" if not flipped else
+                          "(not held: a routing flip occurred)"))
+
+
+def moe_runs(report, launches):
+    """Each MoE model at full width on the card: a prefill step and a
+    generate (launches added to ``launches``), and for Granite the
+    scatter-vs-einsum check; each model freed before the next."""
+    for arch in MOE_ARCHS:
+        cfg, params = serve_model(arch)
+        for run in (moe_prefill_run, generate_run):
+            for name, n in run(cfg, params, report).items():
+                launches[name] += n
+        if arch == MOE_ARCHS[0]:
+            moe_forms(cfg, params, report)
+        del params
+        torch.cuda.empty_cache()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2469,6 +2824,37 @@ def main() -> int:
     report["hymba_phase_s"] = time.perf_counter() - t0
     log(f"phase: serving Hymba-1.5B {report['hymba_phase_s']:.1f} s")
 
+    t0 = time.perf_counter()
+    for name, err in check_attention_moe(report).items():
+        errs[name] = max(errs[name], err)
+    times_moe = time_attention_moe(report)
+    moe_runs(report, launches)
+    moe_cpu_vs_cuda(report)
+    report["moe_phase_s"] = time.perf_counter() - t0
+    log(f"phase: serving MoE {report['moe_phase_s']:.1f} s")
+
+    # B4 and B5 in bf16 at the MoE models' heads: each row names the
+    # instance its shape launches
+    from repro_torch.configs import get_arch
+    moe_rows = {"flash_attention": [], "decode_attention": []}
+    for arch in MOE_ARCHS:
+        mcfg = get_arch(arch)
+        labels = {"flash_attention": kernel_label(
+            report, "dispatch_bf16", mcfg.resolved_head_dim),
+            "decode_attention": decode_label(mcfg)}
+        if labels["decode_attention"] not in report["ptxas"]:
+            raise AssertionError(f"no ptxas lines for "
+                                 f"{labels['decode_attention']}")
+        for name, rows in moe_rows.items():
+            r = times_moe[arch][name]
+            rows.append(dict(model=arch, shape=r["shape"],
+                             kernel=labels[name], ms=r["ms"],
+                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                             plain_ms=r["plain_ms"],
+                             library_ms=r["library_ms"]))
+            if name == "decode_attention":
+                b5[labels[name]] = report["ptxas"][labels[name]]
+
     # B1-B3: per round of the 8 MLP_H24 leaves as one grouped call, with
     # call_ms and the same leaves in eight one-leaf calls beside it, and
     # at the bandwidth shape (C=64, D=4,194,304 f32); the kernel named by
@@ -2512,7 +2898,8 @@ def main() -> int:
         serving_ms=sv["ms"], serving_bound_ms=sv["bound_ms"],
         serving_plain_ms=sv["plain_ms"], serving_library_ms=sv["library_ms"],
         bf16_ms=hd["ms"], bf16_bound_ms=hd["bound_ms"],
-        bf16_plain_ms=hd["plain_ms"], bf16_library_ms=hd["library_ms"])
+        bf16_plain_ms=hd["plain_ms"], bf16_library_ms=hd["library_ms"],
+        moe=moe_rows["decode_attention"])
     # B4's two kernels: the fields above are the f32 one's (SmolLM-360M's
     # prefill); the bf16 one's at Hymba-1.5B's prefill shape
     hb = times_hymba["flash_attention"]
@@ -2521,7 +2908,8 @@ def main() -> int:
         simt_bound_ms=times["flash_attention"]["simt_bound_ms"],
         bf16_kernel=b4["dispatch_bf16"],
         bf16_ms=hb["ms"],
-        bf16_bound_ms=hb["bound_ms"], bf16_library_ms=hb["library_ms"])
+        bf16_bound_ms=hb["bound_ms"], bf16_library_ms=hb["library_ms"],
+        moe=moe_rows["flash_attention"])
     kernels.append(dict(
         name="ssm_scan", route="cuda", source=f"{CSRC}/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:44",

@@ -4,7 +4,8 @@
         [--smoke] [--requests 4] [--max-new 16] [--window 0] \
         [--cache-len 256] [--device cpu]
 
-``--arch``: a ported config (``smollm-360m``, ``hymba-1.5b``, ...).  Full
+``--arch``: a ported config (``smollm-360m``, ``hymba-1.5b``,
+``granite-moe-3b-a800m``, ``olmoe-1b-7b``, ...).  Full
 width unless ``--smoke``; on the GPU unless ``--device cpu`` (raises when
 there is no GPU).  The weights are random, drawn from seed 0.
 """

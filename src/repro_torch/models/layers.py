@@ -107,12 +107,16 @@ def init_ffn(gen: torch.Generator, cfg: ArchConfig):
             "w_out": dense_init(gen, (f, d), dtype=dt)}
 
 
+def gate_act(g: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The gate of a SwiGLU (silu) or GeGLU (tanh gelu) FFN."""
+    return F.silu(g) if cfg.ffn_act == "swiglu" else F.gelu(
+        g, approximate="tanh")
+
+
 def ffn(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.ffn_act in ("swiglu", "geglu"):
         g = x @ params["w_gate"].to(x.dtype)
         u = x @ params["w_up"].to(x.dtype)
-        act = F.silu(g) if cfg.ffn_act == "swiglu" else F.gelu(
-            g, approximate="tanh")
-        return (act * u) @ params["w_down"].to(x.dtype)
+        return (gate_act(g, cfg) * u) @ params["w_down"].to(x.dtype)
     h = F.gelu(x @ params["w_in"].to(x.dtype), approximate="tanh")
     return h @ params["w_out"].to(x.dtype)

@@ -1,18 +1,21 @@
 """The LM stack for serving: the port of the JAX package's
 ``models/transformer.py`` for ATTN/SWA blocks, Mamba blocks and Hymba's
-parallel attention + Mamba blocks, with a dense (or no) FFN.
+parallel attention + Mamba blocks, with a dense, MoE (``models/moe.py``)
+or no FFN.
 
 Parameters live in an ``nn.ModuleDict`` with the reference's names:
 ``embed`` (``tok`` [, ``head``]), ``layers`` (an ``nn.ModuleList``, one
-entry per layer: ``ln1``, ``attn`` and/or ``mamba``, ``ln2``, ``ffn``) and
-``final_norm``.
+entry per layer: ``ln1``, ``attn`` and/or ``mamba``, ``ln2``, ``ffn`` or
+``moe``) and ``final_norm``.
 The reference's layer ``scan`` over stacked weights becomes a loop over
 the list; ``lm_params_from_numpy`` unstacks the reference's ``unit``
 tree into it.  The parameters carry no gradient: the LM side of the port
 serves; LM training (``remat``, the LDP ``noise=``) comes later.
 
-The xLSTM block kinds (mLSTM, sLSTM), MoE, a multimodal frontend and an
-encoder raise a ``ValueError`` naming them "not yet ported".
+The xLSTM block kinds (mLSTM, sLSTM), a multimodal frontend, an encoder
+and ``moe_group_shard`` raise a ``ValueError`` naming them "not yet
+ported"; a ``moe_impl`` other than ``"scatter"`` or ``"einsum"`` raises
+a ``ValueError`` too.
 
 Public API:
     init_lm(gen, cfg, device)                       -> params
@@ -40,6 +43,7 @@ from repro_torch.configs.base import (
     ArchConfig,
 )
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     embed,
@@ -53,6 +57,7 @@ from repro_torch.models.layers import (
 from repro_torch.tree import resolve_device, tree_map
 
 PORTED_KINDS = (ATTN, SWA, MAMBA, HYMBA)
+MOE_IMPLS = {"scatter": moe_lib.moe_ffn, "einsum": moe_lib.moe_ffn_einsum}
 
 
 def _not_ported(what: str) -> ValueError:
@@ -72,7 +77,11 @@ def check_ported(cfg: ArchConfig) -> None:
         if kind not in PORTED_KINDS:
             raise _not_ported(f"block kind {kind!r} ({cfg.name})")
     if cfg.ffn_kind == FFN_MOE:
-        raise _not_ported(f"the MoE FFN ({cfg.name})")
+        if cfg.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl {cfg.moe_impl!r} ({cfg.name}): "
+                             f"expected one of {sorted(MOE_IMPLS)}")
+        if cfg.moe_group_shard:
+            raise _not_ported(f"moe_group_shard ({cfg.name})")
     if cfg.frontend != "none":
         raise _not_ported(f"the {cfg.frontend} frontend ({cfg.name})")
     if cfg.n_enc_layers:
@@ -114,12 +123,26 @@ def init_sublayer(gen: torch.Generator, kind: str, cfg: ArchConfig,
         p["attn"] = attn_lib.init_attention(gen, cfg)
     if kind in (MAMBA, HYMBA):
         p["mamba"] = ssm_lib.init_mamba(gen, cfg, d_in=_mamba_d_in(kind, cfg))
-    if cfg.ffn_kind == FFN_MOE:
-        raise _not_ported("the MoE FFN")
     if cfg.ffn_kind == FFN_DENSE and cfg.d_ff:
         p["ln2"] = init_rmsnorm(cfg.d_model, device=gen.device)
         p["ffn"] = init_ffn(gen, cfg)
+    elif cfg.ffn_kind == FFN_MOE:
+        p["ln2"] = init_rmsnorm(cfg.d_model, device=gen.device)
+        p["moe"] = moe_lib.init_moe(gen, cfg)
     return p
+
+
+def _apply_ffn(p, x: torch.Tensor, cfg: ArchConfig
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The residual FFN of a layer: (x, the MoE's aux loss or None)."""
+    aux = None
+    if "ffn" in p:
+        x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    elif "moe" in p:
+        y, aux = MOE_IMPLS[cfg.moe_impl](
+            p["moe"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        x = x + y
+    return x, aux
 
 
 def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
@@ -135,10 +158,10 @@ def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
                                       window=window)
         if kind == HYMBA:
             mix = 0.5 * (mix + ssm_lib.mamba_scan(p["mamba"], h, cfg))
-    x = x + mix
-    if "ffn" in p:
-        x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _apply_ffn(p, x + mix, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def sublayer_state(kind: str, cfg: ArchConfig, batch: int, cache_len: int,
@@ -174,9 +197,7 @@ def apply_sublayer_decode(p, kind: str, x: torch.Tensor, state, step: int,
         if kind == HYMBA:
             m, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg)
             mix = 0.5 * (mix + m)
-    x = x + mix
-    if "ffn" in p:
-        x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    x, _ = _apply_ffn(p, x + mix, cfg)
     return x, state
 
 
@@ -209,9 +230,10 @@ def forward(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig, *,
     if noise is not None:
         raise _not_ported("the LDP input noise (noise=)")
     x = embed(params["embed"], inputs["tokens"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], cfg.pattern()):
-        x, _ = apply_sublayer(p, kind, x, cfg, window=window)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE
+        x, a = apply_sublayer(p, kind, x, cfg, window=window)
+        aux = aux + a                 # summed in layer order
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 

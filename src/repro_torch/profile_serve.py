@@ -4,6 +4,9 @@
         [--prefill-batch 4] [--prefill-len 4096] [--batch 8] [--prompt 16]
         [--max-new 16] [--cache-len 512]
 
+``--arch``: any served config (``smollm-360m``, ``hymba-1.5b``,
+``granite-moe-3b-a800m``, ``olmoe-1b-7b``).
+
 With full-width random weights (seed 0), under ``torch.profiler`` after a
 warm-up: one prefill step (``launch.steps.make_prefill_step``) and one
 ``ServeEngine.generate`` (prompts of ``--prompt`` tokens, prefilled token
@@ -11,8 +14,11 @@ by token, then ``--max-new`` new tokens; half greedy, half sampled).
 Prints for each: wall ms (host clock, synchronized, profiler on), ms and
 kernels per step, the device busy share (summed kernel time over wall
 time), the attention kernels' (B4, B5) and the selective scan's (B6,
-Mamba and Hymba layers) shares of the device time, and the top operators
-by device and by host time.  Needs a CUDA device.
+Mamba and Hymba layers) shares of the device time, for an MoE model the
+device ms and share of each part of its FFN (``models/moe.SPANS``:
+routing and top-k, dispatch, the per-call expert-weight casts, the
+expert ``bmm``s, combine), and the top operators by device and by host
+time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_arch
 from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import moe
 from repro_torch.models import transformer as tr
 from repro_torch.serving import ServeEngine, ServeRequest
 from repro_torch.tree import resolve_device
@@ -34,6 +41,17 @@ from repro_torch.tree import resolve_device
 FLASH_KERNEL, DECODE_KERNEL = "flash_fwd", "decode_cluster"
 ATTENTION_KERNELS = (FLASH_KERNEL, DECODE_KERNEL)
 SCAN_KERNELS = ("ssm_scan_kernel",)          # B6 (csrc/ssm_scan.cu)
+
+
+def span_times(events) -> dict:
+    """{MoE span: (device ms, host ms)} summed over its occurrences: a
+    span's device time is that of the kernels launched inside it."""
+    out = {name: [0.0, 0.0] for name in moe.SPANS}
+    for e in events:
+        if e.name in out and e.device_type == DeviceType.CPU:
+            out[e.name][0] += e.device_time_total / 1e3
+            out[e.name][1] += e.cpu_time_total / 1e3
+    return {name: tuple(v) for name, v in out.items()}
 
 
 def _profiled(fn, dev, steps: int, label: str, required: str) -> None:
@@ -46,7 +64,9 @@ def _profiled(fn, dev, steps: int, label: str, required: str) -> None:
         fn()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the MoE spans' device-side copies are ranges, not kernels
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name not in moe.SPANS]
     if not any(required in e.name for e in kernels):
         raise RuntimeError(f"{label}: no {required} kernel in the trace")
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -63,6 +83,12 @@ def _profiled(fn, dev, steps: int, label: str, required: str) -> None:
           f"attention_share_of_busy={attn_ms / max(busy_ms, 1e-9):.4f} "
           f"scan_kernel_ms_per_step={scan_ms / steps:.4f} "
           f"scan_share_of_busy={scan_ms / max(busy_ms, 1e-9):.4f}")
+    spans = span_times(prof.events())
+    if any(host for _, host in spans.values()):
+        print(f"{label} MoE: " + " ".join(
+            f"{name}_ms_per_step={dev_ms / steps:.4f} "
+            f"{name}_share_of_busy={dev_ms / max(busy_ms, 1e-9):.4f}"
+            for name, (dev_ms, _) in spans.items()))
     averages = prof.key_averages()
     print(averages.table(sort_by="self_device_time_total", row_limit=12))
     print(averages.table(sort_by="self_cpu_time_total", row_limit=15))

@@ -6,6 +6,8 @@ As in the reference, the prompts are left-padded with token 0 (the pad
 positions are attended) and fed token by token through the decode step,
 so prefill and generation run one program: B5 in every attention layer
 of every step, and no B6 (a Mamba layer's decode is a one-step update).
+An MoE FFN routes the batch's B tokens of a step (capacity per call, at
+least 8 slots an expert), with no kernel of its own.
 The decode state (``tr.init_decode_state``) holds each layer's K/V caches
 and, for Mamba and Hymba layers, the scan state ``h`` and the convolution
 window ``conv``; the step writes all of them in place.  Random draws come from a ``torch.Generator`` on the engine's

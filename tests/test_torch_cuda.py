@@ -8,7 +8,7 @@ rounding of the output: 1e-2 relative plus 1e-3 of the output's RMS
 and round once, so they may differ by one bf16 ulp, <= 2^-7); B6 (the
 Mamba selective scan) bit for bit.  And a full-width SmolLM-360M
 generate through both attention kernels, its launches counted, and the
-Hymba smoke model on the card against the CPU.  Needs a CUDA device and nvcc; skips without a device.
+Hymba and Granite-MoE smoke models on the card against the CPU.  Needs a CUDA device and nvcc; skips without a device.
 Imports no JAX, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -588,6 +588,62 @@ def test_cuda_hymba_smoke_model_matches_the_cpu():
         [ServeRequest(prompt=q, max_new=6) for q in prompts])
         for p, dev in ((cpu, "cpu"), (gpu, "cuda"))]
     assert ssm_scan.LAUNCHES["ssm_scan"] == 2 * 2      # decode runs no B6
+    assert [o.tolist() for o in outs[0]] == [o.tolist() for o in outs[1]]
+
+
+def _load_chip_smoke():
+    """``chip_smoke.py`` as a module (its helpers; nothing runs)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_cuda_granite_moe_smoke_model_matches_the_cpu():
+    """The Granite-MoE smoke model (2 layers, d 256, 4 experts, top-2,
+    f32) with the same weights on the card and on the CPU: the prefill
+    forward over 2 x 200 tokens routes alike on both but at near-ties (a
+    gap of the CPU's k-th and (k+1)-th probability below 1e-5, counted;
+    ``chip_smoke.routing_flips``, which raises on any other flip), its
+    logits within abs/rel 5e-5 when no token flipped (as the Hymba test
+    holds them), B4 once per layer; and greedy tokens of a
+    ``ServeEngine.generate`` equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import ServeEngine, ServeRequest
+
+    smoke = _load_chip_smoke()
+    cfg = reduce_for_smoke(get_arch("granite-moe-3b-a800m"))
+    cpu = tr.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = tr.lm_params_from_numpy(tr.lm_params_to_numpy(cpu, cfg), cfg,
+                                  device="cuda")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 200)))
+    fa_k.reset_launch_counts()
+    with smoke.RouteLog() as on_gpu:
+        got, _ = tr.forward_logits(gpu, {"tokens": toks.cuda()}, cfg)
+    with smoke.RouteLog() as on_cpu:
+        want, _ = tr.forward_logits(cpu, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    assert fa_k.LAUNCHES["flash_attention"] == 2
+    ties, downstream, compared, equal = smoke.routing_flips(
+        on_cpu.calls, on_gpu.calls, 200, 1e-5)
+    assert compared == equal > 0
+    assert bool(torch.isfinite(got).all())
+    if not ties and not downstream:
+        torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=5e-5)
+    prompts = [np.arange(1, 9, dtype=np.int32), np.arange(5, 8,
+                                                          dtype=np.int32)]
+    outs = [ServeEngine(p, cfg, batch=2, cache_len=32, device=dev).generate(
+        [ServeRequest(prompt=q, max_new=6) for q in prompts])
+        for p, dev in ((cpu, "cpu"), (gpu, "cuda"))]
     assert [o.tolist() for o in outs[0]] == [o.tolist() for o in outs[1]]
 
 
