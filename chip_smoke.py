@@ -95,7 +95,7 @@ token-by-token decode of the same prompt (5e-4, the reference's bound).
 MoE path (B4, B5 in bf16 at head dims 64 and 128): holds B4 and B5 at
 Granite-MoE-3B-a800m's heads (24/8 x 64) and OLMoE-1B-7B's (16/16 x 128)
 against their plain versions within ``attn_tol`` and times them there
-(``time_attention_moe``); serves each model at full width (32 and 16
+(``moe_attention``); serves each model at full width (32 and 16
 layers, bf16 compute, ``models/moe.py``'s scatter form): a prefill step
 (B=4, S=4096: B4 once per layer, the (token, slot) pairs its capacity
 drops counted) and the same generate as SmolLM's (B5 once per layer per
@@ -105,6 +105,25 @@ each within 2^-5 (RMS) of the f32 result (``moe_forms``); and runs a
 2-layer f32 copy of Granite on the CPU and on the card from the same
 weights, the routing equal but at near-ties (gap < 1e-5, counted) and
 the logits within 2e-3 where nothing flipped.
+
+The rest of LM serving (B4, B5; no kernel for xLSTM), three phases, each
+at full width from seed-0 random weights: ``xlstm_serve`` (xLSTM-1.3B,
+[7 x mLSTM, sLSTM] x 6, bf16 compute), ``encdec_serve`` (SeamlessM4T-
+medium, 12 encoder + 12 decoder layers, f32) and ``vlm_serve``
+(LLaVA-NeXT-Mistral-7B, 32/8 x 128, bf16).  Each holds B4 and B5 at its
+model's shapes against their plain versions within ``attn_tol`` and
+times them (``hold_and_time_attention``: SeamlessM4T's encoder, 1,500 x
+1,500 frames, and cross-attention, 4,096 x 1,500, both without the mask,
+B5 over a 512 cache and over the 1,500-frame memory; LLaVA's causal
+prefill and its decode at 32/8 x 128); runs a prefill step (B=4, 4,096
+positions: xLSTM's tokens; SeamlessM4T's tokens beside 1,500 frames;
+LLaVA's 2,880 patch positions, then 1,216 tokens) and the same generate
+as SmolLM's (SeamlessM4T's engines first get ``encode`` of random frames
+as their memory), checking the launches: none for xLSTM, B4 36 a prefill
+and B5 24 a decode step for SeamlessM4T (encoder, self, cross), 32 and
+32 for LLaVA; and runs the 2-layer f32 smoke model of each family on the
+CPU and on the card (``smoke_cpu_vs_cuda``: logits within 2e-3, greedy
+tokens equal; for xLSTM the card's prefill against its decode at 5e-4).
 
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
@@ -131,7 +150,9 @@ SmolLM-360M's serving shape (f32) and as ``bf16_*`` at Hymba-1.5B's, with
 ``ptxas``: registers and spills of the instances those and the MoE
 models launch.  B4's and B5's ``moe`` lists give each at each MoE
 model's shape, bf16 (``kernel``: the instance, ms, bound, plain and
-SDPA ms); their launches include the MoE runs.
+SDPA ms), and their ``encdec`` and ``vlm`` lists the same at
+SeamlessM4T's and LLaVA's shapes; their launches include the MoE,
+SeamlessM4T and LLaVA runs.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -245,6 +266,20 @@ MOE_ARCHS = ("granite-moe-3b-a800m", "olmoe-1b-7b")
 MOE_VS_LAYERS, MOE_VS_ROWS, MOE_VS_PROMPT = 2, 2, 64
 MOE_NEAR_TIE = 1e-5
 MOE_FORMS_BS = (4, 1024)
+
+# The rest of LM serving at full width, the same prefill and generate
+# traffic as SmolLM's (PREFILL_S positions; an encoder-decoder's frames
+# beside them): xLSTM-1.3B (configs/xlstm_1_3b.py: [7 x mLSTM, sLSTM] x 6,
+# d 2048, bf16 compute; no kernel of the port), SeamlessM4T-medium
+# (seamless_m4t_medium.py: 12 encoder and 12 decoder layers, 16/16 x 64,
+# f32, 1,500 frames) and LLaVA-NeXT-Mistral-7B (llava_next_mistral_7b.py:
+# 32 layers, 32/8 x 128, bf16; 2,880 patch positions, then 1,216 text
+# tokens).  CPU vs card: each one's 2-layer f32 smoke model
+# (reduce_for_smoke) over SMOKE_VS_ROWS x SMOKE_VS_S positions, then
+# SMOKE_VS_DECODE decode steps and a generate of SMOKE_VS_NEW tokens.
+XLSTM, SEAMLESS, LLAVA = ("xlstm-1.3b", "seamless-m4t-medium",
+                          "llava-next-mistral-7b")
+SMOKE_VS_ROWS, SMOKE_VS_S, SMOKE_VS_DECODE, SMOKE_VS_NEW = 2, 64, 24, 8
 
 
 def log(msg: str) -> None:
@@ -1722,11 +1757,19 @@ def attn_tol(want: torch.Tensor) -> torch.Tensor:
 
 
 def sdpa_flash(q, k, v, causal):
-    """``library_ms`` yardstick for B4 (never called by the port)."""
+    """``library_ms`` yardstick for B4 (never called by the port).  SDPA's
+    ``is_causal`` aligns the mask top-left; where Sq != Sk the causal mask
+    is passed aligned bottom-right instead, as B4 and its plain version
+    align it (query i at key position i + Sk - Sq)."""
     import torch.nn.functional as F
+    Sq, Sk = q.shape[1], k.shape[1]
+    mask = None
+    if causal and Sq != Sk:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool,
+                          device=q.device).tril(Sk - Sq)
     out = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=causal, enable_gqa=True)
+        attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
     return out.transpose(1, 2)
 
 
@@ -1986,35 +2029,45 @@ def serve_model(arch):
 
 
 def layer_counts(cfg):
-    """(attention layers, Mamba layers) of ``cfg``: a Hymba layer is
-    both."""
+    """(B4 calls a prefill step, B5 calls a decode step, Mamba layers) of
+    ``cfg``: one attention call per attention or Hymba layer (a Hymba
+    layer is also a Mamba layer), one more per decoder layer of an
+    encoder-decoder (its cross-attention) and, in a prefill, one per
+    encoder layer; none in an mLSTM or sLSTM layer."""
+    from repro_torch.configs.base import ATTN, SWA
     from repro_torch.configs.base import HYMBA as HYMBA_KIND, MAMBA
 
     kinds = cfg.pattern()
-    return (sum(k != MAMBA for k in kinds),
+    n_attn = sum(k in (ATTN, SWA, HYMBA_KIND) for k in kinds)
+    if cfg.n_enc_layers:
+        n_attn += cfg.n_layers
+    return (n_attn + cfg.n_enc_layers, n_attn,
             sum(k in (MAMBA, HYMBA_KIND) for k in kinds))
 
 
 def prefill_run(cfg, params, report):
-    """One full-width prefill step: B4 once in each attention layer, B6
-    once per 128-token chunk in each Mamba layer.  Returns the launch
-    counts."""
-    from repro_torch.launch.steps import make_prefill_step
+    """One full-width prefill step over ``PREFILL_S`` positions
+    (``launch.steps.prefill_inputs``: a VLM's first ``frontend_tokens``
+    are its patch prefix; an encoder-decoder's ``frontend_tokens`` frames
+    go to its encoder beside them): B4 once in each attention layer,
+    each encoder layer and each cross-attention, B6 once per 128-token
+    chunk in each Mamba layer, no kernel in an mLSTM or sLSTM layer.
+    Returns the launch counts."""
+    from repro_torch.launch.steps import make_prefill_step, prefill_inputs
 
     step = make_prefill_step(cfg)
     g = torch.Generator(device="cuda").manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
-                         generator=g, device="cuda")
-    step(params, {"tokens": toks[:, :256]})                 # warm-up
+    inputs = prefill_inputs(cfg, PREFILL_B, PREFILL_S, g)
+    step(params, dict(inputs, tokens=inputs["tokens"][:, :256]))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_counts()
     t0 = time.perf_counter()
-    logits = step(params, {"tokens": toks})
+    logits = step(params, inputs)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = all_counts()
-    n_attn, n_mamba = layer_counts(cfg)
+    n_attn, _, n_mamba = layer_counts(cfg)
     check_path_counts(f"{cfg.name} prefill", counts, {
         "flash_attention": n_attn,
         "ssm_scan": n_mamba * -(-PREFILL_S // SCAN_CHUNK)})
@@ -2023,22 +2076,26 @@ def prefill_run(cfg, params, report):
         raise AssertionError(f"prefill: logits {tuple(logits.shape)}, "
                              f"finite {bool(torch.isfinite(logits).all())}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    inputs_shapes = {k: list(v.shape) for k, v in inputs.items()}
     report.setdefault("prefill", {})[cfg.name] = dict(
-        B=PREFILL_B, S=PREFILL_S, compute_dtype=cfg.compute_dtype, ms=ms,
-        launches=counts, peak_gb=peak_gb)
+        B=PREFILL_B, S=PREFILL_S, inputs=inputs_shapes,
+        compute_dtype=cfg.compute_dtype, ms=ms, launches=counts,
+        peak_gb=peak_gb)
     log(f"prefill {cfg.name} B={PREFILL_B} S={PREFILL_S} "
-        f"({cfg.compute_dtype}): {ms:.3f} ms, "
+        f"(inputs {inputs_shapes}, {cfg.compute_dtype}): {ms:.3f} ms, "
         f"{PREFILL_B * PREFILL_S / ms * 1e3:.1f} tokens/s, launches "
         f"flash_attention={counts['flash_attention']} "
         f"ssm_scan={counts['ssm_scan']}, peak {peak_gb:.2f} GB")
     return counts
 
 
-def generate_run(cfg, params, report):
+def generate_run(cfg, params, report, memory=None):
     """``ServeEngine.generate``: 8 requests, half greedy and half sampled,
     prompts of 16-256 tokens (prefilled token by token through the decode
     step, as the reference does), 32 new tokens each.  B5 in every
-    attention layer of every step, no B6.  Returns the launch counts."""
+    attention layer (and cross-attention) of every step, no B6.  An
+    encoder-decoder's engines get ``memory`` (B, F, d) in their state
+    first.  Returns the launch counts."""
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.serving import ServeEngine, ServeRequest
 
@@ -2052,11 +2109,17 @@ def generate_run(cfg, params, report):
     reqs[0].prompt = reqs[0].prompt[:SERVE_PROMPT[0]]
     reqs[1].prompt = rng.randint(0, cfg.vocab_size, SERVE_PROMPT[1]).astype(
         np.int32)
-    ServeEngine(params, cfg, batch=SERVE_REQUESTS, cache_len=SERVE_CACHE,
-                device="cuda").generate(
-        [ServeRequest(prompt=r.prompt[:8], max_new=2) for r in reqs])
-    eng = ServeEngine(params, cfg, batch=SERVE_REQUESTS,
-                      cache_len=SERVE_CACHE, seed=3, device="cuda")
+
+    def engine(seed):
+        eng = ServeEngine(params, cfg, batch=SERVE_REQUESTS,
+                          cache_len=SERVE_CACHE, seed=seed, device="cuda")
+        if memory is not None:
+            eng.state["memory"] = memory
+        return eng
+
+    engine(0).generate([ServeRequest(prompt=r.prompt[:8], max_new=2)
+                        for r in reqs])                     # warm-up
+    eng = engine(3)
     torch.cuda.synchronize()
     reset_all_counts()
     t0 = time.perf_counter()
@@ -2068,7 +2131,7 @@ def generate_run(cfg, params, report):
         SERVE_REQUESTS, cfg.n_kv_heads, SERVE_CACHE,
         torch.cuda.get_device_properties(0).multi_processor_count)
     check_path_counts(f"{cfg.name} generate", counts, {
-        "decode_attention": layer_counts(cfg)[0] * eng.steps * per_call})
+        "decode_attention": layer_counts(cfg)[1] * eng.steps * per_call})
     for r, o in zip(reqs, outs):
         if len(o) != r.max_new or not ((o >= 0) & (o < cfg.vocab_size)).all():
             raise AssertionError(f"generate: request {r.rid} gave {o}")
@@ -2086,7 +2149,7 @@ def generate_run(cfg, params, report):
         f"each, cache {SERVE_CACHE}: {eng.steps} decode steps in "
         f"{secs:.3f} s = {ms_step:.3f} ms per step, {new / secs:.1f} new "
         f"tokens/s, launches decode_attention="
-        f"{counts['decode_attention']} ({layer_counts(cfg)[0]} calls per "
+        f"{counts['decode_attention']} ({layer_counts(cfg)[1]} calls per "
         f"step, {per_call} launches per call) ssm_scan={counts['ssm_scan']}")
     return counts
 
@@ -2408,100 +2471,12 @@ def hymba_cpu_vs_cuda(cfg, params, report):
         f"{HYMBA_VS_ROWS} x {HYMBA_VS_PROMPT} positions: max |diff| = "
         f"{pd_diff:.3e} (abs/rel {pd_tol})")
 
-def decode_label(cfg, dtype="bf16"):
-    """B5's instance for ``cfg``'s heads: ``decode_cluster<D,T,GP>``, GP
-    the query heads per KV head, at most 8 a pass (``kMaxGroup``)."""
-    return (f"decode_cluster<{cfg.resolved_head_dim},{dtype},"
-            f"{min(cfg.n_heads // cfg.n_kv_heads, 8)}>")
-
-
-def check_attention_moe(report):
-    """B4 and B5 in bf16 at the MoE models' heads against their plain
-    versions within ``attn_tol``: each prefill step's shape (B=4, S=4096,
-    causal), Sq < Sk, the serving lengths in a 512 cache and an odd
-    cache.  Returns the max |err| of each kernel."""
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import decode_attention as dec_k
-    from repro_torch.kernels import flash_attention as fa_k
-    from repro_torch.kernels import ref
-
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
-    rows = []
-    bf = torch.bfloat16
-    for i, arch in enumerate(MOE_ARCHS):
-        c = get_arch(arch)
-        H, Hkv, D = c.n_heads, c.n_kv_heads, c.resolved_head_dim
-        for j, (B, Sq, Sk) in enumerate([(PREFILL_B, PREFILL_S, PREFILL_S),
-                                         (2, 100, 300)]):
-            q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, bf,
-                                   seed=500 + 10 * i + j)
-            hold_attention("flash_attention", fa_k.flash_attention(q, k, v),
-                           ref.flash_attention_ref(q, k, v),
-                           f"{arch} B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} D={D} "
-                           f"causal bf16", errs, rows)
-            del q, k, v
-        for j, (B, L, lens) in enumerate([(DECODE_B, SERVE_CACHE, SERVE_LENS),
-                                          (3, 777, [1, 388, 777])]):
-            _, k, v = _attn_inputs(B, 1, L, H, Hkv, D, bf,
-                                   seed=520 + 10 * i + j)
-            q = _attn_inputs(B, 1, 1, H, Hkv, D, bf,
-                             seed=540 + 10 * i + j)[0][:, 0].contiguous()
-            length = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            hold_attention("decode_attention",
-                           dec_k.decode_attention(q, k, v, length),
-                           ref.decode_attention_ref(q, k, v, length),
-                           f"{arch} B={B} L={L} H={H}/{Hkv} D={D} "
-                           f"length={lens} bf16", errs, rows)
-            del q, k, v
-    report["attention_checks_moe"] = rows
-    log(f"attention checks at the MoE heads: {len(rows)} bf16 kernel calls "
-        f"within attn_tol of their plain versions; max |err| {errs}")
-    return errs
-
-
-def time_attention_moe(report):
-    """B4 and B5 in bf16 at each MoE model's heads: its prefill step's
-    (B=4, S=4096, causal) and its generate's (B=8, cache 512 at the
-    serving lengths): kernel, plain version, SDPA (``enable_gqa``) and
-    bound, device ms."""
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import flash_attention as fa_k
-    from repro_torch.kernels import ref
-
-    cpm = sleep_cycles_per_ms()
-    bf = torch.bfloat16
-    out = {}
-    for i, arch in enumerate(MOE_ARCHS):
-        c = get_arch(arch)
-        H, Hkv, D = c.n_heads, c.n_kv_heads, c.resolved_head_dim
-        q, k, v = _attn_inputs(PREFILL_B, PREFILL_S, PREFILL_S, H, Hkv, D,
-                               bf, seed=27 + i)
-        row = dict(shape=f"B={PREFILL_B} S={PREFILL_S} H={H}/{Hkv} D={D} "
-                         f"bf16 causal",
-                   ms=device_ms(lambda: fa_k.flash_attention(q, k, v), cpm,
-                                reps=10, inner=3),
-                   plain_ms=device_ms(
-                       lambda: ref.flash_attention_ref(q, k, v), cpm, reps=5,
-                       inner=1),
-                   library_ms=device_ms(lambda: sdpa_flash(q, k, v, True),
-                                        cpm, reps=10, inner=3),
-                   library_max_abs_err=max_abs_err(
-                       sdpa_flash(q, k, v, True),
-                       ref.flash_attention_ref(q, k, v)))
-        row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
-        del q, k, v
-        out[arch] = {"flash_attention": row,
-                     "decode_attention": time_decode(
-                         H, bf, SERVE_LENS, SERVE_CACHE, 37 + 2 * i, cpm,
-                         Hkv=Hkv, D=D)}
-        for name, r in out[arch].items():
-            log(f"time {name:18s} {arch} {r['shape']}: kernel_ms="
-                f"{r['ms']:.6f} bound_ms={r['bound_ms']:.6f} "
-                f"({r['bound_by']}) plain_ms={r['plain_ms']:.6f} "
-                f"library_ms={r['library_ms']:.6f} (SDPA enable_gqa, max "
-                f"|err| vs plain {r['library_max_abs_err']:.2e})")
-    report["attention_timings_moe"] = out
-    return out
+def decode_label(H, Hkv, D, dtype):
+    """B5's instance for H query and Hkv KV heads of dim D in ``dtype``:
+    ``decode_cluster<D,T,GP>``, GP the query heads per KV head, at most 8
+    a pass (``kMaxGroup``)."""
+    tname = "float" if dtype == torch.float32 else "bf16"
+    return f"decode_cluster<{D},{tname},{min(H // Hkv, 8)}>"
 
 
 class RouteLog:
@@ -2729,6 +2704,252 @@ def moe_runs(report, launches):
         torch.cuda.empty_cache()
 
 
+def hold_and_time_attention(model, flash, decode, dtype, seed, report,
+                            errs):
+    """B4 at each (B, Sq, Sk, H, Hkv, D, causal) of ``flash`` and B5 at
+    each (B, L, H, Hkv, D, lengths) of ``decode``, in ``dtype``: each held
+    against its plain version within ``attn_tol`` (max |err| into
+    ``errs``), then timed (device ms) beside the plain version, SDPA
+    (``enable_gqa``) and the bound.  Returns {kernel: rows} for the
+    kernels line, each row naming the instance its shape launches."""
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+
+    cpm = sleep_cycles_per_ms()
+    name = str(dtype).split(".")[-1]
+    fn = "dispatch_f32" if dtype == torch.float32 else "dispatch_bf16"
+    rows = {"flash_attention": [], "decode_attention": []}
+    checks = report.setdefault("attention_checks_serving", [])
+    for i, (B, Sq, Sk, H, Hkv, D, causal) in enumerate(flash):
+        q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, dtype, seed=seed + i)
+        tag = (f"{model} B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} D={D} "
+               f"causal={causal} {name}")
+        hold_attention("flash_attention",
+                       fa_k.flash_attention(q, k, v, causal=causal),
+                       ref.flash_attention_ref(q, k, v, causal=causal), tag,
+                       errs, checks)
+        row = dict(model=model, shape=tag, kernel=kernel_label(report, fn, D),
+                   ms=device_ms(lambda: fa_k.flash_attention(
+                       q, k, v, causal=causal), cpm, reps=10, inner=3),
+                   plain_ms=device_ms(lambda: ref.flash_attention_ref(
+                       q, k, v, causal=causal), cpm, reps=5, inner=1),
+                   library_ms=device_ms(lambda: sdpa_flash(q, k, v, causal),
+                                        cpm, reps=10, inner=3),
+                   library_max_abs_err=max_abs_err(
+                       sdpa_flash(q, k, v, causal),
+                       ref.flash_attention_ref(q, k, v, causal=causal)))
+        row["bound_ms"], row["bound_by"] = flash_bound(q, k, causal, 0)
+        rows["flash_attention"].append(row)
+        del q, k, v
+    for j, (B, L, H, Hkv, D, lens) in enumerate(decode):
+        _, k, v = _attn_inputs(B, 1, L, H, Hkv, D, dtype, seed=seed + 50 + j)
+        q = _attn_inputs(B, 1, 1, H, Hkv, D, dtype,
+                         seed=seed + 70 + j)[0][:, 0].contiguous()
+        length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        tag = f"{model} B={B} L={L} H={H}/{Hkv} D={D} length={lens} {name}"
+        hold_attention("decode_attention",
+                       dec_k.decode_attention(q, k, v, length),
+                       ref.decode_attention_ref(q, k, v, length), tag, errs,
+                       checks)
+        del q, k, v
+        row = time_decode(H, dtype, lens, L, seed + 90 + j, cpm, Hkv=Hkv,
+                          D=D)
+        label = decode_label(H, Hkv, D, dtype)
+        if label not in report["ptxas"]:
+            raise AssertionError(f"no ptxas lines for {label}")
+        rows["decode_attention"].append(dict(
+            model=model, shape=f"{model} {row['shape']}", kernel=label,
+            ptxas=report["ptxas"][label],
+            **{k: row[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                   "library_ms", "library_max_abs_err")}))
+    for kernel, rs in rows.items():
+        for r in rs:
+            log(f"time {kernel:18s} {r['shape']}: kernel_ms={r['ms']:.6f} "
+                f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+                f"plain_ms={r['plain_ms']:.6f} library_ms="
+                f"{r['library_ms']:.6f} (SDPA enable_gqa, max |err| vs "
+                f"plain {r['library_max_abs_err']:.2e}) {r['kernel']}")
+    return rows
+
+
+def smoke_cpu_vs_cuda(arch, report):
+    """The 2-layer f32 smoke model of ``arch`` (``reduce_for_smoke``: d
+    256, 16 frames or patches) with the same weights on the CPU and on
+    the card:
+
+    * the prefill logits of every text position over ``SMOKE_VS_ROWS`` x
+      ``SMOKE_VS_S`` positions (``prefill_inputs``), B4 once per call of
+      ``layer_counts`` on the card;
+    * ``SMOKE_VS_DECODE`` decode steps of the prompt's text, an
+      encoder-decoder's against ``encode`` of the same frames, B5 once per
+      call a step;
+    * the greedy tokens of a ``ServeEngine.generate`` (2 prompts,
+      ``SMOKE_VS_NEW`` new tokens, the same memory) equal.
+
+    Logits within ``serve_cpu_vs_cuda``'s bound, 2e-3 (f32 sums in the
+    devices' own orders).  For xLSTM also the card's prefill against its
+    own token-by-token decode within abs/rel 5e-4, the reference's bound
+    (tests/test_arch_smoke.py): the chunkwise prefill, its stabilizer
+    started at m = 0, against the recurrence from m = -1e9."""
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.launch.steps import make_decode_step, prefill_inputs
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import ServeEngine, ServeRequest
+
+    bound, pd_tol = 2e-3, 5e-4
+    cfg = reduce_for_smoke(get_arch(arch))
+    cpu = tr.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = {"cpu": cpu, "cuda": tr.lm_params_from_numpy(
+        tr.lm_params_to_numpy(cpu, cfg), cfg, device="cuda")}
+    inputs = prefill_inputs(cfg, SMOKE_VS_ROWS, SMOKE_VS_S,
+                            torch.Generator().manual_seed(4))
+    toks = inputs["tokens"]
+    n_prefill, n_step, _ = layer_counts(cfg)
+    full, memory, counts = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        reset_all_counts()
+        full[dev] = tr.forward_logits(
+            params[dev], {k: v.to(dev) for k, v in inputs.items()},
+            cfg)[0].cpu()
+        counts[dev] = all_counts()
+        memory[dev] = (tr.encode(params[dev], inputs["enc_embeds"].to(dev),
+                                 cfg) if cfg.n_enc_layers else None)
+    check_path_counts(f"{arch} smoke prefill on the card", counts["cuda"],
+                      {"flash_attention": n_prefill})
+    prefill_diff = float((full["cpu"] - full["cuda"]).abs().max())
+
+    decode = make_decode_step(cfg)
+    dec = {}
+    for dev in ("cpu", "cuda"):
+        state = tr.init_decode_state(cfg, SMOKE_VS_ROWS, SMOKE_VS_DECODE,
+                                     torch.float32, device=dev)
+        if memory[dev] is not None:
+            state["memory"] = memory[dev]
+        reset_all_counts()
+        steps = []
+        for t in range(SMOKE_VS_DECODE):
+            lg, state = decode(params[dev], state, toks[:, t:t + 1].to(dev),
+                               t)
+            steps.append(lg[:, 0].cpu())
+        dec[dev] = torch.stack(steps, dim=1)
+    check_path_counts(f"{arch} smoke decode on the card", all_counts(),
+                      {"decode_attention": n_step * SMOKE_VS_DECODE})
+    decode_diff = float((dec["cpu"] - dec["cuda"]).abs().max())
+
+    prompts = [toks[0, :8].numpy().astype(np.int32),
+               toks[1, :5].numpy().astype(np.int32)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(params[dev], cfg, batch=2, cache_len=32, device=dev)
+        if memory[dev] is not None:
+            eng.state["memory"] = memory[dev]
+        outs[dev] = [o.tolist() for o in eng.generate(
+            [ServeRequest(prompt=p, max_new=SMOKE_VS_NEW) for p in prompts])]
+    out = dict(prefill_max_logit_diff=prefill_diff,
+               decode_max_logit_diff=decode_diff, bound=bound,
+               max_abs_logit=float(full["cpu"].abs().max()),
+               greedy_equal=outs["cpu"] == outs["cuda"],
+               launches_prefill=counts["cuda"])
+    if arch == XLSTM:
+        # prefill vs token-by-token decode on the card, the same text
+        pd = (dec["cuda"] - full["cuda"][:, :SMOKE_VS_DECODE]).abs()
+        out["prefill_vs_decode_max_diff"] = float(pd.max())
+        out["prefill_vs_decode_tol"] = pd_tol
+        if bool((pd > pd_tol + pd_tol * full["cuda"][
+                :, :SMOKE_VS_DECODE].abs()).any()):
+            raise AssertionError(f"{arch} smoke prefill vs decode on the "
+                                 f"card: {out}")
+    report.setdefault("smoke_cpu_vs_cuda", {})[arch] = out
+    log(f"{arch} smoke cpu vs cuda (2 layers, f32, {SMOKE_VS_ROWS} x "
+        f"{SMOKE_VS_S} positions, inputs "
+        f"{ {k: list(v.shape) for k, v in inputs.items()} }): prefill max "
+        f"|logit diff| {prefill_diff:.3e}, {SMOKE_VS_DECODE} decode steps "
+        f"{decode_diff:.3e} (bound {bound}, max |logit| "
+        f"{out['max_abs_logit']:.3f}); greedy tokens equal: "
+        f"{out['greedy_equal']}"
+        + (f"; card prefill vs its decode max |diff| "
+           f"{out['prefill_vs_decode_max_diff']:.3e} (abs/rel {pd_tol})"
+           if "prefill_vs_decode_tol" in out else ""))
+    if not (prefill_diff <= bound and decode_diff <= bound
+            and out["greedy_equal"]
+            and bool(torch.isfinite(full["cuda"]).all())):
+        raise AssertionError(f"{arch} smoke cpu vs cuda: {out}")
+
+
+def serving_shapes(cfg):
+    """B4's and B5's shapes on ``cfg``'s serving path, as
+    :func:`hold_and_time_attention` takes them: for an encoder-decoder the
+    encoder (F x F) and the cross-attention (PREFILL_S x F), both without
+    the mask, and its decode's self-attention (a 512 cache at the serving
+    lengths) and cross-attention (all F positions); otherwise the causal
+    prefill and the decode's self-attention."""
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    decode = [(DECODE_B, SERVE_CACHE, H, Hkv, D, SERVE_LENS)]
+    if not cfg.n_enc_layers:
+        return [(PREFILL_B, PREFILL_S, PREFILL_S, H, Hkv, D, True)], decode
+    F = cfg.frontend_tokens
+    return ([(PREFILL_B, F, F, H, Hkv, D, False),
+             (PREFILL_B, PREFILL_S, F, H, Hkv, D, False)],
+            decode + [(DECODE_B, F, H, Hkv, D, [F] * DECODE_B)])
+
+
+def moe_attention(report, errs):
+    """B4 and B5 in bf16 at each MoE model's heads, held and timed by
+    :func:`hold_and_time_attention`: its serving shapes, and beside them
+    a causal Sq < Sk prefill (2, 100 x 300) and an odd cache (3 rows in
+    777 positions, lengths 1, 388, 777).  Returns the rows of both
+    models."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import dtype_of
+
+    out = {"flash_attention": [], "decode_attention": []}
+    for i, arch in enumerate(MOE_ARCHS):
+        cfg = get_arch(arch)
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        flash, decode = serving_shapes(cfg)
+        rows = hold_and_time_attention(
+            arch, flash + [(2, 100, 300, H, Hkv, D, True)],
+            decode + [(3, 777, H, Hkv, D, [1, 388, 777])],
+            dtype_of(cfg.compute_dtype), 300 + 100 * i, report, errs)
+        for name, rs in rows.items():
+            out[name] += rs
+    return out
+
+
+def serve_phase(arch, report, launches, errs, seed):
+    """``arch`` at full width on the card: B4 and B5 held and timed at its
+    shapes (none for a model without attention), a prefill step and a
+    generate (launches added to ``launches``; an encoder-decoder's engines
+    get ``encode`` of random frames as their memory), then the smoke
+    model's CPU vs card; the model freed after.  Returns the kernel rows
+    of :func:`hold_and_time_attention`."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import dtype_of
+
+    cfg = get_arch(arch)
+    rows = {"flash_attention": [], "decode_attention": []}
+    if layer_counts(cfg)[0]:
+        rows = hold_and_time_attention(arch, *serving_shapes(cfg),
+                                       dtype_of(cfg.compute_dtype), seed,
+                                       report, errs)
+    cfg, params = serve_model(arch)
+    for name, n in prefill_run(cfg, params, report).items():
+        launches[name] += n
+    memory = None
+    if cfg.n_enc_layers:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        frames = torch.randn((SERVE_REQUESTS, cfg.frontend_tokens,
+                              cfg.d_model), generator=g, device="cuda")
+        memory = tr.encode(params, frames, cfg)
+    for name, n in generate_run(cfg, params, report, memory).items():
+        launches[name] += n
+    del params, memory
+    torch.cuda.empty_cache()
+    smoke_cpu_vs_cuda(arch, report)
+    return rows
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2825,35 +3046,22 @@ def main() -> int:
     log(f"phase: serving Hymba-1.5B {report['hymba_phase_s']:.1f} s")
 
     t0 = time.perf_counter()
-    for name, err in check_attention_moe(report).items():
-        errs[name] = max(errs[name], err)
-    times_moe = time_attention_moe(report)
+    moe_rows = moe_attention(report, errs)
     moe_runs(report, launches)
     moe_cpu_vs_cuda(report)
     report["moe_phase_s"] = time.perf_counter() - t0
     log(f"phase: serving MoE {report['moe_phase_s']:.1f} s")
 
-    # B4 and B5 in bf16 at the MoE models' heads: each row names the
-    # instance its shape launches
-    from repro_torch.configs import get_arch
-    moe_rows = {"flash_attention": [], "decode_attention": []}
-    for arch in MOE_ARCHS:
-        mcfg = get_arch(arch)
-        labels = {"flash_attention": kernel_label(
-            report, "dispatch_bf16", mcfg.resolved_head_dim),
-            "decode_attention": decode_label(mcfg)}
-        if labels["decode_attention"] not in report["ptxas"]:
-            raise AssertionError(f"no ptxas lines for "
-                                 f"{labels['decode_attention']}")
-        for name, rows in moe_rows.items():
-            r = times_moe[arch][name]
-            rows.append(dict(model=arch, shape=r["shape"],
-                             kernel=labels[name], ms=r["ms"],
-                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                             plain_ms=r["plain_ms"],
-                             library_ms=r["library_ms"]))
-            if name == "decode_attention":
-                b5[labels[name]] = report["ptxas"][labels[name]]
+    # the rest of LM serving: xLSTM (no kernel), the encoder-decoder (B4
+    # without the mask, B5 over the memory), the VLM (B4/B5 at 32/8 x 128)
+    new_rows = {}
+    for arch, phase, seed in ((XLSTM, "xlstm_serve", 600),
+                              (SEAMLESS, "encdec_serve", 700),
+                              (LLAVA, "vlm_serve", 800)):
+        t0 = time.perf_counter()
+        new_rows[phase] = serve_phase(arch, report, launches, errs, seed)
+        report[f"{phase}_phase_s"] = time.perf_counter() - t0
+        log(f"phase: {phase} ({arch}) {report[f'{phase}_phase_s']:.1f} s")
 
     # B1-B3: per round of the 8 MLP_H24 leaves as one grouped call, with
     # call_ms and the same leaves in eight one-leaf calls beside it, and
@@ -2893,13 +3101,18 @@ def main() -> int:
     # serving rows of SmolLM-360M (f32) and Hymba-1.5B (bf16), and ptxas's
     # registers and spills of the instances they launch
     sv, hd = times["decode_attention_serving"], times_hymba["decode_attention"]
+    for rows in (moe_rows, *new_rows.values()):
+        for r in rows["decode_attention"]:
+            b5[r["kernel"]] = r["ptxas"]
     next(k for k in kernels if k["name"] == "decode_attention").update(
         kernel="decode_cluster<D,T,GP>", ptxas=b5,
         serving_ms=sv["ms"], serving_bound_ms=sv["bound_ms"],
         serving_plain_ms=sv["plain_ms"], serving_library_ms=sv["library_ms"],
         bf16_ms=hd["ms"], bf16_bound_ms=hd["bound_ms"],
         bf16_plain_ms=hd["plain_ms"], bf16_library_ms=hd["library_ms"],
-        moe=moe_rows["decode_attention"])
+        moe=moe_rows["decode_attention"],
+        encdec=new_rows["encdec_serve"]["decode_attention"],
+        vlm=new_rows["vlm_serve"]["decode_attention"])
     # B4's two kernels: the fields above are the f32 one's (SmolLM-360M's
     # prefill); the bf16 one's at Hymba-1.5B's prefill shape
     hb = times_hymba["flash_attention"]
@@ -2909,7 +3122,9 @@ def main() -> int:
         bf16_kernel=b4["dispatch_bf16"],
         bf16_ms=hb["ms"],
         bf16_bound_ms=hb["bound_ms"], bf16_library_ms=hb["library_ms"],
-        moe=moe_rows["flash_attention"])
+        moe=moe_rows["flash_attention"],
+        encdec=new_rows["encdec_serve"]["flash_attention"],
+        vlm=new_rows["vlm_serve"]["flash_attention"])
     kernels.append(dict(
         name="ssm_scan", route="cuda", source=f"{CSRC}/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:44",

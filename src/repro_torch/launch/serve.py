@@ -4,10 +4,13 @@
         [--smoke] [--requests 4] [--max-new 16] [--window 0] \
         [--cache-len 256] [--device cpu]
 
-``--arch``: a ported config (``smollm-360m``, ``hymba-1.5b``,
-``granite-moe-3b-a800m``, ``olmoe-1b-7b``, ...).  Full
-width unless ``--smoke``; on the GPU unless ``--device cpu`` (raises when
-there is no GPU).  The weights are random, drawn from seed 0.
+``--arch``: a config of ``repro_torch.configs`` (``smollm-360m``,
+``hymba-1.5b``, ``granite-moe-3b-a800m``, ``olmoe-1b-7b``,
+``xlstm-1.3b``, ``seamless-m4t-medium``, ``llava-next-mistral-7b``,
+...).  Full width unless ``--smoke``; on the GPU unless ``--device cpu``
+(raises when there is no GPU).  The weights are random, drawn from seed
+0.  An encoder-decoder decodes against the zero memory the engine starts
+with, as the reference's engine does; a VLM serves its text.
 """
 from __future__ import annotations
 

@@ -1,12 +1,16 @@
 """GQA self-attention for prefill and for decode with a KV cache (full or
-ring-buffer window): the port of the JAX package's ``models/attention.py``.
+ring-buffer window), and encoder-decoder cross-attention: the port of the
+JAX package's ``models/attention.py``.
 
 The core contraction goes through ``kernels/ops``: B4
 (``ops.flash_attention``) over the whole sequence at prefill, B5
 (``ops.decode_attention``) over the cache at decode.  On a CUDA tensor
 those launch the hand-written kernels; on a CPU tensor they run the plain
 versions.  The projections stay matrix products, as the reference leaves
-them to XLA.  Encoder-decoder cross-attention comes with that slice.
+them to XLA.  Cross-attention takes no RoPE and no mask: B4 without
+the causal mask over the encoder's memory when the decoder sends more
+than one position (a prefill), B5 over every memory position of every
+row for one position (a decode step).
 """
 from __future__ import annotations
 
@@ -100,7 +104,20 @@ def decode_attention(params, x: torch.Tensor, layer_cache, step: int,
     return out @ params["wo"].to(out.dtype), layer_cache
 
 
-def cross_attention(params, x, memory, cfg: ArchConfig):
-    """Decoder->encoder attention: comes with the encoder-decoder slice."""
-    raise ValueError("cross_attention (encoder-decoder) is not yet ported "
-                     "to repro_torch")
+def cross_attention(params, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """Decoder->encoder attention. x: (B, Sq, d); memory: (B, Sk, d).
+    K and V are projected from ``memory`` at every call, as in the
+    reference.  Sq > 1 runs B4 (``causal=False``, Sq and Sk as they
+    come); Sq = 1 runs B5 with ``length`` = Sk for every row."""
+    B, Sq, _ = x.shape
+    Sk = memory.shape[1]
+    q, k, v = _project_qkv(params, x, memory, cfg, None, None,
+                           use_rope=False)
+    if Sq == 1:
+        length = torch.full((B,), Sk, dtype=torch.int32, device=x.device)
+        out = ops.decode_attention(q[:, 0], k, v, length)
+    else:
+        out = ops.flash_attention(q, k, v, causal=False)
+    out = out.reshape(B, Sq, -1)
+    return out @ params["wo"].to(out.dtype)

@@ -9,6 +9,7 @@ input's dtype; projections run in the activation's dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -23,6 +24,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def span(name: str):
+    """A profiler label while ``torch.profiler`` records, else nothing
+    (``profile_serve`` sums the device time under each label)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], in_axis: int = 0,

@@ -38,7 +38,6 @@ When ``torch.profiler`` is on, the work is labelled ``moe.route``,
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple, Tuple
 
@@ -47,17 +46,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dense_init, dtype_of, gate_act
+from repro_torch.models.layers import span as _span
 
 GROUP_SIZE = 512
 SPANS = ("moe.route", "moe.dispatch", "moe.cast", "moe.experts",
          "moe.combine")
-
-
-def _span(name: str):
-    """A profiler label while ``torch.profiler`` records, else nothing."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig):

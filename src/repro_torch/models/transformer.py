@@ -1,24 +1,29 @@
 """The LM stack for serving: the port of the JAX package's
-``models/transformer.py`` for ATTN/SWA blocks, Mamba blocks and Hymba's
-parallel attention + Mamba blocks, with a dense, MoE (``models/moe.py``)
-or no FFN.
+``models/transformer.py`` for every block kind (ATTN/SWA, Mamba, Hymba's
+parallel attention + Mamba, xLSTM's mLSTM and sLSTM) with a dense, MoE
+(``models/moe.py``) or no FFN, the encoder stack and cross-attention of
+an encoder-decoder (SeamlessM4T), and the projected frontend prefix of a
+VLM (LLaVA-NeXT).
 
-Parameters live in an ``nn.ModuleDict`` with the reference's names:
-``embed`` (``tok`` [, ``head``]), ``layers`` (an ``nn.ModuleList``, one
-entry per layer: ``ln1``, ``attn`` and/or ``mamba``, ``ln2``, ``ffn`` or
-``moe``) and ``final_norm``.
-The reference's layer ``scan`` over stacked weights becomes a loop over
-the list; ``lm_params_from_numpy`` unstacks the reference's ``unit``
-tree into it.  The parameters carry no gradient: the LM side of the port
-serves; LM training (``remat``, the LDP ``noise=``) comes later.
+Parameters live in an :class:`LMParams` (an ``nn.ModuleDict``) with the
+reference's names: ``embed`` (``tok`` [, ``head``]), ``layers`` (an
+``nn.ModuleList``, one entry per layer: ``ln1``, ``attn`` / ``mamba`` /
+``mlstm`` / ``slstm``, [``ln_cross``, ``cross``], ``ln2``, ``ffn`` or
+``moe``), ``final_norm`` and, where the config has them, the bare tensor
+``frontend_proj``, ``enc_unit`` (an ``nn.ModuleList`` of ATTN layers)
+and ``enc_norm``.  The reference's layer ``scan`` over stacked weights
+becomes a loop over the list; ``lm_params_from_numpy`` unstacks the
+reference's ``unit`` and ``enc_unit`` trees into it.  The parameters
+carry no gradient: the LM side of the port serves; LM training
+(``remat``, the LDP ``noise=``) comes later.
 
-The xLSTM block kinds (mLSTM, sLSTM), a multimodal frontend, an encoder
-and ``moe_group_shard`` raise a ``ValueError`` naming them "not yet
-ported"; a ``moe_impl`` other than ``"scatter"`` or ``"einsum"`` raises
-a ``ValueError`` too.
+``noise=`` and ``moe_group_shard`` raise a ``ValueError`` naming them
+"not yet ported"; a ``moe_impl`` other than ``"scatter"`` or
+``"einsum"`` and an unknown block kind raise a ``ValueError`` too.
 
 Public API:
     init_lm(gen, cfg, device)                       -> params
+    encode(params, enc_embeds, cfg)                 -> memory (enc-dec)
     forward(params, inputs, cfg, ...)               -> (hidden, aux)
     forward_logits(params, inputs, cfg, ...)        -> (logits, aux)
     init_decode_state(cfg, batch, cache_len, dtype, window, device) -> state
@@ -27,7 +32,7 @@ Public API:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +44,8 @@ from repro_torch.configs.base import (
     FFN_MOE,
     HYMBA,
     MAMBA,
+    MLSTM,
+    SLSTM,
     SWA,
     ArchConfig,
 )
@@ -46,6 +53,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
+    dense_init,
+    dtype_of,
     embed,
     ffn,
     init_embedding,
@@ -56,7 +65,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.tree import resolve_device, tree_map
 
-PORTED_KINDS = (ATTN, SWA, MAMBA, HYMBA)
+PORTED_KINDS = (ATTN, SWA, MAMBA, HYMBA, MLSTM, SLSTM)
 MOE_IMPLS = {"scatter": moe_lib.moe_ffn, "einsum": moe_lib.moe_ffn_einsum}
 
 
@@ -64,36 +73,47 @@ def _not_ported(what: str) -> ValueError:
     return ValueError(f"{what} is not yet ported to repro_torch")
 
 
-def _check_kind(kind: str, cross: bool = False) -> None:
+def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
-        raise _not_ported(f"block kind {kind!r}")
-    if cross:
-        raise _not_ported("cross-attention")
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for any part of ``cfg`` the port cannot run yet."""
+    """Raise for any part of ``cfg`` the port cannot run."""
     for kind in sorted(set(cfg.pattern())):
-        if kind not in PORTED_KINDS:
-            raise _not_ported(f"block kind {kind!r} ({cfg.name})")
+        _check_kind(kind)
     if cfg.ffn_kind == FFN_MOE:
         if cfg.moe_impl not in MOE_IMPLS:
             raise ValueError(f"moe_impl {cfg.moe_impl!r} ({cfg.name}): "
                              f"expected one of {sorted(MOE_IMPLS)}")
         if cfg.moe_group_shard:
             raise _not_ported(f"moe_group_shard ({cfg.name})")
-    if cfg.frontend != "none":
-        raise _not_ported(f"the {cfg.frontend} frontend ({cfg.name})")
-    if cfg.n_enc_layers:
-        raise _not_ported(f"the encoder stack ({cfg.name})")
+
+
+class LMParams(nn.ModuleDict):
+    """The model's parameters: sub-trees as modules under the reference's
+    keys, plus ``frontend_proj``, which the reference keeps as a bare
+    array beside them, as a parameter of its own that ``params[key]`` and
+    ``key in params`` reach like the rest."""
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return super().__getitem__(key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or super().__contains__(key)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
 
 
 def _module(tree: Dict[str, Any]) -> nn.Module:
     """A nested dict of tensors as ``nn.ModuleDict``s of frozen
     ``nn.ParameterDict``s, keeping the keys."""
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                                 for k, v in tree.items()})
+        return nn.ParameterDict({k: _frozen(v) for k, v in tree.items()})
     return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
 
 
@@ -117,24 +137,38 @@ def _mamba_d_in(kind: str, cfg: ArchConfig) -> int:
 
 def init_sublayer(gen: torch.Generator, kind: str, cfg: ArchConfig,
                   cross: bool = False) -> Dict[str, Any]:
-    _check_kind(kind, cross)
-    p: Dict[str, Any] = {"ln1": init_rmsnorm(cfg.d_model, device=gen.device)}
+    _check_kind(kind)
+    dev = gen.device
+    p: Dict[str, Any] = {"ln1": init_rmsnorm(cfg.d_model, device=dev)}
     if kind in (ATTN, SWA, HYMBA):
         p["attn"] = attn_lib.init_attention(gen, cfg)
     if kind in (MAMBA, HYMBA):
         p["mamba"] = ssm_lib.init_mamba(gen, cfg, d_in=_mamba_d_in(kind, cfg))
+    if kind == MLSTM:
+        p["mlstm"] = ssm_lib.init_mlstm(gen, cfg)
+    if kind == SLSTM:
+        p["slstm"] = ssm_lib.init_slstm(gen, cfg)
+    if cross:
+        p["ln_cross"] = init_rmsnorm(cfg.d_model, device=dev)
+        p["cross"] = attn_lib.init_attention(gen, cfg, cross=True)
     if cfg.ffn_kind == FFN_DENSE and cfg.d_ff:
-        p["ln2"] = init_rmsnorm(cfg.d_model, device=gen.device)
+        p["ln2"] = init_rmsnorm(cfg.d_model, device=dev)
         p["ffn"] = init_ffn(gen, cfg)
     elif cfg.ffn_kind == FFN_MOE:
-        p["ln2"] = init_rmsnorm(cfg.d_model, device=gen.device)
+        p["ln2"] = init_rmsnorm(cfg.d_model, device=dev)
         p["moe"] = moe_lib.init_moe(gen, cfg)
     return p
 
 
-def _apply_ffn(p, x: torch.Tensor, cfg: ArchConfig
-               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The residual FFN of a layer: (x, the MoE's aux loss or None)."""
+def _apply_cross_ffn(p, x: torch.Tensor, cfg: ArchConfig,
+                     memory: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """What follows the mixer in a layer: cross-attention onto ``memory``
+    (a decoder layer of an encoder-decoder), then the residual FFN.
+    Returns (x, the MoE's aux loss or None)."""
+    if memory is not None and "cross" in p:
+        x = x + attn_lib.cross_attention(
+            p["cross"], rmsnorm(p["ln_cross"], x, cfg.norm_eps), memory, cfg)
     aux = None
     if "ffn" in p:
         x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
@@ -149,16 +183,20 @@ def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
                    window: int = 0, memory: Optional[torch.Tensor] = None,
                    causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence (prefill) form. Returns (x, aux_loss)."""
-    _check_kind(kind, memory is not None)
+    _check_kind(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == MAMBA:
         mix = ssm_lib.mamba_scan(p["mamba"], h, cfg)
+    elif kind == MLSTM:
+        mix = ssm_lib.mlstm_scan(p["mlstm"], h, cfg)
+    elif kind == SLSTM:
+        mix = ssm_lib.slstm_scan(p["slstm"], h, cfg)
     else:
         mix = attn_lib.self_attention(p["attn"], h, cfg, causal=causal,
                                       window=window)
         if kind == HYMBA:
             mix = 0.5 * (mix + ssm_lib.mamba_scan(p["mamba"], h, cfg))
-    x, aux = _apply_ffn(p, x + mix, cfg)
+    x, aux = _apply_cross_ffn(p, x + mix, cfg, memory)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -167,9 +205,10 @@ def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
 def sublayer_state(kind: str, cfg: ArchConfig, batch: int, cache_len: int,
                    dtype: torch.dtype, device=None) -> Dict[str, Any]:
     """One layer's decode state: the K and V caches (B, L, Hkv, hd) of an
-    attention or Hymba layer, and the ``mamba`` state of a Mamba or Hymba
+    attention or Hymba layer, the ``mamba`` state of a Mamba or Hymba
     layer (``h`` (B, d_in, N) f32, ``conv`` (B, CONV_WIDTH - 1, d_in) in
-    ``dtype``)."""
+    ``dtype``), the ``mlstm`` state (``C``, ``n``, ``m``) or the
+    ``slstm`` state (``h``, ``c``, ``n``, ``m``), all f32."""
     _check_kind(kind)
     s: Dict[str, Any] = {}
     if kind in (ATTN, SWA, HYMBA):
@@ -179,6 +218,12 @@ def sublayer_state(kind: str, cfg: ArchConfig, batch: int, cache_len: int,
     if kind in (MAMBA, HYMBA):
         s["mamba"] = ssm_lib.mamba_state_init(
             cfg, batch, _mamba_d_in(kind, cfg), dtype, device=device)
+    if kind == MLSTM:
+        s["mlstm"] = ssm_lib.mlstm_state_init(cfg, batch, dtype,
+                                              device=device)
+    if kind == SLSTM:
+        s["slstm"] = ssm_lib.slstm_state_init(cfg, batch, dtype,
+                                              device=device)
     return s
 
 
@@ -187,54 +232,107 @@ def apply_sublayer_decode(p, kind: str, x: torch.Tensor, state, step: int,
                           memory: Optional[torch.Tensor] = None):
     """One decode step of one layer; updates ``state`` in place and
     returns (x, state)."""
-    _check_kind(kind, memory is not None)
+    _check_kind(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == MAMBA:
         mix, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg)
+    elif kind == MLSTM:
+        mix, _ = ssm_lib.mlstm_decode(p["mlstm"], h, state["mlstm"], cfg)
+    elif kind == SLSTM:
+        mix, _ = ssm_lib.slstm_decode(p["slstm"], h, state["slstm"], cfg)
     else:
         mix, _ = attn_lib.decode_attention(p["attn"], h, state, step, cfg,
                                            window=window)
         if kind == HYMBA:
             m, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg)
             mix = 0.5 * (mix + m)
-    x, _ = _apply_ffn(p, x + mix, cfg)
+    x, _ = _apply_cross_ffn(p, x + mix, cfg, memory)
     return x, state
 
 
 # ---------------------------------------------------------------------------
 # Full model
-def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None) -> nn.Module:
+def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None) -> LMParams:
     """Random weights drawn from ``gen`` on its device, then moved to
     ``device`` (None: the GPU, raising when there is none)."""
     check_ported(cfg)
     dev = resolve_device(device)
+    cross = cfg.n_enc_layers > 0
     emb = init_embedding(gen, cfg)
-    layers = [init_sublayer(gen, kind, cfg) for kind in cfg.pattern()]
+    layers = [init_sublayer(gen, kind, cfg, cross=cross)
+              for kind in cfg.pattern()]
     final = init_rmsnorm(cfg.d_model, device=gen.device)
-    return _assemble(emb, layers, final).to(dev)
+    extra: Dict[str, Any] = {}
+    if cfg.frontend != "none":
+        # the stub frontend's projector (patch / frame embeddings -> d)
+        extra["frontend_proj"] = dense_init(
+            gen, (cfg.d_model, cfg.d_model), dtype=dtype_of(cfg.param_dtype))
+    if cfg.n_enc_layers:
+        extra["enc_unit"] = [init_sublayer(gen, ATTN, cfg)
+                             for _ in range(cfg.n_enc_layers)]
+        extra["enc_norm"] = init_rmsnorm(cfg.d_model, device=gen.device)
+    return _assemble(emb, layers, final, **extra).to(dev)
 
 
-def _assemble(emb, layers, final) -> nn.Module:
-    return nn.ModuleDict({
+def _assemble(emb, layers, final, frontend_proj=None, enc_unit=None,
+              enc_norm=None) -> LMParams:
+    params = LMParams({
         "embed": _module(emb),
         "layers": nn.ModuleList([_module(p) for p in layers]),
         "final_norm": _module(final)})
+    if frontend_proj is not None:
+        params.register_parameter("frontend_proj", _frozen(frontend_proj))
+    if enc_unit is not None:
+        params["enc_unit"] = nn.ModuleList([_module(p) for p in enc_unit])
+        params["enc_norm"] = _module(enc_norm)
+    return params
+
+
+def encode(params, enc_embeds: torch.Tensor, cfg: ArchConfig
+           ) -> torch.Tensor:
+    """The encoder stack of an encoder-decoder. enc_embeds: (B, F, d) ->
+    memory (B, F, d) in the compute dtype: ``frontend_proj``, then the
+    ``enc_unit`` ATTN layers without the causal mask (B4 in each), then
+    ``enc_norm``."""
+    x = enc_embeds.to(dtype_of(cfg.compute_dtype))
+    if "frontend_proj" in params:
+        x = x @ params["frontend_proj"].to(x.dtype)
+    for p in params["enc_unit"]:
+        x, _ = apply_sublayer(p, ATTN, x, cfg, causal=False)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def forward(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig, *,
             window: int = 0, noise: Optional[Tuple] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefill forward. Returns (final hidden states, aux loss); the LM
-    head is applied by the caller.  inputs: tokens (B, S)."""
+    """Prefill forward. Returns (final hidden states over the text
+    positions, aux loss); the LM head is applied by the caller.
+
+    inputs: tokens (B, S_text) [, frontend_embeds (B, F, d)] [,
+    enc_embeds (B, F, d)].  A VLM's ``frontend_embeds`` are projected
+    by ``frontend_proj`` and run as a prefix before the tokens, their F
+    positions dropped from the output; an encoder-decoder's
+    ``enc_embeds`` go through :func:`encode`, and every decoder layer
+    attends to the result."""
     check_ported(cfg)
     if noise is not None:
         raise _not_ported("the LDP input noise (noise=)")
     x = embed(params["embed"], inputs["tokens"], cfg)
+    n_front = 0
+    if (cfg.frontend != "none" and "frontend_embeds" in inputs
+            and cfg.n_enc_layers == 0):
+        fe = inputs["frontend_embeds"].to(x.dtype)
+        fe = fe @ params["frontend_proj"].to(x.dtype)
+        x = torch.cat([fe, x], dim=1)                # image / audio prefix
+        n_front = fe.shape[1]
+    memory = (encode(params, inputs["enc_embeds"], cfg)
+              if cfg.n_enc_layers else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], cfg.pattern()):
-        x, a = apply_sublayer(p, kind, x, cfg, window=window)
+        x, a = apply_sublayer(p, kind, x, cfg, window=window, memory=memory)
         aux = aux + a                 # summed in layer order
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x[:, n_front:], aux
 
 
 def forward_logits(params, inputs, cfg: ArchConfig, *, window: int = 0,
@@ -250,22 +348,33 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       dtype: torch.dtype, window: int = 0,
                       device=None) -> Dict[str, Any]:
     """Per-layer decode state (a list, one dict per layer).  With a
-    window the cache holds ``min(cache_len, window)`` slots (a ring)."""
+    window the cache holds ``min(cache_len, window)`` slots (a ring).
+    An encoder-decoder's state also holds ``memory`` (B, F, d) in
+    ``dtype``, zeros until the caller sets it (``encode``'s output)."""
     check_ported(cfg)
     L = min(cache_len, window) if window else cache_len
     dev = resolve_device(device)
-    return {"layers": [sublayer_state(kind, cfg, batch, L, dtype, dev)
-                       for kind in cfg.pattern()]}
+    state: Dict[str, Any] = {
+        "layers": [sublayer_state(kind, cfg, batch, L, dtype, dev)
+                   for kind in cfg.pattern()]}
+    if cfg.n_enc_layers:
+        state["memory"] = torch.zeros(
+            (batch, cfg.frontend_tokens, cfg.d_model), dtype=dtype,
+            device=dev)
+    return state
 
 
 def decode_step(params, state, tokens: torch.Tensor, step: int,
                 cfg: ArchConfig, *, window: int = 0):
     """One decode step. tokens: (B, 1) integer; step: tokens already in the
-    cache.  Returns (logits (B, 1, vocab_pad), state), the caches updated
-    in place."""
+    cache.  Returns (logits (B, 1, vocab_pad), state), the caches and
+    recurrent states updated in place; every decoder layer of an
+    encoder-decoder attends to ``state["memory"]``."""
     x = embed(params["embed"], tokens, cfg)
+    memory = state.get("memory")
     for p, s, kind in zip(params["layers"], state["layers"], cfg.pattern()):
-        x, _ = apply_sublayer_decode(p, kind, x, s, step, cfg, window=window)
+        x, _ = apply_sublayer_decode(p, kind, x, s, step, cfg, window=window,
+                                     memory=memory)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg), state
 
@@ -285,21 +394,39 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _unstack(tree, n: int, device) -> List[Dict[str, Any]]:
+    """Slices 0..n-1 of a tree whose leaves share a leading axis."""
+    return [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], device), tree)
+            for i in range(n)]
+
+
+def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
+    return tree_map(lambda *xs: np.stack(xs), *trees)
+
+
 def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
-                         device=None) -> nn.Module:
+                         device=None) -> LMParams:
     """The reference's ``init_lm`` tree (arrays as numpy) as the port's
     parameters: ``tree["unit"][j]`` holds unit entry ``j`` of every layer
     group on a leading ``n_groups`` axis; layer ``g * len(unit) + j`` is
-    its slice ``g``."""
+    its slice ``g``.  ``enc_unit`` holds the encoder's layers on a
+    leading ``n_enc_layers`` axis; ``frontend_proj`` and ``enc_norm``
+    carry over as they are."""
     check_ported(cfg)
     dev = resolve_device(device)
     unit, n_groups = factor_pattern(cfg.pattern())
-    layers = [tree_map(lambda a, g=g: _tensor(np.asarray(a)[g], dev),
-                       tree["unit"][j])
-              for g in range(n_groups) for j in range(len(unit))]
-    return _assemble(tree_map(lambda a: _tensor(a, dev), tree["embed"]),
-                     layers,
-                     tree_map(lambda a: _tensor(a, dev), tree["final_norm"]))
+    per_entry = [_unstack(t, n_groups, dev) for t in tree["unit"]]
+    layers = [per_entry[j][g] for g in range(n_groups)
+              for j in range(len(unit))]
+    as_tensors = lambda t: tree_map(lambda a: _tensor(a, dev), t)
+    extra: Dict[str, Any] = {}
+    if "frontend_proj" in tree:
+        extra["frontend_proj"] = _tensor(tree["frontend_proj"], dev)
+    if "enc_unit" in tree:
+        extra["enc_unit"] = _unstack(tree["enc_unit"], cfg.n_enc_layers, dev)
+        extra["enc_norm"] = as_tensors(tree["enc_norm"])
+    return _assemble(as_tensors(tree["embed"]), layers,
+                     as_tensors(tree["final_norm"]), **extra)
 
 
 def lm_params_to_numpy(params, cfg: ArchConfig) -> Dict[str, Any]:
@@ -307,13 +434,18 @@ def lm_params_to_numpy(params, cfg: ArchConfig) -> Dict[str, Any]:
     layout as numpy arrays (bf16 weights come back as f32)."""
     unit, n_groups = factor_pattern(cfg.pattern())
     per_layer = [tree_map(_numpy, _as_dict(p)) for p in params["layers"]]
-    stacked = tuple(
-        tree_map(lambda *xs: np.stack(xs),
-                 *[per_layer[g * len(unit) + j] for g in range(n_groups)])
-        for j in range(len(unit)))
-    return {"embed": tree_map(_numpy, _as_dict(params["embed"])),
-            "unit": stacked,
-            "final_norm": tree_map(_numpy, _as_dict(params["final_norm"]))}
+    out = {"embed": tree_map(_numpy, _as_dict(params["embed"])),
+           "unit": tuple(
+               _stack([per_layer[g * len(unit) + j] for g in range(n_groups)])
+               for j in range(len(unit))),
+           "final_norm": tree_map(_numpy, _as_dict(params["final_norm"]))}
+    if "frontend_proj" in params:
+        out["frontend_proj"] = _numpy(params["frontend_proj"])
+    if "enc_unit" in params:
+        out["enc_unit"] = _stack([tree_map(_numpy, _as_dict(p))
+                                  for p in params["enc_unit"]])
+        out["enc_norm"] = tree_map(_numpy, _as_dict(params["enc_norm"]))
+    return out
 
 
 def _as_dict(mod: nn.Module) -> Dict[str, Any]:

@@ -7,11 +7,19 @@ positions are attended) and fed token by token through the decode step,
 so prefill and generation run one program: B5 in every attention layer
 of every step, and no B6 (a Mamba layer's decode is a one-step update).
 An MoE FFN routes the batch's B tokens of a step (capacity per call, at
-least 8 slots an expert), with no kernel of its own.
+least 8 slots an expert), with no kernel of its own.  An mLSTM or sLSTM
+layer (xLSTM) takes one step of its recurrence, launching no kernel.
 The decode state (``tr.init_decode_state``) holds each layer's K/V caches
 and, for Mamba and Hymba layers, the scan state ``h`` and the convolution
-window ``conv``; the step writes all of them in place.  Random draws come from a ``torch.Generator`` on the engine's
-device, seeded from ``seed``; they are not ``jax.random``'s numbers.
+window ``conv``, for xLSTM layers their recurrent states; the step writes
+all of them in place.  An encoder-decoder's state also holds the
+encoder's ``memory``, which every decoder layer's cross-attention reads
+(B5 over all of it); like the reference's, the engine never fills it:
+it stays at the zeros of ``init_decode_state`` unless the caller sets
+``engine.state["memory"] = tr.encode(...)`` before ``generate``.  A
+VLM's frontend takes no part in decoding.  Random draws come from a
+``torch.Generator`` on the engine's device, seeded from ``seed``; they
+are not ``jax.random``'s numbers.
 """
 from __future__ import annotations
 

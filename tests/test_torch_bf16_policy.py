@@ -2,10 +2,12 @@
 
 Every other model test runs the smoke configs in f32 (``reduce_for_smoke``
 sets both dtypes to float32).  Here the smoke configs of SmolLM-360M,
-Hymba-1.5B, Granite-MoE-3B-a800m and OLMoE-1B-7B get
-``compute_dtype="bfloat16"`` in both packages, with the reference's own
-``init_lm`` weights (f32), and each package's bf16 logits are compared
-with the reference's f32 logits on the same tokens:
+Hymba-1.5B, Granite-MoE-3B-a800m, OLMoE-1B-7B, xLSTM-1.3B and
+LLaVA-NeXT-Mistral-7B get ``compute_dtype="bfloat16"`` in both packages,
+with the reference's own ``init_lm`` weights (f32), and each package's
+bf16 logits are compared with the reference's f32 logits on the same
+tokens (LLaVA's after a prefix of 16 patch embeddings, the same numpy
+array in both):
 
     e_port = port_bf16 - ref_f32,   e_ref = ref_bf16 - ref_f32.
 
@@ -20,8 +22,11 @@ their size, with bounds fixed before the first run:
 * ``max|e_port| <= 1.5 * max|e_ref|``.
 
 S = 300 passes the reference's Q_CHUNK = 256 and, for Hymba, the Mamba
-scan's 128-step chunks.  A miss is a fault of the port, to be fixed in
-``src/repro_torch/``, not by moving the bounds.
+scan's 128-step chunks.  xLSTM runs S = 16 and 768 instead: the
+reference's sLSTM scan takes only multiples of 256 past 256 steps, and
+768 puts the mLSTM in three chunks of 256 (gcd(768, 512)).  A miss is
+a fault of the port, to be fixed in ``src/repro_torch/``, not by moving
+the bounds.
 
 The MoE models route each token to its top-k experts, a discontinuity:
 where the f32 run's k-th and (k+1)-th router probabilities nearly tie,
@@ -55,6 +60,9 @@ from repro_torch.models import transformer as tr
 ARCHS = ["smollm-360m", "hymba-1.5b", "granite-moe-3b-a800m",
          "olmoe-1b-7b"]
 LENGTHS = [16, 300]
+CASES = [(arch, S) for arch in ARCHS for S in LENGTHS] + [
+    ("xlstm-1.3b", 16), ("xlstm-1.3b", 768),
+    ("llava-next-mistral-7b", 16), ("llava-next-mistral-7b", 300)]
 RMS_RATIO = (0.5, 1.25)
 MAX_RATIO = 1.5
 # 5 bf16 ulps (2^-8 relative each) of the router's input, on router
@@ -173,8 +181,13 @@ def logits(arch, S):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(_bf16(jcfg))
     tree = _weights(arch)
     jparams = jax.tree.map(jnp.asarray, tree)
-    toks = np.random.RandomState(S).randint(0, cfg.vocab_size, (2, S))
-    jtoks = {"tokens": jnp.asarray(toks)}
+    rng = np.random.RandomState(S)
+    toks = rng.randint(0, cfg.vocab_size, (2, S))
+    inputs = {"tokens": toks}
+    if cfg.frontend != "none":
+        inputs["frontend_embeds"] = rng.randn(
+            2, cfg.frontend_tokens, cfg.d_model).astype(np.float32)
+    jtoks = {k: jnp.asarray(v) for k, v in inputs.items()}
     logs = {name: RoutingLog() for name in ("ref32", "ref16", "port16")}
     ref32, _ = logs["ref32"].run(logs["ref32"].reference(), lambda: (
         jax.block_until_ready(jtr.forward_logits(jparams, jtoks, jcfg))))
@@ -183,7 +196,8 @@ def logits(arch, S):
                                                  _bf16(jcfg)))))
     port16, _ = logs["port16"].run(logs["port16"].port(), lambda: (
         tr.forward_logits(tr.lm_params_from_numpy(tree, cfg, device="cpu"),
-                          {"tokens": torch.from_numpy(toks)}, cfg)))
+                          {k: torch.from_numpy(v) for k, v in inputs.items()},
+                          cfg)))
     held, flips = np.ones(toks.shape, bool), {}
     for name in ("ref16", "port16"):
         mask, flips[name] = untouched(logs["ref32"].calls, logs[name].calls,
@@ -206,8 +220,7 @@ def errors(arch, S):
             float(np.abs(e_ref).max()))
 
 
-@pytest.mark.parametrize("S", LENGTHS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,S", CASES)
 def test_bf16_logits_in_bf16_in_both_packages(arch, S):
     ref32, _, port16, ref_dtype, port_dtype, held, _ = logits(arch, S)
     assert ref_dtype == "bfloat16" and port_dtype == torch.bfloat16
@@ -218,8 +231,7 @@ def test_bf16_logits_in_bf16_in_both_packages(arch, S):
     assert held.all() or "moe" in arch
 
 
-@pytest.mark.parametrize("S", LENGTHS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,S", CASES)
 def test_bf16_error_is_the_reference_s(arch, S):
     rms_port, rms_ref, max_port, max_ref = errors(arch, S)
     assert rms_ref > 0
@@ -232,12 +244,11 @@ def test_bf16_error_is_the_reference_s(arch, S):
 
 
 if __name__ == "__main__":
-    for arch in ARCHS:
-        for S in LENGTHS:
-            rp, rr, mp, mr = errors(arch, S)
-            held, flips = logits(arch, S)[5:]
-            print(f"{arch:12s} S={S:4d} RMS port {rp:.4g} ref {rr:.4g} "
-                  f"(ratio {rp / rr:.3f}); max port {mp:.4g} ref {mr:.4g} "
-                  f"(ratio {mp / mr:.3f}); held {int(held.sum())}/"
-                  f"{held.size} positions; flips (layer, token, f32 gap) "
-                  f"{flips}")
+    for arch, S in CASES:
+        rp, rr, mp, mr = errors(arch, S)
+        held, flips = logits(arch, S)[5:]
+        print(f"{arch:12s} S={S:4d} RMS port {rp:.4g} ref {rr:.4g} "
+              f"(ratio {rp / rr:.3f}); max port {mp:.4g} ref {mr:.4g} "
+              f"(ratio {mp / mr:.3f}); held {int(held.sum())}/"
+              f"{held.size} positions; flips (layer, token, f32 gap) "
+              f"{flips}")

@@ -647,6 +647,89 @@ def test_cuda_granite_moe_smoke_model_matches_the_cpu():
     assert [o.tolist() for o in outs[0]] == [o.tolist() for o in outs[1]]
 
 
+
+@pytest.mark.cuda
+def test_cuda_xlstm_smoke_model_launches_no_kernel_and_matches_the_cpu():
+    """The xLSTM smoke model ([mLSTM, sLSTM], d 256, f32) with the same
+    weights on the card and on the CPU: the prefill forward over 2 x 256
+    tokens (one mLSTM chunk, one 256-step sLSTM scan chunk) within abs/rel
+    5e-5 (as the Hymba test holds it), no kernel of the port launched
+    (the reference's mLSTM and sLSTM are plain XLA), and greedy tokens of
+    a ``ServeEngine.generate`` equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import ServeEngine, ServeRequest
+
+    cfg = reduce_for_smoke(get_arch("xlstm-1.3b"))
+    cpu = tr.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = tr.lm_params_from_numpy(tr.lm_params_to_numpy(cpu, cfg), cfg,
+                                  device="cuda")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 256)))
+    for mod in (fa_k, dec_k, ssm_scan):
+        mod.reset_launch_counts()
+    got, _ = tr.forward_logits(gpu, {"tokens": toks.cuda()}, cfg)
+    want, _ = tr.forward_logits(cpu, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=5e-5)
+    prompts = [np.arange(1, 9, dtype=np.int32), np.arange(5, 8,
+                                                          dtype=np.int32)]
+    outs = [ServeEngine(p, cfg, batch=2, cache_len=32, device=dev).generate(
+        [ServeRequest(prompt=q, max_new=6) for q in prompts])
+        for p, dev in ((cpu, "cpu"), (gpu, "cuda"))]
+    assert [o.tolist() for o in outs[0]] == [o.tolist() for o in outs[1]]
+    assert sum(m for mod in (fa_k, dec_k, ssm_scan)
+               for m in mod.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llava-next-mistral-7b"])
+def test_cuda_encdec_and_vlm_smoke_launches_per_step(arch):
+    """The SeamlessM4T and LLaVA smoke models on the card: a prefill step
+    launches B4 once per encoder layer, decoder layer and cross-attention
+    (2 + 2 + 2) or once per layer (2); a decode step B5 once per decoder
+    layer and cross-attention (2 + 2) or once per layer (2), the encoded
+    memory in the state; the logits within abs/rel 5e-5 of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, prefill_inputs)
+    from repro_torch.models import transformer as tr
+
+    cfg = reduce_for_smoke(get_arch(arch))
+    enc = bool(cfg.n_enc_layers)
+    cpu = tr.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = tr.lm_params_from_numpy(tr.lm_params_to_numpy(cpu, cfg), cfg,
+                                  device="cuda")
+    inputs = prefill_inputs(cfg, 2, 200, torch.Generator().manual_seed(1))
+    fa_k.reset_launch_counts()
+    got = make_prefill_step(cfg)(gpu, {k: v.cuda() for k, v in
+                                       inputs.items()})
+    torch.cuda.synchronize()
+    assert fa_k.LAUNCHES["flash_attention"] == (6 if enc else 2)
+    want = make_prefill_step(cfg)(cpu, inputs)
+    torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=5e-5)
+    states = {}
+    for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        states[dev] = tr.init_decode_state(cfg, 2, 16, torch.float32,
+                                           device=dev)
+        if enc:
+            states[dev]["memory"] = tr.encode(
+                params, inputs["enc_embeds"].to(dev), cfg)
+    step = make_decode_step(cfg)
+    for t in range(4):
+        tok = inputs["tokens"][:, t:t + 1]
+        dec_k.reset_launch_counts()
+        got, states["cuda"] = step(gpu, states["cuda"], tok.cuda(), t)
+        torch.cuda.synchronize()
+        assert dec_k.LAUNCHES["decode_attention"] == (4 if enc else 2)
+        want, states["cpu"] = step(cpu, states["cpu"], tok, t)
+        torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=5e-5)
+
 def _quorum_schedule(rounds):
     """The quickstart's quorum server over 10 clients of heterogeneous
     latency."""
