@@ -12,7 +12,7 @@ two kernels by dtype, both on the tensor cores: f32 by 3xTF32
 spills per head dim are printed --, decode attention
 B5 in ``decode_attention.cu`` -- one kernel, ``decode_cluster``, one
 cluster launch per call --, the Mamba selective scan B6 in
-``ssm_scan.cu``).
+``ssm_scan.cu``, B4's backward in ``flash_attention_bwd.cu``).
 
 Training path (B1-B3): holds each kernel against its plain PyTorch
 version on the card, bit for bit, at the main path's shapes, on the
@@ -125,13 +125,35 @@ and B5 24 a decode step for SeamlessM4T (encoder, self, cross), 32 and
 CPU and on the card (``smoke_cpu_vs_cuda``: logits within 2e-3, greedy
 tokens equal; for xLSTM the card's prefill against its decode at 5e-4).
 
+LM training path (B1, B4 and B4's backward, ``lm_train``): holds B4's
+backward (``flash_attention_bwd.cu``: dQ with delta, then dK and dV, two
+launches a call; f32 FMAs on the CUDA cores) against its plain version
+(``ref.flash_attention_bwd_ref``) within BWD_ATOL + BWD_RTOL |plain|
+elementwise at SmolLM-360M's training shape (1 x 4,096, 15/5 x 64,
+causal), with a window, and without a mask at SeamlessM4T's 4,096 x
+1,500 cross shape, and two calls bit for bit; B4's output bit for bit
+with and without its log-sum-exp output at SmolLM's prefill shape and
+SeamlessM4T's cross shape; times the backward at the training shape
+beside its bound (3xTF32 roof, and the f32 CUDA cores' as
+``simt_bound_ms``), its plain version and SDPA's f32 backward; trains
+SmolLM-360M at full width (f32, remat) for 3 BAFDP rounds through
+``launch.steps.make_train_step`` (4 clients, one 4,096-token sequence
+each, ``sign_flip`` at a Byzantine fraction of 0.25), checking the
+launches (a round: B1 once, B4 2 x 32 x 4 with remat's recompute, its
+backward 32 x 4 calls x 2), finite losses and weights and that W moved,
+and printing ms per round, peak memory and the card's busy share (the
+last round under ``torch.profiler``); and runs the 2-layer smoke model
+through the same step on the CPU and on the card (C=2, every client
+active, the LDP noise below rounding) under ``drift_check``.
+
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
 launches (summed over the main-path runs: B1's include the robust dense
 runs, Table IV's BAFDP rows and the paper suites' constant-decay runs,
 B2's and B3's the sparse, robust and scale runs and the Figs. 4-6
 scenarios) and times.  Its B1-B3 entries
-give ``kernel`` (the f32 instance's ptxas label) with ``ptxas`` (its
+(B1's also the lm_train rounds) give ``kernel`` (the f32 instance's
+ptxas label) with ``ptxas`` (its
 and the bf16 instance's registers and spills), the time per round of the
 8 leaves as one grouped call, ``call_ms`` (its host time) and, as
 ``one_leaf_ms``/``one_leaf_call_ms``, the same round in eight one-leaf
@@ -152,7 +174,10 @@ models launch.  B4's and B5's ``moe`` lists give each at each MoE
 model's shape, bf16 (``kernel``: the instance, ms, bound, plain and
 SDPA ms), and their ``encdec`` and ``vlm`` lists the same at
 SeamlessM4T's and LLaVA's shapes; their launches include the MoE,
-SeamlessM4T and LLaVA runs.
+SeamlessM4T and LLaVA runs, B4's also the lm_train rounds.  Its
+``flash_attention_bwd`` entry (no TPU counterpart) gives the backward at
+SmolLM-360M's training shape, with ``simt_bound_ms`` and the ptxas lines
+of its two kernels; its launches are the lm_train rounds'.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -280,6 +305,30 @@ MOE_FORMS_BS = (4, 1024)
 XLSTM, SEAMLESS, LLAVA = ("xlstm-1.3b", "seamless-m4t-medium",
                           "llava-next-mistral-7b")
 SMOKE_VS_ROWS, SMOKE_VS_S, SMOKE_VS_DECODE, SMOKE_VS_NEW = 2, 64, 24, 8
+
+# LM training (lm_train): SmolLM-360M at full width (32 layers, d 960,
+# 15/5 heads x 64, vocab 49,152, f32, remat) trains LM_TRAIN_ROUNDS BAFDP
+# rounds through launch.steps.make_train_step, C = LM_TRAIN_CLIENTS
+# clients with one LM_TRAIN_S-token sequence each (the train_4k shape's
+# global batch of 256 does not fit one card at this width: a cut), the
+# knobs of examples/federated_lm_training.py.  B4's backward is held to
+# its plain version within BWD_ATOL + BWD_RTOL |plain| elementwise (f32
+# sums in another order; stated before the kernel's first chip run) at
+# BWD_CASES: the training shape, a window and a no-mask Sq != Sk case
+# (SeamlessM4T's cross-attention).  B4's output with and without its
+# log-sum-exp, bit for bit, at LSE_CASES: SmolLM's prefill and
+# SeamlessM4T's cross shape.  CPU vs card: the 2-layer smoke model, C=2,
+# LM_TRAIN_ROUNDS rounds, the noise below rounding (LM_VS_BUDGET).
+LM_TRAIN_CLIENTS, LM_TRAIN_S, LM_TRAIN_ROUNDS = 4, 4096, 3
+LM_TRAIN_KNOBS = dict(byzantine_frac=0.25, attack="sign_flip", alpha_w=2e-2)
+BWD_ATOL, BWD_RTOL = 1e-5, 1e-4
+BWD_CASES = [(1, 4096, 4096, 15, 5, 64, True, 0),      # SmolLM training
+             (1, 4096, 4096, 15, 5, 64, True, 1024),   # a sliding window
+             (1, 4096, 1500, 16, 16, 64, False, 0)]    # SeamlessM4T cross
+LSE_CASES = [(PREFILL_B, 4096, 4096, 15, 5, 64, True),
+             (PREFILL_B, 4096, 1500, 16, 16, 64, False)]
+LM_VS_CLIENTS, LM_VS_B, LM_VS_S = 2, 2, 128
+LM_VS_BUDGET = 1e18      # eps = 5e17: sigma ~ 5e-19, below every ulp
 
 
 def log(msg: str) -> None:
@@ -1571,6 +1620,9 @@ def _named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _named_leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from _named_leaves(t, f"{prefix}/{i}")
     elif tree is not None:
         yield prefix, tree
 
@@ -2950,6 +3002,305 @@ def serve_phase(arch, report, launches, errs, seed):
     smoke_cpu_vs_cuda(arch, report)
     return rows
 
+# ---------------------------------------------------------------------------
+# LM training: B4's backward, then SmolLM-360M through make_train_step
+def bwd_flops(q, k, causal, window):
+    """B4 backward's operations: five products (S, dP, dV, dK, dQ) of
+    2 B H D flops per kept query-key pair."""
+    B, Sq, H, D = q.shape
+    return 10 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window)
+
+
+def bwd_bound(q, k, causal, window):
+    """B4 backward's least time: its operations by 3xTF32 (3 x the
+    operations over 494.7 TFLOP/s, as the forward's bound), or the bytes
+    of q, k, v, out, dout, lse read once and dq, dk, dv written once
+    over 3.35 TB/s.  Also the f32 CUDA cores' roof of the same work,
+    which bounds this FFMA kernel."""
+    ops = bwd_flops(q, k, causal, window)
+    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + q.numel() // q.shape[-1])
+    ms, by = _bound(3 * ops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+    return ms, by, ops / F32_FLOPS_PER_S * 1e3
+
+
+def sdpa_bwd(q, k, v, causal):
+    """``library_ms`` yardstick of B4's backward (never called by the
+    port): SDPA's f32 forward once (``enable_gqa``), then a function
+    that runs its backward alone."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    do = torch.ones_like(out)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), do,
+                                       retain_graph=True)
+
+
+def check_flash_bwd(report, errs):
+    """B4's backward at BWD_CASES against its plain version on the same
+    inputs (q, k, v, dO random; out and lse from B4): within BWD_ATOL +
+    BWD_RTOL |plain| elementwise, finite, and bit for bit the same on a
+    second call.  B4's output with and without its lse at LSE_CASES, bit
+    for bit.  Times the backward at the training shape (kernel, plain
+    version, SDPA's backward, the bound).  Launches here are not the
+    main path's."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+
+    rows = []
+    for i, (B, Sq, Sk, H, Hkv, D, causal) in enumerate(LSE_CASES):
+        q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, torch.float32, 40 + i)
+        plain = fa_k.flash_attention(q, k, v, causal=causal)
+        out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if not bits_equal(out, plain):
+            raise AssertionError(f"B4 with lse != without at {q.shape} "
+                                 f"{k.shape}")
+        rows.append(dict(kernel="flash_attention", shape=f"B={B} Sq={Sq} "
+                         f"Sk={Sk} H={H}/{Hkv} causal={causal}",
+                         lse_output_bit_identical=True))
+        del q, k, v, plain, out, lse
+    errs["flash_attention_bwd"] = 0.0
+    for i, (B, Sq, Sk, H, Hkv, D, causal, window) in enumerate(BWD_CASES):
+        q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, torch.float32, 50 + i)
+        do = _attn_inputs(B, Sq, Sq, H, H, D, torch.float32, 60 + i)[0]
+        out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal,
+                                            window=window)
+        got = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+        again = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                         window)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                           window)
+        torch.cuda.synchronize()
+        tag = (f"B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} D={D} causal={causal} "
+               f"window={window}")
+        used, err = 0.0, 0.0       # the largest share of the bound used
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            share = float(((g - w).abs()
+                           / (BWD_ATOL + BWD_RTOL * w.abs())).max())
+            if not (bool(torch.isfinite(g).all()) and share <= 1.0):
+                raise AssertionError(
+                    f"B4 backward {tag} {name}: kernel != plain version "
+                    f"(max |err| {max_abs_err(g, w):.3e}, {share:.3f} of "
+                    "the bound)")
+            if not bits_equal(g, a):
+                raise AssertionError(f"B4 backward {tag} {name}: two calls "
+                                     "differ")
+            used, err = max(used, share), max(err, max_abs_err(g, w))
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
+        rows.append(dict(kernel="flash_attention_bwd", shape=tag,
+                         max_abs_err=err, bound_share=used,
+                         deterministic=True))
+        log(f"flash_attention_bwd {tag}: max |err| {err:.3e}, {used:.3f} of "
+            f"the bound {BWD_ATOL} + {BWD_RTOL} |plain|, two calls "
+            "bit-identical")
+        del q, k, v, do, out, lse, got, again, want
+    report["flash_bwd_checks"] = rows
+    log(f"B4 with and without lse: bit-identical at {len(LSE_CASES)} "
+        f"shapes; backward max |err| {errs['flash_attention_bwd']:.3e}")
+
+    cpm = sleep_cycles_per_ms()
+    B, Sq, Sk, H, Hkv, D, causal, window = BWD_CASES[0]
+    q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, torch.float32, 70)
+    do = _attn_inputs(B, Sq, Sq, H, H, D, torch.float32, 71)[0]
+    out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal)
+    row = dict(shape=f"B={B} S={Sq} H={H}/{Hkv} D={D} f32 causal",
+               ms=device_ms(lambda: fa_k.flash_attention_bwd(
+                   q, k, v, out, lse, do, causal, 0), cpm, reps=10, inner=3),
+               plain_ms=device_ms(lambda: ref.flash_attention_bwd_ref(
+                   q, k, v, out, lse, do, causal, 0), cpm, reps=5, inner=1),
+               library_ms=device_ms(sdpa_bwd(q, k, v, causal), cpm, reps=10,
+                                    inner=3),
+               gflop=bwd_flops(q, k, causal, 0) / 1e9)
+    row["bound_ms"], row["bound_by"], row["simt_bound_ms"] = bwd_bound(
+        q, k, causal, 0)
+    report["flash_bwd_timing"] = row
+    log(f"time flash_attention_bwd {row['shape']}: kernel_ms={row['ms']:.6f} "
+        f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, 3xTF32; "
+        f"{row['gflop']:.2f} GFLOP) simt_bound_ms={row['simt_bound_ms']:.6f} "
+        f"(f32 CUDA cores) plain_ms={row['plain_ms']:.6f} "
+        f"library_ms={row['library_ms']:.6f} (SDPA f32 backward, "
+        f"enable_gqa)")
+    return row
+
+
+def device_busy_ms(fn, top: int = 8):
+    """Wall ms of ``fn()`` (ending in a synchronize), the ms the card
+    spent in kernels meanwhile, from ``torch.profiler`` (kernels of one
+    stream do not overlap, so their times add; None when the profiler
+    shows no device time), and the ``top`` kernel names by device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return wall, (busy if busy > 0 else None), [
+        (name[:80], ms) for name, ms in ranked]
+
+
+def lm_train_runs(specs, report):
+    """The main path: LM_TRAIN_ROUNDS BAFDP rounds of SmolLM-360M at full
+    width through ``make_train_step``, counting every launch.  A round
+    launches B1 once (the Eq. (20) consensus over the 11 leaves), B4
+    twice in each layer for each client (the forward and remat's
+    recompute) and B4's backward once in each (BWD_LAUNCHES launches).
+    The loss and every weight finite, W moved.  Returns the counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.fed_state import init_fed_state, init_lm_tree
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch(ARCH)
+    if not (cfg.remat and cfg.compute_dtype == "float32"
+            and cfg.n_layers == 32 and cfg.d_model == 960):
+        raise AssertionError(f"{ARCH}: not the full-width f32 remat model")
+    C = LM_TRAIN_CLIENTS
+    fed = dataclasses.replace(steps.fed_config_for(cfg, C), **LM_TRAIN_KNOBS)
+    spec = consensus_spec(specs, fed)
+    torch.cuda.empty_cache()
+    state = init_fed_state(torch.Generator(device="cuda").manual_seed(0),
+                           lambda g: init_lm_tree(g, cfg, "cuda"), fed,
+                           device="cuda")
+    state_gb = sum(l.numel() * l.element_size() for f in state
+                   if f is not None and not isinstance(f, torch.Tensor)
+                   for l in tree_leaves(f)) / 1e9
+    w_probe = state.W["unit"][0]["attn"]["wq"][:, 0].clone()
+    raw = lm_batch(np.random.RandomState(0), cfg, C, LM_TRAIN_S)
+    batch = {k: torch.from_numpy(v).to("cuda").reshape((C, 1, LM_TRAIN_S))
+             for k, v in raw.items()}
+    step = steps.make_train_step(cfg, fed)
+    n_attn = cfg.n_layers
+    want = {spec["counter"]: LM_TRAIN_ROUNDS,
+            "flash_attention": LM_TRAIN_ROUNDS * 2 * n_attn * C,
+            "flash_attention_bwd": LM_TRAIN_ROUNDS * n_attn * C
+            * fa_k.BWD_LAUNCHES}
+    log(f"lm_train: {ARCH} C={C} b=1 S={LM_TRAIN_S} remat, state "
+        f"{state_gb:.2f} GB; expected launches {want}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    ms, losses, busy, top = [], [], None, []
+    for t in range(LM_TRAIN_ROUNDS):
+        out = {}
+
+        def one_round(t=t, out=out):
+            out["state"], out["m"] = step(state, batch, t)
+
+        if t == LM_TRAIN_ROUNDS - 1:      # the last round under the profiler
+            wall, busy, top = device_busy_ms(one_round)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_round()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        state, m = out["state"], out["m"]
+        ms.append(wall)
+        losses.append(float(m["data_loss"]))
+        log(f"lm_train round {t}: {wall:.1f} ms, data_loss "
+            f"{losses[-1]:.5f}, eps {float(m['eps_mean']):.3f}, gap "
+            f"{float(m['consensus_gap']):.3e}, active "
+            f"{int(m['n_active'])}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = all_counts()
+    check_path_counts(f"{ARCH} lm_train", counts, want)
+    spec["launches"] += counts[spec["counter"]]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"lm_train: non-finite loss {losses}")
+    for leaf in tree_leaves(state.W):
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("lm_train: non-finite weights")
+    moved = float((state.W["unit"][0]["attn"]["wq"][:, 0] - w_probe)
+                  .abs().max())
+    if not moved > 0:
+        raise AssertionError("lm_train: W did not move")
+    busy_share = busy / ms[-1] if busy is not None else None
+    report["lm_train"] = dict(
+        arch=ARCH, clients=C, seq=LM_TRAIN_S, per_client_batch=1,
+        rounds=LM_TRAIN_ROUNDS, knobs=LM_TRAIN_KNOBS, ms_per_round=ms,
+        data_loss=losses, state_gb=state_gb, peak_gb=peak_gb,
+        device_busy_ms=busy, busy_share=busy_share, top_kernels_ms=top,
+        launches=counts,
+        launches_per_round={k: v // LM_TRAIN_ROUNDS for k, v in want.items()},
+        w_moved=moved,
+        cuts=f"batch: one {LM_TRAIN_S}-token sequence per client ({C} in "
+             "all; train_4k's global batch is 256)")
+    log(f"lm_train {ARCH} at full width, C={C}, {LM_TRAIN_ROUNDS} rounds: "
+        f"ms_per_round={[round(x, 1) for x in ms]} peak {peak_gb:.2f} GB "
+        f"(state {state_gb:.2f} GB) busy_share="
+        + (f"{busy_share:.3f} ({busy:.1f} of {ms[-1]:.1f} ms, profiled "
+           "round)" if busy_share is not None else "not measured")
+        + f" launches {counts} W moved by {moved:.3e}")
+    for name, t_ms in top:
+        log(f"  lm_train profiled round: {t_ms:10.3f} ms  {name}")
+    del state, out, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lm_train_cpu_vs_cuda(report):
+    """The 2-layer smoke model (f32, head dim 64) through
+    ``make_train_step`` on the CPU and on the card from one state, C =
+    LM_VS_CLIENTS, every client active, LM_TRAIN_ROUNDS rounds, the LDP
+    noise below rounding (``privacy_budget_a`` = LM_VS_BUDGET: the two
+    devices' generators cannot draw alike); the states held to
+    :func:`drift_check` (sign ties may move a weight by alpha_w psi), the
+    per-round losses within rtol 1e-4."""
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.core.fed_state import (fed_state_from_numpy,
+                                            init_fed_state, init_lm_tree)
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch import steps
+
+    cfg = reduce_for_smoke(get_arch(ARCH))
+    C = LM_VS_CLIENTS
+    fed = dataclasses.replace(steps.fed_config_for(cfg, C), **LM_TRAIN_KNOBS,
+                              privacy_budget_a=LM_VS_BUDGET)
+    init = init_fed_state(torch.Generator().manual_seed(0),
+                          lambda g: init_lm_tree(g, cfg, "cpu"), fed,
+                          device="cpu")
+    arrays = {k: None if v is None else _to_numpy(v)
+              for k, v in init._asdict().items()}
+    raw = lm_batch(np.random.RandomState(1), cfg, C * LM_VS_B, LM_VS_S)
+    act = np.ones((C,), bool)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = fed_state_from_numpy(arrays, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev).reshape(
+            (C, LM_VS_B) + v.shape[1:]) for k, v in raw.items()}
+        step = steps.make_train_step(cfg, fed)
+        losses = []
+        for t in range(LM_TRAIN_ROUNDS):
+            state, m = step(state, batch, t, act=act)
+            losses.append(float(m["data_loss"]))
+        out[dev] = (state, losses)
+    worst, n_off = drift_check("lm_train cpu vs cuda", out["cpu"][0],
+                               out["cuda"][0], LM_TRAIN_ROUNDS, fed.alpha_w)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+    report["lm_train_cpu_vs_cuda"] = dict(
+        max_abs_state_diff=worst[0], worst_leaf=worst[1],
+        elements_beyond_drift=n_off, data_loss_cpu=out["cpu"][1],
+        data_loss_cuda=out["cuda"][1])
+    log(f"lm_train cpu vs cuda ({cfg.name}, C={C}, {LM_TRAIN_ROUNDS} "
+        f"rounds): max |state diff| = {worst[0]:.3e} at {worst[1]}; {n_off} "
+        f"elements beyond the drift bound; data_loss cpu {out['cpu'][1]} "
+        f"cuda {out['cuda'][1]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3063,6 +3414,17 @@ def main() -> int:
         report[f"{phase}_phase_s"] = time.perf_counter() - t0
         log(f"phase: {phase} ({arch}) {report[f'{phase}_phase_s']:.1f} s")
 
+    # LM training: B4's backward alone, then SmolLM-360M at full width
+    # through make_train_step (B1, B4 and its backward), then the smoke
+    # model on the CPU and on the card
+    t0 = time.perf_counter()
+    bwd = check_flash_bwd(report, errs)
+    for name, n in lm_train_runs(specs, report).items():
+        launches[name] = launches.get(name, 0) + n
+    lm_train_cpu_vs_cuda(report)
+    report["lm_train_phase_s"] = time.perf_counter() - t0
+    log(f"phase: lm_train ({ARCH}) {report['lm_train_phase_s']:.1f} s")
+
     # B1-B3: per round of the 8 MLP_H24 leaves as one grouped call, with
     # call_ms and the same leaves in eight one-leaf calls beside it, and
     # at the bandwidth shape (C=64, D=4,194,304 f32); the kernel named by
@@ -3125,6 +3487,19 @@ def main() -> int:
         moe=moe_rows["flash_attention"],
         encdec=new_rows["encdec_serve"]["flash_attention"],
         vlm=new_rows["vlm_serve"]["flash_attention"])
+    bwd_labels = [label for label in report["ptxas"]
+                  if label.startswith("flash_bwd_")]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source=f"{CSRC}/flash_attention_bwd.cu",
+        replaces="none: no TPU kernel; jax.grad of the reference's "
+                 "attention, src/repro/models/attention.py:163",
+        launches=launches["flash_attention_bwd"],
+        max_abs_err=errs["flash_attention_bwd"], ms=bwd["ms"],
+        plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"],
+        bound_by=bwd["bound_by"], library_ms=bwd["library_ms"],
+        simt_bound_ms=bwd["simt_bound_ms"], kernel=bwd_labels,
+        ptxas={label: report["ptxas"][label] for label in bwd_labels}))
     kernels.append(dict(
         name="ssm_scan", route="cuda", source=f"{CSRC}/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:44",

@@ -54,7 +54,7 @@ from repro_torch.distributed import collectives
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ref import jsign, true_div
-from repro_torch.tree import host_array, tree_leaves, tree_map
+from repro_torch.tree import host_array, tree_leaves, tree_map, tree_unflatten
 
 # local_loss(W_stack, batch, gen, eps) -> (R,) per-row data loss; row i may
 # read only row i of W_stack, batch and eps.  ``gen`` is the round's
@@ -198,8 +198,7 @@ def _client_block_updates(W, z_local, phi, eps, lam, opt, comp, batch,
         rho_i = fed.dro_weight * dro.rho(eps, n_samples, d_dim, c3, fed)
         loss_i = g_i + rho_i * G_i
         flat = torch.autograd.grad(loss_i.sum(), tree_leaves(Wg))
-    it = iter(flat)
-    grads = tree_map(lambda _: next(it), Wg)
+    grads = tree_unflatten(Wg, flat)
     loss_i, g_i, G_i = loss_i.detach(), g_i.detach(), G_i.detach()
 
     R = eps.shape[0]

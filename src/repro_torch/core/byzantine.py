@@ -137,7 +137,7 @@ def poison_batch(attack: str, batch: Any, byz_rows: torch.Tensor, *,
     """``traffic_shift`` rolls each malicious row's samples ``shift`` steps
     along the last axis (a diurnal phase shift); leaves with fewer than 2
     axes are untouched.  Every other attack returns ``batch`` unchanged.
-    ``batch`` is a tuple of (C, ...) tensors."""
+    ``batch`` is a tree (a tuple, or an LM's dict) of (C, ...) tensors."""
     if attack != "traffic_shift":
         return batch
 
@@ -148,7 +148,7 @@ def poison_batch(attack: str, batch: Any, byz_rows: torch.Tensor, *,
         m = byz_rows.reshape((-1,) + (1,) * (l.ndim - 1))
         return torch.where(m, rolled, l)
 
-    return tuple(f(l) for l in batch)
+    return tree_map(f, batch)
 
 
 def byz_mask(n_clients: int, n_byzantine: int, device=None) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Federated training state (the port of the JAX package's
 ``core/fed_state.py``).  Every per-client quantity carries a leading
-client axis ``C``; trees are nested dicts in the reference's layout."""
+client axis ``C``; trees keep the reference's layout (nested dicts, and
+an LM's ``unit`` tuple, ``repro_torch.tree``)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping, NamedTuple, Optional
@@ -8,7 +9,8 @@ from typing import Any, Callable, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import FedConfig
+from repro_torch.configs.base import ArchConfig, FedConfig
+from repro_torch.models import transformer as tr
 from repro_torch.tree import (host_array, resolve_device, tree_leaves,
                               tree_map)
 
@@ -56,6 +58,15 @@ def init_fed_state(gen: torch.Generator, init_params: Callable[[Any], Any],
                     opt=opt, tau=torch.zeros((C,), dtype=torch.int32,
                                              device=dev),
                     comp=comp)
+
+
+def init_lm_tree(gen: torch.Generator, cfg: ArchConfig,
+                 device=None) -> Any:
+    """One client's LM (``transformer.init_lm``, drawn from ``gen``) in
+    the reference's ``init_lm`` tree layout (``transformer.lm_tree``) on
+    ``device``: what :func:`init_fed_state`'s ``init_params`` returns for
+    an LM, and what ``transformer.lm_view`` reads one row of."""
+    return tr.lm_tree(tr.init_lm(gen, cfg, device), cfg)
 
 
 def params_from_numpy(params: Any, device=None) -> Any:

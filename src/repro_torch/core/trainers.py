@@ -35,7 +35,7 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core import aggregators as agg
 from repro_torch.core import byzantine as byz_lib
 from repro_torch.core.bafdp import active_mask, staleness_weights
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # loss(W_stack, batch, gen) -> (C,) per-client loss
 Loss = Callable[[Any, Any, torch.Generator], torch.Tensor]
@@ -63,8 +63,7 @@ def _grad(loss: Loss, W: Any, batch: Any, gen: torch.Generator) -> Any:
     with torch.enable_grad():
         flat = torch.autograd.grad(loss(Wg, batch, gen).sum(),
                                    tree_leaves(Wg))
-    it = iter(flat)
-    return tree_map(lambda _: next(it), Wg)
+    return tree_unflatten(Wg, flat)
 
 
 def _local_sgd(loss: Loss, W: Any, batch: Any, gen: torch.Generator,

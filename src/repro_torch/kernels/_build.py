@@ -24,7 +24,8 @@ from typing import List
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sign_agg", "flash_attention", "decode_attention", "ssm_scan")
+SOURCES = ("sign_agg", "flash_attention", "flash_attention_bwd",
+           "decode_attention", "ssm_scan")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
@@ -91,3 +92,13 @@ def check_launch(err: int, kernel: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a ``ctypes`` int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` for a CUDA call under autograd (grad
+    mode on, an input requiring grad) of a kernel with no backward yet:
+    its output would carry no gradient.  CPU calls run the plain version,
+    which autograd differentiates."""
+    if (torch.is_grad_enabled() and tensors[0].device.type == "cuda"
+            and any(t.requires_grad for t in tensors)):
+        raise NotImplementedError(f"{kernel}'s backward is not yet ported")

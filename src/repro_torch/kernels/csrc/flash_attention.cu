@@ -10,6 +10,11 @@
 // What bounds it on the H100: operations, 4*B*H*D flops per kept
 // query-key pair against 2 bytes per flop or less.
 //
+// The f32 kernel optionally writes each row's log-sum-exp of the scaled
+// logits (m + log l, at the flush) for B4's backward
+// (csrc/flash_attention_bwd.cu); serving passes a null pointer, and the
+// output is the same bit for bit either way.
+//
 // float32: `flash_fwd_tf32x3`, tensor cores by 3xTF32, at every head dim
 // (64, 128, 256).  One TF32 rounding of the operands moves results past
 // the 3e-5 bound the kernel is held to.  So each operand x is split into
@@ -534,9 +539,9 @@ struct F32Tile {
 template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(F32Tile<D, BQ, BK>::kThreads, 1)
 flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int Sq,
-                 int Sk, int H, int Hkv, int causal, int window,
-                 float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+                 int causal, int window, float scale) {
   using Tile = F32Tile<D, BQ, BK>;
   constexpr int NT = Tile::kThreads, DP = Tile::DP;
   constexpr int CH = D / 4;    // 16-byte chunks per row
@@ -820,13 +825,18 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<float2*>(ob + r * q_stride + n * 8 + 2 * t) =
           make_float2(acc[n][2 * hr] / denom, acc[n][2 * hr + 1] / denom);
+    // the row's log-sum-exp of the scaled logits, for the backward
+    // (csrc/flash_attention_bwd.cu); O above does not depend on it
+    if (lse != nullptr && t == 0)
+      lse[((long long)b * H + h) * Sq + r] = m[hr] + logf(sum);
   }
 }
 
 template <int D, int BQ, int BK>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Sk, int H, int Hkv, int causal,
-                       int window, float scale, cudaStream_t stream) {
+                       float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
   using Tile = F32Tile<D, BQ, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tf32x3<D, BQ, BK>,
@@ -835,8 +845,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_tf32x3<D, BQ, BK><<<grid, Tile::kThreads, Tile::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, Hkv,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
+      Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -846,19 +856,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 // read the tiles from these case lines: keep one `launch_f32<D, BQ, BK>`
 // per case.
 cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v,
-                         void* o, int B, int Sq, int Sk, int H, int Hkv,
-                         int causal, int window, float scale,
+                         void* o, float* lse, int B, int Sq, int Sk, int H,
+                         int Hkv, int causal, int window, float scale,
                          cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch_f32<64, 128, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
-                                     window, scale, stream);
+      return launch_f32<64, 128, 64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv,
+                                     causal, window, scale, stream);
     case 128:
-      return launch_f32<128, 128, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
-                                      window, scale, stream);
+      return launch_f32<128, 128, 32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv,
+                                      causal, window, scale, stream);
     case 256:
-      return launch_f32<256, 64, 16>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
-                                     window, scale, stream);
+      return launch_f32<256, 64, 16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv,
+                                     causal, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -867,16 +877,19 @@ cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (`flash_fwd_tf32x3`), 1 = bfloat16 (`flash_fwd_bf16`).
-// q, o: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); all contiguous.  Returns
-// the launch's cudaError_t.
+// q, o: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); all contiguous.  lse: null,
+// or (f32 only) a (B, H, Sq) f32 output of each row's log-sum-exp of the
+// scaled logits.  Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, void* o, int B, int Sq,
-                                     int Sk, int H, int Hkv, int D, int causal,
-                                     int window, float scale, void* stream) {
+                                     const void* v, void* o, void* lse, int B,
+                                     int Sq, int Sk, int H, int Hkv, int D,
+                                     int causal, int window, float scale,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_f32(D, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window,
-                        scale, s);
+    return dispatch_f32(D, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk,
+                        H, Hkv, causal, window, scale, s);
+  if (lse != nullptr) return cudaErrorInvalidValue;
   if (dtype == 1)
     return dispatch_bf16(D, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window,
                          scale, s);

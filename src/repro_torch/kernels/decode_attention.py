@@ -16,7 +16,8 @@ one call is one launch at every shape.  ``length[b]`` must be >= 1 (the
 model's is ``min(step + 1, L)``); nothing at or past it is read.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES["decode_attention"]`` counts kernel
+kernel or raises (also, with ``NotImplementedError``, under autograd:
+B5 has no backward yet).  ``LAUNCHES["decode_attention"]`` counts kernel
 launches, as the C entry point reports them: ``launches_per_call`` (1)
 per call.
 """
@@ -105,6 +106,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device.  Returns (B, H, D) in q's dtype."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, length)
+    _build.refuse_grad("B5 (decode_attention)", q, k, v)
     code = check_args(q, k, v, length)
     B, H, D = q.shape
     L, Hkv = k.shape[1], k.shape[2]

@@ -20,19 +20,31 @@ removes whole.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises.  ``LAUNCHES["flash_attention"]`` counts launches.
+
+Under autograd (grad mode on and q, k or v requiring grad) the call is
+:class:`FlashAttentionFn`, whose forward is B4 with its optional f32
+log-sum-exp output and whose backward is ``csrc/flash_attention_bwd.cu``
+(two launches a call: dQ with delta, then dK and dV;
+``LAUNCHES["flash_attention_bwd"]``), f32 at head dim 64 only; on the CPU
+the plain ``ref.flash_attention_ref(with_lse=True)`` and
+``ref.flash_attention_bwd_ref``.  A CUDA bf16 call under autograd raises
+``NotImplementedError``; another head dim raises ``ValueError``.  Neither
+direction falls back to the plain version or to the other device.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64,)
+BWD_LAUNCHES = 2       # launches of one backward call (dq, then dk/dv)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -46,9 +58,19 @@ def _lib() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signature."""
     lib = _build.load("flash_attention")
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    lib.repro_flash_attention.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
-                                          i, i, f, p]
+    lib.repro_flash_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
+                                          i, i, i, f, p]
     lib.repro_flash_attention.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward's library, built at first use, with its C signature."""
+    lib = _build.load("flash_attention_bwd")
+    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    lib.repro_flash_attention_bwd.argtypes = [p] * 10 + [i] * 8 + [f, p]
+    lib.repro_flash_attention_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -99,20 +121,127 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return check_attention_args(q, (("q", q), ("k", k), ("v", v)), D, H, Hkv)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """B4.  q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, H, D)
-    in q's dtype.  ``window`` > 0 keeps keys with ``ki > qi - window``."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, window: int, lse: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
     code = check_args(q, k, v, causal, window)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     err = _lib().repro_flash_attention(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-        Sq, Sk, H, Hkv, D, int(causal), window, ref.attention_scale(D),
-        _build.stream_of(q))
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Sk, H, Hkv, D,
+        int(causal), window, ref.attention_scale(D), _build.stream_of(q))
     _build.check_launch(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4 with the log-sum-exp of each row's scaled logits: returns
+    ``(out, lse)``, lse (B, H, Sq) f32.  The kernel writes lse at its
+    flush; ``out`` is the same bit for bit as without it.  f32 only."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       with_lse=True)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the log-sum-exp output is f32 only, got {q.dtype}")
+    B, Sq, H, _ = q.shape
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    return _launch_forward(q, k, v, causal, window, lse), lse
+
+
+def check_grad_args(q: torch.Tensor) -> None:
+    """What B4's backward kernel does not take, checked before the
+    forward runs under autograd on the card: bf16 (not yet ported:
+    ``NotImplementedError``) and a head dim other than 64."""
+    if q.dtype == torch.bfloat16:
+        raise NotImplementedError("B4's bf16 backward is not yet ported")
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"B4's backward takes head dim {BWD_HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+
+
+def check_bwd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   causal: bool, window: int) -> None:
+    """Raise on anything the backward kernel does not take: besides
+    :func:`check_grad_args` and the forward's checks (f32 only), ``out``
+    and ``dout`` in q's shape and ``lse`` (B, H, Sq) f32."""
+    check_grad_args(q)
+    D = q.shape[-1]
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
+    B, Sq, H, _ = q.shape
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 {(B, H, Sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    check_args(q, k, v, causal, window)
+    check_attention_args(q, (("out", out), ("lse", lse), ("dout", dout)),
+                         D, H, k.shape[2])
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        window: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B4's gradient: (dq, dk, dv) of ``sum(out * dout)`` from the
+    forward's inputs, ``out`` and ``lse``.  A CPU tensor goes to
+    ``ref.flash_attention_bwd_ref``; a CUDA tensor launches the two
+    kernels of ``csrc/flash_attention_bwd.cu`` or raises."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal, window=window)
+    check_bwd_args(q, k, v, out, lse, dout, causal, window)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    err = _bwd_lib().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, Hkv, D, int(causal),
+        window, ref.attention_scale(D), _build.stream_of(q))
+    _build.check_launch(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += BWD_LAUNCHES
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B4 under autograd: forward :func:`flash_attention_fwd`, backward
+    :func:`flash_attention_bwd`, each on the inputs' device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # dO comes through ``reshape(B, S, -1) @ wo``'s backward and may
+        # be strided; the kernel's checks want it dense
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """B4.  q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, H, D)
+    in q's dtype.  ``window`` > 0 keeps keys with ``ki > qi - window``.
+    Under autograd, :class:`FlashAttentionFn`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cuda":
+            check_grad_args(q)
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _launch_forward(q, k, v, causal, window, None)

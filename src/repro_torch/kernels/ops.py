@@ -154,7 +154,9 @@ def sign_agg_weighted(z, W, phi_mean, weights, psi: float, alpha_z: float,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """B4.  q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D) — the model's layout,
-    which the kernel reads as it is.  Returns (B, Sq, H, D)."""
+    which the kernel reads as it is.  Returns (B, Sq, H, D).  Under
+    autograd, ``flash_attention.FlashAttentionFn`` (B4 and its backward
+    kernel on the card)."""
     return fa_k.flash_attention(q, k, v, causal=causal, window=window)
 
 

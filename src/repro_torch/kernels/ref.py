@@ -261,14 +261,10 @@ def attention_scale(D: int) -> float:
     return float(1.0 / torch.sqrt(d))
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
-    """B4: plain softmax attention, GQA-aware, in f32.
-
-    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, H, D) in q's
-    dtype.  Queries are end-aligned with the keys: query i sits at
-    absolute position ``i + Sk - Sq``.  Masked logits are -1e30, so a row
-    with no key left (causal and Sq > Sk) averages every value."""
+def _attention_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                      window: int):
+    """The scaled logits (B, Hkv, G, Sq, Sk) in f32 and the (Sq, Sk) mask
+    of the keys each query keeps (queries end-aligned with the keys)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, D).float()
@@ -281,10 +277,63 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ok &= ki <= qi
     if window:
         ok &= ki > qi - window
+    return logits, ok
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        with_lse: bool = False):
+    """B4: plain softmax attention, GQA-aware, in f32.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, H, D) in q's
+    dtype.  Queries are end-aligned with the keys: query i sits at
+    absolute position ``i + Sk - Sq``.  Masked logits are -1e30, so a row
+    with no key left (causal and Sq > Sk) averages every value.
+    ``with_lse=True`` returns ``(out, lse)``, ``lse`` (B, H, Sq) f32 the
+    log-sum-exp of each row's scaled logits, which the backward
+    (:func:`flash_attention_bwd_ref`) recomputes P from."""
+    B, Sq, H, D = q.shape
+    logits, ok = _attention_logits(q, k, causal, window)
     logits = torch.where(ok, logits, torch.tensor(-1e30, device=q.device))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    out = out.reshape(B, Sq, H, D).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True, window: int = 0):
+    """B4's gradient, in the kernel's own formulation, in f32: P
+    recomputed from the forward's ``lse`` (B, H, Sq), ``delta =
+    rowsum(dO * O)``, ``dS = P * (dP - delta)`` with ``dP = dO V^T``, then
+    ``dQ = scale dS K``, ``dK = scale dS^T Q`` and ``dV = P^T dO``, dK and
+    dV summed over the query heads of each KV head's group.  ``out`` and
+    ``dout``: (B, Sq, H, D).  Returns (dq, dk, dv) in the inputs' shapes
+    and dtypes."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = attention_scale(D)
+    logits, ok = _attention_logits(q, k, causal, window)
+    lse_g = lse.float().reshape(B, Hkv, G, Sq)[..., None]
+    p = torch.where(ok, torch.exp(logits - lse_g),
+                    torch.zeros((), device=q.device))
+    do_g = dout.reshape(B, Sq, Hkv, G, D).float()
+    o_g = out.reshape(B, Sq, Hkv, G, D).float()
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", do_g, o_g)[..., None]
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do_g, v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    # Q scaled before the product, as the kernel holds it
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.reshape(B, Sq, Hkv, G, D).float() * scale)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do_g)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

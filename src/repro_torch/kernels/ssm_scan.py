@@ -18,7 +18,8 @@ store of a warp is one contiguous segment.  It rounds ``a_t * h`` and
 for bit.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES["ssm_scan"]`` counts launches.
+kernel or raises (also, with ``NotImplementedError``, under autograd: B6
+has no backward yet).  ``LAUNCHES["ssm_scan"]`` counts launches.
 """
 from __future__ import annotations
 
@@ -86,6 +87,7 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor,
     (zeros).  Returns hs: (B, S, D, N) f32."""
     if a.device.type == "cpu":
         return ref.ssm_scan_ref(a, b, h0)
+    _build.refuse_grad("B6 (ssm_scan)", a, b, *(() if h0 is None else (h0,)))
     code = check_args(a, b, h0)
     B, S, D, N = a.shape
     hs = torch.empty(a.shape, dtype=torch.float32, device=a.device)

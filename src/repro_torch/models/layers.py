@@ -1,6 +1,6 @@
-"""Shared layers: init, norms, RoPE, embeddings, dense FFN variants (the
-port of the JAX package's ``models/layers.py``; the LM-training losses
-``chunked_ce_from_hidden`` and ``cross_entropy`` come with LM training).
+"""Shared layers: init, norms, RoPE, embeddings, dense FFN variants and the
+LM-training losses ``chunked_ce_from_hidden`` and ``cross_entropy`` (the
+port of the JAX package's ``models/layers.py``).
 
 Parameters are plain tensors, looked up by the reference's names
 (``params["scale"]``, ``params["w_gate"]``, ...).  Every function keeps
@@ -15,6 +15,7 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -129,3 +130,73 @@ def ffn(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         return (gate_act(g, cfg) * u) @ params["w_down"].to(x.dtype)
     h = F.gelu(x @ params["w_in"].to(x.dtype), approximate="tanh")
     return h @ params["w_out"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# LM losses
+def chunked_ce_from_hidden(embed_params, x: torch.Tensor,
+                           labels: torch.Tensor, cfg: ArchConfig,
+                           chunk: int = 512) -> torch.Tensor:
+    """Next-token CE with the LM head applied per sequence chunk, so the
+    (B, S, V) logits never exist at once: each chunk's (B, chunk, V)
+    logits are recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant), not kept.  The NLL and the count are summed over the
+    chunks in order, in f32, as the reference's scan does.
+
+    x: (B, S, d) final hidden states; labels: (B, S), -1 masked."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+        S = S + pad
+
+    def terms(xb, lb):
+        return _ce_terms(lm_logits(embed_params, xb, cfg), lb,
+                         cfg.vocab_size)
+
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        n, c = checkpoint(terms, x[:, i:i + chunk], labels[:, i:i + chunk],
+                          use_reentrant=False)
+        nll, cnt = nll + n, cnt + c
+    return nll / torch.clamp_min(cnt, 1.0)
+
+
+def _vocab_mask(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """f32 logits with -1e9 added on the padded vocab tail."""
+    logits = logits.float()
+    pv = logits.shape[-1]
+    if pv > vocab_size:
+        neg = torch.cat([
+            torch.zeros((vocab_size,), dtype=torch.float32,
+                        device=logits.device),
+            torch.full((pv - vocab_size,), -1e9, dtype=torch.float32,
+                       device=logits.device)])
+        logits = logits + neg
+    return logits
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int):
+    """Per-position NLL (0 where label == -1) and the validity mask."""
+    logits = _vocab_mask(logits, vocab_size)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    return (logz - ll) * valid, valid
+
+
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int):
+    """(sum of the NLL, number of valid labels), both f32 scalars."""
+    nll, valid = _nll(logits, labels, vocab_size)
+    return torch.sum(nll), torch.sum(valid).float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean next-token CE, masking the padded vocab tail and label == -1."""
+    nll, valid = _nll(logits, labels, vocab_size)
+    return torch.sum(nll) / torch.clamp_min(torch.sum(valid), 1)

@@ -1,31 +1,41 @@
-"""The LM stack for serving: the port of the JAX package's
-``models/transformer.py`` for every block kind (ATTN/SWA, Mamba, Hymba's
-parallel attention + Mamba, xLSTM's mLSTM and sLSTM) with a dense, MoE
-(``models/moe.py``) or no FFN, the encoder stack and cross-attention of
-an encoder-decoder (SeamlessM4T), and the projected frontend prefix of a
-VLM (LLaVA-NeXT).
+"""The LM stack: the port of the JAX package's ``models/transformer.py``
+for every block kind (ATTN/SWA, Mamba, Hymba's parallel attention +
+Mamba, xLSTM's mLSTM and sLSTM) with a dense, MoE (``models/moe.py``) or
+no FFN, the encoder stack and cross-attention of an encoder-decoder
+(SeamlessM4T), and the projected frontend prefix of a VLM (LLaVA-NeXT);
+serving and training.
 
-Parameters live in an :class:`LMParams` (an ``nn.ModuleDict``) with the
-reference's names: ``embed`` (``tok`` [, ``head``]), ``layers`` (an
-``nn.ModuleList``, one entry per layer: ``ln1``, ``attn`` / ``mamba`` /
-``mlstm`` / ``slstm``, [``ln_cross``, ``cross``], ``ln2``, ``ffn`` or
+Serving parameters live in an :class:`LMParams` (an ``nn.ModuleDict``)
+with the reference's names: ``embed`` (``tok`` [, ``head``]), ``layers``
+(an ``nn.ModuleList``, one entry per layer: ``ln1``, ``attn`` / ``mamba``
+/ ``mlstm`` / ``slstm``, [``ln_cross``, ``cross``], ``ln2``, ``ffn`` or
 ``moe``), ``final_norm`` and, where the config has them, the bare tensor
 ``frontend_proj``, ``enc_unit`` (an ``nn.ModuleList`` of ATTN layers)
 and ``enc_norm``.  The reference's layer ``scan`` over stacked weights
 becomes a loop over the list; ``lm_params_from_numpy`` unstacks the
-reference's ``unit`` and ``enc_unit`` trees into it.  The parameters
-carry no gradient: the LM side of the port serves; LM training
-(``remat``, the LDP ``noise=``) comes later.
+reference's ``unit`` and ``enc_unit`` trees into it.  These parameters
+carry no gradient.
 
-``noise=`` and ``moe_group_shard`` raise a ``ValueError`` naming them
-"not yet ported"; a ``moe_impl`` other than ``"scatter"`` or
-``"einsum"`` and an unknown block kind raise a ``ValueError`` too.
+Training keeps the reference's tree (``unit`` a tuple of per-sublayer
+dicts whose leaves stack the layer groups; :func:`lm_tree`), one row of
+the federated state per client; :func:`lm_view` turns it into the
+forward's parameters as views, so gradients land in the stacked leaves.
+``forward(noise=(gen, sigma))`` adds the LDP input noise, ``cfg.remat``
+checkpoints each unit of layers (and each sublayer of a unit of several)
+with ``torch.utils.checkpoint``, and :func:`loss_fn` is CE + the MoE aux
+loss.
+
+``moe_group_shard`` raises a ``ValueError`` naming it "not yet ported";
+a ``moe_impl`` other than ``"scatter"`` or ``"einsum"`` and an unknown
+block kind raise a ``ValueError`` too.
 
 Public API:
     init_lm(gen, cfg, device)                       -> params
     encode(params, enc_embeds, cfg)                 -> memory (enc-dec)
     forward(params, inputs, cfg, ...)               -> (hidden, aux)
     forward_logits(params, inputs, cfg, ...)        -> (logits, aux)
+    loss_fn(params, inputs, cfg, window, noise)     -> scalar loss
+    lm_tree(params, cfg) / lm_view(tree, cfg)       -> training tree / params
     init_decode_state(cfg, batch, cache_len, dtype, window, device) -> state
     decode_step(params, state, tokens, step, cfg, window) -> (logits, state)
     lm_params_from_numpy(tree, cfg, device) / lm_params_to_numpy(params, cfg)
@@ -53,6 +63,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
+    chunked_ce_from_hidden,
     dense_init,
     dtype_of,
     embed,
@@ -63,7 +74,9 @@ from repro_torch.models.layers import (
     lm_logits,
     rmsnorm,
 )
-from repro_torch.tree import resolve_device, tree_map
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.tree import resolve_device, tree_map, tree_unstack
 
 PORTED_KINDS = (ATTN, SWA, MAMBA, HYMBA, MLSTM, SLSTM)
 MOE_IMPLS = {"scatter": moe_lib.moe_ffn, "einsum": moe_lib.moe_ffn_einsum}
@@ -288,49 +301,118 @@ def _assemble(emb, layers, final, frontend_proj=None, enc_unit=None,
     return params
 
 
+def _remat_on(cfg: ArchConfig) -> bool:
+    """``cfg.remat`` while autograd records (a serving call runs plain)."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under activation checkpointing (non-reentrant): its
+    internals are recomputed in the backward, not kept.  No layer draws
+    random numbers (the input noise is drawn before them), so the RNG
+    state is not stashed."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def encode(params, enc_embeds: torch.Tensor, cfg: ArchConfig
            ) -> torch.Tensor:
     """The encoder stack of an encoder-decoder. enc_embeds: (B, F, d) ->
     memory (B, F, d) in the compute dtype: ``frontend_proj``, then the
-    ``enc_unit`` ATTN layers without the causal mask (B4 in each), then
-    ``enc_norm``."""
+    ``enc_unit`` ATTN layers without the causal mask (B4 in each; each
+    layer checkpointed when ``cfg.remat``), then ``enc_norm``."""
     x = enc_embeds.to(dtype_of(cfg.compute_dtype))
     if "frontend_proj" in params:
         x = x @ params["frontend_proj"].to(x.dtype)
+
+    def body(p, x):
+        return apply_sublayer(p, ATTN, x, cfg, causal=False)[0]
+
     for p in params["enc_unit"]:
-        x, _ = apply_sublayer(p, ATTN, x, cfg, causal=False)
+        x = _remat(body, p, x) if _remat_on(cfg) else body(p, x)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _perturb(x: torch.Tensor, gen: torch.Generator, sigma) -> torch.Tensor:
+    """``x + sigma * N(0, 1)`` (the noise drawn in f32 from ``gen`` on x's
+    device, then cast to x's dtype), as the reference adds it."""
+    n = torch.randn(x.shape, generator=gen, dtype=torch.float32,
+                    device=x.device)
+    return x + (sigma * n).to(x.dtype)
+
+
+def _run_unit(ps, kinds, x: torch.Tensor, aux: torch.Tensor,
+              cfg: ArchConfig, window: int, memory):
+    """One group of the repeating unit: each sublayer in turn, its aux
+    loss summed in order; with ``cfg.remat`` and a unit of several
+    sublayers, each sublayer checkpointed (the reference's nested remat:
+    only one sublayer's internals live during the unit's backward)."""
+    def apply_fn(p, kind, x):
+        return apply_sublayer(p, kind, x, cfg, window=window, memory=memory)
+
+    for p, kind in zip(ps, kinds):
+        if _remat_on(cfg) and len(kinds) > 1:
+            x, a = _remat(apply_fn, p, kind, x)
+        else:
+            x, a = apply_fn(p, kind, x)
+        aux = aux + a
+    return x, aux
 
 
 def forward(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig, *,
             window: int = 0, noise: Optional[Tuple] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefill forward. Returns (final hidden states over the text
-    positions, aux loss); the LM head is applied by the caller.
+    """Training / prefill forward. Returns (final hidden states over the
+    text positions, aux loss); the LM head is applied by the caller.
 
     inputs: tokens (B, S_text) [, frontend_embeds (B, F, d)] [,
     enc_embeds (B, F, d)].  A VLM's ``frontend_embeds`` are projected
     by ``frontend_proj`` and run as a prefix before the tokens, their F
     positions dropped from the output; an encoder-decoder's
     ``enc_embeds`` go through :func:`encode`, and every decoder layer
-    attends to the result."""
+    attends to the result.
+
+    ``noise=(gen, sigma)`` is the paper's LDP input perturbation in
+    embedding space: ``sigma * N(0, 1)`` added to the token embeddings,
+    to the VLM's ``frontend_embeds`` (before the projection) and to the
+    encoder's ``enc_embeds``.  ``gen`` is a ``torch.Generator`` on the
+    inputs' device (the round's, or one client row's of
+    ``privacy.RowGenerators``); the three are separate draws from it, in
+    that order.  (The reference draws them from ``key``,
+    ``fold_in(key, 1)`` and ``fold_in(key, 2)``; no torch draw can
+    repeat those bits.)
+
+    With ``cfg.remat`` each group of the repeating unit is checkpointed
+    (its aux loss carried through), as the reference's ``_scan_unit``
+    does; it changes no value."""
     check_ported(cfg)
-    if noise is not None:
-        raise _not_ported("the LDP input noise (noise=)")
+    unit, _ = factor_pattern(cfg.pattern())
     x = embed(params["embed"], inputs["tokens"], cfg)
+    if noise is not None:
+        gen, sigma = noise
+        x = _perturb(x, gen, sigma)
     n_front = 0
     if (cfg.frontend != "none" and "frontend_embeds" in inputs
             and cfg.n_enc_layers == 0):
         fe = inputs["frontend_embeds"].to(x.dtype)
+        if noise is not None:
+            fe = _perturb(fe, gen, sigma)
         fe = fe @ params["frontend_proj"].to(x.dtype)
         x = torch.cat([fe, x], dim=1)                # image / audio prefix
         n_front = fe.shape[1]
-    memory = (encode(params, inputs["enc_embeds"], cfg)
-              if cfg.n_enc_layers else None)
+    memory = None
+    if cfg.n_enc_layers:
+        enc_in = inputs["enc_embeds"]
+        if noise is not None:
+            enc_in = _perturb(enc_in, gen, sigma)
+        memory = encode(params, enc_in, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, kind in zip(params["layers"], cfg.pattern()):
-        x, a = apply_sublayer(p, kind, x, cfg, window=window, memory=memory)
-        aux = aux + a                 # summed in layer order
+    layers = list(params["layers"])
+    U = len(unit)
+    for g0 in range(0, len(layers), U):
+        args = (layers[g0:g0 + U], unit, x, aux, cfg, window, memory)
+        x, aux = (_remat(_run_unit, *args) if _remat_on(cfg)
+                  else _run_unit(*args))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x[:, n_front:], aux
 
@@ -340,6 +422,63 @@ def forward_logits(params, inputs, cfg: ArchConfig, *, window: int = 0,
     """forward() + full LM head (tests / small-scale use)."""
     x, aux = forward(params, inputs, cfg, window=window, noise=noise)
     return lm_logits(params["embed"], x, cfg), aux
+
+
+def loss_fn(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig,
+            window: int = 0, noise: Optional[Tuple] = None) -> torch.Tensor:
+    """Training loss: the chunked next-token CE of ``inputs["labels"]``
+    plus the aux loss (an MoE's load balance)."""
+    x, aux = forward(params, inputs, cfg, window=window, noise=noise)
+    ce = chunked_ce_from_hidden(params["embed"], x, inputs["labels"], cfg)
+    return ce + aux
+
+
+# ---------------------------------------------------------------------------
+# The training tree (the reference's ``init_lm`` layout) and its views
+def lm_tree(params, cfg: ArchConfig) -> Dict[str, Any]:
+    """The reference's ``init_lm`` tree of ``params`` (an
+    :class:`LMParams`) as tensors carrying no gradient: ``unit[j]`` stacks
+    unit entry ``j`` of every layer group on a leading axis (layer ``g *
+    len(unit) + j`` is its slice ``g``), ``enc_unit`` the encoder's
+    layers; the other leaves share the parameters' storage."""
+    unit, n_groups = factor_pattern(cfg.pattern())
+    U = len(unit)
+    plain = lambda mod: tree_map(torch.Tensor.detach, _as_dict(mod))
+    stack = lambda mods: tree_map(lambda *ts: torch.stack(ts),
+                                  *[_as_dict(m) for m in mods])
+    layers = list(params["layers"])
+    out: Dict[str, Any] = {
+        "embed": plain(params["embed"]),
+        "unit": tuple(stack([layers[g * U + j] for g in range(n_groups)])
+                      for j in range(U)),
+        "final_norm": plain(params["final_norm"])}
+    if "frontend_proj" in params:
+        out["frontend_proj"] = params["frontend_proj"].detach()
+    if "enc_unit" in params:
+        out["enc_unit"] = stack(list(params["enc_unit"]))
+        out["enc_norm"] = plain(params["enc_norm"])
+    return out
+
+
+def lm_view(tree: Dict[str, Any], cfg: ArchConfig) -> Dict[str, Any]:
+    """One client's training tree (:func:`lm_tree`'s layout, e.g. one row
+    of the federated state's ``W``) as the forward's parameters: layer
+    ``g * len(unit) + j`` is slice ``g`` of ``unit[j]``, the encoder's
+    layers the slices of ``enc_unit``, all views (``torch.unbind``), so
+    the gradient of a loss on them lands in the stacked leaves."""
+    unit, n_groups = factor_pattern(cfg.pattern())
+    per_entry = [tree_unstack(t) for t in tree["unit"]]
+    params: Dict[str, Any] = {
+        "embed": tree["embed"],
+        "layers": [per_entry[j][g] for g in range(n_groups)
+                   for j in range(len(unit))],
+        "final_norm": tree["final_norm"]}
+    if "frontend_proj" in tree:
+        params["frontend_proj"] = tree["frontend_proj"]
+    if "enc_unit" in tree:
+        params["enc_unit"] = tree_unstack(tree["enc_unit"])
+        params["enc_norm"] = tree["enc_norm"]
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -400,10 +539,6 @@ def _unstack(tree, n: int, device) -> List[Dict[str, Any]]:
             for i in range(n)]
 
 
-def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
-    return tree_map(lambda *xs: np.stack(xs), *trees)
-
-
 def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                          device=None) -> LMParams:
     """The reference's ``init_lm`` tree (arrays as numpy) as the port's
@@ -430,22 +565,9 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
 
 
 def lm_params_to_numpy(params, cfg: ArchConfig) -> Dict[str, Any]:
-    """The inverse of :func:`lm_params_from_numpy`: the reference's tree
-    layout as numpy arrays (bf16 weights come back as f32)."""
-    unit, n_groups = factor_pattern(cfg.pattern())
-    per_layer = [tree_map(_numpy, _as_dict(p)) for p in params["layers"]]
-    out = {"embed": tree_map(_numpy, _as_dict(params["embed"])),
-           "unit": tuple(
-               _stack([per_layer[g * len(unit) + j] for g in range(n_groups)])
-               for j in range(len(unit))),
-           "final_norm": tree_map(_numpy, _as_dict(params["final_norm"]))}
-    if "frontend_proj" in params:
-        out["frontend_proj"] = _numpy(params["frontend_proj"])
-    if "enc_unit" in params:
-        out["enc_unit"] = _stack([tree_map(_numpy, _as_dict(p))
-                                  for p in params["enc_unit"]])
-        out["enc_norm"] = tree_map(_numpy, _as_dict(params["enc_norm"]))
-    return out
+    """The inverse of :func:`lm_params_from_numpy`: :func:`lm_tree` as
+    numpy arrays (bf16 weights come back as f32)."""
+    return tree_map(_numpy, lm_tree(params, cfg))
 
 
 def _as_dict(mod: nn.Module) -> Dict[str, Any]:

@@ -1,36 +1,60 @@
-"""Nested-dict parameter trees and the device rule shared by the port.
+"""Parameter trees and the device rule shared by the port.
 
-Parameters and per-client state keep the reference's nested layout
-(``{"l0": {"b", "w"}, ...}``).  Leaves are visited in sorted-key order —
-JAX's pytree order (``b`` before ``w``; ``l0, l1, l10, l2, ...``) — which
+Parameters and per-client state keep the reference's nested layout: dicts
+(``{"l0": {"b", "w"}, ...}``) and, in an LM's tree, tuples and lists (its
+``unit`` is a tuple of per-sublayer dicts).  Leaves are visited in JAX's
+pytree order: a dict's entries in sorted-key order (``b`` before ``w``;
+``l0, l1, l10, l2, ...``), a tuple's or list's by position — which
 ``dro.lipschitz_surrogate`` and the attacks' per-leaf draws depend on.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 
 def tree_leaves(tree: Any) -> List[Any]:
-    """Leaves of a nested dict in sorted-key order; ``None`` is empty."""
+    """Leaves of nested dicts (sorted-key order), tuples and lists (by
+    position); ``None`` is empty."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        out: List[Any] = []
-        for k in sorted(tree):
-            out.extend(tree_leaves(tree[k]))
-        return out
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [l for t in tree for l in tree_leaves(t)]
     return [tree]
 
 
 def tree_map(f: Callable[..., Any], tree: Any, *rest: Any) -> Any:
-    """``f`` over matching leaves of one or more nested dicts."""
+    """``f`` over matching leaves of one or more trees of the same
+    structure; a tuple stays a tuple and a list a list."""
     if isinstance(tree, dict):
         return {k: tree_map(f, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(f, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
     return f(tree, *rest)
+
+
+def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
+    """A tree of ``like``'s structure holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def tree_unstack(tree: Any) -> List[Any]:
+    """The slices along the leading axis of a tree whose leaves share it:
+    a list of trees of views (``torch.unbind``), so a gradient taken
+    through the slices lands in the stacked leaves, one ``stack`` per
+    leaf."""
+    leaves = tree_leaves(tree)
+    cols = [l.unbind(0) for l in leaves]
+    return [tree_unflatten(tree, [c[i] for c in cols])
+            for i in range(len(cols[0]))]
 
 
 def host_array(x: Any) -> np.ndarray:

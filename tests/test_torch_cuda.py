@@ -8,7 +8,11 @@ rounding of the output: 1e-2 relative plus 1e-3 of the output's RMS
 and round once, so they may differ by one bf16 ulp, <= 2^-7); B6 (the
 Mamba selective scan) bit for bit.  And a full-width SmolLM-360M
 generate through both attention kernels, its launches counted, and the
-Hymba and Granite-MoE smoke models on the card against the CPU.  Needs a CUDA device and nvcc; skips without a device.
+Hymba and Granite-MoE smoke models on the card against the CPU.  B4's
+backward (f32, head dim 64) within 1e-5 + 1e-4 |plain| elementwise and
+bit for bit run to run, B4's output the same with and without its
+log-sum-exp, and the kernels without a backward refusing autograd.
+Needs a CUDA device and nvcc; skips without a device.
 Imports no JAX, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -440,6 +444,96 @@ def test_cuda_flash_attention_matches_plain_version(B, Sq, Sk, H, Hkv, D,
     torch.cuda.synchronize()
     assert fa_k.LAUNCHES["flash_attention"] == 1
     _assert_close(got, want, dtype)
+
+
+# B4's backward: the bound chip_smoke.py holds it to, elementwise
+BWD_ATOL, BWD_RTOL = 1e-5, 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,causal,window", [
+    (1, 1024, 1024, 15, 5, True, 0),                    # SmolLM's heads
+    (2, 300, 300, 4, 2, True, 64), (1, 200, 333, 6, 2, False, 0),
+    (2, 333, 200, 4, 4, False, 0), (1, 100, 250, 3, 1, True, 0),
+    (1, 130, 130, 2, 1, False, 40)])
+def test_cuda_flash_attention_backward_matches_plain_version(
+        B, Sq, Sk, H, Hkv, causal, window):
+    """The backward kernel (two launches a call) against its plain version
+    on the same inputs, out and lse within 1e-5 + 1e-4 |plain|
+    elementwise, and bit for bit the same on a second call (no
+    atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (_randn(s, "float32", i) for i, s in enumerate(
+        ((B, Sq, H, 64), (B, Sk, Hkv, 64), (B, Sk, Hkv, 64)), 1))
+    do = _randn((B, Sq, H, 64), "float32", 9)
+    out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+    fa_k.reset_launch_counts()
+    got = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    again = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa_k.LAUNCHES["flash_attention_bwd"] == 2 * fa_k.BWD_LAUNCHES
+    for g, a, w in zip(got, again, want):
+        assert _bits_equal(g, a)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert bool(((g - w).abs() <= BWD_ATOL + BWD_RTOL * w.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", [
+    (1, 4096, 4096, 15, 5, 64, True, 0), (1, 4096, 1500, 16, 16, 64, False, 0),
+    (2, 300, 300, 4, 2, 128, True, 64)])
+def test_cuda_flash_attention_lse_leaves_the_output_unchanged(
+        B, Sq, Sk, H, Hkv, D, causal, window):
+    """B4 with its log-sum-exp output gives the same output bit for bit as
+    without it, and the plain version's lse within 1e-5 + 1e-6 |lse|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (_randn(s, "float32", i) for i, s in enumerate(
+        ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)), 1))
+    plain = fa_k.flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+    _, want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      with_lse=True)
+    torch.cuda.synchronize()
+    assert _bits_equal(out, plain)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_through_b4_and_the_refusals():
+    """Under autograd a CUDA f32 call of B4 is the Function: one forward
+    launch, the backward's launches, gradients as autograd of the plain
+    version.  bf16 B4, B5 and B6 under autograd raise NotImplementedError
+    (no backward yet) rather than detach."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (_randn(s, "float32", i).requires_grad_(True) for i, s in
+               enumerate(((1, 200, 6, 64), (1, 200, 2, 64),
+                          (1, 200, 2, 64)), 1))
+    do = _randn((1, 200, 6, 64), "float32", 7)
+    fa_k.reset_launch_counts()
+    got = torch.autograd.grad(fa_k.flash_attention(q, k, v), (q, k, v), do)
+    assert fa_k.LAUNCHES == {"flash_attention": 1,
+                             "flash_attention_bwd": fa_k.BWD_LAUNCHES}
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v), (q, k, v),
+                               do)
+    for g, w in zip(got, want):
+        assert bool(((g - w).abs() <= BWD_ATOL + BWD_RTOL * w.abs()).all())
+    with pytest.raises(NotImplementedError, match="bf16 backward"):
+        fa_k.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="head dim"):
+        fa_k.flash_attention(*(_randn((1, 8, 2, 128), "float32", 1)
+                               .requires_grad_(True) for _ in range(3)))
+    length = torch.full((1,), 200, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="B5"):
+        dec_k.decode_attention(q[:, 0], k, v, length)
+    a = _randn((1, 4, 8, 2), "float32", 3).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="B6"):
+        ssm_scan.ssm_scan(a, a)
 
 
 SERVE_LENS = [16, 40, 100, 200, 256, 300, 400, 512]   # chip_smoke's

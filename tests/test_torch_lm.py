@@ -311,17 +311,29 @@ def test_serve_cli_runs_the_smoke_model_on_the_cpu():
 # ---------------------------------------------------------------------------
 # what is not ported yet
 def test_training_and_cross_attention_raise_not_yet_ported():
-    """LM training's input noise and the MoE's group sharding (a sharding
-    constraint over a mesh) are not ported; cross-attention is (see
-    test_torch_encdec.py)."""
+    """LM training's input noise is ported now (``noise=(gen, sigma)``
+    moves the hidden states), and cross-attention is (see
+    test_torch_encdec.py); the MoE's group sharding (a sharding
+    constraint over a mesh) is not, and on the card neither is B4's bf16
+    backward: a bf16 B4 call under autograd raises rather than return an
+    output without a gradient (that half needs a card)."""
     import dataclasses
 
     cfg = reduce_for_smoke(get_arch("smollm-360m"))
     params = tr.init_lm(torch.Generator(), cfg, device="cpu")
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(ValueError, match="not yet ported"):
-        tr.forward(params, toks, cfg, noise=(0, 1.0))
+    clean, _ = tr.forward(params, toks, cfg)
+    noisy, _ = tr.forward(params, toks, cfg,
+                          noise=(torch.Generator().manual_seed(0), 1.0))
+    assert noisy.shape == clean.shape and not torch.equal(noisy, clean)
     moe = dataclasses.replace(reduce_for_smoke(get_arch("olmoe-1b-7b")),
                               moe_group_shard=True)
     with pytest.raises(ValueError, match="moe_group_shard.*not yet ported"):
         tr.init_lm(torch.Generator(), moe, device="cpu")
+    if torch.cuda.is_available():
+        q = torch.randn((1, 8, 2, 64), device="cuda",
+                        dtype=torch.bfloat16).requires_grad_(True)
+        k = torch.randn((1, 8, 1, 64), device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError,
+                           match="bf16 backward is not yet ported"):
+            fa_k.flash_attention(q, k, k)

@@ -135,10 +135,14 @@ def port_state_arrays(state: FedState) -> dict:
 
 
 def flat_items(tree, prefix=""):
-    """``(path, leaf)`` pairs of a nested dict in sorted-key order."""
+    """``(path, leaf)`` pairs of a nested dict in sorted-key order (a
+    tuple's or list's entries by position, as an LM's ``unit``)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from flat_items(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from flat_items(t, f"{prefix}/{i}")
     elif tree is not None:
         yield prefix, tree
 
