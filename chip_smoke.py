@@ -130,8 +130,10 @@ backward (``flash_attention_bwd.cu``: dQ with delta, then dK and dV, two
 launches a call; f32 FMAs on the CUDA cores) against its plain version
 (``ref.flash_attention_bwd_ref``) within BWD_ATOL + BWD_RTOL |plain|
 elementwise at SmolLM-360M's training shape (1 x 4,096, 15/5 x 64,
-causal), with a window, and without a mask at SeamlessM4T's 4,096 x
-1,500 cross shape, and two calls bit for bit; B4's output bit for bit
+causal), with a window, at SeamlessM4T's (16/16: without a mask at the
+4,096 x 1,500 cross and 1,500 x 1,500 encoder shapes, causal at 4,096)
+and at the ``100m`` families' (4 x 128, 8/4, causal), and two calls bit
+for bit; B4's output bit for bit
 with and without its log-sum-exp output at SmolLM's prefill shape and
 SeamlessM4T's cross shape; times the backward at the training shape
 beside its bound (3xTF32 roof, and the f32 CUDA cores' as
@@ -145,6 +147,32 @@ and printing ms per round, peak memory and the card's busy share (the
 last round under ``torch.profiler``); and runs the 2-layer smoke model
 through the same step on the CPU and on the card (C=2, every client
 active, the LDP noise below rounding) under ``drift_check``.
+
+The rest of LM training (B1, B4 f32 and bf16 and both backwards, B6 and
+its backward): holds B4's bf16 output with and without its lse bit for
+bit (Hymba-1.5B's prefill and training shapes) and the lse within
+LSE_ATOL + LSE_RTOL |lse| of the plain version's; B4's bf16 backward
+against its plain version within BWD_ATOL + BWD_RTOL |plain| plus one
+bf16 ulp of the plain value, elementwise, at Hymba's training shape,
+with a window and at Sq != Sk, two calls bit for bit; times it beside
+its bound, the plain version and SDPA's bf16 backward, and B4 with its
+lse at B=1 in both dtypes (``check_flash_bwd_bf16``); holds B6's
+backward (``ssm_scan.cu``'s ``ssm_scan_bwd_kernel``, the reverse
+recurrence) against ``ref.ssm_scan_bwd_ref`` bit for bit and times it at
+Hymba's chunk and over 4,096 steps (``check_scan_bwd``); trains
+Hymba-1.5B at full width (bf16 compute, remat, C=2, one 4,096-token
+sequence each; a round launches B1 once, B4 128 times, its bf16 backward
+128, B6 4,096 and B6's backward 2,048), runs its smoke model on the CPU
+and on the card under ``drift_check`` and its bf16 ``loss_fn`` gradient
+on the card under the bf16 policy's rule (``lm_train_hymba``,
+``lm_train_cpu_vs_cuda``, ``bf16_grad_check``); trains SeamlessM4T-medium
+at full width (f32, remat, C=2, 4,096 tokens beside 1,500 frames: B4 144
+and its backward 144 a round, ``lm_train_seamless``); and trains
+Granite-MoE, OLMoE, LLaVA-NeXT-Mistral, Gemma-7B, Phi3-medium and xLSTM
+at the reference example's ``100m`` scale (C=4, 4 x 128, 3 rounds each;
+xLSTM launches B1 only, ``lm_train_100m``), every run's launches
+asserted exactly.  The LM training phases run under the training entry
+point's allocator policy (``launch.train.use_expandable_segments``).
 
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
@@ -175,9 +203,16 @@ model's shape, bf16 (``kernel``: the instance, ms, bound, plain and
 SDPA ms), and their ``encdec`` and ``vlm`` lists the same at
 SeamlessM4T's and LLaVA's shapes; their launches include the MoE,
 SeamlessM4T and LLaVA runs, B4's also the lm_train rounds.  Its
-``flash_attention_bwd`` entry (no TPU counterpart) gives the backward at
-SmolLM-360M's training shape, with ``simt_bound_ms`` and the ptxas lines
-of its two kernels; its launches are the lm_train rounds'.
+``flash_attention_bwd`` entry (no TPU counterpart) gives the f32 backward
+at SmolLM-360M's training shape, with ``simt_bound_ms`` and the ptxas
+lines of its two kernels; its launches are the f32 training rounds'
+(SmolLM-360M, SeamlessM4T-medium, the 100m families).  Its
+``flash_attention_bwd_bf16`` entry gives the bf16 instances at Hymba's
+training shape, launched by Hymba's rounds; B4's entry gains
+``autograd_fwd_b1`` (the forward with its lse at B=1, f32 and bf16).
+``ssm_scan_bwd`` (no TPU counterpart) gives B6's backward at Hymba's
+chunk, with B6's forward there at B=1; ``ssm_scan``'s launches include
+Hymba's training rounds.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -314,8 +349,9 @@ SMOKE_VS_ROWS, SMOKE_VS_S, SMOKE_VS_DECODE, SMOKE_VS_NEW = 2, 64, 24, 8
 # knobs of examples/federated_lm_training.py.  B4's backward is held to
 # its plain version within BWD_ATOL + BWD_RTOL |plain| elementwise (f32
 # sums in another order; stated before the kernel's first chip run) at
-# BWD_CASES: the training shape, a window and a no-mask Sq != Sk case
-# (SeamlessM4T's cross-attention).  B4's output with and without its
+# BWD_CASES: every shape a training phase gives it (SmolLM's, SeamlessM4T's
+# cross-attention, encoder and decoder self-attention, the ``100m``
+# families' at B=4) and a window.  B4's output with and without its
 # log-sum-exp, bit for bit, at LSE_CASES: SmolLM's prefill and
 # SeamlessM4T's cross shape.  CPU vs card: the 2-layer smoke model, C=2,
 # LM_TRAIN_ROUNDS rounds, the noise below rounding (LM_VS_BUDGET).
@@ -324,11 +360,49 @@ LM_TRAIN_KNOBS = dict(byzantine_frac=0.25, attack="sign_flip", alpha_w=2e-2)
 BWD_ATOL, BWD_RTOL = 1e-5, 1e-4
 BWD_CASES = [(1, 4096, 4096, 15, 5, 64, True, 0),      # SmolLM training
              (1, 4096, 4096, 15, 5, 64, True, 1024),   # a sliding window
-             (1, 4096, 1500, 16, 16, 64, False, 0)]    # SeamlessM4T cross
+             (1, 4096, 1500, 16, 16, 64, False, 0),    # SeamlessM4T cross
+             (1, 1500, 1500, 16, 16, 64, False, 0),    # SeamlessM4T encoder
+             (1, 4096, 4096, 16, 16, 64, True, 0),     # SeamlessM4T decoder
+             (4, 128, 128, 8, 4, 64, True, 0)]         # the 100m families
 LSE_CASES = [(PREFILL_B, 4096, 4096, 15, 5, 64, True),
              (PREFILL_B, 4096, 1500, 16, 16, 64, False)]
 LM_VS_CLIENTS, LM_VS_B, LM_VS_S = 2, 2, 128
 LM_VS_BUDGET = 1e18      # eps = 5e17: sigma ~ 5e-19, below every ulp
+# The other families' training (lm_train_families).  SeamlessM4T-medium
+# (12 + 12 layers, d 1,024, 16/16 x 64, f32, remat) and Hymba-1.5B (32
+# HYMBA layers, d 1,600, 25/5 x 64, bf16 compute, f32 params, remat) at
+# full width: C = LM_FULL_CLIENTS clients (the federated state keeps 3C + 1
+# copies of the tree: 24.6 and 39.3 GB), one LM_TRAIN_S-token sequence
+# each (SeamlessM4T's beside 1,500 frames), LM_TRAIN_ROUNDS rounds, the
+# last under the profiler.  The rest at the reference example's ``100m``
+# scale (examples/federated_lm_training.py: 8 layers, d 512, 8/4 x 64,
+# d_ff 2048, vocab 8192, f32, no remat; configs.scale_cfg is its copy),
+# with the example's defaults: C = 4, batch 4, seq 128, a Byzantine
+# fraction of 0.25, LM_100M_ROUNDS rounds each.  xLSTM's 100m config
+# keeps the smoke variant's two-entry pattern, which fails its 8-layer
+# ``pattern()`` check in the example as here: the chip tiles it to 8
+# layers (lm100m_config).
+LM_FULL_CLIENTS = 2
+LM_100M_ARCHS = ("granite-moe-3b-a800m", "olmoe-1b-7b",
+                 "llava-next-mistral-7b", "gemma-7b", "phi3-medium-14b",
+                 "xlstm-1.3b")
+LM_100M_CLIENTS, LM_100M_B, LM_100M_S, LM_100M_ROUNDS = 4, 4, 128, 3
+LM_100M_KNOBS = dict(byzantine_frac=0.25, attack="sign_flip", alpha_w=2e-2)
+# Scan backward (check_scan_bwd): B6's backward at Hymba's chunk and over a
+# whole 4,096-token sequence, timed against its bytes bound.
+SCAN_BWD_TIMED = [(1, SCAN_CHUNK, 1600, 16), (1, 4096, 1600, 16)]
+# B4's bf16 backward (check_flash_bwd_bf16) at Hymba's heads: its output
+# with and without the lse at BF16_LSE_CASES (the prefill and the training
+# shape), the lse within LSE_ATOL + LSE_RTOL |lse| of the plain version's
+# (f32 sums of exp2 in another order), the backward within BWD_ATOL +
+# BWD_RTOL |plain| plus one bf16 ulp of the plain value at BF16_BWD_CASES
+# (both compute in f32 from the same bf16 inputs and round once).
+BF16_LSE_CASES = [(PREFILL_B, 4096, 4096, 25, 5, 64, True, 0),
+                  (1, 4096, 4096, 25, 5, 64, True, 0)]
+BF16_BWD_CASES = [(1, 4096, 4096, 25, 5, 64, True, 0),     # Hymba training
+                  (1, 4096, 4096, 25, 5, 64, True, 1024),  # a window
+                  (1, 4096, 1500, 16, 16, 64, False, 0)]   # Sq != Sk
+LSE_ATOL, LSE_RTOL = 1e-5, 1e-6
 
 
 def log(msg: str) -> None:
@@ -3012,14 +3086,19 @@ def bwd_flops(q, k, causal, window):
 
 
 def bwd_bound(q, k, causal, window):
-    """B4 backward's least time: its operations by 3xTF32 (3 x the
-    operations over 494.7 TFLOP/s, as the forward's bound), or the bytes
-    of q, k, v, out, dout, lse read once and dq, dk, dv written once
-    over 3.35 TB/s.  Also the f32 CUDA cores' roof of the same work,
-    which bounds this FFMA kernel."""
+    """B4 backward's least time: its operations on the tensor cores for
+    the inputs' type (f32: by 3xTF32, 3 x the operations over 494.7
+    TFLOP/s, as the forward's bound; bf16: the operations over 989
+    TFLOP/s), or the bytes of q, k, v, out, dout (in their type), lse
+    (f32) read once and dq, dk, dv written once over 3.35 TB/s.  Also the
+    f32 CUDA cores' roof of the same work, which bounds this FFMA
+    kernel."""
     ops = bwd_flops(q, k, causal, window)
-    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + q.numel() // q.shape[-1])
-    ms, by = _bound(3 * ops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
+        + 4 * (q.numel() // q.shape[-1])
+    t_ops = (3 * ops / TF32_FLOPS_PER_S if q.dtype == torch.float32
+             else ops / BF16_FLOPS_PER_S)
+    ms, by = _bound(t_ops, nbytes / HBM_BYTES_PER_S)
     return ms, by, ops / F32_FLOPS_PER_S * 1e3
 
 
@@ -3140,14 +3219,129 @@ def device_busy_ms(fn, top: int = 8):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+    # the raw trace's device events (kernels, copies, sets): building the
+    # profiler's event tree for a round of ~10^6 events took minutes
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e6
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return wall, (busy if busy > 0 else None), [
         (name[:80], ms) for name, ms in ranked]
+
+
+def state_bytes(state) -> int:
+    """Bytes of a federated state's trees (W, z, z_local, phi, ...)."""
+    from repro_torch.tree import tree_leaves
+
+    return sum(l.numel() * l.element_size() for f in state
+               if f is not None and not isinstance(f, torch.Tensor)
+               for l in tree_leaves(f))
+
+
+def train_lm(label, cfg, specs, report, *, clients, batch_rows, seq,
+             rounds, knobs, per_round, cuts, profile_last=True):
+    """The main path of LM training: ``rounds`` BAFDP rounds of ``cfg``
+    through ``launch.steps.make_train_step`` on the card from a seed-0
+    state, C = ``clients`` clients with ``batch_rows`` sequences of
+    ``seq`` positions each (``data/tokens.lm_batch``, seed 0), every
+    launch counted: ``per_round`` kernel -> launches a round, plus the
+    round's one consensus launch (its B1-B3 spec's count grows by it).
+    The loss and every weight finite, W moved, the allocator's segments
+    expandable (``launch.train.use_expandable_segments``).  The last round
+    under the profiler (busy share and top kernels) when ``profile_last``.
+    Records
+    ``report[label]`` and returns the counts."""
+    from repro_torch.core.fed_state import init_fed_state, init_lm_tree
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+
+    C = clients
+    fed = dataclasses.replace(steps.fed_config_for(cfg, C), **knobs)
+    spec = consensus_spec(specs, fed)
+    torch.cuda.empty_cache()
+    state = init_fed_state(torch.Generator(device="cuda").manual_seed(0),
+                           lambda g: init_lm_tree(g, cfg, "cuda"), fed,
+                           device="cuda")
+    state_gb = state_bytes(state) / 1e9
+    sizes = [l.numel() for l in tree_leaves(state.W)]
+    probe = sizes.index(max(sizes))          # the largest weight leaf
+    w_probe = tree_leaves(state.W)[probe].reshape(C, -1)[:, :4096].clone()
+    raw = lm_batch(np.random.RandomState(0), cfg, C * batch_rows, seq)
+    batch = {k: torch.from_numpy(v).to("cuda").reshape(
+        (C, batch_rows) + v.shape[1:]) for k, v in raw.items()}
+    step = steps.make_train_step(cfg, fed)
+    want = {spec["counter"]: rounds}
+    for k, n in per_round.items():
+        want[k] = want.get(k, 0) + rounds * n
+    log(f"{label}: {cfg.name} C={C} b={batch_rows} S={seq} remat="
+        f"{cfg.remat} {cfg.compute_dtype}, state {state_gb:.2f} GB; "
+        f"expected launches {want}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    ms, losses, busy, top = [], [], None, []
+    for t in range(rounds):
+        out = {}
+
+        def one_round(t=t, out=out):
+            out["state"], out["m"] = step(state, batch, t)
+
+        if profile_last and t == rounds - 1:
+            wall, busy, top = device_busy_ms(one_round)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_round()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        del state                 # the round's old state goes before the next
+        state, m = out.pop("state"), out.pop("m")
+        ms.append(wall)
+        losses.append(float(m["data_loss"]))
+        log(f"{label} round {t}: {wall:.1f} ms, data_loss "
+            f"{losses[-1]:.5f}, eps {float(m['eps_mean']):.3f}, gap "
+            f"{float(m['consensus_gap']):.3e}, active "
+            f"{int(m['n_active'])}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the training entry point's allocator policy is in force
+    if not any(seg.get("is_expandable") for seg in
+               torch.cuda.memory_snapshot()):
+        raise AssertionError(f"{label}: no expandable segment")
+    counts = all_counts()
+    check_path_counts(f"{cfg.name} {label}", counts, want)
+    spec["launches"] += counts[spec["counter"]]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    for leaf in tree_leaves(state.W):
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(f"{label}: non-finite weights")
+    moved = float((tree_leaves(state.W)[probe].reshape(C, -1)[:, :4096]
+                   - w_probe).abs().max())
+    if not moved > 0:
+        raise AssertionError(f"{label}: W did not move")
+    busy_share = busy / ms[-1] if busy is not None else None
+    report[label] = dict(
+        arch=cfg.name, clients=C, seq=seq, per_client_batch=batch_rows,
+        rounds=rounds, knobs=knobs, compute_dtype=cfg.compute_dtype,
+        remat=cfg.remat, ms_per_round=ms, data_loss=losses,
+        state_gb=state_gb, peak_gb=peak_gb, device_busy_ms=busy,
+        busy_share=busy_share, top_kernels_ms=top, launches=counts,
+        launches_per_round={k: v // rounds for k, v in want.items()},
+        w_moved=moved, cuts=cuts)
+    log(f"{label} {cfg.name}, C={C}, {rounds} rounds: ms_per_round="
+        f"{[round(x, 1) for x in ms]} peak {peak_gb:.2f} GB (state "
+        f"{state_gb:.2f} GB) busy_share="
+        + (f"{busy_share:.3f} ({busy:.1f} of {ms[-1]:.1f} ms, profiled "
+           "round)" if busy_share is not None else "not measured")
+        + f" launches {counts} W moved by {moved:.3e}; cuts: {cuts}")
+    for name, t_ms in top:
+        log(f"  {label} profiled round: {t_ms:10.3f} ms  {name}")
+    del state, out, batch
+    torch.cuda.empty_cache()
+    return counts
 
 
 def lm_train_runs(specs, report):
@@ -3158,102 +3352,25 @@ def lm_train_runs(specs, report):
     recompute) and B4's backward once in each (BWD_LAUNCHES launches).
     The loss and every weight finite, W moved.  Returns the counts."""
     from repro_torch.configs import get_arch
-    from repro_torch.core.fed_state import init_fed_state, init_lm_tree
-    from repro_torch.data.tokens import lm_batch
     from repro_torch.kernels import flash_attention as fa_k
-    from repro_torch.launch import steps
-    from repro_torch.tree import tree_leaves
 
     cfg = get_arch(ARCH)
     if not (cfg.remat and cfg.compute_dtype == "float32"
             and cfg.n_layers == 32 and cfg.d_model == 960):
         raise AssertionError(f"{ARCH}: not the full-width f32 remat model")
-    C = LM_TRAIN_CLIENTS
-    fed = dataclasses.replace(steps.fed_config_for(cfg, C), **LM_TRAIN_KNOBS)
-    spec = consensus_spec(specs, fed)
-    torch.cuda.empty_cache()
-    state = init_fed_state(torch.Generator(device="cuda").manual_seed(0),
-                           lambda g: init_lm_tree(g, cfg, "cuda"), fed,
-                           device="cuda")
-    state_gb = sum(l.numel() * l.element_size() for f in state
-                   if f is not None and not isinstance(f, torch.Tensor)
-                   for l in tree_leaves(f)) / 1e9
-    w_probe = state.W["unit"][0]["attn"]["wq"][:, 0].clone()
-    raw = lm_batch(np.random.RandomState(0), cfg, C, LM_TRAIN_S)
-    batch = {k: torch.from_numpy(v).to("cuda").reshape((C, 1, LM_TRAIN_S))
-             for k, v in raw.items()}
-    step = steps.make_train_step(cfg, fed)
-    n_attn = cfg.n_layers
-    want = {spec["counter"]: LM_TRAIN_ROUNDS,
-            "flash_attention": LM_TRAIN_ROUNDS * 2 * n_attn * C,
-            "flash_attention_bwd": LM_TRAIN_ROUNDS * n_attn * C
-            * fa_k.BWD_LAUNCHES}
-    log(f"lm_train: {ARCH} C={C} b=1 S={LM_TRAIN_S} remat, state "
-        f"{state_gb:.2f} GB; expected launches {want}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_all_counts()
-    ms, losses, busy, top = [], [], None, []
-    for t in range(LM_TRAIN_ROUNDS):
-        out = {}
-
-        def one_round(t=t, out=out):
-            out["state"], out["m"] = step(state, batch, t)
-
-        if t == LM_TRAIN_ROUNDS - 1:      # the last round under the profiler
-            wall, busy, top = device_busy_ms(one_round)
-        else:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            one_round()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        state, m = out["state"], out["m"]
-        ms.append(wall)
-        losses.append(float(m["data_loss"]))
-        log(f"lm_train round {t}: {wall:.1f} ms, data_loss "
-            f"{losses[-1]:.5f}, eps {float(m['eps_mean']):.3f}, gap "
-            f"{float(m['consensus_gap']):.3e}, active "
-            f"{int(m['n_active'])}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    counts = all_counts()
-    check_path_counts(f"{ARCH} lm_train", counts, want)
-    spec["launches"] += counts[spec["counter"]]
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"lm_train: non-finite loss {losses}")
-    for leaf in tree_leaves(state.W):
-        if not bool(torch.isfinite(leaf).all()):
-            raise AssertionError("lm_train: non-finite weights")
-    moved = float((state.W["unit"][0]["attn"]["wq"][:, 0] - w_probe)
-                  .abs().max())
-    if not moved > 0:
-        raise AssertionError("lm_train: W did not move")
-    busy_share = busy / ms[-1] if busy is not None else None
-    report["lm_train"] = dict(
-        arch=ARCH, clients=C, seq=LM_TRAIN_S, per_client_batch=1,
-        rounds=LM_TRAIN_ROUNDS, knobs=LM_TRAIN_KNOBS, ms_per_round=ms,
-        data_loss=losses, state_gb=state_gb, peak_gb=peak_gb,
-        device_busy_ms=busy, busy_share=busy_share, top_kernels_ms=top,
-        launches=counts,
-        launches_per_round={k: v // LM_TRAIN_ROUNDS for k, v in want.items()},
-        w_moved=moved,
+    C, L = LM_TRAIN_CLIENTS, cfg.n_layers
+    return train_lm(
+        "lm_train", cfg, specs, report, clients=C, batch_rows=1,
+        seq=LM_TRAIN_S, rounds=LM_TRAIN_ROUNDS, knobs=LM_TRAIN_KNOBS,
+        per_round={"flash_attention": 2 * L * C,
+                   "flash_attention_bwd": L * C * fa_k.BWD_LAUNCHES},
         cuts=f"batch: one {LM_TRAIN_S}-token sequence per client ({C} in "
              "all; train_4k's global batch is 256)")
-    log(f"lm_train {ARCH} at full width, C={C}, {LM_TRAIN_ROUNDS} rounds: "
-        f"ms_per_round={[round(x, 1) for x in ms]} peak {peak_gb:.2f} GB "
-        f"(state {state_gb:.2f} GB) busy_share="
-        + (f"{busy_share:.3f} ({busy:.1f} of {ms[-1]:.1f} ms, profiled "
-           "round)" if busy_share is not None else "not measured")
-        + f" launches {counts} W moved by {moved:.3e}")
-    for name, t_ms in top:
-        log(f"  lm_train profiled round: {t_ms:10.3f} ms  {name}")
-    del state, out, batch
-    torch.cuda.empty_cache()
-    return counts
 
 
-def lm_train_cpu_vs_cuda(report):
-    """The 2-layer smoke model (f32, head dim 64) through
+def lm_train_cpu_vs_cuda(report, arch=ARCH, seq=LM_VS_S,
+                         key="lm_train_cpu_vs_cuda"):
+    """The 2-layer smoke model of ``arch`` (f32, head dim 64) through
     ``make_train_step`` on the CPU and on the card from one state, C =
     LM_VS_CLIENTS, every client active, LM_TRAIN_ROUNDS rounds, the LDP
     noise below rounding (``privacy_budget_a`` = LM_VS_BUDGET: the two
@@ -3266,7 +3383,7 @@ def lm_train_cpu_vs_cuda(report):
     from repro_torch.data.tokens import lm_batch
     from repro_torch.launch import steps
 
-    cfg = reduce_for_smoke(get_arch(ARCH))
+    cfg = reduce_for_smoke(get_arch(arch))
     C = LM_VS_CLIENTS
     fed = dataclasses.replace(steps.fed_config_for(cfg, C), **LM_TRAIN_KNOBS,
                               privacy_budget_a=LM_VS_BUDGET)
@@ -3275,7 +3392,7 @@ def lm_train_cpu_vs_cuda(report):
                           device="cpu")
     arrays = {k: None if v is None else _to_numpy(v)
               for k, v in init._asdict().items()}
-    raw = lm_batch(np.random.RandomState(1), cfg, C * LM_VS_B, LM_VS_S)
+    raw = lm_batch(np.random.RandomState(1), cfg, C * LM_VS_B, seq)
     act = np.ones((C,), bool)
     out = {}
     for dev in ("cpu", "cuda"):
@@ -3288,17 +3405,412 @@ def lm_train_cpu_vs_cuda(report):
             state, m = step(state, batch, t, act=act)
             losses.append(float(m["data_loss"]))
         out[dev] = (state, losses)
-    worst, n_off = drift_check("lm_train cpu vs cuda", out["cpu"][0],
+    worst, n_off = drift_check(f"{key} ({arch})", out["cpu"][0],
                                out["cuda"][0], LM_TRAIN_ROUNDS, fed.alpha_w)
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
-    report["lm_train_cpu_vs_cuda"] = dict(
-        max_abs_state_diff=worst[0], worst_leaf=worst[1],
-        elements_beyond_drift=n_off, data_loss_cpu=out["cpu"][1],
-        data_loss_cuda=out["cuda"][1])
-    log(f"lm_train cpu vs cuda ({cfg.name}, C={C}, {LM_TRAIN_ROUNDS} "
-        f"rounds): max |state diff| = {worst[0]:.3e} at {worst[1]}; {n_off} "
-        f"elements beyond the drift bound; data_loss cpu {out['cpu'][1]} "
-        f"cuda {out['cuda'][1]}")
+    report[key] = dict(
+        arch=cfg.name, seq=seq, max_abs_state_diff=worst[0],
+        worst_leaf=worst[1], elements_beyond_drift=n_off,
+        data_loss_cpu=out["cpu"][1], data_loss_cuda=out["cuda"][1])
+    log(f"{key} ({cfg.name}, C={C}, {LM_VS_B} x {seq} tokens, "
+        f"{LM_TRAIN_ROUNDS} rounds): max |state diff| = {worst[0]:.3e} at "
+        f"{worst[1]}; {n_off} elements beyond the drift bound; data_loss "
+        f"cpu {out['cpu'][1]} cuda {out['cuda'][1]}")
+
+
+# ---------------------------------------------------------------------------
+# The rest of LM training: B4's bf16 backward, B6's backward, Hymba-1.5B
+# and SeamlessM4T-medium at full width, the other families at 100m
+def bf16_ulp(w: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each value of ``w`` (0 at 0)."""
+    return torch.exp2(torch.floor(torch.log2(w.float().abs())) - 7)
+
+
+def fwd_lse_row(fa_k, ref, q, k, v, causal, cpm, tag):
+    """B4 with its lse output at one shape, timed: kernel, plain version
+    (``with_lse``), SDPA's forward and the bound."""
+    row = dict(shape=tag,
+               ms=device_ms(lambda: fa_k.flash_attention_fwd(
+                   q, k, v, causal=causal), cpm, reps=10, inner=3),
+               plain_ms=device_ms(lambda: ref.flash_attention_ref(
+                   q, k, v, causal=causal, with_lse=True), cpm, reps=5,
+                   inner=1),
+               library_ms=device_ms(lambda: sdpa_flash(q, k, v, causal),
+                                    cpm, reps=10, inner=3))
+    row["bound_ms"], row["bound_by"] = flash_bound(q, k, causal, 0)
+    log(f"time flash_attention+lse {tag}: kernel_ms={row['ms']:.6f} "
+        f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+        f"plain_ms={row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
+        "(SDPA forward, enable_gqa)")
+    return row
+
+
+def check_flash_bwd_bf16(report, errs):
+    """B4's bf16 forward with and without its lse at BF16_LSE_CASES, bit
+    for bit, the lse within LSE_ATOL + LSE_RTOL |lse| of the plain
+    version's; B4's bf16 backward at BF16_BWD_CASES against its plain
+    version on the same inputs (q, k, v, dO random bf16; out and lse from
+    B4): within BWD_ATOL + BWD_RTOL |plain| plus one bf16 ulp of the plain
+    value, elementwise, finite, and bit for bit on a second call.  Times
+    the bf16 backward at Hymba's training shape (kernel, plain version,
+    SDPA's bf16 backward, the bound on the bf16 tensor cores and the CUDA
+    cores' roof), and B4 with its lse under autograd at B=1: f32 at
+    SmolLM-360M's training shape, bf16 at Hymba's.  Launches here are not
+    the main path's."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+
+    bf = torch.bfloat16
+    rows = []
+    errs["flash_attention_lse_bf16"] = 0.0
+    for i, (B, Sq, Sk, H, Hkv, D, causal, window) in enumerate(
+            BF16_LSE_CASES):
+        q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, bf, 140 + i)
+        plain = fa_k.flash_attention(q, k, v, causal=causal, window=window)
+        out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal,
+                                            window=window)
+        _, want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window, with_lse=True)
+        torch.cuda.synchronize()
+        tag = f"B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} bf16 causal={causal}"
+        if not bits_equal(out, plain):
+            raise AssertionError(f"B4 bf16 with lse != without at {tag}")
+        excess = float(((lse - want).abs() - LSE_ATOL
+                        - LSE_RTOL * want.abs()).max())
+        err = max_abs_err(lse, want)
+        if not (bool(torch.isfinite(lse).all()) and excess <= 0):
+            raise AssertionError(f"B4 bf16 lse at {tag}: max |err| "
+                                 f"{err:.3e} past {LSE_ATOL} + {LSE_RTOL} "
+                                 "|lse|")
+        errs["flash_attention_lse_bf16"] = max(
+            errs["flash_attention_lse_bf16"], err)
+        rows.append(dict(kernel="flash_attention", shape=tag,
+                         lse_output_bit_identical=True, lse_max_abs_err=err))
+        log(f"flash_attention bf16 {tag}: output with lse bit-identical, lse "
+            f"max |err| {err:.3e} (bound {LSE_ATOL} + {LSE_RTOL} |lse|)")
+        del q, k, v, plain, out, lse, want
+    errs["flash_attention_bwd_bf16"] = 0.0
+    for i, (B, Sq, Sk, H, Hkv, D, causal, window) in enumerate(
+            BF16_BWD_CASES):
+        q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, bf, 150 + i)
+        do = _attn_inputs(B, Sq, Sq, H, H, D, bf, 160 + i)[0]
+        out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal,
+                                            window=window)
+        got = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+        again = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                         window)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                           window)
+        torch.cuda.synchronize()
+        tag = (f"B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} D={D} bf16 "
+               f"causal={causal} window={window}")
+        used, err = 0.0, 0.0
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            wf = w.float()
+            bound = BWD_ATOL + BWD_RTOL * wf.abs() + bf16_ulp(w)
+            share = float(((g.float() - wf).abs() / bound).max())
+            if not (g.dtype == bf and bool(torch.isfinite(g.float()).all())
+                    and share <= 1.0):
+                raise AssertionError(
+                    f"B4 bf16 backward {tag} {name}: kernel != plain version "
+                    f"(max |err| {max_abs_err(g, w):.3e}, {share:.3f} of "
+                    "the bound)")
+            if not bits_equal(g, a):
+                raise AssertionError(f"B4 bf16 backward {tag} {name}: two "
+                                     "calls differ")
+            used, err = max(used, share), max(err, max_abs_err(g, w))
+        errs["flash_attention_bwd_bf16"] = max(
+            errs["flash_attention_bwd_bf16"], err)
+        rows.append(dict(kernel="flash_attention_bwd_bf16", shape=tag,
+                         max_abs_err=err, bound_share=used,
+                         deterministic=True))
+        log(f"flash_attention_bwd bf16 {tag}: max |err| {err:.3e}, "
+            f"{used:.3f} of the bound {BWD_ATOL} + {BWD_RTOL} |plain| + one "
+            "bf16 ulp, two calls bit-identical")
+        del q, k, v, do, out, lse, got, again, want
+    report["flash_bwd_bf16_checks"] = rows
+
+    cpm = sleep_cycles_per_ms()
+    B, Sq, Sk, H, Hkv, D, causal, window = BF16_BWD_CASES[0]
+    q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, bf, 170)
+    do = _attn_inputs(B, Sq, Sq, H, H, D, bf, 171)[0]
+    out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal)
+    row = dict(shape=f"B={B} S={Sq} H={H}/{Hkv} D={D} bf16 causal",
+               ms=device_ms(lambda: fa_k.flash_attention_bwd(
+                   q, k, v, out, lse, do, causal, 0), cpm, reps=10, inner=3),
+               plain_ms=device_ms(lambda: ref.flash_attention_bwd_ref(
+                   q, k, v, out, lse, do, causal, 0), cpm, reps=5, inner=1),
+               library_ms=device_ms(sdpa_bwd(q, k, v, causal), cpm, reps=10,
+                                    inner=3),
+               gflop=bwd_flops(q, k, causal, 0) / 1e9)
+    row["bound_ms"], row["bound_by"], row["simt_bound_ms"] = bwd_bound(
+        q, k, causal, 0)
+    fwd_rows = {"bf16": fwd_lse_row(fa_k, ref, q, k, v, causal, cpm,
+                                    row["shape"])}
+    del q, k, v, do, out, lse
+    report["flash_bwd_bf16_timing"] = row
+    log(f"time flash_attention_bwd {row['shape']}: kernel_ms="
+        f"{row['ms']:.6f} bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
+        f"bf16 tensor cores; {row['gflop']:.2f} GFLOP) simt_bound_ms="
+        f"{row['simt_bound_ms']:.6f} (f32 CUDA cores) plain_ms="
+        f"{row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} (SDPA "
+        "bf16 backward, enable_gqa)")
+    B, Sq, Sk, H, Hkv, D, causal, _ = BWD_CASES[0]
+    q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, torch.float32, 172)
+    fwd_rows["f32"] = fwd_lse_row(
+        fa_k, ref, q, k, v, causal, cpm,
+        f"B={B} S={Sq} H={H}/{Hkv} D={D} f32 causal")
+    report["flash_fwd_lse_timing"] = fwd_rows
+    return row, fwd_rows
+
+
+def scan_bwd_bound(a, h0):
+    """B6 backward's least time: a, hs, dhs (and h0) read once, da, db
+    (and dh0) written once, over 3.35 TB/s; or its three flops per element
+    over the f32 rate."""
+    n = a.numel()
+    nbytes = n * (3 * a.element_size() + 8)
+    if h0 is not None:
+        nbytes += 8 * h0.numel()
+    return _bound(3 * n / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+
+
+def check_scan_bwd(report):
+    """B6's backward against its plain version on the card, bit for bit:
+    the shapes of ``check_scan`` (the reference's TPU grid, the chunk, odd
+    shapes), f32 and bf16 a, from zeros and from h0, a nonzero gradient on
+    every row (the last one too, as the chunk loop adds the next chunk's
+    into it); one launch a call; two calls alike.  Times it at
+    SCAN_BWD_TIMED against its bytes bound, and B6's forward at the
+    training chunk (B=1).  Returns (max |err|, the chunk's timing row)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm_k
+
+    shapes = [(2, S, D, N) for S, D, N in [(128, 64, 8), (256, 256, 16),
+                                           (64, 128, 4)]]
+    shapes += [SCAN_BWD_TIMED[0], (3, 77, 100, 5), (5, 33, 7, 3),
+               (1, 1, 1, 1)]
+    n, err = 0, 0.0
+    for i, shape in enumerate(shapes):
+        for dt in (torch.float32, torch.bfloat16):
+            for with_h0 in (False, True):
+                a, b, h0 = scan_inputs(*shape, dt, seed=900 + i,
+                                       with_h0=with_h0)
+                hs = ref.ssm_scan_ref(a, b, h0)
+                dhs = torch.randn(shape, device="cuda", generator=torch
+                                  .Generator(device="cuda").manual_seed(i))
+                ssm_k.reset_launch_counts()
+                got = ssm_k.ssm_scan_bwd(a, hs, h0, dhs)
+                again = ssm_k.ssm_scan_bwd(a, hs, h0, dhs)
+                want = ref.ssm_scan_bwd_ref(a, hs, h0, dhs)
+                torch.cuda.synchronize()
+                tag = f"ssm_scan_bwd {shape} {dt} h0={with_h0}"
+                if ssm_k.LAUNCHES["ssm_scan_bwd"] != 2:
+                    raise AssertionError(f"{tag}: {ssm_k.LAUNCHES}")
+                for name, g, x, w in zip(("da", "db", "dh0"), got, again,
+                                         want):
+                    if g.dtype != w.dtype or g.shape != w.shape:
+                        raise AssertionError(f"{tag} {name}: {g.dtype}"
+                                             f"{tuple(g.shape)}")
+                    if not (bits_equal(g, w) and bits_equal(g, x)):
+                        raise AssertionError(
+                            f"{tag} {name}: kernel != plain version or two "
+                            f"calls differ (max |err| {max_abs_err(g, w)})")
+                    err = max(err, max_abs_err(g, w))
+                n += 1
+    report["scan_bwd_checks"] = dict(calls=n, max_abs_err=err)
+    log(f"scan backward checks: {n} B6 backward calls equal their plain "
+        f"versions bit for bit (max |err| {err}), two calls each "
+        f"bit-identical ({len(shapes)} shapes x f32/bf16 x zeros/h0)")
+
+    cpm = sleep_cycles_per_ms()
+    rows = []
+    for i, shape in enumerate(SCAN_BWD_TIMED):
+        a, b, h0 = scan_inputs(*shape, torch.float32, seed=950 + i)
+        hs = ssm_k.ssm_scan(a, b, h0)
+        dhs = torch.randn(shape, device="cuda")
+        inner = 10 if shape[1] == SCAN_CHUNK else 3
+        row = dict(shape=shape, ms=device_ms(
+            lambda: ssm_k.ssm_scan_bwd(a, hs, h0, dhs), cpm, reps=20,
+            inner=inner),
+                   plain_ms=device_ms(lambda: ref.ssm_scan_bwd_ref(
+                       a, hs, h0, dhs), cpm, reps=5, inner=1),
+                   library_ms=None)
+        row["bound_ms"], row["bound_by"] = scan_bwd_bound(a, h0)
+        if shape[1] == SCAN_CHUNK:
+            row["fwd_ms"] = device_ms(lambda: ssm_k.ssm_scan(a, b, h0), cpm,
+                                      reps=20, inner=inner)
+            row["fwd_plain_ms"] = device_ms(
+                lambda: ref.ssm_scan_ref(a, b, h0), cpm, reps=5, inner=1)
+            row["fwd_bound_ms"] = scan_bound(a, h0)[0]
+        rows.append(row)
+        log(f"time ssm_scan_bwd {shape} f32 h0: kernel_ms={row['ms']:.6f} "
+            f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['ms']:.3f} of it) plain_ms="
+            f"{row['plain_ms']:.6f} library_ms=null"
+            + (f"; forward kernel_ms={row['fwd_ms']:.6f} bound_ms="
+               f"{row['fwd_bound_ms']:.6f} plain_ms={row['fwd_plain_ms']:.6f}"
+               if "fwd_ms" in row else ""))
+        del a, b, h0, hs, dhs
+    report["scan_bwd_timings"] = rows
+    return err, rows[0]
+
+
+def lm_train_hymba(specs, report):
+    """Hymba-1.5B at full width (32 HYMBA layers, d 1,600, 25/5 x 64, bf16
+    compute, f32 params, remat) through ``make_train_step``: C =
+    LM_FULL_CLIENTS, one LM_TRAIN_S-token sequence each, LM_TRAIN_ROUNDS
+    rounds.  A round launches, for each client and layer, B4 twice (the
+    forward and remat's recompute) and its backward once (BWD_LAUNCHES),
+    B6 once a 128-step chunk twice (forward, recompute) and its backward
+    once a chunk."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa_k
+
+    cfg = get_arch(HYMBA)
+    if not (cfg.remat and cfg.compute_dtype == "bfloat16"
+            and cfg.param_dtype == "float32" and cfg.n_layers == 32
+            and cfg.d_model == 1600 and cfg.resolved_head_dim == 64):
+        raise AssertionError(f"{HYMBA}: not the full-width bf16 remat model")
+    C, L = LM_FULL_CLIENTS, cfg.n_layers
+    chunks = -(-LM_TRAIN_S // SCAN_CHUNK)
+    return train_lm(
+        "lm_train_hymba", cfg, specs, report, clients=C, batch_rows=1,
+        seq=LM_TRAIN_S, rounds=LM_TRAIN_ROUNDS, knobs=LM_TRAIN_KNOBS,
+        per_round={"flash_attention": 2 * L * C,
+                   "flash_attention_bwd": L * C * fa_k.BWD_LAUNCHES,
+                   "ssm_scan": 2 * chunks * L * C,
+                   "ssm_scan_bwd": chunks * L * C},
+        cuts=f"batch: one {LM_TRAIN_S}-token sequence per client; clients: "
+             f"{C}")
+
+
+def lm_train_seamless(specs, report):
+    """SeamlessM4T-medium at full width (12 encoder + 12 decoder layers, d
+    1,024, 16/16 x 64, f32, remat) through ``make_train_step``: C =
+    LM_FULL_CLIENTS, one LM_TRAIN_S-token sequence beside 1,500 frames
+    each, LM_TRAIN_ROUNDS rounds.  A round launches B4 (f32) twice in
+    each of the 12 encoder layers (without the mask), 12 decoder
+    self-attentions (causal) and 12 cross-attentions (4,096 x 1,500,
+    without the mask) for each client, and its backward once in each."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa_k
+
+    cfg = get_arch(SEAMLESS)
+    if not (cfg.remat and cfg.compute_dtype == "float32"
+            and cfg.n_layers == 12 and cfg.n_enc_layers == 12
+            and cfg.d_model == 1024 and cfg.resolved_head_dim == 64):
+        raise AssertionError(f"{SEAMLESS}: not the full-width f32 model")
+    C = LM_FULL_CLIENTS
+    calls = cfg.n_enc_layers + 2 * cfg.n_layers
+    return train_lm(
+        "lm_train_seamless", cfg, specs, report, clients=C, batch_rows=1,
+        seq=LM_TRAIN_S, rounds=LM_TRAIN_ROUNDS, knobs=LM_TRAIN_KNOBS,
+        per_round={"flash_attention": 2 * calls * C,
+                   "flash_attention_bwd": calls * C * fa_k.BWD_LAUNCHES},
+        cuts=f"batch: one {LM_TRAIN_S}-token sequence and "
+             f"{cfg.frontend_tokens} frames per client; clients: {C}")
+
+
+def lm_train_100m(specs, report):
+    """Granite-MoE, OLMoE, LLaVA-NeXT-Mistral, Gemma-7B, Phi3-medium and
+    xLSTM at the reference example's ``100m`` scale (:func:`lm100m_config`:
+    8 layers, d 512, 8/4 x 64, f32, no remat), its defaults: C = 4, batch
+    4, seq 128, a Byzantine fraction of 0.25, LM_100M_ROUNDS rounds each.
+    A round launches B4 once in each attention layer for each client and
+    its backward once (BWD_LAUNCHES); xLSTM only B1.  Returns the summed
+    counts."""
+    from repro_torch.configs.base import ATTN, SWA
+    from repro_torch.kernels import flash_attention as fa_k
+
+    total = {}
+    for arch in LM_100M_ARCHS:
+        cfg = lm100m_config(arch)
+        if not (cfg.n_layers == 8 and cfg.d_model == 512
+                and cfg.resolved_head_dim == 64
+                and cfg.compute_dtype == "float32"):
+            raise AssertionError(f"{arch}: not the example's 100m config")
+        n_attn = sum(k in (ATTN, SWA) for k in cfg.pattern())
+        per_call = LM_100M_CLIENTS * n_attn
+        counts = train_lm(
+            f"lm_train_100m/{arch}", cfg, specs, report,
+            clients=LM_100M_CLIENTS, batch_rows=LM_100M_B, seq=LM_100M_S,
+            rounds=LM_100M_ROUNDS, knobs=LM_100M_KNOBS,
+            per_round={"flash_attention": per_call,
+                       "flash_attention_bwd": per_call * fa_k.BWD_LAUNCHES},
+            cuts="the example's 100m scale (8 layers, d 512, 8/4 x 64)"
+                 + (", its 2-entry block pattern tiled to 8 layers"
+                    if cfg.block_pattern else ""),
+            profile_last=False)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def bf16_grad_check(report):
+    """One client's ``loss_fn`` gradient of Hymba's smoke model with
+    ``compute_dtype="bfloat16"`` on the card (B4's bf16 forward and
+    backward, B6's forward and backward) against the same model's f32
+    gradient on the card, ``e_card = g_bf16 - g_f32``, held by the bf16
+    policy's rule (tests/test_torch_bf16_policy.py) against the CPU's
+    ``e_cpu`` (the plain versions, which the CPU tests hold to the
+    reference's bf16 error): 0.5 <= RMS(e_card) / RMS(e_cpu) <= 1.25 and
+    max|e_card| <= 1.5 max|e_cpu|, each leaf scaled by its f32
+    gradient's largest |value|."""
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.core.fed_state import init_lm_tree
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg32 = reduce_for_smoke(get_arch(HYMBA))
+    tree = init_lm_tree(torch.Generator().manual_seed(0), cfg32, "cpu")
+    raw = lm_batch(np.random.RandomState(4), cfg32, 2, 300)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(cfg32, compute_dtype=dt)
+            W = tree_map(lambda t: t.to(dev).clone().requires_grad_(True),
+                         tree)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+            loss = tr.loss_fn(tr.lm_view(W, cfg), batch, cfg)
+            grads[dev, dt] = [
+                torch.zeros(w.shape) if g is None else g.float().cpu()
+                for g, w in zip(torch.autograd.grad(
+                    loss, tree_leaves(W), allow_unused=True),
+                    tree_leaves(W))]
+    errs = {}
+    for dev in ("cpu", "cuda"):
+        errs[dev] = torch.cat([
+            ((g16 - g32) / max(float(ref32.abs().max()), 1e-30)).reshape(-1)
+            for g16, g32, ref32 in zip(grads[dev, "bfloat16"],
+                                       grads[dev, "float32"],
+                                       grads["cpu", "float32"])])
+    rms = lambda e: float(e.pow(2).mean().sqrt())
+    rms_ratio = rms(errs["cuda"]) / rms(errs["cpu"])
+    max_ratio = float(errs["cuda"].abs().max()) / float(
+        errs["cpu"].abs().max())
+    report["bf16_grad_check"] = dict(arch=cfg32.name, rms_ratio=rms_ratio,
+                                     max_ratio=max_ratio)
+    log(f"bf16 gradient on the card ({cfg32.name}, 2 x 300 tokens): RMS "
+        f"ratio {rms_ratio:.3f} (0.5-1.25), max ratio {max_ratio:.3f} "
+        "(<= 1.5) against the CPU's bf16 error")
+    if not (0.5 <= rms_ratio <= 1.25 and max_ratio <= 1.5):
+        raise AssertionError(f"bf16 gradient on the card: RMS ratio "
+                             f"{rms_ratio:.3f}, max ratio {max_ratio:.3f}")
+
+
+def lm100m_config(arch: str):
+    """The example's ``100m`` config of ``arch`` (``configs.scale_cfg``),
+    with a two-entry block pattern tiled to its 8 layers (xLSTM)."""
+    from repro_torch.configs import scale_cfg
+
+    cfg = scale_cfg(arch, "100m")
+    if cfg.block_pattern and len(cfg.block_pattern) != cfg.n_layers:
+        reps = cfg.n_layers // len(cfg.block_pattern)
+        cfg = dataclasses.replace(cfg,
+                                  block_pattern=cfg.block_pattern * reps)
+    return cfg
 
 
 def main() -> int:
@@ -3416,14 +3928,44 @@ def main() -> int:
 
     # LM training: B4's backward alone, then SmolLM-360M at full width
     # through make_train_step (B1, B4 and its backward), then the smoke
-    # model on the CPU and on the card
+    # model on the CPU and on the card; from here on under the allocator
+    # policy of the training entry point (launch/train.py)
+    from repro_torch.launch.train import use_expandable_segments
+
     t0 = time.perf_counter()
+    use_expandable_segments()
     bwd = check_flash_bwd(report, errs)
     for name, n in lm_train_runs(specs, report).items():
         launches[name] = launches.get(name, 0) + n
     lm_train_cpu_vs_cuda(report)
     report["lm_train_phase_s"] = time.perf_counter() - t0
     log(f"phase: lm_train ({ARCH}) {report['lm_train_phase_s']:.1f} s")
+
+    # The rest of LM training.  B4's bf16 backward and B6's backward held
+    # and timed alone; Hymba-1.5B at full width (bf16: B4 and its bf16
+    # backward, B6 and its backward), its smoke model on the CPU and on
+    # the card, its bf16 gradient on the card; SeamlessM4T-medium at full
+    # width (f32); the other families at the example's 100m scale
+    t0 = time.perf_counter()
+    bwd16, fwd_lse = check_flash_bwd_bf16(report, errs)
+    errs["ssm_scan_bwd"], scan_bwd = check_scan_bwd(report)
+    for name, n in lm_train_hymba(specs, report).items():
+        key = ("flash_attention_bwd_bf16" if name == "flash_attention_bwd"
+               else name)
+        launches[key] = launches.get(key, 0) + n
+    lm_train_cpu_vs_cuda(report, arch=HYMBA, seq=2 * SCAN_CHUNK,
+                         key="lm_train_hymba_cpu_vs_cuda")
+    bf16_grad_check(report)
+    report["lm_train_hymba_phase_s"] = time.perf_counter() - t0
+    log(f"phase: lm_train_hymba ({HYMBA}) "
+        f"{report['lm_train_hymba_phase_s']:.1f} s")
+    for phase, run in (("lm_train_seamless", lm_train_seamless),
+                       ("lm_train_100m", lm_train_100m)):
+        t0 = time.perf_counter()
+        for name, n in run(specs, report).items():
+            launches[name] = launches.get(name, 0) + n
+        report[f"{phase}_phase_s"] = time.perf_counter() - t0
+        log(f"phase: {phase} {report[f'{phase}_phase_s']:.1f} s")
 
     # B1-B3: per round of the 8 MLP_H24 leaves as one grouped call, with
     # call_ms and the same leaves in eight one-leaf calls beside it, and
@@ -3479,7 +4021,7 @@ def main() -> int:
     # prefill); the bf16 one's at Hymba-1.5B's prefill shape
     hb = times_hymba["flash_attention"]
     next(k for k in kernels if k["name"] == "flash_attention").update(
-        f32_kernel=b4["dispatch_f32"],
+        autograd_fwd_b1=fwd_lse, f32_kernel=b4["dispatch_f32"],
         simt_bound_ms=times["flash_attention"]["simt_bound_ms"],
         bf16_kernel=b4["dispatch_bf16"],
         bf16_ms=hb["ms"],
@@ -3487,25 +4029,42 @@ def main() -> int:
         moe=moe_rows["flash_attention"],
         encdec=new_rows["encdec_serve"]["flash_attention"],
         vlm=new_rows["vlm_serve"]["flash_attention"])
-    bwd_labels = [label for label in report["ptxas"]
-                  if label.startswith("flash_bwd_")]
-    kernels.append(dict(
-        name="flash_attention_bwd", route="cuda",
-        source=f"{CSRC}/flash_attention_bwd.cu",
-        replaces="none: no TPU kernel; jax.grad of the reference's "
-                 "attention, src/repro/models/attention.py:163",
-        launches=launches["flash_attention_bwd"],
-        max_abs_err=errs["flash_attention_bwd"], ms=bwd["ms"],
-        plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"],
-        bound_by=bwd["bound_by"], library_ms=bwd["library_ms"],
-        simt_bound_ms=bwd["simt_bound_ms"], kernel=bwd_labels,
-        ptxas={label: report["ptxas"][label] for label in bwd_labels}))
+    for name, t, row in (("flash_attention_bwd", "float", bwd),
+                         ("flash_attention_bwd_bf16", "bf16", bwd16)):
+        labels = [label for label in report["ptxas"]
+                  if label.startswith("flash_bwd_")
+                  and label.endswith(f",{t}>")]
+        if len(labels) != 2:
+            raise AssertionError(f"{name}: ptxas labels {labels}")
+        kernels.append(dict(
+            name=name, route="cuda", source=f"{CSRC}/flash_attention_bwd.cu",
+            replaces="none: no TPU kernel; jax.grad of the reference's "
+                     "attention, src/repro/models/attention.py:163",
+            launches=launches[name], max_abs_err=errs[name], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            simt_bound_ms=row["simt_bound_ms"], kernel=labels,
+            ptxas={label: report["ptxas"][label] for label in labels}))
     kernels.append(dict(
         name="ssm_scan", route="cuda", source=f"{CSRC}/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:44",
         launches=launches["ssm_scan"], max_abs_err=errs["ssm_scan"],
         ms=scan["ms"], plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
         bound_by=scan["bound_by"], library_ms=None))
+    labels = [label for label in report["ptxas"]
+              if label.startswith("ssm_scan_bwd_kernel")]
+    kernels.append(dict(
+        name="ssm_scan_bwd", route="cuda", source=f"{CSRC}/ssm_scan.cu",
+        replaces="none: no TPU kernel; jax.grad of the reference's scan, "
+                 "src/repro/models/ssm.py:93 (_assoc_scan)",
+        launches=launches["ssm_scan_bwd"], max_abs_err=errs["ssm_scan_bwd"],
+        ms=scan_bwd["ms"], plain_ms=scan_bwd["plain_ms"],
+        bound_ms=scan_bwd["bound_ms"], bound_by=scan_bwd["bound_by"],
+        library_ms=None, kernel=labels,
+        ptxas={label: report["ptxas"][label] for label in labels},
+        forward_ms_b1=scan_bwd["fwd_ms"],
+        forward_plain_ms_b1=scan_bwd["fwd_plain_ms"],
+        forward_bound_ms_b1=scan_bwd["fwd_bound_ms"]))
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['total_s']:.1f} s in all")

@@ -97,8 +97,25 @@ def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     )
 
 
+def scale_cfg(name: str, scale: str) -> ArchConfig:
+    """A copy of ``examples/federated_lm_training.py``'s ``scale_cfg``:
+    the smoke variant of ``name``, or at ``scale="100m"`` the same widened
+    to 8 layers, d 512, 8/4 heads, d_ff 2048, vocab 8192 (f32, head dim
+    64, no remat: what ``reduce_for_smoke`` sets stays).  Field for field
+    the example's; a family with a ``block_pattern`` keeps the smoke
+    variant's two entries, so its ``pattern()`` fails at 8 layers, in the
+    example as here."""
+    cfg = reduce_for_smoke(ARCHS[name])
+    if scale == "100m":
+        cfg = dataclasses.replace(
+            cfg, name=cfg.name.replace("smoke", "100m"), n_layers=8,
+            d_model=512, n_heads=8, n_kv_heads=4, d_ff=2048,
+            vocab_size=8192)
+    return cfg
+
+
 __all__ = [
-    "ARCHS", "get_arch", "reduce_for_smoke", "ArchConfig", "FedConfig",
+    "ARCHS", "get_arch", "reduce_for_smoke", "scale_cfg", "ArchConfig", "FedConfig",
     "InputShape", "INPUT_SHAPES", "MoEConfig", "ForecastConfig",
     "MLP_H1", "MLP_H24",
     "ATTN", "SWA", "MAMBA", "MLSTM", "SLSTM", "HYMBA",

@@ -197,59 +197,67 @@ def _client_block_updates(W, z_local, phi, eps, lam, opt, comp, batch,
         G_i = dro.lipschitz_surrogate(Wg, fed.lipschitz_surrogate)
         rho_i = fed.dro_weight * dro.rho(eps, n_samples, d_dim, c3, fed)
         loss_i = g_i + rho_i * G_i
-        flat = torch.autograd.grad(loss_i.sum(), tree_leaves(Wg))
-    grads = tree_unflatten(Wg, flat)
+        grads = list(torch.autograd.grad(loss_i.sum(), tree_leaves(Wg)))
     loss_i, g_i, G_i = loss_i.detach(), g_i.detach(), G_i.detach()
 
     R = eps.shape[0]
     if fed.grad_clip:
         sq = torch.zeros((R,), dtype=torch.float32, device=eps.device)
-        for g in tree_leaves(grads):
+        for g in grads:
             sq = sq + torch.sum(torch.square(g.float()),
                                 dim=tuple(range(1, g.ndim)))
         norm = torch.clamp_min(torch.sqrt(sq), 1e-9)
         scale = torch.clamp_max(torch.full_like(norm, fed.grad_clip) / norm,
                                 1.0)
-        grads = tree_map(
-            lambda g: g * scale.reshape((-1,) + (1,) * (g.ndim - 1))
-            .to(g.dtype), grads)
+        for i, g in enumerate(grads):   # each raw leaf freed as it goes
+            grads[i] = g * scale.reshape((-1,) + (1,) * (g.ndim - 1)) \
+                .to(g.dtype)
+        del g
 
     # Lagrangian pieces of Eq. 18, added OUTSIDE the Adam preconditioner:
     # -phi_i + psi * sign(w_i - z_local_i)
-    lag_grad = tree_map(
-        lambda w, zl, p: fed.psi * jsign(w.float() - zl.float()) - p.float(),
-        W, z_local, phi)
-    full_grad = tree_map(lambda a, b: a.float() + b, grads, lag_grad)
+    def lag(w, zl, p):
+        return fed.psi * jsign(w.float() - zl.float()) - p.float()
 
-    new_opt = opt
-    if fed.omega_optimizer == "adam" and opt is not None:
+    adam = fed.omega_optimizer == "adam" and opt is not None
+    if adam:
         cnt = opt["count"] + cnt_inc.to(torch.int32)
         b1, b2 = fed.adam_b1, fed.adam_b2
-        m = tree_map(lambda m_l, g: b1 * m_l + (1 - b1) * g.float(),
-                     opt["m"], grads)
-        v = tree_map(lambda v_l, g: b2 * v_l + (1 - b2)
-                     * torch.square(g.float()), opt["v"], grads)
         steps = torch.clamp_min(cnt, 1).float()
         bc1 = 1 - torch.pow(b1, steps)
         bc2 = 1 - torch.pow(b2, steps)
-
-        def adam_step(w, m_l, v_l, lg):
-            r1 = bc1.reshape((-1,) + (1,) * (w.ndim - 1))
-            r2 = bc2.reshape((-1,) + (1,) * (w.ndim - 1))
-            upd = (m_l / r1) / (torch.sqrt(v_l / r2) + fed.adam_eps)
-            return w.float() - fed.alpha_w * (upd + lg)
-
-        W_prop = tree_map(adam_step, W, m, v, lag_grad)
-        new_opt = {"m": m, "v": v, "count": cnt}
-    else:
-        W_prop = tree_map(lambda w, g: w.float() - fed.alpha_w * g,
-                          W, full_grad)
-
-    comp_prop = None
-    if taylor:
-        cb = fed.compensation_beta
-        comp_prop = tree_map(lambda c, g: cb * c + (1.0 - cb) * g,
-                             comp, full_grad)
+        m_l, v_l = tree_leaves(opt["m"]), tree_leaves(opt["v"])
+    w_l, zl_l, p_l = tree_leaves(W), tree_leaves(z_local), tree_leaves(phi)
+    c_l = tree_leaves(comp) if taylor else None
+    cb = fed.compensation_beta
+    # one leaf at a time, each gradient dropped once used, so the step holds
+    # no (R, ...) tree besides the gradient and the proposals (an LM round
+    # at full width would not fit one card otherwise)
+    W_prop, m_new, v_new, comp_l = [], [], [], []
+    for i, w in enumerate(w_l):
+        g, grads[i] = grads[i].float(), None
+        lg = lag(w, zl_l[i], p_l[i])
+        if adam:
+            r = (-1,) + (1,) * (w.ndim - 1)
+            m_new.append(b1 * m_l[i] + (1 - b1) * g)
+            v_new.append(b2 * v_l[i] + (1 - b2) * torch.square(g))
+            upd = (m_new[-1] / bc1.reshape(r)) \
+                / (torch.sqrt(v_new[-1] / bc2.reshape(r)) + fed.adam_eps)
+            W_prop.append(w.float() - fed.alpha_w * (upd + lg))
+            del upd
+        full = g + lg
+        del g, lg
+        if not adam:
+            W_prop.append(w.float() - fed.alpha_w * full)
+        if taylor:
+            comp_l.append(cb * c_l[i] + (1.0 - cb) * full)
+        del full
+    W_prop = tree_unflatten(W, W_prop)
+    new_opt = opt
+    if adam:
+        new_opt = {"m": tree_unflatten(opt["m"], m_new),
+                   "v": tree_unflatten(opt["v"], v_new), "count": cnt}
+    comp_prop = tree_unflatten(comp, comp_l) if taylor else None
 
     # Eq. (19):  d/deps [ (eta + c3/eps) G ] = -c3 G / eps^2
     d_eps = -fed.dro_weight * c3 * G_i \
@@ -336,6 +344,7 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
         return torch.where(m, new, old.float()).to(old.dtype)
 
     W_new = tree_map(mask_leaves, W_prop, state.W)
+    del W_prop          # the round's (C, ...) trees go as soon as they are used
     if fed.omega_optimizer == "adam" and state.opt is not None:
         new_opt = {"m": tree_map(mask_leaves, new_opt["m"], state.opt["m"]),
                    "v": tree_map(mask_leaves, new_opt["v"], state.opt["v"]),
@@ -412,6 +421,7 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
         [w_l.reshape(C, -1) for w_l in tree_leaves(W_srv)],
         [phi_mean(phi_l) for phi_l in tree_leaves(state.phi)],
         z_weights, fed.psi, fed.alpha_z, message=sign_message))
+    del W_sent, W_srv
 
     def z_step(z_l):
         zf = z_l.reshape(-1)
@@ -422,6 +432,10 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
         return torch.where(do_consensus, z_u, zf).reshape(z_l.shape)
 
     z_new = tree_map(z_step, state.z)
+    del z_upd
+    # taken now, before phi and z_local's new trees exist: its (C, ...)
+    # difference would otherwise be the round's peak
+    gap = consensus_gap(state._replace(W=W_new, z=z_new))
 
     # ---------------- Step 3: active clients update phi, sync z -----------
     a2_t = reg_decay(fed.alpha_phi, t, fed.reg_decay_pow)
@@ -433,12 +447,16 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
         W_dual = compensate_stale(W_new, new_comp, lag, fed)
 
     def phi_step(phi_l, z_l, w_l):
-        upd = (z_l[None].float() - w_l.float()) - a2_t * phi_l.float()
+        # the out-of-place form's values, computed in one buffer: the
+        # round's end holds the old and the new state, and an LM's largest
+        # leaf is gigabytes at full width
+        upd = z_l[None].float() - w_l.float()
+        upd.sub_(a2_t * phi_l.float())
         if fed.staleness_decay != "constant":
-            upd = upd * s_w_dual.reshape((-1,) + (1,) * (phi_l.ndim - 1))
-        new = phi_l.float() + fed.alpha_phi * upd
+            upd.mul_(s_w_dual.reshape((-1,) + (1,) * (phi_l.ndim - 1)))
+        upd.mul_(fed.alpha_phi).add_(phi_l.float())    # phi + alpha upd
         m = act.reshape((-1,) + (1,) * (phi_l.ndim - 1))
-        return torch.where(m, new, phi_l.float()).to(phi_l.dtype)
+        return torch.where(m, upd, phi_l.float(), out=upd).to(phi_l.dtype)
 
     phi_new = tree_map(phi_step, state.phi, z_new, W_dual)
 
@@ -455,7 +473,7 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
         "loss": act_mean(loss_i), "data_loss": act_mean(g_i),
         "lipschitz": torch.mean(G_i), "eps_mean": torch.mean(eps_new),
         "lambda_mean": torch.mean(lam_new),
-        "consensus_gap": consensus_gap(new_state),
+        "consensus_gap": gap,
         "n_active": torch.sum(act),
         "staleness_mean": torch.mean(stale_v),
         "staleness_weight_mean": torch.mean(s_w),

@@ -163,6 +163,6 @@ def consensus_gap(state: FedState) -> torch.Tensor:
     n = 0
     for z_l, w_l in zip(tree_leaves(state.z), tree_leaves(state.W)):
         diff = z_l[None].float() - w_l.float()
-        sq = sq + torch.sum(diff ** 2) / w_l.shape[0]
+        sq = sq + torch.sum(diff.pow_(2)) / w_l.shape[0]   # one buffer
         n += z_l.numel()
     return sq / float(max(n, 1))

@@ -10,10 +10,11 @@
 // What bounds it on the H100: operations, 4*B*H*D flops per kept
 // query-key pair against 2 bytes per flop or less.
 //
-// The f32 kernel optionally writes each row's log-sum-exp of the scaled
-// logits (m + log l, at the flush) for B4's backward
-// (csrc/flash_attention_bwd.cu); serving passes a null pointer, and the
-// output is the same bit for bit either way.
+// Both kernels optionally write each row's log-sum-exp of the scaled
+// logits at the flush, in f32, for B4's backward
+// (csrc/flash_attention_bwd.cu): the f32 kernel m + ln l, the bf16 kernel,
+// whose softmax runs in base 2, ln 2 (m_2 + log2 l).  Serving passes a null
+// pointer, and the output is the same bit for bit either way.
 //
 // float32: `flash_fwd_tf32x3`, tensor cores by 3xTF32, at every head dim
 // (64, 128, 256).  One TF32 rounding of the operands moves results past
@@ -188,9 +189,9 @@ struct TcTile {
 template <int D, int BQ, int BK, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS, 1)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-               int Sk, int H, int Hkv, int causal, int window,
-               float scale_log2) {
+               const bf16* __restrict__ v, bf16* __restrict__ o,
+               float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+               int causal, int window, float scale_log2) {
   using Tile = TcTile<D, BQ, BK, WARPS>;
   constexpr int NT = Tile::kThreads, MT = Tile::MT, DP = Tile::DP;
   constexpr int CH = D / 8;    // 16-byte chunks per row
@@ -433,13 +434,21 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                            2 * t) =
             __floats2bfloat162_rn(acc[mt][n][2 * hr] / denom,
                                   acc[mt][n][2 * hr + 1] / denom);
+      // the row's log-sum-exp of the scaled logits, for the backward: the
+      // softmax above runs in base 2 on the unscaled logits (p = 2^(s
+      // scale_log2 - m scale_log2)), so lse = ln 2 (m scale_log2 +
+      // log2 l), taken from the final m and l; O does not depend on it
+      if (lse != nullptr && t == 0)
+        lse[((long long)b * H + h) * Sq + r] =
+            0.69314718055994531f * (m[mt][hr] * scale_log2 + log2f(sum));
     }
 }
 
 template <int D, int BQ, int BK, int WARPS>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int Sq, int Sk, int H, int Hkv, int causal,
-                        int window, float scale, cudaStream_t stream) {
+                        float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                        int causal, int window, float scale,
+                        cudaStream_t stream) {
   using Tile = TcTile<D, BQ, BK, WARPS>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<D, BQ, BK, WARPS>,
@@ -449,26 +458,26 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_fwd_bf16<D, BQ, BK, WARPS><<<grid, Tile::kThreads, Tile::kSmem,
                                      stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, Hkv,
-      causal, window, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H,
+      Hkv, causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 // The bf16 tiles <D, BQ, BK, WARPS> by head dim; PERF.md (PR 15) has
 // what the alternatives measured.
 cudaError_t dispatch_bf16(int D, const void* q, const void* k, const void* v,
-                          void* o, int B, int Sq, int Sk, int H, int Hkv,
-                          int causal, int window, float scale,
+                          void* o, float* lse, int B, int Sq, int Sk, int H,
+                          int Hkv, int causal, int window, float scale,
                           cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch_bf16<64, 128, 64, 4>(q, k, v, o, B, Sq, Sk, H, Hkv,
+      return launch_bf16<64, 128, 64, 4>(q, k, v, o, lse, B, Sq, Sk, H, Hkv,
                                          causal, window, scale, stream);
     case 128:
-      return launch_bf16<128, 64, 64, 4>(q, k, v, o, B, Sq, Sk, H, Hkv,
+      return launch_bf16<128, 64, 64, 4>(q, k, v, o, lse, B, Sq, Sk, H, Hkv,
                                          causal, window, scale, stream);
     case 256:
-      return launch_bf16<256, 64, 32, 4>(q, k, v, o, B, Sq, Sk, H, Hkv,
+      return launch_bf16<256, 64, 32, 4>(q, k, v, o, lse, B, Sq, Sk, H, Hkv,
                                          causal, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -878,8 +887,8 @@ cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32 (`flash_fwd_tf32x3`), 1 = bfloat16 (`flash_fwd_bf16`).
 // q, o: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); all contiguous.  lse: null,
-// or (f32 only) a (B, H, Sq) f32 output of each row's log-sum-exp of the
-// scaled logits.  Returns the launch's cudaError_t.
+// or a (B, H, Sq) f32 output of each row's log-sum-exp of the scaled
+// logits (either dtype).  Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* o, void* lse, int B,
                                      int Sq, int Sk, int H, int Hkv, int D,
@@ -889,9 +898,8 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return dispatch_f32(D, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk,
                         H, Hkv, causal, window, scale, s);
-  if (lse != nullptr) return cudaErrorInvalidValue;
   if (dtype == 1)
-    return dispatch_bf16(D, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window,
-                         scale, s);
+    return dispatch_bf16(D, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk,
+                         H, Hkv, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 // B4's gradient: the backward of prefill attention (GQA, causal and/or
-// sliding window, or no mask) in float32, for sm_90a.
+// sliding window, or no mask) in float32 or bfloat16, for sm_90a.
 //
 // Replaces no TPU kernel.  The JAX package trains attention in XLA
 // (src/repro/models/attention.py:163-180) and differentiates it with
@@ -18,10 +18,19 @@
 // query's position, `window` > 0 keeps keys > position - window.
 //
 // What bounds it on the H100: operations, five products of 2 D flops per
-// kept query-key pair and head (S, dP, dV, dK, dQ), against 4 bytes per
-// element read once.  This kernel runs them as f32 FMAs on the CUDA cores
-// (67 TFLOP/s), with sums in f32 in a fixed order: no atomics, so the
-// gradient is the same bit for bit from run to run.
+// kept query-key pair and head (S, dP, dV, dK, dQ), against 4 bytes (f32)
+// or 2 (bf16) per element read once.  This kernel runs them as f32 FMAs on
+// the CUDA cores (67 TFLOP/s), with sums in f32 in a fixed order: no
+// atomics, so the gradient is the same bit for bit from run to run.
+//
+// The element type T of q, k, v, O, dO and of dQ, dK, dV is a template
+// argument: float (`flash_bwd_dq<64, float>`) or __nv_bfloat16 (the bf16
+// compute path, Hymba's attention).  bf16 elements are widened exactly as
+// they land in shared memory; everything after that (P, dP, dS, the three
+// products, delta) is the f32 kernel's arithmetic, and dQ, dK and dV are
+// rounded to bf16 once, as they are written.  The lse is f32 either way
+// (from B4's forward at its flush; the bf16 forward writes it from its
+// base-2 softmax).
 //
 // Two launches a call, on one stream:
 //  * `flash_bwd_dq<D>`, one block per (query tile, head, batch), heaviest
@@ -42,6 +51,7 @@
 // by plain float4 loads (rows past the end as zeros).  Q is scaled by
 // 1/sqrt(D) in f32 as it lands, as the forward does, so dK needs no
 // further scale.  Head dim 64 only.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -57,20 +67,44 @@ struct BwdTile {
   static constexpr size_t kFloats = size_t(kB) * P;  // one tile buffer
 };
 
-// Rows r0 .. r0 + 63 of a row-major f32 matrix (row r at src + r * stride)
-// into dst (64 x P floats), times `mul`; rows >= n are zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
+// Four consecutive elements (16-byte aligned in f32, 8-byte in bf16) as
+// f32, and four f32 values stored as four elements (rounded once in bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  // a bf16 is the top 16 bits of an f32
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                 *reinterpret_cast<uint32_t*>(&hi));
+}
+
+// Rows r0 .. r0 + 63 of a row-major matrix of T (row r at src + r *
+// stride) into dst (64 x P floats), times `mul`; rows >= n are zeros.
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long stride, int r0, int n,
                                           float mul) {
   constexpr int P = BwdTile<D>::P;
-  constexpr int CH = D / 4;  // float4 chunks per row
+  constexpr int CH = D / 4;  // 4-element chunks per row
   for (int e = threadIdx.x; e < kB * CH; e += kThreads) {
     const int r = e / CH, c = (e % CH) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n)
-      x = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * stride
-                                           + c);
+    if (r0 + r < n) x = load4(src + (long long)(r0 + r) * stride + c);
     x.x *= mul;
     x.y *= mul;
     x.z *= mul;
@@ -149,13 +183,13 @@ __device__ __forceinline__ void zero(float (&c)[4][4]) {
 }
 
 // Shared memory: Q (scaled), dO, K (first O, for delta), V, dS.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ o,
-             const float* __restrict__ lse, const float* __restrict__ dout,
-             float* __restrict__ dq, float* __restrict__ delta, int Sq,
-             int Sk, int H, int Hkv, int causal, int window, float scale) {
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ o,
+             const float* __restrict__ lse, const T* __restrict__ dout,
+             T* __restrict__ dq, float* __restrict__ delta, int Sq, int Sk,
+             int H, int Hkv, int causal, int window, float scale) {
   using Tile = BwdTile<D>;
   constexpr int P = Tile::P;
   extern __shared__ __align__(16) float smem_bwd[];
@@ -243,21 +277,19 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r < Sq)
-      *reinterpret_cast<float4*>(dq + qbase + r * qs + tx * 4) =
-          make_float4(scale * acc[i][0], scale * acc[i][1],
-                      scale * acc[i][2], scale * acc[i][3]);
+      store4(dq + qbase + r * qs + tx * 4, scale * acc[i][0],
+             scale * acc[i][1], scale * acc[i][2], scale * acc[i][3]);
   }
 }
 
 // Shared memory: K, V, Q (scaled), dO, P^T, dS^T.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ lse,
-               const float* __restrict__ delta,
-               const float* __restrict__ dout, float* __restrict__ dk,
-               float* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-               int causal, int window, float scale) {
+flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ lse,
+               const float* __restrict__ delta, const T* __restrict__ dout,
+               T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
+               int Hkv, int causal, int window, float scale) {
   using Tile = BwdTile<D>;
   constexpr int P = Tile::P;
   extern __shared__ __align__(16) float smem_bwd[];
@@ -331,57 +363,67 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     const int r = k0 + ty + 16 * i;
     if (r < Sk) {
       const long long e = kbase + r * ks + tx * 4;
-      *reinterpret_cast<float4*>(dk + e) = make_float4(
-          dk_acc[i][0], dk_acc[i][1], dk_acc[i][2], dk_acc[i][3]);
-      *reinterpret_cast<float4*>(dv + e) = make_float4(
-          dv_acc[i][0], dv_acc[i][1], dv_acc[i][2], dv_acc[i][3]);
+      store4(dk + e, dk_acc[i][0], dk_acc[i][1], dk_acc[i][2], dk_acc[i][3]);
+      store4(dv + e, dv_acc[i][0], dv_acc[i][1], dv_acc[i][2], dv_acc[i][3]);
     }
   }
 }
 
-template <int D>
-cudaError_t launch_bwd(const float* q, const float* k, const float* v,
-                       const float* o, const float* lse, const float* dout,
-                       float* dq, float* dk, float* dv, float* delta, int B,
+template <int D, typename T>
+cudaError_t launch_bwd(const void* q_, const void* k_, const void* v_,
+                       const void* o_, const float* lse, const void* dout_,
+                       void* dq_, void* dk_, void* dv_, float* delta, int B,
                        int Sq, int Sk, int H, int Hkv, int causal, int window,
                        float scale, cudaStream_t stream) {
+  const T *q = static_cast<const T*>(q_), *k = static_cast<const T*>(k_),
+          *v = static_cast<const T*>(v_), *o = static_cast<const T*>(o_),
+          *dout = static_cast<const T*>(dout_);
+  T *dq = static_cast<T*>(dq_), *dk = static_cast<T*>(dk_),
+    *dv = static_cast<T*>(dv_);
   const int dq_smem = int(5 * BwdTile<D>::kFloats * sizeof(float));
   const int kv_smem = int(6 * BwdTile<D>::kFloats * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+      flash_bwd_dq<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<D, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kv_smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<D><<<dim3((Sq + kB - 1) / kB, H, B), kThreads, dq_smem,
-                    stream>>>(q, k, v, o, lse, dout, dq, delta, Sq, Sk, H,
-                              Hkv, causal, window, scale);
+  flash_bwd_dq<D, T><<<dim3((Sq + kB - 1) / kB, H, B), kThreads, dq_smem,
+                       stream>>>(q, k, v, o, lse, dout, dq, delta, Sq, Sk, H,
+                                 Hkv, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv<D><<<dim3((Sk + kB - 1) / kB, Hkv, B), kThreads, kv_smem,
-                      stream>>>(q, k, v, lse, delta, dout, dk, dv, Sq, Sk, H,
-                                Hkv, causal, window, scale);
+  flash_bwd_dkdv<D, T><<<dim3((Sk + kB - 1) / kB, Hkv, B), kThreads,
+                         kv_smem, stream>>>(q, k, v, lse, delta, dout, dk, dv,
+                                            Sq, Sk, H, Hkv, causal, window,
+                                            scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o, dout, dq: (B, Sq, H, D); k, v, dk, dv: (B, Sk, Hkv, D); lse and
-// delta (scratch, written here): (B, H, Sq); all f32 and contiguous.  Two
-// launches (dq, then dk and dv).  Returns the first failing launch's
-// cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, the type of q, k, v, o, dout and of
+// dq, dk, dv.  q, o, dout, dq: (B, Sq, H, D); k, v, dk, dv: (B, Sk, Hkv,
+// D); lse and delta (scratch, written here): (B, H, Sq) f32; all
+// contiguous.  Two launches (dq, then dk and dv).  Returns the first
+// failing launch's cudaError_t.
 extern "C" int repro_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o,
+    int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
     void* delta, int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
     int window, float scale, void* stream) {
   if (D != 64) return cudaErrorInvalidValue;
-  return launch_bwd<64>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(o),
-      static_cast<const float*>(lse), static_cast<const float*>(dout),
-      static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), static_cast<float*>(delta), B, Sq, Sk, H, Hkv,
-      causal, window, scale, static_cast<cudaStream_t>(stream));
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<64, float>(q, k, v, o, l, dout, dq, dk, dv, dl, B, Sq,
+                                 Sk, H, Hkv, causal, window, scale, s);
+  if (dtype == 1)
+    return launch_bwd<64, __nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, dl,
+                                         B, Sq, Sk, H, Hkv, causal, window,
+                                         scale, s);
+  return cudaErrorInvalidValue;
 }

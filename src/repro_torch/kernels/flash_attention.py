@@ -23,13 +23,14 @@ kernel or raises.  ``LAUNCHES["flash_attention"]`` counts launches.
 
 Under autograd (grad mode on and q, k or v requiring grad) the call is
 :class:`FlashAttentionFn`, whose forward is B4 with its optional f32
-log-sum-exp output and whose backward is ``csrc/flash_attention_bwd.cu``
-(two launches a call: dQ with delta, then dK and dV;
-``LAUNCHES["flash_attention_bwd"]``), f32 at head dim 64 only; on the CPU
-the plain ``ref.flash_attention_ref(with_lse=True)`` and
-``ref.flash_attention_bwd_ref``.  A CUDA bf16 call under autograd raises
-``NotImplementedError``; another head dim raises ``ValueError``.  Neither
-direction falls back to the plain version or to the other device.
+log-sum-exp output (either dtype) and whose backward is
+``csrc/flash_attention_bwd.cu`` (two launches a call: dQ with delta, then
+dK and dV), f32 or bf16 at head dim 64 only;
+``LAUNCHES["flash_attention_bwd"]`` counts the launches of both dtypes.  On
+the CPU the Function runs the plain ``ref.flash_attention_ref(with_lse=
+True)`` and ``ref.flash_attention_bwd_ref``.  Another head dim under
+autograd on the card raises ``ValueError``.  Neither direction falls back
+to the plain version or to the other device.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ def _bwd_lib() -> ctypes.CDLL:
     """The backward's library, built at first use, with its C signature."""
     lib = _build.load("flash_attention_bwd")
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    lib.repro_flash_attention_bwd.argtypes = [p] * 10 + [i] * 8 + [f, p]
+    lib.repro_flash_attention_bwd.argtypes = [i, *[p] * 10, *[i] * 8, f, p]
     lib.repro_flash_attention_bwd.restype = ctypes.c_int
     return lib
 
@@ -141,13 +142,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4 with the log-sum-exp of each row's scaled logits: returns
-    ``(out, lse)``, lse (B, H, Sq) f32.  The kernel writes lse at its
-    flush; ``out`` is the same bit for bit as without it.  f32 only."""
+    ``(out, lse)``, lse (B, H, Sq) f32 for f32 and bf16 inputs alike.  The
+    kernel writes lse at its flush; ``out`` is the same bit for bit as
+    without it."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        with_lse=True)
-    if q.dtype != torch.float32:
-        raise TypeError(f"the log-sum-exp output is f32 only, got {q.dtype}")
     B, Sq, H, _ = q.shape
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     return _launch_forward(q, k, v, causal, window, lse), lse
@@ -155,10 +155,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def check_grad_args(q: torch.Tensor) -> None:
     """What B4's backward kernel does not take, checked before the
-    forward runs under autograd on the card: bf16 (not yet ported:
-    ``NotImplementedError``) and a head dim other than 64."""
-    if q.dtype == torch.bfloat16:
-        raise NotImplementedError("B4's bf16 backward is not yet ported")
+    forward runs under autograd on the card: a head dim other than 64
+    (both dtypes are taken)."""
     if q.shape[-1] not in BWD_HEAD_DIMS:
         raise ValueError(f"B4's backward takes head dim {BWD_HEAD_DIMS}, "
                          f"got {q.shape[-1]}")
@@ -168,8 +166,9 @@ def check_bwd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                    causal: bool, window: int) -> None:
     """Raise on anything the backward kernel does not take: besides
-    :func:`check_grad_args` and the forward's checks (f32 only), ``out``
-    and ``dout`` in q's shape and ``lse`` (B, H, Sq) f32."""
+    :func:`check_grad_args` and the forward's checks, ``out`` and ``dout``
+    in q's shape and dtype, and ``lse`` (B, H, Sq) f32 on q's device,
+    contiguous.  Returns the dtype code."""
     check_grad_args(q)
     D = q.shape[-1]
     if out.shape != q.shape or dout.shape != q.shape:
@@ -179,9 +178,14 @@ def check_bwd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be f32 {(B, H, Sq)}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous on {q.device}")
+    for name, t in (("out", out), ("dout", dout)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q {q.dtype}")
     check_args(q, k, v, causal, window)
-    check_attention_args(q, (("out", out), ("lse", lse), ("dout", dout)),
-                         D, H, k.shape[2])
+    return check_attention_args(q, (("out", out), ("dout", dout)), D, H,
+                                k.shape[2])
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -190,19 +194,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B4's gradient: (dq, dk, dv) of ``sum(out * dout)`` from the
-    forward's inputs, ``out`` and ``lse``.  A CPU tensor goes to
-    ``ref.flash_attention_bwd_ref``; a CUDA tensor launches the two
-    kernels of ``csrc/flash_attention_bwd.cu`` or raises."""
+    forward's inputs, ``out`` and ``lse``, in q's dtype (f32 or bf16).  A
+    CPU tensor goes to ``ref.flash_attention_bwd_ref``; a CUDA tensor
+    launches the two kernels of ``csrc/flash_attention_bwd.cu`` or
+    raises."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                            causal=causal, window=window)
-    check_bwd_args(q, k, v, out, lse, dout, causal, window)
+    code = check_bwd_args(q, k, v, out, lse, dout, causal, window)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
     err = _bwd_lib().repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, Hkv, D, int(causal),
         window, ref.attention_scale(D), _build.stream_of(q))

@@ -170,5 +170,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def ssm_scan(a: torch.Tensor, b: torch.Tensor,
              h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B6.  a, b: (B, S, D, N); h0: (B, D, N) f32 or None (zeros).
-    Returns hs: (B, S, D, N) f32, ``h_t = a_t * h_{t-1} + b_t``."""
+    Returns hs: (B, S, D, N) f32, ``h_t = a_t * h_{t-1} + b_t``.  Under
+    autograd, ``ssm_scan.SsmScanFn`` (B6 and its backward kernel on the
+    card)."""
     return ssm_k.ssm_scan(a, b, h0)

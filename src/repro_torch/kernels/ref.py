@@ -11,7 +11,8 @@ mirror the oracles of the JAX package's ``kernels/ref.py``:
 * prefill attention B4 (``csrc/flash_attention.cu``) and decode attention
   B5 (``csrc/decode_attention.cu``), in the model's layout, computed in
   f32 and returned in the query's dtype;
-* the Mamba recurrence B6 (``csrc/ssm_scan.cu``), a fold over time in f32.
+* the Mamba recurrence B6 (``csrc/ssm_scan.cu``), a fold over time in f32,
+  and its backward (:func:`ssm_scan_bwd_ref`), the reverse fold.
 
 In B1-B3 every cross-client sum adds rows strictly in order (a Python loop of
 ``acc = acc + w[j] * X[j]`` in f32), never through ``torch.sum``, which
@@ -375,3 +376,32 @@ def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor,
         h = h + b[:, t].float()
         hs[:, t] = h
     return hs
+
+
+def ssm_scan_bwd_ref(a: torch.Tensor, hs: torch.Tensor,
+                     h0: Optional[torch.Tensor], dhs: torch.Tensor):
+    """B6's gradient: the reverse recurrence, a fold down the time axis in
+    f32.  With ``h_{t-1}`` the forward's ``hs[:, t-1]`` (``h0`` or zeros
+    at t = 0) and ``dhs`` the gradient reaching each ``hs_t`` (taken as
+    given, its last row included)::
+
+        g_{S-1} = dhs_{S-1},  g_t = dhs_t + a_{t+1} * g_{t+1}
+        da_t = g_t * h_{t-1},  db_t = g_t,  dh0 = a_0 * g_0
+
+    each product and sum rounded on its own, in the kernel's order, so
+    the two agree bit for bit.  a: (B, S, D, N) f32 or bf16; hs, dhs:
+    (B, S, D, N); h0: (B, D, N) or ``None``.  Returns (da, db) in a's
+    dtype and dh0 (B, D, N) f32."""
+    B, S, D, N = a.shape
+    h_init = (torch.zeros((B, D, N), dtype=torch.float32, device=a.device)
+              if h0 is None else h0.float())
+    da = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    db = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    g = dhs[:, S - 1].float().clone()
+    for t in range(S - 1, -1, -1):
+        if t < S - 1:
+            g = dhs[:, t].float() + a[:, t + 1].float() * g
+        h_prev = hs[:, t - 1].float() if t > 0 else h_init
+        da[:, t] = (g * h_prev).to(a.dtype)
+        db[:, t] = g.to(a.dtype)
+    return da, db, a[:, 0].float() * g

@@ -10,7 +10,8 @@ Without ``--device`` it runs on the GPU and raises when there is none.
 ``--smoke`` trains ``reduce_for_smoke(arch)`` on sequences of 64 tokens,
 a global batch of 4 over 2 clients; otherwise 4 clients share the
 shape's global batch.  ``--ckpt`` (checkpoints), ``--dry`` (lowering)
-and ``--variant`` are not ported and raise.
+and ``--variant`` are not ported and raise.  On the GPU the caching
+allocator maps expandable segments (:func:`use_expandable_segments`).
 """
 from __future__ import annotations
 
@@ -20,6 +21,18 @@ import time
 
 import numpy as np
 import torch
+
+
+def use_expandable_segments() -> None:
+    """Let the CUDA caching allocator map the segments it makes from now on
+    as expandable ones, after releasing what it holds cached.  A full-width
+    LM round ends holding the old and the new federated state (Hymba-1.5B
+    at C=2: 78.7 GB of an H100's 85.0), where a cache cut into fixed
+    segments refused a 2 GiB block with 1.46 GiB cached but split."""
+    torch.cuda.empty_cache()
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setter or torch.cuda.memory._set_allocator_settings)(
+        "expandable_segments:True")
 
 
 def main(argv=None) -> int:
@@ -54,6 +67,8 @@ def main(argv=None) -> int:
     from repro_torch.tree import resolve_device
 
     dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        use_expandable_segments()
     cfg = get_arch(args.arch)
     shape = INPUT_SHAPES[args.shape]
     if args.smoke:

@@ -6,7 +6,11 @@ Mamba.  Prefill (``mamba_scan``) keeps the reference's loop over chunks of
 next; inside a chunk the recurrence ``h_t = a_t * h_{t-1} + b_t`` goes
 through ``ops.ssm_scan`` (B6: the CUDA kernel for CUDA tensors, the plain
 version for CPU tensors), with the carried ``h`` as its initial state, so
-no (B, S, d_in, N) array of the whole prompt is ever made.  Decode
+no (B, S, d_in, N) array of the whole prompt is ever made.  In training
+the same loop runs under autograd: each chunk's call is
+``ssm_scan.SsmScanFn``, whose backward is B6's reverse recurrence, and the
+carried ``h`` passes the next chunk's gradient back into this chunk's
+last state.  Decode
 (``mamba_decode``) is the reference's one-step update of ``h`` and the
 convolution window, written into the state in place.  The reference's
 dtype rules hold: projections and the convolution run in the compute
@@ -51,11 +55,12 @@ XLSTM_SPANS = ("ssm.mlstm", "ssm.slstm")
 
 
 def scan_chunked(step, carry, xs, chunk: int):
-    """The reference's ``scan_chunked`` for serving: ``step(carry, x_t) ->
-    (carry, y_t)`` over dim 0 of every tensor in ``xs`` (each (S, ...)),
-    returning (carry, ys stacked on dim 0).  The reference checkpoints the
-    scan in chunks of ``chunk`` steps for its backward; serving has none,
-    so a plain time loop is the same function.  Its shape contract stays:
+    """The reference's ``scan_chunked``: ``step(carry, x_t) -> (carry,
+    y_t)`` over dim 0 of every tensor in ``xs`` (each (S, ...)), returning
+    (carry, ys stacked on dim 0).  The reference checkpoints the scan in
+    chunks of ``chunk`` steps for its backward; a plain time loop is the
+    same function, and autograd differentiates it as it is (keeping every
+    step's activations).  Its shape contract stays:
     S must be a multiple of ``min(chunk, S)`` (a ``ValueError`` where the
     reference's assert fails)."""
     S = xs[0].shape[0]

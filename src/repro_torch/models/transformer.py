@@ -23,7 +23,9 @@ forward's parameters as views, so gradients land in the stacked leaves.
 ``forward(noise=(gen, sigma))`` adds the LDP input noise, ``cfg.remat``
 checkpoints each unit of layers (and each sublayer of a unit of several)
 with ``torch.utils.checkpoint``, and :func:`loss_fn` is CE + the MoE aux
-loss.
+loss.  Every kernel a training forward reaches has a backward: attention
+(B4, f32 or bf16 at head dim 64) through ``FlashAttentionFn`` and the
+Mamba scan (B6) through ``SsmScanFn``.
 
 ``moe_group_shard`` raises a ``ValueError`` naming it "not yet ported";
 a ``moe_impl`` other than ``"scatter"`` or ``"einsum"`` and an unknown

@@ -9,9 +9,11 @@ and round once, so they may differ by one bf16 ulp, <= 2^-7); B6 (the
 Mamba selective scan) bit for bit.  And a full-width SmolLM-360M
 generate through both attention kernels, its launches counted, and the
 Hymba and Granite-MoE smoke models on the card against the CPU.  B4's
-backward (f32, head dim 64) within 1e-5 + 1e-4 |plain| elementwise and
-bit for bit run to run, B4's output the same with and without its
-log-sum-exp, and the kernels without a backward refusing autograd.
+backward (f32 and bf16, head dim 64) within 1e-5 + 1e-4 |plain|
+elementwise (plus one bf16 ulp of the plain value in bf16) and bit for
+bit run to run, B4's output (both dtypes) the same with and without its
+log-sum-exp, B6's backward bit for bit, autograd through both, and B5
+refusing autograd (no backward).
 Needs a CUDA device and nvcc; skips without a device.
 Imports no JAX, so it runs on a machine without it:
 
@@ -481,6 +483,67 @@ def test_cuda_flash_attention_backward_matches_plain_version(
         assert bool(((g - w).abs() <= BWD_ATOL + BWD_RTOL * w.abs()).all())
 
 
+def _bf16_ulp(w: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each value of ``w`` (0 at 0)."""
+    return torch.exp2(torch.floor(torch.log2(w.float().abs())) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,causal,window", [
+    (1, 1024, 1024, 25, 5, True, 0),                    # Hymba's heads
+    (2, 300, 300, 4, 2, True, 64), (1, 200, 333, 6, 2, False, 0),
+    (2, 333, 200, 4, 4, False, 0), (1, 100, 250, 3, 1, True, 0),
+    (1, 130, 130, 2, 1, False, 40)])
+def test_cuda_flash_attention_backward_bf16_matches_plain_version(
+        B, Sq, Sk, H, Hkv, causal, window):
+    """The bf16 backward kernel against its plain version on the same bf16
+    inputs, out and lse (from B4's bf16 forward): within 1e-5 + 1e-4
+    |plain| plus one bf16 ulp of the plain value elementwise (both
+    compute in f32 and round the gradient once), and bit for bit on a
+    second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (_randn(s, "bfloat16", i) for i, s in enumerate(
+        ((B, Sq, H, 64), (B, Sk, Hkv, 64), (B, Sk, Hkv, 64)), 1))
+    do = _randn((B, Sq, H, 64), "bfloat16", 9)
+    out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+    fa_k.reset_launch_counts()
+    got = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    again = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa_k.LAUNCHES["flash_attention_bwd"] == 2 * fa_k.BWD_LAUNCHES
+    for g, a, w in zip(got, again, want):
+        assert _bits_equal(g, a)
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        bound = BWD_ATOL + BWD_RTOL * w.float().abs() + _bf16_ulp(w)
+        assert bool(((g.float() - w.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", [
+    (1, 4096, 4096, 25, 5, 64, True, 0), (2, 300, 300, 4, 2, 128, True, 64),
+    (1, 200, 333, 6, 2, 64, False, 0)])
+def test_cuda_flash_attention_bf16_lse_leaves_the_output_unchanged(
+        B, Sq, Sk, H, Hkv, D, causal, window):
+    """B4's bf16 kernel with its log-sum-exp output (ln 2 (m_2 + log2 l)
+    from its base-2 softmax) gives the same output bit for bit as
+    without it, and the plain version's lse within 1e-5 + 1e-6 |lse|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (_randn(s, "bfloat16", i) for i, s in enumerate(
+        ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)), 1))
+    plain = fa_k.flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+    _, want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      with_lse=True)
+    torch.cuda.synchronize()
+    assert _bits_equal(out, plain) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", [
     (1, 4096, 4096, 15, 5, 64, True, 0), (1, 4096, 1500, 16, 16, 64, False, 0),
@@ -507,8 +570,11 @@ def test_cuda_flash_attention_lse_leaves_the_output_unchanged(
 def test_cuda_autograd_through_b4_and_the_refusals():
     """Under autograd a CUDA f32 call of B4 is the Function: one forward
     launch, the backward's launches, gradients as autograd of the plain
-    version.  bf16 B4, B5 and B6 under autograd raise NotImplementedError
-    (no backward yet) rather than detach."""
+    version.  So is a bf16 call (its gradients in bf16, the launches
+    counted alike), and B6 under autograd is ``SsmScanFn`` (one forward
+    and one backward launch, gradients as the plain backward's, bit for
+    bit).  B5 under autograd raises NotImplementedError (no backward)
+    and B4 at another head dim ValueError, rather than detach."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v = (_randn(s, "float32", i).requires_grad_(True) for i, s in
@@ -523,17 +589,34 @@ def test_cuda_autograd_through_b4_and_the_refusals():
                                do)
     for g, w in zip(got, want):
         assert bool(((g - w).abs() <= BWD_ATOL + BWD_RTOL * w.abs()).all())
-    with pytest.raises(NotImplementedError, match="bf16 backward"):
-        fa_k.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    qb, kb, vb = (t.detach().bfloat16().requires_grad_(True)
+                  for t in (q, k, v))
+    fa_k.reset_launch_counts()
+    got = torch.autograd.grad(fa_k.flash_attention(qb, kb, vb), (qb, kb, vb),
+                              do.bfloat16())
+    assert fa_k.LAUNCHES == {"flash_attention": 1,
+                             "flash_attention_bwd": fa_k.BWD_LAUNCHES}
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        # bf16 inputs against the f32 gradient: the inputs' rounding
+        torch.testing.assert_close(g.float(), w, rtol=5e-2,
+                                   atol=5e-2 * float(w.abs().max()))
     with pytest.raises(ValueError, match="head dim"):
         fa_k.flash_attention(*(_randn((1, 8, 2, 128), "float32", 1)
                                .requires_grad_(True) for _ in range(3)))
     length = torch.full((1,), 200, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="B5"):
         dec_k.decode_attention(q[:, 0], k, v, length)
-    a = _randn((1, 4, 8, 2), "float32", 3).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B6"):
-        ssm_scan.ssm_scan(a, a)
+    a, b, h0 = (t.requires_grad_(True) for t in _scan_inputs(
+        (1, 40, 8, 2), "float32", True, 3))
+    dhs = _randn((1, 40, 8, 2), "float32", 4)
+    ssm_scan.reset_launch_counts()
+    hs = ssm_scan.ssm_scan(a, b, h0)
+    got = torch.autograd.grad(hs, (a, b, h0), dhs)
+    assert ssm_scan.LAUNCHES == {"ssm_scan": 1, "ssm_scan_bwd": 1}
+    want = ref.ssm_scan_bwd_ref(a.detach(), hs.detach(), h0.detach(), dhs)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
 
 
 SERVE_LENS = [16, 40, 100, 200, 256, 300, 400, 512]   # chip_smoke's
@@ -630,7 +713,7 @@ def test_cuda_ssm_scan_matches_plain_version_bitwise(shape, dtype, with_h0):
     got = ssm_scan.ssm_scan(a, b, h0)
     want = ref.ssm_scan_ref(a, b, h0)
     torch.cuda.synchronize()
-    assert ssm_scan.LAUNCHES == {"ssm_scan": 1}
+    assert ssm_scan.LAUNCHES == {"ssm_scan": 1, "ssm_scan_bwd": 0}
     assert got.dtype == torch.float32 and got.shape == a.shape
     assert _bits_equal(got, want)
 
@@ -647,6 +730,48 @@ def test_cuda_ssm_scan_raises_on_what_the_kernel_does_not_take():
                           h0)
     with pytest.raises(ValueError, match="h0"):
         ssm_scan.ssm_scan(a, b, h0.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 128, 64, 8), (4, 128, 1600, 16), (3, 77, 100, 5), (1, 1, 1, 1)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_cuda_ssm_scan_bwd_matches_plain_version_bitwise(shape, dtype,
+                                                         with_h0):
+    """B6's backward on the card equals its plain version on the card bit
+    for bit (da, db in a's dtype, dh0 f32), from zeros and from h0, with
+    a nonzero gradient on every row; one launch per call; two calls
+    alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b, h0 = _scan_inputs(shape, dtype, with_h0, 7 + sum(shape))
+    hs = ref.ssm_scan_ref(a, b, h0)
+    dhs = _randn(shape, "float32", 11)
+    ssm_scan.reset_launch_counts()
+    got = ssm_scan.ssm_scan_bwd(a, hs, h0, dhs)
+    again = ssm_scan.ssm_scan_bwd(a, hs, h0, dhs)
+    want = ref.ssm_scan_bwd_ref(a, hs, h0, dhs)
+    torch.cuda.synchronize()
+    assert ssm_scan.LAUNCHES == {"ssm_scan": 0, "ssm_scan_bwd": 2}
+    assert got[0].dtype == got[1].dtype == a.dtype
+    assert got[2].dtype == torch.float32
+    for g, x, w in zip(got, again, want):
+        assert _bits_equal(g, w) and _bits_equal(g, x)
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_scan_bwd_raises_on_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b, h0 = _scan_inputs((2, 8, 4, 3), "float32", True, 0)
+    hs = ref.ssm_scan_ref(a, b, h0)
+    with pytest.raises(ValueError, match="dhs"):
+        ssm_scan.ssm_scan_bwd(a, hs, h0, hs.bfloat16())
+    with pytest.raises(ValueError, match="hs"):
+        ssm_scan.ssm_scan_bwd(a, hs.cpu(), h0, hs)
+    with pytest.raises(ValueError, match="h0"):
+        ssm_scan.ssm_scan_bwd(a, hs, h0[:1], hs)
 
 
 @pytest.mark.cuda

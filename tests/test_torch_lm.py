@@ -314,9 +314,9 @@ def test_training_and_cross_attention_raise_not_yet_ported():
     """LM training's input noise is ported now (``noise=(gen, sigma)``
     moves the hidden states), and cross-attention is (see
     test_torch_encdec.py); the MoE's group sharding (a sharding
-    constraint over a mesh) is not, and on the card neither is B4's bf16
-    backward: a bf16 B4 call under autograd raises rather than return an
-    output without a gradient (that half needs a card)."""
+    constraint over a mesh) is not.  B4's bf16 backward is ported: on
+    the card a bf16 B4 call under autograd is the Function and carries a
+    gradient (that half needs a card)."""
     import dataclasses
 
     cfg = reduce_for_smoke(get_arch("smollm-360m"))
@@ -334,6 +334,7 @@ def test_training_and_cross_attention_raise_not_yet_ported():
         q = torch.randn((1, 8, 2, 64), device="cuda",
                         dtype=torch.bfloat16).requires_grad_(True)
         k = torch.randn((1, 8, 1, 64), device="cuda", dtype=torch.bfloat16)
-        with pytest.raises(NotImplementedError,
-                           match="bf16 backward is not yet ported"):
-            fa_k.flash_attention(q, k, k)
+        out = fa_k.flash_attention(q, k, k)
+        assert "FlashAttentionFn" in type(out.grad_fn).__name__
+        (dq,) = torch.autograd.grad(out.float().sum(), (q,))
+        assert dq.dtype == torch.bfloat16 and bool(torch.isfinite(dq).all())

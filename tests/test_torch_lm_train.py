@@ -291,16 +291,21 @@ def _tied(prev, new, path, pix) -> bool:
                for c in range(w_new.shape[0]))
 
 
-def _compare(init, states, metrics, ref_states, ref_metrics, fed):
+def _compare(init, states, metrics, ref_states, ref_metrics, fed,
+             near_zero=None):
     """Every state leaf and metric after every round within (RTOL, ATOL),
     except on tied coordinates.  A coordinate (a parameter leaf and an
     index into it) is tied from the round in which some state element
     there first differs beyond the tolerance, and only if one package
     sat on a tie there (:func:`_tied`).  There, every state leaf may
     differ by 2 psi max(alpha_w, alpha_z) per round since the tie, plus
-    ATOL; at most MAX_TIES coordinates are tied."""
+    ATOL; at most MAX_TIES coordinates are tied.  ``near_zero`` (trap
+    AF, xLSTM; ``test_torch_lm_train_families.py``): per round, {path:
+    bool mask} of the coordinates with a near-zero gradient so far; a
+    departure there gets the same per-round allowance without a tie and
+    does not count toward MAX_TIES."""
     params = {p: np.shape(v) for p, v in flat_items(init["z"])}
-    since = {}
+    since, free = {}, set()
     step = 2 * fed.psi * max(fed.alpha_w, fed.alpha_z)
     for t in range(ROUNDS):
         prev = (init, init) if t == 0 else (states[t - 1], ref_states[t - 1])
@@ -320,14 +325,18 @@ def _compare(init, states, metrics, ref_states, ref_metrics, fed):
                     assert path in params, where
                     tie = (path, ix[len(ix) - len(params[path]):])
                     if tie not in since:
-                        assert any(_tied(p, n, *tie) for p, n in
-                                   zip(prev, (states[t], ref_states[t]))), \
-                            f"{where}, no tie before it"
+                        if near_zero is not None and \
+                                near_zero[t][path][tie[1]]:
+                            free.add(tie)
+                        else:
+                            assert any(_tied(p, n, *tie) for p, n in zip(
+                                prev, (states[t], ref_states[t]))), \
+                                f"{where}, no tie before it"
                         since[tie] = t
                     bound = (t - since[tie] + 1) * step
                     assert abs(float(a[ix]) - float(b[ix])) <= bound + ATOL, \
                         f"{where}, beyond {bound} since the tie"
-        assert len(since) <= MAX_TIES, sorted(since)
+        assert len(since) - len(free) <= MAX_TIES, sorted(set(since) - free)
         assert sorted(metrics[t]) == sorted(ref_metrics[t])
         for k in metrics[t]:
             np.testing.assert_allclose(
