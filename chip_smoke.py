@@ -126,8 +126,9 @@ CPU and on the card (``smoke_cpu_vs_cuda``: logits within 2e-3, greedy
 tokens equal; for xLSTM the card's prefill against its decode at 5e-4).
 
 LM training path (B1, B4 and B4's backward, ``lm_train``): holds B4's
-backward (``flash_attention_bwd.cu``: dQ with delta, then dK and dV, two
-launches a call; f32 FMAs on the CUDA cores) against its plain version
+backward (``flash_attention_bwd.cu``: dQ with delta, each query head's dK
+and dV, their sum per KV head, three launches a call; on the tensor
+cores, f32 by 3xTF32) against its plain version
 (``ref.flash_attention_bwd_ref``) within BWD_ATOL + BWD_RTOL |plain|
 elementwise at SmolLM-360M's training shape (1 x 4,096, 15/5 x 64,
 causal), with a window, at SeamlessM4T's (16/16: without a mask at the
@@ -156,7 +157,10 @@ against its plain version within BWD_ATOL + BWD_RTOL |plain| plus one
 bf16 ulp of the plain value, elementwise, at Hymba's training shape,
 with a window and at Sq != Sk, two calls bit for bit; times it beside
 its bound, the plain version and SDPA's bf16 backward, and B4 with its
-lse at B=1 in both dtypes (``check_flash_bwd_bf16``); holds B6's
+lse at B=1 in both dtypes (``check_flash_bwd_bf16``); times the
+backward kernel by kernel (dq, dK/dV, their sum) at BWD_TIMED, every
+full-width training shape, beside the bound and SDPA's backward
+(``time_flash_bwd_parts``); holds B6's
 backward (``ssm_scan.cu``'s ``ssm_scan_bwd_kernel``, the reverse
 recurrence) against ``ref.ssm_scan_bwd_ref`` bit for bit and times it at
 Hymba's chunk and over 4,096 steps (``check_scan_bwd``); trains
@@ -204,11 +208,14 @@ SDPA ms), and their ``encdec`` and ``vlm`` lists the same at
 SeamlessM4T's and LLaVA's shapes; their launches include the MoE,
 SeamlessM4T and LLaVA runs, B4's also the lm_train rounds.  Its
 ``flash_attention_bwd`` entry (no TPU counterpart) gives the f32 backward
-at SmolLM-360M's training shape, with ``simt_bound_ms`` and the ptxas
-lines of its two kernels; its launches are the f32 training rounds'
-(SmolLM-360M, SeamlessM4T-medium, the 100m families).  Its
-``flash_attention_bwd_bf16`` entry gives the bf16 instances at Hymba's
-training shape, launched by Hymba's rounds; B4's entry gains
+at SmolLM-360M's training shape, with ``simt_bound_ms``, each kernel's
+ms (``dq_ms``, ``dkdv_ms``, ``sum_ms``), the ptxas lines and the
+``registers`` and spill bytes of its three kernels, and as ``seamless``
+the same rows at SeamlessM4T-medium's decoder and cross shapes; its
+launches are the f32 training rounds' (SmolLM-360M, SeamlessM4T-medium,
+the 100m families).  Its ``flash_attention_bwd_bf16`` entry gives the
+bf16 instances at Hymba's training shape, launched by Hymba's rounds;
+B4's entry gains
 ``autograd_fwd_b1`` (the forward with its lse at B=1, f32 and bf16).
 ``ssm_scan_bwd`` (no TPU counterpart) gives B6's backward at Hymba's
 chunk, with B6's forward there at B=1; ``ssm_scan``'s launches include
@@ -403,6 +410,16 @@ BF16_BWD_CASES = [(1, 4096, 4096, 25, 5, 64, True, 0),     # Hymba training
                   (1, 4096, 4096, 25, 5, 64, True, 1024),  # a window
                   (1, 4096, 1500, 16, 16, 64, False, 0)]   # Sq != Sk
 LSE_ATOL, LSE_RTOL = 1e-5, 1e-6
+# B4's backward timed kernel by kernel (time_flash_bwd_parts): dq, the
+# per-head dK/dV kernel and their sum apart, beside the bound and SDPA's
+# backward, at every full-width training shape: (model, (B, Sq, Sk, H,
+# Hkv, D, causal), dtype).
+BWD_TIMED = [("smollm-360m", (1, 4096, 4096, 15, 5, 64, True), "float32"),
+             ("seamless-m4t-medium decoder", (1, 4096, 4096, 16, 16, 64,
+                                              True), "float32"),
+             ("seamless-m4t-medium cross", (1, 4096, 1500, 16, 16, 64,
+                                            False), "float32"),
+             ("hymba-1.5b", (1, 4096, 4096, 25, 5, 64, True), "bfloat16")]
 
 
 def log(msg: str) -> None:
@@ -1788,6 +1805,21 @@ def kernel_label(report, fn: str, D: int) -> str:
     return hits[0]
 
 
+def ptxas_registers(lines) -> dict:
+    """Registers and spill bytes from one kernel instance's ptxas lines
+    (``report["ptxas"][label]``)."""
+    out = {}
+    for text in lines:
+        m = re.search(r"Used (\d+) registers", text)
+        if m:
+            out["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      text)
+        if m:
+            out["spill_stores"], out["spill_loads"] = map(int, m.groups())
+    return out
+
+
 def _counted_modules():
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
@@ -3091,8 +3123,8 @@ def bwd_bound(q, k, causal, window):
     TFLOP/s, as the forward's bound; bf16: the operations over 989
     TFLOP/s), or the bytes of q, k, v, out, dout (in their type), lse
     (f32) read once and dq, dk, dv written once over 3.35 TB/s.  Also the
-    f32 CUDA cores' roof of the same work, which bounds this FFMA
-    kernel."""
+    f32 CUDA cores' roof of the same work, which bounded the FFMA kernel
+    that the tensor-core kernels replaced."""
     ops = bwd_flops(q, k, causal, window)
     nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
         + 4 * (q.numel() // q.shape[-1])
@@ -3564,6 +3596,73 @@ def check_flash_bwd_bf16(report, errs):
     return row, fwd_rows
 
 
+def bwd_kernel_ms(fn, calls: int = 5) -> dict:
+    """Device ms per launch of each of B4's backward kernels (``dq``, the
+    per-head ``dkdv``, their ``sum``): the mean over the launches that
+    ``torch.profiler``'s raw trace holds for ``calls`` calls of ``fn``
+    (the trace can miss the window's first launch); None each when it
+    shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    found = {"dq_ms": [], "dkdv_ms": [], "sum_ms": []}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        for key, pat in (("sum_ms", "flash_bwd_dkdv_sum<"),
+                         ("dkdv_ms", "flash_bwd_dkdv<"),
+                         ("dq_ms", "flash_bwd_dq<")):
+            if pat in e.name():
+                found[key].append(e.duration_ns() / 1e6)
+                break
+    return {key: statistics.mean(ms) if ms else None
+            for key, ms in found.items()}
+
+
+def time_flash_bwd_parts(report):
+    """B4's backward at BWD_TIMED: the call's device ms (CUDA events),
+    each kernel's (profiler), the bound (and the CUDA cores' roof) and
+    SDPA's backward on the same inputs.  Launches here are not the main
+    path's.  Returns the rows."""
+    from repro_torch.kernels import flash_attention as fa_k
+
+    cpm = sleep_cycles_per_ms()
+    rows = []
+    for i, (model, (B, Sq, Sk, H, Hkv, D, causal), dt) in enumerate(
+            BWD_TIMED):
+        dtype = getattr(torch, dt)
+        q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, dtype, 180 + i)
+        do = _attn_inputs(B, Sq, Sq, H, H, D, dtype, 190 + i)[0]
+        out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal)
+        fn = lambda: fa_k.flash_attention_bwd(q, k, v, out, lse, do,
+                                              causal, 0)
+        row = dict(model=model, shape=f"B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} "
+                   f"D={D} {dt} causal={causal}",
+                   ms=device_ms(fn, cpm, reps=10, inner=3),
+                   library_ms=device_ms(sdpa_bwd(q, k, v, causal), cpm,
+                                        reps=10, inner=3),
+                   **bwd_kernel_ms(fn))
+        row["bound_ms"], row["bound_by"], row["simt_bound_ms"] = bwd_bound(
+            q, k, causal, 0)
+        rows.append(row)
+        parts = " ".join(f"{key}=" + ("not measured" if row[key] is None
+                                       else f"{row[key]:.6f}")
+                         for key in ("dq_ms", "dkdv_ms", "sum_ms"))
+        log(f"time flash_attention_bwd {model} {row['shape']}: kernel_ms="
+            f"{row['ms']:.6f} ({parts}) bound_ms={row['bound_ms']:.6f} "
+            f"({row['bound_by']}) simt_bound_ms={row['simt_bound_ms']:.6f} "
+            f"library_ms={row['library_ms']:.6f} (SDPA {dt} backward)")
+        del q, k, v, do, out, lse
+    report["flash_bwd_parts"] = rows
+    return rows
+
+
 def scan_bwd_bound(a, h0):
     """B6 backward's least time: a, hs, dhs (and h0) read once, da, db
     (and dh0) written once, over 3.35 TB/s; or its three flops per element
@@ -3948,6 +4047,7 @@ def main() -> int:
     # width (f32); the other families at the example's 100m scale
     t0 = time.perf_counter()
     bwd16, fwd_lse = check_flash_bwd_bf16(report, errs)
+    bwd_parts = {r["model"]: r for r in time_flash_bwd_parts(report)}
     errs["ssm_scan_bwd"], scan_bwd = check_scan_bwd(report)
     for name, n in lm_train_hymba(specs, report).items():
         key = ("flash_attention_bwd_bf16" if name == "flash_attention_bwd"
@@ -4029,13 +4129,18 @@ def main() -> int:
         moe=moe_rows["flash_attention"],
         encdec=new_rows["encdec_serve"]["flash_attention"],
         vlm=new_rows["vlm_serve"]["flash_attention"])
-    for name, t, row in (("flash_attention_bwd", "float", bwd),
-                         ("flash_attention_bwd_bf16", "bf16", bwd16)):
+    # B4's backward: its kernels (dq, the per-head dK/dV, their sum) with
+    # registers and spills; the call's ms and each kernel's at the training
+    # shape, and for f32 at SeamlessM4T's decoder and cross shapes
+    for name, t, row, model in (
+            ("flash_attention_bwd", "float", bwd, "smollm-360m"),
+            ("flash_attention_bwd_bf16", "bf16", bwd16, "hymba-1.5b")):
         labels = [label for label in report["ptxas"]
                   if label.startswith("flash_bwd_")
                   and label.endswith(f",{t}>")]
-        if len(labels) != 2:
+        if len(labels) != 3:
             raise AssertionError(f"{name}: ptxas labels {labels}")
+        parts = bwd_parts[model]
         kernels.append(dict(
             name=name, route="cuda", source=f"{CSRC}/flash_attention_bwd.cu",
             replaces="none: no TPU kernel; jax.grad of the reference's "
@@ -4044,7 +4149,13 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             simt_bound_ms=row["simt_bound_ms"], kernel=labels,
+            **{key: parts[key] for key in ("dq_ms", "dkdv_ms", "sum_ms")},
+            registers={label: ptxas_registers(report["ptxas"][label])
+                       for label in labels},
             ptxas={label: report["ptxas"][label] for label in labels}))
+    next(k for k in kernels if k["name"] == "flash_attention_bwd").update(
+        seamless=[bwd_parts[m] for m in ("seamless-m4t-medium decoder",
+                                         "seamless-m4t-medium cross")])
     kernels.append(dict(
         name="ssm_scan", route="cuda", source=f"{CSRC}/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan.py:44",

@@ -4,8 +4,9 @@ helpers every ``ctypes`` wrapper shares.
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, bound with ``ctypes``.  The build
 goes into ``build/repro_torch_kernels/`` at the root of the checkout
-(listed in ``.gitignore``), named by a hash of the source so an edited
-source is rebuilt.  Importing this module does nothing; the first
+(listed in ``.gitignore``), named by a hash of the source and of the
+headers it may include (``csrc/*.cuh``), so an edited source or header is
+rebuilt.  Importing this module does nothing; the first
 :func:`load` of a library builds it.  A failed build raises: there is no
 fallback to the plain versions.  :func:`build_all` compiles every source
 at once, one ``nvcc`` each.
@@ -44,9 +45,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` goes (hash of the source)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    """Where the build of ``csrc/<name>.cu`` goes (hash of the source and
+    of every header in ``csrc/``)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -24,11 +24,13 @@ kernel or raises.  ``LAUNCHES["flash_attention"]`` counts launches.
 Under autograd (grad mode on and q, k or v requiring grad) the call is
 :class:`FlashAttentionFn`, whose forward is B4 with its optional f32
 log-sum-exp output (either dtype) and whose backward is
-``csrc/flash_attention_bwd.cu`` (two launches a call: dQ with delta, then
-dK and dV), f32 or bf16 at head dim 64 only;
-``LAUNCHES["flash_attention_bwd"]`` counts the launches of both dtypes.  On
-the CPU the Function runs the plain ``ref.flash_attention_ref(with_lse=
-True)`` and ``ref.flash_attention_bwd_ref``.  Another head dim under
+``csrc/flash_attention_bwd.cu`` on the tensor cores (three launches a
+call: dQ with delta, each query head's dK and dV in f32, their sum over
+each KV head's group in a fixed order), f32 (3xTF32) or bf16 at head dim
+64 only; ``LAUNCHES["flash_attention_bwd"]`` counts the launches of both
+dtypes.  On the CPU the Function runs the plain
+``ref.flash_attention_ref(with_lse=True)`` and
+``ref.flash_attention_bwd_ref``.  Another head dim under
 autograd on the card raises ``ValueError``.  Neither direction falls back
 to the plain version or to the other device.
 """
@@ -45,7 +47,8 @@ from repro_torch.kernels import _build, ref
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64,)
-BWD_LAUNCHES = 2       # launches of one backward call (dq, then dk/dv)
+BWD_LAUNCHES = 3       # launches of one backward call: dq, the per-head
+                       # dk/dv partials, their sum
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,7 +73,7 @@ def _bwd_lib() -> ctypes.CDLL:
     """The backward's library, built at first use, with its C signature."""
     lib = _build.load("flash_attention_bwd")
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    lib.repro_flash_attention_bwd.argtypes = [i, *[p] * 10, *[i] * 8, f, p]
+    lib.repro_flash_attention_bwd.argtypes = [i, *[p] * 11, *[i] * 8, f, p]
     lib.repro_flash_attention_bwd.restype = ctypes.c_int
     return lib
 
@@ -196,7 +199,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """B4's gradient: (dq, dk, dv) of ``sum(out * dout)`` from the
     forward's inputs, ``out`` and ``lse``, in q's dtype (f32 or bf16).  A
     CPU tensor goes to ``ref.flash_attention_bwd_ref``; a CUDA tensor
-    launches the two kernels of ``csrc/flash_attention_bwd.cu`` or
+    launches the three kernels of ``csrc/flash_attention_bwd.cu`` or
     raises."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
@@ -206,11 +209,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
+    # each query head's dK and dV sums, f32, summed per KV head in order
+    part = torch.empty((2, B, Sk, H, D), dtype=torch.float32,
+                       device=q.device)
     err = _bwd_lib().repro_flash_attention_bwd(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, Hkv, D, int(causal),
-        window, ref.attention_scale(D), _build.stream_of(q))
+        dv.data_ptr(), delta.data_ptr(), part.data_ptr(), B, Sq, Sk, H, Hkv,
+        D, int(causal), window, ref.attention_scale(D), _build.stream_of(q))
     _build.check_launch(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += BWD_LAUNCHES
     return dq, dk, dv

@@ -16,8 +16,28 @@ autograd in f32 of the same (widened) inputs: one bf16 rounding of the
 gradient (2^-8 |want|), plus the forward output's own rounding to bf16
 carried through delta = rowsum(dO * O) into dQ and dK (computed per
 element below), plus 1e-6 for f32 sums.
+
+The kernels' numerical recipe (``csrc/flash_attention_bwd.cu`` runs only
+on the card): :func:`bwd_kernel_recipe` repeats its rounding in PyTorch
+and is held to the plain backward within the bound the kernels are held
+to on the card (``chip_smoke.py``: BWD_ATOL + BWD_RTOL |plain|, in bf16
+plus one bf16 ulp of the plain value).  bf16: S and dP from the bf16
+operands (exact products, f32 sums), P and dS split into ``hi = bf16(x)``
+and ``lo = bf16(x - hi)`` for the three products that take them, each
+tile's product summed on its own and added in f32.  f32: all five
+products by 3xTF32 (``hi = tf32(x)``, ``lo = tf32(x - hi)``; per mma
+k-step of 8, lo hi, hi lo, hi hi), the same per-tile sums.  P and dS
+rounded once to bf16, or one TF32 product, put elements past the bound.
+
+    PYTHONPATH=src python tests/test_torch_flash_bwd.py
+
+prints each case's worst share of the bound for the recipe and for one
+rounding.
 """
 import importlib
+import importlib.util
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -210,4 +230,217 @@ def test_backward_checks_raise():
         fa_k.check_bwd_args(q, k, v, out, lse[:, :1], do, True, 0)
     with pytest.raises(ValueError, match="CUDA"):
         fa_k.check_bwd_args(q, k, v, out, lse, do, True, 0)
-    assert fa_k.BWD_LAUNCHES == 2 and fa_k.BWD_HEAD_DIMS == (64,)
+    assert fa_k.BWD_LAUNCHES == 3 and fa_k.BWD_HEAD_DIMS == (64,)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' recipe
+
+LOG2E = 1.4426950408889634
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc"
+
+
+def _load_test_module(name):
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# tf32(), the forward's 3xTF32 k-step sum (mma_sum) and its K_STEP of 8
+TF32 = _load_test_module("test_torch_flash_tf32")
+
+
+def kernel_tiles():
+    """{dtype: rows of the streamed tile} as ``BwdTile`` in
+    ``flash_attention_bwd.cu`` sets them: the keys a dq block takes at a
+    time, and the query rows a dkdv block takes at a time."""
+    src = (CSRC / "flash_attention_bwd.cu").read_text()
+    f32, bf16 = re.search(r"BS = kF32 \? (\d+) : (\d+);", src).groups()
+    return {torch.float32: int(f32), torch.bfloat16: int(bf16)}
+
+
+def _pad(x, dim, mult):
+    """x zero-padded along ``dim`` to a multiple of ``mult`` (the kernels'
+    zero fill past Sq and Sk)."""
+    n = x.shape[dim]
+    extra = -n % mult
+    if not extra:
+        return x
+    shape = list(x.shape)
+    shape[dim] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim)
+
+
+def _bf16_sum(acc, eq, a, b, a_dim, b_dim, split):
+    """``acc`` plus ``einsum(eq, a, b)`` by mma k-steps of 16 along the
+    contracted axis: a's hi half, then (``split``) its lo half, each times
+    b (bf16 values); ``split=False`` is a rounded once to bf16."""
+    hi = a.bfloat16().float()
+    lo = (a - hi).bfloat16().float()
+    for c in range(0, a.shape[a_dim], 16):
+        step = lambda x, d: x.narrow(d, c, 16)
+        acc = acc + torch.einsum(eq, step(hi, a_dim), step(b, b_dim))
+        if split:
+            acc = acc + torch.einsum(eq, step(lo, a_dim), step(b, b_dim))
+    return acc
+
+
+def bwd_kernel_recipe(q, k, v, out, lse, dout, causal: bool, window: int,
+                      split: bool = True):
+    """The backward kernels' arithmetic in PyTorch, on the inputs of
+    ``ref.flash_attention_bwd_ref`` (f32 or bf16).  ``split=False``: P and
+    dS rounded once to bf16 (bf16), one TF32 product of each (f32).
+    Returns (dq, dk, dv) in q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    f32 = q.dtype == torch.float32
+    bs = kernel_tiles()[q.dtype]
+    step = TF32.K_STEP if f32 else 16
+    scale = ref.attention_scale(D)
+    heads = lambda x, g: x.float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
+    qh, oh, doh = (heads(x, 1) for x in (q, out, dout))       # (B, H, Sq, D)
+    kh, vh = (heads(x, G) for x in (k, v))                    # (B, H, Sk, D)
+    delta = (doh * oh).sum(-1, keepdim=True)
+    qa = torch.arange(Sq)[:, None] + (Sk - Sq)
+    ka = torch.arange(Sk)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        ok &= ka <= qa
+    if window:
+        ok &= ka > qa - window
+    lse4 = lse.float()[..., None]
+    if f32:
+        # the f32 kernels scale Q as it lands, then split it
+        qh = qh * scale
+        zeros = torch.zeros((B, H, Sq, Sk))
+        s = TF32.mma_sum(zeros, "bhqd,bhkd->bhqk", qh, kh, 3, 3, split)
+        dp = TF32.mma_sum(zeros, "bhqd,bhkd->bhqk", doh, vh, 3, 3, split)
+        p = torch.where(ok, torch.exp(s - lse4), 0.0)
+        prod = lambda a, b, eq, ad, bd: TF32.mma_sum(
+            0.0, eq, a, b, ad, bd, split)
+    else:
+        s = torch.einsum("bhqd,bhkd->bhqk", qh, kh)
+        dp = torch.einsum("bhqd,bhkd->bhqk", doh, vh)
+        sl = (torch.tensor(scale, dtype=torch.float32)
+              * torch.tensor(LOG2E, dtype=torch.float32))
+        p = torch.where(ok, torch.exp2(s * sl - lse4 * LOG2E), 0.0)
+        prod = lambda a, b, eq, ad, bd: _bf16_sum(0.0, eq, a, b, ad, bd,
+                                                 split)
+    ds = p * (dp - delta)
+    # dQ: each tile of bs keys summed on its own, then added in f32
+    ds_k, p_k = _pad(ds, 3, bs), _pad(p, 3, bs)
+    kp, vp = _pad(kh, 2, bs), _pad(vh, 2, bs)
+    dq = torch.zeros((B, H, Sq, D))
+    for k0 in range(0, ds_k.shape[3], bs):
+        dq = dq + prod(ds_k[..., k0:k0 + bs], kp[:, :, k0:k0 + bs],
+                       "bhqk,bhkd->bhqd", 3, 2)
+    # dK, dV: each query head's sums over tiles of bs query rows, then the
+    # group's heads summed in order
+    ds_q, p_q = _pad(ds, 2, bs), _pad(p, 2, bs)
+    qp, dop = _pad(qh, 2, bs), _pad(doh, 2, bs)
+    dk = torch.zeros((B, H, Sk, D))
+    dv = torch.zeros((B, H, Sk, D))
+    for q0 in range(0, ds_q.shape[2], bs):
+        rows = slice(q0, q0 + bs)
+        dk = dk + prod(ds_q[:, :, rows], qp[:, :, rows], "bhqk,bhqd->bhkd",
+                       2, 2)
+        dv = dv + prod(p_q[:, :, rows], dop[:, :, rows], "bhqk,bhqd->bhkd",
+                       2, 2)
+    dk, dv = (x.reshape(B, Hkv, G, Sk, D) for x in (dk, dv))
+    dk_sum, dv_sum = dk[:, :, 0], dv[:, :, 0]
+    for g in range(1, G):
+        dk_sum, dv_sum = dk_sum + dk[:, :, g], dv_sum + dv[:, :, g]
+    if not f32:
+        dq, dk_sum = dq * scale, dk_sum * scale
+    else:
+        dq = dq * scale
+    return (dq.permute(0, 2, 1, 3).to(q.dtype),
+            dk_sum.permute(0, 2, 1, 3).to(k.dtype),
+            dv_sum.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def bwd_bound_share(got, want):
+    """|got - want| over the kernels' bound, elementwise: BWD_ATOL +
+    BWD_RTOL |want|, plus one bf16 ulp of want in bf16."""
+    w = want.float()
+    bound = ATOL + RTOL * w.abs()
+    if want.dtype == torch.bfloat16:
+        bound = bound + torch.exp2(torch.floor(torch.log2(w.abs())) - 7)
+    return (got.float() - w).abs() / bound
+
+
+# where the probe found one rounding of P and dS out of bound
+PROBE = (1, 512, 512, 5, 1, 64, True, 0)
+
+
+def run_recipe(case, dtype, split=True, seed=0):
+    B, Sq, Sk, H, Hkv, D, causal, window = CASES.get(case, case)
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _inputs_of(
+        (B, Sq, Sk, H, Hkv, D), seed))
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       with_lse=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
+    got = bwd_kernel_recipe(q, k, v, out, lse, do, causal, window, split)
+    return got, want
+
+
+def _inputs_of(shape, seed):
+    B, Sq, Sk, H, Hkv, D = shape
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*s).astype(np.float32) for s in
+            ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D), (B, Sq, H, D))]
+
+
+def test_kernel_tiles_read_from_the_source():
+    """The recipe's tiles are the kernels': whole mma k-steps (8 in f32,
+    16 in bf16)."""
+    tiles = kernel_tiles()
+    assert tiles[torch.float32] % TF32.K_STEP == 0
+    assert tiles[torch.bfloat16] % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(c for c in CASES
+                                        if CASES[c][5] == 64))
+def test_bwd_kernel_recipe_holds_the_kernel_bound(case, dtype):
+    got, want = run_recipe(case, dtype)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        share = bwd_bound_share(g, w)
+        assert float(share.max()) <= 1.0, (
+            f"{case} d{name}: {int((share > 1).sum())} past the bound, "
+            f"worst {float(share.max()):.3f} of it")
+
+
+def test_one_rounding_of_p_and_ds_does_not_hold_the_bound():
+    """Why the bf16 kernels split P and dS: rounded once to bf16 at the
+    probe's case (1 x 512, 5/1 heads, causal), 12 % of dQ is past the
+    bound the split holds."""
+    (dq, *_), (want, *_) = run_recipe(PROBE, torch.bfloat16, split=False)
+    assert float((bwd_bound_share(dq, want) > 1).float().mean()) > 0.05
+
+
+def test_one_tf32_product_does_not_hold_the_bound():
+    """Why the f32 kernels run 3xTF32: one TF32 product of each puts
+    elements of every gradient past the bound at the probe's case."""
+    got, want = run_recipe(PROBE, torch.float32, split=False)
+    for g, w in zip(got, want):
+        assert int((bwd_bound_share(g, w) > 1).sum()) > 0
+
+
+if __name__ == "__main__":
+    for case in [c for c in sorted(CASES) if CASES[c][5] == 64] + [PROBE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for split in (True, False):
+                got, want = run_recipe(case, dtype, split)
+                shares = [bwd_bound_share(g, w) for g, w in zip(got, want)]
+                print(f"{str(case):40s} {str(dtype)[6:]:9s} "
+                      f"{'recipe' if split else 'one rounding':12s} "
+                      + " ".join(f"d{n} worst {float(s.max()):.3f} past "
+                                 f"{float((s > 1).float().mean()):.4f}"
+                                 for n, s in zip("qkv", shares)))
