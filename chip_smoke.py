@@ -125,6 +125,20 @@ and B5 24 a decode step for SeamlessM4T (encoder, self, cross), 32 and
 CPU and on the card (``smoke_cpu_vs_cuda``: logits within 2e-3, greedy
 tokens equal; for xLSTM the card's prefill against its decode at 5e-4).
 
+The dense models with their own head shapes (B4, B5 in bf16), each at
+full width from seed-0 random weights after RoPE's frequencies are held
+equal on both devices (``rope_cpu_vs_cuda``): ``dense_serve_gemma``
+(Gemma-7B, 28 layers, 16/16 x 256) and ``dense_serve_phi3``
+(Phi3-medium-14B, 40 layers, 40/10 x 128), each as ``serve_phase``
+(B4/B5 held and timed at its shapes, a prefill step, a generate, the
+smoke model's CPU vs card), and before its weights go
+``window_decode``: the reference's ``long_500k`` decode, a ring of
+``decode_window`` = 8,192 slots at B=1 filled with seeded K/V, 16 greedy
+steps at positions 524,280-524,295 across the ring's wrap, each step's
+written slot asserted, B5 at (1, 8,192) held and timed, one B5 launch
+per layer a step, and the smoke model through a ring of 8 at the same
+steps on the CPU and on the card (``window_cpu_vs_cuda``).
+
 LM training path (B1, B4 and B4's backward, ``lm_train``): holds B4's
 backward (``flash_attention_bwd.cu``: dQ with delta, each query head's dK
 and dV, their sum per KV head, three launches a call; on the tensor
@@ -177,6 +191,12 @@ at the reference example's ``100m`` scale (C=4, 4 x 128, 3 rounds each;
 xLSTM launches B1 only, ``lm_train_100m``), every run's launches
 asserted exactly.  The LM training phases run under the training entry
 point's allocator policy (``launch.train.use_expandable_segments``).
+Then checkpoints (``lm_resume``, B1 and B4 with its backward): the port
+of ``examples/federated_lm_training.py`` saves, restores (bit for bit on
+the card) and resumes at the smoke scale, its first resumed round held
+against the same round from the state in memory; runs at the 100m scale
+under both servers, printing the save and restore seconds and the
+archive's bytes; and ``launch.train --ckpt`` resumes at its label.
 
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
@@ -184,7 +204,7 @@ launches (summed over the main-path runs: B1's include the robust dense
 runs, Table IV's BAFDP rows and the paper suites' constant-decay runs,
 B2's and B3's the sparse, robust and scale runs and the Figs. 4-6
 scenarios) and times.  Its B1-B3 entries
-(B1's also the lm_train rounds) give ``kernel`` (the f32 instance's
+(B1's also the lm_train and lm_resume rounds) give ``kernel`` (the f32 instance's
 ptxas label) with ``ptxas`` (its
 and the bf16 instance's registers and spills), the time per round of the
 8 leaves as one grouped call, ``call_ms`` (its host time) and, as
@@ -205,15 +225,17 @@ SmolLM-360M's serving shape (f32) and as ``bf16_*`` at Hymba-1.5B's, with
 models launch.  B4's and B5's ``moe`` lists give each at each MoE
 model's shape, bf16 (``kernel``: the instance, ms, bound, plain and
 SDPA ms), and their ``encdec`` and ``vlm`` lists the same at
-SeamlessM4T's and LLaVA's shapes; their launches include the MoE,
-SeamlessM4T and LLaVA runs, B4's also the lm_train rounds.  Its
+SeamlessM4T's and LLaVA's shapes, their ``dense`` lists at Gemma-7B's
+and Phi3-medium's (B5's also at the 8,192-slot ring); their launches
+include the MoE, SeamlessM4T, LLaVA, Gemma and Phi3 runs (B5's the
+window decode), B4's also the lm_train and lm_resume rounds.  Its
 ``flash_attention_bwd`` entry (no TPU counterpart) gives the f32 backward
 at SmolLM-360M's training shape, with ``simt_bound_ms``, each kernel's
 ms (``dq_ms``, ``dkdv_ms``, ``sum_ms``), the ptxas lines and the
 ``registers`` and spill bytes of its three kernels, and as ``seamless``
 the same rows at SeamlessM4T-medium's decoder and cross shapes; its
 launches are the f32 training rounds' (SmolLM-360M, SeamlessM4T-medium,
-the 100m families).  Its ``flash_attention_bwd_bf16`` entry gives the
+the 100m families, lm_resume's).  Its ``flash_attention_bwd_bf16`` entry gives the
 bf16 instances at Hymba's training shape, launched by Hymba's rounds;
 B4's entry gains
 ``autograd_fwd_b1`` (the forward with its lse at B=1, f32 and bf16).
@@ -347,6 +369,29 @@ MOE_FORMS_BS = (4, 1024)
 XLSTM, SEAMLESS, LLAVA = ("xlstm-1.3b", "seamless-m4t-medium",
                           "llava-next-mistral-7b")
 SMOKE_VS_ROWS, SMOKE_VS_S, SMOKE_VS_DECODE, SMOKE_VS_NEW = 2, 64, 24, 8
+# The dense models with head dims and groups no other model has, at full
+# width (configs/gemma_7b.py: 28 layers, d 3,072, 16/16 x 256, GeGLU d_ff
+# 24,576, vocab 256,000; phi3_medium_14b.py: 40 layers, d 5,120, 40/10 x
+# 128, SwiGLU d_ff 17,920, vocab 100,352; bf16 params and compute), the
+# same prefill and generate traffic as SmolLM's, then (window_decode) the
+# reference's long_500k decode: launch.steps.decode_window's ring of
+# cfg.sliding_window = 8,192 slots at B=1, filled with seeded K/V, for
+# the WINDOW_STEPS of long_500k's positions that cross the ring's wrap.
+# CPU vs card: each smoke model through a ring of WINDOW_SMOKE slots at
+# the same steps.  ROPE_HEAD_DIMS: RoPE's frequencies on both devices.
+GEMMA, PHI3 = "gemma-7b", "phi3-medium-14b"
+WINDOW_STEPS = range(524_280, 524_296)
+WINDOW_SMOKE = 8
+ROPE_HEAD_DIMS, ROPE_THETAS = (64, 128, 256), (1e4, 5e5)
+# Checkpoints and resume (lm_resume): examples/federated_lm_training.py's
+# port at the smoke scale for RESUME_STEPS[0] rounds, then resumed to
+# RESUME_STEPS[1]; once at the 100m scale for RESUME_100M_STEPS rounds
+# per server with RESUME_100M_CLIENTS clients (a cut from the example's
+# 4: np.savez_compressed deflates ~20-25 MB/s on one core, and C=4's
+# 1.85 GB state would take ~80 s a save); launch.train --smoke --ckpt
+# for LAUNCH_STEPS[0], then resumed to LAUNCH_STEPS[1].
+RESUME_STEPS, RESUME_100M_STEPS, LAUNCH_STEPS = (6, 9), 4, (3, 5)
+RESUME_100M_CLIENTS = 2
 
 # LM training (lm_train): SmolLM-360M at full width (32 layers, d 960,
 # 15/5 heads x 64, vocab 49,152, f32, remat) trains LM_TRAIN_ROUNDS BAFDP
@@ -358,9 +403,10 @@ SMOKE_VS_ROWS, SMOKE_VS_S, SMOKE_VS_DECODE, SMOKE_VS_NEW = 2, 64, 24, 8
 # sums in another order; stated before the kernel's first chip run) at
 # BWD_CASES: every shape a training phase gives it (SmolLM's, SeamlessM4T's
 # cross-attention, encoder and decoder self-attention, the ``100m``
-# families' at B=4) and a window.  B4's output with and without its
-# log-sum-exp, bit for bit, at LSE_CASES: SmolLM's prefill and
-# SeamlessM4T's cross shape.  CPU vs card: the 2-layer smoke model, C=2,
+# families' at B=4, lm_resume's smoke example and ``launch.train
+# --smoke``) and a window.  B4's output with and without its
+# log-sum-exp, bit for bit, at LSE_CASES: SmolLM's prefill,
+# SeamlessM4T's cross shape and lm_resume's three training shapes.  CPU vs card: the 2-layer smoke model, C=2,
 # LM_TRAIN_ROUNDS rounds, the noise below rounding (LM_VS_BUDGET).
 LM_TRAIN_CLIENTS, LM_TRAIN_S, LM_TRAIN_ROUNDS = 4, 4096, 3
 LM_TRAIN_KNOBS = dict(byzantine_frac=0.25, attack="sign_flip", alpha_w=2e-2)
@@ -370,9 +416,14 @@ BWD_CASES = [(1, 4096, 4096, 15, 5, 64, True, 0),      # SmolLM training
              (1, 4096, 1500, 16, 16, 64, False, 0),    # SeamlessM4T cross
              (1, 1500, 1500, 16, 16, 64, False, 0),    # SeamlessM4T encoder
              (1, 4096, 4096, 16, 16, 64, True, 0),     # SeamlessM4T decoder
-             (4, 128, 128, 8, 4, 64, True, 0)]         # the 100m families
+             (4, 128, 128, 8, 4, 64, True, 0),         # the 100m families
+             (4, 128, 128, 4, 2, 64, True, 0),         # the smoke example
+             (2, 64, 64, 4, 2, 64, True, 0)]           # launch.train --smoke
 LSE_CASES = [(PREFILL_B, 4096, 4096, 15, 5, 64, True),
-             (PREFILL_B, 4096, 1500, 16, 16, 64, False)]
+             (PREFILL_B, 4096, 1500, 16, 16, 64, False),
+             (4, 128, 128, 8, 4, 64, True),
+             (4, 128, 128, 4, 2, 64, True),
+             (2, 64, 64, 4, 2, 64, True)]
 LM_VS_CLIENTS, LM_VS_B, LM_VS_S = 2, 2, 128
 LM_VS_BUDGET = 1e18      # eps = 5e17: sigma ~ 5e-19, below every ulp
 # The other families' training (lm_train_families).  SeamlessM4T-medium
@@ -1931,6 +1982,28 @@ def sdpa_flash(q, k, v, causal):
     return out.transpose(1, 2)
 
 
+_SDPA_FLASH = {}
+
+
+def sdpa_takes_flash(q, k, v, causal) -> bool:
+    """Whether SDPA's flash backend alone takes :func:`sdpa_flash`'s call
+    (``library_ms`` is SDPA's default dispatch, which falls back to
+    another backend where flash refuses the shape or dtype).  Asked once
+    for each dtype, head dim and mask (causal, Sq == Sk), on which
+    flash's choice rests."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    key = (q.dtype, q.shape[-1], causal, q.shape[1] == k.shape[1])
+    if key not in _SDPA_FLASH:
+        try:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                sdpa_flash(q, k, v, causal)
+            _SDPA_FLASH[key] = True
+        except RuntimeError:
+            _SDPA_FLASH[key] = False
+    return _SDPA_FLASH[key]
+
+
 def sdpa_decode(q, k, v, mask):
     """``library_ms`` yardstick for B5; ``mask``: (B, 1, 1, L) bool."""
     import torch.nn.functional as F
@@ -2896,7 +2969,8 @@ def hold_and_time_attention(model, flash, decode, dtype, seed, report,
                                         cpm, reps=10, inner=3),
                    library_max_abs_err=max_abs_err(
                        sdpa_flash(q, k, v, causal),
-                       ref.flash_attention_ref(q, k, v, causal=causal)))
+                       ref.flash_attention_ref(q, k, v, causal=causal)),
+                   library_flash=sdpa_takes_flash(q, k, v, causal))
         row["bound_ms"], row["bound_by"] = flash_bound(q, k, causal, 0)
         rows["flash_attention"].append(row)
         del q, k, v
@@ -2926,8 +3000,11 @@ def hold_and_time_attention(model, flash, decode, dtype, seed, report,
             log(f"time {kernel:18s} {r['shape']}: kernel_ms={r['ms']:.6f} "
                 f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
                 f"plain_ms={r['plain_ms']:.6f} library_ms="
-                f"{r['library_ms']:.6f} (SDPA enable_gqa, max |err| vs "
-                f"plain {r['library_max_abs_err']:.2e}) {r['kernel']}")
+                f"{r['library_ms']:.6f} (SDPA enable_gqa"
+                + ("" if r.get("library_flash", True) else
+                   ", not its flash backend: flash refuses the call")
+                + f", max |err| vs plain {r['library_max_abs_err']:.2e}) "
+                f"{r['kernel']}")
     return rows
 
 
@@ -3075,11 +3152,12 @@ def moe_attention(report, errs):
     return out
 
 
-def serve_phase(arch, report, launches, errs, seed):
+def serve_phase(arch, report, launches, errs, seed, then=None):
     """``arch`` at full width on the card: B4 and B5 held and timed at its
     shapes (none for a model without attention), a prefill step and a
     generate (launches added to ``launches``; an encoder-decoder's engines
-    get ``encode`` of random frames as their memory), then the smoke
+    get ``encode`` of random frames as their memory), ``then(cfg,
+    params)`` when given (its rows join the returned ones), then the smoke
     model's CPU vs card; the model freed after.  Returns the kernel rows
     of :func:`hold_and_time_attention`."""
     from repro_torch.configs import get_arch
@@ -3103,10 +3181,188 @@ def serve_phase(arch, report, launches, errs, seed):
         memory = tr.encode(params, frames, cfg)
     for name, n in generate_run(cfg, params, report, memory).items():
         launches[name] += n
+    if then is not None:
+        for name, rs in then(cfg, params).items():
+            rows[name] += rs
     del params, memory
     torch.cuda.empty_cache()
     smoke_cpu_vs_cuda(arch, report)
     return rows
+
+
+def rope_cpu_vs_cuda(report):
+    """RoPE's frequencies (``layers.rope_freqs``) at ROPE_HEAD_DIMS and
+    ROPE_THETAS bit for bit on the CPU and on the card: one ulp of a
+    frequency near 1 moves its angle at long_500k's positions by ~0.03
+    rad."""
+    from repro_torch.models import layers
+
+    rows = []
+    for hd in ROPE_HEAD_DIMS:
+        for theta in ROPE_THETAS:
+            cpu = layers.rope_freqs(hd, theta, "cpu")
+            gpu = layers.rope_freqs(hd, theta, "cuda")
+            if gpu.device.type != "cuda" or not bits_equal(cpu, gpu.cpu()):
+                raise AssertionError(f"rope_freqs({hd}, {theta}) differs "
+                                     f"between the CPU and the card")
+            rows.append(dict(head_dim=hd, theta=theta, equal=True))
+            log(f"rope_freqs head_dim={hd} theta={theta:g}: CPU and card "
+                "bit for bit")
+    report["rope_cpu_vs_cuda"] = rows
+
+
+def window_decode(arch, cfg, params, report, launches, errs, seed):
+    """The reference's ``long_500k`` decode of ``arch`` at full width
+    (``launch.steps.decode_setup``): ``decode_window`` gives the ring of
+    ``cfg.sliding_window`` slots, ``init_decode_state`` at B=1 and
+    524,288 positions holds it, filled with seeded normal K/V in the
+    cache dtype; then ``make_decode_step(cfg, window)`` greedy at each of
+    WINDOW_STEPS, across the ring's wrap.  Each step writes slot ``step %
+    window`` of every layer's K and V and nothing else, and makes one B5
+    call per layer at ``length`` = window.  B5 held against its plain
+    version and timed at (1, window) before.  Returns the kernel rows."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.launch.steps import decode_window, make_decode_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import dtype_of
+
+    t_phase = time.perf_counter()
+    shape = INPUT_SHAPES["long_500k"]
+    W = decode_window(cfg, shape)
+    if not (W == cfg.sliding_window == 8192 and shape.global_batch == 1):
+        raise AssertionError(f"{cfg.name} long_500k: window {W}, batch "
+                             f"{shape.global_batch}")
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cdt = dtype_of(cfg.compute_dtype)
+    rows = hold_and_time_attention(f"{cfg.name} ring", [],
+                                   [(1, W, H, Hkv, D, [W])], cdt, seed,
+                                   report, errs)
+    state = tr.init_decode_state(cfg, shape.global_batch, shape.seq_len, cdt,
+                                 window=W, device="cuda")
+    caches = [(layer["k"], layer["v"]) for layer in state["layers"]]
+    if caches[0][0].shape != (1, W, Hkv, D):
+        raise AssertionError(f"ring {tuple(caches[0][0].shape)}")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for pair in caches:
+        for c in pair:
+            c.copy_(torch.randn(c.shape, generator=g, device="cuda",
+                                dtype=c.dtype))
+    cache_gb = sum(c.numel() * c.element_size() for p in caches
+                   for c in p) / 1e9
+    step = make_decode_step(cfg, W)
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=g,
+                        device="cuda")
+    _, n_step, _ = layer_counts(cfg)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    ms, tokens = [], []
+    for t in WINDOW_STEPS:
+        before = [(k.clone(), v.clone()) for k, v in caches]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = step(params, state, tok, t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for old, new in zip(before, caches):
+            for a, b in zip(old, new):
+                moved = torch.nonzero((a != b).flatten(2).any(-1).any(0))
+                if moved.flatten().tolist() != [t % W]:
+                    raise AssertionError(
+                        f"{cfg.name} window decode step {t}: slots "
+                        f"{moved.flatten().tolist()} written, not {t % W}")
+        del before
+        if logits.shape != (1, 1, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name} window decode step {t}: "
+                                 f"logits {tuple(logits.shape)}")
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+        tokens.append(int(tok))
+    counts = all_counts()
+    per_call = dec_k.launches_per_call(
+        1, Hkv, W, torch.cuda.get_device_properties(0).multi_processor_count)
+    check_path_counts(f"{cfg.name} window decode", counts, {
+        "decode_attention": len(WINDOW_STEPS) * n_step * per_call})
+    launches["decode_attention"] += counts["decode_attention"]
+    del state, caches
+    torch.cuda.empty_cache()
+    out = dict(window=W, batch=shape.global_batch, positions=shape.seq_len,
+               steps=[WINDOW_STEPS[0], WINDOW_STEPS[-1]],
+               slots=[t % W for t in WINDOW_STEPS], cache_gb=cache_gb,
+               ms_per_step=ms, median_ms=statistics.median(ms),
+               tokens=tokens, launches=counts)
+    report.setdefault("window_decode", {})[cfg.name] = out
+    log(f"window decode {cfg.name} (long_500k: ring of {W} slots, "
+        f"{cache_gb:.2f} GB of K/V, steps {WINDOW_STEPS[0]}-"
+        f"{WINDOW_STEPS[-1]}, slots {out['slots'][0]}..{W - 1}, 0.."
+        f"{out['slots'][-1]}): each step wrote its slot and nothing else; "
+        f"ms per step {[round(x, 3) for x in ms]} (median "
+        f"{out['median_ms']:.3f}), launches decode_attention="
+        f"{counts['decode_attention']} ({n_step} per step)")
+    window_cpu_vs_cuda(arch, report)
+    report[f"window_decode_{cfg.name}_s"] = time.perf_counter() - t_phase
+    log(f"phase: window_decode ({cfg.name}) "
+        f"{report[f'window_decode_{cfg.name}_s']:.1f} s")
+    return rows
+
+
+def window_cpu_vs_cuda(arch, report):
+    """The 2-layer f32 smoke model of ``arch`` with the same weights on the
+    CPU and on the card through a ring of WINDOW_SMOKE slots, filled with
+    the same seeded K/V, at WINDOW_STEPS (across the wrap: RoPE at
+    positions near 2^19), both fed the CPU's greedy tokens: logits within
+    ``serve_cpu_vs_cuda``'s bound (2e-3), greedy tokens under
+    :func:`greedy_check`."""
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import transformer as tr
+
+    bound = 2e-3
+    cfg = reduce_for_smoke(get_arch(arch))
+    cpu = tr.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = {"cpu": cpu, "cuda": tr.lm_params_from_numpy(
+        tr.lm_params_to_numpy(cpu, cfg), cfg, device="cuda")}
+    states = {dev: tr.init_decode_state(cfg, SMOKE_VS_ROWS, 524_288,
+                                        torch.float32, window=WINDOW_SMOKE,
+                                        device=dev)
+              for dev in ("cpu", "cuda")}
+    g = torch.Generator().manual_seed(5)
+    for pair in zip(states["cpu"]["layers"], states["cuda"]["layers"]):
+        for name in ("k", "v"):
+            fill = torch.randn(pair[0][name].shape, generator=g)
+            for layer in pair:
+                layer[name].copy_(fill)
+    step = make_decode_step(cfg, WINDOW_SMOKE)
+    tok = torch.from_numpy(np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (SMOKE_VS_ROWS, 1)))
+    _, n_step, _ = layer_counts(cfg)
+    flips, equal, diff = [], 0, 0.0
+    n_cuda = 0
+    for t in WINDOW_STEPS:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            reset_all_counts()
+            lg, states[dev] = step(params[dev], states[dev], tok.to(dev), t)
+            n_cuda += all_counts()["decode_attention"] if dev == "cuda" else 0
+            out[dev] = lg[:, 0, :cfg.vocab_size].cpu()
+        diff = max(diff, float((out["cpu"] - out["cuda"]).abs().max()))
+        equal += greedy_check(out["cpu"], out["cuda"], bound, t,
+                              f"{arch} window cpu vs cuda", flips)
+        tok = out["cpu"].argmax(-1, keepdim=True)
+    if n_cuda != len(WINDOW_STEPS) * n_step:
+        raise AssertionError(f"{arch} window cpu vs cuda: {n_cuda} B5 "
+                             f"launches on the card")
+    if not diff <= bound:
+        raise AssertionError(f"{arch} window cpu vs cuda: max logit "
+                             f"difference {diff:.3e} > {bound}")
+    report.setdefault("window_cpu_vs_cuda", {})[arch] = dict(
+        max_logit_diff=diff, bound=bound, greedy_equal=equal,
+        greedy_compared=equal + len(flips), flips=flips)
+    log(f"{arch} smoke window cpu vs cuda (ring of {WINDOW_SMOKE}, steps "
+        f"{WINDOW_STEPS[0]}-{WINDOW_STEPS[-1]}, {SMOKE_VS_ROWS} rows): max "
+        f"|logit diff| {diff:.3e} (bound {bound}); greedy tokens equal "
+        f"{equal}/{equal + len(flips)}; flips inside the bound: {flips}")
+
 
 # ---------------------------------------------------------------------------
 # LM training: B4's backward, then SmolLM-360M through make_train_step
@@ -3912,6 +4168,277 @@ def lm100m_config(arch: str):
     return cfg
 
 
+def lm_round_launches(specs, cfg, fed):
+    """Launches one BAFDP round of ``cfg``'s LM clients makes: the
+    consensus once (its B1-B3 spec's counter), B4 in every attention layer
+    for every client (twice with remat's recompute) and B4's backward
+    there (BWD_LAUNCHES each)."""
+    from repro_torch.kernels import flash_attention as fa_k
+
+    n = layer_counts(cfg)[0] * fed.n_clients
+    return {consensus_spec(specs, fed)["counter"]: 1,
+            "flash_attention": n * (2 if cfg.remat else 1),
+            "flash_attention_bwd": n * fa_k.BWD_LAUNCHES}
+
+
+def _states_bitwise(a, b) -> int:
+    """Elements that differ between two ``FedState``s leaf for leaf
+    (dtypes, shapes and devices must match)."""
+    n = 0
+    for (path, x), (_, y) in zip(_named_leaves(a._asdict()),
+                                 _named_leaves(b._asdict())):
+        if x.dtype != y.dtype or x.shape != y.shape or x.device != y.device:
+            raise AssertionError(f"{path}: {x.dtype} {tuple(x.shape)} "
+                                 f"{x.device} vs {y.dtype} "
+                                 f"{tuple(y.shape)} {y.device}")
+        n += int((x != y).sum())
+    return n
+
+
+def _quiet_run(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its standard output logged line by line;
+    returns (result, the output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    return out, buf.getvalue()
+
+
+def lm_resume(specs, report):
+    """Checkpoints and resume on the card, in a temporary directory
+    removed after.  ``repro_torch.federated_lm_training`` (the example's
+    knobs) at the smoke scale for RESUME_STEPS[0] rounds, saving under
+    that label; the archive restored onto the final state equals it leaf
+    for leaf, bit for bit, on the card; then resumed to RESUME_STEPS[1]:
+    it says so and trains only the rounds after the label, and its first
+    round, from the restored state, equals the same round from the state
+    in memory (bit for bit, else under ``drift_check`` with the count of
+    unequal elements).  At the 100m scale RESUME_100M_STEPS rounds under
+    each server (quorum, fedbuff): the save and restore seconds and the
+    archive's bytes (RESUME_100M_CLIENTS clients).  ``launch.train
+    --smoke --ckpt`` for LAUNCH_STEPS[0] rounds, then resumed to
+    LAUNCH_STEPS[1].  Every run's launches from its config.  The example
+    runs as a user calls it; the phase times its ``Checkpointer`` and
+    keeps a round's inputs by wrapping the class and
+    ``launch.steps.make_train_step`` for the run.  Returns the counts."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import federated_lm_training as ex
+    from repro_torch.checkpoint import Checkpointer, restore_pytree
+    from repro_torch.configs import get_arch, reduce_for_smoke, scale_cfg
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launcher
+    from repro_torch.tree import tree_map
+
+    total = {}
+    out = report.setdefault("lm_resume", {})
+
+    class TimedCheckpointer(Checkpointer):
+        """The example's ``Checkpointer``, keeping its last save's seconds,
+        path and bytes and its last restore's seconds (the card
+        synchronized before and after)."""
+        made = []
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.made.append(self)
+
+        def save(self, tree, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.path = super().save(tree, step)
+            self.save_s = time.perf_counter() - t0
+            self.bytes = os.path.getsize(self.path)
+            return self.path
+
+        def restore_latest(self, template):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = super().restore_latest(template)
+            torch.cuda.synchronize()
+            self.restore_s = time.perf_counter() - t0
+            return got
+
+    def add(counts, fed):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        spec = consensus_spec(specs, fed)
+        spec["launches"] += counts[spec["counter"]]
+
+    def run(label, argv, cfg, fed, rounds, keep=None):
+        """The example at ``argv``; ``keep[t]`` gets round t's step
+        function, batch, keyword arguments and new state (a copy) for
+        each t in ``keep``.  Returns (its result, its Checkpointer, its
+        output, seconds, launches)."""
+        want = {k: v * rounds for k, v in
+                lm_round_launches(specs, cfg, fed).items()}
+        make = steps.make_train_step
+
+        def recording(c, f):
+            step = make(c, f)
+
+            def round_fn(st, batch, seed, **kw):
+                new, m = step(st, batch, seed, **kw)
+                if keep is not None and seed in keep:
+                    keep[seed] = dict(step=step, batch=batch, kw=kw,
+                                      new=type(new)(*tree_map(
+                                          lambda x: None if x is None
+                                          else x.clone(), tuple(new))))
+                return new, m
+            return round_fn
+
+        TimedCheckpointer.made.clear()
+        ex.Checkpointer, steps.make_train_step = TimedCheckpointer, recording
+        try:
+            torch.cuda.synchronize()
+            reset_all_counts()
+            t0 = time.perf_counter()
+            info, text = _quiet_run(ex.train, ex.parse_args(argv))
+            secs = time.perf_counter() - t0
+        finally:
+            ex.Checkpointer, steps.make_train_step = Checkpointer, make
+        counts = all_counts()
+        check_path_counts(label, counts, want)
+        add(counts, fed)
+        return info, TimedCheckpointer.made[-1], text, secs, counts
+
+    def example_fed(cfg, clients=4):
+        return dataclasses.replace(
+            steps.fed_config_for(cfg, clients), byzantine_frac=0.25,
+            attack="sign_flip", alpha_w=2e-2, active_frac=0.75)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # the smoke scale: save, restore, resume
+        cfg = scale_cfg(ARCH, "smoke")
+        fed = example_fed(cfg)
+        first, last = RESUME_STEPS
+        d = f"{root}/smoke"
+        a, ck_a, _, secs_a, counts_a = run(
+            "example smoke", ["--scale", "smoke", "--steps", str(first),
+                              "--ckpt", d], cfg, fed, first)
+        if a["rounds"] != list(range(first)) or \
+                Checkpointer(d).latest_step() != first:
+            raise AssertionError(f"example smoke: rounds {a['rounds']}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = restore_pytree(ck_a.path, a["state"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if _states_bitwise(restored, a["state"]):
+            raise AssertionError("example smoke: the restored state differs")
+        del restored
+        seen = {first: None}
+        b, ck_b, text, secs_b, counts_b = run(
+            "example smoke resumed", ["--scale", "smoke", "--steps",
+                                      str(last), "--ckpt", d],
+            cfg, fed, last - first, keep=seen)
+        if f"resumed from step {first}" not in text \
+                or b["rounds"] != list(range(first, last)):
+            raise AssertionError(f"example smoke resumed: rounds "
+                                 f"{b['rounds']}")
+        r = seen[first]
+        mem, _ = r["step"](a["state"], r["batch"], first, **r["kw"])
+        n_diff = _states_bitwise(mem, r["new"])
+        drift = None
+        if n_diff:
+            drift = drift_check("example resume round", mem, r["new"], 1,
+                                fed.alpha_w)
+        out["smoke"] = dict(
+            arch=cfg.name, clients=fed.n_clients, rounds=[first, last],
+            s=[secs_a, secs_b], save_s=ck_a.save_s, restore_s=restore_s,
+            resume_restore_s=ck_b.restore_s, ckpt_bytes=ck_a.bytes,
+            state_bytes=state_bytes(a["state"]), restored_bitwise=True,
+            resumed_round_unequal=n_diff, drift=drift,
+            launches=[counts_a, counts_b])
+        log(f"lm_resume example smoke ({cfg.name}, C={fed.n_clients}): "
+            f"{first} rounds in {secs_a:.2f} s, archive "
+            f"{ck_a.bytes} bytes of {state_bytes(a['state'])} "
+            f"(saved in {ck_a.save_s:.3f} s, restored in {restore_s:.3f} s:"
+            f" bit for bit on the card); resumed at {first}, rounds "
+            f"{b['rounds']} in {secs_b:.2f} s; round {first} from the "
+            f"restored state vs from memory: "
+            + ("bit for bit" if not n_diff else
+               f"{n_diff} elements unequal, drift_check {drift}")
+            + f"; launches {counts_a} + {counts_b}")
+        del a, b, seen, r, mem
+
+        # the 100m scale under each server
+        cfg = scale_cfg(ARCH, "100m")
+        fed = example_fed(cfg, RESUME_100M_CLIENTS)
+        for server in ("quorum", "fedbuff"):
+            d = f"{root}/100m_{server}"
+            info, ck, _, secs, counts = run(
+                f"example 100m {server}",
+                ["--scale", "100m", "--steps", str(RESUME_100M_STEPS),
+                 "--server", server, "--clients", str(RESUME_100M_CLIENTS),
+                 "--ckpt", d], cfg, fed, RESUME_100M_STEPS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restored, step = Checkpointer(d).restore_latest(info["state"])
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            if step != RESUME_100M_STEPS or _states_bitwise(restored,
+                                                           info["state"]):
+                raise AssertionError(f"example 100m {server}: restore")
+            raw = state_bytes(info["state"])
+            out[f"100m_{server}"] = dict(
+                arch=cfg.name, clients=fed.n_clients,
+                rounds=RESUME_100M_STEPS, s=secs, save_s=ck.save_s,
+                restore_s=restore_s, ckpt_bytes=ck.bytes,
+                state_bytes=raw, save_mb_per_s=raw / ck.save_s / 1e6,
+                restore_mb_per_s=raw / restore_s / 1e6, launches=counts)
+            log(f"lm_resume example 100m --server {server} ({cfg.name}, "
+                f"C={fed.n_clients}): {RESUME_100M_STEPS} rounds in "
+                f"{secs:.2f} s; archive {ck.bytes} bytes of "
+                f"{raw} (np.savez_compressed: saved in "
+                f"{ck.save_s:.3f} s = {raw / ck.save_s / 1e6:.1f}"
+                f" MB/s, restored in {restore_s:.3f} s = "
+                f"{raw / restore_s / 1e6:.1f} MB/s, bit for bit); launches "
+                f"{counts}")
+            del info, restored
+            shutil.rmtree(d)
+
+        # the launcher: its label t
+        cfg = reduce_for_smoke(get_arch(ARCH))
+        fed = dataclasses.replace(steps.fed_config_for(cfg, 2),
+                                  byzantine_frac=0.0, attack="sign_flip",
+                                  alpha_w=1e-2)
+        d = f"{root}/launch"
+        argv = ["--arch", ARCH, "--smoke", "--log-every", "1", "--ckpt", d]
+        for n, lo in ((LAUNCH_STEPS[0], 0), (LAUNCH_STEPS[1],
+                                             LAUNCH_STEPS[0])):
+            want = {k: v * (n - lo) for k, v in
+                    lm_round_launches(specs, cfg, fed).items()}
+            reset_all_counts()
+            rc, text = _quiet_run(launcher.main, argv + ["--steps", str(n)])
+            counts = all_counts()
+            check_path_counts(f"launch.train --ckpt --steps {n}", counts,
+                              want)
+            add(counts, fed)
+            ran = [int(line.split()[1]) for line in text.splitlines()
+                   if line.startswith("step")]
+            if rc != 0 or ran != list(range(lo, n)) or (
+                    lo and f"resumed at step {lo}" not in text):
+                raise AssertionError(f"launch.train --ckpt --steps {n}: "
+                                     f"rounds {ran}")
+        out["launch_train"] = dict(steps=list(LAUNCH_STEPS),
+                                   resumed_at=LAUNCH_STEPS[0])
+        log(f"lm_resume launch.train --smoke --ckpt: {LAUNCH_STEPS[0]} "
+            f"rounds, then resumed at {LAUNCH_STEPS[0]} and ran rounds "
+            f"{LAUNCH_STEPS[0]}-{LAUNCH_STEPS[1] - 1}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4025,6 +4552,22 @@ def main() -> int:
         report[f"{phase}_phase_s"] = time.perf_counter() - t0
         log(f"phase: {phase} ({arch}) {report[f'{phase}_phase_s']:.1f} s")
 
+    # Gemma-7B (B4/B5 bf16 at head dim 256) and Phi3-medium-14B (at 40/10
+    # x 128) at full width, each then through long_500k's windowed decode
+    # (the ring of 8,192 slots across its wrap) before it is freed; RoPE's
+    # frequencies first, which those positions magnify
+    rope_cpu_vs_cuda(report)
+    for arch, phase, seed in ((GEMMA, "dense_serve_gemma", 900),
+                              (PHI3, "dense_serve_phi3", 1000)):
+        t0 = time.perf_counter()
+        new_rows[phase] = serve_phase(
+            arch, report, launches, errs, seed,
+            then=lambda cfg, params, arch=arch, seed=seed: window_decode(
+                arch, cfg, params, report, launches, errs, seed + 500))
+        report[f"{phase}_phase_s"] = time.perf_counter() - t0
+        log(f"phase: {phase} ({arch}, with window_decode) "
+            f"{report[f'{phase}_phase_s']:.1f} s")
+
     # LM training: B4's backward alone, then SmolLM-360M at full width
     # through make_train_step (B1, B4 and its backward), then the smoke
     # model on the CPU and on the card; from here on under the allocator
@@ -4066,6 +4609,14 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
         report[f"{phase}_phase_s"] = time.perf_counter() - t0
         log(f"phase: {phase} {report[f'{phase}_phase_s']:.1f} s")
+
+    # Checkpoints: the federated LM example saved, restored and resumed,
+    # at the smoke and 100m scales, and launch.train --ckpt
+    t0 = time.perf_counter()
+    for name, n in lm_resume(specs, report).items():
+        launches[name] = launches.get(name, 0) + n
+    report["lm_resume_phase_s"] = time.perf_counter() - t0
+    log(f"phase: lm_resume {report['lm_resume_phase_s']:.1f} s")
 
     # B1-B3: per round of the 8 MLP_H24 leaves as one grouped call, with
     # call_ms and the same leaves in eight one-leaf calls beside it, and
@@ -4116,7 +4667,9 @@ def main() -> int:
         bf16_plain_ms=hd["plain_ms"], bf16_library_ms=hd["library_ms"],
         moe=moe_rows["decode_attention"],
         encdec=new_rows["encdec_serve"]["decode_attention"],
-        vlm=new_rows["vlm_serve"]["decode_attention"])
+        vlm=new_rows["vlm_serve"]["decode_attention"],
+        dense=new_rows["dense_serve_gemma"]["decode_attention"]
+        + new_rows["dense_serve_phi3"]["decode_attention"])
     # B4's two kernels: the fields above are the f32 one's (SmolLM-360M's
     # prefill); the bf16 one's at Hymba-1.5B's prefill shape
     hb = times_hymba["flash_attention"]
@@ -4128,7 +4681,9 @@ def main() -> int:
         bf16_bound_ms=hb["bound_ms"], bf16_library_ms=hb["library_ms"],
         moe=moe_rows["flash_attention"],
         encdec=new_rows["encdec_serve"]["flash_attention"],
-        vlm=new_rows["vlm_serve"]["flash_attention"])
+        vlm=new_rows["vlm_serve"]["flash_attention"],
+        dense=new_rows["dense_serve_gemma"]["flash_attention"]
+        + new_rows["dense_serve_phi3"]["flash_attention"])
     # B4's backward: its kernels (dq, the per-head dK/dV, their sum) with
     # registers and spills; the call's ms and each kernel's at the training
     # shape, and for f32 at SeamlessM4T's decoder and cross shapes

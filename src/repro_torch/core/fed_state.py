@@ -11,8 +11,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, FedConfig
 from repro_torch.models import transformer as tr
-from repro_torch.tree import (host_array, resolve_device, tree_leaves,
-                              tree_map)
+from repro_torch.tree import (host_array, resolve_device,
+                              tensor_from_numpy, tree_leaves, tree_map)
 
 
 class FedState(NamedTuple):
@@ -71,9 +71,9 @@ def init_lm_tree(gen: torch.Generator, cfg: ArchConfig,
 
 def params_from_numpy(params: Any, device=None) -> Any:
     """One model's (or a stack's) nested dict of numpy arrays -> tensors on
-    ``device``, dtypes kept, layout kept."""
+    ``device``, dtypes kept (bf16 too), layout kept."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), params)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), params)
 
 
 def fed_state_from_numpy(arrays: Mapping[str, Any], device=None) -> FedState:

@@ -7,7 +7,8 @@ card.
 * ``make_train_step`` is a full **BAFDP federated round** over LM
   clients: per-client LDP embedding noise, the DRO regularizer, the
   Eq. (20) sign consensus (one B1 launch a round), the dual steps.
-* ``make_prefill_step`` / ``make_decode_step`` run the deployment model.
+* ``make_prefill_step`` / ``make_decode_step`` run the deployment model;
+  ``decode_window`` picks the ring-buffer window of a decode shape.
 """
 from __future__ import annotations
 
@@ -161,6 +162,16 @@ def make_prefill_step(cfg: ArchConfig):
         return lm_logits(params["embed"], x[:, -1:], cfg)[:, 0]
 
     return prefill_step
+
+
+def decode_window(cfg: ArchConfig, shape: InputShape) -> int:
+    """The decode step's window at ``shape``, as the reference's: past
+    65,536 positions (``long_500k``) an architecture with a sliding
+    window decodes through a ring buffer of ``cfg.sliding_window``
+    slots; every other shape uses the full cache (0)."""
+    if shape.seq_len > 65536 and cfg.sliding_window:
+        return cfg.sliding_window
+    return 0
 
 
 def make_decode_step(cfg: ArchConfig, window: int = 0):

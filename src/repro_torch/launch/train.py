@@ -9,9 +9,14 @@ package's ``launch/train.py``).
 Without ``--device`` it runs on the GPU and raises when there is none.
 ``--smoke`` trains ``reduce_for_smoke(arch)`` on sequences of 64 tokens,
 a global batch of 4 over 2 clients; otherwise 4 clients share the
-shape's global batch.  ``--ckpt`` (checkpoints), ``--dry`` (lowering)
-and ``--variant`` are not ported and raise.  On the GPU the caching
-allocator maps expandable segments (:func:`use_expandable_segments`).
+shape's global batch.  ``--ckpt DIR`` resumes from the newest checkpoint
+in ``DIR`` and saves the state after round ``t`` under the label ``t``
+every 50 rounds (``t > 0``) and under ``--steps`` at the end, as the
+reference does: a resume from label ``t`` runs round ``t`` again
+(``examples/federated_lm_training.py`` labels ``t + 1`` instead).
+``--dry`` (lowering) and ``--variant`` are not ported and raise.  On the
+GPU the caching allocator maps expandable segments
+(:func:`use_expandable_segments`).
 """
 from __future__ import annotations
 
@@ -47,19 +52,18 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", default="", help="(not ported)")
     ap.add_argument("--byzantine", type=float, default=0.0)
     ap.add_argument("--attack", default="sign_flip")
-    ap.add_argument("--ckpt", default="", help="(not ported)")
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint directory: resume from it, save to it")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="'cpu' or 'cuda' (default: the GPU, or an error)")
     args = ap.parse_args(argv)
 
-    if args.ckpt:
-        raise ValueError("--ckpt: checkpoints are not yet ported "
-                         "(ROADMAP Queue A item 6)")
     if args.dry or args.variant:
         raise ValueError("--dry / --variant are not yet ported "
                          "(ROADMAP Queue A item 8)")
 
+    from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import INPUT_SHAPES, get_arch, reduce_for_smoke
     from repro_torch.core.fed_state import init_fed_state, init_lm_tree
     from repro_torch.data.tokens import lm_batch
@@ -83,12 +87,19 @@ def main(argv=None) -> int:
     state = init_fed_state(torch.Generator(device=dev).manual_seed(0),
                            lambda g: init_lm_tree(g, cfg, dev), fed,
                            device=dev)
+    ck = Checkpointer(args.ckpt) if args.ckpt else None
+    start = 0
+    if ck:
+        restored, s0 = ck.restore_latest(state)
+        if restored is not None:
+            state, start = restored, s0
+            print(f"resumed at step {start}")
 
     rng = np.random.RandomState(0)
     b = shape.global_batch // n_clients
     t0 = time.time()
     m = {}
-    for t in range(args.steps):
+    for t in range(start, args.steps):
         raw = lm_batch(rng, cfg, n_clients * b, shape.seq_len)
         batch = {k: torch.from_numpy(v).to(dev).reshape(
                      (n_clients, b) + v.shape[1:]) for k, v in raw.items()}
@@ -97,7 +108,16 @@ def main(argv=None) -> int:
             print(f"step {t:5d}  loss={float(m['data_loss']):.4f}  "
                   f"eps={float(m['eps_mean']):.2f}  "
                   f"gap={float(m['consensus_gap']):.2e}  "
-                  f"{(time.time() - t0) / (t + 1):.2f}s/step", flush=True)
+                  f"{(time.time() - t0) / (t - start + 1):.2f}s/step",
+                  flush=True)
+        if ck and t and t % 50 == 0:
+            ck.save(state, t)
+    if ck:
+        ck.save(state, args.steps)
+    if not m:
+        print(f"done. nothing to run: resumed at step {start} >= --steps "
+              f"{args.steps}")
+        return 0
     print(f"done. final loss {float(m['data_loss']):.4f}")
     return 0
 

@@ -10,6 +10,7 @@ input's dtype; projections run in the activation's dtype.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Sequence
 
@@ -63,10 +64,21 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # RoPE (split-halves form, angles in f32)
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: str) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    return (1.0 / (theta ** exps)).to(device)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    """``1 / theta ** (2i / head_dim)`` in f32, computed once on the host
+    (f32 ``pow``, as the reference's ``jnp`` op by op) and copied to
+    ``device``: the same bits on every device, whatever the device's own
+    ``pow`` rounds.  At ``long_500k``'s positions (~2^19) one ulp of a
+    frequency near 1 moves its angle by ~0.03 rad.  Cached per (head
+    dim, theta, device): one host-to-device copy each."""
+    return _rope_freqs_on(head_dim, float(theta),
+                          str(torch.device(device or "cpu")))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -78,7 +78,8 @@ from repro_torch.models.layers import (
 )
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.tree import resolve_device, tree_map, tree_unstack
+from repro_torch.tree import (host_array, resolve_device,
+                              tensor_from_numpy, tree_map, tree_unstack)
 
 PORTED_KINDS = (ATTN, SWA, MAMBA, HYMBA, MLSTM, SLSTM)
 MOE_IMPLS = {"scatter": moe_lib.moe_ffn, "einsum": moe_lib.moe_ffn_einsum}
@@ -522,22 +523,10 @@ def decode_step(params, state, tokens: torch.Tensor, step: int,
 
 # ---------------------------------------------------------------------------
 # Weight carry-over from / to the reference's ``init_lm`` pytree
-def _tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":       # ml_dtypes: no torch.from_numpy
-        return torch.from_numpy(a.astype(np.float32)).to(
-            device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(np.array(a)).to(device)     # a writable copy
-
-
-def _numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-
 def _unstack(tree, n: int, device) -> List[Dict[str, Any]]:
     """Slices 0..n-1 of a tree whose leaves share a leading axis."""
-    return [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], device), tree)
+    return [tree_map(lambda a, i=i: tensor_from_numpy(np.asarray(a)[i],
+                                                      device), tree)
             for i in range(n)]
 
 
@@ -555,10 +544,10 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     per_entry = [_unstack(t, n_groups, dev) for t in tree["unit"]]
     layers = [per_entry[j][g] for g in range(n_groups)
               for j in range(len(unit))]
-    as_tensors = lambda t: tree_map(lambda a: _tensor(a, dev), t)
+    as_tensors = lambda t: tree_map(lambda a: tensor_from_numpy(a, dev), t)
     extra: Dict[str, Any] = {}
     if "frontend_proj" in tree:
-        extra["frontend_proj"] = _tensor(tree["frontend_proj"], dev)
+        extra["frontend_proj"] = tensor_from_numpy(tree["frontend_proj"], dev)
     if "enc_unit" in tree:
         extra["enc_unit"] = _unstack(tree["enc_unit"], cfg.n_enc_layers, dev)
         extra["enc_norm"] = as_tensors(tree["enc_norm"])
@@ -569,7 +558,7 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
 def lm_params_to_numpy(params, cfg: ArchConfig) -> Dict[str, Any]:
     """The inverse of :func:`lm_params_from_numpy`: :func:`lm_tree` as
     numpy arrays (bf16 weights come back as f32)."""
-    return tree_map(_numpy, lm_tree(params, cfg))
+    return tree_map(host_array, lm_tree(params, cfg))
 
 
 def _as_dict(mod: nn.Module) -> Dict[str, Any]:

@@ -59,10 +59,25 @@ def tree_unstack(tree: Any) -> List[Any]:
 
 def host_array(x: Any) -> np.ndarray:
     """A tensor (on any device) or array-like as a numpy array on the
-    host: the rows of a schedule, client ids, weights."""
+    host: the rows of a schedule, client ids, weights, a leaf to save.
+    bf16, which numpy lacks, comes back as f32 (exactly)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
     return np.asarray(x)
+
+
+def tensor_from_numpy(a: Any, device=None) -> torch.Tensor:
+    """A numpy array as a tensor on ``device`` (a copy, dtype kept).  A
+    bf16 array (``ml_dtypes``' type, which ``torch.from_numpy`` does not
+    take) goes through f32, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def resolve_device(device: Optional[Any] = None) -> torch.device:

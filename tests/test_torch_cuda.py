@@ -13,7 +13,10 @@ backward (f32 and bf16, head dim 64) within 1e-5 + 1e-4 |plain|
 elementwise (plus one bf16 ulp of the plain value in bf16) and bit for
 bit run to run, B4's output (both dtypes) the same with and without its
 log-sum-exp, B6's backward bit for bit, autograd through both, and B5
-refusing autograd (no backward).
+refusing autograd (no backward).  B4 and B5 also at Gemma-7B's and
+Phi3-medium's heads (B5 over long_500k's ring of 8,192 slots), RoPE's
+frequencies equal on both devices, and a checkpoint of CUDA tensors
+restored onto the card bit for bit.
 Needs a CUDA device and nvcc; skips without a device.
 Imports no JAX, so it runs on a machine without it:
 
@@ -431,7 +434,9 @@ def _assert_close(got, want, dtype):
     (2, 300, 300, 25, 5, 64, True, 0),                  # Hymba's heads
     (2, 100, 300, 25, 5, 64, True, 64),                 # Sq < Sk, window
     (1, 4097, 4097, 5, 1, 64, True, 0),                 # no whole tile
-    (1, 200, 520, 4, 2, 128, False, 0), (1, 300, 300, 2, 1, 256, False, 100)])
+    (1, 200, 520, 4, 2, 128, False, 0), (1, 300, 300, 2, 1, 256, False, 100),
+    (1, 512, 512, 16, 16, 256, True, 0),                # Gemma-7B's heads
+    (1, 512, 512, 40, 10, 128, True, 0)])               # Phi3-medium's
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_flash_attention_matches_plain_version(B, Sq, Sk, H, Hkv, D,
                                                     causal, window, dtype):
@@ -636,7 +641,9 @@ SERVE_LENS = [16, 40, 100, 200, 256, 300, 400, 512]   # chip_smoke's
     (3, 1024, 2, 1, 64, None), (3, 777, 15, 5, 64, None),
     (2, 300, 16, 16, 256, None),
     (8, 512, 15, 5, 64, SERVE_LENS),            # SmolLM-360M serving
-    (8, 512, 25, 5, 64, SERVE_LENS)])           # Hymba-1.5B serving
+    (8, 512, 25, 5, 64, SERVE_LENS),            # Hymba-1.5B serving
+    (2, 8192, 16, 16, 256, [8192, 8192]),       # Gemma-7B's long_500k ring
+    (1, 8192, 40, 10, 128, [8192])])            # Phi3-medium's
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_decode_attention_matches_plain_version(B, L, H, Hkv, D, lens,
                                                      dtype):
@@ -662,6 +669,69 @@ def test_cuda_decode_attention_matches_plain_version(B, L, H, Hkv, D, lens,
     _assert_close(got, want, dtype)
     again = dec_k.decode_attention(q, k_poisoned, v_poisoned, length)
     assert _bits_equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_rope_freqs_equal_the_cpus():
+    """RoPE's frequencies on the card are the CPU's, bit for bit (one
+    ulp of a frequency near 1 moves its angle by ~0.03 rad at long_500k's
+    positions), and so are the rotated values at those positions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models import layers
+
+    for hd in (64, 128, 256):
+        for theta in (1e4, 5e5):
+            cpu = layers.rope_freqs(hd, theta, "cpu")
+            gpu = layers.rope_freqs(hd, theta, "cuda")
+            assert gpu.device.type == "cuda"
+            assert torch.equal(cpu.view(torch.int32),
+                               gpu.cpu().view(torch.int32))
+    x = torch.randn((1, 4, 2, 256), generator=torch.Generator()
+                    .manual_seed(0))
+    pos = torch.arange(524_280, 524_284)[None]
+    want = layers.apply_rope(x, pos, 1e4)
+    got = layers.apply_rope(x.cuda(), pos.cuda(), 1e4).cpu()
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip_keeps_device_and_dtype(tmp_path):
+    """A tree of CUDA tensors (f32, bf16, int32 scalars and vectors, a
+    tuple and a ``None``) through ``Checkpointer``: restored onto the card
+    in each template leaf's dtype, bit for bit; restored onto CPU
+    templates, the same values there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.checkpoint import Checkpointer
+
+    tree = {"w": _randn((3, 5), "float32", 7),
+            "unit": (_randn((2, 4), "bfloat16", 8), None,
+                     {"t": torch.tensor(11, dtype=torch.int32,
+                                        device="cuda")}),
+            "tau": torch.arange(4, dtype=torch.int32, device="cuda")}
+    ck = Checkpointer(str(tmp_path), keep=1)
+    ck.save(tree, 3)
+    zeros = lambda l: None if l is None else torch.zeros_like(l)
+    template = {"w": zeros(tree["w"]), "tau": zeros(tree["tau"]),
+                "unit": tuple(zeros(u) if not isinstance(u, dict) else
+                              {"t": zeros(u["t"])} for u in tree["unit"])}
+    got, step = ck.restore_latest(template)
+    assert step == 3 and got["unit"][1] is None
+    pairs = [(got["w"], tree["w"]), (got["tau"], tree["tau"]),
+             (got["unit"][0], tree["unit"][0]),
+             (got["unit"][2]["t"], tree["unit"][2]["t"])]
+    for g, w in pairs:
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert _bits_equal(g, w) if g.is_floating_point() else \
+            torch.equal(g, w)
+    on_cpu, _ = ck.restore_latest({"w": template["w"].cpu(),
+                                   "tau": template["tau"].cpu(),
+                                   "unit": (template["unit"][0].cpu(), None,
+                                            {"t": template["unit"][2]["t"]
+                                             .cpu()})})
+    assert on_cpu["w"].device.type == "cpu"
+    assert _bits_equal(on_cpu["unit"][0], tree["unit"][0])
 
 
 @pytest.mark.cuda

@@ -228,6 +228,98 @@ def test_decode_steps_match_reference(jref, cache_len, window, steps):
             _close(layer[name], jstate["layers"][0][name][i])
 
 
+LONG_STEPS = range(524_280, 524_296)      # long_500k's last positions
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "phi3-medium-14b"])
+def test_window_decode_across_the_wrap_matches_reference(jref, arch,
+                                                        record_property):
+    """``make_decode_step(cfg, window=8)`` at absolute steps 524,280-
+    524,295 (RoPE angles near 2^19 rad), through a ring of 8 slots filled
+    with seeded K/V first: slot ``step % 8`` is written, the wrap at
+    524,288 included, and every step's logits and the ring match the
+    reference's (the long_500k decode of ``launch.steps.decode_window``
+    at a smoke window).  The reference runs op by op
+    (``jax.disable_jit``), the mode whose RoPE frequencies the port
+    follows (ROADMAP Queue C, trap AJ).  Compiled, its frequencies round
+    differently (test_rope_freqs_match_reference); the compiled
+    reference's largest logit gap to the port over the 16 steps is
+    reported (``compiled_reference_max_logit_gap``, printed), not held
+    to a bound."""
+    import jax
+    import jax.numpy as jnp
+
+    jparams, params, jcfg, cfg = _both(jref, arch)
+    W = 8
+    toks = np.random.RandomState(9).randint(0, cfg.vocab_size,
+                                            (2, len(LONG_STEPS)))
+    jstate = jref.tr.init_decode_state(jcfg, 2, 524_288, jnp.float32,
+                                       window=W)
+    state = tr.init_decode_state(cfg, 2, 524_288, torch.float32, window=W,
+                                 device="cpu")
+    rng = np.random.RandomState(10)
+    unit = len(jstate["layers"])
+    for i, layer in enumerate(state["layers"]):
+        assert layer["k"].shape == (2, W, cfg.n_kv_heads, 64)
+        for name in ("k", "v"):
+            fill = rng.randn(*layer[name].shape).astype(np.float32)
+            layer[name].copy_(torch.from_numpy(fill))
+            j = jstate["layers"][i % unit]
+            j[name] = j[name].at[i // unit].set(jnp.asarray(fill))
+    jstep = functools.partial(jref.tr.decode_step, cfg=jcfg, window=W)
+    compiled, cstate = jax.jit(jstep), jax.tree.map(lambda x: x, jstate)
+    step = make_decode_step(cfg, W)
+    gap = 0.0
+    for n, t in enumerate(LONG_STEPS):
+        before = [l["k"].clone() for l in state["layers"]]
+        with jax.disable_jit():
+            want, jstate = jstep(jparams, jstate,
+                                 jnp.asarray(toks[:, n:n + 1]),
+                                 jnp.asarray(t))
+        got, state = step(params, state, torch.from_numpy(toks[:, n:n + 1]),
+                          t)
+        _close(got, want)
+        cwant, cstate = compiled(jparams, cstate,
+                                 jnp.asarray(toks[:, n:n + 1]),
+                                 jnp.asarray(t))
+        gap = max(gap, float(np.abs(got.numpy() - np.asarray(cwant)).max()))
+        for b, l in zip(before, state["layers"]):
+            moved = (b != l["k"]).any(dim=(0, 2, 3)).tolist()
+            assert moved == [s == t % W for s in range(W)], (t, moved)
+    for i, layer in enumerate(state["layers"]):
+        for name in ("k", "v"):
+            _close(layer[name], jstate["layers"][i % unit][name][i // unit])
+    record_property("compiled_reference_max_logit_gap", gap)
+    print(f"{arch}: the compiled reference's logits at steps "
+          f"{LONG_STEPS[0]}-{LONG_STEPS[-1]}: max |gap| to the port {gap:.3e}")
+
+
+def test_rope_freqs_match_reference(jref):
+    """``rope_freqs`` against the reference's at head dims 64, 128 and 256
+    and the configs' thetas, both f32 ``pow`` evaluated op by op: equal
+    but for one frequency of 128 at head dim 256 and theta 10,000 (index
+    111, 3.398e-4: 1.5e-5 rad of angle at position 524,280) and one each
+    at theta 1e6, where torch's and jnp's ``pow`` round one ulp apart.
+    The reference's compiled programs (XLA's ``pow`` under ``jax.jit``)
+    round correctly and sit one ulp away from both on 10 to 43 of the
+    frequencies (ROADMAP Queue C, trap AJ)."""
+    import jax
+
+    odd = {(256, 1e4): [111], (128, 1e6): [37], (256, 1e6): [74]}
+    for hd in (64, 128, 256):
+        for theta in (1e4, 5e5, 1e6):
+            got = layers.rope_freqs(hd, theta).numpy()
+            want = np.asarray(jref.layers.rope_freqs(hd, theta))
+            assert got.dtype == np.float32 and got.shape == (hd // 2,)
+            off = np.flatnonzero(got != want).tolist()
+            assert off == odd.get((hd, theta), []), (hd, theta, off)
+            compiled = np.asarray(jax.jit(
+                lambda: jref.layers.rope_freqs(hd, theta))())
+            for other in (want, compiled):
+                assert np.abs(got.view(np.int32)
+                              - other.view(np.int32)).max() <= 1
+
+
 def test_decode_attention_cache_slots():
     """The slot written and the valid length, step by step."""
     cfg = reduce_for_smoke(get_arch("smollm-360m"))
