@@ -198,13 +198,30 @@ against the same round from the state in memory; runs at the 100m scale
 under both servers, printing the save and restore seconds and the
 archive's bytes; and ``launch.train --ckpt`` resumes at its label.
 
+Placement (B1, B4 and its backward, B5): the reference's sharding plan
+as DTensor placements on the host mesh (``launch.mesh.
+registered_host_mesh``: 1 x 1, one NCCL rank).  ``placed_serve``:
+Granite-MoE-3B-a800m (einsum form) prefilled through ``launch.steps.
+prefill_setup`` under the variants ``einsum_moe`` and
+``einsum_moe_gshard`` (``moe_group_shard``), Phi3-medium-14B under no
+variant and ``seqpar16`` (``attn_seq_shards``), each pair's logits bit
+for bit equal, and Phi3's long_500k window decode through
+``decode_setup`` bit for bit equal to ``window_decode``'s logits;
+``placed_train``: SmolLM-360M's lm_train rounds again through
+``train_setup`` on the placed state, its per-leaf digests equal to
+lm_train's; ``variant_train``: ``launch.train --variant
+inner_dp+signs8+noremat`` at full width (the cfg patch only: B1, no B3,
+no recompute).  Every placed tensor's local shard is the tensor itself
+(same storage), and every run's launches are asserted.
+
 Any failed check raises.  Each phase prints its seconds.  The last line
 is the JSON result; the line before it lists the kernels with their
 launches (summed over the main-path runs: B1's include the robust dense
 runs, Table IV's BAFDP rows and the paper suites' constant-decay runs,
 B2's and B3's the sparse, robust and scale runs and the Figs. 4-6
 scenarios) and times.  Its B1-B3 entries
-(B1's also the lm_train and lm_resume rounds) give ``kernel`` (the f32 instance's
+(B1's also the lm_train, placed_train, variant_train and lm_resume
+rounds) give ``kernel`` (the f32 instance's
 ptxas label) with ``ptxas`` (its
 and the bf16 instance's registers and spills), the time per round of the
 8 leaves as one grouped call, ``call_ms`` (its host time) and, as
@@ -228,14 +245,16 @@ SDPA ms), and their ``encdec`` and ``vlm`` lists the same at
 SeamlessM4T's and LLaVA's shapes, their ``dense`` lists at Gemma-7B's
 and Phi3-medium's (B5's also at the 8,192-slot ring); their launches
 include the MoE, SeamlessM4T, LLaVA, Gemma and Phi3 runs (B5's the
-window decode), B4's also the lm_train and lm_resume rounds.  Its
+window decodes, placed_serve's too), B4's also placed_serve's prefills
+and the lm_train, placed_train, variant_train and lm_resume rounds.  Its
 ``flash_attention_bwd`` entry (no TPU counterpart) gives the f32 backward
 at SmolLM-360M's training shape, with ``simt_bound_ms``, each kernel's
 ms (``dq_ms``, ``dkdv_ms``, ``sum_ms``), the ptxas lines and the
 ``registers`` and spill bytes of its three kernels, and as ``seamless``
 the same rows at SeamlessM4T-medium's decoder and cross shapes; its
 launches are the f32 training rounds' (SmolLM-360M, SeamlessM4T-medium,
-the 100m families, lm_resume's).  Its ``flash_attention_bwd_bf16`` entry gives the
+the 100m families, placed_train's, variant_train's, lm_resume's).  Its
+``flash_attention_bwd_bf16`` entry gives the
 bf16 instances at Hymba's training shape, launched by Hymba's rounds;
 B4's entry gains
 ``autograd_fwd_b1`` (the forward with its lse at B=1, f32 and bf16).
@@ -382,6 +401,12 @@ SMOKE_VS_ROWS, SMOKE_VS_S, SMOKE_VS_DECODE, SMOKE_VS_NEW = 2, 64, 24, 8
 GEMMA, PHI3 = "gemma-7b", "phi3-medium-14b"
 WINDOW_STEPS = range(524_280, 524_296)
 WINDOW_SMOKE = 8
+# Placement (placed_serve, placed_train, variant_train): the variant pairs
+# whose prefill logits must be equal, and the launcher's variant, trained
+# at lm_train's shape (LM_TRAIN_CLIENTS sequences of LM_TRAIN_S tokens).
+PLACED_PAIRS = {"granite-moe-3b-a800m": ("einsum_moe", "einsum_moe_gshard"),
+                "phi3-medium-14b": ("", "seqpar16")}
+TRAIN_VARIANT = "inner_dp+signs8+noremat"
 ROPE_HEAD_DIMS, ROPE_THETAS = (64, 128, 256), (1e4, 5e5)
 # Checkpoints and resume (lm_resume): examples/federated_lm_training.py's
 # port at the smoke scale for RESUME_STEPS[0] rounds, then resumed to
@@ -2923,7 +2948,9 @@ def moe_cpu_vs_cuda(report):
 def moe_runs(report, launches):
     """Each MoE model at full width on the card: a prefill step and a
     generate (launches added to ``launches``), and for Granite the
-    scatter-vs-einsum check; each model freed before the next."""
+    scatter-vs-einsum check and :func:`placed_serve`'s einsum prefills
+    with and without ``moe_group_shard``; each model freed before the
+    next."""
     for arch in MOE_ARCHS:
         cfg, params = serve_model(arch)
         for run in (moe_prefill_run, generate_run):
@@ -2931,6 +2958,8 @@ def moe_runs(report, launches):
                 launches[name] += n
         if arch == MOE_ARCHS[0]:
             moe_forms(cfg, params, report)
+        if arch in PLACED_PAIRS:
+            placed_serve(arch, cfg, params, report, launches)
         del params
         torch.cuda.empty_cache()
 
@@ -3211,7 +3240,23 @@ def rope_cpu_vs_cuda(report):
     report["rope_cpu_vs_cuda"] = rows
 
 
-def window_decode(arch, cfg, params, report, launches, errs, seed):
+def ring_state(cfg, state, seed):
+    """Fill a window decode state's K/V rings, layer by layer, with normal
+    values from ``seed`` in the cache dtype, then draw the first token
+    from the same generator: (the (K, V) pairs, the token (1, 1))."""
+    caches = [(layer["k"], layer["v"]) for layer in state["layers"]]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for pair in caches:
+        for c in pair:
+            c.copy_(torch.randn(c.shape, generator=g, device="cuda",
+                                dtype=c.dtype))
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=g,
+                        device="cuda")
+    return caches, tok
+
+
+def window_decode(arch, cfg, params, report, launches, errs, seed,
+                  keep=None):
     """The reference's ``long_500k`` decode of ``arch`` at full width
     (``launch.steps.decode_setup``): ``decode_window`` gives the ring of
     ``cfg.sliding_window`` slots, ``init_decode_state`` at B=1 and
@@ -3220,7 +3265,8 @@ def window_decode(arch, cfg, params, report, launches, errs, seed):
     WINDOW_STEPS, across the ring's wrap.  Each step writes slot ``step %
     window`` of every layer's K and V and nothing else, and makes one B5
     call per layer at ``length`` = window.  B5 held against its plain
-    version and timed at (1, window) before.  Returns the kernel rows."""
+    version and timed at (1, window) before.  Each step's logits are
+    appended to ``keep`` when given.  Returns the kernel rows."""
     from repro_torch.configs import INPUT_SHAPES
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.launch.steps import decode_window, make_decode_step
@@ -3240,19 +3286,12 @@ def window_decode(arch, cfg, params, report, launches, errs, seed):
                                    report, errs)
     state = tr.init_decode_state(cfg, shape.global_batch, shape.seq_len, cdt,
                                  window=W, device="cuda")
-    caches = [(layer["k"], layer["v"]) for layer in state["layers"]]
+    caches, tok = ring_state(cfg, state, seed)
     if caches[0][0].shape != (1, W, Hkv, D):
         raise AssertionError(f"ring {tuple(caches[0][0].shape)}")
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    for pair in caches:
-        for c in pair:
-            c.copy_(torch.randn(c.shape, generator=g, device="cuda",
-                                dtype=c.dtype))
     cache_gb = sum(c.numel() * c.element_size() for p in caches
                    for c in p) / 1e9
     step = make_decode_step(cfg, W)
-    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=g,
-                        device="cuda")
     _, n_step, _ = layer_counts(cfg)
     torch.cuda.synchronize()
     reset_all_counts()
@@ -3276,6 +3315,8 @@ def window_decode(arch, cfg, params, report, launches, errs, seed):
                 torch.isfinite(logits).all()):
             raise AssertionError(f"{cfg.name} window decode step {t}: "
                                  f"logits {tuple(logits.shape)}")
+        if keep is not None:
+            keep.append(logits.clone())
         tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
         tokens.append(int(tok))
     counts = all_counts()
@@ -3362,6 +3403,271 @@ def window_cpu_vs_cuda(arch, report):
         f"{WINDOW_STEPS[0]}-{WINDOW_STEPS[-1]}, {SMOKE_VS_ROWS} rows): max "
         f"|logit diff| {diff:.3e} (bound {bound}); greedy tokens equal "
         f"{equal}/{equal + len(flips)}; flips inside the bound: {flips}")
+
+
+# ---------------------------------------------------------------------------
+# Placement: the reference's plan as DTensor placements on the host mesh
+def place_whole(tree, specs, mesh, what):
+    """``tree`` placed by ``specs`` on the host mesh
+    (``distributed.sharding.place_tree``) and taken back as local tensors
+    (``local_tree``); every local shard must be its leaf itself, the same
+    storage, as on any 1 x 1 mesh.  Returns the local tree."""
+    from repro_torch.distributed.sharding import local_tree, place_tree
+    from repro_torch.tree import tree_leaves
+
+    local = local_tree(place_tree(tree, specs, mesh))
+    a, b = tree_leaves(tree), tree_leaves(local)
+    if len(a) != len(b) or not all(
+            x.data_ptr() == y.data_ptr() and x.shape == y.shape
+            for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: a local shard is not its tensor")
+    return local
+
+
+INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+DIGEST_CHUNK = 1 << 24
+
+
+def state_digests(state) -> dict:
+    """{leaf path: [s1, s2]} of a ``FedState``: each leaf's bit patterns
+    as integers summed, and summed with weights by position, in int64
+    that wraps: an integer sum, so the same in any order, and equal
+    states give equal digests without a second copy of either."""
+    out = {}
+    for path, x in _named_leaves(state._asdict()):
+        bits = x.detach().contiguous().view(
+            INT_OF_SIZE[x.element_size()]).reshape(-1)
+        s1 = torch.zeros((), dtype=torch.int64, device=x.device)
+        s2 = torch.zeros_like(s1)
+        for i in range(0, bits.numel(), DIGEST_CHUNK):
+            c = bits[i:i + DIGEST_CHUNK].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=x.device,
+                             dtype=torch.int64) * 2654435761 % 2147483647
+            s1 += c.sum()
+            s2 += (c * (w + 1)).sum()
+        out[path] = [int(s1), int(s2)]
+    return out
+
+
+def placed_prefill(cfg, params, mesh, variant):
+    """One full-width prefill step (``prefill_run``'s PREFILL_B x
+    PREFILL_S inputs) of ``variant``'s config of ``cfg`` (its
+    ``launch/variants`` cfg patch; "" for none) through
+    ``launch.steps.prefill_setup`` on ``mesh``: the serving params and
+    the inputs placed by its specs and taken back whole, B4 once in each
+    attention layer.  Returns (logits, ms, launch counts)."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch.steps import prefill_inputs, prefill_setup
+    from repro_torch.launch.variants import get_variant
+    from repro_torch.models import transformer as tr
+
+    vcfg = get_variant(variant).apply(cfg)[0] if variant else cfg
+    shape = dataclasses.replace(INPUT_SHAPES["prefill_32k"],
+                                seq_len=PREFILL_S, global_batch=PREFILL_B)
+    step, _, (p_specs, in_specs), _ = prefill_setup(vcfg, shape, mesh)
+    inputs = prefill_inputs(vcfg, PREFILL_B, PREFILL_S,
+                            torch.Generator(device="cuda").manual_seed(1))
+    lp = place_whole(tr.serving_tree(params), p_specs, mesh,
+                     f"{cfg.name} params")
+    li = place_whole(inputs, in_specs, mesh, f"{cfg.name} inputs")
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    logits = step(lp, li)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = all_counts()
+    check_path_counts(f"{cfg.name} placed prefill {variant or 'none'}",
+                      counts, {"flash_attention": layer_counts(cfg)[0]})
+    if logits.shape != (PREFILL_B, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} placed prefill {variant}: logits "
+                             f"{tuple(logits.shape)}")
+    return logits, ms, counts
+
+
+def placed_window_decode(cfg, params, mesh, want, seed):
+    """``long_500k``'s window decode of ``cfg`` through
+    ``launch.steps.decode_setup`` on ``mesh``: the params, the ring state
+    (filled as :func:`window_decode` fills it from ``seed``) and each
+    token placed by its specs and taken back whole, greedy over
+    WINDOW_STEPS; every step's logits bit for bit ``want``'s (the
+    unplaced run's).  Returns (ms per step, launch counts)."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.launch.steps import decode_setup, decode_window
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.tree import tree_leaves
+
+    shape = INPUT_SHAPES["long_500k"]
+    W = decode_window(cfg, shape)
+    step, (_, s_sds, _, _), (p_specs, s_specs, tok_spec, _), _ = \
+        decode_setup(cfg, shape, mesh)
+    state = tr.init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                 dtype_of(cfg.compute_dtype), window=W,
+                                 device="cuda")
+    if [l.shape for l in tree_leaves(state)] != [
+            l.shape for l in tree_leaves(s_sds)]:
+        raise AssertionError(f"{cfg.name}: decode state != decode_setup's")
+    _, tok = ring_state(cfg, state, seed)
+    lp = place_whole(tr.serving_tree(params), p_specs, mesh,
+                     f"{cfg.name} params")
+    state = place_whole(state, s_specs, mesh, f"{cfg.name} ring state")
+    torch.cuda.synchronize()
+    reset_all_counts()
+    ms = []
+    for i, t in enumerate(WINDOW_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = step(lp, state, place_whole(
+            tok, tok_spec, mesh, f"{cfg.name} token"), t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not bits_equal(logits, want[i]):
+            raise AssertionError(f"{cfg.name} placed window decode step {t}:"
+                                 " logits differ from the unplaced run's")
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    counts = all_counts()
+    per_call = dec_k.launches_per_call(
+        1, cfg.n_kv_heads, W,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    check_path_counts(f"{cfg.name} placed window decode", counts, {
+        "decode_attention": len(WINDOW_STEPS) * layer_counts(cfg)[1]
+        * per_call})
+    del state
+    return ms, counts
+
+
+def placed_serve(arch, cfg, params, report, launches, window_logits=None,
+                 seed=None):
+    """The ``placed_serve`` phase for ``arch`` under one host mesh
+    (``launch.mesh.registered_host_mesh``): PLACED_PAIRS[arch]'s two
+    variants prefilled through :func:`placed_prefill`, their logits bit
+    for bit equal (the mesh knob is the identity on one device); with
+    ``window_logits``, :func:`placed_window_decode` against them.
+    Launches are added to ``launches``."""
+    from repro_torch.launch.mesh import registered_host_mesh
+
+    t_phase = time.perf_counter()
+    variants = PLACED_PAIRS[arch]
+    out = dict(variants=list(variants))
+    with registered_host_mesh() as mesh:
+        runs = [placed_prefill(cfg, params, mesh, v) for v in variants]
+        if not bits_equal(runs[0][0], runs[1][0]):
+            raise AssertionError(f"{cfg.name}: prefill logits under "
+                                 f"{variants} differ")
+        out.update(prefill_ms=[r[1] for r in runs],
+                   prefill_launches=[r[2] for r in runs])
+        del runs
+        if window_logits is not None:
+            ms, counts = placed_window_decode(cfg, params, mesh,
+                                              window_logits, seed)
+            out.update(window_ms_per_step=ms,
+                       window_median_ms=statistics.median(ms),
+                       window_launches=counts)
+    for counts in out["prefill_launches"] + [out.get("window_launches",
+                                                     {})]:
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    out["s"] = time.perf_counter() - t_phase
+    report.setdefault("placed_serve", {})[cfg.name] = out
+    log(f"placed_serve {cfg.name}: prefill under {variants} bit for bit "
+        f"equal (ms {[round(x, 1) for x in out['prefill_ms']]}, B4 "
+        f"{[c['flash_attention'] for c in out['prefill_launches']]})"
+        + (f"; window decode through decode_setup bit for bit the unplaced "
+           f"run's, median {out['window_median_ms']:.3f} ms a step, B5 "
+           f"{out['window_launches']['decode_attention']}"
+           if window_logits is not None else "")
+        + f"; every placed tensor its own local shard; {out['s']:.1f} s")
+
+
+def variant_train(specs, report):
+    """``launch.train --variant TRAIN_VARIANT`` at full width: SmolLM-360M,
+    LM_TRAIN_ROUNDS rounds of 4 clients with one LM_TRAIN_S-token sequence
+    each (``--global-batch``), in this process so every launch counts.
+    The variant applies its cfg patch only (remat off), as the
+    reference's launcher does: B1 once a round (the f32 sign wire, no
+    B3), B4 once in each layer for each client (no recompute) and its
+    backward.  Returns the counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.variants import get_variant
+
+    t_phase = time.perf_counter()
+    cfg = get_variant(TRAIN_VARIANT).apply(get_arch(ARCH))[0]
+    C, L, R = LM_TRAIN_CLIENTS, cfg.n_layers, LM_TRAIN_ROUNDS
+    if cfg.remat:
+        raise AssertionError(f"{TRAIN_VARIANT} leaves remat on")
+    b1 = consensus_spec(specs, launch_train.launcher_fed(cfg, C))
+    if b1["name"] != "sign_agg":
+        raise AssertionError(f"variant_train: the round would launch "
+                             f"{b1['name']}, not B1")
+    want = {b1["counter"]: R, "flash_attention": R * L * C,
+            "flash_attention_bwd": R * L * C * fa_k.BWD_LAUNCHES}
+    argv = ["--arch", ARCH, "--steps", str(R), "--variant", TRAIN_VARIANT,
+            "--global-batch", str(C), "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    rc, out = _quiet_run(launch_train.main, argv)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    if rc != 0 or not out.strip().splitlines()[-1].startswith(
+            "done. final loss"):
+        raise AssertionError(f"variant_train: exit {rc}")
+    check_path_counts(f"launch.train --variant {TRAIN_VARIANT}", counts,
+                      want)
+    b1["launches"] += counts[b1["counter"]]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l.split("loss=")[1].split()[0])
+              for l in out.splitlines() if l.startswith("step")]
+    report["variant_train"] = dict(
+        argv=argv, clients=C, seq=LM_TRAIN_S, rounds=R, remat=cfg.remat,
+        data_loss=losses, launches=counts, peak_gb=peak_gb,
+        s=time.perf_counter() - t_phase)
+    log(f"variant_train: launch.train {' '.join(argv)}: losses {losses}, "
+        f"launches {counts} (B1, no B3, B4 {L} x {C} a round: no "
+        f"recompute), peak {peak_gb:.2f} GB, "
+        f"{report['variant_train']['s']:.1f} s")
+    return counts
+
+
+def placed_train(specs, report):
+    """lm_train's rounds again (SmolLM-360M at full width, the same seed,
+    state, batch and knobs) through ``launch.steps.train_setup`` on the
+    host mesh: the state and the batch placed by its specs and taken
+    back whole, the step its ``train_step``.  The final state's digests
+    (:func:`state_digests`) must equal lm_train's: bit for bit.  Returns
+    the counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.launch.mesh import registered_host_mesh
+
+    cfg = get_arch(ARCH)
+    C, L = LM_TRAIN_CLIENTS, cfg.n_layers
+    with registered_host_mesh() as mesh:
+        counts = train_lm(
+            "placed_train", cfg, specs, report, clients=C, batch_rows=1,
+            seq=LM_TRAIN_S, rounds=LM_TRAIN_ROUNDS, knobs=LM_TRAIN_KNOBS,
+            per_round={"flash_attention": 2 * L * C,
+                       "flash_attention_bwd": L * C * fa_k.BWD_LAUNCHES},
+            cuts=report["lm_train"]["cuts"], profile_last=False,
+            mesh=mesh, digest=True)
+    got, want = (report[k].pop("digests") for k in ("placed_train",
+                                                     "lm_train"))
+    if got != want:
+        bad = [p for p in want if got.get(p) != want[p]]
+        raise AssertionError(f"placed_train: state differs from lm_train's "
+                             f"at {bad[:5]} ({len(bad)} leaves)")
+    report["placed_train"]["bit_equal_to_lm_train"] = len(want)
+    log(f"placed_train: the state after {LM_TRAIN_ROUNDS} rounds through "
+        f"train_setup on the placed state equals lm_train's in all "
+        f"{len(want)} leaves (digests); every placed tensor its own local "
+        "shard")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3529,7 +3835,8 @@ def state_bytes(state) -> int:
 
 
 def train_lm(label, cfg, specs, report, *, clients, batch_rows, seq,
-             rounds, knobs, per_round, cuts, profile_last=True):
+             rounds, knobs, per_round, cuts, profile_last=True, mesh=None,
+             digest=False):
     """The main path of LM training: ``rounds`` BAFDP rounds of ``cfg``
     through ``launch.steps.make_train_step`` on the card from a seed-0
     state, C = ``clients`` clients with ``batch_rows`` sequences of
@@ -3539,7 +3846,10 @@ def train_lm(label, cfg, specs, report, *, clients, batch_rows, seq,
     The loss and every weight finite, W moved, the allocator's segments
     expandable (``launch.train.use_expandable_segments``).  The last round
     under the profiler (busy share and top kernels) when ``profile_last``.
-    Records
+    With ``mesh`` (the host mesh), the step is ``launch.steps.
+    train_setup``'s and the state and the batch are placed by its specs
+    (:func:`place_whole`).  With ``digest``, ``report[label]["digests"]``
+    holds the final state's :func:`state_digests`.  Records
     ``report[label]`` and returns the counts."""
     from repro_torch.core.fed_state import init_fed_state, init_lm_tree
     from repro_torch.data.tokens import lm_batch
@@ -3561,6 +3871,17 @@ def train_lm(label, cfg, specs, report, *, clients, batch_rows, seq,
     batch = {k: torch.from_numpy(v).to("cuda").reshape(
         (C, batch_rows) + v.shape[1:]) for k, v in raw.items()}
     step = steps.make_train_step(cfg, fed)
+    if mesh is not None:
+        from repro_torch.configs import INPUT_SHAPES, FedConfig
+
+        shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=seq,
+                                    global_batch=C * batch_rows)
+        step, _, (s_specs, b_specs, _), _ = steps.train_setup(
+            cfg, shape, mesh, base_fed=FedConfig(**knobs), n_clients=C)
+        if steps.fed_config_for(cfg, C, FedConfig(**knobs)) != fed:
+            raise AssertionError(f"{label}: train_setup's FedConfig differs")
+        state = place_whole(state, s_specs, mesh, f"{label} state")
+        batch = place_whole(batch, b_specs, mesh, f"{label} batch")
     want = {spec["counter"]: rounds}
     for k, n in per_round.items():
         want[k] = want.get(k, 0) + rounds * n
@@ -3627,6 +3948,8 @@ def train_lm(label, cfg, specs, report, *, clients, batch_rows, seq,
         + f" launches {counts} W moved by {moved:.3e}; cuts: {cuts}")
     for name, t_ms in top:
         log(f"  {label} profiled round: {t_ms:10.3f} ms  {name}")
+    if digest:
+        report[label]["digests"] = state_digests(state)
     del state, out, batch
     torch.cuda.empty_cache()
     return counts
@@ -3653,7 +3976,7 @@ def lm_train_runs(specs, report):
         per_round={"flash_attention": 2 * L * C,
                    "flash_attention_bwd": L * C * fa_k.BWD_LAUNCHES},
         cuts=f"batch: one {LM_TRAIN_S}-token sequence per client ({C} in "
-             "all; train_4k's global batch is 256)")
+             "all; train_4k's global batch is 256)", digest=True)
 
 
 def lm_train_cpu_vs_cuda(report, arch=ARCH, seq=LM_VS_S,
@@ -4557,13 +4880,24 @@ def main() -> int:
     # (the ring of 8,192 slots across its wrap) before it is freed; RoPE's
     # frequencies first, which those positions magnify
     rope_cpu_vs_cuda(report)
+
+    def then(cfg, params, arch, seed):
+        # Phi3 then through the placed prefill pair and window decode
+        # (placed_serve), its logits held to window_decode's
+        keep = []
+        rows = window_decode(arch, cfg, params, report, launches, errs,
+                             seed, keep=keep)
+        if arch in PLACED_PAIRS:
+            placed_serve(arch, cfg, params, report, launches, keep, seed)
+        return rows
+
     for arch, phase, seed in ((GEMMA, "dense_serve_gemma", 900),
                               (PHI3, "dense_serve_phi3", 1000)):
         t0 = time.perf_counter()
         new_rows[phase] = serve_phase(
             arch, report, launches, errs, seed,
-            then=lambda cfg, params, arch=arch, seed=seed: window_decode(
-                arch, cfg, params, report, launches, errs, seed + 500))
+            then=lambda cfg, params, arch=arch, seed=seed: then(
+                cfg, params, arch, seed + 500))
         report[f"{phase}_phase_s"] = time.perf_counter() - t0
         log(f"phase: {phase} ({arch}, with window_decode) "
             f"{report[f'{phase}_phase_s']:.1f} s")
@@ -4582,6 +4916,16 @@ def main() -> int:
     lm_train_cpu_vs_cuda(report)
     report["lm_train_phase_s"] = time.perf_counter() - t0
     log(f"phase: lm_train ({ARCH}) {report['lm_train_phase_s']:.1f} s")
+
+    # Placement: lm_train's rounds again through train_setup on the placed
+    # state (bit for bit), then launch.train --variant at full width
+    for phase, run in (("placed_train", placed_train),
+                       ("variant_train", variant_train)):
+        t0 = time.perf_counter()
+        for name, n in run(specs, report).items():
+            launches[name] = launches.get(name, 0) + n
+        report[f"{phase}_phase_s"] = time.perf_counter() - t0
+        log(f"phase: {phase} ({ARCH}) {report[f'{phase}_phase_s']:.1f} s")
 
     # The rest of LM training.  B4's bf16 backward and B6's backward held
     # and timed alone; Hymba-1.5B at full width (bf16: B4 and its bf16

@@ -11,6 +11,14 @@ them to XLA.  Cross-attention takes no RoPE and no mask: B4 without
 the causal mask over the encoder's memory when the decoder sends more
 than one position (a prefill), B5 over every memory position of every
 row for one position (a decode step).
+
+``cfg.attn_seq_shards`` > 1 is the reference's sequence-parallel prefill
+attention: its query chunks split over the ``"model"`` mesh axis.  B4
+already runs the whole query axis in one call, which gives the values
+the reference's chunks give on a 1-device ``"model"`` axis; so under no
+ambient mesh (``distributed.context``) or such an axis it is the
+identity, and over a larger axis it raises ``NotImplementedError``
+(multi-device execution is not yet ported).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import check_model_axis
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, dtype_of
 
@@ -56,7 +65,9 @@ def self_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
                    positions=None) -> torch.Tensor:
     """Prefill self-attention over any length S. x: (B, S, d).  A
     non-causal call attends everywhere, as the reference's unchunked
-    path does."""
+    path does.  ``cfg.attn_seq_shards``: see the module's docstring."""
+    if cfg.attn_seq_shards > 1:
+        check_model_axis("attn_seq_shards")
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]

@@ -29,8 +29,15 @@ f32 and rounded once (jax lowers its bf16 ``sum`` so).
 The dispatch writes each kept (token, slot) into its own row of the
 buffer and every dropped one into a trash row past the E * C rows, which
 nothing reads: no scatter-add, so a bf16 buffer sees no rounding and no
-atomic order.  ``moe_group_shard`` (a sharding constraint over a mesh)
-raises "not yet ported".
+atomic order.
+
+``moe_group_shard`` pins the einsum form's token groups to the
+``"model"`` mesh axis (the reference's ``with_sharding_constraint``):
+under no ambient mesh (``distributed.context``) or a 1-device
+``"model"`` axis that is the identity, as on the reference's host mesh;
+over a larger axis it raises ``NotImplementedError`` (multi-device
+execution is not yet ported).  The scatter form does not read it, as in
+the reference.
 
 When ``torch.profiler`` is on, the work is labelled ``moe.route``,
 ``moe.dispatch``, ``moe.cast``, ``moe.experts`` and ``moe.combine``
@@ -45,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import check_model_axis
 from repro_torch.models.layers import dense_init, dtype_of, gate_act
 from repro_torch.models.layers import span as _span
 
@@ -179,10 +187,9 @@ def moe_ffn_einsum(params, x: torch.Tensor, cfg: ArchConfig
     """The GShard grouped one-hot form: groups of ``GROUP_SIZE`` tokens
     (all of them when fewer), each with its own capacity ``Cg``
     (:func:`einsum_groups`); B * S must be a multiple of the group
-    size."""
+    size.  ``moe_group_shard``: see the module's docstring."""
     if cfg.moe_group_shard:
-        raise ValueError("moe_group_shard (a sharding constraint over a "
-                         "mesh) is not yet ported to repro_torch")
+        check_model_axis("moe_group_shard")
     B, S, d = x.shape
     T = B * S
     E, k = cfg.moe.n_experts, cfg.moe.top_k

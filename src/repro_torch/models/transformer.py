@@ -27,9 +27,13 @@ loss.  Every kernel a training forward reaches has a backward: attention
 (B4, f32 or bf16 at head dim 64) through ``FlashAttentionFn`` and the
 Mamba scan (B6) through ``SsmScanFn``.
 
-``moe_group_shard`` raises a ``ValueError`` naming it "not yet ported";
-a ``moe_impl`` other than ``"scatter"`` or ``"einsum"`` and an unknown
-block kind raise a ``ValueError`` too.
+The knobs that place work on the ``"model"`` mesh axis,
+``moe_group_shard`` (``models/moe.py``) and ``attn_seq_shards``
+(``models/attention.py``), read the ambient mesh
+(``distributed.context``): the identity under none or a 1-device
+``"model"`` axis, ``NotImplementedError`` over a larger one.  A
+``moe_impl`` other than ``"scatter"`` or ``"einsum"`` and an unknown
+block kind raise a ``ValueError``.
 
 Public API:
     init_lm(gen, cfg, device)                       -> params
@@ -38,6 +42,7 @@ Public API:
     forward_logits(params, inputs, cfg, ...)        -> (logits, aux)
     loss_fn(params, inputs, cfg, window, noise)     -> scalar loss
     lm_tree(params, cfg) / lm_view(tree, cfg)       -> training tree / params
+    serving_tree(params)                            -> params as plain dicts
     init_decode_state(cfg, batch, cache_len, dtype, window, device) -> state
     decode_step(params, state, tokens, step, cfg, window) -> (logits, state)
     lm_params_from_numpy(tree, cfg, device) / lm_params_to_numpy(params, cfg)
@@ -85,25 +90,21 @@ PORTED_KINDS = (ATTN, SWA, MAMBA, HYMBA, MLSTM, SLSTM)
 MOE_IMPLS = {"scatter": moe_lib.moe_ffn, "einsum": moe_lib.moe_ffn_einsum}
 
 
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not yet ported to repro_torch")
-
-
 def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for any part of ``cfg`` the port cannot run."""
+    """Raise a ``ValueError`` for a block kind or ``moe_impl`` the port
+    does not know.  Every other knob of ``cfg`` runs; the mesh knobs
+    (``moe_group_shard``, ``attn_seq_shards``) are checked against the
+    ambient mesh where they act."""
     for kind in sorted(set(cfg.pattern())):
         _check_kind(kind)
-    if cfg.ffn_kind == FFN_MOE:
-        if cfg.moe_impl not in MOE_IMPLS:
-            raise ValueError(f"moe_impl {cfg.moe_impl!r} ({cfg.name}): "
-                             f"expected one of {sorted(MOE_IMPLS)}")
-        if cfg.moe_group_shard:
-            raise _not_ported(f"moe_group_shard ({cfg.name})")
+    if cfg.ffn_kind == FFN_MOE and cfg.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl {cfg.moe_impl!r} ({cfg.name}): "
+                         f"expected one of {sorted(MOE_IMPLS)}")
 
 
 class LMParams(nn.ModuleDict):
@@ -482,6 +483,26 @@ def lm_view(tree: Dict[str, Any], cfg: ArchConfig) -> Dict[str, Any]:
         params["enc_unit"] = tree_unstack(tree["enc_unit"])
         params["enc_norm"] = tree["enc_norm"]
     return params
+
+
+def serving_tree(params) -> Dict[str, Any]:
+    """Serving parameters (an :class:`LMParams`) as plain nested dicts
+    and lists of tensors sharing their storage, in :func:`lm_view`'s
+    layout (``layers``, ``enc_unit`` one tree per layer): the tree that
+    ``launch.steps``' serving specs describe and that
+    ``distributed.sharding.place_tree`` places.  The steps run on it as
+    on ``params``."""
+    plain = lambda mod: tree_map(torch.Tensor.detach, _as_dict(mod))
+    out: Dict[str, Any] = {
+        "embed": plain(params["embed"]),
+        "layers": [plain(p) for p in params["layers"]],
+        "final_norm": plain(params["final_norm"])}
+    if "frontend_proj" in params:
+        out["frontend_proj"] = params["frontend_proj"].detach()
+    if "enc_unit" in params:
+        out["enc_unit"] = [plain(p) for p in params["enc_unit"]]
+        out["enc_norm"] = plain(params["enc_norm"])
+    return out
 
 
 # ---------------------------------------------------------------------------

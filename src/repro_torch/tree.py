@@ -39,6 +39,22 @@ def tree_map(f: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     return f(tree, *rest)
 
 
+def tree_map_with_path(f: Callable[..., Any], tree: Any,
+                       path: tuple = ()) -> Any:
+    """``f(path, leaf)`` over the leaves of one tree, ``path`` the tuple
+    of dict keys and tuple or list positions that leads to the leaf (the
+    reference's key path); ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(f, tree[k], path + (k,))
+                for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(f, t, path + (i,))
+                          for i, t in enumerate(tree))
+    return f(path, tree)
+
+
 def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
     """A tree of ``like``'s structure holding ``leaves`` in
     :func:`tree_leaves` order."""

@@ -308,8 +308,8 @@ def test_launcher_resumes_the_other_packages_checkpoint(
         dataclasses.replace(smoke(cfg), **NARROW)))
     for mod in (jsteps, steps):
         monkeypatch.setattr(mod, "fed_config_for", functools.partial(
-            lambda f, cfg, n: dataclasses.replace(f(cfg, n), **QUIET),
-            mod.fed_config_for))
+            lambda f, cfg, n, base=None: dataclasses.replace(
+                f(cfg, n, base), **QUIET), mod.fed_config_for))
     argv = ["--arch", "smollm-360m", "--smoke", "--log-every", "1"]
 
     def run(package, ckpt, n):

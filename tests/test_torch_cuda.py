@@ -15,8 +15,10 @@ bit run to run, B4's output (both dtypes) the same with and without its
 log-sum-exp, B6's backward bit for bit, autograd through both, and B5
 refusing autograd (no backward).  B4 and B5 also at Gemma-7B's and
 Phi3-medium's heads (B5 over long_500k's ring of 8,192 slots), RoPE's
-frequencies equal on both devices, and a checkpoint of CUDA tensors
-restored onto the card bit for bit.
+frequencies equal on both devices, a checkpoint of CUDA tensors
+restored onto the card bit for bit, and the host mesh on the card (one
+NCCL rank; placed tensors are the tensors; a placed round is the
+unplaced round bit for bit).
 Needs a CUDA device and nvcc; skips without a device.
 Imports no JAX, so it runs on a machine without it:
 
@@ -1102,3 +1104,92 @@ def test_cuda_materialized_sparse_path_never_runs_the_plain_fold(
     sign_agg.reset_launch_counts()
     _sparse_train(2, sign_message=wire)
     assert sum(sign_agg.LAUNCHES.values()) == 2
+
+
+# ---------------------------------------------------------------------------
+# placement: the host mesh on the card
+@pytest.mark.cuda
+def test_cuda_host_mesh_is_one_nccl_rank_and_places_without_copy():
+    """``make_host_mesh()`` on the card: a 1 x 1 ``DeviceMesh`` over an
+    NCCL group of one rank that reduces; ``place_tree`` gives DTensors
+    whose local shards are the CUDA tensors themselves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.distributed import context
+    from repro_torch.distributed.sharding import P, local_tree, place_tree
+    from repro_torch.launch.mesh import registered_host_mesh
+
+    tree = {"w": torch.randn((8, 16), device="cuda"),
+            "u": (torch.randn((4,), device="cuda"),)}
+    with registered_host_mesh() as mesh:
+        assert context.get_mesh() is mesh
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1)
+        x = torch.ones((3,), device="cuda")
+        dist.all_reduce(x)
+        assert torch.equal(x, torch.ones((3,), device="cuda"))
+        placed = place_tree(tree, {"w": P("data", "model"), "u": (P(None),)},
+                            mesh)
+        local = local_tree(placed)
+        for a, b in ((tree["w"], local["w"]), (tree["u"][0], local["u"][0])):
+            assert b.device.type == "cuda" and b.data_ptr() == a.data_ptr()
+            assert torch.equal(a, b)
+    assert context.get_mesh() is None and not dist.is_initialized()
+
+
+@pytest.mark.cuda
+def test_cuda_placed_smoke_round_equals_the_unplaced_round():
+    """Two rounds of the smoke SmolLM on the card through ``train_setup``
+    on the placed state (host mesh) equal ``make_train_step``'s rounds
+    from the same state bit for bit, B1 once and B4 in every layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import (FedConfig, InputShape, get_arch,
+                                     reduce_for_smoke)
+    from repro_torch.core.fed_state import init_fed_state, init_lm_tree
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.distributed.sharding import local_tree, place_tree
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import registered_host_mesh
+    from repro_torch.tree import tree_leaves
+
+    cfg = reduce_for_smoke(get_arch("smollm-360m"))
+    C, b, S, rounds = 2, 2, 64, 2
+    knobs = dict(byzantine_frac=0.5, attack="sign_flip", alpha_w=2e-2)
+    fed = dataclasses.replace(steps.fed_config_for(cfg, C), **knobs)
+    raw = lm_batch(np.random.RandomState(0), cfg, C * b, S)
+    batch = {k: torch.from_numpy(v).to("cuda").reshape((C, b) + v.shape[1:])
+             for k, v in raw.items()}
+
+    def init():
+        return init_fed_state(torch.Generator(device="cuda").manual_seed(0),
+                              lambda g: init_lm_tree(g, cfg, "cuda"), fed,
+                              device="cuda")
+
+    def leaves(state):
+        return [l for f in state if f is not None for l in tree_leaves(f)]
+
+    step, state = steps.make_train_step(cfg, fed), init()
+    for t in range(rounds):
+        state, _ = step(state, batch, t)
+    with registered_host_mesh() as mesh:
+        pstep, _, (specs, _, _), _ = steps.train_setup(
+            cfg, InputShape("smoke", S, C * b, "train"), mesh,
+            base_fed=FedConfig(**knobs), n_clients=C)
+        first = init()
+        placed = local_tree(place_tree(first, specs, mesh))
+        assert all(a.data_ptr() == p.data_ptr()
+                   for a, p in zip(leaves(first), leaves(placed)))
+        sign_agg.reset_launch_counts()
+        fa_k.reset_launch_counts()
+        for t in range(rounds):
+            placed, _ = pstep(placed, batch, t)
+        assert sign_agg.LAUNCHES["sign_agg"] == rounds
+        assert fa_k.LAUNCHES["flash_attention"] == \
+            (2 if cfg.remat else 1) * rounds * C * cfg.n_layers
+    for a, p in zip(leaves(state), leaves(placed)):
+        assert _bits_equal(a, p)

@@ -405,11 +405,17 @@ def test_serve_cli_runs_the_smoke_model_on_the_cpu():
 def test_training_and_cross_attention_raise_not_yet_ported():
     """LM training's input noise is ported now (``noise=(gen, sigma)``
     moves the hidden states), and cross-attention is (see
-    test_torch_encdec.py); the MoE's group sharding (a sharding
-    constraint over a mesh) is not.  B4's bf16 backward is ported: on
-    the card a bf16 B4 call under autograd is the Function and carries a
-    gradient (that half needs a card)."""
+    test_torch_encdec.py); the MoE's group sharding builds and runs
+    under no mesh, and over a 'model' mesh axis of two devices (a fake
+    process group) raises ``NotImplementedError``: multi-device execution
+    is not ported.  B4's bf16 backward is ported: on the card a bf16 B4
+    call under autograd is the Function and carries a gradient (that
+    half needs a card)."""
     import dataclasses
+
+    from test_torch_reference import fake_mesh
+
+    from repro_torch.distributed.context import clear_mesh, set_mesh
 
     cfg = reduce_for_smoke(get_arch("smollm-360m"))
     params = tr.init_lm(torch.Generator(), cfg, device="cpu")
@@ -419,9 +425,17 @@ def test_training_and_cross_attention_raise_not_yet_ported():
                           noise=(torch.Generator().manual_seed(0), 1.0))
     assert noisy.shape == clean.shape and not torch.equal(noisy, clean)
     moe = dataclasses.replace(reduce_for_smoke(get_arch("olmoe-1b-7b")),
-                              moe_group_shard=True)
-    with pytest.raises(ValueError, match="moe_group_shard.*not yet ported"):
-        tr.init_lm(torch.Generator(), moe, device="cpu")
+                              moe_impl="einsum", moe_group_shard=True)
+    moe_params = tr.init_lm(torch.Generator(), moe, device="cpu")
+    tr.forward(moe_params, toks, moe)
+    with fake_mesh((1, 2), ("data", "model")) as mesh:
+        set_mesh(mesh)
+        try:
+            with pytest.raises(NotImplementedError,
+                               match="moe_group_shard.*not yet ported"):
+                tr.forward(moe_params, toks, moe)
+        finally:
+            clear_mesh()
     if torch.cuda.is_available():
         q = torch.randn((1, 8, 2, 64), device="cuda",
                         dtype=torch.bfloat16).requires_grad_(True)

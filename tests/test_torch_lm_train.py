@@ -506,10 +506,11 @@ def test_train_cli_runs_on_the_cpu():
     lines = out.stdout.strip().splitlines()
     assert [l.split()[1] for l in lines[:3]] == ["0", "1", "2"]
     assert lines[-1].startswith("done. final loss")
-    for flag in (["--dry"], ["--variant", "v"]):
+    for flag, says in ((["--dry"], "not yet ported"),
+                       (["--variant", "v"], "'v'")):
         bad = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch",
              "smollm-360m", "--smoke", "--device", "cpu", *flag],
             cwd=REPO_ROOT, capture_output=True, text=True,
             env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
-        assert bad.returncode != 0 and "not yet ported" in bad.stderr
+        assert bad.returncode != 0 and says in bad.stderr

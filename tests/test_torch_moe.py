@@ -497,15 +497,36 @@ def test_serve_cli_runs_the_moe_smoke_model_on_the_cpu(arch):
 # what the port refuses
 @pytest.mark.parametrize("impl", ["scatter", "einsum"])
 def test_moe_group_shard_raises_not_yet_ported(impl):
+    """``moe_group_shard`` under no mesh: the model and its decode state
+    build, and the layer's output is bit for bit the one without it.
+    Over a 'model' mesh axis of two devices (a fake process group) the
+    einsum form raises ``NotImplementedError`` naming it "not yet
+    ported" (multi-device execution); the scatter form does not read the
+    knob, as in the reference."""
+    from test_torch_reference import fake_mesh
+
+    from repro_torch.distributed.context import clear_mesh, set_mesh
+
     cfg = dataclasses.replace(reduce_for_smoke(get_arch("olmoe-1b-7b")),
                               moe_impl=impl, moe_group_shard=True)
-    with pytest.raises(ValueError, match="moe_group_shard.*not yet ported"):
-        tr.init_lm(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(ValueError, match="moe_group_shard.*not yet ported"):
-        tr.init_decode_state(cfg, 1, 8, torch.float32, device="cpu")
+    tr.init_lm(torch.Generator(), cfg, device="cpu")
+    tr.init_decode_state(cfg, 1, 8, torch.float32, device="cpu")
     params = moe.init_moe(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(ValueError, match="moe_group_shard.*not yet ported"):
-        moe.moe_ffn_einsum(params, torch.zeros(1, 8, cfg.d_model), cfg)
+    x = torch.randn((1, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    plain = dataclasses.replace(cfg, moe_group_shard=False)
+    ffn = tr.MOE_IMPLS[impl]
+    assert torch.equal(ffn(params, x, cfg)[0], ffn(params, x, plain)[0])
+    with fake_mesh((1, 2), ("data", "model")) as mesh:
+        set_mesh(mesh)
+        try:
+            with pytest.raises(NotImplementedError,
+                               match="moe_group_shard.*not yet ported"):
+                moe.moe_ffn_einsum(params, x, cfg)
+            assert torch.equal(moe.moe_ffn(params, x, cfg)[0],
+                               moe.moe_ffn(params, x, plain)[0])
+        finally:
+            clear_mesh()
 
 
 def test_unknown_moe_impl_raises():

@@ -95,6 +95,27 @@ def one_thread():
         torch.set_num_threads(n)
 
 
+@contextlib.contextmanager
+def fake_mesh(shape, names, rank=0):
+    """A ``DeviceMesh`` of ``shape`` over torch's ``fake`` process-group
+    backend (no peers, no communication) as rank ``rank`` of
+    ``prod(shape)``, for the block; the group is destroyed after it.  One
+    process holds one group: use one such block at a time."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", tuple(shape),
+                               mesh_dim_names=tuple(names))
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.fixture(scope="module")
 def reference():
     with loaded_reference() as ref:
