@@ -260,7 +260,22 @@ B4's entry gains
 ``autograd_fwd_b1`` (the forward with its lse at B=1, f32 and bf16).
 ``ssm_scan_bwd`` (no TPU counterpart) gives B6's backward at Hymba's
 chunk, with B6's forward there at B=1; ``ssm_scan``'s launches include
-Hymba's training rounds.
+Hymba's training rounds.  Each kernel's entry also carries its rows of
+the ``kernels`` suite (``kernel_bench``).
+
+Tooling, last: the ``kernels`` suite (``bench.kernel_bench`` at the
+reference's shapes: each kernel row must advance its kernel's launch
+counter and read at least 0.95 of its H100 bound, ``roofline.
+kernel_cost``, from which every bound of this script comes);
+``dryrun_vs_measured`` (SmolLM-360M's training round, prefill and decode
+step predicted on ``meta`` tensors by ``roofline.cost.CostCounter``,
+launching nothing, then run: the predicted peak within [0.8, 1] of
+``max_memory_allocated``, the roofline step time at most the measured
+one, their ratio printed); ``dryrun_sweep`` (``launch.dryrun.run_one``
+over the configurations this script runs, at its shapes); and
+``fedlint_cuda`` (fedlint's round entries on CUDA tensors, where host
+reads are real: every finding baselined).  None adds to the kernels
+line's launches.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
@@ -268,6 +283,7 @@ checkout of the repository.  Per-shape details also go to
 """
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -281,11 +297,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# the card's constants and each kernel's work: one copy, in the port
+from repro_torch.roofline import kernel_cost as kc  # noqa: E402
+from repro_torch.roofline.kernel_cost import (  # noqa: E402
+    F32_FLOPS_PER_S, bwd_flops, flash_flops)
+
 PSI, ALPHA = 0.005, 0.01
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
-F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
-TF32_FLOPS_PER_S = 494.7e12      # H100 SXM tf32 tensor cores, dense
-BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_CLIENTS, ROUNDS = 10, 20
 # scale_round: C clients of MLP_H24, S_max deliveries a round, rounds per
 # wire, and the bound on the peak above the state (one dense (C, D) f32
@@ -603,9 +620,6 @@ def kernel_specs():
     makes (one grouped launch over every leaf)."""
     from repro_torch.kernels import ref, sign_agg as sa
 
-    def vec_bytes(x):
-        return 3 * x["z"].numel() * x["z"].element_size()
-
     f32_group = dict(
         kernel_name="sign_agg_group", rows="W", per_round=1,
         group=lambda r, w, n: sa.sign_agg_group(
@@ -628,9 +642,7 @@ def kernel_specs():
                                           ALPHA),
              plain=lambda x: ref.sign_agg_ref(x["z"], x["W"], x["phi"], PSI,
                                               ALPHA),
-             nbytes=lambda x: x["W"].numel() * x["W"].element_size()
-             + vec_bytes(x),
-             flops=lambda x: 2 * x["W"].numel()),
+             work=lambda x: kc.sign_agg_work(x["z"], x["W"])),
         dict(f32_group, name="sign_agg_weighted",
              counter="sign_agg_weighted", replaces=f"{TPU_SRC}:100",
              knobs=dict(sign_message="f32", staleness_decay="poly"),
@@ -639,9 +651,7 @@ def kernel_specs():
                  x["z"], x["W"], x["phi"], x["sw"], PSI, ALPHA),
              plain=lambda x: ref.sign_agg_weighted_ref(
                  x["z"], x["W"], x["phi"], x["sw"], PSI, ALPHA),
-             nbytes=lambda x: x["W"].numel() * x["W"].element_size()
-             + vec_bytes(x) + 4 * x["sw"].numel(),
-             flops=lambda x: 3 * x["W"].numel()),
+             work=lambda x: kc.sign_agg_work(x["z"], x["W"], x["sw"])),
         dict(int8_group, name="sign_agg_weighted_int8/weighted",
              knobs=dict(sign_message="int8", staleness_decay="poly"),
              weighted=True,
@@ -649,9 +659,8 @@ def kernel_specs():
                  x["z"], x["payload"], x["sw"], x["phi"], PSI, ALPHA),
              plain=lambda x: ref.sign_agg_int8_ref(
                  x["z"], x["payload"], x["sw"], x["phi"], PSI, ALPHA),
-             nbytes=lambda x: x["payload"].numel() + vec_bytes(x)
-             + 4 * x["sw"].numel(),
-             flops=lambda x: 2 * x["payload"].numel()),
+             work=lambda x: kc.sign_agg_int8_work(x["z"], x["payload"],
+                                                  x["sw"])),
         dict(int8_group, name="sign_agg_weighted_int8/unweighted",
              knobs=dict(sign_message="int8", staleness_decay="constant"),
              weighted=False,
@@ -659,17 +668,15 @@ def kernel_specs():
                  x["z"], x["payload"], None, x["phi"], PSI, ALPHA),
              plain=lambda x: ref.sign_agg_int8_ref(
                  x["z"], x["payload"], None, x["phi"], PSI, ALPHA),
-             nbytes=lambda x: x["payload"].numel() + vec_bytes(x),
-             flops=lambda x: x["payload"].numel()),
+             work=lambda x: kc.sign_agg_int8_work(x["z"], x["payload"])),
     ]
 
 
 def bound_ms(spec, x):
     """The least time for this call: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
-    t_bytes = spec["nbytes"](x) / HBM_BYTES_PER_S * 1e3
-    t_ops = spec["flops"](x) / F32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    operations over the f32 rate, whichever is larger
+    (``roofline.kernel_cost``)."""
+    return kc.bound_ms(spec["work"](x))
 
 
 def check_kernels(specs, report):
@@ -879,7 +886,7 @@ def time_kernels(specs, report):
                                               inner=inner),
                        plain_call_ms=call_ms(lambda: spec["plain"](x),
                                              reps=21, inner=inner),
-                       bytes=spec["nbytes"](x))
+                       bytes=spec["work"](x).nbytes)
             row["bound_ms"], row["bound_by"] = bound_ms(spec, x)
             rows.append(row)
             log(f"time {spec['name']:34s} {tag:9s} C={C:3d} D={D:8d} "
@@ -927,7 +934,7 @@ def time_round(specs, cpm):
                    plain_call_ms=call_ms(plain, reps=21),
                    one_leaf_ms=device_ms(one_leaf, cpm),
                    one_leaf_call_ms=call_ms(one_leaf),
-                   bytes=sum(spec["nbytes"](x) for x in xs),
+                   bytes=sum(spec["work"](x).nbytes for x in xs),
                    bound_ms=spec["bound_ms"], bound_by=spec["bound_by"])
         rows.append(row)
         spec.update(ms=row["kernel_ms"], plain_ms=row["plain_ms"],
@@ -970,8 +977,8 @@ def time_sparse_block(specs, cpm):
                     f"{SCALE_C} leaf {l} (D={MAIN_LEAF_D[l]}): kernel != "
                     f"plain version (max |err| {max_abs_err(g, w)})")
             spec["max_abs_err"] = max(spec["max_abs_err"], max_abs_err(g, w))
-        t_bytes = sum(spec["nbytes"](x) for x in xs) / HBM_BYTES_PER_S * 1e3
-        t_ops = sum(spec["flops"](x) for x in xs) / F32_FLOPS_PER_S * 1e3
+        work = kc.total([spec["work"](x) for x in xs])
+        t_bytes, t_ops = work.t_bytes * 1e3, work.t_ops * 1e3
         row = dict(kernel=spec["name"], shape="sparse_block", C=SCALE_S,
                    D=sum(MAIN_LEAF_D), n_total=SCALE_C,
                    kernel_ms=device_ms(
@@ -1932,49 +1939,6 @@ def _attn_inputs(B, Sq, Sk, H, Hkv, D, dtype, seed):
     return mk(B, Sq, H, D), mk(B, Sk, Hkv, D), mk(B, Sk, Hkv, D)
 
 
-def kept_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """Query-key pairs the mask keeps (queries end-aligned with keys)."""
-    qa = np.arange(Sq) + (Sk - Sq)
-    hi = np.minimum(qa, Sk - 1) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(qa - window + 1, 0) if window else np.zeros(Sq, int)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
-def flash_flops(q, k, causal, window):
-    """B4's operations: 4 B H D per kept query-key pair."""
-    B, Sq, H, D = q.shape
-    return 4 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window)
-
-
-def flash_bound(q, k, causal, window):
-    """B4's least time: its operations over the tensor cores' peak rate
-    for the inputs' type, or q, k, v, out bytes over 3.35 TB/s.  f32 runs
-    as 3xTF32, three TF32 products for each f32 one: 3 x the operations
-    over 494.7 TFLOP/s.  bf16: the operations over 989 TFLOP/s."""
-    ops = flash_flops(q, k, causal, window)
-    t_ops = (3 * ops / TF32_FLOPS_PER_S if q.dtype == torch.float32
-             else ops / BF16_FLOPS_PER_S)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return _bound(t_ops, nbytes / HBM_BYTES_PER_S)
-
-
-def decode_bound(q, k, length):
-    """B5's least time: the valid K and V positions, q and out bytes over
-    3.35 TB/s, or 4 H D flops per valid position over the peak rate."""
-    B, H, D = q.shape
-    Hkv, L = k.shape[2], k.shape[1]
-    valid = int(length.clamp(max=L).sum())
-    nbytes = (2 * valid * Hkv * D + 2 * q.numel()) * q.element_size() \
-        + 4 * B
-    peak = F32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
-    return _bound(4 * H * D * valid / peak, nbytes / HBM_BYTES_PER_S)
-
-
-def _bound(t_ops, t_bytes):
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def attn_tol(want: torch.Tensor) -> torch.Tensor:
     """Per-element bound of |kernel - plain version| for B4/B5.  f32:
     abs/rel 3e-5, the reference's own bound between kernel and oracle
@@ -2169,7 +2133,7 @@ def time_head_dims(report):
         row = dict(shape=f"B={B} S={S} H={H}/{Hkv} D={D} f32 causal",
                    ms=device_ms(lambda: fa_k.flash_attention(q, k, v), cpm,
                                 reps=10, inner=3))
-        row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
+        row["bound_ms"], row["bound_by"] = kc.bound_ms(kc.flash_work(q, k, True, 0))
         rows.append(row)
         log(f"time flash_attention  {row['shape']}: kernel_ms="
             f"{row['ms']:.6f} bound_ms={row['bound_ms']:.6f} "
@@ -2214,7 +2178,8 @@ def time_decode(H, dtype, lens, L, seed, cpm, Hkv=5, D=64):
                    lambda: sdpa_decode(q, kx, vx, mask), cpm),
                library_expanded_max_abs_err=max_abs_err(
                    sdpa_decode(q, kx, vx, mask), plain))
-    row["bound_ms"], row["bound_by"] = decode_bound(q, k, length)
+    row["bound_ms"], row["bound_by"] = kc.bound_ms(kc.decode_work(
+        q, k, kc.valid_positions(length, k.shape[1])))
     return row
 
 
@@ -2249,7 +2214,7 @@ def time_attention(report):
                library_expanded_max_abs_err=max_abs_err(
                    sdpa_flash(q, kx, vx, True),
                    ref.flash_attention_ref(q, k, v)))
-    row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
+    row["bound_ms"], row["bound_by"] = kc.bound_ms(kc.flash_work(q, k, True, 0))
     # the f32 CUDA cores' roof of the same work, the SIMT design's bound
     row["simt_bound_ms"] = flash_flops(q, k, True, 0) / F32_FLOPS_PER_S * 1e3
     out["flash_attention"] = row
@@ -2495,7 +2460,7 @@ def time_attention_hymba(report):
                                   cpm, reps=5, inner=1),
                library_ms=device_ms(lambda: sdpa_flash(q, k, v, True), cpm,
                                     reps=10, inner=3))
-    row["bound_ms"], row["bound_by"] = flash_bound(q, k, True, 0)
+    row["bound_ms"], row["bound_by"] = kc.bound_ms(kc.flash_work(q, k, True, 0))
     out["flash_attention"] = row
     del q, k, v
     out["decode_attention"] = time_decode(25, bf, SERVE_LENS, SERVE_CACHE,
@@ -2518,14 +2483,6 @@ def scan_inputs(B, S, D, N, dtype, seed, with_h0=True):
     h0 = (torch.randn((B, D, N), generator=g, device="cuda") if with_h0
           else None)
     return a.to(dtype), b.to(dtype), h0
-
-
-def scan_bound(a, h0):
-    """B6's least time: a and b read once, hs (f32) written once, h0 read
-    once, over 3.35 TB/s; or two flops per element over the f32 rate."""
-    nbytes = a.numel() * (2 * a.element_size() + 4) + (
-        0 if h0 is None else 4 * h0.numel())
-    return _bound(2 * a.numel() / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
 
 
 def check_scan(report):
@@ -2602,7 +2559,7 @@ def time_scan(report):
                    call_ms=call_ms(lambda: ssm_k.ssm_scan(a, b, h0),
                                    inner=inner),
                    library_ms=None)
-        row["bound_ms"], row["bound_by"] = scan_bound(a, h0)
+        row["bound_ms"], row["bound_by"] = kc.bound_ms(kc.scan_work(a, h0))
         rows.append(row)
         log(f"time ssm_scan {shape} f32 h0: kernel_ms={row['ms']:.6f} "
             f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
@@ -3000,7 +2957,7 @@ def hold_and_time_attention(model, flash, decode, dtype, seed, report,
                        sdpa_flash(q, k, v, causal),
                        ref.flash_attention_ref(q, k, v, causal=causal)),
                    library_flash=sdpa_takes_flash(q, k, v, causal))
-        row["bound_ms"], row["bound_by"] = flash_bound(q, k, causal, 0)
+        row["bound_ms"], row["bound_by"] = kc.bound_ms(kc.flash_work(q, k, causal, 0))
         rows["flash_attention"].append(row)
         del q, k, v
     for j, (B, L, H, Hkv, D, lens) in enumerate(decode):
@@ -3672,30 +3629,6 @@ def placed_train(specs, report):
 
 # ---------------------------------------------------------------------------
 # LM training: B4's backward, then SmolLM-360M through make_train_step
-def bwd_flops(q, k, causal, window):
-    """B4 backward's operations: five products (S, dP, dV, dK, dQ) of
-    2 B H D flops per kept query-key pair."""
-    B, Sq, H, D = q.shape
-    return 10 * B * H * D * kept_pairs(Sq, k.shape[1], causal, window)
-
-
-def bwd_bound(q, k, causal, window):
-    """B4 backward's least time: its operations on the tensor cores for
-    the inputs' type (f32: by 3xTF32, 3 x the operations over 494.7
-    TFLOP/s, as the forward's bound; bf16: the operations over 989
-    TFLOP/s), or the bytes of q, k, v, out, dout (in their type), lse
-    (f32) read once and dq, dk, dv written once over 3.35 TB/s.  Also the
-    f32 CUDA cores' roof of the same work, which bounded the FFMA kernel
-    that the tensor-core kernels replaced."""
-    ops = bwd_flops(q, k, causal, window)
-    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
-        + 4 * (q.numel() // q.shape[-1])
-    t_ops = (3 * ops / TF32_FLOPS_PER_S if q.dtype == torch.float32
-             else ops / BF16_FLOPS_PER_S)
-    ms, by = _bound(t_ops, nbytes / HBM_BYTES_PER_S)
-    return ms, by, ops / F32_FLOPS_PER_S * 1e3
-
-
 def sdpa_bwd(q, k, v, causal):
     """``library_ms`` yardstick of B4's backward (never called by the
     port): SDPA's f32 forward once (``enable_gqa``), then a function
@@ -3786,8 +3719,10 @@ def check_flash_bwd(report, errs):
                library_ms=device_ms(sdpa_bwd(q, k, v, causal), cpm, reps=10,
                                     inner=3),
                gflop=bwd_flops(q, k, causal, 0) / 1e9)
-    row["bound_ms"], row["bound_by"], row["simt_bound_ms"] = bwd_bound(
-        q, k, causal, 0)
+    work = kc.flash_bwd_work(q, k, causal, 0)
+    row["bound_ms"], row["bound_by"] = kc.bound_ms(work)
+    # the f32 CUDA cores' roof of the same work
+    row["simt_bound_ms"] = work.flops / F32_FLOPS_PER_S * 1e3
     report["flash_bwd_timing"] = row
     log(f"time flash_attention_bwd {row['shape']}: kernel_ms={row['ms']:.6f} "
         f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, 3xTF32; "
@@ -4048,7 +3983,7 @@ def fwd_lse_row(fa_k, ref, q, k, v, causal, cpm, tag):
                    inner=1),
                library_ms=device_ms(lambda: sdpa_flash(q, k, v, causal),
                                     cpm, reps=10, inner=3))
-    row["bound_ms"], row["bound_by"] = flash_bound(q, k, causal, 0)
+    row["bound_ms"], row["bound_by"] = kc.bound_ms(kc.flash_work(q, k, causal, 0))
     log(f"time flash_attention+lse {tag}: kernel_ms={row['ms']:.6f} "
         f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
         f"plain_ms={row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
@@ -4154,8 +4089,10 @@ def check_flash_bwd_bf16(report, errs):
                library_ms=device_ms(sdpa_bwd(q, k, v, causal), cpm, reps=10,
                                     inner=3),
                gflop=bwd_flops(q, k, causal, 0) / 1e9)
-    row["bound_ms"], row["bound_by"], row["simt_bound_ms"] = bwd_bound(
-        q, k, causal, 0)
+    work = kc.flash_bwd_work(q, k, causal, 0)
+    row["bound_ms"], row["bound_by"] = kc.bound_ms(work)
+    # the f32 CUDA cores' roof of the same work
+    row["simt_bound_ms"] = work.flops / F32_FLOPS_PER_S * 1e3
     fwd_rows = {"bf16": fwd_lse_row(fa_k, ref, q, k, v, causal, cpm,
                                     row["shape"])}
     del q, k, v, do, out, lse
@@ -4227,8 +4164,10 @@ def time_flash_bwd_parts(report):
                    library_ms=device_ms(sdpa_bwd(q, k, v, causal), cpm,
                                         reps=10, inner=3),
                    **bwd_kernel_ms(fn))
-        row["bound_ms"], row["bound_by"], row["simt_bound_ms"] = bwd_bound(
-            q, k, causal, 0)
+        work = kc.flash_bwd_work(q, k, causal, 0)
+        row["bound_ms"], row["bound_by"] = kc.bound_ms(work)
+        # the f32 CUDA cores' roof of the same work
+        row["simt_bound_ms"] = work.flops / F32_FLOPS_PER_S * 1e3
         rows.append(row)
         parts = " ".join(f"{key}=" + ("not measured" if row[key] is None
                                        else f"{row[key]:.6f}")
@@ -4240,17 +4179,6 @@ def time_flash_bwd_parts(report):
         del q, k, v, do, out, lse
     report["flash_bwd_parts"] = rows
     return rows
-
-
-def scan_bwd_bound(a, h0):
-    """B6 backward's least time: a, hs, dhs (and h0) read once, da, db
-    (and dh0) written once, over 3.35 TB/s; or its three flops per element
-    over the f32 rate."""
-    n = a.numel()
-    nbytes = n * (3 * a.element_size() + 8)
-    if h0 is not None:
-        nbytes += 8 * h0.numel()
-    return _bound(3 * n / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
 
 
 def check_scan_bwd(report):
@@ -4314,13 +4242,13 @@ def check_scan_bwd(report):
                    plain_ms=device_ms(lambda: ref.ssm_scan_bwd_ref(
                        a, hs, h0, dhs), cpm, reps=5, inner=1),
                    library_ms=None)
-        row["bound_ms"], row["bound_by"] = scan_bwd_bound(a, h0)
+        row["bound_ms"], row["bound_by"] = kc.bound_ms(kc.scan_bwd_work(a, h0))
         if shape[1] == SCAN_CHUNK:
             row["fwd_ms"] = device_ms(lambda: ssm_k.ssm_scan(a, b, h0), cpm,
                                       reps=20, inner=inner)
             row["fwd_plain_ms"] = device_ms(
                 lambda: ref.ssm_scan_ref(a, b, h0), cpm, reps=5, inner=1)
-            row["fwd_bound_ms"] = scan_bound(a, h0)[0]
+            row["fwd_bound_ms"] = kc.bound_ms(kc.scan_work(a, h0))[0]
         rows.append(row)
         log(f"time ssm_scan_bwd {shape} f32 h0: kernel_ms={row['ms']:.6f} "
             f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, "
@@ -4762,6 +4690,298 @@ def lm_resume(specs, report):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Tooling: the kernels suite, the dry-run against the card, the dry-run
+# sweep, fedlint on CUDA tensors
+KB_BOUND_SHARE = 0.95       # a time under this share of its bound: impossible
+DRYRUN_PEAK_SHARE = 0.8     # the predicted peak within [0.8, 1] of measured
+
+
+def kernel_bench_phase(report):
+    """``bench.kernel_bench`` on the card (the ``kernels`` suite of
+    ``bench.run``, full size): each row printed; each row that times a
+    kernel advanced that kernel's ``LAUNCHES`` counter (the kernel ran,
+    not the plain version) and read at least KB_BOUND_SHARE of its H100
+    bound (``roofline.kernel_cost``).  Its launches are the bench's, not a
+    main path's: the counts are reset after."""
+    from repro_torch.bench import kernel_bench
+
+    rows = []
+    for r in kernel_bench.rows(quick=False, device="cuda"):
+        log(f"kernels suite: {r.line()}")
+        if r.kernel is not None and r.launches < 1:
+            raise AssertionError(f"{r.name}: {r.kernel} never launched")
+        share = None if r.bound_us is None else r.bound_us / r.us
+        if share is not None and r.us < KB_BOUND_SHARE * r.bound_us:
+            raise AssertionError(f"{r.name}: {r.us:.3f} us is under "
+                                 f"{KB_BOUND_SHARE} of its bound "
+                                 f"{r.bound_us:.3f} us")
+        rows.append(dict(name=r.name, us=r.us, derived=r.derived,
+                         kernel=r.kernel, launches=r.launches,
+                         bound_us=r.bound_us, bound_share=share))
+    reset_all_counts()
+    report["kernel_bench"] = rows
+
+
+def predict_step(label, step, args, cfg, shape):
+    """The step on its meta ``args`` under ``roofline.cost.CostCounter``:
+    the roofline report, which launched nothing."""
+    from repro_torch.launch.steps import warm_device_caches
+    from repro_torch.roofline.analysis import analyze, model_flops_for
+    from repro_torch.roofline.cost import CostCounter
+
+    # the per-device caches (RoPE's frequencies, one 512-byte block) are
+    # made before counting here and before the baseline on the card
+    # (measure_step), whatever the phases before left cached
+    warm_device_caches(cfg, "meta")
+    before = all_counts()
+    t0 = time.perf_counter()
+    with CostCounter(args) as counter:
+        out = step(*args)
+    if all_counts() != before:
+        raise AssertionError(f"{label}: the meta pass launched "
+                             f"{all_counts()} (before {before})")
+    report = analyze(counter, out, arch=cfg.name, shape=shape.name,
+                     mesh_name="1x1", chips=1,
+                     model_flops=model_flops_for(cfg, shape))
+    return report, time.perf_counter() - t0
+
+
+def measure_step(step, make_args, cfg):
+    """``step(*make_args())`` on the card: (ms, peak bytes above what was
+    allocated before the arguments were made, the arguments included).
+    ``cfg``'s per-device caches are made before the baseline, as
+    predict_step makes them on meta."""
+    from repro_torch.launch.steps import warm_device_caches
+
+    warm_device_caches(cfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = make_args()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, args
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def dryrun_vs_measured(report):
+    """SmolLM-360M at full width: lm_train's round (C=4, one 4,096-token
+    sequence each), a prefill step (PREFILL_B x PREFILL_S) and a decode
+    step (DECODE_B rows at the last position of a DECODE_L cache), each
+    predicted on meta (``launch.steps``' structs under
+    ``roofline.cost.CostCounter``, no launch) and then run on the card.
+    The predicted peak (arguments + outputs + temporaries) lies within
+    [DRYRUN_PEAK_SHARE, 1] of ``max_memory_allocated`` above what was
+    allocated before the arguments, and the roofline's step time is at
+    most the measured one; their ratio is printed (the step's share of
+    the card's roofline)."""
+    from repro_torch.configs import INPUT_SHAPES, get_arch
+    from repro_torch.core.fed_state import init_fed_state, init_lm_tree
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+
+    cfg = get_arch(ARCH)
+    C = LM_TRAIN_CLIENTS
+    fed = dataclasses.replace(steps.fed_config_for(cfg, C), **LM_TRAIN_KNOBS)
+    train_shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
+                                      seq_len=LM_TRAIN_S, global_batch=C)
+    prefill_shape = dataclasses.replace(INPUT_SHAPES["prefill_32k"],
+                                        seq_len=PREFILL_S,
+                                        global_batch=PREFILL_B)
+    decode_shape = dataclasses.replace(INPUT_SHAPES["decode_32k"],
+                                       seq_len=DECODE_L,
+                                       global_batch=DECODE_B)
+    dt = getattr(torch, cfg.compute_dtype)
+
+    def train_args():
+        state = init_fed_state(torch.Generator(device="cuda").manual_seed(0),
+                               lambda g: init_lm_tree(g, cfg, "cuda"), fed,
+                               device="cuda")
+        raw = lm_batch(np.random.RandomState(0), cfg, C, LM_TRAIN_S)
+        batch = {k: torch.from_numpy(v).to("cuda").reshape(
+            (C, 1) + v.shape[1:]) for k, v in raw.items()}
+        return state, batch, 0
+
+    def params():
+        return tr.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                          cfg, device="cuda")
+
+    def prefill_args():
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return params(), steps.prefill_inputs(cfg, PREFILL_B, PREFILL_S, g)
+
+    def decode_args():
+        g = torch.Generator(device="cuda").manual_seed(2)
+        state = tr.init_decode_state(cfg, DECODE_B, DECODE_L, dt,
+                                     device="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (DECODE_B, 1),
+                               generator=g, device="cuda")
+        return params(), state, tokens, DECODE_L - 1
+
+    p_sds = tr.lm_view(steps.params_struct(cfg), cfg)
+    cases = [
+        ("train", train_shape, steps.make_train_step(cfg, fed),
+         (steps.fed_state_struct(cfg, fed),
+          steps.batch_struct(cfg, train_shape, C), 0), train_args),
+        ("prefill", prefill_shape, steps.make_prefill_step(cfg),
+         (p_sds, steps.prefill_inputs_struct(cfg, prefill_shape)),
+         prefill_args),
+        ("decode", decode_shape, steps.make_decode_step(cfg),
+         (p_sds, tr.init_decode_state(cfg, DECODE_B, DECODE_L, dt,
+                                      device="meta"),
+          torch.empty((DECODE_B, 1), dtype=torch.int32, device="meta"),
+          DECODE_L - 1), decode_args)]
+    rows = []
+    for label, shape, step, meta_args, make_args in cases:
+        pred, meta_s = predict_step(label, step, meta_args, cfg, shape)
+        del meta_args
+        reset_all_counts()
+        ms, peak = measure_step(step, make_args, cfg)
+        counts = all_counts()
+        reset_all_counts()
+        row = dict(case=label, shape=[shape.global_batch, shape.seq_len],
+                   meta_s=meta_s, predicted_peak_bytes=pred.bytes_per_device,
+                   argument_bytes=pred.argument_bytes,
+                   output_bytes=pred.output_bytes,
+                   temp_bytes=pred.temp_bytes, measured_peak_bytes=peak,
+                   peak_ratio=pred.bytes_per_device / peak,
+                   flops=pred.flops, flops_by_class=pred.flops_by_class,
+                   kernel_flops=pred.kernel_flops, hbm_bytes=pred.hbm_bytes,
+                   t_compute_ms=pred.t_compute * 1e3,
+                   t_memory_ms=pred.t_memory * 1e3,
+                   step_time_ms=pred.step_time * 1e3, dominant=pred.dominant,
+                   measured_ms=ms, roofline_share=pred.step_time * 1e3 / ms,
+                   mfu_at_roofline=pred.mfu, launches=counts)
+        rows.append(row)
+        log(f"dryrun_vs_measured {cfg.name} {label} B={shape.global_batch} "
+            f"S={shape.seq_len}: predicted peak "
+            f"{pred.bytes_per_device / 1e9:.3f} GB (args "
+            f"{pred.argument_bytes / 1e9:.3f}, outputs "
+            f"{pred.output_bytes / 1e9:.3f}, temp "
+            f"{pred.temp_bytes / 1e9:.3f}) vs measured {peak / 1e9:.3f} GB "
+            f"(ratio {row['peak_ratio']:.4f}); roofline step "
+            f"{row['step_time_ms']:.3f} ms ({pred.dominant}; compute "
+            f"{row['t_compute_ms']:.3f}, memory {row['t_memory_ms']:.3f}) "
+            f"vs measured {ms:.3f} ms: share {row['roofline_share']:.4f}; "
+            f"meta pass {meta_s:.1f} s; launches {counts}")
+        if not DRYRUN_PEAK_SHARE <= row["peak_ratio"] <= 1.0:
+            raise AssertionError(f"{label}: predicted peak "
+                                 f"{pred.bytes_per_device} vs measured "
+                                 f"{peak}")
+        if not pred.step_time * 1e3 <= ms:
+            raise AssertionError(f"{label}: roofline {pred.step_time * 1e3}"
+                                 f" ms > measured {ms} ms")
+    report["dryrun_vs_measured"] = rows
+
+
+# dryrun_sweep: the configurations this script runs, at its shapes (the
+# shape's (seq_len, global_batch) cut): every served model's prefill
+# (PREFILL_B x PREFILL_S) and decode step (the generate's 8 rows, cache
+# SERVE_CACHE), Gemma-7B's and Phi3's long_500k window step (B=1), and
+# the three trained at full width, each as lm_train runs its round: C
+# clients of one sequence each (sweep_clients), not the host plan's C=1.  Not
+# ``python -m repro_torch.launch.dryrun --all``: at full size it did not
+# finish in 700 s on the card's host (its xLSTM rows alone run the sLSTM's
+# step loop at 32,768 positions).  Cut: xLSTM's prefill to SWEEP_XLSTM_S
+# positions (its step loop made 720,579 ops at 4,096 positions, 150.8 s
+# on meta)
+SWEEP_XLSTM_S = 512
+SWEEP_SERVED = (ARCH, HYMBA, *MOE_ARCHS, XLSTM, SEAMLESS, LLAVA, GEMMA, PHI3)
+SWEEP_CASES = (
+    [(a, "prefill_32k", dict(seq_len=PREFILL_S if a != XLSTM else
+                             SWEEP_XLSTM_S, global_batch=PREFILL_B))
+     for a in SWEEP_SERVED]
+    + [(a, "decode_32k", dict(seq_len=SERVE_CACHE,
+                              global_batch=SERVE_REQUESTS))
+       for a in SWEEP_SERVED]
+    + [(a, "long_500k", dict(global_batch=1)) for a in (GEMMA, PHI3)]
+    + [(ARCH, "train_4k", dict(seq_len=LM_TRAIN_S,
+                               global_batch=LM_TRAIN_CLIENTS)),
+       (HYMBA, "train_4k", dict(seq_len=LM_TRAIN_S,
+                                global_batch=LM_FULL_CLIENTS)),
+       (SEAMLESS, "train_4k", dict(seq_len=LM_TRAIN_S,
+                                   global_batch=LM_FULL_CLIENTS))])
+
+
+def sweep_clients(shape, cut):
+    """A training row's C: the round lm_train runs, C clients of one
+    sequence each (the global batch); None for a served row."""
+    return cut["global_batch"] if shape == "train_4k" else None
+
+
+def dryrun_sweep(report):
+    """The dry-run on the host (meta tensors, no device) for SWEEP_CASES,
+    through ``launch.dryrun.run_one``, artifacts under build/dryrun: each
+    row printed with its three terms, bytes per device and kernels; a row
+    may fail only as the card would refuse it (B4's backward at a head
+    dim other than 64)."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rows, fails = [], []
+    for arch, shape, cut in SWEEP_CASES:
+        try:
+            rows.append(dryrun.run_one(
+                arch, shape, out_dir=str(ROOT / "build" / "dryrun"),
+                verbose=False, cut=cut, n_clients=sweep_clients(shape, cut)))
+        except ValueError as exc:
+            fails.append(f"{arch} x {shape} {cut}: {exc}")
+    secs = time.perf_counter() - t0
+    log(f"dryrun_sweep: {len(rows)} rows, {len(fails)} refused, in "
+        f"{secs:.1f} s")
+    for r in rows:
+        log(f"  dryrun {r['arch']} x {r['shape']} {r['cut']}: "
+            f"C={r['n_clients']} {r['n_ops']} ops on meta in "
+            f"{r['compile_s']} s; compute "
+            f"{r['t_compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['t_memory_s'] * 1e3:.3f} ms -> {r['dominant']}; "
+            f"{r['bytes_per_device'] / 1e9:.2f} GB/dev fits={r['fits']}; "
+            f"kernels {sorted(r['kernels'])}")
+    bad = [f for f in fails if "backward takes head dim" not in f]
+    if bad or not rows:
+        raise AssertionError(f"dryrun_sweep: {len(rows)} rows, failures "
+                             f"{fails}")
+    report["dryrun_sweep"] = dict(
+        seconds=secs, cases=[list(c) for c in SWEEP_CASES], rows=len(rows),
+        refused=fails,
+        step_time_s={f"{r['arch']}/{r['shape']}": r["step_time_s"]
+                     for r in rows},
+        bytes_per_device={f"{r['arch']}/{r['shape']}": r["bytes_per_device"]
+                          for r in rows})
+
+
+def fedlint_cuda(report):
+    """fedlint's manifest round entries (``analysis.manifest``, ``round``
+    set) on CUDA tensors at their small sizes: the host reads that the
+    rule ``host-sync`` looks for are real device-to-host syncs here, which
+    a CPU run cannot see.  Passes when every finding is baselined
+    (``analysis/baseline.json``); the findings are printed with their
+    fingerprints.  The rounds' launches are reset after."""
+    from repro_torch.analysis import cli, manifest
+
+    entries = [e for e in manifest.build_manifest("cuda") if e.round]
+    baseline = cli.load_baseline(cli.DEFAULT_BASELINE)
+    reports, _ = cli.sweep(entries, baseline)
+    rows = []
+    for e, r in zip(entries, reports):
+        if r is None or not r.ok:
+            raise AssertionError(f"fedlint_cuda: {e.name} failed")
+        rows.append(dict(name=e.name, ops=r.n_eqns, suppressed=[
+            f.fingerprint for f, _ in r.suppressed]))
+        log(f"fedlint_cuda {e.name}: {r.n_eqns} ops, "
+            f"{len(r.suppressed)} baselined, 0 unbaselined")
+    reset_all_counts()
+    report["fedlint_cuda"] = rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4962,6 +5182,18 @@ def main() -> int:
     report["lm_resume_phase_s"] = time.perf_counter() - t0
     log(f"phase: lm_resume {report['lm_resume_phase_s']:.1f} s")
 
+    # Tooling: the kernels suite on the card, SmolLM's steps predicted on
+    # meta against the card, the dry-run sweep on the host, fedlint's round
+    # entries on CUDA tensors (none adds to the main path's launches)
+    for phase, run in (("kernel_bench", kernel_bench_phase),
+                       ("dryrun_vs_measured", dryrun_vs_measured),
+                       ("dryrun_sweep", dryrun_sweep),
+                       ("fedlint_cuda", fedlint_cuda)):
+        t0 = time.perf_counter()
+        run(report)
+        report[f"{phase}_phase_s"] = time.perf_counter() - t0
+        log(f"phase: {phase} {report[f'{phase}_phase_s']:.1f} s")
+
     # B1-B3: per round of the 8 MLP_H24 leaves as one grouped call, with
     # call_ms and the same leaves in eight one-leaf calls beside it, and
     # at the bandwidth shape (C=64, D=4,194,304 f32); the kernel named by
@@ -5075,6 +5307,13 @@ def main() -> int:
         forward_ms_b1=scan_bwd["fwd_ms"],
         forward_plain_ms_b1=scan_bwd["fwd_plain_ms"],
         forward_bound_ms_b1=scan_bwd["fwd_bound_ms"]))
+    for k in kernels:          # each kernel's rows of the kernels suite
+        k["kernel_bench"] = [
+            {key: r[key] for key in ("name", "us", "bound_us",
+                                     "bound_share")}
+            for r in report["kernel_bench"]
+            if r["kernel"] == k["name"].split("/")[0]
+            and r["bound_us"] is not None]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['total_s']:.1f} s in all")

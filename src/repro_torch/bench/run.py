@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence
 
 from repro_torch.bench import (fig3_privacy_level, fig456_async_efficiency,
                                fig7_distributiveness, fig8_robust_convergence,
+                               kernel_bench, roofline_table,
                                summarize_claims, table1_prediction,
                                table23_privacy_budget, table4_byzantine,
                                theorem1_convergence)
@@ -36,18 +37,15 @@ SUITES = {
     "fig7": fig7_distributiveness.main,
     "fig8": fig8_robust_convergence.main,
     "theorem1": theorem1_convergence.main,
+    "kernels": kernel_bench.main,
+    "roofline": roofline_table.main,
 }
-# the reference's two other suites, which the port does not have yet
-NOT_PORTED = ("kernels", "roofline")
 
 
 def suite_names(text: str) -> List[str]:
     """``--only``'s comma-separated names, each a key of :data:`SUITES`."""
     names = [n.strip() for n in text.split(",") if n.strip()]
     for name in names:
-        if name in NOT_PORTED:
-            raise argparse.ArgumentTypeError(
-                f"{name}: not yet ported (ROADMAP Queue A item 8)")
         if name not in SUITES:
             raise argparse.ArgumentTypeError(
                 f"unknown suite {name!r} (have {', '.join(SUITES)})")

@@ -42,6 +42,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import (AccumulationDtypeRule, MemoryContractRule,
+                                  contract as fedlint_contract)
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import byzantine as byz_lib
@@ -510,6 +512,31 @@ def _canonical_rows(idx, stale, weight, C: int):
     return idx, st, w, order, write_idx
 
 
+def _sparse_round_bindings(state, batch, gen, **kw):
+    """Call-time dimension bindings of the sparse round's fedlint
+    contract.  The dense "active"-scope oracle runs the sparse round over
+    the FULL-width block (idx = arange(C)), where a (C, D) gather is the
+    working set, so ``C`` is bound only for a genuine sub-fleet block."""
+    C = kw["byz_mask"].shape[0]
+    S = len(host_array(kw["idx"]).reshape(-1))
+    return {"C": int(C)} if S < C else {}
+
+
+def _sparse_round_rules(bindings):
+    rules = [AccumulationDtypeRule()]
+    if "C" in bindings:
+        # the O(S) contract: no dense (C, D) intermediate; the in-place
+        # state writes are the sanctioned O(C)-touching producers, and
+        # min_inner_elems=3 exempts (C, 2)-sized bookkeeping
+        rules.append(MemoryContractRule(
+            "C", allow_primitives=("index_copy_", "index_put_"),
+            min_inner_elems=3))
+    return rules
+
+
+@fedlint_contract(rules=_sparse_round_rules, bindings=_sparse_round_bindings,
+                  name="bafdp_round_sparse",
+                  host_args=("idx", "stale", "weight", "arrivals"))
 @torch.no_grad()
 def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
                        local_loss: LocalLoss, fed: FedConfig, c3: float,
@@ -531,7 +558,9 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
     returned state shares; only ``z``, ``lam`` and ``t`` are new tensors.
     Keep a copy (``bafdp_round`` with ``consensus_scope="active"`` makes
     one) if the old state is still needed.  Only (C,) vectors are touched
-    fleet-wide; no (C, D) intermediate exists.
+    fleet-wide; no (C, D) intermediate exists: fedlint's contract
+    (``analysis.contract``, on with ``REPRO_FEDLINT=1``) checks it once
+    per abstract signature on meta stand-ins before the round runs.
 
     The padded row contract (``Schedule.padded_rows``):
 

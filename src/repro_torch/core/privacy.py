@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
+from repro_torch.tree import generator
 
 
 def gaussian_c3(d: int, delta: float, sensitivity: float) -> float:
@@ -66,7 +67,7 @@ class RowGenerators:
         mixed = int(np.random.SeedSequence(
             [self.seed, self.stream, int(leaf),
              int(self.client_ids[row])]).generate_state(1)[0])
-        return torch.Generator(device=self.device).manual_seed(mixed)
+        return generator(self.device).manual_seed(mixed)
 
     def randn(self, shape: Sequence[int], dtype=torch.float32,
               leaf: int = 0) -> torch.Tensor:

@@ -28,6 +28,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sign_agg", "flash_attention", "flash_attention_bwd",
            "decode_attention", "ssm_scan")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+# The devices a wrapper takes its kernel's path on: the GPU, where it
+# launches the kernel, and ``meta``, where it launches nothing and adds the
+# kernel's work to the active ``roofline.cost.CostCounter`` (the dry-run)
+KERNEL_DEVICES = ("cuda", "meta")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -99,10 +103,10 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` for a CUDA call under autograd (grad
-    mode on, an input requiring grad) of a kernel with no backward yet:
-    its output would carry no gradient.  CPU calls run the plain version,
-    which autograd differentiates."""
-    if (torch.is_grad_enabled() and tensors[0].device.type == "cuda"
+    """Raise ``NotImplementedError`` for a CUDA (or ``meta``) call under
+    autograd (grad mode on, an input requiring grad) of a kernel with no
+    backward yet: its output would carry no gradient.  CPU calls run the
+    plain version, which autograd differentiates."""
+    if (torch.is_grad_enabled() and tensors[0].device.type in KERNEL_DEVICES
             and any(t.requires_grad for t in tensors)):
         raise NotImplementedError(f"{kernel}'s backward is not yet ported")

@@ -17,9 +17,13 @@ model's is ``min(step + 1, L)``); nothing at or past it is read.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises (also, with ``NotImplementedError``, under autograd:
-B5 has no backward yet).  ``LAUNCHES["decode_attention"]`` counts kernel
-launches, as the C entry point reports them: ``launches_per_call`` (1)
-per call.
+B5 has no backward yet).  A ``meta`` tensor takes the card's checks and
+refusals, gets a ``meta`` output and adds the kernel's work to the active
+``roofline.cost.CostCounter``, launching nothing; ``length`` has no
+values there, so every row counts its whole cache (L positions: the
+decode step at the cache's last position, which the dry-run takes).
+``LAUNCHES["decode_attention"]`` counts kernel launches, as the C entry
+point reports them: ``launches_per_call`` (1) per call.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import check_attention_args
+from repro_torch.roofline import cost, kernel_cost
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0}
 CHUNK = 64              # splits hold whole chunks of this many positions
@@ -110,6 +115,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = check_args(q, k, v, length)
     B, H, D = q.shape
     L, Hkv = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        cost.add_kernel("decode_attention",
+                        kernel_cost.decode_work(q, k, B * L))
+        return torch.empty_like(q)
     sl = split_len(B, Hkv, L, _sm_count(q.device))
     out = torch.empty_like(q)
     launched = ctypes.c_int(0)

@@ -19,7 +19,10 @@ tiles with the online softmax in registers, and skip key tiles the mask
 removes whole.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES["flash_attention"]`` counts launches.
+kernel or raises.  ``LAUNCHES["flash_attention"]`` counts launches.  A
+``meta`` tensor takes the card's checks, gets ``meta`` outputs and adds
+the kernel's work (``roofline.kernel_cost``) to the active
+``roofline.cost.CostCounter``; it launches nothing and counts no launch.
 
 Under autograd (grad mode on and q, k or v requiring grad) the call is
 :class:`FlashAttentionFn`, whose forward is B4 with its optional f32
@@ -43,6 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.roofline import cost, kernel_cost
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 HEAD_DIMS = (64, 128, 256)
@@ -99,7 +103,7 @@ def check_attention_args(q: torch.Tensor, tensors, D: int, H: int,
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"{H} query heads do not split into {Hkv} KV "
                          "head groups")
-    if q.device.type != "cuda":
+    if q.device.type not in _build.KERNEL_DEVICES:
         raise ValueError(f"the kernel needs CUDA tensors, got {q.device}")
     return DTYPES[q.dtype]
 
@@ -132,6 +136,10 @@ def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        cost.add_kernel("flash_attention",
+                        kernel_cost.flash_work(q, k, causal, window))
+        return out
     err = _lib().repro_flash_attention(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, Sq, Sk, H, Hkv, D,
@@ -212,6 +220,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # each query head's dK and dV sums, f32, summed per KV head in order
     part = torch.empty((2, B, Sk, H, D), dtype=torch.float32,
                        device=q.device)
+    if q.device.type == "meta":
+        cost.add_kernel("flash_attention_bwd",
+                        kernel_cost.flash_bwd_work(q, k, causal, window),
+                        launches=BWD_LAUNCHES)
+        return dq, dk, dv
     err = _bwd_lib().repro_flash_attention_bwd(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -250,7 +263,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q's dtype.  ``window`` > 0 keeps keys with ``ki > qi - window``.
     Under autograd, :class:`FlashAttentionFn`."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.device.type == "cuda":
+        if q.device.type in _build.KERNEL_DEVICES:
             check_grad_args(q)
         return FlashAttentionFn.apply(q, k, v, causal, window)
     if q.device.type == "cpu":

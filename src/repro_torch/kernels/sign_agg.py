@@ -30,7 +30,11 @@ rows before it folds them.  Both give the row-order fold of the plain
 versions in ``kernels/ref.py``, bit for bit.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES`` counts kernel launches per TPU kernel
+kernel or raises.  A ``meta`` tensor takes the card's checks, gets
+``meta`` outputs and adds the kernel's work (``roofline.kernel_cost``) and
+the launches the card would make to the active
+``roofline.cost.CostCounter``, launching nothing and leaving ``LAUNCHES``
+as it is.  ``LAUNCHES`` counts kernel launches per TPU kernel
 (:func:`sign_agg_group` adds to ``sign_agg`` or ``sign_agg_weighted``,
 :func:`sign_agg_int8_group` to ``sign_agg_weighted_int8``).
 """
@@ -44,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.roofline import cost, kernel_cost
 
 LAUNCHES: Dict[str, int] = {"sign_agg": 0, "sign_agg_weighted": 0,
                             "sign_agg_weighted_int8": 0}
@@ -153,7 +158,7 @@ def _check_vectors(z: torch.Tensor, phi_mean: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, z on {z.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if z.device.type != "cuda":
+    if z.device.type not in _build.KERNEL_DEVICES:
         raise ValueError(f"the kernels need CUDA tensors, got {z.device}")
     return _DTYPES[z.dtype]
 
@@ -182,6 +187,9 @@ def sign_agg(z: torch.Tensor, W: torch.Tensor, phi_mean: torch.Tensor,
     code = _check_vectors(z, phi_mean, W, z.dtype)
     C, D = W.shape
     out = torch.empty_like(z)
+    if z.device.type == "meta":
+        cost.add_kernel("sign_agg", kernel_cost.sign_agg_work(z, W))
+        return out
     err = _lib().repro_sign_agg(code, z.data_ptr(), W.data_ptr(),
                                 phi_mean.data_ptr(), out.data_ptr(), C, D,
                                 psi, alpha_z, _build.stream_of(z))
@@ -203,6 +211,10 @@ def sign_agg_weighted(z: torch.Tensor, W: torch.Tensor,
     C, D = W.shape
     _check_column("weights", weights, z, C)
     out = torch.empty_like(z)
+    if z.device.type == "meta":
+        cost.add_kernel("sign_agg_weighted",
+                        kernel_cost.sign_agg_work(z, W, weights))
+        return out
     err = _lib().repro_sign_agg_weighted(
         code, z.data_ptr(), W.data_ptr(), phi_mean.data_ptr(),
         weights.data_ptr(), out.data_ptr(), C, D, _divisor(n_total, C), psi,
@@ -212,15 +224,16 @@ def sign_agg_weighted(z: torch.Tensor, W: torch.Tensor,
     return out
 
 
-def _group_launch(entry, counter: str, zs: Sequence[torch.Tensor],
+def _group_launch(entry: str, counter: str, zs: Sequence[torch.Tensor],
                   rows: Sequence[torch.Tensor],
                   phis: Sequence[torch.Tensor],
                   column: Optional[torch.Tensor], column_name: str,
                   rows_dtype: torch.dtype, psi: float, alpha_z: float,
                   n_total: int) -> List[torch.Tensor]:
     """Check the leaves of a grouped call on the card, build its table and
-    run the C ``entry`` (``rows_dtype``: the message rows' dtype); each
-    leaf's z' is a view of one output."""
+    run the library's C function ``entry`` (``rows_dtype``: the message
+    rows' dtype); each leaf's z' is a view of one output.  On ``meta``
+    the output is made and the work counted, the table is not built."""
     z0 = zs[0]
     code = _check_vectors(z0, phis[0], rows[0], rows_dtype)
     C = rows[0].shape[0]
@@ -236,19 +249,26 @@ def _group_launch(entry, counter: str, zs: Sequence[torch.Tensor],
     isz = z0.element_size()
     offs, total = out_offsets([z.shape[0] for z in zs], isz)
     out = torch.empty(total, dtype=z0.dtype, device=z0.device)
+    views = [out[o:o + z.shape[0]] for z, o in zip(zs, offs)]
+    if z0.device.type == "meta":
+        work = (kernel_cost.sign_agg_int8_group_work if rows_dtype ==
+                torch.int8 else kernel_cost.sign_agg_group_work)
+        cost.add_kernel(counter, work(zs, rows, column),
+                        launches=-(-len(zs) // MAX_LEAVES))
+        return views
     base = out.data_ptr()
     table = array.array("q", leaf_table(
         [(z.data_ptr(), r.data_ptr(), phi.data_ptr(), base + o * isz,
           z.shape[0]) for z, r, phi, o in zip(zs, rows, phis, offs)],
         rows[0].element_size()))
     launched = ctypes.c_int(0)
-    err = entry(code, len(zs), table.buffer_info()[0], C,
+    err = getattr(_lib(), entry)(code, len(zs), table.buffer_info()[0], C,
                 None if column is None else column.data_ptr(),
                 _divisor(n_total, C), psi, alpha_z, _build.stream_of(z0),
                 ctypes.byref(launched))
     _build.check_launch(err, counter)
     LAUNCHES[counter] += launched.value
-    return [out[o:o + z.shape[0]] for z, o in zip(zs, offs)]
+    return views
 
 
 def _check_leaf_counts(zs, rows, phis) -> None:
@@ -276,7 +296,7 @@ def sign_agg_group(zs: Sequence[torch.Tensor], Ws: Sequence[torch.Tensor],
         return ref.sign_agg_group_ref(zs, Ws, phis, weights, psi, alpha_z,
                                       n_total=_divisor(n_total, 0))
     return _group_launch(
-        _lib().repro_sign_agg_group,
+        "repro_sign_agg_group",
         "sign_agg" if weights is None else "sign_agg_weighted", zs, Ws,
         phis, weights, "weights", zs[0].dtype, psi, alpha_z, n_total)
 
@@ -298,7 +318,7 @@ def sign_agg_int8_group(zs: Sequence[torch.Tensor],
         return ref.sign_agg_int8_group_ref(zs, payloads, phis, scale, psi,
                                            alpha_z,
                                            n_total=_divisor(n_total, 0))
-    return _group_launch(_lib().repro_sign_agg_int8_group,
+    return _group_launch("repro_sign_agg_int8_group",
                          "sign_agg_weighted_int8", zs, payloads, phis, scale,
                          "scale", torch.int8, psi, alpha_z, n_total)
 
@@ -322,6 +342,10 @@ def sign_agg_weighted_int8(z: torch.Tensor, payload: torch.Tensor,
         _check_column("scale", scale, z, C)
         scale_ptr = scale.data_ptr()
     out = torch.empty_like(z)
+    if z.device.type == "meta":
+        cost.add_kernel("sign_agg_weighted_int8",
+                        kernel_cost.sign_agg_int8_work(z, payload, scale))
+        return out
     err = _lib().repro_sign_agg_int8(
         code, z.data_ptr(), payload.data_ptr(), phi_mean.data_ptr(),
         scale_ptr, out.data_ptr(), C, D, _divisor(n_total, C), psi, alpha_z,

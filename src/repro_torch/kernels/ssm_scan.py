@@ -18,7 +18,10 @@ store of a warp is one contiguous segment.  It rounds ``a_t * h`` and
 for bit.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES["ssm_scan"]`` counts launches.
+kernel or raises.  ``LAUNCHES["ssm_scan"]`` counts launches.  A ``meta``
+tensor takes the card's checks, gets ``meta`` outputs and adds the
+kernel's work to the active ``roofline.cost.CostCounter``, launching
+nothing (the forward and the backward alike).
 
 Under autograd (grad mode on and a, b or h0 requiring grad) the call is
 :class:`SsmScanFn`: the forward above, and as backward
@@ -36,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.roofline import cost, kernel_cost
 
 LAUNCHES: Dict[str, int] = {"ssm_scan": 0, "ssm_scan_bwd": 0}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,7 +89,7 @@ def check_args(a: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, a on {a.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if a.device.type != "cuda":
+    if a.device.type not in _build.KERNEL_DEVICES:
         raise ValueError(f"the kernel needs CUDA tensors, got {a.device}")
     return DTYPES[a.dtype]
 
@@ -97,6 +101,9 @@ def _forward(a: torch.Tensor, b: torch.Tensor,
     code = check_args(a, b, h0)
     B, S, D, N = a.shape
     hs = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    if a.device.type == "meta":
+        cost.add_kernel("ssm_scan", kernel_cost.scan_work(a, h0))
+        return hs
     err = _lib().repro_ssm_scan(
         code, a.data_ptr(), b.data_ptr(),
         None if h0 is None else h0.data_ptr(), hs.data_ptr(), B, S, D * N,
@@ -133,6 +140,9 @@ def ssm_scan_bwd(a: torch.Tensor, hs: torch.Tensor,
     B, S, D, N = a.shape
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty((B, D, N), dtype=torch.float32, device=a.device)
+    if a.device.type == "meta":
+        cost.add_kernel("ssm_scan_bwd", kernel_cost.scan_bwd_work(a, h0))
+        return da, db, dh0
     err = _lib().repro_ssm_scan_bwd(
         code, a.data_ptr(), hs.data_ptr(),
         None if h0 is None else h0.data_ptr(), dhs.data_ptr(),

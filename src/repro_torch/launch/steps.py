@@ -41,8 +41,8 @@ from repro_torch.core.privacy import RowGenerators, gaussian_c3, sigma_for_eps
 from repro_torch.distributed.sharding import P, make_plan, map_specs
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import (dense_init, dtype_of, init_embedding,
-                                      init_rmsnorm, lm_logits)
-from repro_torch.tree import tree_map, tree_unstack
+                                      init_rmsnorm, lm_logits, rope_freqs)
+from repro_torch.tree import generator, tree_map, tree_unstack
 
 # the DRO radius's sample count of an LM client, as the reference's step
 N_SAMPLES = 4096
@@ -130,7 +130,7 @@ def make_train_step(cfg: ArchConfig, fed: FedConfig
 
     def train_step(state: FedState, batch, seed, act=None, stale=None):
         dev = state.eps.device
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        gen = generator(dev).manual_seed(int(seed))
         return bafdp_lib.bafdp_round(
             state, batch, gen, local_loss=local_loss, fed=fed, c3=c3,
             n_samples=N_SAMPLES, d_dim=cfg.d_model,
@@ -421,11 +421,22 @@ def decode_setup(cfg: ArchConfig, shape: InputShape, mesh):
 
 def input_specs(cfg: ArchConfig, shape: InputShape, mesh,
                 base_fed: Optional[FedConfig] = None,
-                inner_dp: bool = False):
+                inner_dp: bool = False, n_clients: Optional[int] = None):
     """The deliverable entry point: meta-tensor stand-ins + placements
-    for every model input of this (arch x shape), dispatched on kind."""
+    for every model input of this (arch x shape), dispatched on kind
+    (``n_clients``: a training round's C, as :func:`train_setup`)."""
     if shape.kind == "train":
-        return train_setup(cfg, shape, mesh, base_fed, inner_dp=inner_dp)
+        return train_setup(cfg, shape, mesh, base_fed, inner_dp=inner_dp,
+                           n_clients=n_clients)
     if shape.kind == "prefill":
         return prefill_setup(cfg, shape, mesh)
     return decode_setup(cfg, shape, mesh)
+
+
+def warm_device_caches(cfg: ArchConfig, device) -> None:
+    """Make on ``device`` the constants a step caches per device on first
+    use (RoPE's frequencies, ``layers.rope_freqs``), so that a step's peak
+    memory does not depend on whether an earlier step on that device made
+    them: the dry-run warms them on meta before it counts, a measurement
+    on the card before its baseline."""
+    rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, device)

@@ -26,7 +26,10 @@ newest checkpoint in ``DIR`` and saves the state after round ``t`` under
 the label ``t`` every 50 rounds (``t > 0``) and under ``--steps`` at the
 end, as the reference does: a resume from label ``t`` runs round ``t``
 again (``examples/federated_lm_training.py`` labels ``t + 1`` instead).
-``--dry`` (lowering) is not ported and raises.  On the GPU the caching
+``--dry`` runs ``launch.dryrun`` for ``--arch`` x ``--shape`` (with
+``--variant`` and ``--smoke``) in this process instead: the step on
+``meta`` tensors on the host mesh, no device touched, the roofline row
+printed and written under ``results/dryrun``.  On the GPU the caching
 allocator maps expandable segments (:func:`use_expandable_segments`).
 """
 from __future__ import annotations
@@ -71,7 +74,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config, 64-token sequences, 2 clients")
     ap.add_argument("--dry", action="store_true",
-                    help="(not ported) lower + compile only")
+                    help="dry-run the step on meta tensors (launch.dryrun), "
+                         "no run")
     ap.add_argument("--variant", default="",
                     help="a launch/variants.py name: its cfg_patch only")
     ap.add_argument("--global-batch", type=int, default=0,
@@ -87,7 +91,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.dry:
-        raise ValueError("--dry is not yet ported (ROADMAP Queue A item 8)")
+        from repro_torch.launch import dryrun
+        return dryrun.main(["--arch", args.arch, "--shape", args.shape]
+                           + (["--variant", args.variant] if args.variant
+                              else [])
+                           + (["--smoke"] if args.smoke else []))
 
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import INPUT_SHAPES, get_arch, reduce_for_smoke

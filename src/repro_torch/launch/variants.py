@@ -5,7 +5,7 @@ dry-run predictions, kept as its text).
 Each variant maps (cfg, fed, setup kwargs) -> modified versions.
 ``launch.train --variant <name>`` applies only the ``cfg_patch``, as the
 reference's launcher does: ``fed_patch`` and ``inner_dp`` are read by the
-reference's dry-run alone (not yet ported).
+dry-run alone (``launch.dryrun``, as the reference's).
 """
 from __future__ import annotations
 

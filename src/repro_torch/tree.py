@@ -96,6 +96,14 @@ def tensor_from_numpy(a: Any, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def generator(device) -> torch.Generator:
+    """A ``torch.Generator`` for draws onto ``device``.  ``meta`` has no
+    generator of its own: a CPU one stands in, and draws onto ``meta``
+    tensors draw nothing (the dry-run runs a step there)."""
+    dev = torch.device(device)
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev)
+
+
 def resolve_device(device: Optional[Any] = None) -> torch.device:
     """``None`` -> the GPU.  Raises when no GPU is present rather than
     running on the CPU: a CPU run must be asked for (``device="cpu"``)."""

@@ -24,6 +24,7 @@ Bit identity is held only inside the port (remat on vs off).
 import dataclasses
 import functools
 import importlib
+import os
 import subprocess
 import sys
 
@@ -497,7 +498,7 @@ def test_fed_state_carries_the_reference_lm_state(reference, jref):
         assert str(got[k][1]).split(".")[1] == str(want[k].dtype), k
 
 
-def test_train_cli_runs_on_the_cpu():
+def test_train_cli_runs_on_the_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "smollm-360m", "--smoke", "--steps", "3", "--log-every", "1",
@@ -506,11 +507,20 @@ def test_train_cli_runs_on_the_cpu():
     lines = out.stdout.strip().splitlines()
     assert [l.split()[1] for l in lines[:3]] == ["0", "1", "2"]
     assert lines[-1].startswith("done. final loss")
-    for flag, says in ((["--dry"], "not yet ported"),
-                       (["--variant", "v"], "'v'")):
-        bad = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             "smollm-360m", "--smoke", "--device", "cpu", *flag],
-            cwd=REPO_ROOT, capture_output=True, text=True,
-            env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
-        assert bad.returncode != 0 and says in bad.stderr
+    # --dry runs the dry-run in process (meta tensors, no device) and
+    # writes its artifact under the working directory
+    dry = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "smollm-360m", "--smoke", "--dry"], cwd=tmp_path,
+        capture_output=True, text=True, check=True,
+        env={"PYTHONPATH": os.path.join(REPO_ROOT, "src"),
+             "PATH": "/usr/bin:/bin"})
+    assert "[dryrun] smollm-360m x train_4k on 1x1" in dry.stdout
+    assert (tmp_path / "results" / "dryrun"
+            / "smollm-360m__train_4k__1x1.json").is_file()
+    bad = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "smollm-360m", "--smoke", "--device", "cpu", "--variant", "v"],
+        cwd=REPO_ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
+    assert bad.returncode != 0 and "'v'" in bad.stderr
