@@ -11,7 +11,10 @@
 //
 // Bound on the H100: bytes.  Each kernel reads the (C, D) message matrix
 // once plus z and phi_mean, and writes z'; a few flops per element of W
-// are far below the card's compute rate.  Every operation uses an explicit
+// are far below the card's compute rate.  phi_mean is read as f32 whatever
+// z's dtype, as the Pallas kernels read it (the round takes the mean of
+// the duals in f32): a bf16 model's z and W are bf16 beside an f32
+// phi_mean.  Every operation uses an explicit
 // round-to-nearest intrinsic (no FMA contraction; the build also passes
 // -fmad=false), and every thread folds its columns over the C rows
 // strictly in row order, so the result equals the row-order left fold of
@@ -102,7 +105,7 @@ __device__ __forceinline__ float epilogue(float zf, float phif, float sum,
 struct Leaf {
   const void* z;
   const void* W;     // B1/B2: (C, D) in z's dtype; B3: (C, D) int8 payload
-  const void* phi;
+  const void* phi;   // (D,) f32, whatever z's dtype
   void* out;
   long long D;
   int vec;       // 1: 16-byte vectors of columns; 0: one column a thread
@@ -200,6 +203,19 @@ __device__ __forceinline__ void store(T* p, const float (&v)[V]) {
   }
 }
 
+// V columns of T from p: 16-byte loads of them, or one T
+template <typename T, int V>
+__device__ __forceinline__ void load_cols(const T* p, float (&v)[V]) {
+  constexpr int kVec = V == 1 ? 1 : vec_width(sizeof(T));
+#pragma unroll
+  for (int c = 0; c < V / kVec; ++c) {
+    float part[kVec];
+    unpack<T, kVec>(load_ro<T, kVec>(p + c * kVec), part);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[c * kVec + k] = part[k];
+  }
+}
+
 // ---------------------------------------------------------------- B1/B2 --
 
 // Columns d .. d+V-1 of one leaf: the strict row-order fold over the C
@@ -211,7 +227,7 @@ __device__ __forceinline__ void fold_columns(const Group& g, const Leaf& L,
   const T* W = static_cast<const T*>(L.W) + d;
   float zf[V], phif[V], acc[V];
   unpack<T, V>(load_ro<T, V>(static_cast<const T*>(L.z) + d), zf);
-  unpack<T, V>(load_ro<T, V>(static_cast<const T*>(L.phi) + d), phif);
+  load_cols<float, V>(static_cast<const float*>(L.phi) + d, phif);
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[j] = 0.f;
   for (int i0 = 0; i0 < g.C; i0 += kRows) {
@@ -287,19 +303,6 @@ __device__ __forceinline__ int q_at(const Raw8<V>& r, int k) {
   }
 }
 
-// V columns of T from p: 16-byte loads of them, or one T
-template <typename T, int V>
-__device__ __forceinline__ void load_cols(const T* p, float (&v)[V]) {
-  constexpr int kVec = V == 1 ? 1 : vec_width(sizeof(T));
-#pragma unroll
-  for (int c = 0; c < V / kVec; ++c) {
-    float part[kVec];
-    unpack<T, kVec>(load_ro<T, kVec>(p + c * kVec), part);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) v[c * kVec + k] = part[k];
-  }
-}
-
 template <typename T, int V>
 __device__ __forceinline__ void store_cols(T* p, const float (&v)[V]) {
   constexpr int kVec = V == 1 ? 1 : vec_width(sizeof(T));
@@ -352,7 +355,7 @@ __device__ __forceinline__ void fold_int8_columns(const Group& g,
   }
   float zf[V], phif[V], o[V];
   load_cols<T, V>(static_cast<const T*>(L.z) + d, zf);
-  load_cols<T, V>(static_cast<const T*>(L.phi) + d, phif);
+  load_cols<float, V>(static_cast<const float*>(L.phi) + d, phif);
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     float sum;

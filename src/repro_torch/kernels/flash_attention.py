@@ -29,13 +29,14 @@ Under autograd (grad mode on and q, k or v requiring grad) the call is
 log-sum-exp output (either dtype) and whose backward is
 ``csrc/flash_attention_bwd.cu`` on the tensor cores (three launches a
 call: dQ with delta, each query head's dK and dV in f32, their sum over
-each KV head's group in a fixed order), f32 (3xTF32) or bf16 at head dim
-64 only; ``LAUNCHES["flash_attention_bwd"]`` counts the launches of both
-dtypes.  On the CPU the Function runs the plain
+each KV head's group in a fixed order), f32 (3xTF32) or bf16 at the
+forward's head dims (64, 128, 256: a block computes one 64-wide slice of
+the head); ``LAUNCHES["flash_attention_bwd"]`` counts the launches of both
+dtypes and every head dim.  On the CPU the Function runs the plain
 ``ref.flash_attention_ref(with_lse=True)`` and
-``ref.flash_attention_bwd_ref``.  Another head dim under
-autograd on the card raises ``ValueError``.  Neither direction falls back
-to the plain version or to the other device.
+``ref.flash_attention_bwd_ref``.  What the forward refuses raises under
+autograd too, on the card and on ``meta``, before anything runs.  Neither
+direction falls back to the plain version or to the other device.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ from repro_torch.roofline import cost, kernel_cost
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64,)
+BWD_HEAD_DIMS = HEAD_DIMS
 BWD_LAUNCHES = 3       # launches of one backward call: dq, the per-head
                        # dk/dv partials, their sum
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -166,8 +167,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def check_grad_args(q: torch.Tensor) -> None:
     """What B4's backward kernel does not take, checked before the
-    forward runs under autograd on the card: a head dim other than 64
-    (both dtypes are taken)."""
+    forward runs under autograd on the card or on ``meta``: a head dim
+    outside BWD_HEAD_DIMS, which are the forward's (both dtypes are
+    taken)."""
     if q.shape[-1] not in BWD_HEAD_DIMS:
         raise ValueError(f"B4's backward takes head dim {BWD_HEAD_DIMS}, "
                          f"got {q.shape[-1]}")

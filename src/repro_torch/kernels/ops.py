@@ -107,8 +107,9 @@ def sign_consensus_leaves(zs: Sequence[torch.Tensor],
     """:func:`sign_consensus` over every leaf of a tree, with the same
     arguments per leaf (``zs[l]``: (D_l,), ``Ws[l]``: (C, D_l),
     ``phis[l]``: (D_l,)) and the same ``impl`` rules: one grouped call
-    (one launch) over all leaves.  ``message="f32"`` runs B1/B2;
-    ``"int8"`` encodes each leaf on the client side as
+    (one launch) over all leaves of a dtype, so one a round, or two for a
+    bf16 model, whose norm scales stay f32.  ``message="f32"`` runs
+    B1/B2; ``"int8"`` encodes each leaf on the client side as
     :func:`sign_consensus` does and runs B3 over every payload with the
     round's one scale column.  ``streaming=True`` runs the streamed plain
     fold per leaf instead, launching nothing."""
@@ -128,15 +129,32 @@ def sign_consensus_leaves(zs: Sequence[torch.Tensor],
             return ref.sign_agg_int8_group_ref(zs, payloads, phis,
                                                msgs[0].scale, psi, alpha_z,
                                                n_total=n)
-        return sa_k.sign_agg_int8_group(zs, payloads, phis, msgs[0].scale,
-                                        psi, alpha_z, n_total=n)
+        return _by_dtype(lambda z, q, p: sa_k.sign_agg_int8_group(
+            z, q, p, msgs[0].scale, psi, alpha_z, n_total=n),
+            zs, payloads, phis)
     if message != "f32":
         raise ValueError(f"unknown sign message format: {message!r}")
     if impl == "torch":
         return ref.sign_agg_group_ref(zs, Ws, phis, weights, psi, alpha_z,
                                       n_total=n)
-    return sa_k.sign_agg_group(zs, Ws, phis, weights, psi, alpha_z,
-                               n_total=n)
+    return _by_dtype(lambda z, w, p: sa_k.sign_agg_group(
+        z, w, p, weights, psi, alpha_z, n_total=n), zs, Ws, phis)
+
+
+def _by_dtype(group_call, zs, rows, phis) -> List[torch.Tensor]:
+    """``group_call(zs, rows, phis)`` once for the leaves of each of z's
+    dtypes (the grouped kernels take one), in order of first appearance;
+    the results in the leaves' order."""
+    out: List[Optional[torch.Tensor]] = [None] * len(zs)
+    groups = {}
+    for i, z in enumerate(zs):
+        groups.setdefault(z.dtype, []).append(i)
+    for idx in groups.values():
+        got = group_call([zs[i] for i in idx], [rows[i] for i in idx],
+                         [phis[i] for i in idx])
+        for i, g in zip(idx, got):
+            out[i] = g
+    return out
 
 
 def sign_agg(z, W, phi_mean, psi: float, alpha_z: float,

@@ -18,7 +18,10 @@ Each wrapper replaces one Pallas TPU kernel of the JAX package's
 
 What bounds them on the H100 is bytes: reading the message once and z,
 phi_mean in, z' out — ``4*C*D + 12*D`` bytes for B1/B2 in f32,
-``C*D + 12*D + 4*C`` for B3 — over 3.35 TB/s.  A leaf of a forecaster's
+``C*D + 12*D + 4*C`` for B3 — over 3.35 TB/s.  The kernels read
+``phi_mean`` in f32 whatever z's dtype, as the Pallas kernels do (the
+round's mean of the duals is f32): the wrappers take it in f32 or in z's
+dtype, and widen the latter (exactly) first.  A leaf of a forecaster's
 round is far smaller than what a launch costs, so the kernels
 (``sign_agg_group<T, kWeighted>`` and ``sign_agg_int8_group<T,
 kWeighted>`` in ``csrc/sign_agg.cu``) take a table of leaves
@@ -140,8 +143,9 @@ def _check_vectors(z: torch.Tensor, phi_mean: torch.Tensor,
     code of z.  Raises on what the kernels do not take."""
     if z.dtype not in _DTYPES:
         raise TypeError(f"z must be float32 or bfloat16, got {z.dtype}")
-    if phi_mean.dtype != z.dtype:
-        raise TypeError(f"phi_mean dtype {phi_mean.dtype} != z {z.dtype}")
+    if phi_mean.dtype not in (z.dtype, torch.float32):
+        raise TypeError(f"phi_mean dtype {phi_mean.dtype} is neither z's "
+                        f"({z.dtype}) nor float32")
     if rows.dtype != rows_dtype:
         raise TypeError(f"message rows must be {rows_dtype}, got "
                         f"{rows.dtype}")
@@ -180,11 +184,12 @@ def _divisor(n_total: int, C: int) -> int:
 
 def sign_agg(z: torch.Tensor, W: torch.Tensor, phi_mean: torch.Tensor,
              psi: float, alpha_z: float) -> torch.Tensor:
-    """B1.  z, phi_mean: (D,); W: (C, D), all f32 or all bf16.  Returns
-    z' (D,) in z's dtype."""
+    """B1.  z: (D,); W: (C, D), both f32 or both bf16; phi_mean: (D,) f32
+    or in z's dtype.  Returns z' (D,) in z's dtype."""
     if z.device.type == "cpu":
         return ref.sign_agg_ref(z, W, phi_mean, psi, alpha_z)
     code = _check_vectors(z, phi_mean, W, z.dtype)
+    phi_mean = phi_mean.float()     # the kernels read f32
     C, D = W.shape
     out = torch.empty_like(z)
     if z.device.type == "meta":
@@ -208,6 +213,7 @@ def sign_agg_weighted(z: torch.Tensor, W: torch.Tensor,
         return ref.sign_agg_fold_ref(z, W, phi_mean, weights, psi, alpha_z,
                                      _divisor(n_total, W.shape[0]))
     code = _check_vectors(z, phi_mean, W, z.dtype)
+    phi_mean = phi_mean.float()     # the kernels read f32
     C, D = W.shape
     _check_column("weights", weights, z, C)
     out = torch.empty_like(z)
@@ -246,6 +252,7 @@ def _group_launch(entry: str, counter: str, zs: Sequence[torch.Tensor],
                              f"got {tuple(r.shape)} on {z.device}")
     if column is not None:
         _check_column(column_name, column, z0, C)
+    phis = [phi.float() for phi in phis]     # the kernels read f32
     isz = z0.element_size()
     offs, total = out_offsets([z.shape[0] for z in zs], isz)
     out = torch.empty(total, dtype=z0.dtype, device=z0.device)
@@ -284,8 +291,8 @@ def sign_agg_group(zs: Sequence[torch.Tensor], Ws: Sequence[torch.Tensor],
                    alpha_z: float, *, n_total: int = 0
                    ) -> List[torch.Tensor]:
     """B1 (``weights=None``) or B2 over every leaf at once.  ``zs[l]``,
-    ``phis[l]``: (D_l,); ``Ws[l]``: (C, D_l); one dtype (f32 or bf16) and
-    one C for all leaves; ``weights``: (C,) f32; the sum is divided by
+    ``phis[l]``: (D_l,) (f32, or in z's dtype); ``Ws[l]``: (C, D_l); one
+    dtype (f32 or bf16) of z and W and one C for all leaves; ``weights``: (C,) f32; the sum is divided by
     ``n_total`` (default: C; only with ``weights``).  Returns each leaf's
     z' (D_l,), views of one output.  One launch per ``MAX_LEAVES``
     leaves."""
@@ -336,6 +343,7 @@ def sign_agg_weighted_int8(z: torch.Tensor, payload: torch.Tensor,
                                           alpha_z,
                                           _divisor(n_total, payload.shape[0]))
     code = _check_vectors(z, phi_mean, payload, torch.int8)
+    phi_mean = phi_mean.float()     # the kernels read f32
     C, D = payload.shape
     scale_ptr = None
     if scale is not None:

@@ -80,7 +80,8 @@ def run_one(arch_name: str, shape_name: str,
             out_dir: str = "results/dryrun", verbose: bool = True,
             setup_override=None, variant: str = "",
             smoke: bool = False, cut: Optional[dict] = None,
-            n_clients: Optional[int] = None) -> dict:
+            n_clients: Optional[int] = None,
+            n_layers: Optional[int] = None) -> dict:
     """Dry-run one (arch x shape) on the host mesh and return its row
     (also written under ``out_dir`` unless it is empty).  ``multi_pod``
     None is the host mesh; False / True (the reference's (16, 16) and
@@ -88,7 +89,9 @@ def run_one(arch_name: str, shape_name: str,
     replaces ``steps.input_specs``; ``smoke`` takes :func:`smoke_case`;
     ``cut`` replaces fields of the input shape (``seq_len``,
     ``global_batch``) and is recorded in the row; ``n_clients`` is a
-    training round's C (recorded as ``n_clients``).  The per-device
+    training round's C (recorded as ``n_clients``); ``n_layers`` cuts the
+    config's depth, its width unchanged (recorded as ``n_layers``, None
+    for the config's own).  The per-device
     caches are made on meta before counting
     (``steps.warm_device_caches``), as a measurement on the card makes
     them before its baseline."""
@@ -101,6 +104,8 @@ def run_one(arch_name: str, shape_name: str,
         cfg, shape = smoke_case(cfg, shape)
     if cut:
         shape = dataclasses.replace(shape, **cut)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     setup_kwargs, fed_base = {}, None
     if variant:
         from repro_torch.launch.variants import get_variant
@@ -146,6 +151,7 @@ def run_one(arch_name: str, shape_name: str,
         "n_ops": counter.n_ops,
         "cut": cut or {},
         "n_clients": n_clients,
+        "n_layers": n_layers,
     })
     if verbose:
         print(f"[dryrun] {arch_name} x {shape_name} on {MESH_NAME}: "

@@ -70,8 +70,9 @@ def _esize(t) -> int:
 
 
 def _vec_bytes(z) -> int:
-    """z and phi_mean read, z' written."""
-    return 3 * z.numel() * _esize(z)
+    """z read and z' written in z's dtype, phi_mean read in f32 (the
+    kernels read it so whatever z's dtype)."""
+    return z.numel() * (2 * _esize(z) + 4)
 
 
 # ---------------------------------------------------------------- B1-B3

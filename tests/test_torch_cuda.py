@@ -189,6 +189,33 @@ def test_cuda_sign_agg_group_splits_past_max_leaves(C):
 
 
 @pytest.mark.cuda
+def test_cuda_consensus_takes_an_f32_phi_mean_beside_bf16_z():
+    """A bf16 model's round: bf16 z and W beside the f32 mean of the duals
+    (as the Pallas kernels read it), B1, B2 and B3 grouped, bit for bit
+    as the plain versions; a bf16 phi_mean gives what its f32 widening
+    gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    zs, Ws, phis = map(list, zip(*_group_leaves([128, 24, 4096], 4,
+                                                "bfloat16", 3)))
+    phi32 = [p.float() * (1 + 2 ** -12) for p in phis]   # between bf16s
+    sw = torch.tensor([1.0, 0.5, 0.25, 0.75], device="cuda")
+    qs = _payloads(zs, 4, 0)
+    for weights in (None, sw):
+        got = sign_agg.sign_agg_group(zs, Ws, phi32, weights, PSI, ALPHA)
+        want = ref.sign_agg_group_ref(zs, Ws, phi32, weights, PSI, ALPHA)
+        assert all(g.dtype == torch.bfloat16 and _bits_equal(g, w)
+                   for g, w in zip(got, want))
+        widened = sign_agg.sign_agg_group(zs, Ws, [p.float() for p in phis],
+                                          weights, PSI, ALPHA)
+        same = sign_agg.sign_agg_group(zs, Ws, phis, weights, PSI, ALPHA)
+        assert all(_bits_equal(a, b) for a, b in zip(widened, same))
+    got = sign_agg.sign_agg_int8_group(zs, qs, phi32, None, PSI, ALPHA)
+    want = ref.sign_agg_int8_group_ref(zs, qs, phi32, None, PSI, ALPHA)
+    assert all(_bits_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_cuda_sign_agg_group_raises_on_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -538,6 +565,42 @@ def test_cuda_flash_attention_backward_bf16_matches_plain_version(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", [
+    (1, 512, 512, 16, 16, 256, True, 0),                # Gemma-7B's heads
+    (1, 512, 512, 40, 10, 128, True, 0),                # Phi3-medium's
+    (2, 300, 300, 4, 2, 128, True, 64), (1, 200, 333, 6, 2, 256, False, 0),
+    (2, 333, 200, 4, 4, 128, False, 0), (1, 130, 130, 2, 1, 256, False, 40),
+    (1, 40, 40, 2, 1, 128, True, 0)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_attention_backward_at_head_dims_128_and_256(
+        B, Sq, Sk, H, Hkv, D, causal, window, dtype):
+    """The backward kernels at the head dims sliced into 64-wide blocks,
+    in both dtypes, against their plain version on the kernel's own
+    forward: within 1e-5 + 1e-4 |plain| (bf16: plus one bf16 ulp of the
+    plain value), three launches a call, bit for bit on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (_randn(s, dtype, i) for i, s in enumerate(
+        ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)), 1))
+    do = _randn((B, Sq, H, D), dtype, 9)
+    out, lse = fa_k.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+    fa_k.reset_launch_counts()
+    got = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    again = fa_k.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa_k.LAUNCHES["flash_attention_bwd"] == 2 * fa_k.BWD_LAUNCHES
+    for g, a, w in zip(got, again, want):
+        assert _bits_equal(g, a)
+        assert g.shape == w.shape and g.dtype == w.dtype
+        bound = BWD_ATOL + BWD_RTOL * w.float().abs()
+        if w.dtype == torch.bfloat16:
+            bound = bound + _bf16_ulp(w)
+        assert bool(((g.float() - w.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", [
     (1, 4096, 4096, 25, 5, 64, True, 0), (2, 300, 300, 4, 2, 128, True, 64),
     (1, 200, 333, 6, 2, 64, False, 0)])
 def test_cuda_flash_attention_bf16_lse_leaves_the_output_unchanged(
@@ -586,10 +649,13 @@ def test_cuda_autograd_through_b4_and_the_refusals():
     """Under autograd a CUDA f32 call of B4 is the Function: one forward
     launch, the backward's launches, gradients as autograd of the plain
     version.  So is a bf16 call (its gradients in bf16, the launches
-    counted alike), and B6 under autograd is ``SsmScanFn`` (one forward
-    and one backward launch, gradients as the plain backward's, bit for
-    bit).  B5 under autograd raises NotImplementedError (no backward)
-    and B4 at another head dim ValueError, rather than detach."""
+    counted alike), and so are calls at head dims 128 and 256 (f32
+    against autograd of the plain version, bf16 against the plain
+    backward on the kernel's own forward), and B6 under autograd is
+    ``SsmScanFn`` (one forward and one backward launch, gradients as the
+    plain backward's, bit for bit).  B5 under autograd raises
+    NotImplementedError (no backward) and B4 at a head dim the forward
+    refuses ValueError, rather than detach."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v = (_randn(s, "float32", i).requires_grad_(True) for i, s in
@@ -616,8 +682,36 @@ def test_cuda_autograd_through_b4_and_the_refusals():
         # bf16 inputs against the f32 gradient: the inputs' rounding
         torch.testing.assert_close(g.float(), w, rtol=5e-2,
                                    atol=5e-2 * float(w.abs().max()))
+    for D in (128, 256):
+        q2, k2, v2 = (_randn(s, "float32", i).requires_grad_(True)
+                      for i, s in enumerate(((1, 200, 4, D), (1, 200, 2, D),
+                                             (1, 200, 2, D)), 11))
+        do2 = _randn((1, 200, 4, D), "float32", 17)
+        fa_k.reset_launch_counts()
+        got = torch.autograd.grad(fa_k.flash_attention(q2, k2, v2),
+                                  (q2, k2, v2), do2)
+        assert fa_k.LAUNCHES == {"flash_attention": 1,
+                                 "flash_attention_bwd": fa_k.BWD_LAUNCHES}
+        want = torch.autograd.grad(ref.flash_attention_ref(q2, k2, v2),
+                                   (q2, k2, v2), do2)
+        for g, w in zip(got, want):
+            assert bool(((g - w).abs()
+                         <= BWD_ATOL + BWD_RTOL * w.abs()).all())
+        qb, kb, vb = (t.detach().bfloat16().requires_grad_(True)
+                      for t in (q2, k2, v2))
+        out = fa_k.flash_attention(qb, kb, vb)
+        got = torch.autograd.grad(out, (qb, kb, vb), do2.bfloat16())
+        o, lse = fa_k.flash_attention_fwd(*(t.detach() for t in (qb, kb, vb)))
+        assert _bits_equal(o, out.detach())
+        want = ref.flash_attention_bwd_ref(qb.detach(), kb.detach(),
+                                           vb.detach(), o, lse,
+                                           do2.bfloat16())
+        for g, w in zip(got, want):
+            bound = BWD_ATOL + BWD_RTOL * w.float().abs() + _bf16_ulp(w)
+            assert g.dtype == torch.bfloat16
+            assert bool(((g.float() - w.float()).abs() <= bound).all())
     with pytest.raises(ValueError, match="head dim"):
-        fa_k.flash_attention(*(_randn((1, 8, 2, 128), "float32", 1)
+        fa_k.flash_attention(*(_randn((1, 8, 2, 96), "float32", 1)
                                .requires_grad_(True) for _ in range(3)))
     length = torch.full((1,), 200, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="B5"):

@@ -22,6 +22,7 @@ from repro_torch.kernels import sign_agg as sa
 from repro_torch.kernels import ssm_scan as ssm_k
 from repro_torch.launch import dryrun, steps
 from repro_torch.models import layers
+from repro_torch.roofline import kernel_cost as kc
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -166,13 +167,44 @@ def test_the_sweep_lists_a_failing_row_and_exits_1(capsys, tmp_path):
 
 
 def test_the_card_refuses_what_the_dry_run_refuses():
-    """B4's backward takes head dim 64 only: a training row at another
-    head dim raises on meta as on the card."""
+    """B4's backward takes the forward's head dims (64, 128, 256): a
+    training row at another head dim raises on meta as on the card."""
     def setup(cfg, shape, mesh):
         cfg = dataclasses.replace(reduce_for_smoke(get_arch("gemma-7b")),
-                                  head_dim=128)
+                                  head_dim=96)
         return steps.input_specs(cfg, shape, mesh)
 
     with pytest.raises(ValueError, match="backward takes head dim"):
         dryrun.run_one("gemma-7b", "train_4k", out_dir="", verbose=False,
                        smoke=True, setup_override=setup)
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "olmoe-1b-7b"])
+def test_a_train_row_at_the_familys_head_dim_counts_b4s_backward(arch):
+    """``train_4k`` of the 2-layer smoke model with the family's own head
+    dim restored (Gemma-7B 256, OLMoE 128) on meta: B4's backward is
+    counted, once per attention layer and client, as
+    ``kernel_cost.flash_bwd_work`` of the call's shapes (BWD_LAUNCHES
+    launches each), and nothing launches."""
+    hd = get_arch(arch).resolved_head_dim
+
+    def setup(cfg, shape, mesh):
+        return steps.input_specs(dataclasses.replace(cfg, head_dim=hd),
+                                 shape, mesh)
+
+    before = _launches()
+    row = dryrun.run_one(arch, "train_4k", out_dir="", verbose=False,
+                         smoke=True, setup_override=setup)
+    assert _launches() == before
+    cfg, shape = dryrun.smoke_case(get_arch(arch), INPUT_SHAPES["train_4k"])
+    calls = cfg.n_layers          # one client, remat off in the smoke cut
+    q = torch.empty((shape.global_batch, shape.seq_len, cfg.n_heads, hd),
+                    device="meta")
+    k = torch.empty((shape.global_batch, shape.seq_len, cfg.n_kv_heads, hd),
+                    device="meta")
+    want = kc.flash_bwd_work(q, k, True, 0)
+    got = row["kernels"]["flash_attention_bwd"]
+    assert got["launches"] == calls * fa_k.BWD_LAUNCHES
+    assert got["flops"] == calls * want.flops
+    assert got["nbytes"] == calls * want.nbytes
+    assert row["kernels"]["flash_attention"]["launches"] == calls

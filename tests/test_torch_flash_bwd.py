@@ -56,7 +56,12 @@ CASES = {
     "no-mask-sq<sk": (1, 40, 72, 4, 4, 64, False, 0),
     "no-mask-sq>sk": (2, 72, 40, 4, 1, 64, False, 0),
     "causal-sq<sk": (1, 48, 80, 3, 1, 64, True, 0),
+    "causal-d128": (1, 96, 96, 4, 2, 128, True, 0),
     "window-d128": (1, 64, 64, 2, 1, 128, True, 16),
+    "causal-sq<sk-d128": (1, 40, 72, 4, 2, 128, True, 0),
+    "causal-d256": (1, 80, 80, 4, 2, 256, True, 0),
+    "window-d256": (1, 72, 72, 2, 1, 256, True, 24),
+    "no-mask-sq>sk-d256": (1, 56, 40, 2, 2, 256, False, 0),
 }
 
 
@@ -101,7 +106,7 @@ def test_plain_backward_matches_autograd_and_jax(case):
 U_BF16 = 2.0 ** -8          # one bf16 rounding, relative
 
 
-@pytest.mark.parametrize("case", sorted(c for c in CASES if "d128" not in c))
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_backward_on_bf16_within_one_rounding(case):
     """The plain backward on bf16 inputs (out rounded to bf16 by the plain
     forward, lse f32) against autograd of the plain forward in f32 on the
@@ -207,10 +212,10 @@ def test_function_on_the_cpu_runs_the_plain_versions_in_bf16():
 
 def test_backward_checks_raise():
     """What the backward kernel refuses, before any device check: a head
-    dim other than 64, a mis-shaped or non-f32 lse, an out or dout of
-    another dtype than q (bf16 inputs pass the dtype check, as f32 ones
-    do, and reach the device check); then that a CPU tensor is no CUDA
-    tensor."""
+    dim the forward refuses (96), a mis-shaped or non-f32 lse, an out or
+    dout of another dtype than q (bf16 inputs pass the dtype check, as f32
+    ones do, and reach the device check, and so does head dim 128); then
+    that a CPU tensor is no CUDA tensor."""
     q, k, v, do = map(torch.from_numpy, _inputs("causal"))
     out, lse = ref.flash_attention_ref(q, k, v, with_lse=True)
     with pytest.raises(ValueError, match="CUDA"):
@@ -224,13 +229,18 @@ def test_backward_checks_raise():
                             do, True, 0)
     q2, k2, v2, do2 = map(torch.from_numpy, _inputs("window-d128"))
     out2, lse2 = ref.flash_attention_ref(q2, k2, v2, with_lse=True)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="CUDA"):
         fa_k.check_bwd_args(q2, k2, v2, out2, lse2, do2, True, 16)
+    q3, k3, v3, o3, do3 = (t[..., :96].contiguous()
+                           for t in (q2, k2, v2, out2, do2))
+    with pytest.raises(ValueError, match="head dim"):
+        fa_k.check_bwd_args(q3, k3, v3, o3, lse2, do3, True, 16)
     with pytest.raises(ValueError, match="lse must be"):
         fa_k.check_bwd_args(q, k, v, out, lse[:, :1], do, True, 0)
     with pytest.raises(ValueError, match="CUDA"):
         fa_k.check_bwd_args(q, k, v, out, lse, do, True, 0)
-    assert fa_k.BWD_LAUNCHES == 3 and fa_k.BWD_HEAD_DIMS == (64,)
+    assert fa_k.BWD_LAUNCHES == 3
+    assert fa_k.BWD_HEAD_DIMS == fa_k.HEAD_DIMS == (64, 128, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +269,20 @@ def kernel_tiles():
     src = (CSRC / "flash_attention_bwd.cu").read_text()
     f32, bf16 = re.search(r"BS = kF32 \? (\d+) : (\d+);", src).groups()
     return {torch.float32: int(f32), torch.bfloat16: int(bf16)}
+
+
+def kernel_slice() -> int:
+    """The head-dim columns one block of the kernels computes (``kSlice``
+    in ``flash_attention_bwd.cu``); S and dP are summed over the head's
+    chunks of that width."""
+    src = (CSRC / "flash_attention_bwd.cu").read_text()
+    return int(re.search(r"constexpr int kSlice = (\d+);", src).group(1))
+
+
+def chunk_order(n_chunks: int, sl: int):
+    """The chunks of the head a block of slice ``sl`` sums S and dP over,
+    in order (``chunk_of`` in the .cu): ``sl + 1`` first, its own last."""
+    return [(sl + 1 + ci) % n_chunks for ci in range(n_chunks)]
 
 
 def _pad(x, dim, mult):
@@ -291,14 +315,15 @@ def bwd_kernel_recipe(q, k, v, out, lse, dout, causal: bool, window: int,
                       split: bool = True):
     """The backward kernels' arithmetic in PyTorch, on the inputs of
     ``ref.flash_attention_bwd_ref`` (f32 or bf16).  ``split=False``: P and
-    dS rounded once to bf16 (bf16), one TF32 product of each (f32).
-    Returns (dq, dk, dv) in q's dtype."""
+    dS rounded once to bf16 (bf16), one TF32 product of each (f32).  Each
+    slice of the head's columns (:func:`kernel_slice`) gets its own S and
+    dP, summed over the head's chunks in :func:`chunk_order`.  Returns
+    (dq, dk, dv) in q's dtype."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     f32 = q.dtype == torch.float32
-    bs = kernel_tiles()[q.dtype]
-    step = TF32.K_STEP if f32 else 16
+    bs, w = kernel_tiles()[q.dtype], kernel_slice()
     scale = ref.attention_scale(D)
     heads = lambda x, g: x.float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
     qh, oh, doh = (heads(x, 1) for x in (q, out, dout))       # (B, H, Sq, D)
@@ -315,40 +340,61 @@ def bwd_kernel_recipe(q, k, v, out, lse, dout, causal: bool, window: int,
     if f32:
         # the f32 kernels scale Q as it lands, then split it
         qh = qh * scale
-        zeros = torch.zeros((B, H, Sq, Sk))
-        s = TF32.mma_sum(zeros, "bhqd,bhkd->bhqk", qh, kh, 3, 3, split)
-        dp = TF32.mma_sum(zeros, "bhqd,bhkd->bhqk", doh, vh, 3, 3, split)
-        p = torch.where(ok, torch.exp(s - lse4), 0.0)
         prod = lambda a, b, eq, ad, bd: TF32.mma_sum(
             0.0, eq, a, b, ad, bd, split)
     else:
-        s = torch.einsum("bhqd,bhkd->bhqk", qh, kh)
-        dp = torch.einsum("bhqd,bhkd->bhqk", doh, vh)
-        sl = (torch.tensor(scale, dtype=torch.float32)
-              * torch.tensor(LOG2E, dtype=torch.float32))
-        p = torch.where(ok, torch.exp2(s * sl - lse4 * LOG2E), 0.0)
+        sl2 = (torch.tensor(scale, dtype=torch.float32)
+               * torch.tensor(LOG2E, dtype=torch.float32))
         prod = lambda a, b, eq, ad, bd: _bf16_sum(0.0, eq, a, b, ad, bd,
                                                  split)
-    ds = p * (dp - delta)
-    # dQ: each tile of bs keys summed on its own, then added in f32
-    ds_k, p_k = _pad(ds, 3, bs), _pad(p, 3, bs)
+
+    def contract(a, b, order):
+        """a b^T over the head, chunk by chunk in ``order``, as an mma
+        chain sums it (f32: 3xTF32 k-steps; bf16: exact products)."""
+        cols = torch.cat([torch.arange(c * w, (c + 1) * w) for c in order])
+        if f32:
+            return TF32.mma_sum(torch.zeros((B, H, a.shape[2], b.shape[2])),
+                                "bhqd,bhkd->bhqk", a[..., cols], b[..., cols],
+                                3, 3, split)
+        acc = torch.zeros((B, H, a.shape[2], b.shape[2]))
+        for c in order:
+            acc = acc + torch.einsum("bhqd,bhkd->bhqk", a[..., c * w:(c + 1) * w],
+                                     b[..., c * w:(c + 1) * w])
+        return acc
+
+    qp, dop = _pad(qh, 2, bs), _pad(doh, 2, bs)
     kp, vp = _pad(kh, 2, bs), _pad(vh, 2, bs)
     dq = torch.zeros((B, H, Sq, D))
-    for k0 in range(0, ds_k.shape[3], bs):
-        dq = dq + prod(ds_k[..., k0:k0 + bs], kp[:, :, k0:k0 + bs],
-                       "bhqk,bhkd->bhqd", 3, 2)
-    # dK, dV: each query head's sums over tiles of bs query rows, then the
-    # group's heads summed in order
-    ds_q, p_q = _pad(ds, 2, bs), _pad(p, 2, bs)
-    qp, dop = _pad(qh, 2, bs), _pad(doh, 2, bs)
     dk = torch.zeros((B, H, Sk, D))
     dv = torch.zeros((B, H, Sk, D))
-    for q0 in range(0, ds_q.shape[2], bs):
-        rows = slice(q0, q0 + bs)
-        dk = dk + prod(ds_q[:, :, rows], qp[:, :, rows], "bhqk,bhqd->bhkd",
-                       2, 2)
-        dv = dv + prod(p_q[:, :, rows], dop[:, :, rows], "bhqk,bhqd->bhkd",
-                       2, 2)
+    for sl in range(D // w):
+        order = chunk_order(D // w, sl)
+        cols = slice(sl * w, (sl + 1) * w)
+        s = contract(qh, kh, order)
+        dp = contract(doh, vh, order)
+        if f32:
+            p = torch.where(ok, torch.exp(s - lse4), 0.0)
+        else:
+            p = torch.where(ok, torch.exp2(s * sl2 - lse4 * LOG2E), 0.0)
+        ds = p * (dp - delta)
+        # dQ's slice: each tile of bs keys summed on its own, then added
+        ds_k = _pad(ds, 3, bs)
+        for k0 in range(0, ds_k.shape[3], bs):
+            dq[..., cols] = dq[..., cols] + prod(
+                ds_k[..., k0:k0 + bs], kp[:, :, k0:k0 + bs, cols],
+                "bhqk,bhkd->bhqd", 3, 2)
+        # dK's and dV's slice: each query head's sums over tiles of bs
+        # query rows
+        ds_q, p_q = _pad(ds, 2, bs), _pad(p, 2, bs)
+        for q0 in range(0, ds_q.shape[2], bs):
+            rows = slice(q0, q0 + bs)
+            dk[..., cols] = dk[..., cols] + prod(
+                ds_q[:, :, rows], qp[:, :, rows, cols], "bhqk,bhqd->bhkd",
+                2, 2)
+            dv[..., cols] = dv[..., cols] + prod(
+                p_q[:, :, rows], dop[:, :, rows, cols], "bhqk,bhqd->bhkd",
+                2, 2)
+    # the group's heads summed in order
     dk, dv = (x.reshape(B, Hkv, G, Sk, D) for x in (dk, dv))
     dk_sum, dv_sum = dk[:, :, 0], dv[:, :, 0]
     for g in range(1, G):
@@ -396,16 +442,21 @@ def _inputs_of(shape, seed):
 
 def test_kernel_tiles_read_from_the_source():
     """The recipe's tiles are the kernels': whole mma k-steps (8 in f32,
-    16 in bf16)."""
+    16 in bf16); the slice divides every head dim, and each slice's
+    chunk order ends at its own chunk."""
     tiles = kernel_tiles()
     assert tiles[torch.float32] % TF32.K_STEP == 0
     assert tiles[torch.bfloat16] % 16 == 0
+    w = kernel_slice()
+    assert w % 16 == 0 and all(d % w == 0 for d in fa_k.BWD_HEAD_DIMS)
+    for n in (d // w for d in fa_k.BWD_HEAD_DIMS):
+        assert all(sorted(chunk_order(n, sl)) == list(range(n))
+                   and chunk_order(n, sl)[-1] == sl for sl in range(n))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", sorted(c for c in CASES
-                                        if CASES[c][5] == 64))
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_bwd_kernel_recipe_holds_the_kernel_bound(case, dtype):
     got, want = run_recipe(case, dtype)
     for name, g, w in zip("qkv", got, want):
@@ -434,7 +485,7 @@ def test_one_tf32_product_does_not_hold_the_bound():
 
 
 if __name__ == "__main__":
-    for case in [c for c in sorted(CASES) if CASES[c][5] == 64] + [PROBE]:
+    for case in sorted(CASES) + [PROBE]:
         for dtype in (torch.float32, torch.bfloat16):
             for split in (True, False):
                 got, want = run_recipe(case, dtype, split)

@@ -80,8 +80,31 @@ def test_make_train_step_matches_reference(reference, jref, arch):
     ``test_torch_lm_train.test_make_train_step_matches_reference``), all
     clients active, client 1 sign-flipping, 3 steps; xLSTM under trap AF
     (module docstring)."""
-    r = reference
+    _train_step_parity(reference, jref, *_cfgs(jref, arch))
+
+
+# the families whose own head dim is not the smoke configs' 64
+WIDE_HEAD_FAMILIES = ["gemma-7b", "phi3-medium-14b", "olmoe-1b-7b"]
+
+
+@pytest.mark.parametrize("arch", WIDE_HEAD_FAMILIES)
+def test_make_train_step_matches_reference_at_the_familys_head_dim(
+        reference, jref, arch):
+    """The same at the family's own head dim (256 for Gemma-7B, 128 for
+    Phi3-medium and OLMoE), restored in both packages' smoke configs: B4
+    and its backward at those head dims under autograd (their plain
+    versions on the CPU) against the reference's XLA attention and
+    ``jax.grad``."""
     jcfg, cfg = _cfgs(jref, arch)
+    hd = get_arch(arch).resolved_head_dim
+    jcfg, cfg = (dataclasses.replace(c, head_dim=hd) for c in (jcfg, cfg))
+    assert cfg.resolved_head_dim == hd in (128, 256)
+    _train_step_parity(reference, jref, jcfg, cfg)
+
+
+def _train_step_parity(reference, jref, jcfg, cfg):
+    r = reference
+    arch = cfg.name.replace("-smoke", "")
     jsteps = importlib.import_module("repro.launch.steps")
     knobs = dict(FED_KNOBS, privacy_budget_a=1e18, active_frac=1.0)
     fed_j = dataclasses.replace(jsteps.fed_config_for(jcfg, C), **knobs)

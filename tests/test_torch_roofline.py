@@ -174,10 +174,14 @@ def test_meta_branches_count_work_and_launch_nothing():
 
 
 def test_meta_branches_apply_the_cards_checks():
+    # under autograd B4 takes the forward's head dims (128 here) and
+    # refuses the others before anything runs
     q = meta(1, 16, 2, 128, dtype=torch.float32).requires_grad_()
     k = meta(1, 16, 1, 128).requires_grad_()
+    assert fa_k.flash_attention(q, k, k).shape == q.shape
     with pytest.raises(ValueError, match="backward takes head dim"):
-        fa_k.flash_attention(q, k, k)
+        fa_k.flash_attention(meta(1, 16, 2, 96).requires_grad_(),
+                             meta(1, 16, 1, 96), meta(1, 16, 1, 96))
     with pytest.raises(ValueError, match="head dim 32 not supported"):
         fa_k.flash_attention(meta(1, 8, 2, 32), meta(1, 8, 1, 32),
                              meta(1, 8, 1, 32))
