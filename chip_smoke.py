@@ -70,7 +70,9 @@ Serving path (B4, B5): holds both attention kernels against their plain
 versions (the reference's TPU test grid in f32 and bf16, Sq < Sk, ragged
 lengths, the full-width SmolLM-360M shapes; abs/rel 3e-5 in f32, one
 bf16 rounding of the output in bf16: see ``attn_tol``), and B4 f32 over
-16,384-key rows within a stated max |err| (``LONG_ROW``); times them at
+16,384-key rows within a stated max |err| (``LONG_ROW``) and, within
+``attn_tol``, over prefill_32k's 32,768-key rows in f32 and in bf16 at
+Hymba-1.5B's heads (``LONG_ROWS``); times them at
 full width beside their bound, the plain version and PyTorch's
 ``scaled_dot_product_attention`` (B5 at B=8 x 4096 and at the serving
 lengths), and B4 f32 at head dims 128 and 256; runs a full-width
@@ -140,6 +142,25 @@ written slot asserted, B5 at (1, 8,192) held and timed, one B5 launch
 per layer a step, and the smoke model through a ring of 8 at the same
 steps on the CPU and on the card (``window_cpu_vs_cuda``).
 
+The reference's workload shapes that fit one card (B4, B5, B6), each
+run inside its family's serving phase while the full-width weights are
+loaded (``long_shapes``): ``long_500k``'s decode (``window_decode``)
+for SmolLM-360M, Hymba-1.5B (a ring of 2,048 slots, its Mamba state
+filled too), Granite-MoE, OLMoE, xLSTM-1.3B (no window: its recurrent
+state must move every step), SeamlessM4T-medium (the ring and
+cross-attention over 1,500 encoded frames) and LLaVA-NeXT-Mistral-7B,
+as for Gemma and Phi3 above, each then through its smoke model on the
+CPU and on the card; and ``prefill_32k`` uncut (B=32 x 32,768, through
+``make_prefill_step``: ``prefill_32k_run``) for SmolLM-360M (f32),
+Hymba-1.5B (bf16, 256 B6 chunks a Mamba layer) and SeamlessM4T-medium
+(f32), each with its launches, ms, tokens/s and peak, and the first
+and the last row's logits each held to a B=1 prefill of that row alone
+(f32 within 2e-3; bf16 by the bf16 policy's ratios against an f32
+row).  Then ``serve_lm_runs``:
+``python -m repro_torch.serve_lm`` (the port of
+``examples/serve_lm.py``) on the card and on the CPU at ``--window`` 0
+and 64, B5's launches counted, the greedy requests' tokens equal.
+
 LM training path (B1, B4 and B4's backward, ``lm_train``): holds B4's
 backward (``flash_attention_bwd.cu``: dQ with delta, each query head's dK
 and dV, their sum per KV head, three launches a call; on the tensor
@@ -208,8 +229,9 @@ Then checkpoints (``lm_resume``, B1 and B4 with its backward): the port
 of ``examples/federated_lm_training.py`` saves, restores (bit for bit on
 the card) and resumes at the smoke scale, its first resumed round held
 against the same round from the state in memory; runs at the 100m scale
-under both servers, printing the save and restore seconds and the
-archive's bytes; and ``launch.train --ckpt`` resumes at its label.
+under the quorum server and at the smoke scale under the fedbuff server,
+printing the save and restore seconds and the archive's bytes; and
+``launch.train --ckpt`` resumes at its label.
 
 Placement (B1, B4 and its backward, B5): the reference's sharding plan
 as DTensor placements on the host mesh (``launch.mesh.
@@ -256,9 +278,15 @@ models launch.  B4's and B5's ``moe`` lists give each at each MoE
 model's shape, bf16 (``kernel``: the instance, ms, bound, plain and
 SDPA ms), and their ``encdec`` and ``vlm`` lists the same at
 SeamlessM4T's and LLaVA's shapes, their ``dense`` lists at Gemma-7B's
-and Phi3-medium's (B5's also at the 8,192-slot ring); their launches
+and Phi3-medium's (B5's also at the 8,192-slot ring), B5's
+``long_500k`` list at the other families' long_500k shapes (the rings,
+SeamlessM4T's cross over 1,500 frames at B=1), B4's ``long_rows`` the
+long-row checks' times and ``prefill_32k`` each family's prefill_32k
+ms and launches, ``ssm_scan``'s ``prefill_32k_chunk`` B6 at prefill_32k's
+chunk (32, 128, 1600, 16); their launches
 include the MoE, SeamlessM4T, LLaVA, Gemma and Phi3 runs (B5's the
-window decodes, placed_serve's too), B4's also placed_serve's prefills
+window decodes, placed_serve's and serve_lm's too), B4's also
+placed_serve's and the prefill_32k prefills (B6's too)
 and the lm_train, placed_train, variant_train and lm_resume rounds.  Its
 ``flash_attention_bwd`` entry (no TPU counterpart) gives the f32 backward
 at SmolLM-360M's training shape, with ``simt_bound_ms``, each kernel's
@@ -284,12 +312,14 @@ Tooling, last: the ``kernels`` suite (``bench.kernel_bench`` at the
 reference's shapes: each kernel row must advance its kernel's launch
 counter and read at least 0.95 of its H100 bound, ``roofline.
 kernel_cost``, from which every bound of this script comes);
-``dryrun_vs_measured`` (SmolLM-360M's training round, prefill and decode
-step predicted on ``meta`` tensors by ``roofline.cost.CostCounter``,
+``dryrun_vs_measured`` (SmolLM-360M's training round, prefill step at
+4,096 and at prefill_32k uncut, and decode step predicted on ``meta``
+tensors by ``roofline.cost.CostCounter``,
 launching nothing, then run: the predicted peak within [0.8, 1] of
 ``max_memory_allocated``, the roofline step time at most the measured
 one, their ratio printed); ``dryrun_sweep`` (``launch.dryrun.run_one``
-over the configurations this script runs, at its shapes); and
+over the configurations this script runs, at its shapes, but those
+another phase predicts); and
 ``fedlint_cuda`` (fedlint's round entries on CUDA tensors, where host
 reads are real: every finding baselined).  None adds to the kernels
 line's launches.
@@ -382,7 +412,8 @@ VS_ROWS, VS_PROMPT, VS_STEPS = 2, 32, 8     # serve_cpu_vs_cuda
 # same prefill and generate traffic as SmolLM's.
 HYMBA = "hymba-1.5b"
 SCAN_CHUNK = 128                            # models/ssm.MAMBA_CHUNK
-SCAN_TIMED = [(PREFILL_B, SCAN_CHUNK, 1600, 16), (1, 4096, 1600, 16)]
+SCAN_TIMED = [(PREFILL_B, SCAN_CHUNK, 1600, 16), (1, 4096, 1600, 16),
+              (32, SCAN_CHUNK, 1600, 16)]    # prefill_32k's chunk, B=32
 
 # B4 f32 at the other head dims it takes, causal S=4096 (B, S, H, Hkv, D):
 # LLaVA-NeXT-Mistral-7B's heads and Gemma-7B's; no served model uses them.
@@ -391,9 +422,16 @@ FLASH_HEAD_DIMS = [(2, 4096, 32, 8, 128), (1, 4096, 16, 16, 256)]
 # tensor cores truncate their f32 sums, so one mma chain over a row grows
 # its error with the row; the f32 kernel sums each key tile's P V on its
 # own.  Max |err| on the H100: 1.8e-6 summed per tile, 8.5e-6 on one chain
-# (PERF.md §6); LONG_ROW_MAX_ERR lies between and fails the latter.
+# (PERF.md §6); LONG_ROW_MAX_ERR lies between and fails the latter.  The
+# same held within attn_tol at prefill_32k's length (LONG_ROWS: f32 at
+# one KV group of SmolLM's heads, bf16 at Hymba-1.5B's 25/5), its max
+# |err| printed beside the 16,384 row's; the plain version runs over
+# blocks of query rows there (LONG_ROW_BLOCK_BYTES of logits a block).
 LONG_ROW = (1, 16384, 16384, 3, 1, 64)
 LONG_ROW_MAX_ERR = 4e-6
+LONG_ROWS = [(LONG_ROW, "float32"), ((1, 32768, 32768, 3, 1, 64), "float32"),
+             ((1, 32768, 32768, 25, 5, 64), "bfloat16")]
+LONG_ROW_BLOCK_BYTES = 4 << 30
 HYMBA_VS_ROWS, HYMBA_VS_PROMPT = 2, 160     # crosses one chunk, padded
 HYMBA_VS_DECODE, HYMBA_VS_STEPS = 16, 8     # decode: prompt + greedy steps
 
@@ -422,6 +460,17 @@ MOE_FORMS_BS = (4, 1024)
 XLSTM, SEAMLESS, LLAVA = ("xlstm-1.3b", "seamless-m4t-medium",
                           "llava-next-mistral-7b")
 SMOKE_VS_ROWS, SMOKE_VS_S, SMOKE_VS_DECODE, SMOKE_VS_NEW = 2, 64, 24, 8
+# The reference's prefill_32k (B=32 x 32,768) uncut for the families whose
+# dry-run (launch.dryrun on meta) fits one card, run inside their serving
+# phases while their weights are loaded (prefill_32k_run).  The first and
+# the last row (a batch-stride or batch-offset fault leaves row 0 right)
+# each against its own B=1 prefill: f32 within PREFILL_32K_ROW_TOL
+# (serve_cpu_vs_cuda's bound), bf16 by tests/test_torch_bf16_policy.py's
+# ratios (RMS_RATIO, MAX_RATIO) of the two rows' errors against an f32
+# B=1 row.  Bounds set before the first chip run.
+PREFILL_32K_ARCHS = (ARCH, HYMBA, SEAMLESS)
+PREFILL_32K_ROW_TOL = 2e-3
+BF16_RMS_RATIO, BF16_MAX_RATIO = (0.5, 1.25), 1.5
 # The dense models with head dims and groups no other model has, at full
 # width (configs/gemma_7b.py: 28 layers, d 3,072, 16/16 x 256, GeGLU d_ff
 # 24,576, vocab 256,000; phi3_medium_14b.py: 40 layers, d 5,120, 40/10 x
@@ -445,12 +494,15 @@ ROPE_HEAD_DIMS, ROPE_THETAS = (64, 128, 256), (1e4, 5e5)
 # Checkpoints and resume (lm_resume): examples/federated_lm_training.py's
 # port at the smoke scale for RESUME_STEPS[0] rounds, then resumed to
 # RESUME_STEPS[1]; once at the 100m scale for RESUME_100M_STEPS rounds
-# per server with RESUME_100M_CLIENTS clients (a cut from the example's
-# 4: np.savez_compressed deflates ~20-25 MB/s on one core, and C=4's
-# 1.85 GB state would take ~80 s a save); launch.train --smoke --ckpt
-# for LAUNCH_STEPS[0], then resumed to LAUNCH_STEPS[1].
+# under the quorum server with RESUME_100M_CLIENTS clients (a cut from
+# the example's 4: np.savez_compressed deflates ~20-25 MB/s on one core,
+# and C=4's 1.85 GB state would take ~80 s a save); the fedbuff server
+# at the smoke scale for FEDBUFF_STEPS rounds (a cut from the 100m scale,
+# whose ~1 GB deflate took ~55 s, to keep the whole script inside its
+# time); launch.train --smoke --ckpt for LAUNCH_STEPS[0], then resumed
+# to LAUNCH_STEPS[1].
 RESUME_STEPS, RESUME_100M_STEPS, LAUNCH_STEPS = (6, 9), 4, (3, 5)
-RESUME_100M_CLIENTS = 2
+RESUME_100M_CLIENTS, FEDBUFF_STEPS = 2, 4
 
 # LM training (lm_train): SmolLM-360M at full width (32 layers, d 960,
 # 15/5 heads x 64, vocab 49,152, f32, remat) trains LM_TRAIN_ROUNDS BAFDP
@@ -2142,30 +2194,69 @@ def check_attention(report):
     return errs
 
 
-def check_long_row(report):
-    """B4 f32 over ``LONG_ROW`` (causal) against its plain version: within
-    ``attn_tol`` and, over the whole output, max |err| at most
-    ``LONG_ROW_MAX_ERR``.  Returns the max |err|."""
-    from repro_torch.kernels import flash_attention as fa_k
+def plain_causal_rows(q, k, v):
+    """``ref.flash_attention_ref`` of a causal self-attention call (Sq ==
+    Sk), computed over blocks of query rows with at most
+    LONG_ROW_BLOCK_BYTES of f32 logits each: rows a..b-1 are the plain
+    version of q[a:b] against keys 0..b-1 (queries end-aligned with the
+    keys), so every row sees the keys it would see in one call."""
     from repro_torch.kernels import ref
 
-    B, S, _, H, Hkv, D = LONG_ROW
-    q, k, v = _attn_inputs(*LONG_ROW, torch.float32, seed=300)
-    got = fa_k.flash_attention(q, k, v)
-    want = ref.flash_attention_ref(q, k, v)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    excess = float(((got - want).abs() - attn_tol(want)).max())
-    del q, k, v, want
-    tag = f"B={B} S={S} H={H}/{Hkv} D={D} causal f32"
-    report["long_row"] = dict(shape=tag, max_abs_err=err, worst_excess=excess)
-    log(f"long-row check {tag}: max |err| {err:.3e} (at most "
-        f"{LONG_ROW_MAX_ERR:.0e}), worst excess over attn_tol {excess:.3e}")
-    if not (bool(torch.isfinite(got).all()) and excess <= 0
-            and err <= LONG_ROW_MAX_ERR):
-        raise AssertionError(f"flash_attention {tag}: max |err| {err:.3e}, "
-                             f"worst excess over attn_tol {excess:.3e}")
-    return err
+    B, S, H, _ = q.shape
+    rows = max(1, LONG_ROW_BLOCK_BYTES // (4 * B * H * S))
+    out = torch.empty_like(q)
+    for a in range(0, S, rows):
+        b = min(S, a + rows)
+        out[:, a:b] = ref.flash_attention_ref(q[:, a:b], k[:, :b], v[:, :b])
+    return out
+
+
+def check_long_row(report):
+    """B4 over each of ``LONG_ROWS`` (causal) against its plain version
+    (:func:`plain_causal_rows`): within ``attn_tol`` and, for ``LONG_ROW``
+    (f32, S=16,384), max |err| at most ``LONG_ROW_MAX_ERR``; the other
+    rows' max |err| printed beside it.  Returns the largest max |err| of
+    the f32 rows and of the bf16 rows: {dtype name: err}."""
+    from repro_torch.kernels import flash_attention as fa_k
+
+    errs, out = {}, []
+    for shape, dtype in LONG_ROWS:
+        B, S, _, H, Hkv, D = shape
+        q, k, v = _attn_inputs(*shape, getattr(torch, dtype), seed=300)
+        got = fa_k.flash_attention(q, k, v)
+        want = plain_causal_rows(q, k, v)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        excess = float(((got.float() - want.float()).abs()
+                        - attn_tol(want)).max())
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+        ms = device_ms(lambda: fa_k.flash_attention(q, k, v),
+                       sleep_cycles_per_ms(), reps=5, inner=1)
+        bound, bound_by = kc.bound_ms(kc.flash_work(q, k, True, 0))
+        del q, k, v
+        torch.cuda.empty_cache()
+        tag = f"B={B} S={S} H={H}/{Hkv} D={D} causal {dtype}"
+        bounded = shape == LONG_ROW and dtype == "float32"
+        out.append(dict(shape=tag, max_abs_err=err, worst_excess=excess,
+                        max_err_bound=LONG_ROW_MAX_ERR if bounded else None,
+                        ms=ms, bound_ms=bound, bound_by=bound_by))
+        errs[dtype] = max(errs.get(dtype, 0.0), err)
+        beside = ("" if dtype != "float32" else
+                  f" (at most {LONG_ROW_MAX_ERR:.0e})" if bounded else
+                  f" (the 16,384 row's {LONG_ROW_MAX_ERR:.0e}, not held "
+                  f"here: " + ("within it)" if err <= LONG_ROW_MAX_ERR else
+                              "past it)"))
+        log(f"long-row check {tag}: max |err| {err:.3e}{beside}, worst "
+            f"excess over attn_tol {excess:.3e}; kernel_ms="
+            f"{ms:.6f} bound_ms={bound:.6f} ({bound_by})")
+        if not (finite and excess <= 0
+                and (not bounded or err <= LONG_ROW_MAX_ERR)):
+            raise AssertionError(f"flash_attention {tag}: max |err| "
+                                 f"{err:.3e}, worst excess over attn_tol "
+                                 f"{excess:.3e}")
+    report["long_row"] = out
+    return errs
 
 
 def time_head_dims(report):
@@ -2359,6 +2450,114 @@ def prefill_run(cfg, params, report):
     return counts
 
 
+def prefill_32k_run(cfg, params, report):
+    """The reference's ``prefill_32k`` shape uncut (``configs.INPUT_SHAPES``:
+    B=32 x 32,768 positions) through
+    ``launch.steps.make_prefill_step``: B4 once per attention call, B6
+    once per 128-token chunk of every Mamba layer (256 a layer), finite
+    logits (B, padded_vocab); ms, tokens/s and the peak recorded, the
+    peak also above what was allocated before the inputs, less the
+    parameters (``measure_step``'s measure, which ``dryrun_vs_measured``
+    holds SmolLM-360M's to; the per-device caches are made first).  Rows
+    0 and B-1, each alone (a B=1 prefill, run first), must give that
+    row's logits again, which no 4,096-token run checks at this batch
+    (row B-1 is the one a batch-stride or batch-offset fault moves): an
+    f32 model within serve_cpu_vs_cuda's 2e-3, a bf16 one under the bf16
+    policy's rule (trap H; tests/test_torch_bf16_policy.py) against an
+    f32 copy of the config's B=1 row on the same weights: the B=32 row's
+    error RMS within BF16_RMS_RATIO and its max within BF16_MAX_RATIO of
+    the B=1 row's.  The largest gaps are printed.  Returns the launch
+    counts."""
+    import gc
+
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch.steps import (make_prefill_step, prefill_inputs,
+                                          warm_device_caches)
+
+    shape = INPUT_SHAPES["prefill_32k"]
+    B, S = shape.global_batch, shape.seq_len
+    step = make_prefill_step(cfg)
+    warm_device_caches(cfg, "cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() - sum(
+        -(-t.untyped_storage().nbytes() // 512) * 512
+        for t in (*params.parameters(), *params.buffers()))
+    g = torch.Generator(device="cuda").manual_seed(32)
+    inputs = prefill_inputs(cfg, B, S, g)
+    rows = (0, B - 1)
+    f32_step = None if cfg.compute_dtype == "float32" else \
+        make_prefill_step(dataclasses.replace(cfg, compute_dtype="float32"))
+    one, f32_row = {}, {}
+    for r in rows:                                           # and warm-up
+        alone = {k: v[r:r + 1] for k, v in inputs.items()}
+        one[r] = step(params, alone)[0].float()
+        if f32_step is not None:
+            f32_row[r] = f32_step(params, {
+                k: v.float() if v.is_floating_point() else v
+                for k, v in alone.items()})[0]
+        del alone
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    logits = step(params, inputs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    peak_gb = peak / 1e9
+    n_attn, _, n_mamba = layer_counts(cfg)
+    check_path_counts(f"{cfg.name} prefill_32k", counts, {
+        "flash_attention": n_attn,
+        "ssm_scan": n_mamba * -(-S // SCAN_CHUNK)})
+    if logits.shape != (B, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} prefill_32k: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    out = dict(B=B, S=S, compute_dtype=cfg.compute_dtype, ms=ms,
+               tokens_per_s=B * S / ms * 1e3, launches=counts,
+               peak_gb=peak_gb, peak_above_base_bytes=peak - base,
+               rows=list(rows), row_max_gap={},
+               row_bound=PREFILL_32K_ROW_TOL if f32_step is None else None)
+    rms = lambda e: float(e.pow(2).mean().sqrt())
+    ok, rule = True, []
+    for r in rows:
+        got = logits[r].float()
+        gap = out["row_max_gap"][r] = float((got - one[r]).abs().max())
+        if f32_step is None:
+            ok &= gap <= PREFILL_32K_ROW_TOL
+            rule.append(f"row {r}: max |gap| {gap:.3e} (bound "
+                        f"{PREFILL_32K_ROW_TOL})")
+            continue
+        e_b, e_1 = got - f32_row[r], one[r] - f32_row[r]
+        ratios = out.setdefault("row_ratios", {})[r] = dict(
+            rms_ratio=rms(e_b) / rms(e_1),
+            max_ratio=float(e_b.abs().max() / e_1.abs().max()),
+            f32_max_gap=float(e_1.abs().max()))
+        ok &= (BF16_RMS_RATIO[0] <= ratios["rms_ratio"] <= BF16_RMS_RATIO[1]
+               and ratios["max_ratio"] <= BF16_MAX_RATIO)
+        rule.append(f"row {r}: max |gap| {gap:.3e}; error against the f32 "
+                    f"row: RMS ratio {ratios['rms_ratio']:.3f} (in "
+                    f"{BF16_RMS_RATIO}), max ratio {ratios['max_ratio']:.3f}"
+                    f" (at most {BF16_MAX_RATIO}); the B=1 row's max error "
+                    f"{ratios['f32_max_gap']:.3e}")
+    report.setdefault("prefill_32k", {})[cfg.name] = out
+    log(f"prefill_32k {cfg.name} B={B} S={S} ({cfg.compute_dtype}): "
+        f"{ms:.3f} ms, {out['tokens_per_s']:.1f} tokens/s, launches "
+        f"flash_attention={counts['flash_attention']} "
+        f"ssm_scan={counts['ssm_scan']}, peak {peak_gb:.2f} GB; rows vs "
+        f"their B=1 prefills: " + "; ".join(rule))
+    if not ok:
+        raise AssertionError(f"{cfg.name} prefill_32k: rows vs B=1: {out}")
+    del logits, inputs
+    torch.cuda.empty_cache()
+    return counts
+
+
 def generate_run(cfg, params, report, memory=None):
     """``ServeEngine.generate``: 8 requests, half greedy and half sampled,
     prompts of 16-256 tokens (prefilled token by token through the decode
@@ -2546,7 +2745,8 @@ def check_scan(report):
 
     shapes = [(2, S, D, N) for S, D, N in [(128, 64, 8), (256, 256, 16),
                                            (64, 128, 4)]]
-    shapes += [SCAN_TIMED[0], (3, 77, 100, 5), (5, 33, 7, 3), (1, 1, 1, 1)]
+    shapes += [SCAN_TIMED[0], SCAN_TIMED[2], (3, 77, 100, 5), (5, 33, 7, 3),
+               (1, 1, 1, 1)]
     n, err = 0, 0.0
     for i, shape in enumerate(shapes):
         for dt in (torch.float32, torch.bfloat16):
@@ -2951,13 +3151,15 @@ def moe_cpu_vs_cuda(report):
                           "(not held: a routing flip occurred)"))
 
 
-def moe_runs(report, launches):
+def moe_runs(report, launches, errs):
     """Each MoE model at full width on the card: a prefill step and a
-    generate (launches added to ``launches``), and for Granite the
+    generate (launches added to ``launches``), for Granite the
     scatter-vs-einsum check and :func:`placed_serve`'s einsum prefills
-    with and without ``moe_group_shard``; each model freed before the
-    next."""
-    for arch in MOE_ARCHS:
+    with and without ``moe_group_shard``, then long_500k's decode
+    (:func:`long_shapes`); each model freed before the next.  Returns
+    B5's rows at the long_500k shapes."""
+    rows = []
+    for i, arch in enumerate(MOE_ARCHS):
         cfg, params = serve_model(arch)
         for run in (moe_prefill_run, generate_run):
             for name, n in run(cfg, params, report).items():
@@ -2966,8 +3168,11 @@ def moe_runs(report, launches):
             moe_forms(cfg, params, report)
         if arch in PLACED_PAIRS:
             placed_serve(arch, cfg, params, report, launches)
+        rows += long_shapes(arch, 2300 + 100 * i, report, launches, errs)(
+            cfg, params)["long_500k"]
         del params
         torch.cuda.empty_cache()
+    return rows
 
 
 def hold_and_time_attention(model, flash, decode, dtype, seed, report,
@@ -3218,7 +3423,7 @@ def serve_phase(arch, report, launches, errs, seed, then=None):
         launches[name] += n
     if then is not None:
         for name, rs in then(cfg, params).items():
-            rows[name] += rs
+            rows.setdefault(name, []).extend(rs)
     del params, memory
     torch.cuda.empty_cache()
     smoke_cpu_vs_cuda(arch, report)
@@ -3246,76 +3451,115 @@ def rope_cpu_vs_cuda(report):
     report["rope_cpu_vs_cuda"] = rows
 
 
-def ring_state(cfg, state, seed):
-    """Fill a window decode state's K/V rings, layer by layer, with normal
-    values from ``seed`` in the cache dtype, then draw the first token
-    from the same generator: (the (K, V) pairs, the token (1, 1))."""
-    caches = [(layer["k"], layer["v"]) for layer in state["layers"]]
+def fill_state(layers, gen):
+    """Every leaf of every layer's decode state (``layers``: one list of
+    layer dicts per device, alike in shape) set to one draw of standard
+    normals from ``gen``, cast to the leaf's dtype, in ``tree_leaves``
+    order (layer by layer, sorted keys): the same values on every
+    device."""
+    from repro_torch.tree import tree_leaves
+
+    for leaves in zip(*map(tree_leaves, layers)):
+        fill = torch.randn(leaves[0].shape, generator=gen, device=gen.device)
+        for leaf in leaves:
+            leaf.copy_(fill)
+
+
+def seeded_decode_state(cfg, params, state, seed):
+    """A card decode ``state`` of ``cfg`` at B=1 filled from ``seed``: every
+    layer's leaves (:func:`fill_state`), then an encoder-decoder's memory
+    as ``encode`` of seeded frames; returns the first token (1, 1), drawn
+    from the same generator."""
+    from repro_torch.models import transformer as tr
+
     g = torch.Generator(device="cuda").manual_seed(seed)
-    for pair in caches:
-        for c in pair:
-            c.copy_(torch.randn(c.shape, generator=g, device="cuda",
-                                dtype=c.dtype))
-    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=g,
-                        device="cuda")
-    return caches, tok
+    fill_state([state["layers"]], g)
+    if cfg.n_enc_layers:
+        frames = torch.randn((1, cfg.frontend_tokens, cfg.d_model),
+                             generator=g, device="cuda")
+        state["memory"] = tr.encode(params, frames, cfg)
+    return torch.randint(0, cfg.vocab_size, (1, 1), generator=g,
+                         device="cuda")
 
 
 def window_decode(arch, cfg, params, report, launches, errs, seed,
                   keep=None):
     """The reference's ``long_500k`` decode of ``arch`` at full width
     (``launch.steps.decode_setup``): ``decode_window`` gives the ring of
-    ``cfg.sliding_window`` slots, ``init_decode_state`` at B=1 and
-    524,288 positions holds it, filled with seeded normal K/V in the
-    cache dtype; then ``make_decode_step(cfg, window)`` greedy at each of
-    WINDOW_STEPS, across the ring's wrap.  Each step writes slot ``step %
-    window`` of every layer's K and V and nothing else, and makes one B5
-    call per layer at ``length`` = window.  B5 held against its plain
-    version and timed at (1, window) before.  Each step's logits are
-    appended to ``keep`` when given.  Returns the kernel rows."""
+    ``cfg.sliding_window`` slots (8,192, Hymba's 2,048; xLSTM has no
+    window: 0, its state recurrent), ``init_decode_state`` at B=1 and
+    524,288 positions holds it, every leaf filled with seeded normals in
+    its dtype (:func:`fill_state`: K/V, Hymba's Mamba ``h``/``conv``,
+    xLSTM's mLSTM and sLSTM states); an encoder-decoder decodes against
+    ``encode`` of seeded frames, as its serve phase does.  Then
+    ``make_decode_step(cfg, window)`` greedy at each of WINDOW_STEPS,
+    across the ring's wrap.  Each step writes slot ``step % window`` of
+    every ring and nothing else, moves every recurrent state, gives
+    finite logits, and makes one B5 call per attention layer at
+    ``length`` = window and per cross-attention at ``length`` = the
+    frames.  B5 held against its plain version and timed at those shapes
+    before.  Each step's logits are appended to ``keep`` when given.
+    Returns the kernel rows."""
     from repro_torch.configs import INPUT_SHAPES
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.launch.steps import decode_window, make_decode_step
     from repro_torch.models import transformer as tr
     from repro_torch.models.layers import dtype_of
+    from repro_torch.tree import tree_leaves_with_path
 
     t_phase = time.perf_counter()
     shape = INPUT_SHAPES["long_500k"]
     W = decode_window(cfg, shape)
-    if not (W == cfg.sliding_window == 8192 and shape.global_batch == 1):
+    if not (W == cfg.sliding_window and W in (0, 2048, 8192)
+            and shape.global_batch == 1):
         raise AssertionError(f"{cfg.name} long_500k: window {W}, batch "
                              f"{shape.global_batch}")
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    F = cfg.frontend_tokens if cfg.n_enc_layers else 0
     cdt = dtype_of(cfg.compute_dtype)
-    rows = hold_and_time_attention(f"{cfg.name} ring", [],
-                                   [(1, W, H, Hkv, D, [W])], cdt, seed,
-                                   report, errs)
+    _, n_step, _ = layer_counts(cfg)
+    n_cross = cfg.n_layers if F else 0
+    decode = [(1, W, H, Hkv, D, [W])] if n_step else []
+    if F:
+        decode.append((1, F, H, Hkv, D, [F]))
+    rows = hold_and_time_attention(f"{cfg.name} long_500k", [], decode, cdt,
+                                   seed, report, errs)
     state = tr.init_decode_state(cfg, shape.global_batch, shape.seq_len, cdt,
                                  window=W, device="cuda")
-    caches, tok = ring_state(cfg, state, seed)
-    if caches[0][0].shape != (1, W, Hkv, D):
-        raise AssertionError(f"ring {tuple(caches[0][0].shape)}")
-    cache_gb = sum(c.numel() * c.element_size() for p in caches
-                   for c in p) / 1e9
+    tok = seeded_decode_state(cfg, params, state, seed)
+    rings = [layer for layer in state["layers"] if "k" in layer]
+    if bool(rings) != bool(W) or any(
+            r["k"].shape != (1, W, Hkv, D) for r in rings):
+        raise AssertionError(f"{cfg.name} rings "
+                             f"{[tuple(r['k'].shape) for r in rings]}")
+    state_gb = sum(t.numel() * t.element_size() for layer in state["layers"]
+                   for _, t in tree_leaves_with_path(layer)) / 1e9
     step = make_decode_step(cfg, W)
-    _, n_step, _ = layer_counts(cfg)
     torch.cuda.synchronize()
     reset_all_counts()
-    ms, tokens = [], []
+    ms, tokens, moved_paths = [], [], set()
     for t in WINDOW_STEPS:
-        before = [(k.clone(), v.clone()) for k, v in caches]
+        before = [{p: x.clone() for p, x in tree_leaves_with_path(layer)}
+                  for layer in state["layers"]]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, state = step(params, state, tok, t)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        for old, new in zip(before, caches):
-            for a, b in zip(old, new):
-                moved = torch.nonzero((a != b).flatten(2).any(-1).any(0))
-                if moved.flatten().tolist() != [t % W]:
-                    raise AssertionError(
-                        f"{cfg.name} window decode step {t}: slots "
-                        f"{moved.flatten().tolist()} written, not {t % W}")
+        for old, layer in zip(before, state["layers"]):
+            for path, new in tree_leaves_with_path(layer):
+                if path in (("k",), ("v",)):
+                    moved = torch.nonzero((old[path] != new).flatten(2)
+                                          .any(-1).any(0)).flatten()
+                    if moved.tolist() != [t % W]:
+                        raise AssertionError(
+                            f"{cfg.name} window decode step {t}: slots "
+                            f"{moved.tolist()} written, not {t % W}")
+                elif torch.equal(old[path], new):
+                    raise AssertionError(f"{cfg.name} decode step {t}: "
+                                         f"{'.'.join(path)} did not move")
+                else:
+                    moved_paths.add(".".join(path))
         del before
         if logits.shape != (1, 1, cfg.padded_vocab) or not bool(
                 torch.isfinite(logits).all()):
@@ -3326,26 +3570,33 @@ def window_decode(arch, cfg, params, report, launches, errs, seed,
         tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
         tokens.append(int(tok))
     counts = all_counts()
-    per_call = dec_k.launches_per_call(
-        1, Hkv, W, torch.cuda.get_device_properties(0).multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_step = (n_step - n_cross) * dec_k.launches_per_call(1, Hkv, W, sms)
+    if F:
+        per_step += n_cross * dec_k.launches_per_call(1, Hkv, F, sms)
     check_path_counts(f"{cfg.name} window decode", counts, {
-        "decode_attention": len(WINDOW_STEPS) * n_step * per_call})
+        "decode_attention": len(WINDOW_STEPS) * per_step})
     launches["decode_attention"] += counts["decode_attention"]
-    del state, caches
+    del state, rings
     torch.cuda.empty_cache()
     out = dict(window=W, batch=shape.global_batch, positions=shape.seq_len,
                steps=[WINDOW_STEPS[0], WINDOW_STEPS[-1]],
-               slots=[t % W for t in WINDOW_STEPS], cache_gb=cache_gb,
-               ms_per_step=ms, median_ms=statistics.median(ms),
+               slots=[t % W for t in WINDOW_STEPS] if W else [],
+               state_gb=state_gb, recurrent=sorted(moved_paths),
+               cross_frames=F, ms_per_step=ms, median_ms=statistics.median(ms),
                tokens=tokens, launches=counts)
     report.setdefault("window_decode", {})[cfg.name] = out
-    log(f"window decode {cfg.name} (long_500k: ring of {W} slots, "
-        f"{cache_gb:.2f} GB of K/V, steps {WINDOW_STEPS[0]}-"
-        f"{WINDOW_STEPS[-1]}, slots {out['slots'][0]}..{W - 1}, 0.."
-        f"{out['slots'][-1]}): each step wrote its slot and nothing else; "
-        f"ms per step {[round(x, 3) for x in ms]} (median "
-        f"{out['median_ms']:.3f}), launches decode_attention="
-        f"{counts['decode_attention']} ({n_step} per step)")
+    log(f"window decode {cfg.name} (long_500k: "
+        + (f"ring of {W} slots, slots {out['slots'][0]}..{W - 1}, 0.."
+           f"{out['slots'][-1]}, each written alone" if W else
+           "no window, the state recurrent")
+        + (f"; recurrent {out['recurrent']} moved each step"
+           if moved_paths else "")
+        + (f"; cross-attention over {F} encoded frames" if F else "")
+        + f"; {state_gb:.2f} GB of state, steps {WINDOW_STEPS[0]}-"
+        f"{WINDOW_STEPS[-1]}): ms per step {[round(x, 3) for x in ms]} "
+        f"(median {out['median_ms']:.3f}), launches decode_attention="
+        f"{counts['decode_attention']} ({per_step} per step)")
     window_cpu_vs_cuda(arch, report)
     report[f"window_decode_{cfg.name}_s"] = time.perf_counter() - t_phase
     log(f"phase: window_decode ({cfg.name}) "
@@ -3355,31 +3606,35 @@ def window_decode(arch, cfg, params, report, launches, errs, seed,
 
 def window_cpu_vs_cuda(arch, report):
     """The 2-layer f32 smoke model of ``arch`` with the same weights on the
-    CPU and on the card through a ring of WINDOW_SMOKE slots, filled with
-    the same seeded K/V, at WINDOW_STEPS (across the wrap: RoPE at
-    positions near 2^19), both fed the CPU's greedy tokens: logits within
+    CPU and on the card through a ring of WINDOW_SMOKE slots (no window
+    for a family without one: xLSTM), every state leaf filled with the
+    same seeded values (:func:`fill_state`; an encoder-decoder's memory
+    too), at WINDOW_STEPS (across the wrap: RoPE at positions near 2^19),
+    both fed the CPU's greedy tokens: logits within
     ``serve_cpu_vs_cuda``'s bound (2e-3), greedy tokens under
-    :func:`greedy_check`."""
-    from repro_torch.configs import get_arch, reduce_for_smoke
-    from repro_torch.launch.steps import make_decode_step
+    :func:`greedy_check`, one B5 launch per call of ``layer_counts`` a
+    step on the card."""
+    from repro_torch.configs import INPUT_SHAPES, get_arch, reduce_for_smoke
+    from repro_torch.launch.steps import decode_window, make_decode_step
     from repro_torch.models import transformer as tr
 
     bound = 2e-3
+    W = WINDOW_SMOKE if decode_window(get_arch(arch),
+                                      INPUT_SHAPES["long_500k"]) else 0
     cfg = reduce_for_smoke(get_arch(arch))
     cpu = tr.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
     params = {"cpu": cpu, "cuda": tr.lm_params_from_numpy(
         tr.lm_params_to_numpy(cpu, cfg), cfg, device="cuda")}
     states = {dev: tr.init_decode_state(cfg, SMOKE_VS_ROWS, 524_288,
-                                        torch.float32, window=WINDOW_SMOKE,
-                                        device=dev)
+                                        torch.float32, window=W, device=dev)
               for dev in ("cpu", "cuda")}
     g = torch.Generator().manual_seed(5)
-    for pair in zip(states["cpu"]["layers"], states["cuda"]["layers"]):
-        for name in ("k", "v"):
-            fill = torch.randn(pair[0][name].shape, generator=g)
-            for layer in pair:
-                layer[name].copy_(fill)
-    step = make_decode_step(cfg, WINDOW_SMOKE)
+    fill_state([states["cpu"]["layers"], states["cuda"]["layers"]], g)
+    if "memory" in states["cpu"]:
+        fill = torch.randn(states["cpu"]["memory"].shape, generator=g)
+        for st in states.values():
+            st["memory"].copy_(fill)
+    step = make_decode_step(cfg, W)
     tok = torch.from_numpy(np.random.RandomState(6).randint(
         0, cfg.vocab_size, (SMOKE_VS_ROWS, 1)))
     _, n_step, _ = layer_counts(cfg)
@@ -3403,12 +3658,86 @@ def window_cpu_vs_cuda(arch, report):
         raise AssertionError(f"{arch} window cpu vs cuda: max logit "
                              f"difference {diff:.3e} > {bound}")
     report.setdefault("window_cpu_vs_cuda", {})[arch] = dict(
-        max_logit_diff=diff, bound=bound, greedy_equal=equal,
+        window=W, max_logit_diff=diff, bound=bound, greedy_equal=equal,
         greedy_compared=equal + len(flips), flips=flips)
-    log(f"{arch} smoke window cpu vs cuda (ring of {WINDOW_SMOKE}, steps "
+    log(f"{arch} smoke window cpu vs cuda ("
+        + (f"ring of {W}" if W else "no window") + f", steps "
         f"{WINDOW_STEPS[0]}-{WINDOW_STEPS[-1]}, {SMOKE_VS_ROWS} rows): max "
         f"|logit diff| {diff:.3e} (bound {bound}); greedy tokens equal "
         f"{equal}/{equal + len(flips)}; flips inside the bound: {flips}")
+
+
+def long_shapes(arch, seed, report, launches, errs):
+    """``then`` of a serving phase (:func:`serve_phase`): the reference's
+    shapes that fit one card, run while ``arch``'s full-width weights are
+    loaded: long_500k's decode (:func:`window_decode`, every served
+    family) and, for PREFILL_32K_ARCHS, prefill_32k uncut
+    (:func:`prefill_32k_run`); launches added to ``launches``.  Returns
+    {"long_500k": B5's rows at the long_500k shapes}."""
+    def then(cfg, params):
+        rows = window_decode(arch, cfg, params, report, launches, errs, seed)
+        if arch in PREFILL_32K_ARCHS:
+            for name, n in prefill_32k_run(cfg, params, report).items():
+                launches[name] += n
+        return {"long_500k": rows["decode_attention"]}
+    return then
+
+
+SERVE_LM_LINE = re.compile(r"req (\d+) \(T=([0-9.]+)\): prompt (\d+) "
+                           r"tokens -> \[([0-9, ]*)\]")
+
+
+def serve_lm_runs(report, launches):
+    """``python -m repro_torch.serve_lm`` (the port of
+    ``examples/serve_lm.py``: OLMoE-1B-7B's smoke model, the example's
+    four requests, batch 4, cache 256) as a user runs it, on the card and
+    with ``--device cpu``, at ``--window`` 0 and 64 (a ring): on the card
+    one B5 launch per attention call a step (prompt included), no other
+    kernel; every request's tokens in range and of its length; the
+    greedy requests' (0 and 3) tokens on the card equal the CPU's (the
+    same weights: the example draws them on the CPU)."""
+    from repro_torch import serve_lm
+    from repro_torch.configs import get_arch, reduce_for_smoke
+
+    cfg = reduce_for_smoke(get_arch("olmoe-1b-7b"))
+    reqs = serve_lm.requests(cfg)
+    steps = max(len(r.prompt) for r in reqs) + max(r.max_new for r in reqs)
+    out = {}
+    for window in (0, 64):
+        printed = {}
+        for dev in ("cuda", "cpu"):
+            argv = ["--window", str(window)] + (
+                ["--device", "cpu"] if dev == "cpu" else [])
+            reset_all_counts()
+            rc, text = _quiet_run(serve_lm.main, argv)
+            counts = all_counts()
+            printed[dev] = {int(m[1]): [int(t) for t in m[4].split(",")]
+                            for m in SERVE_LM_LINE.finditer(text)}
+            if rc != 0 or sorted(printed[dev]) != [r.rid for r in reqs]:
+                raise AssertionError(f"serve_lm {argv}: rc {rc}, requests "
+                                     f"{sorted(printed[dev])}")
+            for r in reqs:
+                toks = printed[dev][r.rid]
+                if len(toks) != r.max_new or not all(
+                        0 <= x < cfg.vocab_size for x in toks):
+                    raise AssertionError(f"serve_lm {argv}: request "
+                                         f"{r.rid} gave {toks}")
+            if dev == "cuda":
+                check_path_counts(f"serve_lm {argv}", counts, {
+                    "decode_attention": layer_counts(cfg)[1] * steps})
+                launches["decode_attention"] += counts["decode_attention"]
+        greedy = [r.rid for r in reqs if r.temperature == 0.0]
+        equal = all(printed["cuda"][i] == printed["cpu"][i] for i in greedy)
+        out[window] = dict(tokens=printed, greedy=greedy,
+                           greedy_equal=equal)
+        log(f"serve_lm --window {window}: {len(reqs)} requests, {steps} "
+            f"steps, B5 {layer_counts(cfg)[1] * steps} launches on the card;"
+            f" greedy requests {greedy} equal on the card and the CPU: "
+            f"{equal}")
+        if not equal:
+            raise AssertionError(f"serve_lm --window {window}: greedy "
+                                 f"tokens differ: {printed}")
+    report["serve_lm"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -3516,7 +3845,7 @@ def placed_window_decode(cfg, params, mesh, want, seed):
     if [l.shape for l in tree_leaves(state)] != [
             l.shape for l in tree_leaves(s_sds)]:
         raise AssertionError(f"{cfg.name}: decode state != decode_setup's")
-    _, tok = ring_state(cfg, state, seed)
+    tok = seeded_decode_state(cfg, params, state, seed)
     lp = place_whole(tr.serving_tree(params), p_specs, mesh,
                      f"{cfg.name} params")
     state = place_whole(state, s_specs, mesh, f"{cfg.name} ring state")
@@ -4688,8 +5017,10 @@ def lm_resume(specs, report):
     round, from the restored state, equals the same round from the state
     in memory (bit for bit, else under ``drift_check`` with the count of
     unequal elements).  At the 100m scale RESUME_100M_STEPS rounds under
-    each server (quorum, fedbuff): the save and restore seconds and the
-    archive's bytes (RESUME_100M_CLIENTS clients).  ``launch.train
+    the quorum server: the save and restore seconds and the archive's
+    bytes (RESUME_100M_CLIENTS clients).  The fedbuff server at the smoke
+    scale for FEDBUFF_STEPS rounds, its archive restored bit for bit.
+    ``launch.train
     --smoke --ckpt`` for LAUNCH_STEPS[0] rounds, then resumed to
     LAUNCH_STEPS[1].  Every run's launches from its config.  The example
     runs as a user calls it; the phase times its ``Checkpointer`` and
@@ -4839,36 +5170,35 @@ def lm_resume(specs, report):
             + f"; launches {counts_a} + {counts_b}")
         del a, b, seen, r, mem
 
-        # the 100m scale under each server
-        cfg = scale_cfg(ARCH, "100m")
-        fed = example_fed(cfg, RESUME_100M_CLIENTS)
-        for server in ("quorum", "fedbuff"):
-            d = f"{root}/100m_{server}"
+        # the 100m scale under the quorum server; fedbuff at the smoke scale
+        for scale, server, rounds, clients in (
+                ("100m", "quorum", RESUME_100M_STEPS, RESUME_100M_CLIENTS),
+                ("smoke", "fedbuff", FEDBUFF_STEPS, 4)):
+            cfg = scale_cfg(ARCH, scale)
+            fed = example_fed(cfg, clients)
+            d = f"{root}/{scale}_{server}"
             info, ck, _, secs, counts = run(
-                f"example 100m {server}",
-                ["--scale", "100m", "--steps", str(RESUME_100M_STEPS),
-                 "--server", server, "--clients", str(RESUME_100M_CLIENTS),
-                 "--ckpt", d], cfg, fed, RESUME_100M_STEPS)
+                f"example {scale} {server}",
+                ["--scale", scale, "--steps", str(rounds), "--server",
+                 server, "--clients", str(clients), "--ckpt", d],
+                cfg, fed, rounds)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             restored, step = Checkpointer(d).restore_latest(info["state"])
             torch.cuda.synchronize()
             restore_s = time.perf_counter() - t0
-            if step != RESUME_100M_STEPS or _states_bitwise(restored,
-                                                           info["state"]):
-                raise AssertionError(f"example 100m {server}: restore")
+            if step != rounds or _states_bitwise(restored, info["state"]):
+                raise AssertionError(f"example {scale} {server}: restore")
             raw = state_bytes(info["state"])
-            out[f"100m_{server}"] = dict(
-                arch=cfg.name, clients=fed.n_clients,
-                rounds=RESUME_100M_STEPS, s=secs, save_s=ck.save_s,
-                restore_s=restore_s, ckpt_bytes=ck.bytes,
+            out[f"{scale}_{server}"] = dict(
+                arch=cfg.name, clients=fed.n_clients, rounds=rounds, s=secs,
+                save_s=ck.save_s, restore_s=restore_s, ckpt_bytes=ck.bytes,
                 state_bytes=raw, save_mb_per_s=raw / ck.save_s / 1e6,
                 restore_mb_per_s=raw / restore_s / 1e6, launches=counts)
-            log(f"lm_resume example 100m --server {server} ({cfg.name}, "
-                f"C={fed.n_clients}): {RESUME_100M_STEPS} rounds in "
-                f"{secs:.2f} s; archive {ck.bytes} bytes of "
-                f"{raw} (np.savez_compressed: saved in "
-                f"{ck.save_s:.3f} s = {raw / ck.save_s / 1e6:.1f}"
+            log(f"lm_resume example {scale} --server {server} ({cfg.name}, "
+                f"C={fed.n_clients}): {rounds} rounds in {secs:.2f} s; "
+                f"archive {ck.bytes} bytes of {raw} (np.savez_compressed: "
+                f"saved in {ck.save_s:.3f} s = {raw / ck.save_s / 1e6:.1f}"
                 f" MB/s, restored in {restore_s:.3f} s = "
                 f"{raw / restore_s / 1e6:.1f} MB/s, bit for bit); launches "
                 f"{counts}")
@@ -4991,10 +5321,13 @@ def measure_step(step, make_args, cfg):
 
 def dryrun_vs_measured(report):
     """SmolLM-360M at full width: lm_train's round (C=4, one 4,096-token
-    sequence each), a prefill step (PREFILL_B x PREFILL_S) and a decode
-    step (DECODE_B rows at the last position of a DECODE_L cache), each
+    sequence each), a prefill step (PREFILL_B x PREFILL_S), one at the
+    reference's prefill_32k uncut (B=32 x 32,768) and a decode step
+    (DECODE_B rows at the last position of a DECODE_L cache), each
     predicted on meta (``launch.steps``' structs under
-    ``roofline.cost.CostCounter``, no launch) and then run on the card.
+    ``roofline.cost.CostCounter``, no launch) and then run on the card
+    (the prefill_32k step's run is ``prefill_32k_run``'s, in the serving
+    phase: its ms and its peak above the same baseline).
     The predicted peak (arguments + outputs + temporaries) lies within
     [DRYRUN_PEAK_SHARE, 1] of ``max_memory_allocated`` above what was
     allocated before the arguments, and the roofline's step time is at
@@ -5014,6 +5347,7 @@ def dryrun_vs_measured(report):
     prefill_shape = dataclasses.replace(INPUT_SHAPES["prefill_32k"],
                                         seq_len=PREFILL_S,
                                         global_batch=PREFILL_B)
+    prefill_32k = INPUT_SHAPES["prefill_32k"]
     decode_shape = dataclasses.replace(INPUT_SHAPES["decode_32k"],
                                        seq_len=DECODE_L,
                                        global_batch=DECODE_B)
@@ -5052,6 +5386,8 @@ def dryrun_vs_measured(report):
         ("prefill", prefill_shape, steps.make_prefill_step(cfg),
          (p_sds, steps.prefill_inputs_struct(cfg, prefill_shape)),
          prefill_args),
+        ("prefill_32k", prefill_32k, steps.make_prefill_step(cfg),
+         (p_sds, steps.prefill_inputs_struct(cfg, prefill_32k)), None),
         ("decode", decode_shape, steps.make_decode_step(cfg),
          (p_sds, tr.init_decode_state(cfg, DECODE_B, DECODE_L, dt,
                                       device="meta"),
@@ -5061,10 +5397,15 @@ def dryrun_vs_measured(report):
     for label, shape, step, meta_args, make_args in cases:
         pred, meta_s = predict_step(label, step, meta_args, cfg, shape)
         del meta_args
-        reset_all_counts()
-        ms, peak = measure_step(step, make_args, cfg)
-        counts = all_counts()
-        reset_all_counts()
+        if make_args is None:
+            run = report["prefill_32k"][cfg.name]
+            ms, peak = run["ms"], run["peak_above_base_bytes"]
+            counts = run["launches"]
+        else:
+            reset_all_counts()
+            ms, peak = measure_step(step, make_args, cfg)
+            counts = all_counts()
+            reset_all_counts()
         row = dict(case=label, shape=[shape.global_batch, shape.seq_len],
                    meta_s=meta_s, predicted_peak_bytes=pred.bytes_per_device,
                    argument_bytes=pred.argument_bytes,
@@ -5103,46 +5444,37 @@ def dryrun_vs_measured(report):
 # dryrun_sweep: the configurations this script runs, at its shapes (the
 # shape's (seq_len, global_batch) cut): every served model's prefill
 # (PREFILL_B x PREFILL_S) and decode step (the generate's 8 rows, cache
-# SERVE_CACHE), Gemma-7B's and Phi3's long_500k window step (B=1), the
-# three trained at full width and depth, and Gemma-7B and Phi3-medium
-# trained at full width at lm_train_wide's depth (WIDE_TRAIN), each as its
-# phase runs its round: C clients of one sequence each (sweep_clients),
-# not the host plan's C=1.  Not ``python -m repro_torch.launch.dryrun
+# SERVE_CACHE), every served model's long_500k decode step (B=1), and
+# Hymba-1.5B and SeamlessM4T-medium trained at full width and depth, each
+# as its phase runs its round: C clients of one sequence each
+# (sweep_clients), not the host plan's C=1.  Not ``python -m repro_torch.launch.dryrun
 # --all``: at full size it did not finish in 700 s on the card's host (its
 # xLSTM rows alone run the sLSTM's step loop at 32,768 positions).  Cut:
 # xLSTM's prefill to SWEEP_XLSTM_S positions (its step loop made 720,579
-# ops at 4,096 positions, 150.8 s on meta)
+# ops at 4,096 positions, 150.8 s on meta); and the rows that another
+# phase already predicts on meta at the same shape, to keep the whole
+# script inside its time: SmolLM-360M's prefill and round
+# (dryrun_vs_measured), Gemma-7B's and Phi3-medium's rounds
+# (lm_train_wide's predict_step)
 SWEEP_XLSTM_S = 512
 SWEEP_SERVED = (ARCH, HYMBA, *MOE_ARCHS, XLSTM, SEAMLESS, LLAVA, GEMMA, PHI3)
 SWEEP_CASES = (
     [(a, "prefill_32k", dict(seq_len=PREFILL_S if a != XLSTM else
                              SWEEP_XLSTM_S, global_batch=PREFILL_B))
-     for a in SWEEP_SERVED]
+     for a in SWEEP_SERVED if a != ARCH]
     + [(a, "decode_32k", dict(seq_len=SERVE_CACHE,
                               global_batch=SERVE_REQUESTS))
        for a in SWEEP_SERVED]
-    + [(a, "long_500k", dict(global_batch=1)) for a in (GEMMA, PHI3)]
-    + [(ARCH, "train_4k", dict(seq_len=LM_TRAIN_S,
-                               global_batch=LM_TRAIN_CLIENTS)),
-       (HYMBA, "train_4k", dict(seq_len=LM_TRAIN_S,
-                                global_batch=LM_FULL_CLIENTS)),
-       (SEAMLESS, "train_4k", dict(seq_len=LM_TRAIN_S,
-                                   global_batch=LM_FULL_CLIENTS))]
+    + [(a, "long_500k", dict(global_batch=1)) for a in SWEEP_SERVED]
     + [(a, "train_4k", dict(seq_len=LM_TRAIN_S,
                             global_batch=LM_FULL_CLIENTS))
-       for a in (GEMMA, PHI3)])
+       for a in (HYMBA, SEAMLESS)])
 
 
 def sweep_clients(shape, cut):
     """A training row's C: the round lm_train runs, C clients of one
     sequence each (the global batch); None for a served row."""
     return cut["global_batch"] if shape == "train_4k" else None
-
-
-def sweep_layers(arch, shape):
-    """A training row's depth: lm_train_wide's cut for its families, None
-    (the config's own) otherwise."""
-    return dict(WIDE_TRAIN).get(arch) if shape == "train_4k" else None
 
 
 def dryrun_sweep(report):
@@ -5158,8 +5490,7 @@ def dryrun_sweep(report):
     for arch, shape, cut in SWEEP_CASES:
         rows.append(dryrun.run_one(
             arch, shape, out_dir=str(ROOT / "build" / "dryrun"),
-            verbose=False, cut=cut, n_clients=sweep_clients(shape, cut),
-            n_layers=sweep_layers(arch, shape)))
+            verbose=False, cut=cut, n_clients=sweep_clients(shape, cut)))
     secs = time.perf_counter() - t0
     log(f"dryrun_sweep: {len(rows)} rows in {secs:.1f} s")
     for r in rows:
@@ -5273,13 +5604,17 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = check_attention(report)
     errs["flash_attention"] = max(errs["flash_attention"],
-                                  check_long_row(report))
+                                  *check_long_row(report).values())
     times = time_attention(report)
     time_head_dims(report)
     cfg, params = serve_model(ARCH)
     launches = dict(prefill_run(cfg, params, report))
     for name, n in generate_run(cfg, params, report).items():
         launches[name] += n
+    # the reference's shapes while the weights are loaded: long_500k's
+    # decode and prefill_32k (B=32 x 32,768) uncut
+    long_rows = long_shapes(ARCH, 2100, report, launches, errs)(
+        cfg, params)["long_500k"]
     del params
     serve_cpu_vs_cuda(cfg, report)
     report["serve_phase_s"] = time.perf_counter() - t0
@@ -5294,27 +5629,40 @@ def main() -> int:
         for name, n in run(cfg, params, report).items():
             launches[name] += n
     hymba_cpu_vs_cuda(cfg, params, report)
+    long_rows += long_shapes(HYMBA, 2200, report, launches, errs)(
+        cfg, params)["long_500k"]
     del params
     report["hymba_phase_s"] = time.perf_counter() - t0
     log(f"phase: serving Hymba-1.5B {report['hymba_phase_s']:.1f} s")
 
     t0 = time.perf_counter()
     moe_rows = moe_attention(report, errs)
-    moe_runs(report, launches)
+    long_rows += moe_runs(report, launches, errs)
     moe_cpu_vs_cuda(report)
     report["moe_phase_s"] = time.perf_counter() - t0
     log(f"phase: serving MoE {report['moe_phase_s']:.1f} s")
 
     # the rest of LM serving: xLSTM (no kernel), the encoder-decoder (B4
     # without the mask, B5 over the memory), the VLM (B4/B5 at 32/8 x 128)
+    # (each then through long_500k's decode, SeamlessM4T also through
+    # prefill_32k, while its weights are loaded)
     new_rows = {}
     for arch, phase, seed in ((XLSTM, "xlstm_serve", 600),
                               (SEAMLESS, "encdec_serve", 700),
                               (LLAVA, "vlm_serve", 800)):
         t0 = time.perf_counter()
-        new_rows[phase] = serve_phase(arch, report, launches, errs, seed)
+        new_rows[phase] = serve_phase(
+            arch, report, launches, errs, seed,
+            then=long_shapes(arch, seed + 1900, report, launches, errs))
+        long_rows += new_rows[phase].pop("long_500k")
         report[f"{phase}_phase_s"] = time.perf_counter() - t0
         log(f"phase: {phase} ({arch}) {report[f'{phase}_phase_s']:.1f} s")
+
+    # the port of examples/serve_lm.py on the card and on the CPU
+    t0 = time.perf_counter()
+    serve_lm_runs(report, launches)
+    report["serve_lm_phase_s"] = time.perf_counter() - t0
+    log(f"phase: serve_lm {report['serve_lm_phase_s']:.1f} s")
 
     # Gemma-7B (B4/B5 bf16 at head dim 256) and Phi3-medium-14B (at 40/10
     # x 128) at full width, each then through long_500k's windowed decode
@@ -5456,7 +5804,8 @@ def main() -> int:
     # serving rows of SmolLM-360M (f32) and Hymba-1.5B (bf16), and ptxas's
     # registers and spills of the instances they launch
     sv, hd = times["decode_attention_serving"], times_hymba["decode_attention"]
-    for rows in (moe_rows, *new_rows.values()):
+    for rows in (moe_rows, *new_rows.values(),
+                 {"decode_attention": long_rows}):
         for r in rows["decode_attention"]:
             b5[r["kernel"]] = r["ptxas"]
     next(k for k in kernels if k["name"] == "decode_attention").update(
@@ -5469,7 +5818,8 @@ def main() -> int:
         encdec=new_rows["encdec_serve"]["decode_attention"],
         vlm=new_rows["vlm_serve"]["decode_attention"],
         dense=new_rows["dense_serve_gemma"]["decode_attention"]
-        + new_rows["dense_serve_phi3"]["decode_attention"])
+        + new_rows["dense_serve_phi3"]["decode_attention"],
+        long_500k=long_rows)
     # B4's two kernels: the fields above are the f32 one's (SmolLM-360M's
     # prefill); the bf16 one's at Hymba-1.5B's prefill shape
     hb = times_hymba["flash_attention"]
@@ -5483,7 +5833,10 @@ def main() -> int:
         encdec=new_rows["encdec_serve"]["flash_attention"],
         vlm=new_rows["vlm_serve"]["flash_attention"],
         dense=new_rows["dense_serve_gemma"]["flash_attention"]
-        + new_rows["dense_serve_phi3"]["flash_attention"])
+        + new_rows["dense_serve_phi3"]["flash_attention"],
+        long_rows=report["long_row"],
+        prefill_32k={name: {k: r[k] for k in ("B", "S", "ms", "launches")}
+                     for name, r in report["prefill_32k"].items()})
     # B4's backward: its kernels (dq, the per-head dK/dV, their sum) with
     # registers and spills, at head dim 64 the call's ms and each kernel's
     # at the training shape, and for f32 at SeamlessM4T's decoder and cross
@@ -5535,7 +5888,8 @@ def main() -> int:
         replaces="src/repro/kernels/ssm_scan.py:44",
         launches=launches["ssm_scan"], max_abs_err=errs["ssm_scan"],
         ms=scan["ms"], plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
-        bound_by=scan["bound_by"], library_ms=None))
+        bound_by=scan["bound_by"], library_ms=None,
+        prefill_32k_chunk=report["scan_timings"][-1]))
     labels = [label for label in report["ptxas"]
               if label.startswith("ssm_scan_bwd_kernel")]
     kernels.append(dict(

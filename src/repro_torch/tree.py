@@ -55,6 +55,20 @@ def tree_map_with_path(f: Callable[..., Any], tree: Any,
     return f(path, tree)
 
 
+def tree_leaves_with_path(tree: Any, path: tuple = ()) -> List[tuple]:
+    """``(path, leaf)`` of every leaf in :func:`tree_leaves` order,
+    ``path`` as :func:`tree_map_with_path` gives it."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [pl for i, t in enumerate(tree)
+                for pl in tree_leaves_with_path(t, path + (i,))]
+    return [(path, tree)]
+
+
 def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
     """A tree of ``like``'s structure holding ``leaves`` in
     :func:`tree_leaves` order."""

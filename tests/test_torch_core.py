@@ -21,7 +21,7 @@ from repro_torch.core.schedule import (FederatedRun, SyncTrigger,
 from repro_torch.models.forecasting import (Forecaster, apply_forecaster,
                                             init_forecaster, mse_loss)
 from repro_torch.models.layers import dense_init
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 CFG = ForecastConfig(hidden=(16, 8), horizon=3)
 C = 4
@@ -226,6 +226,19 @@ def test_compensate_stale_matches_reference(reference, mode):
     for g, w in zip(tree_leaves(got), jax.tree.leaves(want)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
                                    atol=1e-7)
+
+
+def test_tree_leaves_with_path_follows_jax_key_paths():
+    tree = {"w": (np.ones(2), [np.zeros(1), None]), "b": {"z": np.ones(3),
+                                                          "a": np.ones(4)}}
+    got = tree_leaves_with_path(tree)
+    want = jax.tree_util.tree_leaves_with_path(tree)
+    assert [p for p, _ in got] == [
+        tuple(getattr(k, "key", getattr(k, "idx", None)) for k in p)
+        for p, _ in want]
+    leaves = tree_leaves(tree)
+    assert len(got) == len(leaves) == 4
+    assert all(l is want_l for (_, l), want_l in zip(got, leaves))
 
 
 def test_internal_samplers():

@@ -482,6 +482,26 @@ def test_cuda_flash_attention_matches_plain_version(B, Sq, Sk, H, Hkv, D,
     _assert_close(got, want, dtype)
 
 
+@pytest.mark.cuda
+def test_cuda_flash_attention_holds_prefill_32k_rows():
+    """B4 causal over whole rows of prefill_32k's 32,768 keys against its
+    plain version (computed over blocks of query rows), as
+    ``chip_smoke.check_long_row`` holds it: f32 over one KV group of
+    SmolLM-360M's heads within abs/rel 3e-5, bf16 at Hymba-1.5B's 25/5
+    heads within one rounding of the output, and the 16,384-key f32 row
+    also within max |err| 4e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _load_chip_smoke()
+    report = {}
+    errs = smoke.check_long_row(report)
+    assert [r["shape"].split(" causal")[0] for r in report["long_row"]] == [
+        "B=1 S=16384 H=3/1 D=64", "B=1 S=32768 H=3/1 D=64",
+        "B=1 S=32768 H=25/5 D=64"]
+    assert set(errs) == {"float32", "bfloat16"}
+    assert all(r["worst_excess"] <= 0 for r in report["long_row"])
+
+
 # B4's backward: the bound chip_smoke.py holds it to, elementwise
 BWD_ATOL, BWD_RTOL = 1e-5, 1e-4
 # (B, Sq, Sk, H, Hkv, causal, window) that the backward's tiles make

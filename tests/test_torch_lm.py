@@ -339,20 +339,27 @@ def test_decode_attention_cache_slots():
 
 # ---------------------------------------------------------------------------
 # serving
-def test_serve_engine_greedy_tokens_equal_reference(jref):
+@pytest.mark.parametrize("arch,window,new", [
+    ("smollm-360m", 0, (6, 10)),
+    ("smollm-360m", 8, (9, 10)),
+    ("gemma-7b", 8, (9, 10)),
+    ("hymba-1.5b", 8, (9, 10))])
+def test_serve_engine_greedy_tokens_equal_reference(jref, arch, window, new):
     """Two greedy requests; the second's prompt + max_new (12 + 10) runs
-    past cache_len = 16."""
-    jparams, params, jcfg, cfg = _both(jref, "smollm-360m")
+    past cache_len = 16.  With ``window`` 8 both engines decode through
+    a ring of 8 slots, which every request's run wraps."""
+    jparams, params, jcfg, cfg = _both(jref, arch)
     rng = np.random.RandomState(5)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 12)]
-    new = (6, 10)
-    jeng = jref.serving.ServeEngine(jparams, jcfg, batch=2, cache_len=16)
+    jeng = jref.serving.ServeEngine(jparams, jcfg, batch=2, cache_len=16,
+                                    window=window)
     want = jeng.generate([jref.serving.ServeRequest(prompt=p, max_new=m)
                           for p, m in zip(prompts, new)])
     fa_k.reset_launch_counts()
     dec_k.reset_launch_counts()
-    eng = ServeEngine(params, cfg, batch=2, cache_len=16, device="cpu")
+    eng = ServeEngine(params, cfg, batch=2, cache_len=16, window=window,
+                      device="cpu")
     got = eng.generate([ServeRequest(prompt=p, max_new=m)
                         for p, m in zip(prompts, new)])
     assert [g.tolist() for g in got] == [w.tolist() for w in want]
