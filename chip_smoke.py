@@ -225,13 +225,30 @@ dtype (twice for the bf16 trees, whose norm scales stay f32), the
 round's peak predicted on meta beside the measured one
 (``lm_train_wide``).  The LM training phases run under the training entry
 point's allocator policy (``launch.train.use_expandable_segments``).
-Then checkpoints (``lm_resume``, B1 and B4 with its backward): the port
-of ``examples/federated_lm_training.py`` saves, restores (bit for bit on
+Then data parallelism (``data_parallel``: B1-B3 split into the partial
+``sign_sum`` and the ``sign_finish``, B4 and its backward): the partial
+and the finish held to their plain versions bit for bit (f32 and bf16 z
+with an f32 phi_mean, the int8 wire's int32 sums and its weighted fold),
+finish(sum of the partials of 2 and 4 row blocks) equal to the fused
+kernel bit for bit unweighted and within ``ref.weighted_split_bound``
+weighted, both timed at C=64, D=4,194,304 beside their bound and the
+fused kernel; the forecaster at world 1 over NCCL (the 1 x 1 host mesh's
+rank block) equal bit for bit to the run without one, one fused launch a
+round; the forecaster's dense (B1), sparse quorum with hinge decay (B2)
+and int8 (B3) runs, 20 rounds each, over 2 and 4 gloo ranks on the one
+card (one process a rank, ``--dp-rank``), each held to world 1 by
+``drift_check``, each rank launching one partial and one finish a round;
+``inner_dp``, one client's batch over 2 ``"model"`` ranks; and
+SmolLM-360M at full width, C=4 over 2 ranks, lm_train's settings, a
+sample of every leaf held to world 1, each rank's peak printed beside the
+meta prediction of its step on a 2 x 1 fake mesh.  Then checkpoints
+(``lm_resume``, B1 and B4 with its backward): the port of
+``examples/federated_lm_training.py`` saves, restores (bit for bit on
 the card) and resumes at the smoke scale, its first resumed round held
-against the same round from the state in memory; runs at the 100m scale
-under the quorum server and at the smoke scale under the fedbuff server,
-printing the save and restore seconds and the archive's bytes; and
-``launch.train --ckpt`` resumes at its label.
+against the same round from the state in memory; runs at the smoke scale
+under the quorum and the fedbuff servers, printing the save and restore
+seconds and the archive's bytes; and ``launch.train --ckpt`` resumes at
+its label.
 
 Placement (B1, B4 and its backward, B5): the reference's sharding plan
 as DTensor placements on the host mesh (``launch.mesh.
@@ -264,7 +281,11 @@ and the bf16 instance's registers and spills), the time per round of the
 calls, and, as ``bandwidth_ms``/``bandwidth_bound_ms``, the bandwidth
 shape, and (B2, B3 weighted) as ``sparse_block_ms``/
 ``sparse_block_bound_ms`` the grouped call over a gathered (64, D_l)
-block of the 8 leaves with ``n_total`` = 65,536 (``scale_round``'s).  Its
+block of the 8 leaves with ``n_total`` = 65,536 (``scale_round``'s).
+Its ``sign_sum`` and ``sign_finish`` entries give the split's two
+kernels at the bandwidth shape (f32, unweighted) beside the fused B1
+(``fused_ms``), their launches the ranks' main-path runs in
+``data_parallel``.  Its
 ``flash_attention`` entry gives B4's f32 kernel (``f32_kernel``, its
 ptxas label: name and tiles at head dim 64) at SmolLM-360M's prefill
 shape, with ``bound_ms`` its 3xTF32 tensor-core roof and
@@ -319,7 +340,9 @@ launching nothing, then run: the predicted peak within [0.8, 1] of
 ``max_memory_allocated``, the roofline step time at most the measured
 one, their ratio printed); ``dryrun_sweep`` (``launch.dryrun.run_one``
 over the configurations this script runs, at its shapes, but those
-another phase predicts); and
+another phase predicts, and SmolLM-360M's train_4k under
+``inner_dp+signs8`` on the reference's (16, 16) mesh as rank 0, its
+collective term from the counted exchanges); and
 ``fedlint_cuda`` (fedlint's round entries on CUDA tensors, where host
 reads are real: every finding baselined).  None adds to the kernels
 line's launches.
@@ -328,6 +351,7 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Per-shape details also go to
 ``build/chip_smoke.json``.
 """
+import collections
 import dataclasses
 import json
 import os
@@ -493,16 +517,13 @@ TRAIN_VARIANT = "inner_dp+signs8+noremat"
 ROPE_HEAD_DIMS, ROPE_THETAS = (64, 128, 256), (1e4, 5e5)
 # Checkpoints and resume (lm_resume): examples/federated_lm_training.py's
 # port at the smoke scale for RESUME_STEPS[0] rounds, then resumed to
-# RESUME_STEPS[1]; once at the 100m scale for RESUME_100M_STEPS rounds
-# under the quorum server with RESUME_100M_CLIENTS clients (a cut from
-# the example's 4: np.savez_compressed deflates ~20-25 MB/s on one core,
-# and C=4's 1.85 GB state would take ~80 s a save); the fedbuff server
-# at the smoke scale for FEDBUFF_STEPS rounds (a cut from the 100m scale,
-# whose ~1 GB deflate took ~55 s, to keep the whole script inside its
-# time); launch.train --smoke --ckpt for LAUNCH_STEPS[0], then resumed
-# to LAUNCH_STEPS[1].
-RESUME_STEPS, RESUME_100M_STEPS, LAUNCH_STEPS = (6, 9), 4, (3, 5)
-RESUME_100M_CLIENTS, FEDBUFF_STEPS = 2, 4
+# RESUME_STEPS[1]; the quorum and the fedbuff servers at the smoke scale
+# for FEDBUFF_STEPS rounds each (cuts from the 100m scale, whose ~1 GB
+# deflate took ~50-55 s a run, to keep the whole script inside its time);
+# launch.train --smoke --ckpt for LAUNCH_STEPS[0], then resumed to
+# LAUNCH_STEPS[1].
+RESUME_STEPS, LAUNCH_STEPS = (6, 9), (3, 5)
+FEDBUFF_STEPS = 4
 
 # LM training (lm_train): SmolLM-360M at full width (32 layers, d 960,
 # 15/5 heads x 64, vocab 49,152, f32, remat) trains LM_TRAIN_ROUNDS BAFDP
@@ -616,8 +637,12 @@ def log(msg: str) -> None:
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal bit patterns; NaN positions equal whatever their payload."""
-    a, b = a.float().cpu(), b.float().cpu()
+    """Equal bit patterns; NaN positions equal whatever their payload.
+    Compared on the tensors' device when they share one, else on the
+    CPU."""
+    a, b = a.float(), b.float()
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
     nan = torch.isnan(a)
     return bool(torch.equal(nan, torch.isnan(b))
                 and torch.equal(a[~nan].view(torch.int32),
@@ -4168,7 +4193,7 @@ def state_bytes(state) -> int:
 
 def train_lm(label, cfg, specs, report, *, clients, batch_rows, seq,
              rounds, knobs, per_round, cuts, profile_last=True, mesh=None,
-             digest=False):
+             digest=False, sample=False):
     """The main path of LM training: ``rounds`` BAFDP rounds of ``cfg``
     through ``launch.steps.make_train_step`` on the card from a seed-0
     state, C = ``clients`` clients with ``batch_rows`` sequences of
@@ -4182,7 +4207,8 @@ def train_lm(label, cfg, specs, report, *, clients, batch_rows, seq,
     With ``mesh`` (the host mesh), the step is ``launch.steps.
     train_setup``'s and the state and the batch are placed by its specs
     (:func:`place_whole`).  With ``digest``, ``report[label]["digests"]``
-    holds the final state's :func:`state_digests`.  Records
+    holds the final state's :func:`state_digests`, with ``sample``
+    ``report[label]["sample"]`` its :func:`dp_lm_sample`.  Records
     ``report[label]`` (``peak_gb`` the allocator's peak over the rounds,
     ``base_gb`` what was allocated before the state was made) and returns
     the counts."""
@@ -4289,6 +4315,8 @@ def train_lm(label, cfg, specs, report, *, clients, batch_rows, seq,
         log(f"  {label} profiled round: {t_ms:10.3f} ms  {name}")
     if digest:
         report[label]["digests"] = state_digests(state)
+    if sample:
+        report[label]["sample"] = dp_lm_sample(state)
     del state, out, batch
     torch.cuda.empty_cache()
     return counts
@@ -4315,7 +4343,8 @@ def lm_train_runs(specs, report):
         per_round={"flash_attention": 2 * L * C,
                    "flash_attention_bwd": L * C * fa_k.BWD_LAUNCHES},
         cuts=f"batch: one {LM_TRAIN_S}-token sequence per client ({C} in "
-             "all; train_4k's global batch is 256)", digest=True)
+             "all; train_4k's global batch is 256)", digest=True,
+        sample=True)
 
 
 def lm_train_cpu_vs_cuda(report, arch=ARCH, seq=LM_VS_S,
@@ -5016,10 +5045,9 @@ def lm_resume(specs, report):
     it says so and trains only the rounds after the label, and its first
     round, from the restored state, equals the same round from the state
     in memory (bit for bit, else under ``drift_check`` with the count of
-    unequal elements).  At the 100m scale RESUME_100M_STEPS rounds under
-    the quorum server: the save and restore seconds and the archive's
-    bytes (RESUME_100M_CLIENTS clients).  The fedbuff server at the smoke
-    scale for FEDBUFF_STEPS rounds, its archive restored bit for bit.
+    unequal elements).  The quorum and the fedbuff servers at the smoke
+    scale for FEDBUFF_STEPS rounds each (4 clients): the save and restore
+    seconds and the archive's bytes, each archive restored bit for bit.
     ``launch.train
     --smoke --ckpt`` for LAUNCH_STEPS[0] rounds, then resumed to
     LAUNCH_STEPS[1].  Every run's launches from its config.  The example
@@ -5170,9 +5198,9 @@ def lm_resume(specs, report):
             + f"; launches {counts_a} + {counts_b}")
         del a, b, seen, r, mem
 
-        # the 100m scale under the quorum server; fedbuff at the smoke scale
+        # the quorum and the fedbuff servers, at the smoke scale
         for scale, server, rounds, clients in (
-                ("100m", "quorum", RESUME_100M_STEPS, RESUME_100M_CLIENTS),
+                ("smoke", "quorum", FEDBUFF_STEPS, 4),
                 ("smoke", "fedbuff", FEDBUFF_STEPS, 4)):
             cfg = scale_cfg(ARCH, scale)
             fed = example_fed(cfg, clients)
@@ -5471,6 +5499,9 @@ SWEEP_CASES = (
        for a in (HYMBA, SEAMLESS)])
 
 
+SWEEP_MESH_VARIANT = "inner_dp+signs8"
+
+
 def sweep_clients(shape, cut):
     """A training row's C: the round lm_train runs, C clients of one
     sequence each (the global batch); None for a served row."""
@@ -5491,6 +5522,11 @@ def dryrun_sweep(report):
         rows.append(dryrun.run_one(
             arch, shape, out_dir=str(ROOT / "build" / "dryrun"),
             verbose=False, cut=cut, n_clients=sweep_clients(shape, cut)))
+    # the reference's (16, 16) mesh: SmolLM's train_4k as rank 0 of 256,
+    # inner_dp+signs8 (uncut), its collectives counted
+    rows.append(dryrun.run_one(
+        ARCH, "train_4k", False, out_dir=str(ROOT / "build" / "dryrun"),
+        verbose=False, variant=SWEEP_MESH_VARIANT))
     secs = time.perf_counter() - t0
     log(f"dryrun_sweep: {len(rows)} rows in {secs:.1f} s")
     for r in rows:
@@ -5501,13 +5537,20 @@ def dryrun_sweep(report):
             f"{r['t_compute_s'] * 1e3:.3f} ms, memory "
             f"{r['t_memory_s'] * 1e3:.3f} ms -> {r['dominant']}; "
             f"{r['bytes_per_device'] / 1e9:.2f} GB/dev fits={r['fits']}; "
-            f"kernels {sorted(r['kernels'])}")
+            f"kernels {sorted(r['kernels'])}"
+            + (f"; on {r['mesh']}: collective "
+               f"{r['t_collective_s'] * 1e3:.3f} ms of "
+               f"{r['collectives']} bytes" if r["collectives"] else ""))
     report["dryrun_sweep"] = dict(
         seconds=secs, cases=[list(c) for c in SWEEP_CASES], rows=len(rows),
         step_time_s={f"{r['arch']}/{r['shape']}": r["step_time_s"]
                      for r in rows},
         bytes_per_device={f"{r['arch']}/{r['shape']}": r["bytes_per_device"]
-                          for r in rows})
+                          for r in rows},
+        mesh_row={k: rows[-1][k] for k in (
+            "arch", "shape", "mesh", "chips", "collectives",
+            "collective_bytes", "t_collective_s", "t_compute_s",
+            "t_memory_s", "dominant", "bytes_per_device")})
 
 
 def fedlint_cuda(report):
@@ -5532,6 +5575,539 @@ def fedlint_cuda(report):
             f"{len(r.suppressed)} baselined, 0 unbaselined")
     reset_all_counts()
     report["fedlint_cuda"] = rows
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: the round over ranks (gloo on the one card)
+DpSample = collections.namedtuple("DpSample", "W z phi z_local")
+DP_C = 8                       # the forecaster's clients over 2 and 4 ranks
+DP_ROUNDS = 20
+DP_TIMED = (64, 4_194_304)     # C, D of the split kernels' timed shape
+DP_LM_CLIENTS = LM_TRAIN_CLIENTS
+DP_SAMPLE = 1 << 16            # elements of each leaf held to one rank
+DP_TIMEOUT_S = 300
+DP_RUNS = {                    # forecaster runs: (round, FedConfig knobs)
+    "dense_b1": ("dense", dict()),
+    "sparse_quorum_hinge_b2": ("sparse", dict(staleness_decay="hinge")),
+    "dense_int8_b3": ("dense", dict(sign_message="int8")),
+}
+
+
+def dp_fed(knobs):
+    from repro_torch.configs import FedConfig
+
+    return FedConfig(n_clients=DP_C, byzantine_frac=0.25, attack="sign_flip",
+                     active_frac=0.6, **knobs)
+
+
+def dp_forecaster(run: str, ranks, device: str):
+    """One of DP_RUNS through ``train.train_bafdp`` (MLP_H24, milano, seed
+    0, DP_ROUNDS rounds; the sparse run on the quorum schedule); over
+    several ranks the state is gathered whole at the end.  Returns (the
+    final state on the CPU, the launches of its rounds)."""
+    from repro_torch import train
+    from repro_torch.core.async_engine import DelayModel
+    from repro_torch.core.fed_state import unshard_clients
+    from repro_torch.core.schedule import build_schedule
+
+    impl, knobs = DP_RUNS[run]
+    sched = None
+    if impl == "sparse":
+        sched = build_schedule(DP_ROUNDS, DelayModel(n_clients=DP_C,
+                                                     hetero=1.0, seed=0),
+                               train.make_trigger("quorum", 0.6))
+    reset_all_counts()
+    state, _, _ = train.train_bafdp(
+        "milano", 24, dp_fed(knobs), rounds=DP_ROUNDS, seed=0,
+        schedule=sched, round_impl=impl, device=device, ranks=ranks)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    state = unshard_clients(state, ranks)
+    return type(state)(*(None if f is None else _tree_to(f, "cpu")
+                         for f in state)), counts
+
+
+def _tree_to(tree, device):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def dp_lm_sample(state):
+    """The first DP_SAMPLE elements of every leaf of W, phi, z_local (each
+    client's row) and z, on the CPU, as a dict of trees
+    (:class:`DpSample` makes it a state-like tuple for
+    :func:`drift_check`)."""
+    from repro_torch.tree import tree_map
+
+    def rows(l):
+        return l.reshape(l.shape[0], -1)[:, :DP_SAMPLE].float().cpu()
+
+    return dict(W=tree_map(rows, state.W),
+                  z=tree_map(lambda l: l.reshape(-1)[:DP_SAMPLE].float()
+                             .cpu(), state.z),
+                  phi=tree_map(rows, state.phi),
+                  z_local=tree_map(rows, state.z_local))
+
+
+def dp_lm(ranks):
+    """SmolLM-360M at full width, f32, C = DP_LM_CLIENTS, lm_train's
+    settings (one LM_TRAIN_S-token sequence a client, LM_TRAIN_KNOBS),
+    LM_TRAIN_ROUNDS rounds through ``launch.steps.make_train_step`` from
+    the seed-0 state, on this rank's clients.  Returns (sample, launches,
+    peak bytes over the rounds above the state, ms per round)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.fed_state import (init_fed_state, init_lm_tree,
+                                            shard_clients)
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch import steps
+
+    cfg = get_arch(ARCH)
+    C = DP_LM_CLIENTS
+    fed = dataclasses.replace(steps.fed_config_for(cfg, C), **LM_TRAIN_KNOBS)
+    steps.warm_device_caches(cfg, "cuda")
+    state = shard_clients(init_fed_state(
+        torch.Generator(device="cuda").manual_seed(0),
+        lambda g: init_lm_tree(g, cfg, "cuda"), fed, device="cuda"), ranks)
+    raw = lm_batch(np.random.RandomState(0), cfg, C, LM_TRAIN_S)
+    mine = slice(None) if ranks is None else ranks.clients()
+    batch = {k: torch.from_numpy(v).to("cuda").reshape(
+        (C, 1) + v.shape[1:])[mine].contiguous() for k, v in raw.items()}
+    step = steps.make_train_step(cfg, fed, ranks)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_all_counts()
+    ms = []
+    for t in range(LM_TRAIN_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(m["data_loss"])):
+            raise AssertionError(f"dp_lm: non-finite loss at round {t}")
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    sample = dp_lm_sample(state)
+    del state, batch
+    torch.cuda.empty_cache()
+    return sample, counts, peak, base, ms
+
+
+def dp_rank_main(spec_path: str, rank: int, world: int) -> int:
+    """One rank of the data_parallel phase (``python3 chip_smoke.py
+    --dp-rank SPEC RANK WORLD``): for each task of the spec, an (R, M)
+    mesh over gloo on the card from a FileStore (one group at a time),
+    the task's runs, the group destroyed; the results pickled to
+    ``SPEC.RANK``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.data_parallel import rank_block
+    from repro_torch.launch.mesh import make_mesh
+
+    from repro_torch.launch.train import use_expandable_segments
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    use_expandable_segments()
+    spec = pickle.loads(Path(spec_path).read_bytes())
+    out = {}
+    for i, (task, shape) in enumerate(spec["tasks"]):
+        mesh = make_mesh(shape, "cuda", "gloo", rank=rank, world_size=world,
+                         store=dist.FileStore(f"{spec_path}.store{i}",
+                                              world))
+        try:
+            if task == "forecaster":
+                out[task] = {run: dp_forecaster(run, rank_block(mesh, DP_C),
+                                                "cuda") for run in DP_RUNS}
+            elif task == "inner_dp":
+                out[task] = dp_forecaster("dense_b1",
+                                          rank_block(mesh, DP_C), "cuda")
+            elif task == "smollm":
+                ranks = rank_block(mesh, DP_LM_CLIENTS)
+                collectives.reset_collective_counts()
+                sample, counts, peak, base, ms = dp_lm(ranks)
+                out[task] = dict(sample=sample, counts=counts, peak=peak,
+                                 base=base, ms=ms, c0=ranks.c0,
+                                 exchanged=dict(collectives.COLLECTIVES))
+        finally:
+            dist.destroy_process_group()
+    Path(f"{spec_path}.{rank}").write_bytes(pickle.dumps(out))
+    return 0
+
+
+def dp_spawn(world: int, tasks, tmp: Path):
+    """Every rank of ``world`` as a process of its own on the card
+    (:func:`dp_rank_main`), all killed if one fails or outlasts
+    DP_TIMEOUT_S; returns their results in rank order."""
+    import pickle
+
+    spec = tmp / f"dp{world}.spec"
+    spec.write_bytes(pickle.dumps({"tasks": tasks}))
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(spec),
+         str(r), str(world)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    failed = None
+    try:
+        for r, p in enumerate(procs):
+            text, _ = p.communicate(timeout=DP_TIMEOUT_S)
+            for line in text.splitlines()[-40:]:
+                log(f"  rank {r}/{world}: {line}")
+            if p.returncode != 0 and failed is None:
+                failed = f"rank {r} of {world} exited {p.returncode}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError(f"data_parallel: {failed}")
+    return [pickle.loads(Path(f"{spec}.{r}").read_bytes())
+            for r in range(world)]
+
+
+def dp_kernels(report):
+    """(a) The split kernels on the card: the partial and the finish held
+    to their plain versions bit for bit (f32 and bf16 z with an f32
+    phi_mean; the int8 wire's int32 sums and its weighted f32 fold),
+    finish(sum of the partials of 2 and 4 row blocks) equal to the fused
+    kernel bit for bit unweighted and within ``ref.weighted_split_bound``
+    weighted (NaN where the fused kernel has NaN, and nowhere else), at
+    MLP_H24's leaves cut into blocks of 16, 8, 4 and 2 rows, and at
+    SmolLM-360M's whole leaf table in the smollm run's blocks
+    (:func:`dp_leaf_table`); then both held to their plain versions and
+    the fused kernel bit for bit at DP_TIMED and timed there against their
+    bound, the plain version and the fused kernel.  Returns the kernels
+    line's rows."""
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_agg as sa
+
+    g = torch.Generator(device="cuda").manual_seed(3300)
+    C, sizes = 16, list(MAIN_LEAF_D) + [5, 33]
+    errs = {"sign_sum": 0.0, "sign_finish": 0.0}
+    worst_share, checks = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        zs = [torch.randn(D, device="cuda", generator=g).to(dtype)
+              for D in sizes]
+        Ws = [torch.randn(C, D, device="cuda", generator=g).to(dtype)
+              for D in sizes]
+        Ws[0][:, 3] = zs[0][3]
+        Ws[1][5, 7] = float("nan")
+        phis = [torch.randn(D, device="cuda", generator=g) for D in sizes]
+        w = torch.rand(C, device="cuda", generator=g) + 0.05
+        for weights, n in ((None, C), (w, 4 * C)):
+            for int8 in (False, True):
+                rows = Ws
+                if int8:
+                    rows = [collectives.encode_sign_message(z, W, weights)
+                            .payload for z, W in zip(zs, Ws)]
+                    fused = sa.sign_agg_int8_group(zs, rows, phis, weights,
+                                                   PSI, ALPHA, n_total=n)
+                else:
+                    fused = sa.sign_agg_group(
+                        zs, Ws, phis, weights, PSI, ALPHA,
+                        n_total=0 if weights is None else n)
+                part = sa.sign_sum_int8_group if int8 else sa.sign_sum_group
+                for blocks in (1, 2, 4, 8):
+                    q, total = C // blocks, None
+                    for i in range(blocks):
+                        r_i = [r[i * q:(i + 1) * q] for r in rows]
+                        w_i = None if weights is None \
+                            else weights[i * q:(i + 1) * q]
+                        s = part(zs, r_i, w_i)
+                        plain = part([z.cpu() for z in zs],
+                                     [r.cpu() for r in r_i],
+                                     None if w_i is None else w_i.cpu())
+                        if not bits_equal(s, plain):
+                            raise AssertionError(
+                                f"sign_sum {dtype} int8={int8} weighted="
+                                f"{weights is not None}: != plain")
+                        errs["sign_sum"] = max(errs["sign_sum"],
+                                               max_abs_err(s.cpu(), plain))
+                        total = s if total is None else total + s
+                    got = sa.sign_finish_group(zs, total, phis, PSI, ALPHA,
+                                               n)
+                    offs, _ = sa.sum_offsets(sizes)
+                    plain = ref.sign_finish_group_ref(
+                        [z.cpu() for z in zs],
+                        [total.cpu()[o:o + D] for o, D in zip(offs, sizes)],
+                        [p.cpu() for p in phis], PSI, ALPHA, n)
+                    for leaf, (z, p, a, b, f) in enumerate(
+                            zip(zs, phis, got, plain, fused)):
+                        if not bits_equal(a, b):
+                            raise AssertionError(
+                                f"sign_finish {dtype}: != plain")
+                        errs["sign_finish"] = max(errs["sign_finish"],
+                                                  max_abs_err(a.cpu(), b))
+                        if weights is None:
+                            if not bits_equal(a, f):
+                                raise AssertionError(
+                                    f"split {dtype} int8={int8} over "
+                                    f"{blocks}: != the fused kernel")
+                        else:
+                            bound = ref.weighted_split_bound(
+                                z.cpu(), p.cpu(), weights.cpu(), n, PSI,
+                                ALPHA)
+                            a32, f32 = a.float().cpu(), f.float().cpu()
+                            nan = torch.isnan(a32)
+                            if not torch.equal(nan, torch.isnan(f32)):
+                                raise AssertionError(
+                                    f"weighted split {dtype} int8={int8} "
+                                    f"over {blocks}: NaN where the fused "
+                                    "kernel is finite, or the other way")
+                            if leaf == 1 and not int8 and not nan.any():
+                                raise AssertionError(
+                                    "weighted split: the NaN row made no "
+                                    "NaN column")
+                            share = float(((a32 - f32).abs()[~nan]
+                                           / bound[~nan]).max())
+                            if share > 1.0:
+                                raise AssertionError(
+                                    f"weighted split {dtype} int8={int8} "
+                                    f"over {blocks}: {share:.3f} of the "
+                                    "bound")
+                            worst_share = max(worst_share, share)
+                    checks += 1
+    checks += dp_leaf_table(g, errs)
+    log(f"data_parallel kernels: {checks} split checks bit for bit "
+        f"(weighted within {worst_share:.3f} of the bound)")
+    # held, then timed, at the bandwidth shape, f32, unweighted
+    C, D = DP_TIMED
+    cpm = sleep_cycles_per_ms()
+    z = torch.randn(D, device="cuda", generator=g)
+    W = torch.randn(C, D, device="cuda", generator=g)
+    W[:, :9] = z[:9]
+    p = torch.randn(D, device="cuda", generator=g)
+    s = sa.sign_sum_group([z], [W], None)
+    plain = ref.sign_sum_group_ref([z], [W], None)[0]
+    if not bits_equal(s[:D], plain):
+        raise AssertionError(f"sign_sum at C={C}, D={D}: != plain")
+    errs["sign_sum"] = max(errs["sign_sum"], max_abs_err(s[:D], plain))
+    got = sa.sign_finish_group([z], s, [p], PSI, ALPHA, C)[0]
+    plain = ref.sign_finish_group_ref([z], [s[:D]], [p], PSI, ALPHA, C)[0]
+    if not (bits_equal(got, plain) and bits_equal(got, sa.sign_agg_group(
+            [z], [W], [p], None, PSI, ALPHA)[0])):
+        raise AssertionError(f"sign_finish at C={C}, D={D}: != plain or "
+                             "!= the fused kernel")
+    errs["sign_finish"] = max(errs["sign_finish"], max_abs_err(got, plain))
+    del got, plain
+    fused_ms = device_ms(lambda: sa.sign_agg_group([z], [W], [p], None, PSI,
+                                                   ALPHA), cpm)
+    rows = {}
+    for name, fn, plain_fn, work in (
+            ("sign_sum", lambda: sa.sign_sum_group([z], [W], None),
+             lambda: ref.sign_sum_group_ref([z], [W], None),
+             kc.sign_sum_group_work([z], [W])),
+            ("sign_finish",
+             lambda: sa.sign_finish_group([z], s, [p], PSI, ALPHA, C),
+             lambda: ref.sign_finish_group_ref([z], [s[:D]], [p], PSI,
+                                               ALPHA, C),
+             kc.sign_finish_group_work([z], s))):
+        bound, by = kc.bound_ms(work)
+        rows[name] = dict(ms=device_ms(fn, cpm), plain_ms=device_ms(
+            plain_fn, cpm, reps=5, inner=2), bound_ms=bound, bound_by=by,
+            max_abs_err=errs[name], fused_ms=fused_ms, shape=[C, D])
+        log(f"data_parallel time {name} (C={C}, D={D}, f32): "
+            f"{rows[name]['ms']:.6f} ms, bound {bound:.6f} ({by}), plain "
+            f"{rows[name]['plain_ms']:.6f}, fused B1 {fused_ms:.6f}")
+    report["dp_kernels"] = dict(rows, checks=checks,
+                                weighted_share=worst_share)
+    return rows
+
+
+def dp_leaf_table(g, errs) -> int:
+    """The split kernels over SmolLM-360M's f32 leaf table, every leaf
+    whole, unweighted, at the smollm run's blocks (DP_LM_CLIENTS rows over
+    2 ranks, 2 a rank): each block's partial and the finish of their sum
+    held to the plain versions on the card bit for bit, and the finish to
+    the fused kernel over all the rows.  Returns the checks made."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_agg as sa
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+
+    sizes = [l.numel() for l in tree_leaves(steps.params_struct(
+        get_arch(ARCH)))]
+    C, q = DP_LM_CLIENTS, DP_LM_CLIENTS // 2
+    zs = [torch.randn(D, device="cuda", generator=g) for D in sizes]
+    Ws = [torch.randn(C, D, device="cuda", generator=g) for D in sizes]
+    for z, W in zip(zs[::7], Ws[::7]):
+        W[0, :5] = z[:5]                          # ties: sign 0
+    phis = [torch.randn(D, device="cuda", generator=g) for D in sizes]
+    offs, _ = sa.sum_offsets(sizes)
+    total = None
+    for i in range(C // q):
+        rows = [W[i * q:(i + 1) * q] for W in Ws]
+        s = sa.sign_sum_group(zs, rows, None)
+        for o, D, b in zip(offs, sizes,
+                           ref.sign_sum_group_ref(zs, rows, None)):
+            if not bits_equal(s[o:o + D], b):
+                raise AssertionError(f"sign_sum over SmolLM's leaf of {D} "
+                                     f"at {q} rows: != plain")
+            errs["sign_sum"] = max(errs["sign_sum"],
+                                   max_abs_err(s[o:o + D], b))
+        total = s if total is None else total + s
+    got = sa.sign_finish_group(zs, total, phis, PSI, ALPHA, C)
+    plain = ref.sign_finish_group_ref(
+        zs, [total[o:o + D] for o, D in zip(offs, sizes)], phis, PSI, ALPHA,
+        C)
+    fused = sa.sign_agg_group(zs, Ws, phis, None, PSI, ALPHA)
+    for D, a, b, f in zip(sizes, got, plain, fused):
+        if not (bits_equal(a, b) and bits_equal(a, f)):
+            raise AssertionError(f"sign_finish over SmolLM's leaf of {D}: "
+                                 "!= plain or != the fused kernel")
+        errs["sign_finish"] = max(errs["sign_finish"], max_abs_err(a, b))
+    log(f"data_parallel kernels: SmolLM-360M's {len(sizes)} leaves "
+        f"({sum(sizes)} elements) at {q} rows a block: partial, finish and "
+        "fused bit for bit")
+    return C // q + 1
+
+
+def data_parallel(specs, report):
+    """(a) :func:`dp_kernels`; (b) world 1 over NCCL (the 1 x 1 host mesh's
+    rank block) equals the run without one bit for bit, one fused launch a
+    round; (c) the forecaster's DP_RUNS over 2 and 4 gloo ranks on the one
+    card, each held to world 1 on the card by :func:`drift_check`, each
+    rank launching one partial and one finish a round; (e) ``inner_dp``:
+    one client's batch over 2 ``"model"`` ranks (the fused kernel, one
+    data rank); (d) SmolLM-360M at full width, f32, C = 4 over 2 ranks,
+    LM_TRAIN_ROUNDS rounds, a DP_SAMPLE-element sample of every leaf held
+    to world 1 by :func:`drift_check`, each rank's peak printed beside the
+    meta prediction of its step on a 2 x 1 fake mesh.  Returns the
+    launches of the ranks' main-path runs."""
+    import tempfile
+
+    from repro_torch.configs import INPUT_SHAPES, get_arch
+    from repro_torch.distributed.data_parallel import rank_block
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import registered_host_mesh
+    from repro_torch.tree import tree_leaves
+
+    rows = dp_kernels(report)
+    # (b) world 1 over NCCL: today's round, bit for bit, one launch a round
+    one = {run: dp_forecaster(run, None, "cuda") for run in DP_RUNS}
+    with registered_host_mesh() as mesh:
+        import torch.distributed as dist
+
+        if dist.get_backend() != "nccl":
+            raise AssertionError("the host mesh is not NCCL")
+        got, counts = dp_forecaster("dense_b1", rank_block(mesh, DP_C),
+                                    "cuda")
+    check_path_counts("data_parallel world 1", counts,
+                      {"sign_agg": DP_ROUNDS})
+    if _states_bitwise(got, one["dense_b1"][0]):
+        raise AssertionError("data_parallel: world 1 differs from the run "
+                             "without a mesh")
+    log(f"data_parallel world 1 (NCCL): {DP_ROUNDS} rounds bit for bit, "
+        f"launches {counts}")
+    # (d)'s world 1 (lm_train's run, the same rounds from the same state,
+    # or run here) and the meta prediction of a rank's step
+    if "sample" in report.get("lm_train", {}):
+        lm_one = report["lm_train"].pop("sample")
+        lm_one_ms = report["lm_train"]["ms_per_round"]
+    else:
+        lm_one, _, _, _, lm_one_ms = dp_lm(None)
+    cfg = get_arch(ARCH)
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=LM_TRAIN_S,
+                                global_batch=DP_LM_CLIENTS)
+    fed = dataclasses.replace(steps.fed_config_for(cfg, DP_LM_CLIENTS),
+                              **LM_TRAIN_KNOBS)
+    with dryrun.fake_mesh((2, 1), ("data", "model")) as mesh:
+        step, args, _, _ = steps.train_setup(
+            cfg, shape, mesh, base_fed=fed, n_clients=DP_LM_CLIENTS,
+            rank_local=True)
+        args = (args[0], args[1], 0)
+        predicted, pred_s = predict_step("data_parallel smollm rank", step,
+                                         args, cfg, shape)
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp"))
+    t0 = time.perf_counter()
+    two = dp_spawn(2, [("forecaster", (2, 1)), ("inner_dp", (1, 2)),
+                       ("smollm", (2, 1))], tmp)
+    four = dp_spawn(4, [("forecaster", (4, 1))], tmp)
+    spawn_s = time.perf_counter() - t0
+    launches = {"sign_sum": 0, "sign_finish": 0}
+    for world, outs in ((2, two), (4, four)):
+        for r, out in enumerate(outs):
+            for run, (state, counts) in out["forecaster"].items():
+                want = {"sign_sum": DP_ROUNDS, "sign_finish": DP_ROUNDS}
+                check_path_counts(f"data_parallel {run} rank {r}/{world}",
+                                  counts, want)
+                for k in launches:
+                    launches[k] += counts[k]
+                worst, n_off = drift_check(
+                    f"data_parallel {run} {world} ranks", one[run][0], state,
+                    DP_ROUNDS, dp_fed({}).alpha_w)
+                log(f"data_parallel {run} rank {r}/{world}: launches "
+                    f"{ {k: v for k, v in counts.items() if v} }; vs world "
+                    f"1 max |diff| {worst[0]:.3e} ({worst[1]}), "
+                    f"{n_off} beyond drift")
+    for r, out in enumerate(two):
+        state, counts = out["inner_dp"]
+        check_path_counts(f"data_parallel inner_dp rank {r}", counts,
+                          {"sign_agg": DP_ROUNDS})
+        worst, n_off = drift_check("data_parallel inner_dp",
+                                   one["dense_b1"][0], state, DP_ROUNDS,
+                                   dp_fed({}).alpha_w)
+        log(f"data_parallel inner_dp rank {r}/2 (1 x 2): vs world 1 max "
+            f"|diff| {worst[0]:.3e}, {n_off} beyond drift")
+    lm_rows = []
+    for r, out in enumerate(two):
+        lm = out["smollm"]
+        counts = lm["counts"]
+        if not (counts["sign_sum"] == counts["sign_finish"]
+                == LM_TRAIN_ROUNDS):
+            raise AssertionError(f"data_parallel smollm rank {r}: {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        c0, n = lm["c0"], DP_LM_CLIENTS // 2
+        want = DpSample(
+            W=_rows_of(lm_one["W"], c0, n), z=lm_one["z"],
+            phi=_rows_of(lm_one["phi"], c0, n),
+            z_local=_rows_of(lm_one["z_local"], c0, n))
+        worst, n_off = drift_check("data_parallel smollm", want,
+                                   DpSample(**lm["sample"]),
+                                   LM_TRAIN_ROUNDS,
+                                   LM_TRAIN_KNOBS["alpha_w"])
+        peak_gb = (lm["peak"] - lm["base"]) / 1e9
+        pred_gb = (predicted.argument_bytes + predicted.temp_bytes
+                   + predicted.output_bytes) / 1e9
+        lm_rows.append(dict(rank=r, peak_gb=lm["peak"] / 1e9,
+                            above_state_base_gb=peak_gb,
+                            predicted_gb=pred_gb, ms=lm["ms"],
+                            exchanged=lm["exchanged"],
+                            max_diff=worst[0], beyond_drift=n_off,
+                            launches={k: v for k, v in counts.items()
+                                      if v}))
+        log(f"data_parallel smollm rank {r}/2: ms/round "
+            f"{[round(x, 1) for x in lm['ms']]} (world 1 "
+            f"{[round(x, 1) for x in lm_one_ms]}); peak "
+            f"{lm['peak'] / 1e9:.2f} GB ({peak_gb:.2f} above the rank's "
+            f"state), meta prediction of the rank's step {pred_gb:.2f} GB "
+            f"({pred_s:.1f} s on meta); vs world 1 (sample) max |diff| "
+            f"{worst[0]:.3e}, {n_off} beyond drift; launches "
+            f"{lm_rows[-1]['launches']}; exchanged {lm['exchanged']}")
+    for name in rows:
+        rows[name]["launches"] = launches[name]
+    report["data_parallel"] = dict(smollm=lm_rows, spawn_s=spawn_s,
+                                   launches=launches,
+                                   smollm_world1_ms=lm_one_ms,
+                                   leaves=len(tree_leaves(lm_one["W"])))
+    return rows
+
+
+def _rows_of(tree, c0, n):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda l: l[c0:c0 + n], tree)
 
 
 def main() -> int:
@@ -5746,8 +6322,17 @@ def main() -> int:
         report[f"{phase}_phase_s"] = time.perf_counter() - t0
         log(f"phase: {phase} {report[f'{phase}_phase_s']:.1f} s")
 
+    # Data parallelism: the split consensus kernels held and timed, world 1
+    # over NCCL, the forecaster over 2 and 4 gloo ranks on the card,
+    # inner_dp over 2 "model" ranks, SmolLM-360M over 2 ranks (its peak
+    # beside the meta prediction of a rank's step)
+    t0 = time.perf_counter()
+    dp_rows = data_parallel(specs, report)
+    report["data_parallel_phase_s"] = time.perf_counter() - t0
+    log(f"phase: data_parallel {report['data_parallel_phase_s']:.1f} s")
+
     # Checkpoints: the federated LM example saved, restored and resumed,
-    # at the smoke and 100m scales, and launch.train --ckpt
+    # at the smoke scale, and launch.train --ckpt
     t0 = time.perf_counter()
     for name, n in lm_resume(specs, report).items():
         launches[name] = launches.get(name, 0) + n
@@ -5790,6 +6375,28 @@ def main() -> int:
             bandwidth_bound_ms=s["bandwidth_bound_ms"],
             **{k: s[k] for k in ("sparse_block_ms", "sparse_block_bound_ms")
                if k in s}))
+    # B1-B3 split over ranks: the partial and the finish (data_parallel)
+    labels = {"sign_sum": [f"sign_sum_group<{t},{w}>" for t in ("float",
+                                                                "bf16")
+                           for w in ("false", "true")]
+              + [f"sign_sum_int8_group<{w}>" for w in ("false", "true")],
+              "sign_finish": [f"sign_finish_group<{t},{w}>"
+                              for t in ("float", "bf16")
+                              for w in ("false", "true")]}
+    for name, row in dp_rows.items():
+        if not all(label in report["ptxas"] for label in labels[name]):
+            raise AssertionError(f"{name}: no ptxas lines for "
+                                 f"{labels[name]}")
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCE,
+            replaces=f"{TPU_SRC}:58", launches=row["launches"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+            kernel=labels[name], fused_ms=row["fused_ms"],
+            shape=row["shape"],
+            ptxas={label: report["ptxas"][label]
+                   for label in labels[name]}))
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:84"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:66")):
@@ -5926,4 +6533,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:          # one rank of data_parallel
+        sys.exit(dp_rank_main(sys.argv[2], int(sys.argv[3]),
+                              int(sys.argv[4])))
     sys.exit(main())

@@ -33,6 +33,22 @@ on the (S_max, ...) blocks, and writes the rows back into the state's
 ``consensus_scope="active"`` runs it over the full-width block (every
 client a row, ``weight`` the activity mask) on a copy of the state; that
 masked O(C) round is the bit-for-bit oracle of the gathered one.
+
+Both rounds take ``ranks``, a ``distributed.data_parallel.RankBlock``:
+over more than one rank the state holds this rank's clients
+(``fed_state.shard_clients``) and every cross-client quantity (the dual
+mean, the Eq. (20) sign sums, ``alie``'s moments, the consensus gap, the
+metrics) is a local sum all-reduced over the ``"data"`` ranks, the
+consensus split into a partial launch, the all-reduce and a finish
+launch per dtype group (``kernels.ops.sign_consensus_leaves``).  Every
+draw matches the one-rank round's: the active set is drawn over C on
+every rank, a block draw is the whole block's narrowed to the rank's
+rows (``privacy.BlockGenerator``), the row generators are per client
+anyway.  Under ``inner_dp`` (a ``"model"`` axis of more than one rank) a
+client's batch is split over ``"model"`` and the loss and every gradient
+leaf are all-reduced there before the step.  ``robust_consensus`` needs
+every row and raises over several ranks.  Without ``ranks``, or over one
+rank, the rounds are the one-rank program.
 """
 from __future__ import annotations
 
@@ -51,8 +67,11 @@ from repro_torch.core import dro
 from repro_torch.core.aggregators import ROBUST_CONSENSUS_RULES
 from repro_torch.core.fed_state import (FedState, consensus_gap,
                                         gather_clients, scatter_clients)
-from repro_torch.core.privacy import NOISE_STREAM, RowGenerators, eps_feasible
+from repro_torch.core.privacy import (NOISE_STREAM, BlockGenerator,
+                                      RowGenerators, eps_feasible)
 from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import all_reduce_sum
+from repro_torch.distributed.data_parallel import is_split
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ref import jsign, true_div
@@ -187,20 +206,39 @@ def _robust_broadcast(W_srv: Any, weight: Optional[torch.Tensor], z: Any,
 def _client_block_updates(W, z_local, phi, eps, lam, opt, comp, batch,
                           gen, cnt_inc, *, local_loss: LocalLoss,
                           fed: FedConfig, c3: float, n_samples: int,
-                          d_dim: int, taylor: bool):
+                          d_dim: int, taylor: bool, ranks=None):
     """Steps 1 + 3-prep of Algorithm 1 for every row of the stack:
     gradients of the DP-perturbed DRO objective, optional Adam, the Taylor
     EWMA proposal and the Eq. (19) eps proposal.  Returns ``(W_prop,
     new_opt, comp_prop, eps_prop, loss_i, g_i, G_i)``, unmasked.
+
+    ``ranks`` with a ``"model"`` axis of more than one rank (``inner_dp``:
+    ``batch`` holds this rank's rows of each client's batch, weight
+    ``ranks.batch_weight`` of it): the loss and every gradient leaf are
+    summed over ``"model"`` into the whole batch's before the step, which
+    ``dro.rho`` and ``lipschitz_surrogate`` (the same weights on every
+    model rank) then read whole.
     """
     Wg = tree_map(lambda w: w.detach().requires_grad_(True), W)
+    inner = ranks is not None and ranks.model.size > 1
     with torch.enable_grad():
         g_i = local_loss(Wg, batch, gen, eps)
         G_i = dro.lipschitz_surrogate(Wg, fed.lipschitz_surrogate)
         rho_i = fed.dro_weight * dro.rho(eps, n_samples, d_dim, c3, fed)
-        loss_i = g_i + rho_i * G_i
+        if inner:
+            # this rank's share of the batch's data loss; the regularizer
+            # once over the model ranks' sum
+            g_i = g_i * ranks.batch_weight
+            loss_i = g_i + rho_i * G_i / ranks.model.size
+        else:
+            loss_i = g_i + rho_i * G_i
         grads = list(torch.autograd.grad(loss_i.sum(), tree_leaves(Wg)))
     loss_i, g_i, G_i = loss_i.detach(), g_i.detach(), G_i.detach()
+    if inner:
+        for g in grads:
+            all_reduce_sum(g, ranks.model)
+        g_i = all_reduce_sum(g_i.contiguous(), ranks.model)
+        loss_i = g_i + rho_i.detach() * G_i
 
     R = eps.shape[0]
     if fed.grad_clip:
@@ -268,12 +306,32 @@ def _client_block_updates(W, z_local, phi, eps, lam, opt, comp, batch,
     return W_prop, new_opt, comp_prop, eps_prop, loss_i, g_i, G_i
 
 
+def _whole_vector(v: torch.Tensor, ranks) -> torch.Tensor:
+    """A split round's (C_r,) per-client vector as the fleet's (C,): this
+    rank's rows at ``[c0, c1)`` of zeros, summed over ``"data"`` (exact:
+    one rank's values and the others' zeros)."""
+    out = torch.zeros((ranks.n_clients,), dtype=v.dtype, device=v.device)
+    out[ranks.clients()] = v
+    return all_reduce_sum(out, ranks.data)
+
+
+def _split_round_checks(fed: FedConfig, ranks, C: int) -> None:
+    if fed.robust_consensus != "none":
+        raise NotImplementedError(
+            f"robust_consensus={fed.robust_consensus!r} over "
+            f"{ranks.data.size} data ranks: a robust rule reads every "
+            "client's row, not yet ported (ROADMAP Queue A 7(b))")
+    if ranks.n_clients != C:
+        raise ValueError(f"ranks split {ranks.n_clients} clients, the round "
+                         f"has {C}")
+
+
 @torch.no_grad()
 def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
                 local_loss: LocalLoss, fed: FedConfig, c3: float,
                 n_samples: int, d_dim: int, byz_mask: torch.Tensor,
                 act: Optional[Any] = None, stale: Optional[Any] = None,
-                arrivals: Optional[Any] = None
+                arrivals: Optional[Any] = None, ranks=None
                 ) -> Tuple[FedState, Dict[str, torch.Tensor]]:
     """One asynchronous BAFDP round.  ``batch``: a tuple of (C, b, ...)
     tensors on the state's device.
@@ -290,6 +348,10 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
     full-width block (``idx = arange(C)``, ``weight`` = the activity mask)
     on a copy of ``state`` (so ``state`` is left as it was), with that
     round's block metrics.
+
+    ``ranks`` (see the module docstring): over several ranks ``state``
+    holds this rank's clients, ``batch`` their (C_r, b_r, ...) rows,
+    while ``byz_mask``, ``act`` and ``stale`` stay the fleet's (C,).
     """
     sign_message = fed.resolved_sign_message      # validates the knob
     dual_message = fed.resolved_dual_message      # validates the knob
@@ -301,6 +363,11 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
             "init_fed_state with the same FedConfig")
     C = byz_mask.shape[0]
     dev = state.eps.device
+    split = is_split(ranks)
+    if split:
+        _split_round_checks(fed, ranks, C)
+    else:
+        ranks = None
     if act is None:
         if fed.internal_select == "uniform":
             act = active_mask(gen, C, fed.active_frac, device=dev)
@@ -308,8 +375,10 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
             thr = fed.internal_age_threshold if \
                 fed.internal_age_threshold > 0 \
                 else default_age_threshold(C, fed.active_frac)
+            tau_all = _whole_vector(state.tau, ranks) if split \
+                else state.tau
             act = active_mask_age_aware(gen, C, fed.active_frac,
-                                        state.t - state.tau, thr)
+                                        state.t - tau_all, thr)
         else:
             raise ValueError(
                 f"unknown internal_select: {fed.internal_select!r}")
@@ -323,8 +392,24 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
             _clone_state(state), batch, gen, local_loss=local_loss, fed=fed,
             c3=c3, n_samples=n_samples, d_dim=d_dim, byz_mask=byz_mask,
             idx=np.arange(C), stale=stale, weight=act.float(),
-            arrivals=arrivals)
+            arrivals=arrivals, ranks=ranks)
 
+    act_all = act                  # the fleet's, for the counts
+    row_gen = attack_gen = gen
+    if split:
+        # this rank's rows of the fleet's (C,) vectors; the block draws
+        # are the whole block's, narrowed
+        sl = ranks.clients()
+        act = act[sl]
+        byz_mask = byz_mask[sl.start:sl.stop]
+        if stale is not None:
+            stale = torch.as_tensor(stale, device=dev)[sl]
+        spans = [(C, ranks.c0, ranks.rows)]
+        if ranks.batch is not None:
+            b, start, rows, _ = ranks.batch
+            spans.append((b, start, rows))
+        row_gen = BlockGenerator(gen, spans)
+        attack_gen = BlockGenerator(gen, spans[:1])     # the clients' rows
     t = state.t
     tau_new = torch.where(act, t, state.tau)
     stale_v = (t - tau_new).float() if stale is None \
@@ -338,8 +423,9 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
     (W_prop, new_opt, comp_prop, eps_prop, loss_i, g_i,
      G_i) = _client_block_updates(
         state.W, state.z_local, state.phi, state.eps, state.lam, state.opt,
-        state.comp, batch, gen, act, local_loss=local_loss, fed=fed, c3=c3,
-        n_samples=n_samples, d_dim=d_dim, taylor=taylor)
+        state.comp, batch, row_gen, act, local_loss=local_loss, fed=fed,
+        c3=c3, n_samples=n_samples, d_dim=d_dim, taylor=taylor,
+        ranks=ranks)
 
     def mask_leaves(new, old):
         m = act.reshape((-1,) + (1,) * (new.ndim - 1))
@@ -357,8 +443,8 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
     eps_new = torch.where(act, eps_prop, state.eps)
 
     # ---------------- Step 2: server updates (z, lambda) -------------------
-    W_sent = byz_lib.apply_attack(fed.attack, gen, W_new, byz_mask,
-                                  scale=fed.attack_scale)
+    W_sent = byz_lib.apply_attack(fed.attack, attack_gen, W_new, byz_mask,
+                                  scale=fed.attack_scale, ranks=ranks)
 
     def act_mean(x):
         return torch.sum(x * act) / torch.clamp_min(torch.sum(act), 1)
@@ -367,20 +453,42 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
     lam_new = torch.clamp_min(state.lam + fed.alpha_lambda * (
         (eps_new - fed.privacy_budget_a) - a1_t * state.lam), 0.0)
 
+    if split:
+        # the metrics' sums over the fleet, one all-reduce: loss, data
+        # loss, G, eps, lambda, staleness, its weight
+        sums = all_reduce_sum(torch.stack([
+            torch.sum(loss_i * act), torch.sum(g_i * act), torch.sum(G_i),
+            torch.sum(eps_new), torch.sum(lam_new), torch.sum(stale_v),
+            torch.sum(s_w)]).float(), ranks.data)
+        n_act = torch.clamp_min(torch.sum(act_all), 1)
+
+        def metrics(gap, comp_norm):
+            return {"loss": sums[0] / n_act, "data_loss": sums[1] / n_act,
+                    "lipschitz": true_div(sums[2], C),
+                    "eps_mean": true_div(sums[3], C),
+                    "lambda_mean": true_div(sums[4], C),
+                    "consensus_gap": gap, "n_active": torch.sum(act_all),
+                    "staleness_mean": true_div(sums[5], C),
+                    "staleness_weight_mean": true_div(sums[6], C),
+                    "compensation_norm": comp_norm}
+    else:
+        def metrics(gap, comp_norm):
+            return {"loss": act_mean(loss_i), "data_loss": act_mean(g_i),
+                    "lipschitz": torch.mean(G_i),
+                    "eps_mean": torch.mean(eps_new),
+                    "lambda_mean": torch.mean(lam_new),
+                    "consensus_gap": gap, "n_active": torch.sum(act),
+                    "staleness_mean": torch.mean(stale_v),
+                    "staleness_weight_mean": torch.mean(s_w),
+                    "compensation_norm": comp_norm}
+
     if fed.local_steps == 0:
         # consensus-free round: no sign all-reduce at all
         new_state = FedState(W=W_new, z=state.z, z_local=state.z_local,
                              phi=state.phi, lam=lam_new, eps=eps_new,
                              t=t + 1, opt=new_opt, tau=tau_new, comp=new_comp)
         zero = torch.zeros((), device=dev)
-        return new_state, {
-            "loss": act_mean(loss_i), "data_loss": act_mean(g_i),
-            "lipschitz": torch.mean(G_i), "eps_mean": torch.mean(eps_new),
-            "lambda_mean": torch.mean(lam_new), "consensus_gap": zero,
-            "n_active": torch.sum(act),
-            "staleness_mean": torch.mean(stale_v),
-            "staleness_weight_mean": torch.mean(s_w),
-            "compensation_norm": zero}
+        return new_state, metrics(zero, zero)
 
     do_consensus = (t % fed.local_steps) == (fed.local_steps - 1)
 
@@ -393,6 +501,9 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
         num = sum(torch.sum(torch.abs(a - b.float()))
                   for a, b in zip(tree_leaves(W_srv), tree_leaves(W_sent)))
         den = float(sum(l.numel() for l in tree_leaves(W_sent)))
+        if split:
+            num = all_reduce_sum(num.reshape(1), ranks.data)[0]
+            den = den * ranks.data.size
         comp_norm = torch.where(do_consensus, num / max(den, 1.0),
                                 torch.zeros_like(num))
 
@@ -405,7 +516,7 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
     # for CUDA tensors.  The decayed sum divides by C, not sum(s_i).
     z_weights = None if fed.staleness_decay == "constant" else s_w
     if fed.fedbuff_lr_norm:
-        k_arr = torch.sum(act).float() if arrivals is None \
+        k_arr = torch.sum(act_all).float() if arrivals is None \
             else torch.as_tensor(arrivals, device=dev).float()
         lr_scale = k_arr / C
 
@@ -417,13 +528,19 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
             return torch.mean(dec, dim=0)
         return torch.mean(phi_l.float(), dim=0).reshape(-1)
 
-    # one call over every leaf: B1/B2 or B3 launch once a round
+    if split:
+        phi_means = _split_phi_mean(tree_leaves(state.phi), dual_message,
+                                    ranks)
+    else:
+        phi_means = [phi_mean(phi_l) for phi_l in tree_leaves(state.phi)]
+    # one call over every leaf: B1/B2 or B3 launch once a round (over
+    # several ranks: a partial and a finish per dtype group)
     z_upd = iter(kops.sign_consensus_leaves(
         [z_l.reshape(-1) for z_l in tree_leaves(state.z)],
-        [w_l.reshape(C, -1) for w_l in tree_leaves(W_srv)],
-        [phi_mean(phi_l) for phi_l in tree_leaves(state.phi)],
-        z_weights, fed.psi, fed.alpha_z, message=sign_message))
-    del W_sent, W_srv
+        [w_l.reshape(w_l.shape[0], -1) for w_l in tree_leaves(W_srv)],
+        phi_means, z_weights, fed.psi, fed.alpha_z, message=sign_message,
+        ranks=ranks))
+    del W_sent, W_srv, phi_means
 
     def z_step(z_l):
         zf = z_l.reshape(-1)
@@ -437,7 +554,7 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
     del z_upd
     # taken now, before phi and z_local's new trees exist: its (C, ...)
     # difference would otherwise be the round's peak
-    gap = consensus_gap(state._replace(W=W_new, z=z_new))
+    gap = consensus_gap(state._replace(W=W_new, z=z_new), ranks)
 
     # ---------------- Step 3: active clients update phi, sync z -----------
     a2_t = reg_decay(fed.alpha_phi, t, fed.reg_decay_pow)
@@ -471,15 +588,26 @@ def bafdp_round(state: FedState, batch: Any, gen: torch.Generator, *,
     new_state = FedState(W=W_new, z=z_new, z_local=z_local_new, phi=phi_new,
                          lam=lam_new, eps=eps_new, t=t + 1, opt=new_opt,
                          tau=tau_new, comp=new_comp)
-    return new_state, {
-        "loss": act_mean(loss_i), "data_loss": act_mean(g_i),
-        "lipschitz": torch.mean(G_i), "eps_mean": torch.mean(eps_new),
-        "lambda_mean": torch.mean(lam_new),
-        "consensus_gap": gap,
-        "n_active": torch.sum(act),
-        "staleness_mean": torch.mean(stale_v),
-        "staleness_weight_mean": torch.mean(s_w),
-        "compensation_norm": comp_norm}
+    return new_state, metrics(gap, comp_norm)
+
+
+def _split_phi_mean(phi_leaves, dual_message: str, ranks):
+    """The dense round's dual mean over several ranks: this rank's sum of
+    its rows of every leaf (int8 wire: each row decoded first), in one
+    flat f32 buffer, all-reduced over ``"data"``, then divided by C."""
+    sums = []
+    for phi_l in phi_leaves:
+        rows = phi_l.reshape(phi_l.shape[0], -1)
+        if dual_message == "int8":
+            rows = collectives.decode_dual_message(
+                collectives.encode_dual_message(rows))
+        sums.append(torch.sum(rows.float(), dim=0))
+    flat = all_reduce_sum(torch.cat(sums), ranks.data)
+    out, at = [], 0
+    for s_l in sums:
+        out.append(true_div(flat[at:at + s_l.numel()], ranks.n_clients))
+        at += s_l.numel()
+    return out
 
 
 def _clone_state(state: FedState) -> FedState:
@@ -510,6 +638,29 @@ def _canonical_rows(idx, stale, weight, C: int):
     is_last = np.append(idx[:-1] != idx[1:], True)
     write_idx = np.where(is_last, idx, C)
     return idx, st, w, order, write_idx
+
+
+def _rank_rows(idx, stale, weight, write_idx, ranks):
+    """A split round's rows: the canonical rows whose client lies in this
+    rank's block, in their order, padded to the same S_max with the local
+    sentinel ``C_r`` (weight 0).  Returns ``(idx, stale, weight,
+    write_idx, fleet_ids)``, ids local to the block but ``fleet_ids``
+    (the fleet's ids, for the row generators and the Byzantine mask;
+    ``C`` at padding)."""
+    S, C, Cr = idx.shape[0], ranks.n_clients, ranks.rows
+    keep = np.flatnonzero((idx >= ranks.c0) & (idx < ranks.c1))
+    pad = S - keep.size
+
+    def padded(a, fill, dtype):
+        return np.concatenate([a[keep].astype(dtype),
+                               np.full(pad, fill, dtype)])
+
+    local = idx[keep] - ranks.c0
+    w_local = np.where(write_idx[keep] < C, write_idx[keep] - ranks.c0, Cr)
+    return (np.concatenate([local, np.full(pad, Cr, np.int64)]),
+            padded(stale, 0.0, np.float32), padded(weight, 0.0, np.float32),
+            np.concatenate([w_local, np.full(pad, Cr, np.int64)]),
+            padded(idx, C, np.int64))
 
 
 def _sparse_round_bindings(state, batch, gen, **kw):
@@ -544,7 +695,7 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
                        idx: Any, stale: Optional[Any] = None,
                        weight: Optional[Any] = None,
                        arrivals: Optional[Any] = None,
-                       batch_gathered: Optional[bool] = None
+                       batch_gathered: Optional[bool] = None, ranks=None
                        ) -> Tuple[FedState, Dict[str, torch.Tensor]]:
     """The active-subset round: one BAFDP round in O(S) compute and memory
     over the per-client leaves.
@@ -589,6 +740,13 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
     instead.  Metrics: ``loss``, ``data_loss``, ``eps_mean``,
     ``lambda_mean``, ``n_active`` as the dense round; block statistics
     under ``_block`` keys with their divisor ``metrics_k``.
+
+    ``ranks`` (see the module docstring): over several ranks ``state``
+    holds this rank's clients and ``batch`` their per-client (C_r, ...)
+    rows; each rank keeps the round's rows whose client lies in its block,
+    in the canonical order, padded to the same S_max, and writes those
+    back.  The dual fold and the Eq. (20) fold are split into a partial
+    over these rows, an all-reduce over ``"data"`` and a finish.
     """
     sign_message = fed.resolved_sign_message      # validates the knob
     dual_message = fed.resolved_dual_message      # validates the knob
@@ -611,7 +769,22 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
     idx_h, stale_h, w_h, order_h, write_idx = _canonical_rows(
         idx, stale, weight, C)
     S = idx_h.shape[0]
-    gid_h = np.minimum(idx_h, C - 1)        # padding reads client C - 1
+    split = is_split(ranks)
+    Cb = C                                  # the state's client rows
+    if split:
+        _split_round_checks(fed, ranks, C)
+        if fed.consensus_streaming or batch_gathered:
+            raise NotImplementedError(
+                "the streamed fold and pre-gathered batches over several "
+                "ranks are not ported (ROADMAP Queue A 7(b))")
+        idx_h, stale_h, w_h, write_idx, fleet_h = _rank_rows(
+            idx_h, stale_h, w_h, write_idx, ranks)
+        Cb = ranks.rows
+        fleet_h = np.minimum(fleet_h, ranks.c1 - 1)
+    else:
+        ranks = None
+        fleet_h = np.minimum(idx_h, C - 1)  # padding reads client C - 1
+    gid_h = np.minimum(idx_h, Cb - 1)
     gid = torch.from_numpy(gid_h).to(dev)
     w_row = torch.from_numpy(w_h).to(dev)
     stale_v = torch.from_numpy(stale_h).to(dev)
@@ -620,8 +793,10 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
     s_w = staleness_weights(stale_v, fed) * w_row           # decay + mask
     tau_g = state.tau.index_select(0, gid)
     s_w_dual = staleness_weights((t - tau_g).float(), fed)
-    noise_rows = RowGenerators(gen.initial_seed(), NOISE_STREAM, gid_h, dev)
-    byz_g = byz_mask.index_select(0, gid.to(byz_mask.device)).to(dev) \
+    noise_rows = RowGenerators(gen.initial_seed(), NOISE_STREAM, fleet_h,
+                               dev)
+    fleet = torch.from_numpy(fleet_h)
+    byz_g = byz_mask.index_select(0, fleet.to(byz_mask.device)).to(dev) \
         & (w_row > 0.0)
 
     # ---------------- gather the round's S rows of every big leaf ---------
@@ -640,14 +815,14 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
 
     def pick_batch(l):
         if batch_gathered is None:
-            per_client = l.shape[0] == C           # wins when S == C
+            per_client = l.shape[0] == Cb          # wins when S == C
             if not per_client and l.shape[0] != S:
                 raise ValueError(
                     f"batch leaf leading dim {l.shape[0]} is neither "
-                    f"n_clients={C} nor the padded block size {S}")
+                    f"n_clients={Cb} nor the padded block size {S}")
         else:
             per_client = not batch_gathered
-            want = C if per_client else S
+            want = Cb if per_client else S
             if l.shape[0] != want:
                 raise ValueError(
                     f"batch_gathered={batch_gathered}: expected batch leaf "
@@ -667,7 +842,7 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
         W_g, zl_g, phi_g, eps_g, lam_g, opt_g, comp_g, batch_g, noise_rows,
         torch.ones((S,), dtype=torch.int32, device=dev),
         local_loss=local_loss, fed=fed, c3=c3, n_samples=n_samples,
-        d_dim=d_dim, taylor=taylor)
+        d_dim=d_dim, taylor=taylor, ranks=ranks)
 
     # ---------------- write the state's rows back, in place ---------------
     tau_new = scatter_clients(state.tau, write_idx, t.expand(S))
@@ -683,22 +858,46 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
         comp_blocks = comp_prop
     eps_new = scatter_clients(state.eps, write_idx, eps_prop)
 
-    wsum_act = torch.clamp_min(torch.sum(w_row), 1.0)
-
-    def act_mean(x):
-        return torch.sum(x * w_row) / wsum_act
-
     a1_t = reg_decay(fed.alpha_lambda, t, fed.reg_decay_pow)
     lam_new = torch.clamp_min(state.lam + fed.alpha_lambda * (
         (eps_new - fed.privacy_budget_a) - a1_t * state.lam), 0.0)
-    block_metrics = {
-        "loss": act_mean(loss_i), "data_loss": act_mean(g_i),
-        "lipschitz_block": act_mean(G_i), "eps_mean": torch.mean(eps_new),
-        "lambda_mean": torch.mean(lam_new), "n_active": torch.sum(w_row),
-        "staleness_mean_block": act_mean(stale_v),
-        "staleness_weight_mean_block": act_mean(
-            staleness_weights(stale_v, fed)),
-        "metrics_k": wsum_act}
+    if split:
+        # the block's sums over every rank's rows, one all-reduce
+        sums = all_reduce_sum(torch.stack([
+            torch.sum(w_row), torch.sum(loss_i * w_row),
+            torch.sum(g_i * w_row), torch.sum(G_i * w_row),
+            torch.sum(stale_v * w_row),
+            torch.sum(staleness_weights(stale_v, fed) * w_row),
+            torch.sum(eps_new), torch.sum(lam_new)]).float(), ranks.data)
+        wsum_act = torch.clamp_min(sums[0], 1.0)
+
+        def act_mean(x):
+            return all_reduce_sum(torch.sum(x * w_row).reshape(1),
+                                  ranks.data)[0] / wsum_act
+
+        block_metrics = {
+            "loss": sums[1] / wsum_act, "data_loss": sums[2] / wsum_act,
+            "lipschitz_block": sums[3] / wsum_act,
+            "eps_mean": true_div(sums[6], C),
+            "lambda_mean": true_div(sums[7], C), "n_active": sums[0],
+            "staleness_mean_block": sums[4] / wsum_act,
+            "staleness_weight_mean_block": sums[5] / wsum_act,
+            "metrics_k": wsum_act}
+    else:
+        wsum_act = torch.clamp_min(torch.sum(w_row), 1.0)
+
+        def act_mean(x):
+            return torch.sum(x * w_row) / wsum_act
+
+        block_metrics = {
+            "loss": act_mean(loss_i), "data_loss": act_mean(g_i),
+            "lipschitz_block": act_mean(G_i),
+            "eps_mean": torch.mean(eps_new),
+            "lambda_mean": torch.mean(lam_new), "n_active": torch.sum(w_row),
+            "staleness_mean_block": act_mean(stale_v),
+            "staleness_weight_mean_block": act_mean(
+                staleness_weights(stale_v, fed)),
+            "metrics_k": wsum_act}
 
     if fed.local_steps == 0:
         # consensus-free round: no sign all-reduce at all
@@ -716,8 +915,8 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
     # fleet-indexed corruption: each row's draw keys off its client id and
     # alie's statistics read only the delivered rows
     W_sent = byz_lib.apply_attack(fed.attack, gen, W_prop, byz_g,
-                                  scale=fed.attack_scale, client_ids=gid_h,
-                                  weight=w_row)
+                                  scale=fed.attack_scale, client_ids=fleet_h,
+                                  weight=w_row, ranks=ranks)
     comp_norm = torch.zeros((), device=dev)
     W_srv = W_sent
     if taylor:
@@ -728,7 +927,10 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
             per_row = per_row + torch.sum(
                 torch.abs(a - b.float()).reshape(S, -1), dim=1)
         den = float(sum(l.numel() for l in tree_leaves(W_sent))) / S
-        num = torch.sum(per_row * w_row) / (wsum_act * max(den, 1.0))
+        if split:
+            num = act_mean(per_row) / max(den, 1.0)
+        else:
+            num = torch.sum(per_row * w_row) / (wsum_act * max(den, 1.0))
         comp_norm = torch.where(do_consensus, num, torch.zeros_like(num))
 
     # Byzantine-robust pre-aggregation over the S delivered messages
@@ -738,30 +940,45 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
 
     if fed.fedbuff_lr_norm:
         # sum(weight) is the realized K, duplicate deliveries included
-        k_arr = torch.sum(w_row) if arrivals is None \
+        k_arr = (block_metrics["n_active"] if split else torch.sum(w_row)) \
+            if arrivals is None \
             else torch.as_tensor(arrivals, device=dev).float()
         lr_scale = true_div(k_arr, C)
 
     # the dual term sum_j w_j phi_j / C, the same left-fold over the block
     chunk = fed.consensus_chunk if fed.consensus_streaming else 0
 
-    def phi_mean(phi_l):
+    def phi_fold(phi_l):
         rows = phi_l.reshape(S, -1)
         if dual_message == "int8":
-            acc = kref.fold_dual_rowsum(rows, w_row, chunk_size=chunk)
-        elif chunk:
-            acc = kref.fold_weighted_rowsum_stream(rows, w_row, chunk)
-        else:
-            acc = kref.fold_weighted_rowsum(rows, w_row)
-        return true_div(acc, C)
+            return kref.fold_dual_rowsum(rows, w_row, chunk_size=chunk)
+        if chunk:
+            return kref.fold_weighted_rowsum_stream(rows, w_row, chunk)
+        return kref.fold_weighted_rowsum(rows, w_row)
 
-    # one call over every leaf: B2 or B3 launch once a round
+    if split:
+        # this rank's folds of every leaf, one all-reduce, then / C
+        folds = [phi_fold(phi_l) for phi_l in tree_leaves(phi_g)]
+        flat = all_reduce_sum(torch.cat(folds), ranks.data)
+        phi_means, at = [], 0
+        for f in folds:
+            phi_means.append(true_div(flat[at:at + f.numel()], C))
+            at += f.numel()
+        del folds, flat
+    else:
+        phi_means = [true_div(phi_fold(phi_l), C)
+                     for phi_l in tree_leaves(phi_g)]
+
+    # one call over every leaf: B2 or B3 launch once a round (over several
+    # ranks: a partial and a finish per dtype group)
     z_upd = iter(kops.sign_consensus_leaves(
         [z_l.reshape(-1) for z_l in tree_leaves(state.z)],
         [w_l.reshape(S, -1) for w_l in tree_leaves(W_srv)],
-        [phi_mean(phi_l) for phi_l in tree_leaves(phi_g)],
-        s_w, fed.psi, fed.alpha_z, message=sign_message, n_total=C,
-        streaming=fed.consensus_streaming, chunk_size=fed.consensus_chunk))
+        phi_means, s_w, fed.psi, fed.alpha_z, message=sign_message,
+        n_total=C, streaming=fed.consensus_streaming,
+        chunk_size=fed.consensus_chunk,
+        ranks=ranks))
+    del phi_means
 
     def z_step(z_l):
         zf = z_l.reshape(-1)
@@ -802,8 +1019,10 @@ def bafdp_round_sparse(state: FedState, batch: Any, gen: torch.Generator, *,
     for z_l, w_l in zip(tree_leaves(z_new), tree_leaves(W_prop)):
         diff = z_l[None].float() - w_l.float()
         d = torch.sum(torch.square(diff), dim=tuple(range(1, w_l.ndim)))
-        sq = sq + act_mean(d)
+        sq = sq + (torch.sum(d * w_row) if split else act_mean(d))
         n += z_l.numel()
+    if split:
+        sq = all_reduce_sum(sq.reshape(1), ranks.data)[0] / wsum_act
     return new_state, dict(block_metrics,
                            consensus_gap_block=sq / float(max(n, 1)),
                            compensation_norm_block=comp_norm)

@@ -25,7 +25,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.privacy import RowGenerators
+from repro_torch.core.privacy import BlockGenerator, RowGenerators
+from repro_torch.distributed.collectives import all_reduce_sum
 from repro_torch.kernels.ref import fold_weighted_rowsum, true_div
 from repro_torch.tree import host_array, tree_leaves, tree_map
 
@@ -51,16 +52,24 @@ def _row_ids(honest: Any, client_ids) -> np.ndarray:
 
 def corrupt(attack: str, gen: torch.Generator, honest: Any, *,
             scale: float = 10.0, client_ids: Optional[Any] = None,
-            weight: Optional[torch.Tensor] = None) -> Any:
+            weight: Optional[torch.Tensor] = None, ranks=None) -> Any:
     """Corrupted version of a stacked client message (leading axis R).
 
     ``client_ids`` (R,) maps block rows to fleet client ids: ``gaussian``
     then draws row by row, keyed off the client id (see the module
     docstring).  ``weight`` (R,) marks the rows (> 0) whose statistics
-    ``alie`` may read (default: every row)."""
+    ``alie`` may read (default: every row).  ``ranks``: a split round's
+    ``data_parallel.RankBlock`` (the rows are this rank's): ``alie``'s
+    sums are all-reduced over its ``"data"`` ranks and, without
+    ``weight``, divided by the fleet's C; ``gen`` is then a
+    ``privacy.BlockGenerator``."""
     if attack == "none" or attack in DATA_ATTACKS:
         return honest
     if attack == "gaussian":
+        if isinstance(gen, BlockGenerator) and client_ids is None:
+            return tree_map(lambda l: (gen.randn(
+                l.shape, dtype=torch.float32, device=l.device) * scale
+            ).to(l.dtype), honest)
         if client_ids is None:
             return tree_map(
                 lambda l: (torch.randn(l.shape, generator=gen,
@@ -89,22 +98,27 @@ def corrupt(attack: str, gen: torch.Generator, honest: Any, *,
         # cross-client std, hidden inside the honest spread; mean and
         # variance are row-order folds over the weight > 0 rows (all rows
         # without weights), where a zero-weight row adds an exact 0
+        axis = None if ranks is None else ranks.data
+
         def f(l):
             lf = l.float()
             if weight is None:
                 wv = torch.ones((l.shape[0],), dtype=torch.float32,
                                 device=l.device)
+                count = l.shape[0] if ranks is None else ranks.n_clients
 
                 def div(x):
-                    return true_div(x, l.shape[0])
+                    return true_div(x, count)
             else:
                 wv = weight.float()
-                n = torch.clamp_min(torch.sum(wv), 1.0)
+                n = torch.clamp_min(all_reduce_sum(torch.sum(wv), axis),
+                                    1.0)
 
                 def div(x):
                     return x / n
-            mu = div(fold_weighted_rowsum(lf, wv))
-            var = div(fold_weighted_rowsum(torch.square(lf - mu[None]), wv))
+            mu = div(all_reduce_sum(fold_weighted_rowsum(lf, wv), axis))
+            var = div(all_reduce_sum(fold_weighted_rowsum(
+                torch.square(lf - mu[None]), wv), axis))
             row = mu - 1.5 * torch.sqrt(var)
             return row[None].expand(l.shape).to(l.dtype)
 
@@ -115,15 +129,15 @@ def corrupt(attack: str, gen: torch.Generator, honest: Any, *,
 def apply_attack(attack: str, gen: torch.Generator, stacked: Any,
                  byz_mask: torch.Tensor, *, scale: float = 10.0,
                  client_ids: Optional[Any] = None,
-                 weight: Optional[torch.Tensor] = None) -> Any:
+                 weight: Optional[torch.Tensor] = None, ranks=None) -> Any:
     """Replace the malicious clients' messages.  stacked leaves: (R, ...);
     byz_mask: (R,) bool, row-aligned with the block; ``scale``,
-    ``client_ids`` and ``weight`` go to :func:`corrupt`."""
+    ``client_ids``, ``weight`` and ``ranks`` go to :func:`corrupt`."""
     if attack == "none" or attack in DATA_ATTACKS \
             or not bool(byz_mask.shape[0]):
         return stacked
     bad = corrupt(attack, gen, stacked, scale=scale, client_ids=client_ids,
-                  weight=weight)
+                  weight=weight, ranks=ranks)
 
     def sel(h, b):
         m = byz_mask.reshape((-1,) + (1,) * (h.ndim - 1))

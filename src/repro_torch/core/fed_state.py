@@ -157,12 +157,100 @@ def scatter_clients(tree: Any, idx: Any, updates: Any) -> Any:
     return tree_map(put, tree, updates)
 
 
-def consensus_gap(state: FedState) -> torch.Tensor:
-    """mean_i ||z - w_i||^2 / D — convergence diagnostic."""
+def consensus_gap(state: FedState, ranks=None) -> torch.Tensor:
+    """mean_i ||z - w_i||^2 / D — convergence diagnostic.  ``ranks``: a
+    split round's ``data_parallel.RankBlock`` (``state`` holds its rows):
+    the local sum of squares, all-reduced over ``"data"``, over the
+    fleet's C."""
+    from repro_torch.distributed.data_parallel import is_split
+
     sq = torch.zeros((), dtype=torch.float32, device=state.eps.device)
     n = 0
+    split = is_split(ranks)
     for z_l, w_l in zip(tree_leaves(state.z), tree_leaves(state.W)):
         diff = z_l[None].float() - w_l.float()
-        sq = sq + torch.sum(diff.pow_(2)) / w_l.shape[0]   # one buffer
+        if split:
+            sq = sq + torch.sum(diff.pow_(2))
+        else:
+            sq = sq + torch.sum(diff.pow_(2)) / w_l.shape[0]   # one buffer
         n += z_l.numel()
+    if split:
+        from repro_torch.distributed.collectives import all_reduce_sum
+        from repro_torch.kernels.ref import true_div
+
+        sq = true_div(all_reduce_sum(sq, ranks.data), ranks.n_clients)
     return sq / float(max(n, 1))
+
+
+# the per-client fields of a FedState: a leading (C, ...) axis
+CLIENT_FIELDS = ("W", "z_local", "phi", "lam", "eps", "tau", "opt", "comp")
+
+
+def shard_clients(state: FedState, ranks) -> FedState:
+    """This rank's clients of a whole state (``ranks``: a
+    ``data_parallel.RankBlock``): rows ``[c0, c1)`` of every per-client
+    leaf as storage of their own (a copy: the caller then drops the whole
+    state, and no rank holds the fleet's (C, ...) leaves), ``z`` and ``t``
+    as they are.  At one rank the state itself (no copy)."""
+    from repro_torch.distributed.data_parallel import is_split
+
+    if not is_split(ranks):
+        return state
+    sl = ranks.clients()
+    return state._replace(**{
+        f: None if getattr(state, f) is None
+        else tree_map(lambda l: l[sl].clone(), getattr(state, f))
+        for f in CLIENT_FIELDS})
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bit pattern as int32 (sums of one pattern and zeros are
+    exact)."""
+    if t.dtype in (torch.float32, torch.int32):
+        return t.contiguous().view(torch.int32)
+    if t.dtype in (torch.bfloat16, torch.float16, torch.int16):
+        return t.contiguous().view(torch.int16).to(torch.int32)
+    if t.dtype in (torch.int8, torch.uint8, torch.bool):
+        return t.contiguous().view(torch.uint8).to(torch.int32)
+    raise TypeError(f"no bit view of {t.dtype}")
+
+
+def _from_bits(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype in (torch.float32, torch.int32):
+        return b.view(dtype)
+    if dtype in (torch.bfloat16, torch.float16, torch.int16):
+        return b.to(torch.int16).view(dtype)
+    return b.to(torch.uint8).view(dtype)
+
+
+def whole_rows(tree: Any, ranks) -> Any:
+    """A tree of this rank's (C_r, ...) client rows as the fleet's
+    (C, ...), on every rank: the rows placed at ``[c0, c1)`` of zeros and
+    summed over the ``"data"`` ranks (gloo has no ``all_gather`` of CUDA
+    tensors).  The sum runs on the bit patterns, one rank's and the
+    others' zeros, so the result is the shards' bits exactly (-0.0 and
+    NaN included)."""
+    from repro_torch.distributed.collectives import all_reduce_sum
+
+    C, sl = ranks.n_clients, ranks.clients()
+
+    def whole(l):
+        b = torch.zeros((C,) + tuple(l.shape[1:]), dtype=torch.int32,
+                        device=l.device)
+        b[sl] = _bits(l)
+        return _from_bits(all_reduce_sum(b, ranks.data), l.dtype)
+
+    return tree_map(whole, tree)
+
+
+def unshard_clients(state: FedState, ranks) -> FedState:
+    """The inverse of :func:`shard_clients`, on every rank: every
+    per-client leaf whole (:func:`whole_rows`), for evaluation and
+    checkpoints.  At one rank the state itself."""
+    from repro_torch.distributed.data_parallel import is_split
+
+    if not is_split(ranks):
+        return state
+    return state._replace(**{
+        f: None if getattr(state, f) is None
+        else whole_rows(getattr(state, f), ranks) for f in CLIENT_FIELDS})

@@ -10,7 +10,10 @@ Randomness comes from the round's ``torch.Generator``, or, in the
 active-subset round, from a :class:`RowGenerators`: one generator per
 client row, seeded from the round generator's seed and the client id, so
 a client's draw does not depend on the block it sits in (the counterpart
-of the reference's ``jax.random.split(key, C)[client]``).
+of the reference's ``jax.random.split(key, C)[client]``).  A round split
+over ranks hands its draws a :class:`BlockGenerator`: each rank draws the
+whole block from the round's generator, as one rank would, and keeps its
+part, so every rank's generator moves as the one-rank round's does.
 """
 from __future__ import annotations
 
@@ -80,7 +83,38 @@ class RowGenerators:
         return out
 
 
-def perturb_inputs(gen: Union[torch.Generator, RowGenerators],
+class BlockGenerator:
+    """The round's ``torch.Generator`` as one rank of a split round sees
+    it: a draw for this rank's block is the whole block's draw (the shape
+    the one-rank round draws), narrowed to the rank's part.  ``spans``:
+    ``(total, start, rows)`` for each leading dim that is split (the
+    clients; under ``inner_dp`` also a client's batch rows)."""
+
+    def __init__(self, gen: torch.Generator,
+                 spans: Sequence[Tuple[int, int, int]]) -> None:
+        self.gen = gen
+        self.spans = tuple(tuple(int(v) for v in s) for s in spans)
+
+    def randn(self, shape: Sequence[int], dtype=torch.float32,
+              device=None) -> torch.Tensor:
+        """Standard normals of the local ``shape``: the block's
+        ``(total, ...)`` draw narrowed to ``[start, start + rows)`` on each
+        split dim."""
+        full = list(shape)
+        for d, (total, _, rows) in enumerate(self.spans):
+            if full[d] != rows:
+                raise ValueError(f"dim {d} of {tuple(shape)} is not this "
+                                 f"rank's {rows} rows")
+            full[d] = total
+        out = torch.randn(full, generator=self.gen, dtype=dtype,
+                          device=device)
+        for d, (_, start, rows) in enumerate(self.spans):
+            out = out.narrow(d, start, rows)
+        return out
+
+
+def perturb_inputs(gen: Union[torch.Generator, RowGenerators,
+                              BlockGenerator],
                    x: torch.Tensor, eps: torch.Tensor, c3: float,
                    eps_min: float = FedConfig.eps_min) -> torch.Tensor:
     """``x + v``, ``v ~ N(0, sigma^2 I)`` drawn from ``gen``: one block
@@ -93,6 +127,8 @@ def perturb_inputs(gen: Union[torch.Generator, RowGenerators],
             raise ValueError(f"{len(gen)} row generators for a block of "
                              f"{x.shape[0]} rows")
         noise = gen.randn(x.shape[1:], dtype=x.dtype)
+    elif isinstance(gen, BlockGenerator):
+        noise = gen.randn(x.shape, dtype=x.dtype, device=x.device)
     else:
         noise = torch.randn(x.shape, generator=gen, dtype=x.dtype,
                             device=x.device)

@@ -73,6 +73,7 @@ import torch
 
 from repro_torch.core.async_engine import DelayModel, SimResult
 from repro_torch.core.devices import DeviceModel, split_model
+from repro_torch.distributed.data_parallel import is_split
 from repro_torch.tree import host_array, resolve_device
 
 
@@ -766,6 +767,11 @@ class FederatedRun:
       Needs a ``schedule=``; a resume (``start > 0``) past a delivering
       prefix needs the ledger restored from ``EpsLedger.state_dict()``.
     * ``device``: where the default generators live (``None`` = the GPU).
+    * ``ranks``: a ``distributed.data_parallel.RankBlock`` of more than
+      one rank, fed to every round as ``ranks=`` (the state and the
+      batches are this rank's; the schedule's rows stay the fleet's).
+      Every rank walks the same schedule and draws the same generators.
+      A ledger needs every client's eps and is refused there.
     """
     step: Callable[..., Tuple[Any, Dict[str, Any]]]
     rounds: int
@@ -781,6 +787,7 @@ class FederatedRun:
     ledger: Optional[Any] = None          # privacy.EpsLedger
     ledger_delta: float = 1e-5
     device: Optional[Any] = None
+    ranks: Optional[Any] = None
 
     def _check(self, seed) -> None:
         """The reference's argument checks, in its order."""
@@ -810,6 +817,10 @@ class FederatedRun:
             raise ValueError(
                 f"Schedule is for {self.schedule.n_clients} clients, the "
                 f"run expects {self.n_clients}")
+        if self.ledger is not None and is_split(self.ranks):
+            raise NotImplementedError(
+                "ledger= over several ranks (each holds its clients' eps "
+                "only) is not ported (ROADMAP Queue A 7(b))")
         if self.key_fn is None and seed is None:
             raise ValueError("need a base seed (or a key_fn)")
         if self.ledger is not None and self.schedule is None:
@@ -897,6 +908,8 @@ class FederatedRun:
                     del kwargs["stale"]
                 if arrivals is not None:
                     kwargs["arrivals"] = np.int32(arrivals[t])
+            if is_split(self.ranks):
+                kwargs["ranks"] = self.ranks
             if self.ledger is not None:
                 self._charge(state, row, sparse)
             state, m = self.step(state, batch_fn(t), key_fn(t), **kwargs)

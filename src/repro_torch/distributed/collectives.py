@@ -13,14 +13,65 @@ per-coordinate decode error is at most ``absmax * DUAL_INT8_REL_ERR``.
 
 Reductions never accumulate in the wire dtype: int8 wraps once
 ``|sum_i sign_i| >= 128``.
+
+**The exchanges between ranks** (a round whose clients are split over
+the ``"data"`` ranks, a client's batch over the ``"model"`` ranks:
+``distributed/data_parallel.py``) are one, :func:`all_reduce_sum`:
+gloo takes CUDA tensors for ``all_reduce`` and ``broadcast`` only, and
+the port needs no broadcast.  Each call over a group of more than one rank adds to :data:`COLLECTIVES` (calls and
+bytes per mesh axis) and to the active ``roofline.cost.CostCounter``
+(its bytes, the group's size and its stride in the mesh's rank order),
+which is how the dry-run sees a collective: on ``meta`` tensors nothing
+is sent.  A group of one rank sends and counts nothing.  The int8 sign
+wire's partial sums travel as int32: 4 bytes a coordinate, as the f32
+wire's.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.ref import int8_sign_sum, jsign, true_div
+from repro_torch.roofline import cost
+
+# mesh axis -> {"calls": n, "bytes": b} of the exchanges made
+COLLECTIVES: Dict[str, Dict[str, int]] = {}
+
+
+def reset_collective_counts() -> None:
+    COLLECTIVES.clear()
+
+
+def _count(kind: str, t: torch.Tensor, axis) -> None:
+    nbytes = t.numel() * t.element_size()
+    rec = COLLECTIVES.setdefault(axis.name, {"calls": 0, "bytes": 0})
+    rec["calls"] += 1
+    rec["bytes"] += nbytes
+    cost.add_collective(kind, axis.name, nbytes, axis.size, axis.stride)
+
+
+def _group(t: torch.Tensor, axis):
+    if axis.group is None:
+        raise RuntimeError(f"no process group for the {axis.name!r} axis of "
+                           f"{axis.size} ranks")
+    return axis.group
+
+
+def all_reduce_sum(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` summed over the ranks of ``axis`` (a
+    ``data_parallel.Axis``), in place; returns ``t``.  Every rank gets the
+    same bits.  Over one rank (or ``axis`` None) nothing moves; on
+    ``meta`` the call is counted and nothing moves."""
+    if axis is None or axis.size == 1:
+        return t
+    _count("all_reduce", t, axis)
+    if t.device.type == "meta":
+        return t
+    import torch.distributed as dist
+
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=_group(t, axis))
+    return t
 
 
 class SignMessage(NamedTuple):

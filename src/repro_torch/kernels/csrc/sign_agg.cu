@@ -51,6 +51,18 @@
 // thread: sign_agg_group 58-64 registers, sign_agg_int8_group 62-64; no
 // spills.
 //
+// The split for a round whose clients sit on several ranks: the same
+// folds over this rank's rows, writing the column sums instead of the
+// epilogue (sign_sum_group<T, kWeighted>: f32 sums of B1/B2's rows;
+// sign_sum_int8_group<kWeighted>: int32 sums of B3's unweighted payload,
+// f32 of its weighted fold), then, on the sums all-reduced over the ranks,
+// the epilogue alone (sign_finish_group<T, kIntSums>).  One launch each
+// per dtype group, on the same leaf table: the partial's `out` column
+// points into one flat buffer of sums (each leaf's sums 16-byte aligned),
+// the finish reads that buffer from W's column.  An unweighted sum of
+// signs is an integer below 2^24 in f32, so the split gives the fused
+// kernel's bits; a weighted fold regroups its additions across ranks.
+//
 // Plain C interface for ctypes: each entry returns the cudaError_t of the
 // launch (0 = success) and takes the stream as a pointer.
 #include <cuda_bf16.h>
@@ -219,15 +231,12 @@ __device__ __forceinline__ void load_cols(const T* p, float (&v)[V]) {
 // ---------------------------------------------------------------- B1/B2 --
 
 // Columns d .. d+V-1 of one leaf: the strict row-order fold over the C
-// rows, kRows rows loaded before they are folded.
+// rows, kRows rows loaded before they are folded, into acc.
 template <typename T, bool kWeighted, int V>
-__device__ __forceinline__ void fold_columns(const Group& g, const Leaf& L,
-                                             int64_t d) {
-  if (d >= L.D) return;
+__device__ __forceinline__ void fold_rows(const Group& g, const Leaf& L,
+                                          int64_t d, const float (&zf)[V],
+                                          float (&acc)[V]) {
   const T* W = static_cast<const T*>(L.W) + d;
-  float zf[V], phif[V], acc[V];
-  unpack<T, V>(load_ro<T, V>(static_cast<const T*>(L.z) + d), zf);
-  load_cols<float, V>(static_cast<const float*>(L.phi) + d, phif);
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[j] = 0.f;
   for (int i0 = 0; i0 < g.C; i0 += kRows) {
@@ -253,12 +262,72 @@ __device__ __forceinline__ void fold_columns(const Group& g, const Leaf& L,
       }
     }
   }
+}
+
+// The fused kernel's columns: the fold, then the epilogue.
+template <typename T, bool kWeighted, int V>
+__device__ __forceinline__ void fold_columns(const Group& g, const Leaf& L,
+                                             int64_t d) {
+  if (d >= L.D) return;
+  float zf[V], phif[V], acc[V];
+  unpack<T, V>(load_ro<T, V>(static_cast<const T*>(L.z) + d), zf);
+  load_cols<float, V>(static_cast<const float*>(L.phi) + d, phif);
+  fold_rows<T, kWeighted, V>(g, L, d, zf, acc);
   float o[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     o[j] = epilogue(zf[j], phif[j], acc[j], g.n, g.psi, g.alpha_z);
   }
   store<T, V>(static_cast<T*>(L.out) + d, o);
+}
+
+// V 4-byte sums (f32 or int32 bits) as 16-byte stores, or one
+template <int V>
+__device__ __forceinline__ void store_sums(void* p, int64_t d,
+                                           const uint32_t (&bits)[V]) {
+  uint32_t* q = static_cast<uint32_t*>(p) + d;
+  if constexpr (V == 1) {
+    *q = bits[0];
+  } else {
+#pragma unroll
+    for (int c = 0; c < V / 4; ++c) {
+      reinterpret_cast<uint4*>(q)[c] = make_uint4(
+          bits[4 * c], bits[4 * c + 1], bits[4 * c + 2], bits[4 * c + 3]);
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_sums(const void* p, int64_t d,
+                                          uint32_t (&bits)[V]) {
+  const uint32_t* q = static_cast<const uint32_t*>(p) + d;
+  if constexpr (V == 1) {
+    bits[0] = __ldg(q);
+  } else {
+#pragma unroll
+    for (int c = 0; c < V / 4; ++c) {
+      const uint4 r = __ldg(reinterpret_cast<const uint4*>(q) + c);
+      bits[4 * c] = r.x;
+      bits[4 * c + 1] = r.y;
+      bits[4 * c + 2] = r.z;
+      bits[4 * c + 3] = r.w;
+    }
+  }
+}
+
+// The partial's columns: the same fold over this rank's rows, its f32
+// column sums written to `out` (no phi_mean, no epilogue).
+template <typename T, bool kWeighted, int V>
+__device__ __forceinline__ void sum_columns(const Group& g, const Leaf& L,
+                                            int64_t d) {
+  if (d >= L.D) return;
+  float zf[V], acc[V];
+  unpack<T, V>(load_ro<T, V>(static_cast<const T*>(L.z) + d), zf);
+  fold_rows<T, kWeighted, V>(g, L, d, zf, acc);
+  uint32_t bits[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) bits[j] = __float_as_uint(acc[j]);
+  store_sums<V>(L.out, d, bits);
 }
 
 template <typename T, bool kWeighted>
@@ -273,6 +342,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fold_columns<T, kWeighted, kVec>(g, L, t * kVec);
   } else {
     fold_columns<T, kWeighted, 1>(g, L, t);
+  }
+}
+
+template <typename T, bool kWeighted>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sign_sum_group(const __grid_constant__ Group g) {
+  const int b = (int)blockIdx.x;
+  const int l = find_leaf(g, b);
+  const Leaf& L = g.leaf[l];
+  const int64_t t = (int64_t)(b - g.first[l]) * kThreads + threadIdx.x;
+  constexpr int kVec = vec_width(sizeof(T));
+  if (L.vec) {
+    sum_columns<T, kWeighted, kVec>(g, L, t * kVec);
+  } else {
+    sum_columns<T, kWeighted, 1>(g, L, t);
   }
 }
 
@@ -315,17 +399,15 @@ __device__ __forceinline__ void store_cols(T* p, const float (&v)[V]) {
   }
 }
 
-// Columns d .. d+V-1 of one leaf from its int8 payload: the exact int32
-// sum over the C rows, or with the scale the f32 fold acc + s_i * q_i in
-// row order; kInt8Rows rows loaded before they are folded.  z and
-// phi_mean are read after the fold.
-template <typename T, bool kWeighted, int V>
-__device__ __forceinline__ void fold_int8_columns(const Group& g,
-                                                  const Leaf& L, int64_t d) {
-  if (d >= L.D) return;
+// Columns d .. d+V-1 of one leaf's int8 payload folded over the C rows
+// into acc: the exact int32 sum, or with the scale the f32 fold
+// acc + s_i * q_i in row order; kInt8Rows rows loaded before they are
+// folded.
+template <bool kWeighted, int V>
+__device__ __forceinline__ void fold_int8_rows(
+    const Group& g, const Leaf& L, int64_t d,
+    typename std::conditional<kWeighted, float, int>::type (&acc)[V]) {
   const int8_t* q = static_cast<const int8_t*>(L.W) + d;
-  using Acc = typename std::conditional<kWeighted, float, int>::type;
-  Acc acc[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[j] = 0;
   for (int i0 = 0; i0 < g.C; i0 += kInt8Rows) {
@@ -353,6 +435,17 @@ __device__ __forceinline__ void fold_int8_columns(const Group& g,
       }
     }
   }
+}
+
+// The fused kernel's columns: the fold, then z and phi_mean read and the
+// epilogue.
+template <typename T, bool kWeighted, int V>
+__device__ __forceinline__ void fold_int8_columns(const Group& g,
+                                                  const Leaf& L, int64_t d) {
+  if (d >= L.D) return;
+  using Acc = typename std::conditional<kWeighted, float, int>::type;
+  Acc acc[V];
+  fold_int8_rows<kWeighted, V>(g, L, d, acc);
   float zf[V], phif[V], o[V];
   load_cols<T, V>(static_cast<const T*>(L.z) + d, zf);
   load_cols<float, V>(static_cast<const float*>(L.phi) + d, phif);
@@ -369,6 +462,27 @@ __device__ __forceinline__ void fold_int8_columns(const Group& g,
   store_cols<T, V>(static_cast<T*>(L.out) + d, o);
 }
 
+// The partial's columns: the fold over this rank's rows, its sums (int32
+// unweighted, f32 weighted) written to `out`.
+template <bool kWeighted, int V>
+__device__ __forceinline__ void sum_int8_columns(const Group& g,
+                                                 const Leaf& L, int64_t d) {
+  if (d >= L.D) return;
+  using Acc = typename std::conditional<kWeighted, float, int>::type;
+  Acc acc[V];
+  fold_int8_rows<kWeighted, V>(g, L, d, acc);
+  uint32_t bits[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    if constexpr (kWeighted) {
+      bits[j] = __float_as_uint(acc[j]);
+    } else {
+      bits[j] = (uint32_t)acc[j];
+    }
+  }
+  store_sums<V>(L.out, d, bits);
+}
+
 template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     sign_agg_int8_group(const __grid_constant__ Group g) {
@@ -381,6 +495,59 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fold_int8_columns<T, kWeighted, kVec>(g, L, t * kVec);
   } else {
     fold_int8_columns<T, kWeighted, 1>(g, L, t);
+  }
+}
+
+template <bool kWeighted>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sign_sum_int8_group(const __grid_constant__ Group g) {
+  const int b = (int)blockIdx.x;
+  const int l = find_leaf(g, b);
+  const Leaf& L = g.leaf[l];
+  const int64_t t = (int64_t)(b - g.first[l]) * kThreads + threadIdx.x;
+  constexpr int kVec = vec_width(sizeof(int8_t));
+  if (L.vec) {
+    sum_int8_columns<kWeighted, kVec>(g, L, t * kVec);
+  } else {
+    sum_int8_columns<kWeighted, 1>(g, L, t);
+  }
+}
+
+// --------------------------------------------------------------- finish --
+
+// Columns d .. d+V-1 of one leaf: z' from the all-reduced sums (W's
+// column; int32 bits where kIntSums, converted as the fused B3 converts
+// its int32 sum), z and phi_mean, by the fused kernels' epilogue.
+template <typename T, bool kIntSums, int V>
+__device__ __forceinline__ void finish_columns(const Group& g, const Leaf& L,
+                                               int64_t d) {
+  if (d >= L.D) return;
+  uint32_t bits[V];
+  load_sums<V>(L.W, d, bits);
+  float zf[V], phif[V], o[V];
+  load_cols<T, V>(static_cast<const T*>(L.z) + d, zf);
+  load_cols<float, V>(static_cast<const float*>(L.phi) + d, phif);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float sum = kIntSums ? __int2float_rn((int)bits[j])
+                               : __uint_as_float(bits[j]);
+    o[j] = epilogue(zf[j], phif[j], sum, g.n, g.psi, g.alpha_z);
+  }
+  store_cols<T, V>(static_cast<T*>(L.out) + d, o);
+}
+
+template <typename T, bool kIntSums>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sign_finish_group(const __grid_constant__ Group g) {
+  const int b = (int)blockIdx.x;
+  const int l = find_leaf(g, b);
+  const Leaf& L = g.leaf[l];
+  const int64_t t = (int64_t)(b - g.first[l]) * kThreads + threadIdx.x;
+  constexpr int kVec = vec_width(sizeof(T));
+  if (L.vec) {
+    finish_columns<T, kIntSums, kVec>(g, L, t * kVec);
+  } else {
+    finish_columns<T, kIntSums, 1>(g, L, t);
   }
 }
 
@@ -417,29 +584,55 @@ bool table_ok(const long long* table, int n_leaves, int elem) {
   return true;
 }
 
-template <typename T, bool kInt8>
+// What one table launches: the fused B1/B2 or B3, the partial of either
+// (column sums), or the finish of f32 or int32 sums.
+enum class Kind { kAgg, kAggInt8, kSum, kSumInt8, kFinish, kFinishInt };
+
+template <typename T, Kind kKind>
 cudaError_t launch_group(const Group& g, cudaStream_t s) {
   const unsigned grid = (unsigned)g.first[g.n_leaves];
   const bool weighted = g.weights != nullptr;
-  if constexpr (kInt8) {
+  if constexpr (kKind == Kind::kAggInt8) {
     if (weighted) {
       sign_agg_int8_group<T, true><<<grid, kThreads, 0, s>>>(g);
     } else {
       sign_agg_int8_group<T, false><<<grid, kThreads, 0, s>>>(g);
     }
-  } else {
+  } else if constexpr (kKind == Kind::kAgg) {
     if (weighted) {
       sign_agg_group<T, true><<<grid, kThreads, 0, s>>>(g);
     } else {
       sign_agg_group<T, false><<<grid, kThreads, 0, s>>>(g);
     }
+  } else if constexpr (kKind == Kind::kSum) {
+    if (weighted) {
+      sign_sum_group<T, true><<<grid, kThreads, 0, s>>>(g);
+    } else {
+      sign_sum_group<T, false><<<grid, kThreads, 0, s>>>(g);
+    }
+  } else if constexpr (kKind == Kind::kSumInt8) {
+    if (weighted) {
+      sign_sum_int8_group<true><<<grid, kThreads, 0, s>>>(g);
+    } else {
+      sign_sum_int8_group<false><<<grid, kThreads, 0, s>>>(g);
+    }
+  } else if constexpr (kKind == Kind::kFinish) {
+    sign_finish_group<T, false><<<grid, kThreads, 0, s>>>(g);
+  } else {
+    sign_finish_group<T, true><<<grid, kThreads, 0, s>>>(g);
   }
   return cudaGetLastError();
 }
 
-// Every launch of one table: B1/B2 (kInt8 false: message rows in z's
-// dtype) or B3 (int8 rows), one launch per kMaxLeaves leaves.
-template <bool kInt8>
+// the element size that sets a leaf's vector width: the int8 payload's for
+// B3 and its partial, z's otherwise
+constexpr int table_elem(Kind k, int dtype) {
+  return (k == Kind::kAggInt8 || k == Kind::kSumInt8) ? 1
+                                                      : (dtype == 0 ? 4 : 2);
+}
+
+// Every launch of one table (see Kind), one launch per kMaxLeaves leaves.
+template <Kind kKind>
 int run_table(int dtype, int n_leaves, const long long* table, int C,
               const void* weights, int n, float psi, float alpha_z,
               void* stream, int* launches) {
@@ -447,7 +640,7 @@ int run_table(int dtype, int n_leaves, const long long* table, int C,
   if ((dtype != 0 && dtype != 1) || n_leaves < 1 || C < 1 || n < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const int elem = kInt8 ? 1 : (dtype == 0 ? 4 : 2);
+  const int elem = table_elem(kKind, dtype);
   if (!table_ok(table, n_leaves, elem)) return (int)cudaErrorInvalidValue;
   Group g;
   g.C = C;
@@ -469,8 +662,8 @@ int run_table(int dtype, int n_leaves, const long long* table, int C,
     g.first[g.n_leaves] =
         g.first[g.n_leaves - 1] + (int)leaf_blocks(last.D, last.vec, elem);
     const cudaError_t err = dtype == 0
-                                ? launch_group<float, kInt8>(g, s)
-                                : launch_group<__nv_bfloat16, kInt8>(g, s);
+                                ? launch_group<float, kKind>(g, s)
+                                : launch_group<__nv_bfloat16, kKind>(g, s);
     if (err != cudaSuccess) return (int)err;
     ++*launches;
   }
@@ -478,7 +671,7 @@ int run_table(int dtype, int n_leaves, const long long* table, int C,
 }
 
 // one leaf through run_table, its vector flag decided here
-template <bool kInt8>
+template <Kind kKind>
 int one_leaf(int dtype, const void* z, const void* W, const void* phi,
              const void* weights, void* out, int C, long long D, int n,
              float psi, float alpha_z, void* stream) {
@@ -487,9 +680,9 @@ int one_leaf(int dtype, const void* z, const void* W, const void* phi,
                                (long long)(uintptr_t)phi,
                                (long long)(uintptr_t)out, D, 0, 0};
   row[6] = (dtype == 0 || dtype == 1) &&
-           vector_ok(row, kInt8 ? 1 : (dtype == 0 ? 4 : 2));
+           vector_ok(row, table_elem(kKind, dtype));
   int launches = 0;
-  return run_table<kInt8>(dtype, 1, row, C, weights, n, psi, alpha_z, stream,
+  return run_table<kKind>(dtype, 1, row, C, weights, n, psi, alpha_z, stream,
                           &launches);
 }
 
@@ -509,8 +702,8 @@ extern "C" int repro_sign_agg_group(int dtype, int n_leaves,
                                     const void* weights, int n, float psi,
                                     float alpha_z, void* stream,
                                     int* launches) {
-  return run_table<false>(dtype, n_leaves, table, C, weights, n, psi,
-                          alpha_z, stream, launches);
+  return run_table<Kind::kAgg>(dtype, n_leaves, table, C, weights, n,
+                              psi, alpha_z, stream, launches);
 }
 
 // B3 over n_leaves leaves: the same table with each leaf's (C, D) int8
@@ -521,16 +714,16 @@ extern "C" int repro_sign_agg_int8_group(int dtype, int n_leaves,
                                          const void* scale, int n, float psi,
                                          float alpha_z, void* stream,
                                          int* launches) {
-  return run_table<true>(dtype, n_leaves, table, C, scale, n, psi, alpha_z,
-                         stream, launches);
+  return run_table<Kind::kAggInt8>(dtype, n_leaves, table, C, scale, n,
+                                  psi, alpha_z, stream, launches);
 }
 
 extern "C" int repro_sign_agg(int dtype, const void* z, const void* W,
                               const void* phi, void* out, int C,
                               long long D, float psi, float alpha_z,
                               void* stream) {
-  return one_leaf<false>(dtype, z, W, phi, nullptr, out, C, D, C, psi,
-                         alpha_z, stream);
+  return one_leaf<Kind::kAgg>(dtype, z, W, phi, nullptr, out, C, D, C,
+                              psi, alpha_z, stream);
 }
 
 extern "C" int repro_sign_agg_weighted(int dtype, const void* z,
@@ -538,8 +731,8 @@ extern "C" int repro_sign_agg_weighted(int dtype, const void* z,
                                        const void* weights, void* out, int C,
                                        long long D, int n, float psi,
                                        float alpha_z, void* stream) {
-  return one_leaf<false>(dtype, z, W, phi, weights, out, C, D, n, psi,
-                         alpha_z, stream);
+  return one_leaf<Kind::kAgg>(dtype, z, W, phi, weights, out, C, D, n,
+                              psi, alpha_z, stream);
 }
 
 extern "C" int repro_sign_agg_int8(int dtype, const void* z,
@@ -547,6 +740,42 @@ extern "C" int repro_sign_agg_int8(int dtype, const void* z,
                                    const void* scale, void* out, int C,
                                    long long D, int n, float psi,
                                    float alpha_z, void* stream) {
-  return one_leaf<true>(dtype, z, payload, phi, scale, out, C, D, n, psi,
-                        alpha_z, stream);
+  return one_leaf<Kind::kAggInt8>(dtype, z, payload, phi, scale, out, C, D,
+                                  n, psi, alpha_z, stream);
+}
+
+// The split of a round over ranks.  B1/B2's partial: the same table as
+// repro_sign_agg_group with each leaf's `out` pointing at its f32 column
+// sums over this rank's C rows (weights (C,) f32 or nullptr); no phi_mean,
+// no divisor.
+extern "C" int repro_sign_sum_group(int dtype, int n_leaves,
+                                    const long long* table, int C,
+                                    const void* weights, void* stream,
+                                    int* launches) {
+  return run_table<Kind::kSum>(dtype, n_leaves, table, C, weights, 1, 0.f,
+                               0.f, stream, launches);
+}
+
+// B3's partial: the int8 payload in W's column, `out` its int32 sums
+// (scale nullptr) or f32 folds (scale (C,) f32); z is not read.
+extern "C" int repro_sign_sum_int8_group(int dtype, int n_leaves,
+                                         const long long* table, int C,
+                                         const void* scale, void* stream,
+                                         int* launches) {
+  return run_table<Kind::kSumInt8>(dtype, n_leaves, table, C, scale, 1, 0.f,
+                                   0.f, stream, launches);
+}
+
+// The finish: each leaf's all-reduced sums in W's column (f32, or int32
+// where int_sums), z, phi_mean (f32) and out; the divisor n.
+extern "C" int repro_sign_finish_group(int dtype, int int_sums, int n_leaves,
+                                       const long long* table, int n,
+                                       float psi, float alpha_z,
+                                       void* stream, int* launches) {
+  if (int_sums) {
+    return run_table<Kind::kFinishInt>(dtype, n_leaves, table, 1, nullptr, n,
+                                       psi, alpha_z, stream, launches);
+  }
+  return run_table<Kind::kFinish>(dtype, n_leaves, table, 1, nullptr, n, psi,
+                                  alpha_z, stream, launches);
 }

@@ -102,8 +102,8 @@ def sign_consensus_leaves(zs: Sequence[torch.Tensor],
                           alpha_z: float, message: str = "f32",
                           impl: str = "auto",
                           n_total: Optional[int] = None,
-                          streaming: bool = False, chunk_size: int = 8
-                          ) -> List[torch.Tensor]:
+                          streaming: bool = False, chunk_size: int = 8,
+                          ranks=None) -> List[torch.Tensor]:
     """:func:`sign_consensus` over every leaf of a tree, with the same
     arguments per leaf (``zs[l]``: (D_l,), ``Ws[l]``: (C, D_l),
     ``phis[l]``: (D_l,)) and the same ``impl`` rules: one grouped call
@@ -112,9 +112,26 @@ def sign_consensus_leaves(zs: Sequence[torch.Tensor],
     B1/B2; ``"int8"`` encodes each leaf on the client side as
     :func:`sign_consensus` does and runs B3 over every payload with the
     round's one scale column.  ``streaming=True`` runs the streamed plain
-    fold per leaf instead, launching nothing."""
+    fold per leaf instead, launching nothing.
+
+    ``ranks``: a ``distributed.data_parallel.RankBlock`` whose ``"data"``
+    axis has more than one rank: ``Ws`` (and ``weights``) are this rank's
+    rows of the fleet's C = ``ranks.n_clients`` (the divisor without
+    ``n_total``), and each dtype group runs the partial
+    (``sign_agg.sign_sum_group`` / ``sign_sum_int8_group``: one launch),
+    an ``all_reduce_sum`` of its sums over ``"data"``, and the finish
+    (``sign_agg.sign_finish_group``: one launch).  Without it, or over one
+    rank, the fused kernels as above."""
     impl = _resolve(impl, zs[0])
     _check_fold(weights, n_total, streaming)
+    if ranks is not None and ranks.data.size > 1:
+        if streaming:
+            raise NotImplementedError(
+                "the streamed consensus fold over several ranks is not "
+                "ported (ROADMAP Queue A 7(b))")
+        return _split_consensus(zs, Ws, phis, weights, psi, alpha_z,
+                                message, impl, n_total or ranks.n_clients,
+                                ranks.data)
     if streaming:
         return [ref.sign_agg_fold_stream_ref(z, W, phi, weights, psi,
                                              alpha_z, n_total, chunk_size,
@@ -139,6 +156,46 @@ def sign_consensus_leaves(zs: Sequence[torch.Tensor],
                                       n_total=n)
     return _by_dtype(lambda z, w, p: sa_k.sign_agg_group(
         z, w, p, weights, psi, alpha_z, n_total=n), zs, Ws, phis)
+
+
+def _split_consensus(zs, Ws, phis, weights, psi: float, alpha_z: float,
+                     message: str, impl: str, n: int, axis
+                     ) -> List[torch.Tensor]:
+    """Eq. (20) over the ranks of ``axis``: per dtype group, this rank's
+    partial sums, their all-reduce, the finish.  Unweighted, the sums of
+    signs are exact integers in any grouping (int32 on the int8 wire; f32
+    below 2^24), so z' is the one-rank kernel's bit for bit; a weighted
+    fold regroups its additions (``ref.weighted_split_bound``)."""
+    if message == "int8":
+        msgs = [collectives.encode_sign_message(z, W, weights)
+                for z, W in zip(zs, Ws)]
+        rows, scale = [m.payload for m in msgs], msgs[0].scale
+    elif message == "f32":
+        rows, scale = Ws, weights
+    else:
+        raise ValueError(f"unknown sign message format: {message!r}")
+
+    def group_call(gz, grows, gphis):
+        sizes = [z.shape[0] for z in gz]
+        if impl == "torch":
+            parts = (ref.sign_sum_int8_group_ref(grows, scale)
+                     if message == "int8"
+                     else ref.sign_sum_group_ref(gz, grows, scale))
+            sums = sa_k.flat_sums(parts, sizes, parts[0].dtype,
+                                   gz[0].device)
+        elif message == "int8":
+            sums = sa_k.sign_sum_int8_group(gz, grows, scale)
+        else:
+            sums = sa_k.sign_sum_group(gz, grows, scale)
+        collectives.all_reduce_sum(sums, axis)
+        if impl == "torch":
+            offs, _ = sa_k.sum_offsets(sizes)
+            return ref.sign_finish_group_ref(
+                gz, [sums[o:o + D] for o, D in zip(offs, sizes)], gphis,
+                psi, alpha_z, n)
+        return sa_k.sign_finish_group(gz, sums, gphis, psi, alpha_z, n)
+
+    return _by_dtype(group_call, zs, rows, phis)
 
 
 def _by_dtype(group_call, zs, rows, phis) -> List[torch.Tensor]:

@@ -7,7 +7,9 @@ mirror the oracles of the JAX package's ``kernels/ref.py``:
 * the Eq. (20) consensus kernels B1-B3 (``csrc/sign_agg.cu``, wrappers in
   ``kernels/sign_agg.py``; over many leaves at once:
   :func:`sign_agg_group_ref` for B1/B2, :func:`sign_agg_int8_group_ref`
-  for B3);
+  for B3), and their split over ranks: the partial sums
+  (:func:`sign_sum_group_ref`, :func:`sign_sum_int8_group_ref`) and the
+  epilogue on the all-reduced sums (:func:`sign_finish_group_ref`);
 * prefill attention B4 (``csrc/flash_attention.cu``) and decode attention
   B5 (``csrc/decode_attention.cu``), in the model's layout, computed in
   f32 and returned in the query's dtype;
@@ -242,6 +244,78 @@ def sign_agg_int8_group_ref(zs: Sequence[torch.Tensor],
     return [sign_agg_int8_fold_ref(z, q, scale, phi, psi, alpha_z,
                                    n_total or q.shape[0])
             for z, q, phi in zip(zs, payloads, phis)]
+
+
+def sign_sum_group_ref(zs: Sequence[torch.Tensor],
+                       Ws: Sequence[torch.Tensor],
+                       weights: Optional[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+    """B1/B2's partial per leaf: ``sum_i s_i jsign(z - W_i)`` over the
+    rows given, the row-order f32 fold of :func:`sign_agg_ref` /
+    :func:`sign_agg_fold_ref` without their epilogue (``s_i`` 1 without
+    ``weights``)."""
+    out = []
+    for z, W in zip(zs, Ws):
+        zf, Wf = z.float(), W.float()
+        acc = torch.zeros_like(zf)
+        for i in range(W.shape[0]):
+            sg = jsign(zf - Wf[i])
+            acc = acc + (sg if weights is None else weights[i].float() * sg)
+        out.append(acc)
+    return out
+
+
+def sign_sum_int8_group_ref(payloads: Sequence[torch.Tensor],
+                            scale: Optional[torch.Tensor]
+                            ) -> List[torch.Tensor]:
+    """B3's partial per leaf: the int8 payload's exact int32 sum over the
+    rows given (``scale`` None), or the f32 row-order fold ``acc + s_i
+    q_i`` (:func:`int8_sign_sum` without the cast)."""
+    if scale is None:
+        return [q.to(torch.int32).sum(0, dtype=torch.int32)
+                for q in payloads]
+    return [fold_weighted_rowsum(q, scale) for q in payloads]
+
+
+def sign_finish_group_ref(zs: Sequence[torch.Tensor],
+                          sums: Sequence[torch.Tensor],
+                          phis: Sequence[torch.Tensor], psi: float,
+                          alpha_z: float, n: int) -> List[torch.Tensor]:
+    """The epilogue of B1-B3 on all-reduced sums (f32, or int32 converted
+    to f32 first, as B3 converts its sum): ``z - alpha_z (phi_mean + psi
+    sum / n)``, with :func:`true_div`."""
+    return [_epilogue(z, phi, s.float(), n, psi, alpha_z)
+            for z, s, phi in zip(zs, sums, phis)]
+
+
+def weighted_split_bound(z: torch.Tensor, phi_mean: torch.Tensor,
+                         weights: torch.Tensor, n: int, psi: float,
+                         alpha_z: float) -> torch.Tensor:
+    """How far a weighted Eq. (20) step whose fold is split over ranks may
+    land from the one-pass fold's, per coordinate of z'.  The two sums of
+    the C terms ``s_i sign_i`` (the row-order fold; the per-rank folds and
+    their all-reduce) are each a sum of C terms in some grouping, within
+    ``g S`` of the exact one (``g = (C-1) u / (1 - (C-1) u)``, u = 2^-24,
+    ``S = sum_i |s_i|``): they differ by at most ``2 g S``, which the
+    epilogue scales by ``|psi alpha_z| / n``.  Each side then rounds its
+    five epilogue operations to within half an ulp (``u |x|``) of their
+    values, bounded through ``S``, ``|phi_mean|`` and ``|z|``; a bf16 z'
+    adds its final rounding (2^-9 |z'|) on each side."""
+    C = weights.shape[0]
+    u = 2.0 ** -24
+    g = (C - 1) * u / (1.0 - (C - 1) * u)
+    S = float(torch.sum(torch.abs(weights.double())))
+    ap = abs(psi * alpha_z)
+    q = S / n
+    p = abs(psi) * q
+    dz = torch.abs(phi_mean.double()) + p
+    m = abs(alpha_z) * dz
+    zz = torch.abs(z.double()) + m
+    bound = ap * 2.0 * g * S / n + 2.0 * u * (
+        ap * q + abs(alpha_z) * p + abs(alpha_z) * dz + m + zz)
+    if z.dtype == torch.bfloat16:
+        bound = bound + 2.0 * 2.0 ** -9 * zz
+    return (bound + 2.0 ** -140).float()
 
 
 def sign_agg_int8_ref(z: torch.Tensor, payload: torch.Tensor,

@@ -14,7 +14,13 @@ Each wrapper replaces one Pallas TPU kernel of the JAX package's
   with an f32 ``scale`` (or none: an int32 sum), n = ``n_total or C``;
 * :func:`sign_agg` / :func:`sign_agg_weighted` /
   :func:`sign_agg_weighted_int8` — B1 / B2 / B3 on one leaf (a one-leaf
-  call of the same kernel).
+  call of the same kernel);
+* :func:`sign_sum_group`, :func:`sign_sum_int8_group` and
+  :func:`sign_finish_group` — B1-B3 split for a round whose clients sit
+  on several ranks: the fused kernels' folds over this rank's rows, their
+  column sums written to one flat buffer (f32; int32 for B3's unweighted
+  payload), which the caller all-reduces; then the fused kernels'
+  epilogue on the reduced sums.  One launch each per dtype group.
 
 What bounds them on the H100 is bytes: reading the message once and z,
 phi_mean in, z' out — ``4*C*D + 12*D`` bytes for B1/B2 in f32,
@@ -54,7 +60,8 @@ from repro_torch.kernels import _build, ref
 from repro_torch.roofline import cost, kernel_cost
 
 LAUNCHES: Dict[str, int] = {"sign_agg": 0, "sign_agg_weighted": 0,
-                            "sign_agg_weighted_int8": 0}
+                            "sign_agg_weighted_int8": 0, "sign_sum": 0,
+                            "sign_finish": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -92,9 +99,14 @@ def _lib() -> ctypes.CDLL:
         i, _P, _P, _P, _P, _P, i, ll, i, f, f, _P]
     for fn in (lib.repro_sign_agg_group, lib.repro_sign_agg_int8_group):
         fn.argtypes = [i, i, _P, i, _P, i, f, f, _P, ctypes.POINTER(i)]
+    for fn in (lib.repro_sign_sum_group, lib.repro_sign_sum_int8_group):
+        fn.argtypes = [i, i, _P, i, _P, _P, ctypes.POINTER(i)]
+    lib.repro_sign_finish_group.argtypes = [i, i, i, _P, i, f, f, _P,
+                                            ctypes.POINTER(i)]
     for fn in (lib.repro_sign_agg, lib.repro_sign_agg_weighted,
                lib.repro_sign_agg_int8, lib.repro_sign_agg_group,
-               lib.repro_sign_agg_int8_group):
+               lib.repro_sign_agg_int8_group, lib.repro_sign_sum_group,
+               lib.repro_sign_sum_int8_group, lib.repro_sign_finish_group):
         fn.restype = ctypes.c_int
     return lib
 
@@ -361,3 +373,152 @@ def sign_agg_weighted_int8(z: torch.Tensor, payload: torch.Tensor,
     _build.check_launch(err, "sign_agg_weighted_int8")
     LAUNCHES["sign_agg_weighted_int8"] += 1
     return out
+
+
+# ------------------------------------------------ the split over ranks
+def sum_offsets(sizes: Sequence[int]) -> Tuple[List[int], int]:
+    """Where each leaf's column sums (4 bytes an element) start in the one
+    flat buffer of a partial call, and its size: :func:`out_offsets` at 4
+    bytes, so every leaf's sums are 16-byte aligned."""
+    return out_offsets(sizes, 4)
+
+
+def flat_sums(parts: Sequence[torch.Tensor], sizes: Sequence[int],
+               dtype: torch.dtype, device) -> torch.Tensor:
+    """The plain versions' per-leaf sums laid out as the kernels lay them
+    out (zeros between the leaves)."""
+    offs, total = sum_offsets(sizes)
+    flat = torch.zeros(total, dtype=dtype, device=device)
+    for p, o, D in zip(parts, offs, sizes):
+        flat[o:o + D] = p
+    return flat
+
+
+def _sum_launch(entry: str, zs, rows, column, column_name: str,
+                rows_dtype: torch.dtype, sums_dtype: torch.dtype,
+                work) -> torch.Tensor:
+    """Check a partial call's leaves on the card, build its table (``out``
+    of each leaf its place in the flat sums) and run ``entry``."""
+    z0 = zs[0]
+    code = _check_vectors(z0, z0, rows[0], rows_dtype)
+    C = rows[0].shape[0]
+    for z, r in zip(zs[1:], rows[1:]):
+        _check_vectors(z, z, r, rows_dtype)
+        if z.dtype != z0.dtype:
+            raise TypeError(f"every leaf must be {z0.dtype}, got {z.dtype}")
+        if r.shape[0] != C or z.device != z0.device:
+            raise ValueError(f"every leaf needs C={C} rows on {z0.device}, "
+                             f"got {tuple(r.shape)} on {z.device}")
+    if column is not None:
+        _check_column(column_name, column, z0, C)
+    sizes = [z.shape[0] for z in zs]
+    offs, total = sum_offsets(sizes)
+    out = torch.zeros(total, dtype=sums_dtype, device=z0.device)
+    if z0.device.type == "meta":
+        cost.add_kernel("sign_sum", work(zs, rows, column),
+                        launches=-(-len(zs) // MAX_LEAVES))
+        return out
+    base = out.data_ptr()
+    table = array.array("q", leaf_table(
+        [(z.data_ptr(), r.data_ptr(), z.data_ptr(), base + o * 4, D)
+         for z, r, o, D in zip(zs, rows, offs, sizes)],
+        rows[0].element_size()))
+    launched = ctypes.c_int(0)
+    err = getattr(_lib(), entry)(
+        code, len(zs), table.buffer_info()[0], C,
+        None if column is None else column.data_ptr(),
+        _build.stream_of(z0), ctypes.byref(launched))
+    _build.check_launch(err, "sign_sum")
+    LAUNCHES["sign_sum"] += launched.value
+    return out
+
+
+def sign_sum_group(zs: Sequence[torch.Tensor], Ws: Sequence[torch.Tensor],
+                   weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """B1/B2's partial over every leaf at once: ``sum_i s_i sign(z -
+    W_i)`` over this rank's rows (``s_i`` 1 without ``weights``), folded
+    as the fused kernel folds them, in f32.  ``zs[l]``: (D_l,), ``Ws[l]``:
+    (C_r, D_l), one dtype (f32 or bf16); ``weights``: (C_r,) f32 or None.
+    Returns the flat f32 sums, leaf ``l`` at ``sum_offsets(...)[0][l]``.
+    One launch per ``MAX_LEAVES`` leaves."""
+    _check_leaf_counts(zs, Ws, zs)
+    if zs[0].device.type == "cpu":
+        return flat_sums(ref.sign_sum_group_ref(zs, Ws, weights),
+                          [z.shape[0] for z in zs], torch.float32,
+                          zs[0].device)
+    return _sum_launch("repro_sign_sum_group", zs, Ws, weights, "weights",
+                       zs[0].dtype, torch.float32,
+                       kernel_cost.sign_sum_group_work)
+
+
+def sign_sum_int8_group(zs: Sequence[torch.Tensor],
+                        payloads: Sequence[torch.Tensor],
+                        scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """B3's partial over every leaf at once: this rank's (C_r, D_l) int8
+    payloads summed, int32 without ``scale``, the f32 row-order fold
+    ``acc + s_i q_i`` with it.  ``zs`` give each leaf's D and device (z is
+    not read).  Returns the flat sums (int32 or f32), leaf ``l`` at
+    ``sum_offsets(...)[0][l]``."""
+    _check_leaf_counts(zs, payloads, zs)
+    sums_dtype = torch.int32 if scale is None else torch.float32
+    if zs[0].device.type == "cpu":
+        return flat_sums(ref.sign_sum_int8_group_ref(payloads, scale),
+                          [z.shape[0] for z in zs], sums_dtype,
+                          zs[0].device)
+    return _sum_launch("repro_sign_sum_int8_group", zs, payloads, scale,
+                       "scale", torch.int8, sums_dtype,
+                       kernel_cost.sign_sum_int8_group_work)
+
+
+def sign_finish_group(zs: Sequence[torch.Tensor], sums: torch.Tensor,
+                      phis: Sequence[torch.Tensor], psi: float,
+                      alpha_z: float, n: int) -> List[torch.Tensor]:
+    """The fused kernels' epilogue on all-reduced sums, over every leaf at
+    once: ``z - alpha_z (phi_mean + psi sum / n)``, one rounding per
+    operation.  ``sums``: the flat buffer of :func:`sign_sum_group` or
+    :func:`sign_sum_int8_group` (f32 or int32) after the all-reduce;
+    ``zs[l]``, ``phis[l]``: (D_l,) (phi_mean f32, or in z's dtype).
+    Returns each leaf's z' (D_l,), views of one output."""
+    _check_leaf_counts(zs, phis, phis)
+    if n < 1:
+        raise ValueError(f"the divisor must be >= 1, got {n}")
+    sizes = [z.shape[0] for z in zs]
+    offs, total = sum_offsets(sizes)
+    if sums.ndim != 1 or sums.shape[0] != total \
+            or sums.dtype not in (torch.float32, torch.int32):
+        raise ValueError(f"sums must be ({total},) float32 or int32, got "
+                         f"{sums.dtype} {tuple(sums.shape)}")
+    if zs[0].device.type == "cpu":
+        return ref.sign_finish_group_ref(
+            zs, [sums[o:o + D] for o, D in zip(offs, sizes)], phis, psi,
+            alpha_z, n)
+    z0 = zs[0]
+    code = _check_vectors(z0, phis[0], z0[None], z0.dtype)
+    for z, phi in zip(zs[1:], phis[1:]):
+        _check_vectors(z, phi, z[None], z0.dtype)
+        if z.dtype != z0.dtype or z.device != z0.device:
+            raise TypeError(f"every leaf must be {z0.dtype} on {z0.device}, "
+                            f"got {z.dtype} on {z.device}")
+    if sums.device != z0.device or not sums.is_contiguous():
+        raise ValueError(f"sums must be contiguous on {z0.device}")
+    phis = [phi.float() for phi in phis]     # the kernel reads f32
+    isz = z0.element_size()
+    o_offs, o_total = out_offsets(sizes, isz)
+    out = torch.empty(o_total, dtype=z0.dtype, device=z0.device)
+    views = [out[o:o + D] for o, D in zip(o_offs, sizes)]
+    if z0.device.type == "meta":
+        cost.add_kernel("sign_finish", kernel_cost.sign_finish_group_work(
+            zs, sums), launches=-(-len(zs) // MAX_LEAVES))
+        return views
+    base, sbase = out.data_ptr(), sums.data_ptr()
+    table = array.array("q", leaf_table(
+        [(z.data_ptr(), sbase + o * 4, phi.data_ptr(), base + oo * isz, D)
+         for z, phi, o, oo, D in zip(zs, phis, offs, o_offs, sizes)], isz))
+    launched = ctypes.c_int(0)
+    err = _lib().repro_sign_finish_group(
+        code, int(sums.dtype == torch.int32), len(zs),
+        table.buffer_info()[0], n, psi, alpha_z, _build.stream_of(z0),
+        ctypes.byref(launched))
+    _build.check_launch(err, "sign_finish")
+    LAUNCHES["sign_finish"] += launched.value
+    return views

@@ -21,16 +21,29 @@ The step runs eagerly, so its scalars are Python numbers: the round's seed
 0 and, for a decode step, the cache's last position (``seq_len - 1``,
 every cache slot valid).  A row the card would refuse (B4's backward at a
 head dim other than 64, B5 under autograd) raises as it would there; the
-sweep reports it in its failure list and exits 1.  The reference's
-production meshes, (16, 16) and (2, 16, 16) (``--multi-pod single`` /
-``multi``), raise ``NotImplementedError``: their sharded program is
-ROADMAP Queue A 7(b).  The dry-run touches no device, so its host mesh is
-the CPU's (gloo), whatever machine runs it.  ``--variant`` applies the
-whole variant, its ``fed_patch`` and ``inner_dp`` too.
+sweep reports it in its failure list and exits 1.  The dry-run touches no
+device, so its host mesh is the CPU's (gloo), whatever machine runs it.
+``--variant`` applies the whole variant, its ``fed_patch`` and
+``inner_dp`` too.
+
+The reference's production meshes, (16, 16) and (2, 16, 16)
+(``--multi-pod single`` / ``multi``), run the training rows of mode-A
+configs under an ``inner_dp`` variant: the step runs as rank 0 of a mesh
+of 256 or 512 ranks over torch's ``fake`` process-group backend, at the
+rank's local shapes (``steps.train_setup(rank_local=True)``: its block
+of the clients, its rows of each client's batch), and its exchanges
+(``distributed.collectives``) are counted, not sent: the roofline's
+collective term comes from their bytes and the link model of
+``roofline.kernel_cost`` (NVLink within a node of 8, InfiniBand between).
+The row is written as ``{arch}__{shape}__16x16.json`` or
+``__2x16x16.json``.  Every other row on those meshes (serving,
+``inner_dp`` off, mode B) raises ``NotImplementedError`` naming ROADMAP
+Queue A 7(b) step 3 (the tensor-parallel layers).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -46,22 +59,59 @@ from repro_torch.roofline.cost import CostCounter
 
 MESH_NAME = "1x1"
 MULTI_POD = {"host": None, "single": False, "multi": True}
+# the reference's production meshes (launch/mesh.make_production_mesh)
+PRODUCTION = {False: ("16x16", ("data", "model"), (16, 16)),
+              True: ("2x16x16", ("pod", "data", "model"), (2, 16, 16))}
 
 
-def check_mesh(multi_pod: Optional[bool]) -> None:
-    """Only the host mesh (``multi_pod`` None) runs in the port."""
-    if multi_pod is not None:
+def check_mesh(multi_pod: Optional[bool], kind: str = "train",
+               inner_dp: bool = False, fed_mode: str = "A") -> None:
+    """The rows the port runs: every row on the host mesh (``multi_pod``
+    None); on the production meshes the training rows of mode-A configs
+    under ``inner_dp``.  Any other raises ``NotImplementedError`` naming
+    ROADMAP Queue A 7(b) step 3."""
+    if multi_pod is None:
+        return
+    if kind != "train" or not inner_dp or fed_mode != "A":
         raise NotImplementedError(
-            f"the {'2x16x16' if multi_pod else '16x16'} mesh: execution on "
-            "a mesh of more than one device is ROADMAP Queue A 7(b), not "
-            "yet ported")
+            f"a {kind} row (inner_dp={inner_dp}, mode {fed_mode}) on the "
+            f"{PRODUCTION[multi_pod][0]} mesh: the tensor-parallel layers "
+            "are ROADMAP Queue A 7(b) step 3, not yet ported")
 
 
-def smoke_case(cfg, shape):
+@contextlib.contextmanager
+def fake_mesh(sizes, names):
+    """A ``DeviceMesh`` of ``sizes`` named ``names`` with this process as
+    its rank 0, over torch's ``fake`` process-group backend (no peers,
+    nothing sent); the group is destroyed after the block."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(sizes))
+    try:
+        yield init_device_mesh("cpu", tuple(sizes),
+                               mesh_dim_names=tuple(names))
+    finally:
+        dist.destroy_process_group()
+
+
+def production_mesh(multi_pod: bool):
+    """The (16, 16) or (2, 16, 16) mesh as :func:`fake_mesh`."""
+    _, names, sizes = PRODUCTION[multi_pod]
+    return fake_mesh(sizes, names)
+
+
+def smoke_case(cfg, shape, multi_pod: Optional[bool] = None):
     """``launch.train --smoke``'s cut: the smoke config, 64-position
-    sequences, a global batch of 4."""
+    sequences, a global batch of 4 (on a production mesh the shape's own,
+    which its clients and ``"model"`` ranks split)."""
+    batch = 4 if multi_pod is None else shape.global_batch
     return reduce_for_smoke(cfg), dataclasses.replace(shape, seq_len=64,
-                                                      global_batch=4)
+                                                      global_batch=batch)
 
 
 def concrete_scalars(args, shape):
@@ -84,8 +134,9 @@ def run_one(arch_name: str, shape_name: str,
             n_layers: Optional[int] = None) -> dict:
     """Dry-run one (arch x shape) on the host mesh and return its row
     (also written under ``out_dir`` unless it is empty).  ``multi_pod``
-    None is the host mesh; False / True (the reference's (16, 16) and
-    (2, 16, 16) meshes) raise.  ``setup_override(cfg, shape, mesh)``
+    None is the host mesh; False / True the reference's (16, 16) and
+    (2, 16, 16) meshes, as rank 0 (:func:`check_mesh` says which rows
+    run there).  ``setup_override(cfg, shape, mesh)``
     replaces ``steps.input_specs``; ``smoke`` takes :func:`smoke_case`;
     ``cut`` replaces fields of the input shape (``seq_len``,
     ``global_batch``) and is recorded in the row; ``n_clients`` is a
@@ -95,13 +146,12 @@ def run_one(arch_name: str, shape_name: str,
     caches are made on meta before counting
     (``steps.warm_device_caches``), as a measurement on the card makes
     them before its baseline."""
-    check_mesh(multi_pod)
     from repro_torch.launch.mesh import registered_host_mesh
 
     cfg = get_arch(arch_name)
     shape = INPUT_SHAPES[shape_name]
     if smoke:
-        cfg, shape = smoke_case(cfg, shape)
+        cfg, shape = smoke_case(cfg, shape, multi_pod)
     if cut:
         shape = dataclasses.replace(shape, **cut)
     if n_layers:
@@ -111,9 +161,17 @@ def run_one(arch_name: str, shape_name: str,
         from repro_torch.launch.variants import get_variant
         cfg, fed_base, setup_kwargs = get_variant(variant).apply(cfg)
         arch_name = f"{arch_name}+{variant}"
+    check_mesh(multi_pod, shape.kind, setup_kwargs.get("inner_dp", False),
+               cfg.fed_mode)
+    mesh_name = MESH_NAME if multi_pod is None else PRODUCTION[multi_pod][0]
 
     t0 = time.time()
-    with registered_host_mesh("cpu") as mesh:
+    if multi_pod is None:
+        mesh_cm = registered_host_mesh("cpu")
+    else:
+        mesh_cm = production_mesh(multi_pod)
+        setup_kwargs = dict(setup_kwargs, rank_local=True)
+    with mesh_cm as mesh:
         chips = int(mesh.size())
         if setup_override:
             step, args, _, _ = setup_override(cfg, shape, mesh)
@@ -121,14 +179,14 @@ def run_one(arch_name: str, shape_name: str,
             step, args, _, _ = steps_lib.input_specs(
                 cfg, shape, mesh, base_fed=fed_base, n_clients=n_clients,
                 **setup_kwargs)
-    args = concrete_scalars(args, shape)
-    steps_lib.warm_device_caches(cfg, "meta")
-    t_setup = time.time() - t0
-    with CostCounter(args) as counter:
-        out = step(*args)
-    t_run = time.time() - t0 - t_setup
+        args = concrete_scalars(args, shape)
+        steps_lib.warm_device_caches(cfg, "meta")
+        t_setup = time.time() - t0
+        with CostCounter(args) as counter:
+            out = step(*args)
+        t_run = time.time() - t0 - t_setup
     report = analyze(counter, out, arch=arch_name, shape=shape_name,
-                     mesh_name=MESH_NAME, chips=chips,
+                     mesh_name=mesh_name, chips=chips,
                      model_flops=model_flops_for(cfg, shape))
     del out
     row = report.row()
@@ -154,7 +212,7 @@ def run_one(arch_name: str, shape_name: str,
         "n_layers": n_layers,
     })
     if verbose:
-        print(f"[dryrun] {arch_name} x {shape_name} on {MESH_NAME}: "
+        print(f"[dryrun] {arch_name} x {shape_name} on {mesh_name}: "
               f"{counter.n_ops} ops on meta in {t_run:.1f}s")
         print(f"  memory: args {report.argument_bytes:.3e}B outputs "
               f"{report.output_bytes:.3e}B temp {report.temp_bytes:.3e}B "
@@ -173,7 +231,7 @@ def run_one(arch_name: str, shape_name: str,
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir,
-                            f"{arch_name}__{shape_name}__{MESH_NAME}.json")
+                            f"{arch_name}__{shape_name}__{mesh_name}.json")
         with open(path, "w") as f:
             json.dump(row, f, indent=1)
     return row
@@ -187,7 +245,8 @@ def main(argv=None) -> int:
                     help="every arch x every shape (the defaults)")
     ap.add_argument("--multi-pod", default="host", choices=list(MULTI_POD),
                     help="host: the 1 x 1 host mesh; single / multi: the "
-                         "reference's production meshes (not yet ported)")
+                         "reference's (16, 16) / (2, 16, 16) meshes, as "
+                         "rank 0 (training rows under inner_dp)")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--variant", default="",
                     help="named hillclimb variant (launch/variants.py)")
@@ -199,7 +258,22 @@ def main(argv=None) -> int:
     shapes = (list(INPUT_SHAPES) if args.all or args.shape == "all"
               else [args.shape])
     multi_pod = MULTI_POD[args.multi_pod]
-    check_mesh(multi_pod)
+    if multi_pod is not None:
+        # a production mesh with no row the port runs there refuses at once
+        inner_dp = False
+        if args.variant:
+            from repro_torch.launch.variants import get_variant
+            inner_dp = get_variant(args.variant).inner_dp
+        refusals = []
+        for a in archs:
+            for s in shapes:
+                try:
+                    check_mesh(multi_pod, INPUT_SHAPES[s].kind, inner_dp,
+                               get_arch(a).fed_mode)
+                except NotImplementedError as e:
+                    refusals.append(e)
+        if len(refusals) == len(archs) * len(shapes):
+            raise refusals[0]
 
     failures = []
     for a in archs:

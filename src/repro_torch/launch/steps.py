@@ -37,7 +37,9 @@ from repro_torch.configs.base import ATTN, ArchConfig, FedConfig, InputShape
 from repro_torch.core import bafdp as bafdp_lib
 from repro_torch.core.byzantine import byz_mask
 from repro_torch.core.fed_state import FedState, init_fed_state
-from repro_torch.core.privacy import RowGenerators, gaussian_c3, sigma_for_eps
+from repro_torch.core.privacy import (BlockGenerator, RowGenerators,
+                                      gaussian_c3, sigma_for_eps)
+from repro_torch.distributed.data_parallel import rank_block
 from repro_torch.distributed.sharding import P, make_plan, map_specs
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import (dense_init, dtype_of, init_embedding,
@@ -94,6 +96,21 @@ def batch_shapes(cfg: ArchConfig, shape: InputShape, n_clients: int
     return out
 
 
+def noise_shapes(cfg: ArchConfig, b_r: Dict[str, torch.Tensor],
+                 rows: int) -> list:
+    """The shapes of the LDP noise ``transformer.forward`` draws for one
+    client's batch ``b_r`` of ``rows`` sequences, in its order: the token
+    embeddings, a VLM's ``frontend_embeds``, an encoder's
+    ``enc_embeds``."""
+    shapes = [(rows, b_r["tokens"].shape[-1], cfg.d_model)]
+    if (cfg.frontend != "none" and "frontend_embeds" in b_r
+            and cfg.n_enc_layers == 0):
+        shapes.append((rows,) + tuple(b_r["frontend_embeds"].shape[1:]))
+    if cfg.n_enc_layers:
+        shapes.append((rows,) + tuple(b_r["enc_embeds"].shape[1:]))
+    return shapes
+
+
 def make_local_loss(cfg: ArchConfig, fed: FedConfig, c3: float):
     """The round's ``local_loss(W, batch, gen, eps) -> (C,)``: client
     ``r``'s ``transformer.loss_fn`` on ``lm_view`` of row ``r`` of ``W``
@@ -101,22 +118,54 @@ def make_local_loss(cfg: ArchConfig, fed: FedConfig, c3: float):
     c3, eps_min))``; ``gen_r`` is the round's generator itself (its
     draws taken client after client) or row ``r``'s of a
     ``RowGenerators``.  Clients run one at a time: B4 takes one
-    client's weights a call."""
+    client's weights a call.
+
+    A split round's ``privacy.BlockGenerator`` (the rows are this rank's
+    clients ``[start, start + rows)`` of C, and under ``inner_dp`` each
+    client's batch rows a part of its ``b``): the clients before and
+    after the block draw their noise from the round's generator and
+    discard it, in the one-rank round's order, and a block client's
+    noise is drawn for its whole batch and narrowed to the rank's rows,
+    so that every draw matches the one-rank round's."""
 
     def local_loss(W, batch, gen, eps):
         sigma = sigma_for_eps(eps, c3, fed.eps_min)
+        rows = list(tree_unstack(W))
+        if not isinstance(gen, BlockGenerator):
+            losses = []
+            for r, w_r in enumerate(rows):
+                g_r = gen.generator(r) if isinstance(gen, RowGenerators) \
+                    else gen
+                b_r = {k: v[r] for k, v in batch.items()}
+                losses.append(tr.loss_fn(tr.lm_view(w_r, cfg), b_r, cfg,
+                                         noise=(g_r, sigma[r])))
+            return torch.stack(losses)
+        (C, c0, n), *inner = gen.spans
+        b0 = {k: v[0] for k, v in batch.items()}
+        dev = b0["tokens"].device
+        b_total = inner[0][0] if inner else b0["tokens"].shape[0]
+
+        def discard():
+            for shape in noise_shapes(cfg, b0, b_total):
+                torch.randn(shape, generator=gen.gen, dtype=torch.float32,
+                            device=dev)
+
+        for _ in range(c0):
+            discard()
         losses = []
-        for r, w_r in enumerate(tree_unstack(W)):
-            g_r = gen.generator(r) if isinstance(gen, RowGenerators) else gen
+        for r, w_r in enumerate(rows):
+            g_r = BlockGenerator(gen.gen, inner) if inner else gen.gen
             b_r = {k: v[r] for k, v in batch.items()}
             losses.append(tr.loss_fn(tr.lm_view(w_r, cfg), b_r, cfg,
                                      noise=(g_r, sigma[r])))
+        for _ in range(C - c0 - n):
+            discard()
         return torch.stack(losses)
 
     return local_loss
 
 
-def make_train_step(cfg: ArchConfig, fed: FedConfig
+def make_train_step(cfg: ArchConfig, fed: FedConfig, ranks=None
                     ) -> Callable[..., Tuple[FedState, Dict[str, Any]]]:
     """``train_step(state, batch, seed, act=None, stale=None) -> (state,
     metrics)``: one ``bafdp_round`` of LM clients from the round
@@ -124,7 +173,13 @@ def make_train_step(cfg: ArchConfig, fed: FedConfig
     reference's ``n_samples`` (4096), ``d_dim`` (d_model) and Byzantine
     mask (the last ``fed.n_byzantine`` clients).  ``batch`` holds
     (C, b, ...) tensors on the state's device; ``act``/``stale`` are an
-    external schedule's rows (None: the internal sampler)."""
+    external schedule's rows (None: the internal sampler).
+
+    ``ranks`` (``distributed.data_parallel.RankBlock``, more than one
+    rank): ``state`` holds this rank's clients
+    (``fed_state.shard_clients``) and ``batch`` their (C_r, b_r, ...)
+    rows, b_r this rank's share of a client's b sequences under
+    ``inner_dp`` (``ranks.batch``, :meth:`RankBlock.with_batch`)."""
     c3 = gaussian_c3(cfg.d_model, fed.dp_delta, fed.dp_sensitivity)
     local_loss = make_local_loss(cfg, fed, c3)
 
@@ -135,7 +190,7 @@ def make_train_step(cfg: ArchConfig, fed: FedConfig
             state, batch, gen, local_loss=local_loss, fed=fed, c3=c3,
             n_samples=N_SAMPLES, d_dim=cfg.d_model,
             byz_mask=byz_mask(fed.n_clients, fed.n_byzantine, device=dev),
-            act=act, stale=stale)
+            act=act, stale=stale, ranks=ranks)
 
     return train_step
 
@@ -353,22 +408,85 @@ def _data_axis(mesh):
 
 # ===========================================================================
 # setups: (step, arg structs, in specs, out specs)
+def mesh_size(mesh) -> int:
+    return math.prod(tuple(mesh.shape))
+
+
+STEP3 = ("tensor-parallel placements over the 'model' axis and mode B's "
+         "sharded parameters are ROADMAP Queue A 7(b) step 3, not yet "
+         "ported")
+
+
+def check_placements(plan) -> None:
+    """The plans that run on a mesh of several devices: mode A with the
+    clients on ``"data"`` and, over a ``"model"`` axis of more than one
+    device, ``inner_dp`` (a client's weights replicated there, its batch
+    split).  The default plan's ``"model"`` placements and mode B raise
+    ``NotImplementedError`` naming 7(b) step 3."""
+    if mesh_size(plan.mesh) == 1:
+        return
+    model = dict(zip(plan.mesh.mesh_dim_names,
+                     tuple(plan.mesh.shape))).get("model", 1)
+    if plan.cfg.fed_mode != "A" or (model > 1 and not plan.inner_dp):
+        raise NotImplementedError(
+            f"{plan.cfg.name} (mode {plan.cfg.fed_mode}, inner_dp="
+            f"{plan.inner_dp}) on a mesh of {mesh_size(plan.mesh)} "
+            f"devices: {STEP3}")
+
+
+def runs_ranks(mesh) -> bool:
+    """Whether this process runs as one rank of ``mesh``: a ``DeviceMesh``
+    of several devices over a real process group (not torch's ``fake``
+    backend, over which the placements are only realised)."""
+    if mesh_size(mesh) == 1 or not hasattr(mesh, "get_coordinate"):
+        return False
+    import torch.distributed as dist
+
+    return dist.get_backend() != "fake"
+
+
 def train_setup(cfg: ArchConfig, shape: InputShape, mesh,
                 base_fed: Optional[FedConfig] = None,
-                inner_dp: bool = False, n_clients: Optional[int] = None):
+                inner_dp: bool = False, n_clients: Optional[int] = None,
+                rank_local: Optional[bool] = None):
     """Returns (train_step, (state, batch, seed) structs, in specs, out
     specs), the reference's ``train_setup``: the federated state and the
     batch placed by ``make_plan(cfg, mesh, inner_dp)``, the seed and the
     metrics replicated.  C is ``n_clients`` when given (an addition of
     the port: the card trains fewer clients than a pod), else the plan's
-    federated axis size, as in the reference."""
+    federated axis size, as in the reference.
+
+    ``rank_local`` (default: :func:`runs_ranks`, a ``DeviceMesh`` of
+    several devices over a real process group; the dry-run asks for it
+    under the ``fake`` backend): the step is this rank's
+    (``data_parallel.rank_block``: its clients, under ``inner_dp`` its
+    rows of each client's batch) and the structs are its local ones, the
+    state of C_r clients and the batch (C_r, b_r, ...), for the plans
+    that run on several devices (:func:`check_placements`).  The specs
+    stay the whole tensors'.  Otherwise the step and structs are whole
+    whatever the mesh, as the reference's."""
     plan = make_plan(cfg, mesh, inner_dp=inner_dp)
+    if rank_local is None:
+        rank_local = runs_ranks(mesh)
+    if rank_local:
+        check_placements(plan)
     fed = fed_config_for(cfg, n_clients or plan.n_clients, base_fed)
-    step = make_train_step(cfg, fed)
     state_sds = fed_state_struct(cfg, fed)
     batch_sds = batch_struct(cfg, shape, fed.n_clients)
     state_specs = plan.fed_state_specs(state_sds)
     batch_specs = plan.batch_spec_tree(batch_sds)
+    ranks = None
+    if rank_local and mesh_size(mesh) > 1:
+        ranks = rank_block(mesh, fed.n_clients)
+        b = shape.global_batch // fed.n_clients
+        if ranks.model.size > 1:
+            ranks = ranks.with_batch(b)
+        _, _, rows, _ = ranks.batch or (b, 0, b, 1.0)
+        state_sds = fed_state_struct(
+            cfg, dataclasses.replace(fed, n_clients=ranks.rows))
+        batch_sds = {k: _meta((ranks.rows, rows) + tuple(v.shape[2:]),
+                              v.dtype) for k, v in batch_sds.items()}
+    step = make_train_step(cfg, fed, ranks=ranks)
     args = (state_sds, batch_sds, _meta((), torch.int32))
     return (step, args, (state_specs, batch_specs, P()),
             (state_specs, P()))
@@ -421,13 +539,15 @@ def decode_setup(cfg: ArchConfig, shape: InputShape, mesh):
 
 def input_specs(cfg: ArchConfig, shape: InputShape, mesh,
                 base_fed: Optional[FedConfig] = None,
-                inner_dp: bool = False, n_clients: Optional[int] = None):
+                inner_dp: bool = False, n_clients: Optional[int] = None,
+                rank_local: Optional[bool] = None):
     """The deliverable entry point: meta-tensor stand-ins + placements
     for every model input of this (arch x shape), dispatched on kind
-    (``n_clients``: a training round's C, as :func:`train_setup`)."""
+    (``n_clients``, ``rank_local``: a training round's, as
+    :func:`train_setup`)."""
     if shape.kind == "train":
         return train_setup(cfg, shape, mesh, base_fed, inner_dp=inner_dp,
-                           n_clients=n_clients)
+                           n_clients=n_clients, rank_local=rank_local)
     if shape.kind == "prefill":
         return prefill_setup(cfg, shape, mesh)
     return decode_setup(cfg, shape, mesh)

@@ -31,11 +31,24 @@ again (``examples/federated_lm_training.py`` labels ``t + 1`` instead).
 ``meta`` tensors on the host mesh, no device touched, the roofline row
 printed and written under ``results/dryrun``.  On the GPU the caching
 allocator maps expandable segments (:func:`use_expandable_segments`).
+
+Started by ``torchrun`` (``python -m torch.distributed.run
+--nproc-per-node N -m repro_torch.launch.train ... --backend
+gloo|nccl``) it reads ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` and runs as
+one rank of an N x 1 ("data", "model") mesh (``launch/mesh.make_mesh``):
+the clients are split over the N ranks (C must divide), each rank keeps
+its clients' rows of the state (``fed_state.shard_clients``) and of each
+round's batch, and the round all-reduces what crosses clients
+(``distributed.data_parallel``).  ``--backend``: ``nccl`` where every
+rank has a GPU of its own, ``gloo`` where ranks share one (or on the
+CPU); default nccl on the GPU.  Rank 0 prints; a checkpoint is gathered
+whole (``fed_state.unshard_clients``) and written by rank 0.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -88,6 +101,9 @@ def main(argv=None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="'cpu' or 'cuda' (default: the GPU, or an error)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="under torchrun: the process group's backend "
+                         "(default: nccl on the GPU, gloo on the CPU)")
     args = ap.parse_args(argv)
 
     if args.dry:
@@ -99,14 +115,19 @@ def main(argv=None) -> int:
 
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import INPUT_SHAPES, get_arch, reduce_for_smoke
-    from repro_torch.core.fed_state import init_fed_state, init_lm_tree
+    from repro_torch.core.fed_state import (init_fed_state, init_lm_tree,
+                                            shard_clients, unshard_clients)
     from repro_torch.data.tokens import lm_batch
+    from repro_torch.distributed.data_parallel import rank_block
     from repro_torch.distributed.sharding import local_tree, place_tree
     from repro_torch.launch import steps as steps_lib
-    from repro_torch.launch.mesh import registered_host_mesh
+    from repro_torch.launch.mesh import (rank_device, registered_host_mesh,
+                                         registered_mesh)
     from repro_torch.tree import resolve_device
 
-    dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    dev = resolve_device(rank_device(args.device) if world > 1
+                         else args.device)
     if dev.type == "cuda":
         use_expandable_segments()
     cfg = get_arch(args.arch)
@@ -122,9 +143,14 @@ def main(argv=None) -> int:
 
     n_clients = 2 if args.smoke else 4
     fed = launcher_fed(cfg, n_clients, args.byzantine, args.attack)
-    with registered_host_mesh(dev) as mesh:
+    lead = int(os.environ.get("RANK", 0)) == 0
+    say = print if lead else (lambda *a, **k: None)
+    mesh_cm = registered_mesh((world, 1), dev, args.backend) if world > 1 \
+        else registered_host_mesh(dev)
+    with mesh_cm as mesh:
         step_fn, _, in_specs, _ = steps_lib.train_setup(
             cfg, shape, mesh, base_fed=fed, n_clients=n_clients)
+        ranks = rank_block(mesh, n_clients) if world > 1 else None
         state = init_fed_state(torch.Generator(device=dev).manual_seed(0),
                                lambda g: init_lm_tree(g, cfg, dev), fed,
                                device=dev)
@@ -134,34 +160,43 @@ def main(argv=None) -> int:
             restored, s0 = ck.restore_latest(state)
             if restored is not None:
                 state, start = restored, s0
-                print(f"resumed at step {start}")
-        state = local_tree(place_tree(state, in_specs[0], mesh))
+                say(f"resumed at step {start}")
+        if ranks is None:
+            state = local_tree(place_tree(state, in_specs[0], mesh))
+        else:
+            state = shard_clients(state, ranks)
+
+        def save(label):
+            whole = unshard_clients(state, ranks)
+            if lead:
+                ck.save(whole, label)
 
         rng = np.random.RandomState(0)
         b = shape.global_batch // n_clients
+        mine = slice(None) if ranks is None else ranks.clients()
         t0 = time.time()
         m = {}
         for t in range(start, args.steps):
             raw = lm_batch(rng, cfg, n_clients * b, shape.seq_len)
-            batch = {k: torch.from_numpy(v).to(dev).reshape(
-                         (n_clients, b) + v.shape[1:])
-                     for k, v in raw.items()}
+            batch = {k: torch.from_numpy(np.ascontiguousarray(
+                         v.reshape((n_clients, b) + v.shape[1:])[mine])
+                     ).to(dev) for k, v in raw.items()}
             state, m = step_fn(state, batch, t)
             if t % args.log_every == 0:
-                print(f"step {t:5d}  loss={float(m['data_loss']):.4f}  "
-                      f"eps={float(m['eps_mean']):.2f}  "
-                      f"gap={float(m['consensus_gap']):.2e}  "
-                      f"{(time.time() - t0) / (t - start + 1):.2f}s/step",
-                      flush=True)
+                say(f"step {t:5d}  loss={float(m['data_loss']):.4f}  "
+                    f"eps={float(m['eps_mean']):.2f}  "
+                    f"gap={float(m['consensus_gap']):.2e}  "
+                    f"{(time.time() - t0) / (t - start + 1):.2f}s/step",
+                    flush=True)
             if ck and t and t % 50 == 0:
-                ck.save(state, t)
+                save(t)
         if ck:
-            ck.save(state, args.steps)
+            save(args.steps)
     if not m:
-        print(f"done. nothing to run: resumed at step {start} >= --steps "
-              f"{args.steps}")
+        say(f"done. nothing to run: resumed at step {start} >= --steps "
+            f"{args.steps}")
         return 0
-    print(f"done. final loss {float(m['data_loss']):.4f}")
+    say(f"done. final loss {float(m['data_loss']):.4f}")
     return 0
 
 

@@ -339,9 +339,16 @@ def encode(params, enc_embeds: torch.Tensor, cfg: ArchConfig
 
 def _perturb(x: torch.Tensor, gen: torch.Generator, sigma) -> torch.Tensor:
     """``x + sigma * N(0, 1)`` (the noise drawn in f32 from ``gen`` on x's
-    device, then cast to x's dtype), as the reference adds it."""
-    n = torch.randn(x.shape, generator=gen, dtype=torch.float32,
-                    device=x.device)
+    device, then cast to x's dtype), as the reference adds it.  A
+    ``privacy.BlockGenerator`` draws the whole batch's noise and keeps
+    this rank's rows."""
+    from repro_torch.core.privacy import BlockGenerator
+
+    if isinstance(gen, BlockGenerator):      # a rank's rows of the batch
+        n = gen.randn(x.shape, dtype=torch.float32, device=x.device)
+    else:
+        n = torch.randn(x.shape, generator=gen, dtype=torch.float32,
+                        device=x.device)
     return x + (sigma * n).to(x.dtype)
 
 

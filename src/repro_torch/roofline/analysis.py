@@ -14,8 +14,14 @@ TFLOP/s; dividing everything by the bf16 peak, as the reference divides
 by its one peak, would understate an f32 round's compute term ~14.8x.  A
 report given only a total (``flops_by_class`` empty) divides it by
 ``Hardware.peak_flops``, as the reference does.  The memory term keeps the
-reference's estimate, arguments + outputs + 2 x temporaries.  On one
-device no collective runs, so the collective term is 0.
+reference's estimate, arguments + outputs + 2 x temporaries.  The
+collective term sums the exchanges the step made
+(``distributed.collectives``, counted by the ``CostCounter``), each a
+ring all-reduce's ``2 (n - 1) / n`` of its bytes over the slowest link of its group: NVLink within a node of 8 GPUs, the
+InfiniBand port between nodes (``kernel_cost.collective_s``; a group's
+span from the mesh's row-major rank order, ``"model"`` innermost).  A
+model, not a measurement: no link was timed.  On one device no
+collective runs, so the term is 0.
 """
 from __future__ import annotations
 
@@ -75,6 +81,9 @@ class RooflineReport:
     t_compute: float = 0.0
     t_memory: float = 0.0
     t_collective: float = 0.0
+    # the collective term from the counted exchanges' link model (seconds);
+    # None: collective_bytes over one link, as the reference
+    collective_s: Optional[float] = None
     hw: Hardware = H100
 
     def finalize(self, hw: Hardware = H100) -> "RooflineReport":
@@ -87,7 +96,9 @@ class RooflineReport:
         else:
             self.t_compute = self.flops / hw.peak_flops
         self.t_memory = self.hbm_bytes / hw.hbm_bw
-        self.t_collective = self.collective_bytes / hw.link_bw
+        self.t_collective = (self.collective_bytes / hw.link_bw
+                             if self.collective_s is None
+                             else self.collective_s)
         return self
 
     @property
@@ -146,6 +157,11 @@ def analyze(counter, out: Any, *, arch: str, shape: str, mesh_name: str,
     the peak of the step's live bytes less its outputs, so arguments +
     outputs + temporaries is the step's peak with its arguments
     resident."""
+    coll: Dict[str, float] = {}
+    for _, axis, nbytes, _, _ in counter.collectives:
+        coll[axis] = coll.get(axis, 0.0) + float(nbytes)
+    coll_s = sum(kc.collective_s(kind, nbytes, size, stride)
+                 for kind, _, nbytes, size, stride in counter.collectives)
     arg_b = float(counter.argument_bytes)
     out_b = float(counter.output_bytes(out))
     tmp_b = float(max(counter.peak_bytes - out_b, 0))
@@ -153,8 +169,9 @@ def analyze(counter, out: Any, *, arch: str, shape: str, mesh_name: str,
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         flops=counter.flops, dot_flops=counter.dot_flops,
         hbm_bytes=arg_b + out_b + 2.0 * tmp_b,
-        hbm_op_bytes_upper=counter.hbm_op_bytes, collective_bytes=0.0,
-        collectives={}, xla_flops=counter.flops,
+        hbm_op_bytes_upper=counter.hbm_op_bytes,
+        collective_bytes=sum(coll.values()), collectives=coll,
+        collective_s=coll_s, xla_flops=counter.flops,
         xla_bytes=counter.hbm_op_bytes,
         bytes_per_device=arg_b + out_b + tmp_b,
         argument_bytes=arg_b, output_bytes=out_b, temp_bytes=tmp_b,

@@ -114,6 +114,8 @@ class CostCounter(TorchDispatchMode):
         self.elem_flops = 0.0
         self.hbm_op_bytes = 0.0
         self.kernels: Dict[str, KernelCount] = {}
+        # (kind, mesh axis, bytes, group size, group stride) per exchange
+        self.collectives: list = []
         self.live_bytes = 0
         self.peak_bytes = 0
         self.n_ops = 0
@@ -179,6 +181,10 @@ class CostCounter(TorchDispatchMode):
         self.add_flops(work.flops, work.rate)
         self.hbm_op_bytes += work.nbytes
 
+    def add_collective(self, kind: str, axis: str, nbytes: int, size: int,
+                       stride: int) -> None:
+        self.collectives.append((kind, axis, nbytes, size, stride))
+
     @property
     def kernel_flops(self) -> float:
         return sum(k.flops for k in self.kernels.values())
@@ -226,3 +232,13 @@ def add_kernel(name: str, work: Work, launches: int = 1) -> None:
     counter = active()
     if counter is not None:
         counter.add_kernel(name, work, launches)
+
+
+def add_collective(kind: str, axis: str, nbytes: int, size: int,
+                   stride: int) -> None:
+    """An exchange of ``nbytes`` over a group of ``size`` ranks ``stride``
+    apart in the mesh's rank order (``distributed.collectives``), added to
+    the active counter, if any."""
+    counter = active()
+    if counter is not None:
+        counter.add_collective(kind, axis, nbytes, size, stride)

@@ -30,6 +30,10 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TF32_FLOPS_PER_S = 494.7e12      # H100 SXM tf32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 NVLINK_BYTES_PER_S = 450e9       # H100 SXM NVLink, one direction
+# Between nodes: a DGX H100 node has 8 ConnectX-7 ports of 400 Gb/s, one
+# per GPU (NVIDIA DGX H100 data sheet): 50 GB/s per GPU, one direction
+IB_BYTES_PER_S = 50e9
+GPUS_PER_NODE = 8                # one node: 8 GPUs joined by NVLink
 
 # The rate each class of operations runs at.  "tf32x3" is an f32 product
 # on the tensor cores by 3xTF32 (B4 in f32 and its backward): three TF32
@@ -117,6 +121,67 @@ def sign_agg_int8_group_work(zs, payloads, scale=None) -> Work:
 
 
 # ---------------------------------------------------------------- B4
+def sign_sum_group_work(zs, Ws, weights=None) -> Work:
+    """B1/B2's partial over every leaf: W (C_r, D) and z read once, the
+    f32 sums written (``weights`` read once), C_r D signs and sums."""
+    w = sum(W.numel() for W in Ws)
+    nbytes = sum(W.numel() * _esize(W) + z.numel() * (_esize(z) + 4)
+                 for z, W in zip(zs, Ws))
+    if weights is not None:
+        nbytes += weights.numel() * 4
+    return Work(flops=(3.0 if weights is not None else 2.0) * w,
+                nbytes=float(nbytes), rate="f32")
+
+
+def sign_sum_int8_group_work(zs, payloads, scale=None) -> Work:
+    """B3's partial over every leaf: the int8 payload read once, the
+    4-byte sums written (``scale`` read once), a sum (and a product)
+    an element."""
+    w = sum(q.numel() for q in payloads)
+    nbytes = w + sum(z.numel() * 4 for z in zs)
+    if scale is not None:
+        nbytes += scale.numel() * 4
+    return Work(flops=(2.0 if scale is not None else 1.0) * w,
+                nbytes=float(nbytes), rate="f32")
+
+
+def sign_finish_group_work(zs, sums) -> Work:
+    """The finish over every leaf: the 4-byte sums, z and phi_mean (f32)
+    read, z' written; four operations an element."""
+    d = sum(z.numel() for z in zs)
+    return Work(flops=4.0 * d,
+                nbytes=float(sum(_vec_bytes(z) for z in zs) + 4 * d),
+                rate="f32")
+
+
+# ---------------------------------------------------------- collectives
+def span_nodes(size: int, stride: int) -> int:
+    """The nodes of :data:`GPUS_PER_NODE` GPUs that a group of ``size``
+    ranks ``stride`` apart in the mesh's row-major rank order (rank 0's
+    group) touches: a 16-wide ``"model"`` group (stride 1) spans two, a
+    ``"data"`` group (stride 16) one node a member."""
+    return len({(i * stride) // GPUS_PER_NODE for i in range(size)})
+
+
+def link_bytes_per_s(size: int, stride: int) -> float:
+    """The slowest link of such a group: NVLink within a node, the
+    InfiniBand port between nodes."""
+    return NVLINK_BYTES_PER_S if span_nodes(size, stride) == 1 \
+        else IB_BYTES_PER_S
+
+
+def collective_s(kind: str, nbytes: float, size: int, stride: int) -> float:
+    """The least time of one collective of ``nbytes`` over such a group: a
+    ring all-reduce (the one kind the port makes) sends ``2 (n - 1) / n``
+    of the bytes over each link."""
+    if size <= 1:
+        return 0.0
+    bw = link_bytes_per_s(size, stride)
+    if kind == "all_reduce":
+        return 2.0 * (size - 1) / size * nbytes / bw
+    raise ValueError(f"unknown collective {kind!r}")
+
+
 def kept_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     """Query-key pairs the mask keeps (queries end-aligned with keys)."""
     qa = np.arange(Sq) + (Sk - Sq)

@@ -6,7 +6,11 @@ and ``examples/quickstart.py``).
         [--server quorum|fedbuff|sync] [--round-impl dense|sparse]
 
 runs on the GPU unless ``--device cpu`` is given, and fails when there is
-no GPU.  As the quickstart, an event-driven fleet (``DelayModel``, hetero
+no GPU.  Started by ``torchrun`` (``python -m torch.distributed.run
+--nproc-per-node N -m repro_torch.train ... --backend gloo|nccl``), it
+reads ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` and splits the clients over
+the N ranks (``distributed.data_parallel``): each rank trains its block
+of them, and rank 0 prints.  As the quickstart, an event-driven fleet (``DelayModel``, hetero
 1.0) builds a ``Schedule`` under the ``--server`` trigger, and the rounds
 train on it: the dense round fed its ``act``/``stale`` rows, or with
 ``--round-impl sparse`` the O(S) round fed its padded rows.
@@ -20,6 +24,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import os
 import time
 from typing import Any, Optional, Tuple
 
@@ -30,7 +35,8 @@ from repro_torch.configs import MLP_H1, MLP_H24, FedConfig, ForecastConfig
 from repro_torch.core import bafdp
 from repro_torch.core.async_engine import DelayModel
 from repro_torch.core.byzantine import byz_mask
-from repro_torch.core.fed_state import FedState, init_fed_state
+from repro_torch.core.fed_state import (FedState, init_fed_state,
+                                        shard_clients, whole_rows)
 from repro_torch.core.privacy import (gaussian_c3, perturb_inputs,
                                       privacy_accountant)
 from repro_torch.core.schedule import (AdaptiveQuorum, AgeAwareSelection,
@@ -40,6 +46,7 @@ from repro_torch.core.schedule import (AdaptiveQuorum, AgeAwareSelection,
 from repro_torch.core.trainers import BaselineTrainer
 from repro_torch.data import build_windows, client_batches, make_dataset
 from repro_torch.data.windowing import rmse_mae
+from repro_torch.distributed.data_parallel import is_split
 from repro_torch.models.forecasting import (Forecaster, apply_forecaster,
                                             init_forecaster, mse_loss)
 from repro_torch.tree import resolve_device, tree_leaves, tree_map
@@ -91,9 +98,13 @@ def _rmse_mae(predict, test, scalers, device) -> Tuple[float, float]:
 
 
 def eval_fed_state(state: FedState, cfg: ForecastConfig, test,
-                   scalers) -> Tuple[float, float]:
+                   scalers, ranks=None) -> Tuple[float, float]:
     """RMSE/MAE in raw traffic units, each client serving its own cell
-    with its own omega_i (Algorithm 1's output)."""
+    with its own omega_i (Algorithm 1's output).  ``ranks``: ``state``
+    holds this rank's clients; their models are gathered whole
+    (``fed_state.unshard_clients``) and every rank evaluates the fleet."""
+    if is_split(ranks):
+        state = state._replace(W=whole_rows(state.W, ranks))
     return _rmse_mae(
         lambda c, x: Forecaster(tree_map(lambda l: l[c], state.W), cfg)(x),
         test, scalers, state.eps.device)
@@ -154,7 +165,7 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
                 collect: Tuple[str, ...] = (), optimizer: str = "adam",
                 feed_arrivals: Optional[bool] = None,
                 round_impl: str = "dense", ledger: Optional[Any] = None,
-                state: Optional[FedState] = None, device=None):
+                state: Optional[FedState] = None, device=None, ranks=None):
     """Returns ``(state, cfg, history)``.
 
     As the reference: Adam on the data/DRO gradient, ``dro_weight=0.01``,
@@ -174,6 +185,13 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
       history gains ``dp_eps_basic``/``dp_eps_adv`` (at ``fed.dp_delta``).
     * ``state``: a starting state (default: a fresh one from ``seed``).
       The sparse round writes into it.  ``device``: ``None`` = the GPU.
+    * ``ranks``: a ``distributed.data_parallel.RankBlock`` of more than
+      one rank: the fresh state is made whole from ``seed`` and this
+      rank's clients kept (``fed_state.shard_clients``; a given ``state``
+      must be this rank's already), each round's batch is drawn whole and
+      narrowed to them (under ``inner_dp`` also to the rank's rows of
+      each client's batch), and the history's per-client values are
+      gathered whole.  The same draws as one rank's run.
     """
     if round_impl not in ("dense", "sparse"):
         raise ValueError(f"unknown round_impl: {round_impl!r}")
@@ -195,10 +213,16 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
         return mse_loss(W, perturb_inputs(gen, x, eps, input_sigma,
                                           fed.eps_min), y, cfg)
 
+    split = is_split(ranks)
+    if not split:
+        ranks = None
+    elif ranks.model.size > 1:
+        ranks = ranks.with_batch(BATCH)
     if state is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        state = init_fed_state(gen, lambda g: init_forecaster(g, cfg, dev),
-                               fed, device=dev)
+        state = shard_clients(init_fed_state(
+            gen, lambda g: init_forecaster(g, cfg, dev), fed, device=dev),
+            ranks)
     round_fn = bafdp.bafdp_round_sparse if round_impl == "sparse" \
         else bafdp.bafdp_round
     step = functools.partial(
@@ -209,8 +233,15 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
 
     def batch_fn(t):
         x, y = client_batches(rng, train, BATCH)
-        return (torch.from_numpy(x).to(dev, torch.float32),
-                torch.from_numpy(y).to(dev, torch.float32))
+        if split:
+            x, y = x[ranks.clients()], y[ranks.clients()]
+            if ranks.batch is not None:
+                _, start, n, _ = ranks.batch
+                x, y = x[:, start:start + n], y[:, start:start + n]
+        return (torch.from_numpy(np.ascontiguousarray(x)).to(
+                    dev, torch.float32),
+                torch.from_numpy(np.ascontiguousarray(y)).to(
+                    dev, torch.float32))
 
     if feed_arrivals is None:
         feed_arrivals = fed.fedbuff_lr_norm and schedule is not None
@@ -220,13 +251,20 @@ def train_bafdp(dataset: str, horizon: int, fed: FedConfig,
         round_impl=round_impl, ledger=ledger, ledger_delta=fed.dp_delta,
         round_kwargs=_legacy_round_kwargs(schedule, active_masks, staleness,
                                           rounds, fed.n_clients, dev),
-        device=dev)
+        device=dev, ranks=ranks)
+
+    def eps_all(s, m):
+        eps = whole_rows(s.eps, ranks) if split else s.eps
+        return eps.cpu().numpy().copy()
+
     state, hist = run.run(
         state, batch_fn, seed, collect=collect,
         derive={
-            "eps_all": lambda s, m: s.eps.cpu().numpy().copy(),
-            "rmse": lambda s, m: eval_fed_state(s, cfg, test, scalers)[0],
-            "mae": lambda s, m: eval_fed_state(s, cfg, test, scalers)[1],
+            "eps_all": eps_all,
+            "rmse": lambda s, m: eval_fed_state(s, cfg, test, scalers,
+                                                ranks)[0],
+            "mae": lambda s, m: eval_fed_state(s, cfg, test, scalers,
+                                               ranks)[1],
         })
     return state, cfg, hist
 
@@ -318,15 +356,33 @@ def main(argv=None) -> None:
                     choices=["dense", "sparse"])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="under torchrun: the process group's backend "
+                         "(default: nccl on the GPU, gloo on the CPU)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world > 1:
+        from repro_torch.distributed.data_parallel import rank_block
+        from repro_torch.launch.mesh import rank_device, registered_mesh
+
+        device = rank_device(args.device)
+        with registered_mesh((world, 1), device, args.backend) as mesh:
+            _main(args, resolve_device(device),
+                  rank_block(mesh, args.clients))
+    else:
+        _main(args, resolve_device(args.device), None)
+
+
+def _main(args, dev, ranks) -> None:
+    lead = ranks is None or int(os.environ.get("RANK", 0)) == 0
+    say = print if lead else (lambda *a, **k: None)     # rank 0 prints
     fed = FedConfig(n_clients=args.clients, byzantine_frac=args.byzantine,
                     attack=args.attack, active_frac=0.6,
                     privacy_budget_a=30.0, alpha_eps=5e-2,
                     eps_init_frac=0.05, staleness_decay="poly")
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"BAFDP on {name}: {fed.n_normal} honest + {fed.n_byzantine} "
+    say(f"BAFDP on {name}: {fed.n_normal} honest + {fed.n_byzantine} "
           f"byzantine ({args.attack}), S/M={fed.active_frac}, "
           f"server={args.server}, round={args.round_impl}")
     # event-driven fleet: heterogeneous latencies -> sparse schedule
@@ -335,7 +391,7 @@ def main(argv=None) -> None:
                                       seed=0),
                            make_trigger(args.server, fed.active_frac))
     if sched.n_rounds:
-        print(f"schedule: {sched.n_rounds} rounds, mean quorum "
+        say(f"schedule: {sched.n_rounds} rounds, mean quorum "
               f"{sched.quorum.mean():.1f}, "
               f"est. wall-clock {sched.times[-1]:.0f}s")
     gap = "consensus_gap_block" if args.round_impl == "sparse" \
@@ -344,26 +400,26 @@ def main(argv=None) -> None:
     state, cfg, hist = train_bafdp(
         "milano", args.horizon, fed, rounds=args.rounds, seed=args.seed,
         schedule=sched, round_impl=args.round_impl,
-        collect=("data_loss", gap, "eps_mean"), device=dev)
+        collect=("data_loss", gap, "eps_mean"), device=dev, ranks=ranks)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
     every = max(args.rounds // 10, 1)
     for t in range(0, args.rounds, every):
-        print(f"  round {t:4d}  loss={hist['data_loss'][t]:.4f} "
+        say(f"  round {t:4d}  loss={hist['data_loss'][t]:.4f} "
               f"eps={hist['eps_mean'][t]:.3f}  "
               f"gap={hist[gap][t]:.2e}")
-    print(f"{args.rounds} rounds in {secs:.2f} s (set-up included)")
+    say(f"{args.rounds} rounds in {secs:.2f} s (set-up included)")
 
     _, test, scalers = problem("milano", args.horizon, fed.n_clients,
                                args.seed)
     rmse, mae = eval_rmse_mae(state.z, cfg, test, scalers)
-    print(f"\nconsensus-model test RMSE={rmse:.3f}  MAE={mae:.3f} "
+    say(f"\nconsensus-model test RMSE={rmse:.3f}  MAE={mae:.3f} "
           "(raw traffic units)")
-    rmse_c, mae_c = eval_fed_state(state, cfg, test, scalers)
-    print(f"per-client models    RMSE={rmse_c:.3f}  MAE={mae_c:.3f}")
+    rmse_c, mae_c = eval_fed_state(state, cfg, test, scalers, ranks)
+    say(f"per-client models    RMSE={rmse_c:.3f}  MAE={mae_c:.3f}")
     basic, adv = privacy_accountant(hist["eps_mean"], fed.dp_delta)
-    print(f"privacy over {args.rounds} rounds: basic eps={basic:.1f}, "
+    say(f"privacy over {args.rounds} rounds: basic eps={basic:.1f}, "
           f"advanced-composition eps={adv:.1f} at delta'={fed.dp_delta:.0e}")
 
 

@@ -197,8 +197,8 @@ def _record_rounds(monkeypatch, rounds) -> dict:
     as numpy trees."""
     seen, make = {}, steps.make_train_step
 
-    def recording(cfg, fed):
-        step = make(cfg, fed)
+    def recording(cfg, fed, ranks=None):
+        step = make(cfg, fed, ranks)
 
         def run(st, batch, seed, **kw):
             if seed in rounds:

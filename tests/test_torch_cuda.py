@@ -94,7 +94,8 @@ def test_cuda_kernels_match_plain_versions_bitwise(D, C, dtype):
     ]
     torch.cuda.synchronize()
     assert sign_agg.LAUNCHES == {"sign_agg": 1, "sign_agg_weighted": 2,
-                                 "sign_agg_weighted_int8": 2}
+                                 "sign_agg_weighted_int8": 2,
+                                 "sign_sum": 0, "sign_finish": 0}
     for i, (got, want) in enumerate(pairs):
         assert got.dtype == tz.dtype
         assert _bits_equal(got, want), f"pair {i}"
@@ -1178,7 +1179,8 @@ def test_cuda_sparse_round_launches_its_kernel_once_a_round(wire):
     _sparse_train(3, sign_message=wire)
     assert sign_agg.LAUNCHES == {
         "sign_agg": 0, "sign_agg_weighted": 3 if wire == "f32" else 0,
-        "sign_agg_weighted_int8": 3 if wire == "int8" else 0}
+        "sign_agg_weighted_int8": 3 if wire == "int8" else 0,
+        "sign_sum": 0, "sign_finish": 0}
 
 
 @pytest.mark.cuda
@@ -1307,3 +1309,101 @@ def test_cuda_placed_smoke_round_equals_the_unplaced_round():
             (2 if cfg.remat else 1) * rounds * C * cfg.n_layers
     for a, p in zip(leaves(state), leaves(placed)):
         assert _bits_equal(a, p)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_refuses_ranks_sharing_a_device():
+    """``make_mesh`` with the nccl backend for more ranks than this host
+    has cards raises before NCCL is reached (NCCL refuses a duplicate
+    GPU), and leaves no group up; gloo takes them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import check_backend, make_mesh
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="share a device"):
+        make_mesh((n + 1, 1), "cuda", "nccl", rank=0, world_size=n + 1,
+                  store=dist.HashStore())
+    assert not dist.is_initialized()
+    check_backend("gloo", "cuda", n + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_split_consensus_kernels_equal_the_fused_ones():
+    """B1-B3's partial and finish on the card: the partial equals its
+    plain version bit for bit (NaN positions aside), finish(sum of the
+    partials of 2, 4 and 8 row blocks) equals the fused kernel bit for
+    bit unweighted, and weighted is NaN where the fused kernel is NaN and
+    within ``ref.weighted_split_bound`` elsewhere; one launch each per
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_agg as sa
+
+    def same(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(
+            a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    C, sizes, psi, alpha = 16, [128, 2816, 5, 16384, 33], 0.7, 0.1
+    for dtype in (torch.float32, torch.bfloat16):
+        zs = [torch.randn(D, device="cuda", generator=g).to(dtype)
+              for D in sizes]
+        Ws = [torch.randn(C, D, device="cuda", generator=g).to(dtype)
+              for D in sizes]
+        Ws[1][3, 7] = float("nan")
+        phis = [torch.randn(D, device="cuda", generator=g) for D in sizes]
+        w = torch.rand(C, device="cuda", generator=g)
+        for weights, n in ((None, C), (w, 40)):
+            for int8 in (False, True):
+                rows = Ws
+                if int8:
+                    rows = [collectives.encode_sign_message(z, W, weights)
+                            .payload for z, W in zip(zs, Ws)]
+                    fused = sa.sign_agg_int8_group(zs, rows, phis, weights,
+                                                   psi, alpha, n_total=n)
+                else:
+                    fused = sa.sign_agg_group(
+                        zs, Ws, phis, weights, psi, alpha,
+                        n_total=0 if weights is None else n)
+                for blocks in (2, 4, 8):
+                    q, total = C // blocks, None
+                    for i in range(blocks):
+                        part = [r[i * q:(i + 1) * q] for r in rows]
+                        wb = None if weights is None \
+                            else weights[i * q:(i + 1) * q]
+                        before = sa.LAUNCHES["sign_sum"]
+                        s = (sa.sign_sum_int8_group(zs, part, wb) if int8
+                             else sa.sign_sum_group(zs, part, wb))
+                        assert sa.LAUNCHES["sign_sum"] == before + 1
+                        cpu = (sa.sign_sum_int8_group if int8
+                               else sa.sign_sum_group)(
+                            [z.cpu() for z in zs], [p.cpu() for p in part],
+                            None if wb is None else wb.cpu())
+                        assert same(s, cpu)
+                        total = s if total is None else total + s
+                    before = sa.LAUNCHES["sign_finish"]
+                    got = sa.sign_finish_group(zs, total, phis, psi, alpha,
+                                               n)
+                    assert sa.LAUNCHES["sign_finish"] == before + 1
+                    for leaf, (z, p, a, b) in enumerate(
+                            zip(zs, phis, got, fused)):
+                        if weights is None:
+                            assert same(a, b)
+                        else:
+                            bound = ref.weighted_split_bound(
+                                z.cpu(), p.cpu(), weights.cpu(), n, psi,
+                                alpha)
+                            a32, b32 = a.float().cpu(), b.float().cpu()
+                            nan = torch.isnan(a32)
+                            assert torch.equal(nan, torch.isnan(b32))
+                            assert bool(nan.any()) == (leaf == 1
+                                                       and not int8)
+                            d = (a32 - b32).abs()[~nan]
+                            assert bool(torch.all(d <= bound[~nan]))

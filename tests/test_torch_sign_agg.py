@@ -503,7 +503,7 @@ def test_round_grouped_dispatch_equals_per_leaf_dispatch(monkeypatch, name):
     grouped, _ = _run_port(knobs, init, act, stale, batches)
 
     def per_leaf(zs, Ws, phis, weights, psi, alpha_z, message="f32",
-                 impl="auto", n_total=None):
+                 impl="auto", n_total=None, ranks=None):
         return [ops.sign_consensus(z, W, p, weights, psi, alpha_z,
                                    message=message, impl=impl,
                                    n_total=n_total)
@@ -599,11 +599,12 @@ def test_int8_round_makes_one_grouped_call(monkeypatch, decay):
         n_clients=4, sign_message="int8", staleness_decay=decay), rounds=3,
         device="cpu")
     assert group_calls == [MAIN_LEAF_D] * 3 and not one_leaf_calls
-    assert len(rounds) == 3 and rounds[0][6] == {"message": "int8"}
+    assert len(rounds) == 3 and rounds[0][6] == {"message": "int8",
+                                                 "ranks": None}
     for zs, Ws, phis, weights, psi, alpha_z, kwargs, got in rounds:
         for z, W, p, g in zip(zs, Ws, phis, got):
             want = ops.sign_consensus(z, W, p, weights, psi, alpha_z,
-                                      **kwargs)
+                                      message=kwargs["message"])
             assert g.numpy().tobytes() == want.numpy().tobytes()
 
 
