@@ -241,7 +241,24 @@ card (one process a rank, ``--dp-rank``), each held to world 1 by
 ``inner_dp``, one client's batch over 2 ``"model"`` ranks; and
 SmolLM-360M at full width, C=4 over 2 ranks, lm_train's settings, a
 sample of every leaf held to world 1, each rank's peak printed beside the
-meta prediction of its step on a 2 x 1 fake mesh.  Then checkpoints
+meta prediction of its step on a 2 x 1 fake mesh.  Then tensor-parallel
+serving (``tensor_parallel``: B5's partial, B4, B5 whole in world 1):
+the partial held to its plain version (out within ``attn_tol``, lse
+within 1e-5, a row of length 0 giving 0 and -inf), the partials of 2, 4
+and 8 blocks merged and held to B5 over the whole cache, and timed at
+SmolLM-360M's and Gemma-7B's serving blocks and decode_32k's rank block
+beside its bound, its plain version and SDPA over the block; then
+SmolLM-360M (f32) and Gemma-7B (bf16) at full width over a 1 x 2 gloo
+mesh on the one card (``--dp-rank`` processes, task ``tp``; world 1 in
+this process): prefills (SmolLM's also with ``attn_seq_shards=2``), a
+generate (SmolLM, 36 steps over a cache of 64 positions, 32 a rank) and
+decode steps (Gemma, from a seeded cache of 512 positions at positions
+254-257) against world 1, both crossing from rank 0's block of cache
+positions into rank 1's (rank 1 handed a non-empty block, asserted),
+each rank's launches asserted (B4 in every prefill layer, the partial in
+every decode layer and step), its exchanges equal to the ones its steps
+count on meta structs of its blocks before the run, and its prefill's
+peak within 1 % of the meta prediction on a 1 x 2 fake mesh.  Then checkpoints
 (``lm_resume``, B1 and B4 with its backward): the port of
 ``examples/federated_lm_training.py`` saves, restores (bit for bit on
 the card) and resumes at the smoke scale, its first resumed round held
@@ -285,7 +302,10 @@ block of the 8 leaves with ``n_total`` = 65,536 (``scale_round``'s).
 Its ``sign_sum`` and ``sign_finish`` entries give the split's two
 kernels at the bandwidth shape (f32, unweighted) beside the fused B1
 (``fused_ms``), their launches the ranks' main-path runs in
-``data_parallel``.  Its
+``data_parallel``.  Its ``decode_attention_partial`` entry gives B5's
+partial at SmolLM-360M's serving block (``shapes``: also Gemma-7B's and
+decode_32k's rank block), its launches the ranks' decode steps in
+``tensor_parallel``.  Its
 ``flash_attention`` entry gives B4's f32 kernel (``f32_kernel``, its
 ptxas label: name and tiles at head dim 64) at SmolLM-360M's prefill
 shape, with ``bound_ms`` its 3xTF32 tensor-core roof and
@@ -2958,12 +2978,14 @@ def hymba_cpu_vs_cuda(cfg, params, report):
         f"{HYMBA_VS_ROWS} x {HYMBA_VS_PROMPT} positions: max |diff| = "
         f"{pd_diff:.3e} (abs/rel {pd_tol})")
 
-def decode_label(H, Hkv, D, dtype):
+def decode_label(H, Hkv, D, dtype, partial=False):
     """B5's instance for H query and Hkv KV heads of dim D in ``dtype``:
-    ``decode_cluster<D,T,GP>``, GP the query heads per KV head, at most 8
-    a pass (``kMaxGroup``)."""
+    ``decode_cluster<D,T,GP,kPartial>``, GP the query heads per KV head,
+    at most 8 a pass (``kMaxGroup``); ``partial``: the partial over a
+    rank's block of positions."""
     tname = "float" if dtype == torch.float32 else "bf16"
-    return f"decode_cluster<{D},{tname},{min(H // Hkv, 8)}>"
+    return (f"decode_cluster<{D},{tname},{min(H // Hkv, 8)},"
+            f"{'true' if partial else 'false'}>")
 
 
 class RouteLog:
@@ -5728,6 +5750,8 @@ def dp_rank_main(spec_path: str, rank: int, world: int) -> int:
             elif task == "inner_dp":
                 out[task] = dp_forecaster("dense_b1",
                                           rank_block(mesh, DP_C), "cuda")
+            elif task == "tp":
+                out[task] = tp_rank(mesh)
             elif task == "smollm":
                 ranks = rank_block(mesh, DP_LM_CLIENTS)
                 collectives.reset_collective_counts()
@@ -6110,6 +6134,600 @@ def _rows_of(tree, c0, n):
     return tree_map(lambda l: l[c0:c0 + n], tree)
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving over "model" ranks (gloo on the one card)
+TP_SEED = 3400
+TP_PREFILL = (2, 1024)         # SmolLM-360M's prefill over 1 x 2: B x S
+TP_PROMPTS = (28, 5, 9, 7)     # the generate's prompt lengths (4 requests)
+# the generate's cache: 36 steps cross from rank 0's 32 positions into
+# rank 1's (the plan splits a cache by positions where L >= head_dim)
+TP_MAX_NEW, TP_GEN_CACHE = 8, 64
+TP_CACHE = 512                 # Gemma's decode cache, seeded
+TP_GEMMA_PREFILL, TP_GEMMA_STEPS = (1, 1024), 4
+TP_GEMMA_FROM = TP_CACHE // 2 - 2   # its steps 254-257 cross into rank 1
+TP_LOGIT_TOL = 2e-3            # f32 logits over 1 x 2 against world 1
+TP_NEAR_TIE = 1e-5             # a greedy flip is counted below this gap
+TP_PEAK_SHARE = 0.01           # a rank's peak within 1 % of meta's
+TP_LSE_TOL = 1e-5
+TP_BLOCKS = (2, 4, 8)
+# B5's partial, held and timed: (label, B, L, H, Hkv, D, dtype, lengths)
+TP_PARTIAL_SHAPES = (
+    ("smollm-360m serving", 8, SERVE_CACHE, 15, 5, 64, torch.float32,
+     SERVE_LENS),
+    ("gemma-7b serving", 8, SERVE_CACHE, 16, 16, 256, torch.bfloat16,
+     SERVE_LENS),
+    ("decode_32k rank block on (16, 16)", 8, 2048, 15, 5, 64, torch.float32,
+     [2048] * 8))
+
+
+def tp_partial_inputs(B, L, H, Hkv, D, dtype, seed):
+    _, k, v = _attn_inputs(B, 1, L, H, Hkv, D, dtype, seed=seed)
+    q = _attn_inputs(B, 1, 1, H, Hkv, D, dtype, seed=seed + 1)[0][:, 0]
+    return q.contiguous(), k, v
+
+
+def tp_kernels(report):
+    """(a) B5's partial on the card at TP_PARTIAL_SHAPES: held against its
+    plain version (out within ``attn_tol``, lse within TP_LSE_TOL, a row
+    of length 0 giving out 0 and lse -inf); the partials of 2, 4 and 8
+    blocks merged (``ops.merge_decode_partials``) against B5 over the
+    whole cache within ``attn_tol``, the blocks past a row's length
+    empty (lse -inf: weight 0); then timed against its bound
+    (``kernel_cost.decode_partial_work``), the plain version and SDPA
+    over the same block.  Returns the rows."""
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import ops, ref
+
+    cpm = sleep_cycles_per_ms()
+    rows, err, lse_err, empties = [], 0.0, 0.0, 0
+    for i, (label, B, L, H, Hkv, D, dtype, lens) in enumerate(
+            TP_PARTIAL_SHAPES):
+        q, k, v = tp_partial_inputs(B, L, H, Hkv, D, dtype, TP_SEED + 10 * i)
+        held = torch.tensor([0] + list(lens[1:]), dtype=torch.int32,
+                            device="cuda")
+        out, lse = dec_k.decode_attention_partial(q, k, v, held)
+        p_out, p_lse = ref.decode_attention_partial_ref(q, k, v, held)
+        torch.cuda.synchronize()
+        excess = (out - p_out).abs() - attn_tol(p_out)
+        fin = torch.isfinite(p_lse)
+        if not (bool((excess <= 0).all()) and torch.equal(
+                torch.isfinite(lse), fin) and bool((out[0] == 0).all())
+                and bool(torch.isneginf(lse[0]).all())):
+            raise AssertionError(f"B5 partial {label}: != plain (worst "
+                                 f"excess {float(excess.max()):.3e})")
+        e_lse = float((lse[fin] - p_lse[fin]).abs().max())
+        if e_lse > TP_LSE_TOL:
+            raise AssertionError(f"B5 partial {label}: lse off by {e_lse}")
+        err, lse_err = max(err, max_abs_err(out, p_out)), max(lse_err, e_lse)
+        length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        whole = dec_k.decode_attention(q, k, v, length)
+        for M in TP_BLOCKS:
+            Lr = L // M
+            parts = [dec_k.decode_attention_partial(
+                q, k[:, r * Lr:(r + 1) * Lr].contiguous(),
+                v[:, r * Lr:(r + 1) * Lr].contiguous(),
+                (length - r * Lr).clamp(0, Lr).to(torch.int32))
+                for r in range(M)]
+            merged = ops.merge_decode_partials([p[0] for p in parts],
+                                               [p[1] for p in parts], dtype)
+            hold_attention("decode_attention", merged, whole,
+                           f"B5 partials of {M} blocks merged, {label}",
+                           {"decode_attention": 0.0},
+                           report.setdefault("tp_merge_checks", []))
+            for r, (o, ls) in enumerate(parts):
+                none = (length - r * Lr) <= 0
+                if not (bool(torch.isneginf(ls[none]).all())
+                        and bool((o[none] == 0).all())):
+                    raise AssertionError(f"{label}: an empty block of {M} "
+                                         "does not weigh 0")
+                empties += int(none.sum())
+        length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(L, device="cuda")[None, :]
+                < length[:, None])[:, None, None, :]
+        bound, by = kc.bound_ms(kc.decode_partial_work(
+            q, k, kc.valid_positions(length, L)))
+        row = dict(
+            shape=f"{label}: B={B} L={L} H={H}/{Hkv} D={D} "
+                  f"{str(dtype).split('.')[-1]}",
+            kernel=decode_label(H, Hkv, D, dtype, partial=True),
+            ms=device_ms(lambda: dec_k.decode_attention_partial(
+                q, k, v, length), cpm),
+            plain_ms=device_ms(lambda: ref.decode_attention_partial_ref(
+                q, k, v, length), cpm, reps=10, inner=3),
+            library_ms=device_ms(lambda: sdpa_decode(q, k, v, mask), cpm),
+            bound_ms=bound, bound_by=by)
+        row["ptxas"] = report["ptxas"][row["kernel"]]
+        rows.append(row)
+        log(f"time decode_attention_partial {row['shape']}: kernel_ms="
+            f"{row['ms']:.6f} bound_ms={bound:.6f} ({by}) plain_ms="
+            f"{row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
+            f"(SDPA over the block) {row['kernel']}")
+        del q, k, v
+    log(f"tensor_parallel kernels: the partial at {len(rows)} shapes "
+        f"(max |err| {err:.3e}, lse {lse_err:.3e}); merged over "
+        f"{TP_BLOCKS} blocks within attn_tol; {empties} empty (row, block) "
+        "pairs weighed 0")
+    report["tp_kernels"] = dict(rows=rows, max_abs_err=err,
+                                lse_max_abs_err=lse_err, empty=empties)
+    return rows, err
+
+
+def tp_prompts(cfg):
+    rng = np.random.RandomState(TP_SEED)
+    return [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+            for n in TP_PROMPTS]
+
+
+def tp_inputs(cfg, B, S, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda")
+
+
+class PartialLengths:
+    """Records, while entered, the longest block of cache positions B5's
+    partial was handed in this process (``ops.decode_attention_partial``
+    wrapped: its launches are counted inside, as ever)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.inner, self.longest = ops, \
+            ops.decode_attention_partial, 0
+
+        def call(q, k, v, length):
+            self.longest = max(self.longest, int(length.max()))
+            return self.inner(q, k, v, length)
+
+        ops.decode_attention_partial = call
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.decode_attention_partial = self.inner
+
+
+class StepLog:
+    """Wraps an engine's step: each step's last-position logits (on the
+    CPU), its host ms and the exchanges it counted."""
+
+    def __init__(self, eng):
+        from repro_torch.distributed import collectives
+
+        self.col, self.logits, self.ms, self.exchanged = collectives, [], \
+            [], []
+        inner = eng._step
+
+        def step(p, state, toks, pos):
+            self.col.reset_collective_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, state = inner(p, state, toks, pos)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.logits.append(got[:, -1].float().cpu())
+            self.exchanged.append({k: dict(v) for k, v in
+                                   self.col.COLLECTIVES.items()})
+            return got, state
+
+        eng._step = step
+
+
+def tp_serve(cfg, params, ranks):
+    """The generate of TP_PROMPTS (greedy, TP_MAX_NEW new, cache
+    TP_GEN_CACHE) through ``ServeEngine``: (tokens, StepLog, launches,
+    the longest block the partial was handed)."""
+    from repro_torch.serving import ServeEngine, ServeRequest
+
+    eng = ServeEngine(params, cfg, batch=len(TP_PROMPTS),
+                      cache_len=TP_GEN_CACHE, device="cuda", ranks=ranks)
+    steps_log = StepLog(eng)
+    reset_all_counts()
+    with PartialLengths() as lens:
+        toks = eng.generate([ServeRequest(prompt=p, max_new=TP_MAX_NEW)
+                             for p in tp_prompts(cfg)])
+    torch.cuda.synchronize()
+    counts = all_counts()
+    del eng
+    return [t.tolist() for t in toks], steps_log, counts, lens.longest
+
+
+def tp_seeded_state(cfg, ranks=None):
+    """Gemma's decode state at B=1 over TP_CACHE positions, every leaf a
+    draw of seeded normals in its dtype (leaf by leaf, whole), or this
+    rank's block of it (``ranks.state_specs``, the whole leaf dropped)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import map_leaves
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import dtype_of
+
+    g = torch.Generator(device="cuda").manual_seed(TP_SEED + 5)
+    meta = tr.init_decode_state(cfg, 1, TP_CACHE, dtype_of(cfg.compute_dtype),
+                                device="meta")
+
+    def one(t, spec=None):
+        whole = torch.randn(t.shape, generator=g, device="cuda").to(t.dtype)
+        return whole if spec is None else tp.block(whole, spec,
+                                                   ranks).clone()
+
+    if ranks is None:
+        return map_leaves(one, meta)
+    return map_leaves(one, meta, ranks.state_specs)
+
+
+def tp_gemma_steps(cfg, params, ranks, step_fn, state):
+    """TP_GEMMA_STEPS decode steps from position TP_GEMMA_FROM (one row,
+    the seeded ``state``): each step's logits (gathered over "model") on
+    the CPU, ms, exchanges."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import tensor_parallel as tp
+
+    toks = tp_inputs(cfg, 1, TP_GEMMA_STEPS, TP_SEED + 7)
+    logits, ms, exchanged = [], [], []
+    for t in range(TP_GEMMA_STEPS):
+        collectives.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, state = step_fn(params, state, toks[:, t:t + 1],
+                             TP_GEMMA_FROM + t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        exchanged.append({k: dict(v) for k, v in
+                          collectives.COLLECTIVES.items()})
+        if ranks is not None:
+            got = tp.gather(got, ranks, -1)
+        logits.append(got[:, -1].float().cpu())
+    return logits, ms, exchanged
+
+
+def tp_measured_prefill(cfg, step, params, inputs, warm=True):
+    """One prefill ``step`` on the card, with ``warm`` after one
+    unmeasured (the process's first loads of the kernels' libraries):
+    (logits on the CPU, ms, peak, launches, exchanges of the measured
+    one)."""
+    from repro_torch.distributed import collectives
+
+    if warm:
+        step(params, inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    collectives.reset_collective_counts()
+    t0 = time.perf_counter()
+    out = step(params, inputs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    return (out.float().cpu(), ms, peak, all_counts(),
+            {k: dict(v) for k, v in collectives.COLLECTIVES.items()})
+
+
+def tp_world1():
+    """World 1 on the card (no mesh): SmolLM-360M's prefill and generate,
+    Gemma-7B's prefill and decode steps, from the seed-TP_SEED weights."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+
+    out = {}
+    cfg = get_arch(ARCH)
+    params = tr.init_lm(torch.Generator(device="cuda").manual_seed(TP_SEED),
+                        cfg, device="cuda")
+    toks = tp_inputs(cfg, *TP_PREFILL, TP_SEED + 1)
+    logits, ms, _, _, _ = tp_measured_prefill(
+        cfg, steps.make_prefill_step(cfg), params, {"tokens": toks})
+    tokens, log_, _, _ = tp_serve(cfg, params, None)
+    out["smollm"] = dict(prefill=logits, prefill_ms=ms, tokens=tokens,
+                         step_logits=log_.logits, step_ms=log_.ms)
+    del params
+    torch.cuda.empty_cache()
+    cfg = get_arch(GEMMA)
+    params = tr.init_lm(torch.Generator(device="cuda").manual_seed(TP_SEED),
+                        cfg, device="cuda")
+    toks = tp_inputs(cfg, *TP_GEMMA_PREFILL, TP_SEED + 2)
+    logits, ms, _, _, _ = tp_measured_prefill(
+        cfg, steps.make_prefill_step(cfg), params, {"tokens": toks})
+    dlogits, dms, _ = tp_gemma_steps(cfg, params, None,
+                                     steps.make_decode_step(cfg),
+                                     tp_seeded_state(cfg))
+    out["gemma"] = dict(prefill=logits, prefill_ms=ms, step_logits=dlogits,
+                        step_ms=dms)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_predicted(step, *args):
+    """The exchanges ``step(*args)`` counts on meta structs (nothing is
+    sent or launched): the prediction a run's counts are held to."""
+    from repro_torch.distributed import collectives
+
+    collectives.reset_collective_counts()
+    step(*args)
+    return {k: dict(v) for k, v in collectives.COLLECTIVES.items()}
+
+
+def tp_rank(mesh):
+    """One rank of the tensor_parallel phase on a 1 x 2 mesh: its blocks
+    of SmolLM-360M's seed-TP_SEED weights (``init_lm`` with
+    ``keep_blocks``), the prefill through ``prefill_setup`` (its peak
+    above the allocations before the weights), the same prefill with
+    ``attn_seq_shards=2``, the generate; then Gemma-7B's blocks, prefill
+    and decode steps from its block of the seeded cache.  Each step's
+    exchanges are first predicted: the step run on the meta structs of
+    the rank's blocks that its setup gives (:func:`tp_predicted`)."""
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for arch in (ARCH, GEMMA):
+        cfg = get_arch(arch)
+        B, S = TP_PREFILL if arch == ARCH else TP_GEMMA_PREFILL
+        steps.warm_device_caches(cfg, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        step, p_args, (p_specs, _), _ = steps.prefill_setup(
+            cfg, InputShape("tp", S, B, "prefill"), mesh)
+        r = dict(prefill_predicted=tp_predicted(step, *p_args))
+        ranks = tp.serve_block(mesh, B, p_specs)
+        t0 = time.perf_counter()
+        params = tr.init_lm(torch.Generator(device="cuda")
+                            .manual_seed(TP_SEED), cfg,
+                            keep=tp.keep_blocks(ranks, "cuda"))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        held = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(params))
+        toks = tp_inputs(cfg, B, S, TP_SEED + (1 if arch == ARCH else 2))
+        rows = ranks.clients()
+        logits, ms, peak, counts, exchanged = tp_measured_prefill(
+            cfg, step, params, {"tokens": toks[rows].contiguous()})
+        r.update(prefill=logits, prefill_ms=ms, prefill_peak=peak - base,
+                 prefill_launches=counts, prefill_exchanged=exchanged,
+                 held_bytes=held, init_s=init_s, rank=ranks.model.rank)
+        if arch == ARCH:
+            seq_cfg = dataclasses.replace(cfg, attn_seq_shards=2)
+            seq_step, seq_args, _, _ = steps.prefill_setup(
+                seq_cfg, InputShape("tp", S, B, "prefill"), mesh)
+            r["seq_predicted"] = tp_predicted(seq_step, *seq_args)
+            r["seq"], r["seq_ms"], _, r["seq_launches"], r[
+                "seq_exchanged"] = tp_measured_prefill(
+                    seq_cfg, seq_step, params, {"tokens": toks}, warm=False)
+            n = len(TP_PROMPTS)
+            d_step, d_args, _, _ = steps.decode_setup(
+                cfg, InputShape("tp", TP_GEN_CACHE, n, "decode"), mesh)
+            r["step_predicted"] = tp_predicted(d_step, *d_args[:3], 0)
+            eng_ranks = tp.serve_block(mesh, n, p_specs)
+            r["tokens"], log_, r["gen_launches"], r["partial_len"] = \
+                tp_serve(cfg, params, eng_ranks)
+            r["step_logits"], r["step_ms"] = log_.logits, log_.ms
+            r["step_exchanged"] = log_.exchanged
+        else:
+            d_step, d_args, (_, s_specs, _, _), _ = steps.decode_setup(
+                cfg, InputShape("tp", TP_CACHE, 1, "decode"), mesh)
+            r["step_predicted"] = tp_predicted(d_step, *d_args[:3],
+                                               TP_GEMMA_FROM)
+            dranks = tp.serve_block(mesh, 1, p_specs, s_specs)
+            reset_all_counts()
+            with PartialLengths() as lens:
+                r["step_logits"], r["step_ms"], r["step_exchanged"] = \
+                    tp_gemma_steps(cfg, params, dranks,
+                                   steps.make_decode_step(cfg, 0, dranks),
+                                   tp_seeded_state(cfg, dranks))
+            torch.cuda.synchronize()
+            r["gen_launches"], r["partial_len"] = all_counts(), lens.longest
+        out[arch] = r
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_predict(arch):
+    """The meta prediction of a rank's prefill on a 1 x 2 fake mesh: the
+    roofline report (its peak: the rank's weights and rows, outputs and
+    temporaries)."""
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.launch import dryrun, steps
+
+    cfg = get_arch(arch)
+    B, S = TP_PREFILL if arch == ARCH else TP_GEMMA_PREFILL
+    shape = InputShape("tp", S, B, "prefill")
+    with dryrun.fake_mesh((1, 2), ("data", "model")) as mesh:
+        step, args, _, _ = steps.prefill_setup(cfg, shape, mesh,
+                                               rank_local=True)
+        return predict_step(f"tensor_parallel {arch} rank", step, args, cfg,
+                            shape)
+
+
+def tp_flips(got, want, logits):
+    """Greedy tokens ``got`` against ``want``: equal, or a first flip
+    where world 1's top two logits lie within TP_NEAR_TIE (counted);
+    returns per row the index of its first flip (None) and the count."""
+    first, flips = [], 0
+    prompt = len(logits) - TP_MAX_NEW
+    for i, (g, w) in enumerate(zip(got, want)):
+        off = [t for t, (a, b) in enumerate(zip(g, w)) if a != b]
+        if not off:
+            first.append(None)
+            continue
+        top = torch.topk(logits[prompt + off[0] - 1][i], 2).values
+        if float(top[0] - top[1]) >= TP_NEAR_TIE:
+            raise AssertionError(f"tensor_parallel: token {off[0]} of "
+                                 f"request {i} flipped off a tie")
+        first.append(off[0])
+        flips += 1
+    return first, flips
+
+
+def tp_bf16_hold(label, got, want):
+    """Gemma's bf16 logits over 1 x 2 against world 1: the difference's
+    RMS within 2^-5 and its max within 2^-2 of the logits' RMS (the
+    bf16 bound of trap U; a row-parallel product's terms formed in f32,
+    its sum over the ranks rounded once)."""
+    d = (got.float() - want.float())
+    rms = float(want.float().pow(2).mean().sqrt())
+    r_rms, r_max = float(d.pow(2).mean().sqrt()) / rms, float(
+        d.abs().max()) / rms
+    if not (r_rms <= 2 ** -5 and r_max <= 2 ** -2):
+        raise AssertionError(f"tensor_parallel {label}: RMS {r_rms:.3e}, "
+                             f"max {r_max:.3e} of the logits' RMS")
+    return r_rms, r_max
+
+
+def tensor_parallel(report):
+    """(a) :func:`tp_kernels`; (b) SmolLM-360M at full width, f32, over a
+    1 x 2 gloo mesh on the card (two rank processes, world 1 in this
+    one): the TP_PREFILL prefill against world 1 (logits within
+    TP_LOGIT_TOL), again with ``attn_seq_shards=2``, the generate of
+    TP_PROMPTS (greedy tokens equal or a counted near-tie flip, each
+    step's logits within TP_LOGIT_TOL until a flip); (c) Gemma-7B, bf16,
+    the TP_GEMMA_PREFILL prefill and TP_GEMMA_STEPS decode steps from the
+    seeded cache against world 1 (:func:`tp_bf16_hold`).  Each rank's
+    launches (B4 in the prefills, B5's partial in every decode step, B5
+    whole never), its exchanges against the meta prediction exactly, the
+    longest block its partial was handed (non-empty on every rank), ms
+    per step, its prefill's peak against the meta prediction (within
+    TP_PEAK_SHARE).
+    Returns (the partial's kernels-line row, its main-path launches)."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+
+    rows, err = tp_kernels(report)
+    world1 = tp_world1()
+    pred = {arch: tp_predict(arch) for arch in (ARCH, GEMMA)}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp"))
+    t0 = time.perf_counter()
+    ranks = dp_spawn(2, [("tp", (1, 2))], tmp)
+    spawn_s = time.perf_counter() - t0
+    partial_launches, out_rows = 0, []
+    for r, res in enumerate(ranks):
+        res = res["tp"]
+        for arch, w1 in ((ARCH, world1["smollm"]), (GEMMA, world1["gemma"])):
+            got = res[arch]
+            cfg = get_arch(arch)
+            M, m = 2, got["rank"]
+            V = cfg.padded_vocab // M
+            L_pre = cfg.n_layers
+            check_path_counts(f"tensor_parallel {arch} prefill rank {r}",
+                              got["prefill_launches"],
+                              {"flash_attention": L_pre})
+            n_steps = len(got["step_logits"])
+            check_path_counts(f"tensor_parallel {arch} decode rank {r}",
+                              got["gen_launches"],
+                              {"decode_attention_partial": L_pre * n_steps})
+            partial_launches += got["gen_launches"][
+                "decode_attention_partial"]
+            for ex in [got["prefill_exchanged"]] + got["step_exchanged"]:
+                if set(ex) != {"model"}:
+                    raise AssertionError(f"tensor_parallel {arch}: "
+                                         f"exchanges {ex}")
+            if got["prefill_exchanged"] != got["prefill_predicted"] or any(
+                    ex != got["step_predicted"]
+                    for ex in got["step_exchanged"]):
+                raise AssertionError(
+                    f"tensor_parallel {arch} rank {r}: counted "
+                    f"{got['prefill_exchanged']} / "
+                    f"{got['step_exchanged']} != the predicted "
+                    f"{got['prefill_predicted']} / "
+                    f"{got['step_predicted']}")
+            # every rank's block of cache positions was reached
+            L_r = (TP_GEN_CACHE if arch == ARCH else TP_CACHE) // M
+            if not 0 < got["partial_len"] <= L_r:
+                raise AssertionError(
+                    f"tensor_parallel {arch} rank {r}: the partial's "
+                    f"longest block {got['partial_len']} of {L_r}")
+            want = w1["prefill"][..., m * V:(m + 1) * V]
+            p, _ = pred[arch]
+            share = got["prefill_peak"] / p.bytes_per_device - 1.0
+            if abs(share) > TP_PEAK_SHARE:
+                raise AssertionError(
+                    f"tensor_parallel {arch} rank {r}: peak "
+                    f"{got['prefill_peak']} vs meta {p.bytes_per_device}")
+            row = dict(arch=arch, rank=r, prefill_ms=got["prefill_ms"],
+                       world1_prefill_ms=w1["prefill_ms"],
+                       step_ms=got["step_ms"], world1_step_ms=w1["step_ms"],
+                       peak_bytes=got["prefill_peak"],
+                       meta_peak_bytes=p.bytes_per_device,
+                       held_bytes=got["held_bytes"], init_s=got["init_s"],
+                       partial_len=got["partial_len"],
+                       prefill_exchanged=got["prefill_exchanged"],
+                       step_exchanged=got["step_exchanged"][0],
+                       prefill_launches={k: v for k, v in got[
+                           "prefill_launches"].items() if v},
+                       step_launches={k: v for k, v in got[
+                           "gen_launches"].items() if v})
+            if arch == ARCH:
+                row["prefill_max_diff"] = max_abs_err(got["prefill"], want)
+                row["seq_max_diff"] = max_abs_err(got["seq"], want)
+                check_path_counts(f"tensor_parallel seq shards rank {r}",
+                                  got["seq_launches"],
+                                  {"flash_attention": L_pre})
+                if got["seq_exchanged"] != got["seq_predicted"]:
+                    raise AssertionError("tensor_parallel seq shards: "
+                                         f"{got['seq_exchanged']} != "
+                                         f"{got['seq_predicted']}")
+                first, flips = tp_flips(got["tokens"], w1["tokens"],
+                                        w1["step_logits"])
+                prompt = n_steps - TP_MAX_NEW
+                worst = 0.0
+                for t, (a, b) in enumerate(zip(got["step_logits"],
+                                               w1["step_logits"])):
+                    live = [i for i, f in enumerate(first)
+                            if f is None or t < prompt + f]
+                    worst = max(worst, max_abs_err(
+                        a[live], b[live][..., m * V:(m + 1) * V]))
+                row.update(step_max_diff=worst, flips=flips,
+                           seq_ms=got["seq_ms"])
+                if max(worst, row["prefill_max_diff"],
+                       row["seq_max_diff"]) > TP_LOGIT_TOL:
+                    raise AssertionError(f"tensor_parallel smollm rank {r}: "
+                                         f"{row}")
+            else:
+                row["prefill_rms_max"] = tp_bf16_hold(
+                    f"gemma prefill rank {r}", got["prefill"], want)
+                row["step_rms_max"] = [tp_bf16_hold(
+                    f"gemma step {t} rank {r}", a, b) for t, (a, b) in
+                    enumerate(zip(got["step_logits"], w1["step_logits"]))]
+            out_rows.append(row)
+            log(f"tensor_parallel {arch} rank {r}/2 (1 x 2, gloo): prefill "
+                f"{row['prefill_ms']:.1f} ms (world 1 "
+                f"{row['world1_prefill_ms']:.1f}), ms/step "
+                f"{[round(x, 1) for x in row['step_ms']]} (world 1 "
+                f"{[round(x, 1) for x in row['world1_step_ms']]}); peak "
+                f"{row['peak_bytes'] / 1e9:.3f} GB vs meta "
+                f"{row['meta_peak_bytes'] / 1e9:.3f} GB; holds "
+                f"{row['held_bytes'] / 1e9:.3f} GB of weights (drawn in "
+                f"{row['init_s']:.1f} s); exchanged per prefill "
+                f"{row['prefill_exchanged']}, per step "
+                f"{row['step_exchanged']} (= the meta prediction); partial's "
+                f"longest block {row['partial_len']}; launches "
+                f"prefill {row['prefill_launches']}, decode "
+                f"{row['step_launches']}; "
+                + (f"seq shards prefill {row['seq_ms']:.1f} ms; "
+                   f"max |diff| vs world 1: prefill "
+                   f"{row['prefill_max_diff']:.3e}, seq shards "
+                   f"{row['seq_max_diff']:.3e}, steps "
+                   f"{row['step_max_diff']:.3e}; {row['flips']} flips"
+                   if arch == ARCH else
+                   f"RMS/max of the difference over the logits' RMS: "
+                   f"prefill {row['prefill_rms_max']}, steps "
+                   f"{row['step_rms_max']}"))
+    row = dict(rows[0])
+    row.update(name="decode_attention_partial", route="cuda",
+               source=f"{CSRC}/decode_attention.cu",
+               replaces="src/repro/kernels/decode_attention.py:66",
+               launches=partial_launches, max_abs_err=err,
+               lse_max_abs_err=report["tp_kernels"]["lse_max_abs_err"],
+               shapes=rows)
+    report["tensor_parallel"] = dict(rows=out_rows, spawn_s=spawn_s,
+                                     partial_launches=partial_launches)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6134,7 +6752,8 @@ def main() -> int:
     # B5's instances on the serving path: D=64, SmolLM-360M's 3 query heads
     # per KV head in f32, Hymba-1.5B's 5 in bf16
     b5 = {label: report["ptxas"][label] for label in
-          ("decode_cluster<64,float,3>", "decode_cluster<64,bf16,5>")}
+          ("decode_cluster<64,float,3,false>",
+           "decode_cluster<64,bf16,5,false>")}
 
     from repro_torch.configs import MLP_H1, MLP_H24
     from repro_torch.models.forecasting import init_forecaster
@@ -6331,6 +6950,15 @@ def main() -> int:
     report["data_parallel_phase_s"] = time.perf_counter() - t0
     log(f"phase: data_parallel {report['data_parallel_phase_s']:.1f} s")
 
+    # Tensor-parallel serving: B5's partial held, merged and timed;
+    # SmolLM-360M (f32) and Gemma-7B (bf16) over a 1 x 2 gloo mesh on the
+    # card against world 1, each rank's exchanges against the plan's count
+    # and its peak against meta
+    t0 = time.perf_counter()
+    tp_row = tensor_parallel(report)
+    report["tensor_parallel_phase_s"] = time.perf_counter() - t0
+    log(f"phase: tensor_parallel {report['tensor_parallel_phase_s']:.1f} s")
+
     # Checkpoints: the federated LM example saved, restored and resumed,
     # at the smoke scale, and launch.train --ckpt
     t0 = time.perf_counter()
@@ -6397,6 +7025,7 @@ def main() -> int:
             shape=row["shape"],
             ptxas={label: report["ptxas"][label]
                    for label in labels[name]}))
+    kernels.append(tp_row)
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:84"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:66")):
@@ -6416,7 +7045,7 @@ def main() -> int:
         for r in rows["decode_attention"]:
             b5[r["kernel"]] = r["ptxas"]
     next(k for k in kernels if k["name"] == "decode_attention").update(
-        kernel="decode_cluster<D,T,GP>", ptxas=b5,
+        kernel="decode_cluster<D,T,GP,false>", ptxas=b5,
         serving_ms=sv["ms"], serving_bound_ms=sv["bound_ms"],
         serving_plain_ms=sv["plain_ms"], serving_library_ms=sv["library_ms"],
         bf16_ms=hd["ms"], bf16_bound_ms=hd["bound_ms"],

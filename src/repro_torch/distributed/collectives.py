@@ -14,17 +14,21 @@ per-coordinate decode error is at most ``absmax * DUAL_INT8_REL_ERR``.
 Reductions never accumulate in the wire dtype: int8 wraps once
 ``|sum_i sign_i| >= 128``.
 
-**The exchanges between ranks** (a round whose clients are split over
-the ``"data"`` ranks, a client's batch over the ``"model"`` ranks:
-``distributed/data_parallel.py``) are one, :func:`all_reduce_sum`:
-gloo takes CUDA tensors for ``all_reduce`` and ``broadcast`` only, and
-the port needs no broadcast.  Each call over a group of more than one rank adds to :data:`COLLECTIVES` (calls and
-bytes per mesh axis) and to the active ``roofline.cost.CostCounter``
-(its bytes, the group's size and its stride in the mesh's rank order),
-which is how the dry-run sees a collective: on ``meta`` tensors nothing
-is sent.  A group of one rank sends and counts nothing.  The int8 sign
-wire's partial sums travel as int32: 4 bytes a coordinate, as the f32
-wire's.
+**The exchanges between ranks** are two.  A round whose clients are
+split over the ``"data"`` ranks, a client's batch over the ``"model"``
+ranks (``distributed/data_parallel.py``), makes one, :func:`all_reduce_sum`.
+A serving step over the ``"model"`` ranks
+(``distributed/tensor_parallel.py``) also makes :func:`all_gather`: a
+rank's heads, its block of a split cache's attention, its vocabulary
+block of the logits, a norm scale the plan split.  gloo takes CUDA
+tensors for both.  Each call over a group of more than one rank adds to
+:data:`COLLECTIVES` (calls and bytes per mesh axis: the tensor's bytes
+for an all-reduce, this rank's block's for an all-gather) and to the
+active ``roofline.cost.CostCounter`` (the same bytes, the group's size
+and its stride in the mesh's rank order), which is how the dry-run sees
+a collective: on ``meta`` tensors nothing is sent.  A group of one rank
+sends and counts nothing.  The int8 sign wire's partial sums travel as
+int32: 4 bytes a coordinate, as the f32 wire's.
 """
 from __future__ import annotations
 
@@ -72,6 +76,24 @@ def all_reduce_sum(t: torch.Tensor, axis) -> torch.Tensor:
 
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=_group(t, axis))
     return t
+
+
+def all_gather(t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` (alike in shape and dtype) concatenated along
+    ``dim`` in the rank order of ``axis`` (a ``data_parallel.Axis``): a
+    new tensor, the same bits on every rank.  Over one rank (or ``axis``
+    None) ``t`` itself; on ``meta`` the call is counted and the result
+    has the gathered shape."""
+    if axis is None or axis.size == 1:
+        return t
+    t = t.contiguous()
+    _count("all_gather", t, axis)
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    if t.device.type != "meta":      # on meta: the same buffers, no send
+        import torch.distributed as dist
+
+        dist.all_gather(parts, t, group=_group(t, axis))
+    return torch.cat(parts, dim=dim)
 
 
 class SignMessage(NamedTuple):

@@ -1,7 +1,7 @@
 """Ambient mesh registry (the port of the JAX package's
 ``distributed/context.py``): launch code registers the active mesh so
-that model code can read it (``moe_group_shard``, ``attn_seq_shards``)
-without threading a mesh through every call.
+that model code can read it (``moe_group_shard``) without threading a
+mesh through every call.
 
 The mesh is a torch ``DeviceMesh`` or a ``sharding.MeshShape``; either
 names its axes in ``mesh_dim_names`` and sizes them in ``shape``.  This
@@ -29,12 +29,14 @@ def clear_mesh() -> None:
 
 
 def check_model_axis(knob: str) -> None:
-    """The rule of the knobs that place work on the ``"model"`` mesh axis
-    (``moe_group_shard``, ``attn_seq_shards``).  Under no mesh, or one
-    whose ``"model"`` axis has one device, the placement is the identity,
-    as XLA's sharding constraint is on the reference's host mesh: return.
-    Over a larger ``"model"`` axis the work would have to run on several
-    devices, which the port does not do yet: raise."""
+    """The rule of a knob that places work on the ``"model"`` mesh axis
+    from the ambient mesh (``moe_group_shard``; ``attn_seq_shards`` reads
+    the rank's block instead, ``models/attention.py``).  Under no mesh,
+    or one whose ``"model"`` axis has one device, the placement is the
+    identity, as XLA's sharding constraint is on the reference's host
+    mesh: return.  Over a larger axis the experts would have to be placed
+    over ranks, which the port does not do yet: raise, naming 7(b) step
+    3b."""
     mesh = get_mesh()
     if mesh is None:
         return
@@ -43,4 +45,4 @@ def check_model_axis(knob: str) -> None:
         raise NotImplementedError(
             f"{knob} over a 'model' mesh axis of {size} devices needs "
             "multi-device execution, which is not yet ported to repro_torch "
-            "(ROADMAP Queue A item 7(b))")
+            "(ROADMAP Queue A item 7(b) step 3b)")

@@ -20,6 +20,13 @@ there.  The port runs the same round as one program per rank:
 client range and the batch rows.  A world of one rank is today's program:
 the round functions take ``ranks=None`` (or a one-rank block) and run
 their fused path.
+
+A serving step over the mesh (``distributed/tensor_parallel.py``) takes
+the same block: its rows are the batch's (``n_clients`` is the batch,
+split over ``"data"``), its ``"model"`` ranks split the weights and the
+decode cache as the plan places them, and ``specs`` carries the plan's
+specs of the parameters it holds blocks of (:meth:`RankBlock.at` walks
+them beside the parameters), ``state_specs`` those of the decode state.
 """
 from __future__ import annotations
 
@@ -48,16 +55,31 @@ class RankBlock:
     (C split evenly over it); ``model``: the axis a client's batch is
     split over (``inner_dp``; size 1 without it); ``batch``: ``(b, start,
     rows, weight)`` of a split batch (:meth:`with_batch`), None
-    otherwise."""
+    otherwise.  For a serving step, ``n_clients`` is the batch's rows,
+    ``model`` the axis the tensor-parallel layers split, ``specs`` the
+    ``PartitionSpec`` subtree of the parameters at hand (:meth:`at`) and
+    ``state_specs`` that of the decode state (or of one layer's)."""
     data: Axis
     model: Axis
     n_clients: int
     batch: Optional[Tuple[int, int, int, float]] = None
+    specs: Any = None
+    state_specs: Any = None
 
     def __post_init__(self):
         if self.n_clients % self.data.size:
-            raise ValueError(f"{self.n_clients} clients do not split evenly "
-                             f"over {self.data.size} data ranks")
+            raise ValueError(f"{self.n_clients} clients (or rows) do not "
+                             f"split evenly over {self.data.size} data "
+                             "ranks")
+
+    def at(self, *keys) -> "RankBlock":
+        """This block with ``specs`` narrowed to ``specs[k0][k1]...``: the
+        specs of a sub-tree of the parameters (``at("layers", 3,
+        "attn")``)."""
+        specs = self.specs
+        for k in keys:
+            specs = specs[k]
+        return dataclasses.replace(self, specs=specs)
 
     @property
     def world(self) -> int:

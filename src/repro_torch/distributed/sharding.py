@@ -369,6 +369,12 @@ def map_specs(f, spec_tree):
     return _walk(f, spec_tree)
 
 
+def map_leaves(f, tree, *rest):
+    """``f(leaf, *matching)`` over the leaves of ``tree`` and the matching
+    entries of ``rest`` (spec trees), in ``place_tree``'s walk."""
+    return _walk(f, tree, *rest)
+
+
 def place_tree(tree, spec_tree, mesh):
     """Every tensor of ``tree`` (dicts, tuples, lists, a ``FedState``) as
     a DTensor on ``mesh`` placed by its spec in ``spec_tree``: the

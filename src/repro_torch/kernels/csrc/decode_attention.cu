@@ -49,11 +49,24 @@
 //    chip_smoke.py prints every instance at build): the serving instances
 //    decode_cluster<64, float, 3> (SmolLM-360M) 121 registers and
 //    <64, bf16, 5> (Hymba-1.5B) 168, no spills.
+//
+// The partial (kPartial): the same kernel over one rank's block of cache
+// positions when the cache is split over a mesh's "model" ranks.  Its
+// cluster merge writes, per (row, query head), the normalized output in
+// f32 (so that the merge across ranks rounds once, to q's dtype) and the
+// log-sum-exp of the scaled scores, lse = ln 2 (M + log2 l) with M the
+// merged maximum and l the merged sum in log2 units.  A row with no valid
+// position (length 0: a rank whose block starts past the row's length)
+// writes out 0 and lse -inf, which weighs exactly 0 in the ranks' merge.
+// Without the flag the kernel is the one above, instruction for
+// instruction.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -134,13 +147,15 @@ __device__ __forceinline__ float weight(float m, float M) {
 
 // grid (n_split, Hkv, B), cluster (n_split, 1, 1), kThreads threads.
 // q, out: (B, H, D); k, v: (B, L, Hkv, D); G = H / Hkv query heads per KV
-// head, in passes of GP.
-template <int D, typename T, int GP>
+// head, in passes of GP.  kPartial: out is f32 and lse (B, H) f32 is
+// written too; else out is T and lse unused.
+template <int D, typename T, int GP, bool kPartial>
 __global__ void __launch_bounds__(kThreads, Tile<D, T>::min_blocks(GP))
 decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ length,
-               T* __restrict__ out, int L, int H, int Hkv, int split_len,
-               float scale) {
+               std::conditional_t<kPartial, float, T>* __restrict__ out,
+               float* __restrict__ lse, int L, int H, int Hkv,
+               int split_len, float scale) {
   using S = Tile<D, T>;
   constexpr int kEl = S::kEl, kNv = S::kNv, kVec = S::kVec;
   constexpr int kLanes = S::kLanes, kKeys = S::kKeys;
@@ -340,18 +355,26 @@ decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
           a = fmaf(as[s], w, a);
         }
       }
-      if (g0 + g < G)
-        store1(out + ((long long)b * H + hk * G + g0 + g) * D + e % D,
-               a / fmaxf(lsum, 1e-30f));
+      if (g0 + g < G) {
+        const long long o = (long long)b * H + hk * G + g0 + g;
+        store1(out + o * D + e % D, a / fmaxf(lsum, 1e-30f));
+        if constexpr (kPartial) {
+          if (e % D == 0)
+            lse[o] = lsum > 0.f ? (M + log2f(lsum)) * 0.6931471805599453f
+                                : -INFINITY;
+        }
+      }
     }
     cluster.sync();   // peers' partials stay alive until every read is done
   }
 }
 
-template <int D, typename T, int GP>
+template <int D, typename T, int GP, bool kPartial>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* length, void* out, int B, int L, int H, int Hkv,
-                   int split_len, float scale, cudaStream_t stream) {
+                   const int* length, void* out, float* lse, int B, int L,
+                   int H, int Hkv, int split_len, float scale,
+                   cudaStream_t stream) {
+  using O = std::conditional_t<kPartial, float, T>;
   const int n_split = (L + split_len - 1) / split_len;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, Hkv, B);
@@ -365,23 +388,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_cluster<D, T, GP>,
+  return cudaLaunchKernelEx(&cfg, decode_cluster<D, T, GP, kPartial>,
                             static_cast<const T*>(q),
                             static_cast<const T*>(k),
                             static_cast<const T*>(v), length,
-                            static_cast<T*>(out), L, H, Hkv, split_len,
+                            static_cast<O*>(out), lse, L, H, Hkv, split_len,
                             scale);
 }
 
-template <int D, typename T>
+template <int D, typename T, bool kPartial>
 cudaError_t by_group(int GP, const void* q, const void* k, const void* v,
-                     const int* length, void* out, int B, int L, int H,
-                     int Hkv, int split_len, float scale,
+                     const int* length, void* out, float* lse, int B, int L,
+                     int H, int Hkv, int split_len, float scale,
                      cudaStream_t stream) {
-#define REPRO_GP(n)                                                       \
-  case n:                                                                 \
-    return launch<D, T, n>(q, k, v, length, out, B, L, H, Hkv, split_len, \
-                           scale, stream);
+#define REPRO_GP(n)                                                      \
+  case n:                                                                \
+    return launch<D, T, n, kPartial>(q, k, v, length, out, lse, B, L, H, \
+                                     Hkv, split_len, scale, stream);
   switch (GP) {
     REPRO_GP(1) REPRO_GP(2) REPRO_GP(3) REPRO_GP(4)
     REPRO_GP(5) REPRO_GP(6) REPRO_GP(7) REPRO_GP(8)
@@ -391,24 +414,49 @@ cudaError_t by_group(int GP, const void* q, const void* k, const void* v,
 #undef REPRO_GP
 }
 
-template <typename T>
+template <typename T, bool kPartial>
 cudaError_t dispatch(int D, int GP, const void* q, const void* k,
-                     const void* v, const int* length, void* out, int B,
-                     int L, int H, int Hkv, int split_len, float scale,
+                     const void* v, const int* length, void* out, float* lse,
+                     int B, int L, int H, int Hkv, int split_len, float scale,
                      cudaStream_t stream) {
   switch (D) {
     case 64:
-      return by_group<64, T>(GP, q, k, v, length, out, B, L, H, Hkv,
-                             split_len, scale, stream);
+      return by_group<64, T, kPartial>(GP, q, k, v, length, out, lse, B, L,
+                                       H, Hkv, split_len, scale, stream);
     case 128:
-      return by_group<128, T>(GP, q, k, v, length, out, B, L, H, Hkv,
-                              split_len, scale, stream);
+      return by_group<128, T, kPartial>(GP, q, k, v, length, out, lse, B, L,
+                                        H, Hkv, split_len, scale, stream);
     case 256:
-      return by_group<256, T>(GP, q, k, v, length, out, B, L, H, Hkv,
-                              split_len, scale, stream);
+      return by_group<256, T, kPartial>(GP, q, k, v, length, out, lse, B, L,
+                                        H, Hkv, split_len, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <bool kPartial>
+int entry(int dtype, const void* q, const void* k, const void* v,
+          const int* length, void* out, float* lse, int B, int L, int H,
+          int Hkv, int D, int split_len, float scale, void* stream,
+          int* launched) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  if (split_len < 1 || (L + split_len - 1) / split_len > kMaxSplits ||
+      Hkv < 1 || H % Hkv)
+    return cudaErrorInvalidValue;
+  const int G = H / Hkv;
+  const int GP = G < kMaxGroup ? G : kMaxGroup;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = dispatch<float, kPartial>(D, GP, q, k, v, length, out, lse, B, L,
+                                    H, Hkv, split_len, scale, s);
+  else if (dtype == 1)
+    err = dispatch<__nv_bfloat16, kPartial>(D, GP, q, k, v, length, out,
+                                            lse, B, L, H, Hkv, split_len,
+                                            scale, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = 1;
+  return err;
 }
 
 }  // namespace
@@ -423,21 +471,17 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
                                       void* out, int B, int L, int H, int Hkv,
                                       int D, int split_len, float scale,
                                       void* stream, int* launched) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *launched = 0;
-  if (split_len < 1 || (L + split_len - 1) / split_len > kMaxSplits ||
-      Hkv < 1 || H % Hkv)
-    return cudaErrorInvalidValue;
-  const int G = H / Hkv;
-  const int GP = G < kMaxGroup ? G : kMaxGroup;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = dispatch<float>(D, GP, q, k, v, length, out, B, L, H, Hkv,
-                          split_len, scale, s);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(D, GP, q, k, v, length, out, B, L, H, Hkv,
-                                  split_len, scale, s);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err == cudaSuccess) *launched = 1;
-  return err;
+  return entry<false>(dtype, q, k, v, length, out, nullptr, B, L, H, Hkv, D,
+                      split_len, scale, stream, launched);
+}
+
+// The partial over one rank's block of L positions: as above, but
+// length[b] may be 0, out (B, H, D) is f32 and lse (B, H) f32 is written
+// (out 0 and lse -inf for a row with no valid position).
+extern "C" int repro_decode_attention_partial(
+    int dtype, const void* q, const void* k, const void* v,
+    const int* length, float* out, float* lse, int B, int L, int H, int Hkv,
+    int D, int split_len, float scale, void* stream, int* launched) {
+  return entry<true>(dtype, q, k, v, length, out, lse, B, L, H, Hkv, D,
+                     split_len, scale, stream, launched);
 }

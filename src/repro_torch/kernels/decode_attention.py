@@ -24,12 +24,23 @@ values there, so every row counts its whole cache (L positions: the
 decode step at the cache's last position, which the dry-run takes).
 ``LAUNCHES["decode_attention"]`` counts kernel launches, as the C entry
 point reports them: ``launches_per_call`` (1) per call.
+
+:func:`decode_attention_partial` is the same kernel over one rank's block
+of cache positions, where a mesh's ``"model"`` ranks split the cache by
+positions (``models/attention.decode_attention`` under ``ranks=``): its
+merge also writes each (row, query head)'s log-sum-exp and leaves the
+output normalized in f32, so that the ranks' partials merge
+(``ref.merge_decode_partials``) with one rounding to q's dtype.  A row's
+``length`` may be 0 there (a block past the row's valid positions): its
+output is 0 and its lse -inf.  Plain version:
+``ref.decode_attention_partial_ref``; launches under
+``LAUNCHES["decode_attention_partial"]``, one a call.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -37,7 +48,8 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import check_attention_args
 from repro_torch.roofline import cost, kernel_cost
 
-LAUNCHES: Dict[str, int] = {"decode_attention": 0}
+LAUNCHES: Dict[str, int] = {"decode_attention": 0,
+                            "decode_attention_partial": 0}
 CHUNK = 64              # splits hold whole chunks of this many positions
 BLOCKS_PER_SM = 4       # splits are sized for this many blocks per SM
 MAX_SPLITS = 8          # blocks per cluster, the portable cluster size (.cu)
@@ -56,6 +68,9 @@ def _lib() -> ctypes.CDLL:
     lib.repro_decode_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
                                            i, f, p, ctypes.POINTER(i)]
     lib.repro_decode_attention.restype = ctypes.c_int
+    lib.repro_decode_attention_partial.argtypes = [
+        i, p, p, p, p, p, p, i, i, i, i, i, i, f, p, ctypes.POINTER(i)]
+    lib.repro_decode_attention_partial.restype = ctypes.c_int
     return lib
 
 
@@ -129,3 +144,33 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_launch(err, "decode_attention")
     LAUNCHES["decode_attention"] += launched.value
     return out
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, length: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5 over one block of cache positions.  q: (B, H, D); k, v: (B, L,
+    Hkv, D), the block; length: (B,) int32 valid positions of the block,
+    0 allowed.  Returns (out (B, H, D) f32, normalized; lse (B, H) f32),
+    out 0 and lse -inf where a row has no valid position."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_partial_ref(q, k, v, length)
+    _build.refuse_grad("B5 (decode_attention_partial)", q, k, v)
+    code = check_args(q, k, v, length)
+    B, H, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        cost.add_kernel("decode_attention_partial",
+                        kernel_cost.decode_partial_work(q, k, B * L))
+        return out, lse
+    sl = split_len(B, Hkv, L, _sm_count(q.device))
+    launched = ctypes.c_int(0)
+    err = _lib().repro_decode_attention_partial(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, L, H, Hkv, D, sl,
+        ref.attention_scale(D), _build.stream_of(q), ctypes.byref(launched))
+    _build.check_launch(err, "decode_attention_partial")
+    LAUNCHES["decode_attention_partial"] += launched.value
+    return out, lse

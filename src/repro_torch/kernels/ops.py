@@ -242,6 +242,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dec_k.decode_attention(q, k, v, length)
 
 
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, length: torch.Tensor):
+    """B5 over one rank's block of a cache split by positions: q (B, H,
+    D); k/v (B, L_r, Hkv, D), the block; length (B,) int32 valid
+    positions of the block (0 allowed).  Returns (out (B, H, D) f32, lse
+    (B, H) f32), which ``ref.merge_decode_partials`` merges across the
+    blocks."""
+    return dec_k.decode_attention_partial(q, k, v, length)
+
+
+def merge_decode_partials(outs, lses, dtype: torch.dtype) -> torch.Tensor:
+    """The ranks' B5 partials merged in rank order (plain PyTorch, a few
+    elementwise ops over (M, B, H, D + 1) floats: no kernel): ``outs``
+    (M, B, H, D) f32, ``lses`` (M, B, H) f32; rounded once to
+    ``dtype``."""
+    return ref.merge_decode_partials(outs, lses, dtype)
+
+
 def ssm_scan(a: torch.Tensor, b: torch.Tensor,
              h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B6.  a, b: (B, S, D, N); h0: (B, D, N) f32 or None (zeros).

@@ -33,6 +33,7 @@ kernel, and the port's runs them on every device.
 from __future__ import annotations
 
 import functools
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -430,6 +431,54 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, length: torch.Tensor):
+    """B5's partial over one block of cache positions, in f32: q (B, H,
+    D); k, v (B, L, Hkv, D); length (B,) valid positions of the block, 0
+    allowed.  Returns (out (B, H, D) f32, the softmax-weighted mean of V
+    over the valid positions; lse (B, H) f32, the log-sum-exp of the
+    scaled logits there).  A row with no valid position gets out 0 and
+    lse -inf (where :func:`decode_attention_ref`'s -1e30 mask would
+    average every value)."""
+    B, H, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, D).float()
+    logits = torch.einsum("bkgd,bskd->bkgs", qg * attention_scale(D),
+                          k.float())
+    length = torch.as_tensor(length, device=q.device).expand(B)
+    valid = (torch.arange(L, device=q.device)[None, :]
+             < length[:, None])[:, None, None, :]
+    logits = torch.where(valid, logits,
+                         torch.tensor(-math.inf, device=q.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    finite = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    probs = torch.where(valid, torch.exp(logits - finite[..., None]),
+                        torch.zeros((), device=q.device))
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
+    return out.reshape(B, H, D), lse.reshape(B, H)
+
+
+def merge_decode_partials(outs, lses, dtype: torch.dtype) -> torch.Tensor:
+    """The merge of B5's partials over the blocks of a split cache, in
+    block order: ``outs`` (M, B, H, D) f32 and ``lses`` (M, B, H) f32 (or
+    sequences of them), weights ``exp(lse_r - max_r lse_r)`` (a block
+    with lse -inf weighs exactly 0), the weighted sum of the outputs over
+    the sum of the weights, rounded once to ``dtype``.  Every rank that
+    merges the same partials gets the same bits."""
+    outs, lses = list(outs), list(lses)
+    top = lses[0]
+    for lse in lses[1:]:
+        top = torch.maximum(top, lse)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    num = den = None
+    for out, lse in zip(outs, lses):
+        w = torch.where(lse == -math.inf, torch.zeros_like(lse),
+                        torch.exp(lse - top))
+        num = out * w[..., None] if num is None else num + out * w[..., None]
+        den = w if den is None else den + w
+    return (num / torch.clamp_min(den, 1e-30)[..., None]).to(dtype)
 
 
 def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor,

@@ -36,9 +36,17 @@ of the clients, its rows of each client's batch), and its exchanges
 collective term comes from their bytes and the link model of
 ``roofline.kernel_cost`` (NVLink within a node of 8, InfiniBand between).
 The row is written as ``{arch}__{shape}__16x16.json`` or
-``__2x16x16.json``.  Every other row on those meshes (serving,
-``inner_dp`` off, mode B) raises ``NotImplementedError`` naming ROADMAP
-Queue A 7(b) step 3 (the tensor-parallel layers).
+``__2x16x16.json``.  Their serving rows (``prefill_32k``, ``decode_32k``)
+of the mode-A dense-attention decoders (SmolLM-360M, Gemma-7B) run the
+same way under the default plan, tensor-parallel over ``"model"``
+(``distributed/tensor_parallel.py``; ``steps.prefill_setup`` /
+``decode_setup(rank_local=True)``: rank 0's rows and blocks, at
+``decode_32k`` on (16, 16) 8 rows x 2,048 cache positions), with a
+``"model"`` collective term from the counted bytes.  What still raises
+``NotImplementedError``, naming its ROADMAP item (:func:`check_mesh`):
+training without ``inner_dp`` (7(b) step 3c), mode B (step 3d: FSDP over
+a real ``"data"`` axis), ``long_500k``'s decode (B = 1: the plan puts
+``"model"`` on head_dim, step 3d), and the families of step 3b.
 """
 from __future__ import annotations
 
@@ -65,18 +73,31 @@ PRODUCTION = {False: ("16x16", ("data", "model"), (16, 16)),
 
 
 def check_mesh(multi_pod: Optional[bool], kind: str = "train",
-               inner_dp: bool = False, fed_mode: str = "A") -> None:
+               inner_dp: bool = False, fed_mode: str = "A", cfg=None,
+               batch: int = 0) -> None:
     """The rows the port runs: every row on the host mesh (``multi_pod``
     None); on the production meshes the training rows of mode-A configs
-    under ``inner_dp``.  Any other raises ``NotImplementedError`` naming
-    ROADMAP Queue A 7(b) step 3."""
+    under ``inner_dp`` and the serving rows of mode-A dense-attention
+    decoders (``cfg``; a decode row of ``batch`` > 1).  Any other raises
+    ``NotImplementedError`` naming its ROADMAP Queue A 7(b) step: 3c
+    (training under the default plan), 3d (mode B; ``long_500k``'s
+    head_dim split), 3b (``tensor_parallel.check_family``)."""
+    from repro_torch.distributed import tensor_parallel as tp
+
     if multi_pod is None:
         return
-    if kind != "train" or not inner_dp or fed_mode != "A":
-        raise NotImplementedError(
-            f"a {kind} row (inner_dp={inner_dp}, mode {fed_mode}) on the "
-            f"{PRODUCTION[multi_pod][0]} mesh: the tensor-parallel layers "
-            "are ROADMAP Queue A 7(b) step 3, not yet ported")
+    row = (f"a {kind} row (inner_dp={inner_dp}, mode {fed_mode}) on the "
+           f"{PRODUCTION[multi_pod][0]} mesh")
+    if fed_mode != "A":
+        raise NotImplementedError(f"{row}: {tp.STEP3D}")
+    if kind == "train":
+        if not inner_dp:
+            raise NotImplementedError(f"{row}: {tp.STEP3C}")
+        return
+    if kind == "decode" and batch == 1:
+        raise NotImplementedError(f"{row} of one sequence: {tp.STEP3D}")
+    if cfg is not None:
+        tp.check_family(cfg)
 
 
 @contextlib.contextmanager
@@ -162,7 +183,7 @@ def run_one(arch_name: str, shape_name: str,
         cfg, fed_base, setup_kwargs = get_variant(variant).apply(cfg)
         arch_name = f"{arch_name}+{variant}"
     check_mesh(multi_pod, shape.kind, setup_kwargs.get("inner_dp", False),
-               cfg.fed_mode)
+               cfg.fed_mode, cfg, shape.global_batch)
     mesh_name = MESH_NAME if multi_pod is None else PRODUCTION[multi_pod][0]
 
     t0 = time.time()
@@ -246,7 +267,8 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", default="host", choices=list(MULTI_POD),
                     help="host: the 1 x 1 host mesh; single / multi: the "
                          "reference's (16, 16) / (2, 16, 16) meshes, as "
-                         "rank 0 (training rows under inner_dp)")
+                         "rank 0 (training rows under inner_dp, the "
+                         "dense decoders' serving rows)")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--variant", default="",
                     help="named hillclimb variant (launch/variants.py)")
@@ -269,7 +291,8 @@ def main(argv=None) -> int:
             for s in shapes:
                 try:
                     check_mesh(multi_pod, INPUT_SHAPES[s].kind, inner_dp,
-                               get_arch(a).fed_mode)
+                               get_arch(a).fed_mode, get_arch(a),
+                               INPUT_SHAPES[s].global_batch)
                 except NotImplementedError as e:
                     refusals.append(e)
         if len(refusals) == len(archs) * len(shapes):

@@ -39,8 +39,10 @@ from repro_torch.core.byzantine import byz_mask
 from repro_torch.core.fed_state import FedState, init_fed_state
 from repro_torch.core.privacy import (BlockGenerator, RowGenerators,
                                       gaussian_c3, sigma_for_eps)
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.data_parallel import rank_block
-from repro_torch.distributed.sharding import P, make_plan, map_specs
+from repro_torch.distributed.sharding import (P, make_plan, map_leaves,
+                                              map_specs)
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import (dense_init, dtype_of, init_embedding,
                                       init_rmsnorm, lm_logits, rope_freqs)
@@ -219,9 +221,13 @@ def prefill_inputs(cfg: ArchConfig, batch: int, seq_len: int,
     return out
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, ranks=None):
     """prefill_step(params, inputs) -> logits (B, vocab_pad) of the last
-    text position: the prompt runs through the whole model (B4 in every
+    text position (``ranks``, a rank's block of the plan over a
+    ``"model"`` axis: the rank's blocks of the params and rows of the
+    inputs in, its (B_r, vocab_pad / M) block of the logits out;
+    ``distributed/tensor_parallel.py``): the prompt runs through the
+    whole model (B4 in every
     attention layer -- without the causal mask in an encoder layer and in
     a decoder layer's cross-attention --, B6 once per 128-token chunk in
     every Mamba layer, the mLSTM's chunks and the sLSTM's steps in
@@ -230,8 +236,9 @@ def make_prefill_step(cfg: ArchConfig):
     the LM head.  The MoE aux loss is dropped, as in the reference."""
 
     def prefill_step(params, inputs):
-        x, _ = tr.forward(params, inputs, cfg)
-        return lm_logits(params["embed"], x[:, -1:], cfg)[:, 0]
+        x, _ = tr.forward(params, inputs, cfg, ranks=ranks)
+        return lm_logits(params["embed"], x[:, -1:], cfg,
+                         ranks=tp.at(ranks, "embed"))[:, 0]
 
     return prefill_step
 
@@ -246,8 +253,10 @@ def decode_window(cfg: ArchConfig, shape: InputShape) -> int:
     return 0
 
 
-def make_decode_step(cfg: ArchConfig, window: int = 0):
-    """serve_step(params, state, tokens (B, 1), step) -> (logits, state):
+def make_decode_step(cfg: ArchConfig, window: int = 0, ranks=None):
+    """serve_step(params, state, tokens (B, 1), step) -> (logits, state)
+    (``ranks``: a rank's block of the plan, as :func:`make_prefill_step`,
+    with ``ranks.state_specs`` the decode state's):
     one token for the whole batch against the cache (B5 in every
     attention layer and, in an encoder-decoder, in every cross-attention
     over ``state["memory"]``; a Mamba, mLSTM or sLSTM layer's one-step
@@ -256,7 +265,7 @@ def make_decode_step(cfg: ArchConfig, window: int = 0):
 
     def serve_step(params, state, tokens, step):
         return tr.decode_step(params, state, tokens, step, cfg,
-                              window=window)
+                              window=window, ranks=ranks)
 
     return serve_step
 
@@ -412,26 +421,33 @@ def mesh_size(mesh) -> int:
     return math.prod(tuple(mesh.shape))
 
 
-STEP3 = ("tensor-parallel placements over the 'model' axis and mode B's "
-         "sharded parameters are ROADMAP Queue A 7(b) step 3, not yet "
-         "ported")
-
-
-def check_placements(plan) -> None:
-    """The plans that run on a mesh of several devices: mode A with the
-    clients on ``"data"`` and, over a ``"model"`` axis of more than one
-    device, ``inner_dp`` (a client's weights replicated there, its batch
-    split).  The default plan's ``"model"`` placements and mode B raise
-    ``NotImplementedError`` naming 7(b) step 3."""
+def check_placements(plan, kind: str = "train") -> None:
+    """The plans that run on a mesh of several devices.  Training: mode A
+    with the clients on ``"data"`` and, over a ``"model"`` axis of more
+    than one device, ``inner_dp`` (a client's weights replicated there,
+    its batch split); the default plan's ``"model"`` placements raise
+    ``NotImplementedError`` naming 7(b) step 3c, mode B's sharded
+    parameters over ``"data"`` step 3d.  Serving (``kind`` ``"prefill"``
+    or ``"decode"``): the default plan over any ``"data"`` x ``"model"``
+    mesh for mode A, for mode B where ``"data"`` has one device (else
+    step 3d); over a ``"model"`` axis of more than one device only the
+    dense-attention decoders (``tensor_parallel.check_family``: step
+    3b)."""
     if mesh_size(plan.mesh) == 1:
         return
-    model = dict(zip(plan.mesh.mesh_dim_names,
-                     tuple(plan.mesh.shape))).get("model", 1)
-    if plan.cfg.fed_mode != "A" or (model > 1 and not plan.inner_dp):
-        raise NotImplementedError(
-            f"{plan.cfg.name} (mode {plan.cfg.fed_mode}, inner_dp="
-            f"{plan.inner_dp}) on a mesh of {mesh_size(plan.mesh)} "
-            f"devices: {STEP3}")
+    sizes = dict(zip(plan.mesh.mesh_dim_names, tuple(plan.mesh.shape)))
+    model = sizes.get("model", 1)
+    data = sizes.get("data", 1) * sizes.get("pod", 1)
+    what = (f"{plan.cfg.name} (mode {plan.cfg.fed_mode}, inner_dp="
+            f"{plan.inner_dp}, {kind}) on a mesh of {mesh_size(plan.mesh)} "
+            "devices")
+    if plan.cfg.fed_mode != "A" and data > 1:
+        raise NotImplementedError(f"{what}: {tp.STEP3D}")
+    if kind == "train":
+        if plan.cfg.fed_mode != "A" or (model > 1 and not plan.inner_dp):
+            raise NotImplementedError(f"{what}: {tp.STEP3C}")
+    elif model > 1:
+        tp.check_family(plan.cfg)
 
 
 def runs_ranks(mesh) -> bool:
@@ -469,7 +485,7 @@ def train_setup(cfg: ArchConfig, shape: InputShape, mesh,
     if rank_local is None:
         rank_local = runs_ranks(mesh)
     if rank_local:
-        check_placements(plan)
+        check_placements(plan, "train")
     fed = fed_config_for(cfg, n_clients or plan.n_clients, base_fed)
     state_sds = fed_state_struct(cfg, fed)
     batch_sds = batch_struct(cfg, shape, fed.n_clients)
@@ -492,48 +508,107 @@ def train_setup(cfg: ArchConfig, shape: InputShape, mesh,
             (state_specs, P()))
 
 
-def prefill_setup(cfg: ArchConfig, shape: InputShape, mesh):
+def serving_specs(cfg: ArchConfig, mesh) -> Dict[str, Any]:
+    """The default plan's (``make_plan(cfg, mesh)``) specs of the serving
+    params, per layer (:func:`per_layer_param_specs`)."""
+    plan = make_plan(cfg, mesh)
+    return per_layer_param_specs(
+        plan.param_spec_tree(params_struct(cfg), client_dim=False), cfg)
+
+
+def decode_state_specs(cfg: ArchConfig, mesh, batch: int, cache_len: int,
+                       window: int = 0) -> Dict[str, Any]:
+    """The plan's specs of the per-layer decode state of ``batch`` rows
+    over ``cache_len`` positions (the ring's ``window`` slots with a
+    window): ``ShardingPlan.decode_state_specs`` on the stacked layout,
+    per layer (:func:`per_layer_state_specs`)."""
+    state = tr.init_decode_state(cfg, batch, cache_len,
+                                 dtype_of(cfg.compute_dtype), window=window,
+                                 device="meta")
+    return per_layer_state_specs(make_plan(cfg, mesh).decode_state_specs(
+        stacked_decode_state(state, cfg), batch), cfg)
+
+
+def _local_structs(tree, specs, ranks):
+    """Meta tensors of this rank's block of every leaf of ``tree``."""
+    return map_leaves(lambda t, s: _meta(tp.block_shape(t.shape, s, ranks),
+                                         t.dtype), tree, specs)
+
+
+def _serving_ranks(plan, kind: str, mesh, batch: int, rank_local, specs,
+                   state_specs=None):
+    """This rank's block for a serving setup, or None for the whole step
+    (``rank_local`` False, or one device)."""
+    if rank_local is None:
+        rank_local = runs_ranks(mesh)
+    if not rank_local or mesh_size(mesh) == 1:
+        return None
+    check_placements(plan, kind)
+    return tp.serve_block(mesh, batch, specs, state_specs)
+
+
+def prefill_setup(cfg: ArchConfig, shape: InputShape, mesh,
+                  rank_local: Optional[bool] = None):
     """Returns (prefill_step, (params, inputs) structs, in specs, out
     spec), the reference's ``prefill_setup``: the params in the serving
     layout (``transformer.lm_view`` of :func:`params_struct`) with their
     per-layer specs, every input's batch dim on the data axis, the
-    logits (B, vocab_pad) ``P(data_ax, "model")``."""
+    logits (B, vocab_pad) ``P(data_ax, "model")``.
+
+    ``rank_local`` (default: :func:`runs_ranks`; the dry-run asks for it
+    under the ``fake`` backend): the step is this rank's
+    (``tensor_parallel``: its rows of the batch, its blocks of every
+    param, tensor-parallel over ``"model"``) and the structs are its local
+    blocks, for the plans that serve on several devices
+    (:func:`check_placements`).  The specs stay the whole tensors'."""
     plan = make_plan(cfg, mesh)
-    p_sds = params_struct(cfg)
+    p_sds = tr.lm_view(params_struct(cfg), cfg)
     in_sds = prefill_inputs_struct(cfg, shape)
-    p_specs = per_layer_param_specs(
-        plan.param_spec_tree(p_sds, client_dim=False), cfg)
+    p_specs = serving_specs(cfg, mesh)
     data_ax = _data_axis(mesh)
     in_specs = tree_map(lambda l: P(data_ax, *[None] * (l.ndim - 1)),
                         in_sds)
-    return (make_prefill_step(cfg), (tr.lm_view(p_sds, cfg), in_sds),
+    ranks = _serving_ranks(plan, "prefill", mesh, shape.global_batch,
+                           rank_local, p_specs)
+    if ranks is not None:
+        p_sds = _local_structs(p_sds, p_specs, ranks)
+        in_sds = _local_structs(in_sds, in_specs, ranks)
+    return (make_prefill_step(cfg, ranks), (p_sds, in_sds),
             (p_specs, in_specs), P(data_ax, "model"))
 
 
-def decode_setup(cfg: ArchConfig, shape: InputShape, mesh):
+def decode_setup(cfg: ArchConfig, shape: InputShape, mesh,
+                 rank_local: Optional[bool] = None):
     """Returns (serve_step, (params, state, tokens, step) structs, in
     specs, out specs), the reference's ``decode_setup``: the window of
     :func:`decode_window`, the per-layer decode state of B =
     ``global_batch`` rows over ``seq_len`` positions with its per-layer
     specs, tokens (B, 1) on the data axis unless B = 1, the logits (B, 1,
-    vocab_pad) with the vocabulary on ``"model"``."""
+    vocab_pad) with the vocabulary on ``"model"``.  ``rank_local``: as
+    :func:`prefill_setup`; the state struct is the rank's block (its rows
+    on ``"data"``, its positions on ``"model"``)."""
     plan = make_plan(cfg, mesh)
     window = decode_window(cfg, shape)
     B = shape.global_batch
     cdt = dtype_of(cfg.compute_dtype)
-    p_sds = params_struct(cfg)
+    p_sds = tr.lm_view(params_struct(cfg), cfg)
     state_sds = tr.init_decode_state(cfg, B, shape.seq_len, cdt,
                                      window=window, device="meta")
-    p_specs = per_layer_param_specs(
-        plan.param_spec_tree(p_sds, client_dim=False), cfg)
-    s_specs = per_layer_state_specs(plan.decode_state_specs(
-        stacked_decode_state(state_sds, cfg), B), cfg)
+    p_specs = serving_specs(cfg, mesh)
+    s_specs = decode_state_specs(cfg, mesh, B, shape.seq_len, window)
     data_ax = _data_axis(mesh)
     row = data_ax if B > 1 else None
-    args = (tr.lm_view(p_sds, cfg), state_sds, _meta((B, 1), torch.int32),
-            _meta((), torch.int32))
-    return (make_decode_step(cfg, window), args,
-            (p_specs, s_specs, P(row, None), P()),
+    tok_spec = P(row, None)
+    tokens = _meta((B, 1), torch.int32)
+    ranks = _serving_ranks(plan, "decode", mesh, B, rank_local, p_specs,
+                           s_specs)
+    if ranks is not None:
+        p_sds = _local_structs(p_sds, p_specs, ranks)
+        state_sds = _local_structs(state_sds, s_specs, ranks)
+        tokens = _local_structs(tokens, tok_spec, ranks)
+    args = (p_sds, state_sds, tokens, _meta((), torch.int32))
+    return (make_decode_step(cfg, window, ranks), args,
+            (p_specs, s_specs, tok_spec, P()),
             (P(row, None, "model"), s_specs))
 
 
@@ -543,20 +618,27 @@ def input_specs(cfg: ArchConfig, shape: InputShape, mesh,
                 rank_local: Optional[bool] = None):
     """The deliverable entry point: meta-tensor stand-ins + placements
     for every model input of this (arch x shape), dispatched on kind
-    (``n_clients``, ``rank_local``: a training round's, as
-    :func:`train_setup`)."""
+    (``n_clients``: a training round's, as :func:`train_setup`;
+    ``rank_local``: as the setup of the shape's kind)."""
     if shape.kind == "train":
         return train_setup(cfg, shape, mesh, base_fed, inner_dp=inner_dp,
                            n_clients=n_clients, rank_local=rank_local)
     if shape.kind == "prefill":
-        return prefill_setup(cfg, shape, mesh)
-    return decode_setup(cfg, shape, mesh)
+        return prefill_setup(cfg, shape, mesh, rank_local=rank_local)
+    return decode_setup(cfg, shape, mesh, rank_local=rank_local)
 
 
 def warm_device_caches(cfg: ArchConfig, device) -> None:
     """Make on ``device`` the constants a step caches per device on first
-    use (RoPE's frequencies, ``layers.rope_freqs``), so that a step's peak
-    memory does not depend on whether an earlier step on that device made
-    them: the dry-run warms them on meta before it counts, a measurement
-    on the card before its baseline."""
+    use (RoPE's frequencies, ``layers.rope_freqs``; on the GPU cuBLAS's
+    workspace, which the first product of a process allocates through
+    the caching allocator and keeps: 32 MiB on an H100), so that a step's
+    peak memory does not depend on whether an earlier step on that device
+    made them: the dry-run warms them on meta before it counts, a
+    measurement on the card before its baseline (a rank process's first
+    step is its process's first product)."""
     rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, device)
+    if torch.device(device).type == "cuda":
+        for dt in (torch.float32, torch.bfloat16):
+            one = torch.ones((16, 16), dtype=dt, device=device)
+            one @ one

@@ -6,6 +6,14 @@ Parameters are plain tensors, looked up by the reference's names
 (``params["scale"]``, ``params["w_gate"]``, ...).  Every function keeps
 the reference's dtype rules: norms and RoPE compute in f32 and return the
 input's dtype; projections run in the activation's dtype.
+
+``ranks=`` (a ``data_parallel.RankBlock`` whose ``specs`` are the plan's
+specs of ``params``, over a ``"model"`` axis of several ranks): the
+params are this rank's blocks and the layer runs tensor-parallel
+(``distributed/tensor_parallel.py``): the embedding vocab-parallel, the
+logits this rank's vocabulary block, the FFN column- then row-parallel
+(one sum over ``"model"``), a norm's scale gathered at use.  Without it,
+or over one ``"model"`` rank, the same functions run world 1's ops.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -55,11 +64,13 @@ def init_rmsnorm(d: int, dtype: torch.dtype = torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5,
+            ranks=None) -> torch.Tensor:
+    scale = tp.gather_leaf(params["scale"], tp.spec(ranks, "scale"), ranks)
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -104,16 +115,26 @@ def init_embedding(gen: torch.Generator, cfg: ArchConfig):
     return p
 
 
-def embed(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = params["tok"][tokens]
+def embed(params, tokens: torch.Tensor, cfg: ArchConfig,
+          ranks=None) -> torch.Tensor:
+    x = tp.embed_rows(params["tok"], tp.spec(ranks, "tok"), tokens, ranks)
     if cfg.name.startswith("gemma"):          # gemma scales embeddings
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x.to(dtype_of(cfg.compute_dtype))
 
 
-def lm_logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    w = params["tok"].t() if cfg.tie_embeddings else params["head"]
-    return x @ w.to(x.dtype)
+def lm_logits(params, x: torch.Tensor, cfg: ArchConfig,
+              ranks=None) -> torch.Tensor:
+    """``x`` times the LM head (the tied ``tok.t()`` or ``head``): the
+    logits over the padded vocabulary; under ``ranks``, this rank's
+    vocabulary block of them (the reference's out spec puts the
+    vocabulary on ``"model"``)."""
+    if cfg.tie_embeddings:
+        w, spec = params["tok"].t(), tp.spec(ranks, "tok")
+        spec = spec if spec is None else type(spec)(*reversed(spec))
+    else:
+        w, spec = params["head"], tp.spec(ranks, "head")
+    return tp.linear_cols(x, w, spec, ranks)
 
 
 # ---------------------------------------------------------------------------
@@ -135,13 +156,27 @@ def gate_act(g: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         g, approximate="tanh")
 
 
-def ffn(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    if cfg.ffn_act in ("swiglu", "geglu"):
-        g = x @ params["w_gate"].to(x.dtype)
-        u = x @ params["w_up"].to(x.dtype)
-        return (gate_act(g, cfg) * u) @ params["w_down"].to(x.dtype)
-    h = F.gelu(x @ params["w_in"].to(x.dtype), approximate="tanh")
-    return h @ params["w_out"].to(x.dtype)
+def ffn(params, x: torch.Tensor, cfg: ArchConfig,
+        ranks=None) -> torch.Tensor:
+    """The FFN.  Under ``ranks``, where the plan splits ``w_gate``/``w_up``
+    (or ``w_in``) on d_ff and ``w_down`` (or ``w_out``) on the same dim,
+    the rank's d_ff block end to end and one sum; else each product whole
+    (``tensor_parallel.linear``)."""
+    gated = cfg.ffn_act in ("swiglu", "geglu")
+    ups = ("w_gate", "w_up") if gated else ("w_in",)
+    down = "w_down" if gated else "w_out"
+    split = all(tp.model_dim(tp.spec(ranks, n), ranks) == 1 for n in ups) \
+        and tp.model_dim(tp.spec(ranks, down), ranks) == 0
+    r = None if split else ranks        # the split's products are local
+    proj = lambda n: tp.linear(x, params[n], tp.spec(r, n), r)
+    if gated:
+        h = gate_act(proj("w_gate"), cfg) * proj("w_up")
+    else:
+        h = F.gelu(proj("w_in"), approximate="tanh")
+    if split:
+        return tp.linear_from_block(h, params[down], tp.spec(ranks, down),
+                                    ranks)
+    return tp.linear(h, params[down], tp.spec(ranks, down), ranks)
 
 
 # ---------------------------------------------------------------------------

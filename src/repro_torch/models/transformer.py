@@ -27,11 +27,18 @@ loss.  Every kernel a training forward reaches has a backward: attention
 (B4, f32 or bf16 at head dim 64) through ``FlashAttentionFn`` and the
 Mamba scan (B6) through ``SsmScanFn``.
 
-The knobs that place work on the ``"model"`` mesh axis,
-``moe_group_shard`` (``models/moe.py``) and ``attn_seq_shards``
-(``models/attention.py``), read the ambient mesh
-(``distributed.context``): the identity under none or a 1-device
-``"model"`` axis, ``NotImplementedError`` over a larger one.  A
+Serving over a mesh's ``"model"`` axis (``forward``/``decode_step``
+with ``ranks=``, a ``data_parallel.RankBlock`` carrying the plan's
+per-layer specs; ``distributed/tensor_parallel.py``): the params and the
+decode state are this rank's blocks and every layer runs
+tensor-parallel, for the dense-attention decoders; any other family
+raises ``NotImplementedError`` naming ROADMAP 7(b) step 3b
+(``tensor_parallel.check_family``).  ``moe_group_shard``
+(``models/moe.py``) reads the ambient mesh (``distributed.context``):
+the identity under none or a 1-device ``"model"`` axis,
+``NotImplementedError`` over a larger one; ``attn_seq_shards`` splits
+the prefill's queries over ``"model"`` under ``ranks`` and is the
+identity otherwise (``models/attention.py``).  A
 ``moe_impl`` other than ``"scatter"`` or ``"einsum"`` and an unknown
 block kind raise a ``ValueError``.
 
@@ -66,6 +73,7 @@ from repro_torch.configs.base import (
     SWA,
     ArchConfig,
 )
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -178,7 +186,7 @@ def init_sublayer(gen: torch.Generator, kind: str, cfg: ArchConfig,
 
 
 def _apply_cross_ffn(p, x: torch.Tensor, cfg: ArchConfig,
-                     memory: Optional[torch.Tensor]
+                     memory: Optional[torch.Tensor], ranks=None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """What follows the mixer in a layer: cross-attention onto ``memory``
     (a decoder layer of an encoder-decoder), then the residual FFN.
@@ -188,7 +196,9 @@ def _apply_cross_ffn(p, x: torch.Tensor, cfg: ArchConfig,
             p["cross"], rmsnorm(p["ln_cross"], x, cfg.norm_eps), memory, cfg)
     aux = None
     if "ffn" in p:
-        x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps,
+                                      ranks=tp.at(ranks, "ln2")), cfg,
+                    ranks=tp.at(ranks, "ffn"))
     elif "moe" in p:
         y, aux = MOE_IMPLS[cfg.moe_impl](
             p["moe"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
@@ -198,10 +208,12 @@ def _apply_cross_ffn(p, x: torch.Tensor, cfg: ArchConfig,
 
 def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
                    window: int = 0, memory: Optional[torch.Tensor] = None,
-                   causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence (prefill) form. Returns (x, aux_loss)."""
+                   causal: bool = True, ranks=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence (prefill) form. Returns (x, aux_loss).  ``ranks``:
+    this layer's block of the plan (the module's docstring)."""
     _check_kind(kind)
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps, ranks=tp.at(ranks, "ln1"))
     if kind == MAMBA:
         mix = ssm_lib.mamba_scan(p["mamba"], h, cfg)
     elif kind == MLSTM:
@@ -210,10 +222,11 @@ def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
         mix = ssm_lib.slstm_scan(p["slstm"], h, cfg)
     else:
         mix = attn_lib.self_attention(p["attn"], h, cfg, causal=causal,
-                                      window=window)
+                                      window=window,
+                                      ranks=tp.at(ranks, "attn"))
         if kind == HYMBA:
             mix = 0.5 * (mix + ssm_lib.mamba_scan(p["mamba"], h, cfg))
-    x, aux = _apply_cross_ffn(p, x + mix, cfg, memory)
+    x, aux = _apply_cross_ffn(p, x + mix, cfg, memory, ranks)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -246,11 +259,13 @@ def sublayer_state(kind: str, cfg: ArchConfig, batch: int, cache_len: int,
 
 def apply_sublayer_decode(p, kind: str, x: torch.Tensor, state, step: int,
                           cfg: ArchConfig, *, window: int = 0,
-                          memory: Optional[torch.Tensor] = None):
+                          memory: Optional[torch.Tensor] = None,
+                          ranks=None):
     """One decode step of one layer; updates ``state`` in place and
-    returns (x, state)."""
+    returns (x, state).  ``ranks``: this layer's block of the plan, its
+    ``state_specs`` the layer's state's."""
     _check_kind(kind)
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps, ranks=tp.at(ranks, "ln1"))
     if kind == MAMBA:
         mix, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg)
     elif kind == MLSTM:
@@ -259,36 +274,52 @@ def apply_sublayer_decode(p, kind: str, x: torch.Tensor, state, step: int,
         mix, _ = ssm_lib.slstm_decode(p["slstm"], h, state["slstm"], cfg)
     else:
         mix, _ = attn_lib.decode_attention(p["attn"], h, state, step, cfg,
-                                           window=window)
+                                           window=window,
+                                           ranks=tp.at(ranks, "attn"))
         if kind == HYMBA:
             m, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg)
             mix = 0.5 * (mix + m)
-    x, _ = _apply_cross_ffn(p, x + mix, cfg, memory)
+    x, _ = _apply_cross_ffn(p, x + mix, cfg, memory, ranks)
     return x, state
 
 
 # ---------------------------------------------------------------------------
 # Full model
-def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None) -> LMParams:
+def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None,
+            keep=None):
     """Random weights drawn from ``gen`` on its device, then moved to
-    ``device`` (None: the GPU, raising when there is none)."""
+    ``device`` (None: the GPU, raising when there is none).
+
+    ``keep(sub_tree, *path)`` (a rank's ``tensor_parallel.keep_blocks``)
+    is handed each sub-tree as it is drawn, at its path in
+    :func:`serving_tree`'s layout (``"embed"``, ``"layers", i``,
+    ``"final_norm"``, ``"frontend_proj"``, ``"enc_unit", i``,
+    ``"enc_norm"``), and what it returns is kept: the draws are world
+    1's, in world 1's order, and the result is the tree of what was kept
+    in that layout (``device`` unused: ``keep`` places the blocks).
+    Without it, the :class:`LMParams` of the whole weights."""
     check_ported(cfg)
-    dev = resolve_device(device)
+    hold = keep or (lambda tree, *path: tree)
     cross = cfg.n_enc_layers > 0
-    emb = init_embedding(gen, cfg)
-    layers = [init_sublayer(gen, kind, cfg, cross=cross)
-              for kind in cfg.pattern()]
-    final = init_rmsnorm(cfg.d_model, device=gen.device)
+    emb = hold(init_embedding(gen, cfg), "embed")
+    layers = [hold(init_sublayer(gen, kind, cfg, cross=cross), "layers", i)
+              for i, kind in enumerate(cfg.pattern())]
+    final = hold(init_rmsnorm(cfg.d_model, device=gen.device), "final_norm")
     extra: Dict[str, Any] = {}
     if cfg.frontend != "none":
         # the stub frontend's projector (patch / frame embeddings -> d)
-        extra["frontend_proj"] = dense_init(
-            gen, (cfg.d_model, cfg.d_model), dtype=dtype_of(cfg.param_dtype))
+        extra["frontend_proj"] = hold(dense_init(
+            gen, (cfg.d_model, cfg.d_model), dtype=dtype_of(cfg.param_dtype)),
+            "frontend_proj")
     if cfg.n_enc_layers:
-        extra["enc_unit"] = [init_sublayer(gen, ATTN, cfg)
-                             for _ in range(cfg.n_enc_layers)]
-        extra["enc_norm"] = init_rmsnorm(cfg.d_model, device=gen.device)
-    return _assemble(emb, layers, final, **extra).to(dev)
+        extra["enc_unit"] = [hold(init_sublayer(gen, ATTN, cfg), "enc_unit", i)
+                             for i in range(cfg.n_enc_layers)]
+        extra["enc_norm"] = hold(init_rmsnorm(cfg.d_model, device=gen.device),
+                                 "enc_norm")
+    if keep is not None:
+        return {"embed": emb, "layers": layers, "final_norm": final,
+                **extra}
+    return _assemble(emb, layers, final, **extra).to(resolve_device(device))
 
 
 def _assemble(emb, layers, final, frontend_proj=None, enc_unit=None,
@@ -353,25 +384,28 @@ def _perturb(x: torch.Tensor, gen: torch.Generator, sigma) -> torch.Tensor:
 
 
 def _run_unit(ps, kinds, x: torch.Tensor, aux: torch.Tensor,
-              cfg: ArchConfig, window: int, memory):
+              cfg: ArchConfig, window: int, memory, rs):
     """One group of the repeating unit: each sublayer in turn, its aux
     loss summed in order; with ``cfg.remat`` and a unit of several
     sublayers, each sublayer checkpointed (the reference's nested remat:
-    only one sublayer's internals live during the unit's backward)."""
-    def apply_fn(p, kind, x):
-        return apply_sublayer(p, kind, x, cfg, window=window, memory=memory)
+    only one sublayer's internals live during the unit's backward).
+    ``rs``: each sublayer's block of the plan (tensor-parallel serving;
+    None at world 1)."""
+    def apply_fn(p, kind, x, r):
+        return apply_sublayer(p, kind, x, cfg, window=window, memory=memory,
+                              ranks=r)
 
-    for p, kind in zip(ps, kinds):
+    for p, kind, r in zip(ps, kinds, rs):
         if _remat_on(cfg) and len(kinds) > 1:
-            x, a = _remat(apply_fn, p, kind, x)
+            x, a = _remat(apply_fn, p, kind, x, r)
         else:
-            x, a = apply_fn(p, kind, x)
+            x, a = apply_fn(p, kind, x, r)
         aux = aux + a
     return x, aux
 
 
 def forward(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-            window: int = 0, noise: Optional[Tuple] = None
+            window: int = 0, noise: Optional[Tuple] = None, ranks=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training / prefill forward. Returns (final hidden states over the
     text positions, aux loss); the LM head is applied by the caller.
@@ -395,10 +429,17 @@ def forward(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig, *,
 
     With ``cfg.remat`` each group of the repeating unit is checkpointed
     (its aux loss carried through), as the reference's ``_scan_unit``
-    does; it changes no value."""
+    does; it changes no value.
+
+    ``ranks``: this rank's block of the plan (tensor-parallel serving;
+    the module's docstring): ``params`` and the inputs' rows are the
+    rank's, the hidden states come back whole in d."""
     check_ported(cfg)
+    if tp.active(ranks):
+        tp.check_family(cfg)
     unit, _ = factor_pattern(cfg.pattern())
-    x = embed(params["embed"], inputs["tokens"], cfg)
+    x = embed(params["embed"], inputs["tokens"], cfg,
+              ranks=tp.at(ranks, "embed"))
     if noise is not None:
         gen, sigma = noise
         x = _perturb(x, gen, sigma)
@@ -408,7 +449,9 @@ def forward(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig, *,
         fe = inputs["frontend_embeds"].to(x.dtype)
         if noise is not None:
             fe = _perturb(fe, gen, sigma)
-        fe = fe @ params["frontend_proj"].to(x.dtype)
+        proj = tp.gather_leaf(params["frontend_proj"],
+                              tp.spec(ranks, "frontend_proj"), ranks)
+        fe = fe @ proj.to(x.dtype)
         x = torch.cat([fe, x], dim=1)                # image / audio prefix
         n_front = fe.shape[1]
     memory = None
@@ -421,10 +464,12 @@ def forward(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig, *,
     layers = list(params["layers"])
     U = len(unit)
     for g0 in range(0, len(layers), U):
-        args = (layers[g0:g0 + U], unit, x, aux, cfg, window, memory)
+        args = (layers[g0:g0 + U], unit, x, aux, cfg, window, memory,
+                [tp.layer(ranks, i) for i in range(g0, g0 + U)])
         x, aux = (_remat(_run_unit, *args) if _remat_on(cfg)
                   else _run_unit(*args))
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps,
+                ranks=tp.at(ranks, "final_norm"))
     return x[:, n_front:], aux
 
 
@@ -535,18 +580,26 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
 
 
 def decode_step(params, state, tokens: torch.Tensor, step: int,
-                cfg: ArchConfig, *, window: int = 0):
+                cfg: ArchConfig, *, window: int = 0, ranks=None):
     """One decode step. tokens: (B, 1) integer; step: tokens already in the
     cache.  Returns (logits (B, 1, vocab_pad), state), the caches and
     recurrent states updated in place; every decoder layer of an
-    encoder-decoder attends to ``state["memory"]``."""
-    x = embed(params["embed"], tokens, cfg)
+    encoder-decoder attends to ``state["memory"]``.  ``ranks``: this
+    rank's block of the plan (``ranks.state_specs`` the state's specs):
+    ``params``, ``state`` and the tokens' rows are the rank's, and the
+    logits its vocabulary block, (B_r, 1, vocab_pad / M)."""
+    if tp.active(ranks):
+        tp.check_family(cfg)
+    x = embed(params["embed"], tokens, cfg, ranks=tp.at(ranks, "embed"))
     memory = state.get("memory")
-    for p, s, kind in zip(params["layers"], state["layers"], cfg.pattern()):
+    for i, (p, s, kind) in enumerate(zip(params["layers"], state["layers"],
+                                         cfg.pattern())):
         x, _ = apply_sublayer_decode(p, kind, x, s, step, cfg, window=window,
-                                     memory=memory)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_logits(params["embed"], x, cfg), state
+                                     memory=memory, ranks=tp.layer(ranks, i))
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps,
+                ranks=tp.at(ranks, "final_norm"))
+    return lm_logits(params["embed"], x, cfg,
+                     ranks=tp.at(ranks, "embed")), state
 
 
 # ---------------------------------------------------------------------------

@@ -171,14 +171,18 @@ def link_bytes_per_s(size: int, stride: int) -> float:
 
 
 def collective_s(kind: str, nbytes: float, size: int, stride: int) -> float:
-    """The least time of one collective of ``nbytes`` over such a group: a
-    ring all-reduce (the one kind the port makes) sends ``2 (n - 1) / n``
-    of the bytes over each link."""
+    """The least time of one collective over such a group.  A ring
+    all-reduce of an ``nbytes`` tensor sends ``2 (n - 1) / n`` of its
+    bytes over each link; a ring all-gather of ``nbytes`` from each rank
+    (the rank's block; ``collectives.all_gather`` counts it so) sends the
+    ``n - 1`` other blocks over each link."""
     if size <= 1:
         return 0.0
     bw = link_bytes_per_s(size, stride)
     if kind == "all_reduce":
         return 2.0 * (size - 1) / size * nbytes / bw
+    if kind == "all_gather":
+        return (size - 1) * nbytes / bw
     raise ValueError(f"unknown collective {kind!r}")
 
 
@@ -244,6 +248,21 @@ def decode_work(q, k, valid: int) -> Work:
     B, H, D = q.shape
     Hkv = k.shape[2]
     nbytes = (2 * valid * Hkv * D + 2 * q.numel()) * _esize(q) + 4 * B
+    return Work(4 * H * D * valid, nbytes,
+                "f32" if q.dtype == torch.float32 else "bf16")
+
+
+def decode_partial_work(q, k, valid: int) -> Work:
+    """B5's partial over one block of a split cache, ``valid`` positions
+    of it in all: their K and V read once, q and the (B,) int32 lengths
+    read, out (B, H, D) and lse (B, H) written in f32; 4 H D operations
+    per valid position, as :func:`decode_work`."""
+    import torch
+
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    nbytes = ((2 * valid * Hkv * D + q.numel()) * _esize(q) + 4 * B
+              + 4 * (q.numel() + B * H))
     return Work(4 * H * D * valid, nbytes,
                 "f32" if q.dtype == torch.float32 else "bf16")
 

@@ -789,6 +789,73 @@ def test_cuda_decode_attention_matches_plain_version(B, L, H, Hkv, D, lens,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,Hkv,D,lens", [
+    (8, 512, 15, 5, 64, SERVE_LENS),            # SmolLM-360M serving
+    (8, 512, 16, 16, 256, SERVE_LENS),          # Gemma-7B serving
+    (8, 2048, 15, 5, 64, [2048] * 8),           # decode_32k's rank block
+    (3, 777, 40, 10, 128, None)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_attention_partial_matches_plain_version(
+        B, L, H, Hkv, D, lens, dtype):
+    """B5's partial over a block of positions: out (f32) within the f32
+    bound and lse within 1e-5 of the plain version, one launch a call,
+    nothing at or past ``length[b]`` read (the tail is NaN), and a row of
+    length 0 (a block past the row's positions) giving out 0 and lse
+    -inf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q = _randn((B, H, D), dtype, 14)
+    k = _randn((B, L, Hkv, D), dtype, 15)
+    v = _randn((B, L, Hkv, D), dtype, 16)
+    lens = list(lens or [1, L // 2, L][:B])
+    lens[0] = 0                   # a row with no valid position here
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    k_poisoned, v_poisoned = k.clone(), v.clone()
+    for b in range(B):
+        k_poisoned[b, int(length[b]):] = float("nan")
+        v_poisoned[b, int(length[b]):] = float("nan")
+    dec_k.reset_launch_counts()
+    out, lse = dec_k.decode_attention_partial(q, k_poisoned, v_poisoned,
+                                              length)
+    want, want_lse = ref.decode_attention_partial_ref(q, k, v, length)
+    torch.cuda.synchronize()
+    assert dec_k.LAUNCHES == {"decode_attention": 0,
+                              "decode_attention_partial": 1}
+    _assert_close(out, want, "float32")
+    assert bool((out[0] == 0).all()) and bool(torch.isneginf(lse[0]).all())
+    torch.testing.assert_close(lse[1:], want_lse[1:], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 4, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_attention_partials_merge_to_the_whole(M, dtype):
+    """The partials of M blocks of a cache, merged in block order
+    (``ops.merge_decode_partials``), are B5 over the whole cache within
+    its bounds; a block past a row's length weighs exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+
+    B, L, H, Hkv, D = 8, 512, 15, 5, 64
+    q = _randn((B, H, D), dtype, 24)
+    k = _randn((B, L, Hkv, D), dtype, 25)
+    v = _randn((B, L, Hkv, D), dtype, 26)
+    length = torch.tensor(SERVE_LENS, dtype=torch.int32, device="cuda")
+    Lr = L // M
+    parts = [dec_k.decode_attention_partial(
+        q, k[:, r * Lr:(r + 1) * Lr].contiguous(),
+        v[:, r * Lr:(r + 1) * Lr].contiguous(),
+        (length - r * Lr).clamp(0, Lr).to(torch.int32)) for r in range(M)]
+    got = ops.merge_decode_partials([p[0] for p in parts],
+                                    [p[1] for p in parts], q.dtype)
+    _assert_close(got, dec_k.decode_attention(q, k, v, length), dtype)
+    empty = (length - (M - 1) * Lr) <= 0        # rows the last block lacks
+    assert bool(empty.any())
+    assert bool(torch.isneginf(parts[-1][1][empty]).all())
+
+
+@pytest.mark.cuda
 def test_cuda_rope_freqs_equal_the_cpus():
     """RoPE's frequencies on the card are the CPU's, bit for bit (one
     ulp of a frequency near 1 moves its angle by ~0.03 rad at long_500k's

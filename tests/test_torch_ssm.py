@@ -455,7 +455,8 @@ def test_serve_engine_greedy_tokens_equal_reference(jref):
     assert eng.steps == 12 + 10
     assert (fa_k.LAUNCHES, dec_k.LAUNCHES, ssm_k.LAUNCHES) == (
         {"flash_attention": 0, "flash_attention_bwd": 0},
-        {"decode_attention": 0}, {"ssm_scan": 0, "ssm_scan_bwd": 0})
+        {"decode_attention": 0, "decode_attention_partial": 0},
+        {"ssm_scan": 0, "ssm_scan_bwd": 0})
 
 
 def test_serve_cli_runs_the_hymba_smoke_model_on_the_cpu():
