@@ -247,18 +247,27 @@ the partial held to its plain version (out within ``attn_tol``, lse
 within 1e-5, a row of length 0 giving 0 and -inf), the partials of 2, 4
 and 8 blocks merged and held to B5 over the whole cache, and timed at
 SmolLM-360M's and Gemma-7B's serving blocks and decode_32k's rank block
-beside its bound, its plain version and SDPA over the block; then
-SmolLM-360M (f32) and Gemma-7B (bf16) at full width over a 1 x 2 gloo
-mesh on the one card (``--dp-rank`` processes, task ``tp``; world 1 in
-this process): prefills (SmolLM's also with ``attn_seq_shards=2``), a
-generate (SmolLM, 36 steps over a cache of 64 positions, 32 a rank) and
-decode steps (Gemma, from a seeded cache of 512 positions at positions
-254-257) against world 1, both crossing from rank 0's block of cache
-positions into rank 1's (rank 1 handed a non-empty block, asserted),
-each rank's launches asserted (B4 in every prefill layer, the partial in
-every decode layer and step), its exchanges equal to the ones its steps
-count on meta structs of its blocks before the run, and its prefill's
-peak within 1 % of the meta prediction on a 1 x 2 fake mesh.  Then checkpoints
+beside its bound, its plain version and SDPA over the block; B6 on a
+rank's 800 of Hymba's 1,600 channels equal bit for bit to those
+channels of the whole launch and to the plain version, and timed; B4
+without the mask and B5 whole on a rank's 8 of SeamlessM4T's 16 heads,
+held and timed; then SmolLM-360M (f32), Gemma-7B (bf16), Hymba-1.5B
+(bf16, and an f32 copy of its config) and SeamlessM4T-medium (f32) at
+full width over a 1 x 2 gloo mesh on the one card (``--dp-rank``
+processes, task ``tp``; world 1 in this process): prefills (SmolLM's
+also with ``attn_seq_shards=2``; SeamlessM4T's over 1,500 frames), a
+generate (SmolLM and SeamlessM4T, the latter against each rank's own
+encode, 36 steps over a cache of 64 positions, 32 a rank) and decode
+steps (Gemma and Hymba, from a seeded state over 512 positions at
+positions 254-257) against world 1 (Hymba's bf16 run through its f32
+copy's), all crossing from rank 0's block of cache positions into rank
+1's (rank 1 handed a non-empty block, asserted), each rank's launches
+asserted (B4 in every encoder, self- and cross-attention layer of a
+prefill, B6 once a chunk in every Mamba layer, the partial in every
+decode layer and step, B5 whole in every cross-attention layer of a
+step), its exchanges equal to the ones its steps count on meta structs
+of its blocks before the run, and its prefill's peak within 1 % of the
+meta prediction on a 1 x 2 fake mesh.  Then checkpoints
 (``lm_resume``, B1 and B4 with its backward): the port of
 ``examples/federated_lm_training.py`` saves, restores (bit for bit on
 the card) and resumes at the smoke scale, its first resumed round held
@@ -305,7 +314,8 @@ kernels at the bandwidth shape (f32, unweighted) beside the fused B1
 ``data_parallel``.  Its ``decode_attention_partial`` entry gives B5's
 partial at SmolLM-360M's serving block (``shapes``: also Gemma-7B's and
 decode_32k's rank block), its launches the ranks' decode steps in
-``tensor_parallel``.  Its
+``tensor_parallel`` (whose ranks' B4, B5 and B6 launches join those
+kernels' entries).  Its
 ``flash_attention`` entry gives B4's f32 kernel (``f32_kernel``, its
 ptxas label: name and tiles at head dim 64) at SmolLM-360M's prefill
 shape, with ``bound_ms`` its 3xTF32 tensor-core roof and
@@ -324,7 +334,9 @@ and Phi3-medium's (B5's also at the 8,192-slot ring), B5's
 SeamlessM4T's cross over 1,500 frames at B=1), B4's ``long_rows`` the
 long-row checks' times and ``prefill_32k`` each family's prefill_32k
 ms and launches, ``ssm_scan``'s ``prefill_32k_chunk`` B6 at prefill_32k's
-chunk (32, 128, 1600, 16); their launches
+chunk (32, 128, 1600, 16) and ``rank_block`` B6 on a rank's channels
+beside the whole launch, B4's and B5's ``tp_rank_heads`` each on a
+rank's heads of SeamlessM4T; their launches
 include the MoE, SeamlessM4T, LLaVA, Gemma and Phi3 runs (B5's the
 window decodes, placed_serve's and serve_lm's too), B4's also
 placed_serve's and the prefill_32k prefills (B6's too)
@@ -6150,6 +6162,36 @@ TP_NEAR_TIE = 1e-5             # a greedy flip is counted below this gap
 TP_PEAK_SHARE = 0.01           # a rank's peak within 1 % of meta's
 TP_LSE_TOL = 1e-5
 TP_BLOCKS = (2, 4, 8)
+# Hymba-1.5B (bf16, and an f32 copy of its config) and SeamlessM4T-medium
+# (f32) over 1 x 2: Hymba a 1 x 1,024 prefill (8 chunks: B6 on a rank's
+# 800 of 1,600 channels) and TP_GEMMA_STEPS steps of the seeded cache as
+# Gemma's; SeamlessM4T a 2 x 256 prefill over 1,500 frames and the
+# generate of TP_PROMPTS against each rank's own encode of 1,500 frames a
+# request
+TP_HYMBA_PREFILL, TP_SEAMLESS_PREFILL = (1, 1024), (2, 256)
+# every run of the phase: key -> (arch, compute dtype (None: the
+# config's), prefill B x S, decode, seed)
+TP_RUNS = {"smollm": (ARCH, None, TP_PREFILL, "generate", TP_SEED + 1),
+           "gemma": (GEMMA, None, TP_GEMMA_PREFILL, "seeded", TP_SEED + 2),
+           "hymba": (HYMBA, None, TP_HYMBA_PREFILL, "seeded", TP_SEED + 3),
+           "hymba_f32": (HYMBA, "float32", TP_HYMBA_PREFILL, "seeded",
+                         TP_SEED + 3),
+           "seamless": (SEAMLESS, None, TP_SEAMLESS_PREFILL, "generate",
+                        TP_SEED + 4)}
+# Hymba's bf16 logits at world 1 lie 0.050-0.063 of their RMS from its f32
+# copy's (an H100 80GB HBM3 at 700 W), past tp_bf16_hold's 2^-5: its bf16
+# TP logits are held to the f32 copy's world 1 logits instead, no further
+# than TP_BF16_MARGIN times world 1's bf16 logits are (RMS and max)
+TP_BF16_MARGIN = 1.25
+# B6 on a rank's block of channels against the whole launch: Hymba's
+# prefill chunk at B=4, its 1,600 channels over 2 ranks
+TP_SCAN = (4, SCAN_CHUNK, 1600, 16)
+# B4 without the mask and B5 whole on a rank's 8 of SeamlessM4T's 16
+# heads, at encdec_serve's shapes: (B, Sq, Sk, H, Hkv, D, causal) and
+# (B, L, H, Hkv, D, lengths)
+TP_RANK_HEADS_FLASH = [(4, 1500, 1500, 8, 8, 64, False),
+                       (4, 4096, 1500, 8, 8, 64, False)]
+TP_RANK_HEADS_DECODE = [(8, 1500, 8, 8, 64, [1500] * 8)]
 # B5's partial, held and timed: (label, B, L, H, Hkv, D, dtype, lengths)
 TP_PARTIAL_SHAPES = (
     ("smollm-360m serving", 8, SERVE_CACHE, 15, 5, 64, torch.float32,
@@ -6166,7 +6208,59 @@ def tp_partial_inputs(B, L, H, Hkv, D, dtype, seed):
     return q.contiguous(), k, v
 
 
-def tp_kernels(report):
+def tp_scan_block(report):
+    """B6 on a rank's block of channels: TP_SCAN (f32, with ``h0``) cut
+    into 2 blocks of its channels, each block's launch equal bit for bit
+    to those channels of the whole launch (every (row, channel, state)
+    chain is independent) and to the plain version; then rank 1's block
+    timed against its bound (``kernel_cost.scan_work``), the plain
+    version and the whole launch, with the thread blocks each launch
+    puts on the SMs.  Returns the row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm_k
+
+    B, S, D, N = TP_SCAN
+    M, Dr = 2, D // 2
+    a, b, h0 = scan_inputs(B, S, D, N, torch.float32, seed=TP_SEED + 60)
+    whole = ssm_k.ssm_scan(a, b, h0)
+    for r in range(M):
+        cols = slice(r * Dr, (r + 1) * Dr)
+        blk = (a[:, :, cols].contiguous(), b[:, :, cols].contiguous(),
+               h0[:, cols].contiguous())
+        got = ssm_k.ssm_scan(*blk)
+        if not (bits_equal(got, whole[:, :, cols].contiguous())
+                and bits_equal(got, ref.ssm_scan_ref(*blk))):
+            raise AssertionError(f"ssm_scan on channels {cols} of "
+                                 f"{TP_SCAN}: != the whole launch's or the "
+                                 "plain version's")
+    cpm = sleep_cycles_per_ms()
+    threads = 128                     # csrc/ssm_scan.cu kThreads
+    row = dict(shape=(B, S, Dr, N), whole_shape=TP_SCAN, bits_equal=True,
+               ms=device_ms(lambda: ssm_k.ssm_scan(*blk), cpm, reps=20,
+                            inner=10),
+               whole_ms=device_ms(lambda: ssm_k.ssm_scan(a, b, h0), cpm,
+                                  reps=20, inner=10),
+               plain_ms=device_ms(lambda: ref.ssm_scan_ref(*blk), cpm,
+                                  reps=5, inner=1),
+               library_ms=None, thread_blocks=B * -(-Dr * N // threads),
+               whole_thread_blocks=B * -(-D * N // threads),
+               sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    row["bound_ms"], row["bound_by"] = kc.bound_ms(kc.scan_work(blk[0],
+                                                                blk[2]))
+    row["whole_bound_ms"], _ = kc.bound_ms(kc.scan_work(a, h0))
+    log(f"time ssm_scan rank block {row['shape']} of {TP_SCAN} f32 h0: "
+        f"kernel_ms={row['ms']:.6f} bound_ms={row['bound_ms']:.6f} "
+        f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.3f} of it) "
+        f"plain_ms={row['plain_ms']:.6f} library_ms=null; the whole launch "
+        f"{row['whole_ms']:.6f} (bound {row['whole_bound_ms']:.6f}); "
+        f"{row['thread_blocks']} / {row['whole_thread_blocks']} thread "
+        f"blocks of {threads} on {row['sms']} SMs; both blocks equal the "
+        "whole launch's channels and the plain version bit for bit")
+    report["tp_scan_block"] = row
+    return row
+
+
+def tp_kernels(report, errs):
     """(a) B5's partial on the card at TP_PARTIAL_SHAPES: held against its
     plain version (out within ``attn_tol``, lse within TP_LSE_TOL, a row
     of length 0 giving out 0 and lse -inf); the partials of 2, 4 and 8
@@ -6174,7 +6268,10 @@ def tp_kernels(report):
     whole cache within ``attn_tol``, the blocks past a row's length
     empty (lse -inf: weight 0); then timed against its bound
     (``kernel_cost.decode_partial_work``), the plain version and SDPA
-    over the same block.  Returns the rows."""
+    over the same block.  (b) B6 on a rank's channels
+    (:func:`tp_scan_block`); B4 without the mask and B5 whole on a rank's
+    heads of SeamlessM4T (TP_RANK_HEADS_*: ``hold_and_time_attention``,
+    max |err| into ``errs``).  Returns the partial's rows and max |err|."""
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import ops, ref
 
@@ -6249,6 +6346,10 @@ def tp_kernels(report):
         "pairs weighed 0")
     report["tp_kernels"] = dict(rows=rows, max_abs_err=err,
                                 lse_max_abs_err=lse_err, empty=empties)
+    tp_scan_block(report)
+    report["tp_rank_heads"] = hold_and_time_attention(
+        f"{SEAMLESS} rank heads", TP_RANK_HEADS_FLASH, TP_RANK_HEADS_DECODE,
+        torch.float32, TP_SEED + 70, report, errs)
     return rows, err
 
 
@@ -6262,6 +6363,24 @@ def tp_inputs(cfg, B, S, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                          device="cuda")
+
+
+def tp_frames(cfg, B, seed):
+    """An encoder-decoder's frames (B, frontend_tokens, d): seeded
+    normals in the compute dtype, the stub frontend's embeddings."""
+    from repro_torch.models.layers import dtype_of
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, cfg.frontend_tokens, cfg.d_model), generator=g,
+                       device="cuda").to(dtype_of(cfg.compute_dtype))
+
+
+def tp_prefill_inputs(cfg, B, S, seed):
+    """A prefill's inputs: the tokens and an encoder-decoder's frames."""
+    inputs = {"tokens": tp_inputs(cfg, B, S, seed)}
+    if cfg.n_enc_layers:
+        inputs["enc_embeds"] = tp_frames(cfg, B, seed + 100)
+    return inputs
 
 
 class PartialLengths:
@@ -6312,14 +6431,21 @@ class StepLog:
         eng._step = step
 
 
-def tp_serve(cfg, params, ranks):
+def tp_serve(cfg, params, ranks, seed):
     """The generate of TP_PROMPTS (greedy, TP_MAX_NEW new, cache
-    TP_GEN_CACHE) through ``ServeEngine``: (tokens, StepLog, launches,
-    the longest block the partial was handed)."""
+    TP_GEN_CACHE) through ``ServeEngine``, an encoder-decoder's against
+    the memory of the rank's own ``encode`` of its requests' frames
+    (:func:`tp_frames` from ``seed``): (tokens, StepLog, launches of the
+    generate, the longest block the partial was handed)."""
+    from repro_torch.models import transformer as tr
     from repro_torch.serving import ServeEngine, ServeRequest
 
     eng = ServeEngine(params, cfg, batch=len(TP_PROMPTS),
                       cache_len=TP_GEN_CACHE, device="cuda", ranks=ranks)
+    if cfg.n_enc_layers:
+        frames = tp_frames(cfg, len(TP_PROMPTS), seed)
+        eng.state["memory"] = tr.encode(params, frames[eng.rows], cfg,
+                                        ranks=eng.ranks)
     steps_log = StepLog(eng)
     reset_all_counts()
     with PartialLengths() as lens:
@@ -6332,7 +6458,7 @@ def tp_serve(cfg, params, ranks):
 
 
 def tp_seeded_state(cfg, ranks=None):
-    """Gemma's decode state at B=1 over TP_CACHE positions, every leaf a
+    """A decode state at B=1 over TP_CACHE positions, every leaf a
     draw of seeded normals in its dtype (leaf by leaf, whole), or this
     rank's block of it (``ranks.state_specs``, the whole leaf dropped)."""
     from repro_torch.distributed import tensor_parallel as tp
@@ -6354,7 +6480,7 @@ def tp_seeded_state(cfg, ranks=None):
     return map_leaves(one, meta, ranks.state_specs)
 
 
-def tp_gemma_steps(cfg, params, ranks, step_fn, state):
+def tp_seeded_steps(cfg, params, ranks, step_fn, state):
     """TP_GEMMA_STEPS decode steps from position TP_GEMMA_FROM (one row,
     the seeded ``state``): each step's logits (gathered over "model") on
     the CPU, ms, exchanges."""
@@ -6401,38 +6527,41 @@ def tp_measured_prefill(cfg, step, params, inputs, warm=True):
             {k: dict(v) for k, v in collectives.COLLECTIVES.items()})
 
 
-def tp_world1():
-    """World 1 on the card (no mesh): SmolLM-360M's prefill and generate,
-    Gemma-7B's prefill and decode steps, from the seed-TP_SEED weights."""
+def tp_cfg(key):
+    """The config of TP_RUNS' run ``key``."""
     from repro_torch.configs import get_arch
+
+    arch, dtype, _, _, _ = TP_RUNS[key]
+    cfg = get_arch(arch)
+    return cfg if dtype is None else dataclasses.replace(
+        cfg, compute_dtype=dtype)
+
+
+def tp_world1():
+    """World 1 on the card (no mesh): each TP_RUNS model's prefill and
+    its generate or seeded decode steps, from the seed-TP_SEED weights."""
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tr
 
     out = {}
-    cfg = get_arch(ARCH)
-    params = tr.init_lm(torch.Generator(device="cuda").manual_seed(TP_SEED),
-                        cfg, device="cuda")
-    toks = tp_inputs(cfg, *TP_PREFILL, TP_SEED + 1)
-    logits, ms, _, _, _ = tp_measured_prefill(
-        cfg, steps.make_prefill_step(cfg), params, {"tokens": toks})
-    tokens, log_, _, _ = tp_serve(cfg, params, None)
-    out["smollm"] = dict(prefill=logits, prefill_ms=ms, tokens=tokens,
-                         step_logits=log_.logits, step_ms=log_.ms)
-    del params
-    torch.cuda.empty_cache()
-    cfg = get_arch(GEMMA)
-    params = tr.init_lm(torch.Generator(device="cuda").manual_seed(TP_SEED),
-                        cfg, device="cuda")
-    toks = tp_inputs(cfg, *TP_GEMMA_PREFILL, TP_SEED + 2)
-    logits, ms, _, _, _ = tp_measured_prefill(
-        cfg, steps.make_prefill_step(cfg), params, {"tokens": toks})
-    dlogits, dms, _ = tp_gemma_steps(cfg, params, None,
-                                     steps.make_decode_step(cfg),
-                                     tp_seeded_state(cfg))
-    out["gemma"] = dict(prefill=logits, prefill_ms=ms, step_logits=dlogits,
-                        step_ms=dms)
-    del params
-    torch.cuda.empty_cache()
+    for key, (_, _, (B, S), decode, seed) in TP_RUNS.items():
+        cfg = tp_cfg(key)
+        params = tr.init_lm(torch.Generator(device="cuda").manual_seed(
+            TP_SEED), cfg, device="cuda")
+        logits, ms, _, _, _ = tp_measured_prefill(
+            cfg, steps.make_prefill_step(cfg), params,
+            tp_prefill_inputs(cfg, B, S, seed))
+        r = dict(prefill=logits, prefill_ms=ms)
+        if decode == "generate":
+            r["tokens"], log_, _, _ = tp_serve(cfg, params, None, seed + 200)
+            r["step_logits"], r["step_ms"] = log_.logits, log_.ms
+        else:
+            r["step_logits"], r["step_ms"], _ = tp_seeded_steps(
+                cfg, params, None, steps.make_decode_step(cfg),
+                tp_seeded_state(cfg))
+        out[key] = r
+        del params
+        torch.cuda.empty_cache()
     return out
 
 
@@ -6447,24 +6576,24 @@ def tp_predicted(step, *args):
 
 
 def tp_rank(mesh):
-    """One rank of the tensor_parallel phase on a 1 x 2 mesh: its blocks
-    of SmolLM-360M's seed-TP_SEED weights (``init_lm`` with
-    ``keep_blocks``), the prefill through ``prefill_setup`` (its peak
-    above the allocations before the weights), the same prefill with
-    ``attn_seq_shards=2``, the generate; then Gemma-7B's blocks, prefill
-    and decode steps from its block of the seeded cache.  Each step's
-    exchanges are first predicted: the step run on the meta structs of
-    the rank's blocks that its setup gives (:func:`tp_predicted`)."""
-    from repro_torch.configs import InputShape, get_arch
+    """One rank of the tensor_parallel phase on a 1 x 2 mesh, for each
+    TP_RUNS model: its blocks of the seed-TP_SEED weights (``init_lm``
+    with ``keep_blocks``), the prefill through ``prefill_setup`` (its
+    peak above the allocations before the weights; SmolLM-360M's again
+    with ``attn_seq_shards=2``), then the generate (an encoder-decoder's
+    against its own encode) or the decode steps from its block of the
+    seeded state.  Each step's exchanges are first predicted: the step
+    run on the meta structs of the rank's blocks that its setup gives
+    (:func:`tp_predicted`)."""
+    from repro_torch.configs import InputShape
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tr
     from repro_torch.tree import tree_leaves
 
     out = {}
-    for arch in (ARCH, GEMMA):
-        cfg = get_arch(arch)
-        B, S = TP_PREFILL if arch == ARCH else TP_GEMMA_PREFILL
+    for key, (arch, _, (B, S), decode, seed) in TP_RUNS.items():
+        cfg = tp_cfg(key)
         steps.warm_device_caches(cfg, "cuda")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -6481,10 +6610,11 @@ def tp_rank(mesh):
         init_s = time.perf_counter() - t0
         held = sum(t.numel() * t.element_size()
                    for t in tree_leaves(params))
-        toks = tp_inputs(cfg, B, S, TP_SEED + (1 if arch == ARCH else 2))
-        rows = ranks.clients()
+        whole = tp_prefill_inputs(cfg, B, S, seed)
+        inputs = {k: v[ranks.clients()].contiguous()
+                  for k, v in whole.items()}
         logits, ms, peak, counts, exchanged = tp_measured_prefill(
-            cfg, step, params, {"tokens": toks[rows].contiguous()})
+            cfg, step, params, inputs)
         r.update(prefill=logits, prefill_ms=ms, prefill_peak=peak - base,
                  prefill_launches=counts, prefill_exchanged=exchanged,
                  held_bytes=held, init_s=init_s, rank=ranks.model.rank)
@@ -6495,14 +6625,15 @@ def tp_rank(mesh):
             r["seq_predicted"] = tp_predicted(seq_step, *seq_args)
             r["seq"], r["seq_ms"], _, r["seq_launches"], r[
                 "seq_exchanged"] = tp_measured_prefill(
-                    seq_cfg, seq_step, params, {"tokens": toks}, warm=False)
+                    seq_cfg, seq_step, params, whole, warm=False)
+        if decode == "generate":
             n = len(TP_PROMPTS)
             d_step, d_args, _, _ = steps.decode_setup(
                 cfg, InputShape("tp", TP_GEN_CACHE, n, "decode"), mesh)
             r["step_predicted"] = tp_predicted(d_step, *d_args[:3], 0)
             eng_ranks = tp.serve_block(mesh, n, p_specs)
             r["tokens"], log_, r["gen_launches"], r["partial_len"] = \
-                tp_serve(cfg, params, eng_ranks)
+                tp_serve(cfg, params, eng_ranks, seed + 200)
             r["step_logits"], r["step_ms"] = log_.logits, log_.ms
             r["step_exchanged"] = log_.exchanged
         else:
@@ -6514,31 +6645,31 @@ def tp_rank(mesh):
             reset_all_counts()
             with PartialLengths() as lens:
                 r["step_logits"], r["step_ms"], r["step_exchanged"] = \
-                    tp_gemma_steps(cfg, params, dranks,
-                                   steps.make_decode_step(cfg, 0, dranks),
-                                   tp_seeded_state(cfg, dranks))
+                    tp_seeded_steps(cfg, params, dranks,
+                                    steps.make_decode_step(cfg, 0, dranks),
+                                    tp_seeded_state(cfg, dranks))
             torch.cuda.synchronize()
             r["gen_launches"], r["partial_len"] = all_counts(), lens.longest
-        out[arch] = r
+        out[key] = r
         del params
         torch.cuda.empty_cache()
     return out
 
 
-def tp_predict(arch):
+def tp_predict(key):
     """The meta prediction of a rank's prefill on a 1 x 2 fake mesh: the
     roofline report (its peak: the rank's weights and rows, outputs and
     temporaries)."""
-    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.configs import InputShape
     from repro_torch.launch import dryrun, steps
 
-    cfg = get_arch(arch)
-    B, S = TP_PREFILL if arch == ARCH else TP_GEMMA_PREFILL
+    cfg = tp_cfg(key)
+    _, _, (B, S), _, _ = TP_RUNS[key]
     shape = InputShape("tp", S, B, "prefill")
     with dryrun.fake_mesh((1, 2), ("data", "model")) as mesh:
         step, args, _, _ = steps.prefill_setup(cfg, shape, mesh,
                                                rank_local=True)
-        return predict_step(f"tensor_parallel {arch} rank", step, args, cfg,
+        return predict_step(f"tensor_parallel {key} rank", step, args, cfg,
                             shape)
 
 
@@ -6577,81 +6708,125 @@ def tp_bf16_hold(label, got, want):
     return r_rms, r_max
 
 
-def tensor_parallel(report):
-    """(a) :func:`tp_kernels`; (b) SmolLM-360M at full width, f32, over a
-    1 x 2 gloo mesh on the card (two rank processes, world 1 in this
-    one): the TP_PREFILL prefill against world 1 (logits within
-    TP_LOGIT_TOL), again with ``attn_seq_shards=2``, the generate of
-    TP_PROMPTS (greedy tokens equal or a counted near-tie flip, each
-    step's logits within TP_LOGIT_TOL until a flip); (c) Gemma-7B, bf16,
-    the TP_GEMMA_PREFILL prefill and TP_GEMMA_STEPS decode steps from the
-    seeded cache against world 1 (:func:`tp_bf16_hold`).  Each rank's
-    launches (B4 in the prefills, B5's partial in every decode step, B5
-    whole never), its exchanges against the meta prediction exactly, the
-    longest block its partial was handed (non-empty on every rank), ms
-    per step, its prefill's peak against the meta prediction (within
-    TP_PEAK_SHARE).
-    Returns (the partial's kernels-line row, its main-path launches)."""
+def tp_want(cfg, S, n_steps):
+    """A rank's launches in a prefill of S positions and in n_steps decode
+    steps: B4 in every encoder, self- and cross-attention layer and B6
+    once a chunk in every Mamba layer of the prefill; B5's partial in
+    every self-attention layer and B5 whole in every cross-attention
+    layer of a step."""
+    from repro_torch.configs import base
+
+    L = cfg.n_layers
+    cross = L if cfg.n_enc_layers else 0
+    mamba = sum(k in (base.HYMBA, base.MAMBA) for k in cfg.pattern())
+    return ({"flash_attention": cfg.n_enc_layers + L + cross,
+             "ssm_scan": mamba * -(-S // SCAN_CHUNK)},
+            {"decode_attention_partial": L * n_steps,
+             "decode_attention": cross * n_steps})
+
+
+def tp_bf16_margin(label, got, w1, f32):
+    """A bf16 TP run's logits ``got`` held through the f32 copy's world 1
+    logits ``f32``: their difference's RMS and max (over f32's RMS) no
+    more than TP_BF16_MARGIN times world 1's bf16 logits' ``w1``.
+    Returns both pairs."""
+    def off(a):
+        d = a.float() - f32.float()
+        rms = float(f32.float().pow(2).mean().sqrt())
+        return (float(d.pow(2).mean().sqrt()) / rms,
+                float(d.abs().max()) / rms)
+
+    tp_off, w1_off = off(got), off(w1)
+    if any(a > TP_BF16_MARGIN * b for a, b in zip(tp_off, w1_off)):
+        raise AssertionError(f"tensor_parallel {label}: RMS/max {tp_off} "
+                             f"from the f32 copy, world 1's bf16 {w1_off}")
+    return tp_off, w1_off
+
+
+def tensor_parallel(report, errs):
+    """(a) :func:`tp_kernels`; (b) over a 1 x 2 gloo mesh on the card (two
+    rank processes, world 1 in this one), at full width, each TP_RUNS
+    run against world 1: SmolLM-360M (f32) the TP_PREFILL prefill
+    (logits within TP_LOGIT_TOL), again with ``attn_seq_shards=2``, the
+    generate of TP_PROMPTS (greedy tokens equal or a counted near-tie
+    flip, each step's logits within TP_LOGIT_TOL until a flip); Gemma-7B
+    (bf16) the TP_GEMMA_PREFILL prefill and TP_GEMMA_STEPS decode steps
+    from the seeded cache (:func:`tp_bf16_hold`); Hymba-1.5B the same
+    with B6 on the rank's channels, its f32 copy within TP_LOGIT_TOL,
+    its bf16 run through the f32 copy (:func:`tp_bf16_margin`);
+    SeamlessM4T-medium (f32) a prefill over 1,500 frames and the
+    generate against each rank's encode, as SmolLM's.  Each rank's
+    launches (:func:`tp_want`), its exchanges against the meta
+    prediction exactly, the longest block its partial was handed
+    (non-empty on every rank), ms per step, its prefill's peak against
+    the meta prediction (within TP_PEAK_SHARE).
+    Returns (the partial's kernels-line row, the ranks' other launches)."""
     import tempfile
 
-    from repro_torch.configs import get_arch
-
-    rows, err = tp_kernels(report)
+    rows, err = tp_kernels(report, errs)
     world1 = tp_world1()
-    pred = {arch: tp_predict(arch) for arch in (ARCH, GEMMA)}
+    pred = {key: tp_predict(key) for key in TP_RUNS}
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp"))
     t0 = time.perf_counter()
     ranks = dp_spawn(2, [("tp", (1, 2))], tmp)
     spawn_s = time.perf_counter() - t0
     partial_launches, out_rows = 0, []
+    other = collections.Counter()
     for r, res in enumerate(ranks):
         res = res["tp"]
-        for arch, w1 in ((ARCH, world1["smollm"]), (GEMMA, world1["gemma"])):
-            got = res[arch]
-            cfg = get_arch(arch)
+        for key, (arch, _, (_, S), decode, _) in TP_RUNS.items():
+            got, w1 = res[key], world1[key]
+            cfg = tp_cfg(key)
             M, m = 2, got["rank"]
             V = cfg.padded_vocab // M
-            L_pre = cfg.n_layers
-            check_path_counts(f"tensor_parallel {arch} prefill rank {r}",
-                              got["prefill_launches"],
-                              {"flash_attention": L_pre})
+            block = lambda t: t[..., m * V:(m + 1) * V]
+            # a generate logs the rank's vocabulary block, the seeded
+            # steps the logits gathered whole
+            sblock = block if decode == "generate" else (lambda t: t)
             n_steps = len(got["step_logits"])
-            check_path_counts(f"tensor_parallel {arch} decode rank {r}",
-                              got["gen_launches"],
-                              {"decode_attention_partial": L_pre * n_steps})
+            want_pre, want_dec = tp_want(cfg, S, n_steps)
+            check_path_counts(f"tensor_parallel {key} prefill rank {r}",
+                              got["prefill_launches"], want_pre)
+            check_path_counts(f"tensor_parallel {key} decode rank {r}",
+                              got["gen_launches"], want_dec)
             partial_launches += got["gen_launches"][
                 "decode_attention_partial"]
+            for counts in (got["prefill_launches"], got["gen_launches"],
+                           got.get("seq_launches", {})):
+                other.update({k: v for k, v in counts.items()
+                              if v and k != "decode_attention_partial"})
             for ex in [got["prefill_exchanged"]] + got["step_exchanged"]:
                 if set(ex) != {"model"}:
-                    raise AssertionError(f"tensor_parallel {arch}: "
+                    raise AssertionError(f"tensor_parallel {key}: "
                                          f"exchanges {ex}")
             if got["prefill_exchanged"] != got["prefill_predicted"] or any(
                     ex != got["step_predicted"]
                     for ex in got["step_exchanged"]):
                 raise AssertionError(
-                    f"tensor_parallel {arch} rank {r}: counted "
+                    f"tensor_parallel {key} rank {r}: counted "
                     f"{got['prefill_exchanged']} / "
                     f"{got['step_exchanged']} != the predicted "
                     f"{got['prefill_predicted']} / "
                     f"{got['step_predicted']}")
             # every rank's block of cache positions was reached
-            L_r = (TP_GEN_CACHE if arch == ARCH else TP_CACHE) // M
+            L_r = (TP_GEN_CACHE if decode == "generate" else TP_CACHE) // M
             if not 0 < got["partial_len"] <= L_r:
                 raise AssertionError(
-                    f"tensor_parallel {arch} rank {r}: the partial's "
+                    f"tensor_parallel {key} rank {r}: the partial's "
                     f"longest block {got['partial_len']} of {L_r}")
-            want = w1["prefill"][..., m * V:(m + 1) * V]
-            p, _ = pred[arch]
+            want = block(w1["prefill"])
+            p, _ = pred[key]
             share = got["prefill_peak"] / p.bytes_per_device - 1.0
             if abs(share) > TP_PEAK_SHARE:
                 raise AssertionError(
-                    f"tensor_parallel {arch} rank {r}: peak "
+                    f"tensor_parallel {key} rank {r}: peak "
                     f"{got['prefill_peak']} vs meta {p.bytes_per_device}")
-            row = dict(arch=arch, rank=r, prefill_ms=got["prefill_ms"],
+            row = dict(run=key, arch=arch, rank=r,
+                       prefill_ms=got["prefill_ms"],
                        world1_prefill_ms=w1["prefill_ms"],
                        step_ms=got["step_ms"], world1_step_ms=w1["step_ms"],
                        peak_bytes=got["prefill_peak"],
-                       meta_peak_bytes=p.bytes_per_device,
+                       meta_peak_bytes=p.bytes_per_device, peak_share=share,
                        held_bytes=got["held_bytes"], init_s=got["init_s"],
                        partial_len=got["partial_len"],
                        prefill_exchanged=got["prefill_exchanged"],
@@ -6660,62 +6835,76 @@ def tensor_parallel(report):
                            "prefill_launches"].items() if v},
                        step_launches={k: v for k, v in got[
                            "gen_launches"].items() if v})
-            if arch == ARCH:
+            f32 = world1.get(f"{key}_f32")
+            if f32 is not None:            # bf16, through its f32 copy
+                row["prefill_off"] = tp_bf16_margin(
+                    f"{key} prefill rank {r}", got["prefill"], want,
+                    block(f32["prefill"]))
+                row["step_off"] = [tp_bf16_margin(
+                    f"{key} step {t} rank {r}", a, sblock(b), sblock(c))
+                    for t, (a, b, c) in enumerate(zip(
+                        got["step_logits"], w1["step_logits"],
+                        f32["step_logits"]))]
+                held = (f"RMS/max over the f32 copy's logits' RMS, this "
+                        f"rank's and world 1's bf16: prefill "
+                        f"{row['prefill_off']}, steps {row['step_off']}")
+            elif cfg.compute_dtype == "bfloat16":
+                row["prefill_rms_max"] = tp_bf16_hold(
+                    f"{key} prefill rank {r}", got["prefill"], want)
+                row["step_rms_max"] = [tp_bf16_hold(
+                    f"{key} step {t} rank {r}", a, b) for t, (a, b) in
+                    enumerate(zip(got["step_logits"], w1["step_logits"]))]
+                held = (f"RMS/max of the difference over the logits' RMS: "
+                        f"prefill {row['prefill_rms_max']}, steps "
+                        f"{row['step_rms_max']}")
+            else:
                 row["prefill_max_diff"] = max_abs_err(got["prefill"], want)
-                row["seq_max_diff"] = max_abs_err(got["seq"], want)
-                check_path_counts(f"tensor_parallel seq shards rank {r}",
-                                  got["seq_launches"],
-                                  {"flash_attention": L_pre})
-                if got["seq_exchanged"] != got["seq_predicted"]:
-                    raise AssertionError("tensor_parallel seq shards: "
-                                         f"{got['seq_exchanged']} != "
-                                         f"{got['seq_predicted']}")
-                first, flips = tp_flips(got["tokens"], w1["tokens"],
-                                        w1["step_logits"])
+                first, flips = [None] * len(got["step_logits"][0]), 0
+                if decode == "generate":
+                    first, flips = tp_flips(got["tokens"], w1["tokens"],
+                                            w1["step_logits"])
                 prompt = n_steps - TP_MAX_NEW
                 worst = 0.0
                 for t, (a, b) in enumerate(zip(got["step_logits"],
                                                w1["step_logits"])):
                     live = [i for i, f in enumerate(first)
                             if f is None or t < prompt + f]
-                    worst = max(worst, max_abs_err(
-                        a[live], b[live][..., m * V:(m + 1) * V]))
-                row.update(step_max_diff=worst, flips=flips,
-                           seq_ms=got["seq_ms"])
+                    worst = max(worst, max_abs_err(a[live],
+                                                   sblock(b[live])))
+                row.update(step_max_diff=worst, flips=flips)
+                held = (f"max |diff| vs world 1: prefill "
+                        f"{row['prefill_max_diff']:.3e}, steps "
+                        f"{worst:.3e}; {flips} flips")
+                if key == "smollm":
+                    row["seq_max_diff"] = max_abs_err(got["seq"], want)
+                    row["seq_ms"] = got["seq_ms"]
+                    check_path_counts(f"tensor_parallel seq shards rank {r}",
+                                      got["seq_launches"], want_pre)
+                    if got["seq_exchanged"] != got["seq_predicted"]:
+                        raise AssertionError("tensor_parallel seq shards: "
+                                             f"{got['seq_exchanged']} != "
+                                             f"{got['seq_predicted']}")
+                    held += (f"; seq shards prefill {row['seq_ms']:.1f} ms, "
+                             f"max |diff| {row['seq_max_diff']:.3e}")
                 if max(worst, row["prefill_max_diff"],
-                       row["seq_max_diff"]) > TP_LOGIT_TOL:
-                    raise AssertionError(f"tensor_parallel smollm rank {r}: "
+                       row.get("seq_max_diff", 0.0)) > TP_LOGIT_TOL:
+                    raise AssertionError(f"tensor_parallel {key} rank {r}: "
                                          f"{row}")
-            else:
-                row["prefill_rms_max"] = tp_bf16_hold(
-                    f"gemma prefill rank {r}", got["prefill"], want)
-                row["step_rms_max"] = [tp_bf16_hold(
-                    f"gemma step {t} rank {r}", a, b) for t, (a, b) in
-                    enumerate(zip(got["step_logits"], w1["step_logits"]))]
             out_rows.append(row)
-            log(f"tensor_parallel {arch} rank {r}/2 (1 x 2, gloo): prefill "
+            log(f"tensor_parallel {key} rank {r}/2 (1 x 2, gloo): prefill "
                 f"{row['prefill_ms']:.1f} ms (world 1 "
                 f"{row['world1_prefill_ms']:.1f}), ms/step "
                 f"{[round(x, 1) for x in row['step_ms']]} (world 1 "
                 f"{[round(x, 1) for x in row['world1_step_ms']]}); peak "
                 f"{row['peak_bytes'] / 1e9:.3f} GB vs meta "
-                f"{row['meta_peak_bytes'] / 1e9:.3f} GB; holds "
+                f"{row['meta_peak_bytes'] / 1e9:.3f} GB ({share:+.4f}); holds "
                 f"{row['held_bytes'] / 1e9:.3f} GB of weights (drawn in "
                 f"{row['init_s']:.1f} s); exchanged per prefill "
                 f"{row['prefill_exchanged']}, per step "
                 f"{row['step_exchanged']} (= the meta prediction); partial's "
                 f"longest block {row['partial_len']}; launches "
                 f"prefill {row['prefill_launches']}, decode "
-                f"{row['step_launches']}; "
-                + (f"seq shards prefill {row['seq_ms']:.1f} ms; "
-                   f"max |diff| vs world 1: prefill "
-                   f"{row['prefill_max_diff']:.3e}, seq shards "
-                   f"{row['seq_max_diff']:.3e}, steps "
-                   f"{row['step_max_diff']:.3e}; {row['flips']} flips"
-                   if arch == ARCH else
-                   f"RMS/max of the difference over the logits' RMS: "
-                   f"prefill {row['prefill_rms_max']}, steps "
-                   f"{row['step_rms_max']}"))
+                f"{row['step_launches']}; {held}")
     row = dict(rows[0])
     row.update(name="decode_attention_partial", route="cuda",
                source=f"{CSRC}/decode_attention.cu",
@@ -6724,8 +6913,9 @@ def tensor_parallel(report):
                lse_max_abs_err=report["tp_kernels"]["lse_max_abs_err"],
                shapes=rows)
     report["tensor_parallel"] = dict(rows=out_rows, spawn_s=spawn_s,
-                                     partial_launches=partial_launches)
-    return row
+                                     partial_launches=partial_launches,
+                                     other_launches=dict(other))
+    return row, other
 
 
 def main() -> int:
@@ -6950,12 +7140,15 @@ def main() -> int:
     report["data_parallel_phase_s"] = time.perf_counter() - t0
     log(f"phase: data_parallel {report['data_parallel_phase_s']:.1f} s")
 
-    # Tensor-parallel serving: B5's partial held, merged and timed;
-    # SmolLM-360M (f32) and Gemma-7B (bf16) over a 1 x 2 gloo mesh on the
-    # card against world 1, each rank's exchanges against the plan's count
-    # and its peak against meta
+    # Tensor-parallel serving: B5's partial held, merged and timed, B6 on a
+    # rank's channels, B4/B5 on a rank's heads; SmolLM-360M (f32),
+    # Gemma-7B (bf16), Hymba-1.5B (bf16) and SeamlessM4T-medium (f32) over
+    # a 1 x 2 gloo mesh on the card against world 1, each rank's exchanges
+    # against the plan's count and its peak against meta
     t0 = time.perf_counter()
-    tp_row = tensor_parallel(report)
+    tp_row, tp_launches = tensor_parallel(report, errs)
+    for name, n in tp_launches.items():
+        launches[name] = launches.get(name, 0) + n
     report["tensor_parallel_phase_s"] = time.perf_counter() - t0
     log(f"phase: tensor_parallel {report['tensor_parallel_phase_s']:.1f} s")
 
@@ -7041,7 +7234,7 @@ def main() -> int:
     # registers and spills of the instances they launch
     sv, hd = times["decode_attention_serving"], times_hymba["decode_attention"]
     for rows in (moe_rows, *new_rows.values(),
-                 {"decode_attention": long_rows}):
+                 {"decode_attention": long_rows}, report["tp_rank_heads"]):
         for r in rows["decode_attention"]:
             b5[r["kernel"]] = r["ptxas"]
     next(k for k in kernels if k["name"] == "decode_attention").update(
@@ -7055,7 +7248,8 @@ def main() -> int:
         vlm=new_rows["vlm_serve"]["decode_attention"],
         dense=new_rows["dense_serve_gemma"]["decode_attention"]
         + new_rows["dense_serve_phi3"]["decode_attention"],
-        long_500k=long_rows)
+        long_500k=long_rows,
+        tp_rank_heads=report["tp_rank_heads"]["decode_attention"])
     # B4's two kernels: the fields above are the f32 one's (SmolLM-360M's
     # prefill); the bf16 one's at Hymba-1.5B's prefill shape
     hb = times_hymba["flash_attention"]
@@ -7071,6 +7265,7 @@ def main() -> int:
         dense=new_rows["dense_serve_gemma"]["flash_attention"]
         + new_rows["dense_serve_phi3"]["flash_attention"],
         long_rows=report["long_row"],
+        tp_rank_heads=report["tp_rank_heads"]["flash_attention"],
         prefill_32k={name: {k: r[k] for k in ("B", "S", "ms", "launches")}
                      for name, r in report["prefill_32k"].items()})
     # B4's backward: its kernels (dq, the per-head dK/dV, their sum) with
@@ -7125,7 +7320,8 @@ def main() -> int:
         launches=launches["ssm_scan"], max_abs_err=errs["ssm_scan"],
         ms=scan["ms"], plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
         bound_by=scan["bound_by"], library_ms=None,
-        prefill_32k_chunk=report["scan_timings"][-1]))
+        prefill_32k_chunk=report["scan_timings"][-1],
+        rank_block=report["tp_scan_block"]))
     labels = [label for label in report["ptxas"]
               if label.startswith("ssm_scan_bwd_kernel")]
     kernels.append(dict(

@@ -32,7 +32,11 @@ rank's heads where its blocks of ``wq``/``wk``/``wv`` are whole heads and
 its query heads use only its KV heads, else on every head after a gather;
 B4 on a rank's block of queries under ``attn_seq_shards``; at decode B5's
 partial over the rank's block of cache positions, the ranks' (out, lse)
-gathered and merged in rank order.
+gathered and merged in rank order; cross-attention on a rank's heads (B4
+without the mask over the encoder's memory, or B5 whole over it).  The
+Mamba mixer (``models/ssm.py``) runs on a rank's block of its ``d_in``
+channels (:func:`channels`, :func:`leaf_block`): B6 on them, ``x_proj``
+and ``out_proj`` row-parallel sums, its decode state the rank's channels.
 
 The rank's place travels as ``ranks=`` (a ``data_parallel.RankBlock``
 whose ``specs`` are the plan's specs of the parameters at hand).  A
@@ -45,9 +49,9 @@ layer functions: :func:`at` gives them None, and with None every helper
 here is world 1's op (the product ``x @ w``, the leaf as it is, no
 exchange).
 
-The families of this slice are the dense-attention decoders (SmolLM,
-Gemma, Phi3, LLaVA's decoder, Llama3 on ``meta``); :func:`check_family`
-refuses the others over a ``"model"`` axis of more than one device.
+Every family serves this way but the MoE families and xLSTM:
+:func:`check_family` refuses those over a ``"model"`` axis of more than
+one device.
 """
 from __future__ import annotations
 
@@ -60,9 +64,8 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed.data_parallel import RankBlock, rank_block
 from repro_torch.distributed.sharding import map_leaves
 
-STEP3B = ("ROADMAP Queue A 7(b) step 3b (Hymba's B6 on a rank's channels, "
-          "the MoE families' expert placement and moe_group_shard, xLSTM, "
-          "SeamlessM4T's encoder and cross-attention)")
+STEP3B = ("ROADMAP Queue A 7(b) step 3b (the MoE families' expert "
+          "placement and moe_group_shard, xLSTM)")
 STEP3C = ("ROADMAP Queue A 7(b) step 3c (training under the default plan's "
           "'model' placements)")
 STEP3D = ("ROADMAP Queue A 7(b) step 3d (mode B's FSDP over a real 'data' "
@@ -92,6 +95,15 @@ def layer(ranks: Optional[RankBlock], i: int) -> Optional[RankBlock]:
     if r is None or ranks.state_specs is None:
         return r
     return dataclasses.replace(r, state_specs=ranks.state_specs["layers"][i])
+
+
+def at_state(ranks: Optional[RankBlock], key: str) -> Optional[RankBlock]:
+    """:func:`at` of ``key`` with the layer's state specs narrowed to the
+    state's ``key`` too (a Mamba mixer's ``h`` and ``conv``)."""
+    r = at(ranks, key)
+    if r is None or r.state_specs is None:
+        return r
+    return dataclasses.replace(r, state_specs=r.state_specs[key])
 
 
 def spec(ranks: Optional[RankBlock], name: str):
@@ -190,19 +202,16 @@ def serve_block(mesh, batch: int, specs, state_specs=None) -> RankBlock:
 
 
 def check_family(cfg) -> None:
-    """Refuse, naming 7(b) step 3b, a config whose layers this slice does
-    not split over ``"model"``: any block but attention (Hymba's Mamba
-    heads, xLSTM), an MoE FFN, an encoder (SeamlessM4T)."""
-    from repro_torch.configs.base import ATTN, FFN_MOE, SWA
+    """Refuse, naming 7(b) step 3b, a config whose layers are not split
+    over ``"model"`` yet: the xLSTM block kinds, an MoE FFN."""
+    from repro_torch.configs.base import FFN_MOE, MLSTM, SLSTM
 
-    kinds = sorted(set(cfg.pattern()) - {ATTN, SWA})
+    kinds = sorted(set(cfg.pattern()) & {MLSTM, SLSTM})
     why = []
     if kinds:
         why.append(f"block kinds {kinds}")
     if cfg.ffn_kind == FFN_MOE:
         why.append("an MoE FFN")
-    if cfg.n_enc_layers:
-        why.append("an encoder and cross-attention")
     if why:
         raise NotImplementedError(
             f"{cfg.name} over a 'model' axis of more than one device "
@@ -240,10 +249,29 @@ def gather_leaf(w: torch.Tensor, spec, ranks: Optional[RankBlock]
     return w if d is None else gather(w, ranks, d)
 
 
-def col_block(n: int, ranks: RankBlock) -> slice:
-    """This rank's contiguous block of ``n`` columns."""
+def channels(t: torch.Tensor, ranks: Optional[RankBlock], dim: int = -1
+             ) -> torch.Tensor:
+    """This rank's contiguous block of dim ``dim`` of a whole ``t`` (a
+    view), or ``t`` at world 1.  The dim must split evenly over
+    ``"model"``."""
+    if ranks is None:
+        return t
+    n = t.shape[dim]
+    if n % ranks.model.size:
+        raise ValueError(f"{n} channels do not split over "
+                         f"{ranks.model.size} 'model' ranks")
     m = n // ranks.model.size
-    return slice(ranks.model.rank * m, (ranks.model.rank + 1) * m)
+    return t.narrow(dim, ranks.model.rank * m, m)
+
+
+def leaf_block(w: torch.Tensor, spec, ranks: Optional[RankBlock],
+               dim: int = -1) -> torch.Tensor:
+    """This rank's block of a leaf along ``dim``: the leaf as the rank
+    holds it where the plan splits it there, else its block of the leaf
+    gathered whole at use (``w`` at world 1)."""
+    if ranks is None or model_dim(spec, ranks) == dim % w.ndim:
+        return w
+    return channels(gather_leaf(w, spec, ranks), ranks, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +302,7 @@ def linear(x: torch.Tensor, w: torch.Tensor, spec,
         return x @ w.to(x.dtype)
     if d == w.ndim - 1:
         return gather(x @ w.to(x.dtype), ranks, -1)
-    return _row_sum(x[..., col_block(x.shape[-1], ranks)], w, ranks)
+    return _row_sum(channels(x, ranks), w, ranks)
 
 
 def linear_cols(x: torch.Tensor, w: torch.Tensor, spec,
@@ -284,15 +312,15 @@ def linear_cols(x: torch.Tensor, w: torch.Tensor, spec,
     :func:`linear`'s whole product (all of it at world 1)."""
     if model_dim(spec, ranks) == w.ndim - 1:
         return x @ w.to(x.dtype)
-    y = linear(x, w, spec, ranks)
-    return y if ranks is None else y[..., col_block(y.shape[-1], ranks)]
+    return channels(linear(x, w, spec, ranks), ranks)
 
 
 def linear_from_block(xb: torch.Tensor, w: torch.Tensor, spec,
-                      ranks: RankBlock) -> torch.Tensor:
+                      ranks: Optional[RankBlock]) -> torch.Tensor:
     """``x @ w`` whole on every rank from ``xb``, this rank's column block
     of ``x``: row-parallel where ``w`` is split on its input dim (the
-    local product, summed), else ``x`` gathered first."""
+    local product, summed), else ``x`` gathered first (at world 1, ``xb``
+    is ``x``: world 1's product)."""
     if model_dim(spec, ranks) == 0:
         return _row_sum(xb, w, ranks)
     return linear(gather(xb, ranks, -1), w, spec, ranks)

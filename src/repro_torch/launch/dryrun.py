@@ -37,8 +37,9 @@ collective term comes from their bytes and the link model of
 ``roofline.kernel_cost`` (NVLink within a node of 8, InfiniBand between).
 The row is written as ``{arch}__{shape}__16x16.json`` or
 ``__2x16x16.json``.  Their serving rows (``prefill_32k``, ``decode_32k``)
-of the mode-A dense-attention decoders (SmolLM-360M, Gemma-7B) run the
-same way under the default plan, tensor-parallel over ``"model"``
+of the mode-A families but the MoE families and xLSTM (SmolLM-360M,
+Gemma-7B, Hymba-1.5B, SeamlessM4T-medium) run the same way under the
+default plan, tensor-parallel over ``"model"``
 (``distributed/tensor_parallel.py``; ``steps.prefill_setup`` /
 ``decode_setup(rank_local=True)``: rank 0's rows and blocks, at
 ``decode_32k`` on (16, 16) 8 rows x 2,048 cache positions), with a
@@ -46,7 +47,8 @@ same way under the default plan, tensor-parallel over ``"model"``
 ``NotImplementedError``, naming its ROADMAP item (:func:`check_mesh`):
 training without ``inner_dp`` (7(b) step 3c), mode B (step 3d: FSDP over
 a real ``"data"`` axis), ``long_500k``'s decode (B = 1: the plan puts
-``"model"`` on head_dim, step 3d), and the families of step 3b.
+``"model"`` on head_dim, step 3d), and the MoE families and xLSTM
+(step 3b).
 """
 from __future__ import annotations
 
@@ -77,8 +79,8 @@ def check_mesh(multi_pod: Optional[bool], kind: str = "train",
                batch: int = 0) -> None:
     """The rows the port runs: every row on the host mesh (``multi_pod``
     None); on the production meshes the training rows of mode-A configs
-    under ``inner_dp`` and the serving rows of mode-A dense-attention
-    decoders (``cfg``; a decode row of ``batch`` > 1).  Any other raises
+    under ``inner_dp`` and the serving rows of mode-A configs but the MoE
+    families and xLSTM (``cfg``; a decode row of ``batch`` > 1).  Any other raises
     ``NotImplementedError`` naming its ROADMAP Queue A 7(b) step: 3c
     (training under the default plan), 3d (mode B; ``long_500k``'s
     head_dim split), 3b (``tensor_parallel.check_family``)."""

@@ -15,8 +15,10 @@ with, as the reference's engine does; a VLM serves its text.
 Started by ``torchrun`` with ``--mesh RxM`` it serves as one rank of an R
 x M ("data", "model") mesh (``launch/mesh.registered_mesh``; one process
 group a process), tensor-parallel over ``"model"`` under the default
-plan (``distributed/tensor_parallel.py``: the dense-attention decoders;
-the other families raise naming ROADMAP 7(b) step 3b), the requests'
+plan (``distributed/tensor_parallel.py``: every family but the MoE
+families and xLSTM, which raise naming ROADMAP 7(b) step 3b: Hymba's
+Mamba heads on a rank's channels, SeamlessM4T's encoder and
+cross-attention on its heads), the requests'
 rows split over ``"data"``; each rank draws its blocks of the seed-0
 weights (``transformer.init_lm`` with ``tensor_parallel.keep_blocks``)
 and rank 0 prints::
@@ -24,6 +26,9 @@ and rank 0 prints::
     python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.serve --arch smollm-360m --mesh 1x2 \
         --backend gloo
+
+(also ``--arch hymba-1.5b`` or ``seamless-m4t-medium``; add ``--smoke
+--device cpu`` on the CPU).
 
 ``--backend``: ``gloo`` where the ranks share one card (NCCL refuses
 that) or on the CPU, ``nccl`` where each rank has a card of its own

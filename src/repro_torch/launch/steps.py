@@ -430,9 +430,9 @@ def check_placements(plan, kind: str = "train") -> None:
     parameters over ``"data"`` step 3d.  Serving (``kind`` ``"prefill"``
     or ``"decode"``): the default plan over any ``"data"`` x ``"model"``
     mesh for mode A, for mode B where ``"data"`` has one device (else
-    step 3d); over a ``"model"`` axis of more than one device only the
-    dense-attention decoders (``tensor_parallel.check_family``: step
-    3b)."""
+    step 3d); over a ``"model"`` axis of more than one device every
+    family but the MoE families and xLSTM (``tensor_parallel.
+    check_family``: step 3b)."""
     if mesh_size(plan.mesh) == 1:
         return
     sizes = dict(zip(plan.mesh.mesh_dim_names, tuple(plan.mesh.shape)))

@@ -38,7 +38,11 @@ rank, reading each weight's spec:
   so every rank has the same bits; then ``wo``.  A cache the plan splits
   over ``"model"`` on another dim (``long_500k`` at B = 1 on the
   production meshes: head_dim) raises ``NotImplementedError`` naming
-  7(b) step 3d.
+  7(b) step 3d;
+* cross-attention onto an encoder's memory (whole on every rank): on
+  the rank's heads where :func:`local_heads`, else on every head after
+  a gather; B4 without the mask for Sq > 1, B5 whole over the memory
+  for Sq = 1 (never its partial: the memory is not split by positions).
 
 Without ``ranks`` (world 1) the same functions run the whole layer: each
 product is ``x @ w``, nothing is exchanged, B5 runs whole over the cache,
@@ -191,19 +195,27 @@ def decode_attention(params, x: torch.Tensor, layer_cache, step: int,
 
 
 def cross_attention(params, x: torch.Tensor, memory: torch.Tensor,
-                    cfg: ArchConfig) -> torch.Tensor:
+                    cfg: ArchConfig, ranks=None) -> torch.Tensor:
     """Decoder->encoder attention. x: (B, Sq, d); memory: (B, Sk, d).
     K and V are projected from ``memory`` at every call, as in the
     reference.  Sq > 1 runs B4 (``causal=False``, Sq and Sk as they
-    come); Sq = 1 runs B5 with ``length`` = Sk for every row."""
+    come); Sq = 1 runs B5 with ``length`` = Sk for every row.
+    ``ranks``: on the rank's heads where :func:`local_heads` (q from x,
+    k and v from the whole memory, the local column products; B4 or B5
+    whole on them, then ``wo``'s row block: one sum), else on every head
+    after a gather; the memory is never split by positions."""
     B, Sq, _ = x.shape
     Sk = memory.shape[1]
+    local = local_heads(cfg, ranks)
     q, k, v = _project_qkv(params, x, memory, cfg, None, None,
-                           use_rope=False)
+                           use_rope=False, ranks=None if local else ranks)
     if Sq == 1:
         length = torch.full((B,), Sk, dtype=torch.int32, device=x.device)
         out = ops.decode_attention(q[:, 0], k, v, length)
     else:
         out = ops.flash_attention(q, k, v, causal=False)
     out = out.reshape(B, Sq, -1)
-    return out @ params["wo"].to(out.dtype)
+    if local:
+        return tp.linear_from_block(out, params["wo"], tp.spec(ranks, "wo"),
+                                    ranks)
+    return tp.linear(out, params["wo"], tp.spec(ranks, "wo"), ranks)

@@ -15,7 +15,9 @@ last state.  Decode
 convolution window, written into the state in place.  The reference's
 dtype rules hold: projections and the convolution run in the compute
 dtype; ``delta``, ``a``, ``b`` and the state ``h`` are f32; each chunk's
-output is cast back to the compute dtype.
+output is cast back to the compute dtype.  Under ``ranks=``
+(tensor-parallel serving) both forms run on the rank's block of the
+``d_in`` channels (:func:`mamba_scan`).
 
 xLSTM.  The reference computes the mLSTM and sLSTM in XLA, with no Pallas
 kernel, so the port keeps them in PyTorch and launches no kernel of its
@@ -44,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, dtype_of, span
 
@@ -124,34 +127,60 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
-def _mamba_coeffs(params, u: torch.Tensor, cfg: ArchConfig):
-    """u: (B, S, d_in) post-conv.  Returns a, b (B, S, d_in, N) and C
-    (B, S, N), f32, for ``h_t = a_t h_{t-1} + b_t`` and ``y_t = h_t C_t``."""
+def _mamba_coeffs(params, u: torch.Tensor, cfg: ArchConfig, ranks=None):
+    """u: (B, S, d_in) post-conv (under ``ranks``, the rank's channels).
+    Returns a, b (B, S, d_in, N) and C (B, S, N), f32, for ``h_t = a_t
+    h_{t-1} + b_t`` and ``y_t = h_t C_t``."""
     ds = cfg.ssm_state
-    dt_rank = params["dt_proj"].shape[0]
-    proj = u @ params["x_proj"].to(u.dtype)
+    proj = tp.linear_from_block(u, params["x_proj"],
+                                tp.spec(ranks, "x_proj"), ranks)
+    dt_rank = proj.shape[-1] - 2 * ds     # dt_proj's rows may be a block
     dt_lowrank, Bc, Cc = torch.split(proj, [dt_rank, ds, ds], dim=-1)
-    delta = softplus(dt_lowrank @ params["dt_proj"].to(u.dtype)
-                     + params["dt_bias"].to(u.dtype)).float()
-    A = -torch.exp(params["A_log"].float())                    # (d_in, N)
+    delta = softplus(tp.linear_cols(dt_lowrank, params["dt_proj"],
+                                    tp.spec(ranks, "dt_proj"), ranks)
+                     + _block(params, "dt_bias", ranks).to(u.dtype)).float()
+    A = -torch.exp(_block(params, "A_log", ranks, 0).float())  # (d_in, N)
     a = torch.exp(delta[..., None] * A)
     b = (delta * u.float())[..., None] * Bc.float()[:, :, None, :]
     return a, b, Cc.float()
 
 
-def mamba_scan(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _block(params, name: str, ranks, dim: int = -1) -> torch.Tensor:
+    """A channel-indexed leaf of the mixer (its channels on ``dim``): this
+    rank's block of it, or the leaf at world 1."""
+    return tp.leaf_block(params[name], tp.spec(ranks, name), ranks, dim)
+
+
+def _in_proj(params, x: torch.Tensor, ranks):
+    """u and z, the two halves of ``x @ in_proj``, at the rank's channels.
+    The plan splits ``in_proj`` (d, 2 d_in) on its output, but a rank's
+    column block is not its channels of u and then of z (over 2 ranks one
+    holds all of u, the other all of z): the product is gathered whole
+    (exact) and each half narrowed to the rank's channels."""
+    xz = tp.linear(x, params["in_proj"], tp.spec(ranks, "in_proj"), ranks)
+    u, z = xz.chunk(2, dim=-1)
+    return tp.channels(u, ranks), tp.channels(z, ranks)
+
+
+def mamba_scan(params, x: torch.Tensor, cfg: ArchConfig,
+               ranks=None) -> torch.Tensor:
     """Prefill form.  x: (B, S, d_model) -> (B, S, d_model).
 
     The sequence is padded with zeros to whole chunks of ``MAMBA_CHUNK``
     and the padding's outputs dropped, as in the reference.  The
     reference combines inside a chunk with ``associative_scan`` (a tree
     order); B6 and its plain version fold in time order, so the port
-    agrees with it to f32 rounding (1e-5), not bit for bit."""
+    agrees with it to f32 rounding (1e-5), not bit for bit.
+
+    ``ranks`` (tensor-parallel serving, ``distributed/tensor_parallel.py``)
+    runs the mixer on the rank's block of its ``d_in`` channels: the
+    convolution, B6 (every (row, channel, state) chain is independent)
+    and the gating on them; ``x_proj``'s and ``out_proj``'s products
+    row-parallel sums (or as their specs say), the output whole."""
     B, S, _ = x.shape
-    xz = x @ params["in_proj"].to(x.dtype)
-    u, z = xz.chunk(2, dim=-1)
-    u = _causal_conv(u, params["conv_w"].to(u.dtype),
-                     params["conv_b"].to(u.dtype))
+    u, z = _in_proj(params, x, ranks)
+    u = _causal_conv(u, _block(params, "conv_w", ranks).to(u.dtype),
+                     _block(params, "conv_b", ranks).to(u.dtype))
 
     chunk = min(MAMBA_CHUNK, S)
     n_chunks = -(-S // chunk)
@@ -162,14 +191,15 @@ def mamba_scan(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     ys = []
     for c in range(n_chunks):
         a, b, Cc = _mamba_coeffs(params, u_p[:, c * chunk:(c + 1) * chunk],
-                                 cfg)
+                                 cfg, ranks)
         hs = ops.ssm_scan(a, b, h)
         ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cc).to(x.dtype))
         h = hs[:, -1].contiguous()
     y = torch.cat(ys, dim=1)[:, :S]
-    y = y + u * params["D"].to(u.dtype)
+    y = y + u * _block(params, "D", ranks).to(u.dtype)
     out = y * F.silu(z)
-    return out @ params["out_proj"].to(out.dtype)
+    return tp.linear_from_block(out, params["out_proj"],
+                                tp.spec(ranks, "out_proj"), ranks)
 
 
 def mamba_state_init(cfg: ArchConfig, batch: int, d_in: int,
@@ -182,22 +212,33 @@ def mamba_state_init(cfg: ArchConfig, batch: int, d_in: int,
     }
 
 
-def mamba_decode(params, x: torch.Tensor, state, cfg: ArchConfig):
+def mamba_decode(params, x: torch.Tensor, state, cfg: ArchConfig,
+                 ranks=None):
     """One-token decode.  x: (B, 1, d_model); state: {'h', 'conv'}, both
-    overwritten in place with the new state.  Returns (out, state)."""
-    xz = x @ params["in_proj"].to(x.dtype)
-    u, z = xz.chunk(2, dim=-1)
+    overwritten in place with the new state.  Returns (out, state).
+    ``ranks``: as :func:`mamba_scan`, with ``ranks.state_specs`` the
+    state's; ``h`` (B, d_in, N) and ``conv`` (B, CONV_WIDTH - 1, d_in)
+    hold the rank's channels (a state the plan splits over ``"model"`` on
+    another dim raises, naming 7(b) step 3d)."""
+    for name, dim in (("h", 1), ("conv", 2)):
+        got = tp.model_dim(tp.state_spec(ranks, name), ranks)
+        if ranks is not None and got != dim:
+            raise NotImplementedError(
+                f"a Mamba state {name} {tuple(state[name].shape)} split "
+                f"over 'model' on dim {got}, not its channels: {tp.STEP3D}")
+    u, z = _in_proj(params, x, ranks)
     hist = torch.cat([state["conv"], u], dim=1)              # (B, W, d_in)
-    w = params["conv_w"].to(u.dtype)
+    w = _block(params, "conv_w", ranks).to(u.dtype)
     conv_out = torch.einsum("bwd,wd->bd", hist, w) \
-        + params["conv_b"].to(u.dtype)
+        + _block(params, "conv_b", ranks).to(u.dtype)
     u1 = F.silu(conv_out)[:, None, :]
-    a, b, Cc = _mamba_coeffs(params, u1, cfg)
+    a, b, Cc = _mamba_coeffs(params, u1, cfg, ranks)
     h = a[:, 0] * state["h"] + b[:, 0]
     y = torch.einsum("bdn,bn->bd", h, Cc[:, 0])[:, None, :].to(x.dtype)
-    y = y + u1 * params["D"].to(u1.dtype)
+    y = y + u1 * _block(params, "D", ranks).to(u1.dtype)
     out = y * F.silu(z)
-    out = out @ params["out_proj"].to(out.dtype)
+    out = tp.linear_from_block(out, params["out_proj"],
+                               tp.spec(ranks, "out_proj"), ranks)
     state["h"].copy_(h)
     state["conv"].copy_(hist[:, 1:])
     return out, state

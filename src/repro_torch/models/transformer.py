@@ -27,12 +27,14 @@ loss.  Every kernel a training forward reaches has a backward: attention
 (B4, f32 or bf16 at head dim 64) through ``FlashAttentionFn`` and the
 Mamba scan (B6) through ``SsmScanFn``.
 
-Serving over a mesh's ``"model"`` axis (``forward``/``decode_step``
-with ``ranks=``, a ``data_parallel.RankBlock`` carrying the plan's
-per-layer specs; ``distributed/tensor_parallel.py``): the params and the
-decode state are this rank's blocks and every layer runs
-tensor-parallel, for the dense-attention decoders; any other family
-raises ``NotImplementedError`` naming ROADMAP 7(b) step 3b
+Serving over a mesh's ``"model"`` axis (``forward``/``encode``/
+``decode_step`` with ``ranks=``, a ``data_parallel.RankBlock`` carrying
+the plan's per-layer specs; ``distributed/tensor_parallel.py``): the
+params and the decode state are this rank's blocks and every layer runs
+tensor-parallel (attention on a rank's heads or gathered, a Hymba
+layer's Mamba heads on its channels, an encoder-decoder's encoder and
+cross-attention on its heads); the MoE families and xLSTM raise
+``NotImplementedError`` naming ROADMAP 7(b) step 3b
 (``tensor_parallel.check_family``).  ``moe_group_shard``
 (``models/moe.py``) reads the ambient mesh (``distributed.context``):
 the identity under none or a 1-device ``"model"`` axis,
@@ -193,7 +195,9 @@ def _apply_cross_ffn(p, x: torch.Tensor, cfg: ArchConfig,
     Returns (x, the MoE's aux loss or None)."""
     if memory is not None and "cross" in p:
         x = x + attn_lib.cross_attention(
-            p["cross"], rmsnorm(p["ln_cross"], x, cfg.norm_eps), memory, cfg)
+            p["cross"], rmsnorm(p["ln_cross"], x, cfg.norm_eps,
+                                ranks=tp.at(ranks, "ln_cross")), memory,
+            cfg, ranks=tp.at(ranks, "cross"))
     aux = None
     if "ffn" in p:
         x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps,
@@ -215,7 +219,8 @@ def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
     _check_kind(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps, ranks=tp.at(ranks, "ln1"))
     if kind == MAMBA:
-        mix = ssm_lib.mamba_scan(p["mamba"], h, cfg)
+        mix = ssm_lib.mamba_scan(p["mamba"], h, cfg,
+                                 ranks=tp.at(ranks, "mamba"))
     elif kind == MLSTM:
         mix = ssm_lib.mlstm_scan(p["mlstm"], h, cfg)
     elif kind == SLSTM:
@@ -225,7 +230,8 @@ def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
                                       window=window,
                                       ranks=tp.at(ranks, "attn"))
         if kind == HYMBA:
-            mix = 0.5 * (mix + ssm_lib.mamba_scan(p["mamba"], h, cfg))
+            mix = 0.5 * (mix + ssm_lib.mamba_scan(
+                p["mamba"], h, cfg, ranks=tp.at(ranks, "mamba")))
     x, aux = _apply_cross_ffn(p, x + mix, cfg, memory, ranks)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -267,7 +273,8 @@ def apply_sublayer_decode(p, kind: str, x: torch.Tensor, state, step: int,
     _check_kind(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps, ranks=tp.at(ranks, "ln1"))
     if kind == MAMBA:
-        mix, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg)
+        mix, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg,
+                                      ranks=tp.at_state(ranks, "mamba"))
     elif kind == MLSTM:
         mix, _ = ssm_lib.mlstm_decode(p["mlstm"], h, state["mlstm"], cfg)
     elif kind == SLSTM:
@@ -277,7 +284,8 @@ def apply_sublayer_decode(p, kind: str, x: torch.Tensor, state, step: int,
                                            window=window,
                                            ranks=tp.at(ranks, "attn"))
         if kind == HYMBA:
-            m, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg)
+            m, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg,
+                                        ranks=tp.at_state(ranks, "mamba"))
             mix = 0.5 * (mix + m)
     x, _ = _apply_cross_ffn(p, x + mix, cfg, memory, ranks)
     return x, state
@@ -350,22 +358,30 @@ def _remat(fn, *args):
                       preserve_rng_state=False)
 
 
-def encode(params, enc_embeds: torch.Tensor, cfg: ArchConfig
+def encode(params, enc_embeds: torch.Tensor, cfg: ArchConfig, ranks=None
            ) -> torch.Tensor:
     """The encoder stack of an encoder-decoder. enc_embeds: (B, F, d) ->
     memory (B, F, d) in the compute dtype: ``frontend_proj``, then the
     ``enc_unit`` ATTN layers without the causal mask (B4 in each; each
-    layer checkpointed when ``cfg.remat``), then ``enc_norm``."""
+    layer checkpointed when ``cfg.remat``), then ``enc_norm``.
+    ``ranks``: this rank's block of the plan (its rows of ``enc_embeds``;
+    each layer tensor-parallel, ``frontend_proj`` gathered at use where
+    the plan splits it); the memory comes back whole in d on every
+    ``"model"`` rank."""
     x = enc_embeds.to(dtype_of(cfg.compute_dtype))
     if "frontend_proj" in params:
-        x = x @ params["frontend_proj"].to(x.dtype)
+        proj = tp.gather_leaf(params["frontend_proj"],
+                              tp.spec(ranks, "frontend_proj"), ranks)
+        x = x @ proj.to(x.dtype)
 
-    def body(p, x):
-        return apply_sublayer(p, ATTN, x, cfg, causal=False)[0]
+    def body(p, x, r):
+        return apply_sublayer(p, ATTN, x, cfg, causal=False, ranks=r)[0]
 
-    for p in params["enc_unit"]:
-        x = _remat(body, p, x) if _remat_on(cfg) else body(p, x)
-    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    for i, p in enumerate(params["enc_unit"]):
+        r = tp.at(ranks, "enc_unit", i)
+        x = _remat(body, p, x, r) if _remat_on(cfg) else body(p, x, r)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps,
+                   ranks=tp.at(ranks, "enc_norm"))
 
 
 def _perturb(x: torch.Tensor, gen: torch.Generator, sigma) -> torch.Tensor:
@@ -459,7 +475,7 @@ def forward(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig, *,
         enc_in = inputs["enc_embeds"]
         if noise is not None:
             enc_in = _perturb(enc_in, gen, sigma)
-        memory = encode(params, enc_in, cfg)
+        memory = encode(params, enc_in, cfg, ranks=ranks)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = list(params["layers"])
     U = len(unit)

@@ -27,7 +27,11 @@ the rank's blocks in ``transformer.serving_tree``'s layout
 (``transformer.init_lm(..., keep=tensor_parallel.keep_blocks(...))``),
 the engine makes its block of the
 decode state placed by ``launch.steps.decode_state_specs`` (its B/R rows
-on ``"data"``, its positions on ``"model"``) and steps tensor-parallel.
+on ``"data"``; on ``"model"`` its positions of each K/V cache and its
+channels of a Mamba layer's ``h`` and ``conv``; an encoder-decoder's
+``memory`` its rows, whole in d: set it from the rank's own
+``tr.encode(params, enc_embeds[engine.rows], cfg, ranks=engine.ranks)``)
+and steps tensor-parallel.
 Every rank is handed every request; a rank serves its rows.  The
 logits' vocabulary blocks are gathered before sampling and every rank
 draws the whole batch's uniforms from its identically seeded generator,

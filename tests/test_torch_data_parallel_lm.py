@@ -144,10 +144,10 @@ def test_dryrun_production_mesh_counts_its_collectives(jref, multi_pod):
 
 
 # the rows the production meshes still refuse: SmolLM's training round
-# under the default plan (step 3c), a Hymba prefill (step 3b: its Mamba
-# heads) and a mode-B decode (step 3d: FSDP over "data"); the dense
-# decoders' serving rows run (tests/test_torch_tensor_parallel.py)
-REFUSED = {"train_4k": ARCH, "prefill_32k": "hymba-1.5b",
+# under the default plan (step 3c), a Granite-MoE prefill (step 3b: its
+# experts) and a mode-B decode (step 3d: FSDP over "data"); the other
+# families' serving rows run (tests/test_torch_tensor_parallel*.py)
+REFUSED = {"train_4k": ARCH, "prefill_32k": "granite-moe-3b-a800m",
            "decode_32k": "phi3-medium-14b"}
 
 

@@ -409,10 +409,11 @@ def _fake(shape):
 
 
 LEFT_OUT = {
-    "hymba": ("hymba-1.5b", "prefill_32k", (1, 2), "step 3b"),
     "moe": ("olmoe-1b-7b", "decode_32k", (1, 2), "step 3b"),
+    "moe_prefill": ("granite-moe-3b-a800m", "prefill_32k", (1, 2),
+                    "step 3b"),
     "xlstm": ("xlstm-1.3b", "prefill_32k", (1, 2), "step 3b"),
-    "seamless": ("seamless-m4t-medium", "decode_32k", (1, 2), "step 3b"),
+    "xlstm_decode": ("xlstm-1.3b", "decode_32k", (1, 2), "step 3b"),
     "mode_b_data": ("phi3-medium-14b", "prefill_32k", (2, 1), "step 3d"),
     "train_default_plan": ("smollm-360m", "train_4k", (1, 2), "step 3c"),
 }

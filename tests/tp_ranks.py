@@ -5,15 +5,19 @@ CPU (``tests/test_torch_tensor_parallel.py``), through
 A case is a dict: ``arch`` (a smoke config, ``patch`` its fields
 replaced), ``weights`` (the reference's ``init_lm`` tree as numpy),
 ``tokens`` (B, S) for a prefill (with a VLM's ``embeds``, its patch
-prefix), ``prompts`` for ``ServeEngine`` (greedy,
-``max_new`` tokens, ``cache_len``, a ring of ``window`` slots or 0).
+prefix, or an encoder-decoder's ``enc``, the encoder's frames for the
+prefill and the engine's memory), ``prompts`` for ``ServeEngine``
+(greedy, ``max_new`` tokens, ``cache_len``, a ring of ``window`` slots
+or 0).
 :func:`run_case` runs it on a mesh (the rank's blocks, as
 ``sharding.local_tree(sharding.place_tree(...))`` gives them, through
 ``launch.steps.prefill_setup`` and ``ServeEngine(..., ranks=)``) or,
 without one, at world 1, and returns numpy: the prefill's logits (the
 rank's rows and vocabulary block), the embedding, the engine's tokens
 and each step's logits, the exchanges counted per step, the attention
-calls and the longest block B5's partial was given on this rank; on a
+calls (and B6's, for a config with Mamba layers), the longest block B5's
+partial was given on this rank and the shapes of the rank's weights and
+decode state; on a
 mesh also the exchanges predicted before the run, by the same steps
 run first on ``meta`` structs of the rank's blocks from the setups
 (``prefill_setup``/``decode_setup`` with ``rank_local``).  It imports
@@ -37,15 +41,19 @@ def case_cfg(case):
 
 
 class AttentionCalls:
-    """Counts ``kernels.ops``' attention calls while entered (the plain
-    versions run on the CPU; on the card each is one launch)."""
+    """Counts ``kernels.ops``' attention calls (and those of ``keys``)
+    while entered (the plain versions run on the CPU; on the card each
+    is one launch)."""
+
+    def __init__(self, keys=STEP_KEYS):
+        self.keys = keys
 
     def __enter__(self):
         from repro_torch.kernels import ops
 
-        self.counts = dict.fromkeys(STEP_KEYS, 0)
+        self.counts = dict.fromkeys(self.keys, 0)
         self.partial_len = 0        # the longest block a partial was given
-        self._orig = {k: getattr(ops, k) for k in STEP_KEYS}
+        self._orig = {k: getattr(ops, k) for k in self.keys}
 
         def counted(name):
             def call(*a, **kw):
@@ -56,7 +64,7 @@ class AttentionCalls:
                 return self._orig[name](*a, **kw)
             return call
 
-        for k in STEP_KEYS:
+        for k in self.keys:
             setattr(ops, k, counted(k))
         return self
 
@@ -83,6 +91,16 @@ def _predicted(step, *args):
     return _exchanged()
 
 
+def kernel_keys(cfg):
+    """The ``kernels.ops`` calls a case counts: attention's, and B6's
+    where the config has Mamba layers."""
+    from repro_torch.configs.base import HYMBA, MAMBA
+
+    if set(cfg.pattern()) & {HYMBA, MAMBA}:
+        return STEP_KEYS + ("ssm_scan",)
+    return STEP_KEYS
+
+
 def run_case(case, mesh=None):
     """``case`` at world 1 (``mesh`` None) or as this rank of ``mesh``."""
     from repro_torch.configs import InputShape
@@ -93,9 +111,10 @@ def run_case(case, mesh=None):
     from repro_torch.models import layers
     from repro_torch.models import transformer as tr
     from repro_torch.serving import ServeEngine, ServeRequest
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     cfg = case_cfg(case)
+    keys = kernel_keys(cfg)
     whole = tr.serving_tree(tr.lm_params_from_numpy(case["weights"], cfg,
                                                     device="cpu"))
     toks = torch.from_numpy(case["tokens"])
@@ -124,8 +143,10 @@ def run_case(case, mesh=None):
     if "embeds" in case:              # a VLM's patch prefix
         inputs["frontend_embeds"] = torch.from_numpy(
             case["embeds"])[rows].contiguous()
+    if "enc" in case:                 # an encoder-decoder's frames
+        inputs["enc_embeds"] = torch.from_numpy(case["enc"])[rows].contiguous()
     collectives.reset_collective_counts()
-    with AttentionCalls() as calls:
+    with AttentionCalls(keys) as calls:
         logits = step(params, inputs)
     out["prefill"] = logits.numpy().copy()
     out["prefill_calls"] = calls.counts
@@ -140,6 +161,12 @@ def run_case(case, mesh=None):
     eng = ServeEngine(params, cfg, batch=n_req, cache_len=case["cache_len"],
                       window=case.get("window", 0), device="cpu",
                       ranks=ranks)
+    if "enc" in case:       # the rank's rows of the memory, its own encode
+        collectives.reset_collective_counts()
+        eng.state["memory"] = tr.encode(
+            params, torch.from_numpy(case["enc"])[eng.rows].contiguous(),
+            cfg, ranks=eng.ranks)
+        out["encode_exchanged"] = _exchanged()
     inner, seen = eng._step, []
 
     def spy(p, state, t, pos):
@@ -149,7 +176,7 @@ def run_case(case, mesh=None):
         return got, state
 
     eng._step = spy
-    with AttentionCalls() as calls:
+    with AttentionCalls(keys) as calls:
         toks_out = eng.generate([ServeRequest(prompt=p, max_new=case[
             "max_new"]) for p in case["prompts"]])
     out["tokens"] = [t.copy() for t in toks_out]
@@ -159,6 +186,8 @@ def run_case(case, mesh=None):
     out["partial_len"] = calls.partial_len
     out["state_shapes"] = [tuple(t.shape) for t in
                            tree_leaves(eng.state)]
+    out["state_tree"] = tree_map(lambda t: tuple(t.shape), eng.state)
+    out["param_tree"] = tree_map(lambda t: tuple(t.shape), params)
     out["rows"] = (0, B) if prows is None else (prows.c0, prows.c1)
     out["engine_rows"] = (0, n_req) if ranks is None else (ranks.c0,
                                                            ranks.c1)
@@ -218,9 +247,66 @@ def seeded_decode(case, mesh=None):
     return out
 
 
+# a Mamba mixer's leaves placed off their channel dims: x_proj and
+# out_proj on their outputs, dt_proj on its input, A_log on its states,
+# conv_w, conv_b and dt_bias replicated (each gathered at use, or its
+# product taken as its spec says); in_proj and D as the plan places them
+OFF_CHANNELS = dict(in_proj=(None, "model"), conv_w=(None, None),
+                    conv_b=(None,), x_proj=(None, "model"),
+                    dt_proj=("model", None), dt_bias=(None,),
+                    A_log=(None, "model"), D=("model",),
+                    out_proj=(None, "model"))
+MIXER_B, MIXER_S = 2, 20
+
+
+def mixer_inputs(seed):
+    """Hymba's smoke config, one Mamba mixer's whole weights from ``seed``,
+    a prefill's input (MIXER_B, MIXER_S, d), a decode step's input and
+    its state ``h``/``conv`` (f32 normals)."""
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.models import ssm
+
+    cfg = reduce_for_smoke(get_arch("hymba-1.5b"))
+    g = torch.Generator().manual_seed(seed)
+    params = ssm.init_mamba(g, cfg, d_in=cfg.d_model)
+    params["conv_b"] = torch.randn(cfg.d_model, generator=g) * 0.1
+    d = cfg.d_model
+    x = torch.randn((MIXER_B, MIXER_S, d), generator=g)
+    x1 = torch.randn((MIXER_B, 1, d), generator=g)
+    state = {"h": torch.randn((MIXER_B, d, cfg.ssm_state), generator=g),
+             "conv": torch.randn((MIXER_B, ssm.CONV_WIDTH - 1, d),
+                                 generator=g)}
+    return cfg, params, x, x1, state
+
+
+def mixer_off_channels(mesh, seed):
+    """:func:`mixer_inputs` through ``ssm.mamba_scan`` and one
+    ``mamba_decode`` step on this rank, its leaves placed as
+    OFF_CHANNELS (its blocks of them), the state its channels: the
+    outputs (whole) and the state's blocks after the step."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import P
+    from repro_torch.models import ssm
+
+    cfg, whole, x, x1, state = mixer_inputs(seed)
+    specs = {k: P(*v) for k, v in OFF_CHANNELS.items()}
+    state_specs = {"h": P(None, "model", None), "conv": P(None, None,
+                                                          "model")}
+    ranks = tp.serve_block(mesh, MIXER_B, specs, state_specs)
+    params = {k: tp.block(w, specs[k], ranks).clone()
+              for k, w in whole.items()}
+    mine = {k: tp.block(t, state_specs[k], ranks).clone()
+            for k, t in state.items()}
+    out = ssm.mamba_scan(params, x, cfg, ranks=ranks)
+    step, mine = ssm.mamba_decode(params, x1, mine, cfg, ranks=ranks)
+    return dict(prefill=out.numpy().copy(), step=step.numpy().copy(),
+                state={k: t.numpy().copy() for k, t in mine.items()})
+
+
 def tp_job(mesh, payload):
-    """Every case of ``payload["cases"]`` and :func:`seeded_decode` of
-    ``payload["seeded"]`` on this rank; with
+    """Every case of ``payload["cases"]``, :func:`seeded_decode` of
+    ``payload["seeded"]`` and :func:`mixer_off_channels` of
+    ``payload["mixer"]`` (where given) on this rank; with
     ``payload["init_seed"]``, also this rank's blocks drawn by
     ``transformer.init_lm`` with ``tensor_parallel.keep_blocks`` against
     ``init_lm``'s whole weights narrowed, and ``all_gather``'s counted
@@ -234,7 +320,10 @@ def tp_job(mesh, payload):
 
     out = {name: run_case(case, mesh)
            for name, case in payload["cases"].items()}
-    out["seeded"] = seeded_decode(payload["seeded"], mesh)
+    if "seeded" in payload:
+        out["seeded"] = seeded_decode(payload["seeded"], mesh)
+    if "mixer" in payload:
+        out["mixer"] = mixer_off_channels(mesh, payload["mixer"])
     if payload.get("init_seed") is not None:
         case = next(iter(payload["cases"].values()))
         cfg = case_cfg(case)
