@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--long-shapes]
+
+Every run serves the reference's ``prefill_32k`` uncut (B=32 x 32,768)
+for SeamlessM4T-medium (~25 s); ``--long-shapes`` adds SmolLM-360M's
+and Hymba-1.5B's (~92 s), inside their serving phases and in
+``dryrun_vs_measured``, which the default run leaves out to keep
+inside its time.
 
 In order: prints the card's name and power limit; builds every kernel
 of the port with nvcc for sm_90a, one nvcc per source, all at once
@@ -151,12 +157,12 @@ state must move every step), SeamlessM4T-medium (the ring and
 cross-attention over 1,500 encoded frames) and LLaVA-NeXT-Mistral-7B,
 as for Gemma and Phi3 above, each then through its smoke model on the
 CPU and on the card; and ``prefill_32k`` uncut (B=32 x 32,768, through
-``make_prefill_step``: ``prefill_32k_run``) for SmolLM-360M (f32),
-Hymba-1.5B (bf16, 256 B6 chunks a Mamba layer) and SeamlessM4T-medium
-(f32), each with its launches, ms, tokens/s and peak, and the first
-and the last row's logits each held to a B=1 prefill of that row alone
-(f32 within 2e-3; bf16 by the bf16 policy's ratios against an f32
-row).  Then ``serve_lm_runs``:
+``make_prefill_step``: ``prefill_32k_run``) for SeamlessM4T-medium
+(f32) and, with ``--long-shapes``, SmolLM-360M (f32) and Hymba-1.5B
+(bf16, 256 B6 chunks a Mamba layer), each with its launches, ms,
+tokens/s and peak, and the first and the last row's logits each held
+to a B=1 prefill of that row alone (f32 within 2e-3; bf16 by the bf16
+policy's ratios against an f32 row).  Then ``serve_lm_runs``:
 ``python -m repro_torch.serve_lm`` (the port of
 ``examples/serve_lm.py``) on the card and on the CPU at ``--window`` 0
 and 64, B5's launches counted, the greedy requests' tokens equal.
@@ -252,23 +258,32 @@ rank's 800 of Hymba's 1,600 channels equal bit for bit to those
 channels of the whole launch and to the plain version, and timed; B4
 without the mask and B5 whole on a rank's 8 of SeamlessM4T's 16 heads,
 held and timed; then SmolLM-360M (f32), Gemma-7B (bf16), Hymba-1.5B
-(bf16, and an f32 copy of its config) and SeamlessM4T-medium (f32) at
-full width over a 1 x 2 gloo mesh on the one card (``--dp-rank``
-processes, task ``tp``; world 1 in this process): prefills (SmolLM's
-also with ``attn_seq_shards=2``; SeamlessM4T's over 1,500 frames), a
-generate (SmolLM and SeamlessM4T, the latter against each rank's own
-encode, 36 steps over a cache of 64 positions, 32 a rank) and decode
-steps (Gemma and Hymba, from a seeded state over 512 positions at
-positions 254-257) against world 1 (Hymba's bf16 run through its f32
-copy's), all crossing from rank 0's block of cache positions into rank
-1's (rank 1 handed a non-empty block, asserted), each rank's launches
+(bf16, and an f32 copy of its config), SeamlessM4T-medium (f32),
+Granite-MoE-3B-a800m (bf16, and an f32 copy: 20 of 40 experts a rank)
+and xLSTM-1.3B (bf16, and an f32 copy: the mLSTM on a rank's v rows,
+the sLSTM on its channels of each gate) at full width over a 1 x 2 gloo
+mesh on the one card (``--dp-rank`` processes, task ``tp``; world 1 in
+this process): prefills (SmolLM's also with ``attn_seq_shards=2``;
+SeamlessM4T's over 1,500 frames; xLSTM's of 256 positions), a generate
+(SmolLM and SeamlessM4T, the latter against each rank's own encode, 36
+steps over a cache of 64 positions, 32 a rank) and decode steps (Gemma,
+Hymba and Granite from a seeded state over 512 positions at positions
+254-257, xLSTM 6 steps from its initial state, the first 2 seeding the
+recurrent state) against world 1 (an f32 run within 2e-3, or, for
+xLSTM's f32 copy, which amplifies rounding, within 2^-8 of its logits'
+RMS; a bf16
+run by ``tp_bf16_hold``, or through its f32 copy where world 1's own
+bf16 lies past that bound of f32; Granite's routing equal to world 1's
+in f32, its bf16 differences counted), the attention runs crossing
+from rank 0's block of cache positions into rank 1's (rank 1 handed a
+non-empty block, asserted), each rank's launches
 asserted (B4 in every encoder, self- and cross-attention layer of a
 prefill, B6 once a chunk in every Mamba layer, the partial in every
 decode layer and step, B5 whole in every cross-attention layer of a
 step), its exchanges equal to the ones its steps count on meta structs
-of its blocks before the run, and its prefill's peak within 1 % of the
-meta prediction on a 1 x 2 fake mesh.  Then checkpoints
-(``lm_resume``, B1 and B4 with its backward): the port of
+of rank 0's blocks on a 1 x 2 fake mesh (run in this process while the
+ranks run), and its prefill's peak within 1 % of that meta prediction.
+Then checkpoints (``lm_resume``, B1 and B4 with its backward): the port of
 ``examples/federated_lm_training.py`` saves, restores (bit for bit on
 the card) and resumes at the smoke scale, its first resumed round held
 against the same round from the state in memory; runs at the smoke scale
@@ -366,13 +381,15 @@ reference's shapes: each kernel row must advance its kernel's launch
 counter and read at least 0.95 of its H100 bound, ``roofline.
 kernel_cost``, from which every bound of this script comes);
 ``dryrun_vs_measured`` (SmolLM-360M's training round, prefill step at
-4,096 and at prefill_32k uncut, and decode step predicted on ``meta``
+4,096 (and at prefill_32k uncut with ``--long-shapes``), and decode step
+predicted on ``meta``
 tensors by ``roofline.cost.CostCounter``,
 launching nothing, then run: the predicted peak within [0.8, 1] of
 ``max_memory_allocated``, the roofline step time at most the measured
 one, their ratio printed); ``dryrun_sweep`` (``launch.dryrun.run_one``
 over the configurations this script runs, at its shapes, but those
-another phase predicts, and SmolLM-360M's train_4k under
+another phase predicts and Hymba-1.5B's, which the CPU tests run
+through the same ``run_one``, and SmolLM-360M's train_4k under
 ``inner_dp+signs8`` on the reference's (16, 16) mesh as rank 0, its
 collective term from the counted exchanges); and
 ``fedlint_cuda`` (fedlint's round entries on CUDA tensors, where host
@@ -524,7 +541,10 @@ SMOKE_VS_ROWS, SMOKE_VS_S, SMOKE_VS_DECODE, SMOKE_VS_NEW = 2, 64, 24, 8
 # (serve_cpu_vs_cuda's bound), bf16 by tests/test_torch_bf16_policy.py's
 # ratios (RMS_RATIO, MAX_RATIO) of the two rows' errors against an f32
 # B=1 row.  Bounds set before the first chip run.
-PREFILL_32K_ARCHS = (ARCH, HYMBA, SEAMLESS)
+# SeamlessM4T's row (~25 s) runs in every run; SmolLM's and Hymba's
+# (~92 s of a default run's limit, which the tensor-parallel phase needs)
+# only under ``--long-shapes`` (``report["long_shapes"]``).
+PREFILL_32K_ARCHS, PREFILL_32K_DEFAULT = (ARCH, HYMBA, SEAMLESS), (SEAMLESS,)
 PREFILL_32K_ROW_TOL = 2e-3
 BF16_RMS_RATIO, BF16_MAX_RATIO = (0.5, 1.25), 1.5
 # The dense models with head dims and groups no other model has, at full
@@ -3020,6 +3040,38 @@ class RouteLog:
         self.moe.route = self.real
 
 
+class RouteReplay:
+    """Wraps ``models.moe.route`` while active: each call takes the next of
+    ``calls`` (:func:`tp_routes`: a run's experts and kept slots, on the
+    CPU) in place of its own choice: those experts in that order, their
+    weights this call's own probabilities of them renormalised, the
+    positions counted from them (their kept slots must be the recorded
+    ones).  A run so holds another's routing decisions on its own hidden
+    states.  ``used``: the calls taken."""
+
+    def __init__(self, calls):
+        from repro_torch.models import moe
+        self.moe, self.real, self.calls, self.used = moe, moe.route, calls, 0
+
+    def __enter__(self):
+        def replay(params, xf, cfg, cap, group, ranks=None, t0=0):
+            r = self.real(params, xf, cfg, cap, group, ranks, t0)
+            idx, keep = (t.to(r.idx.device) for t in self.calls[self.used][:2])
+            self.used += 1
+            w = r.probs.gather(-1, idx)
+            w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+            pos = self.moe.positions(idx, cfg.moe.n_experts, group, t0)
+            if not torch.equal(pos < cap, keep):
+                raise AssertionError(f"RouteReplay: call {self.used - 1}'s "
+                                     "kept slots differ from the recorded")
+            return self.moe.Routing(r.logits, r.probs, w, idx, pos, keep)
+        self.moe.route = replay
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
 def moe_prefill_run(cfg, params, report):
     """:func:`prefill_run` on an MoE model, also counting the (token,
     slot) pairs its capacity dropped in the timed step (the last
@@ -3730,12 +3782,14 @@ def long_shapes(arch, seed, report, launches, errs):
     """``then`` of a serving phase (:func:`serve_phase`): the reference's
     shapes that fit one card, run while ``arch``'s full-width weights are
     loaded: long_500k's decode (:func:`window_decode`, every served
-    family) and, for PREFILL_32K_ARCHS, prefill_32k uncut
-    (:func:`prefill_32k_run`); launches added to ``launches``.  Returns
+    family) and, for PREFILL_32K_DEFAULT (PREFILL_32K_ARCHS under
+    ``--long-shapes``), prefill_32k uncut (:func:`prefill_32k_run`);
+    launches added to ``launches``.  Returns
     {"long_500k": B5's rows at the long_500k shapes}."""
     def then(cfg, params):
         rows = window_decode(arch, cfg, params, report, launches, errs, seed)
-        if arch in PREFILL_32K_ARCHS:
+        if arch in (PREFILL_32K_ARCHS if report.get("long_shapes")
+                    else PREFILL_32K_DEFAULT):
             for name, n in prefill_32k_run(cfg, params, report).items():
                 launches[name] += n
         return {"long_500k": rows["decode_attention"]}
@@ -5384,7 +5438,8 @@ def measure_step(step, make_args, cfg):
 def dryrun_vs_measured(report):
     """SmolLM-360M at full width: lm_train's round (C=4, one 4,096-token
     sequence each), a prefill step (PREFILL_B x PREFILL_S), one at the
-    reference's prefill_32k uncut (B=32 x 32,768) and a decode step
+    reference's prefill_32k uncut (B=32 x 32,768; with ``--long-shapes``,
+    which serves SmolLM-360M's) and a decode step
     (DECODE_B rows at the last position of a DECODE_L cache), each
     predicted on meta (``launch.steps``' structs under
     ``roofline.cost.CostCounter``, no launch) and then run on the card
@@ -5456,6 +5511,8 @@ def dryrun_vs_measured(report):
           torch.empty((DECODE_B, 1), dtype=torch.int32, device="meta"),
           DECODE_L - 1), decode_args)]
     rows = []
+    if cfg.name not in report.get("prefill_32k", {}):   # not run uncut
+        cases = [c for c in cases if c[0] != "prefill_32k"]
     for label, shape, step, meta_args, make_args in cases:
         pred, meta_s = predict_step(label, step, meta_args, cfg, shape)
         del meta_args
@@ -5511,26 +5568,27 @@ def dryrun_vs_measured(report):
 # as its phase runs its round: C clients of one sequence each
 # (sweep_clients), not the host plan's C=1.  Not ``python -m repro_torch.launch.dryrun
 # --all``: at full size it did not finish in 700 s on the card's host (its
-# xLSTM rows alone run the sLSTM's step loop at 32,768 positions).  Cut:
-# xLSTM's prefill to SWEEP_XLSTM_S positions (its step loop made 720,579
-# ops at 4,096 positions, 150.8 s on meta); and the rows that another
-# phase already predicts on meta at the same shape, to keep the whole
-# script inside its time: SmolLM-360M's prefill and round
-# (dryrun_vs_measured), Gemma-7B's and Phi3-medium's rounds
-# (lm_train_wide's predict_step)
-SWEEP_XLSTM_S = 512
-SWEEP_SERVED = (ARCH, HYMBA, *MOE_ARCHS, XLSTM, SEAMLESS, LLAVA, GEMMA, PHI3)
+# xLSTM rows alone run the sLSTM's step loop at 32,768 positions).  Cut,
+# to keep the whole script inside its time: the rows that another phase
+# already predicts on meta at the same shape: SmolLM-360M's prefill and
+# round (dryrun_vs_measured), Gemma-7B's and Phi3-medium's rounds
+# (lm_train_wide's predict_step); and those the CPU tests run through the
+# same run_one: Hymba-1.5B's (tests/test_torch_dryrun.py, every shape;
+# 52.3 s of the sweep's 88.1 on an H100 80GB HBM3's host, its round
+# 44.8) and xLSTM's prefill
+# (tests/test_torch_tensor_parallel_moe_xlstm.py, its step loop over the
+# prefill's positions; 20.7 s at 512 of them)
+SWEEP_SERVED = (ARCH, *MOE_ARCHS, XLSTM, SEAMLESS, LLAVA, GEMMA, PHI3)
 SWEEP_CASES = (
-    [(a, "prefill_32k", dict(seq_len=PREFILL_S if a != XLSTM else
-                             SWEEP_XLSTM_S, global_batch=PREFILL_B))
-     for a in SWEEP_SERVED if a != ARCH]
+    [(a, "prefill_32k", dict(seq_len=PREFILL_S, global_batch=PREFILL_B))
+     for a in SWEEP_SERVED if a not in (ARCH, XLSTM)]
     + [(a, "decode_32k", dict(seq_len=SERVE_CACHE,
                               global_batch=SERVE_REQUESTS))
        for a in SWEEP_SERVED]
     + [(a, "long_500k", dict(global_batch=1)) for a in SWEEP_SERVED]
     + [(a, "train_4k", dict(seq_len=LM_TRAIN_S,
                             global_batch=LM_FULL_CLIENTS))
-       for a in (HYMBA, SEAMLESS)])
+       for a in (SEAMLESS,)])
 
 
 SWEEP_MESH_VARIANT = "inner_dp+signs8"
@@ -5777,10 +5835,10 @@ def dp_rank_main(spec_path: str, rank: int, world: int) -> int:
     return 0
 
 
-def dp_spawn(world: int, tasks, tmp: Path):
+def dp_spawn(world: int, tasks, tmp: Path, timeout: float = DP_TIMEOUT_S):
     """Every rank of ``world`` as a process of its own on the card
     (:func:`dp_rank_main`), all killed if one fails or outlasts
-    DP_TIMEOUT_S; returns their results in rank order."""
+    ``timeout`` seconds; returns their results in rank order."""
     import pickle
 
     spec = tmp / f"dp{world}.spec"
@@ -5792,7 +5850,7 @@ def dp_spawn(world: int, tasks, tmp: Path):
     failed = None
     try:
         for r, p in enumerate(procs):
-            text, _ = p.communicate(timeout=DP_TIMEOUT_S)
+            text, _ = p.communicate(timeout=timeout)
             for line in text.splitlines()[-40:]:
                 log(f"  rank {r}/{world}: {line}")
             if p.returncode != 0 and failed is None:
@@ -6169,6 +6227,19 @@ TP_BLOCKS = (2, 4, 8)
 # generate of TP_PROMPTS against each rank's own encode of 1,500 frames a
 # request
 TP_HYMBA_PREFILL, TP_SEAMLESS_PREFILL = (1, 1024), (2, 256)
+# Granite-MoE-3B-a800m (bf16, and an f32 copy) over 1 x 2: expert-parallel
+# (20 of 40 experts a rank), a 1 x 1,024 prefill and TP_GEMMA_STEPS steps
+# of the seeded cache as Gemma's; xLSTM-1.3B (bf16, and an f32 copy): the
+# mLSTM on a rank's v rows of each head, the sLSTM on its channels of each
+# gate, a 1 x 256 prefill (S past 256 must be a multiple of 256) and
+# TP_RECURRENT_STEPS decode steps from its initial state: the first
+# TP_RECURRENT_SEED seed the recurrent state the others run from.  (A state
+# drawn as seeded normals, as the caches are, is ill-conditioned: at full
+# width cut to 8 layers, on the CPU, its bf16 logits lie 0.08-0.81 of
+# their RMS from f32's over 8 steps, from the initial state 0.04-0.08.)
+TP_GRANITE_PREFILL, TP_XLSTM_PREFILL = (1, 1024), (1, 256)
+TP_RECURRENT_SEED = 2
+TP_RECURRENT_STEPS = TP_RECURRENT_SEED + TP_GEMMA_STEPS
 # every run of the phase: key -> (arch, compute dtype (None: the
 # config's), prefill B x S, decode, seed)
 TP_RUNS = {"smollm": (ARCH, None, TP_PREFILL, "generate", TP_SEED + 1),
@@ -6177,12 +6248,46 @@ TP_RUNS = {"smollm": (ARCH, None, TP_PREFILL, "generate", TP_SEED + 1),
            "hymba_f32": (HYMBA, "float32", TP_HYMBA_PREFILL, "seeded",
                          TP_SEED + 3),
            "seamless": (SEAMLESS, None, TP_SEAMLESS_PREFILL, "generate",
-                        TP_SEED + 4)}
-# Hymba's bf16 logits at world 1 lie 0.050-0.063 of their RMS from its f32
-# copy's (an H100 80GB HBM3 at 700 W), past tp_bf16_hold's 2^-5: its bf16
-# TP logits are held to the f32 copy's world 1 logits instead, no further
-# than TP_BF16_MARGIN times world 1's bf16 logits are (RMS and max)
+                        TP_SEED + 4),
+           "granite": (MOE_ARCHS[0], None, TP_GRANITE_PREFILL, "seeded",
+                       TP_SEED + 6),
+           "granite_f32": (MOE_ARCHS[0], "float32", TP_GRANITE_PREFILL,
+                           "seeded", TP_SEED + 6),
+           "xlstm": (XLSTM, None, TP_XLSTM_PREFILL, "recurrent",
+                     TP_SEED + 8),
+           "xlstm_f32": (XLSTM, "float32", TP_XLSTM_PREFILL, "recurrent",
+                         TP_SEED + 8)}
+# the rank processes' time limit (seconds): every run above on 2 ranks
+TP_TIMEOUT_S = 600
+# A bf16 run with an f32 copy: where world 1's own bf16 logits lie within
+# tp_bf16_hold's bounds of the f32 copy's, its TP logits are held to world
+# 1's by tp_bf16_hold; where they do not (Hymba's lie 0.050-0.063 of their
+# RMS from its f32 copy's on an H100 80GB HBM3 at 700 W, past 2^-5), to
+# the f32 copy's world 1 logits, no further than TP_BF16_MARGIN times
+# world 1's bf16 logits are (RMS and max)
 TP_BF16_MARGIN = 1.25
+# An MoE in bf16 (Granite's) is not held so: its world 1 lies 0.17 of the
+# logits' RMS from its f32 copy (routing flips), and the TP run's own
+# flips move it as far again (2.05x world 1's at a step, on an H100 80GB
+# HBM3 at 700 W).
+# Its routing is held instead: the first entry that differs from world
+# 1's must be a near-tie, world 1's k-th and (k+1)-th router logits within
+# TP_ROUTE_TIE (a bf16 ulp of the hidden state, 2^-8 of its size, moves a
+# logit by ~1e-4 an element that differs; the sum over many such
+# elements by ~1e-2), and the logits no flip reaches are held by
+# tp_bf16_hold.  Set before the run that tests it.
+TP_ROUTE_TIE = 2 ** -5
+# xLSTM-1.3B at full width (random weights) amplifies rounding: world 1's
+# own bf16 logits lie 0.96 of their RMS from its f32 copy's after the
+# 1 x 256 prefill, 0.42-0.69 in its steps (an H100 80GB HBM3 at 700 W),
+# against
+# Hymba's 0.05-0.06; its f32 copy's TP prefill lay 2.4e-3 from world 1's,
+# past TP_LOGIT_TOL, which was set for models that do not.  An f32 copy
+# whose bf16 sibling lies past TP_CHAOS from it is held within
+# TP_CHAOS_TOL (a bf16 ulp's share) of its logits' RMS instead, where
+# that bound is the larger: a misplaced block moves logits by their own
+# size.  Set before the run that tests it.
+TP_CHAOS, TP_CHAOS_TOL = 0.25, 2 ** -8
 # B6 on a rank's block of channels against the whole launch: Hymba's
 # prefill chunk at B=4, its 1,600 channels over 2 ranks
 TP_SCAN = (4, SCAN_CHUNK, 1600, 16)
@@ -6192,6 +6297,9 @@ TP_SCAN = (4, SCAN_CHUNK, 1600, 16)
 TP_RANK_HEADS_FLASH = [(4, 1500, 1500, 8, 8, 64, False),
                        (4, 4096, 1500, 8, 8, 64, False)]
 TP_RANK_HEADS_DECODE = [(8, 1500, 8, 8, 64, [1500] * 8)]
+# B4 on a rank's 12 of Granite-MoE's 24 heads (4 of 8 KV heads), bf16, at
+# the serving prefill's shape
+TP_GRANITE_RANK_HEADS = [(4, 4096, 4096, 12, 4, 64, True)]
 # B5's partial, held and timed: (label, B, L, H, Hkv, D, dtype, lengths)
 TP_PARTIAL_SHAPES = (
     ("smollm-360m serving", 8, SERVE_CACHE, 15, 5, 64, torch.float32,
@@ -6199,7 +6307,9 @@ TP_PARTIAL_SHAPES = (
     ("gemma-7b serving", 8, SERVE_CACHE, 16, 16, 256, torch.bfloat16,
      SERVE_LENS),
     ("decode_32k rank block on (16, 16)", 8, 2048, 15, 5, 64, torch.float32,
-     [2048] * 8))
+     [2048] * 8),
+    ("granite-moe-3b-a800m's rank block", 2, TP_CACHE // 2, 24, 8, 64,
+     torch.bfloat16, [TP_CACHE // 2] * 2))
 
 
 def tp_partial_inputs(B, L, H, Hkv, D, dtype, seed):
@@ -6350,6 +6460,9 @@ def tp_kernels(report, errs):
     report["tp_rank_heads"] = hold_and_time_attention(
         f"{SEAMLESS} rank heads", TP_RANK_HEADS_FLASH, TP_RANK_HEADS_DECODE,
         torch.float32, TP_SEED + 70, report, errs)
+    report["tp_rank_heads"]["flash_attention"] += hold_and_time_attention(
+        f"{MOE_ARCHS[0]} rank heads", TP_GRANITE_RANK_HEADS, [],
+        torch.bfloat16, TP_SEED + 80, report, errs)["flash_attention"]
     return rows, err
 
 
@@ -6480,16 +6593,40 @@ def tp_seeded_state(cfg, ranks=None):
     return map_leaves(one, meta, ranks.state_specs)
 
 
-def tp_seeded_steps(cfg, params, ranks, step_fn, state):
-    """TP_GEMMA_STEPS decode steps from position TP_GEMMA_FROM (one row,
-    the seeded ``state``): each step's logits (gathered over "model") on
-    the CPU, ms, exchanges."""
+def tp_initial_state(cfg, ranks=None):
+    """The decode state at B=1 over TP_CACHE positions as the model
+    starts it (``init_decode_state``), or this rank's blocks of it."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import map_leaves
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import dtype_of
+
+    state = tr.init_decode_state(cfg, 1, TP_CACHE,
+                                 dtype_of(cfg.compute_dtype), device="cuda")
+    if ranks is None:
+        return state
+    return map_leaves(lambda t, s: tp.block(t, s, ranks).clone(), state,
+                      ranks.state_specs)
+
+
+def tp_decode_from(cfg, decode, ranks=None):
+    """(the state a TP_RUNS run's decode steps start from, their count)."""
+    if decode == "recurrent":
+        return tp_initial_state(cfg, ranks), TP_RECURRENT_STEPS
+    return tp_seeded_state(cfg, ranks), TP_GEMMA_STEPS
+
+
+def tp_seeded_steps(cfg, params, ranks, step_fn, state,
+                    n_steps=TP_GEMMA_STEPS):
+    """``n_steps`` decode steps from position TP_GEMMA_FROM (one row, from
+    ``state``): each step's logits (gathered over "model") on the CPU,
+    ms, exchanges."""
     from repro_torch.distributed import collectives
     from repro_torch.distributed import tensor_parallel as tp
 
-    toks = tp_inputs(cfg, 1, TP_GEMMA_STEPS, TP_SEED + 7)
+    toks = tp_inputs(cfg, 1, n_steps, TP_SEED + 7)
     logits, ms, exchanged = [], [], []
-    for t in range(TP_GEMMA_STEPS):
+    for t in range(n_steps):
         collectives.reset_collective_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6505,15 +6642,19 @@ def tp_seeded_steps(cfg, params, ranks, step_fn, state):
     return logits, ms, exchanged
 
 
-def tp_measured_prefill(cfg, step, params, inputs, warm=True):
+def tp_measured_prefill(cfg, step, params, inputs, warm=True, routes=None):
     """One prefill ``step`` on the card, with ``warm`` after one
     unmeasured (the process's first loads of the kernels' libraries):
     (logits on the CPU, ms, peak, launches, exchanges of the measured
-    one)."""
+    one).  An MoE config's routings in the unmeasured one are appended to
+    ``routes`` (:func:`tp_routes`)."""
     from repro_torch.distributed import collectives
 
     if warm:
-        step(params, inputs)
+        with RouteLog() as log_:
+            step(params, inputs)
+        if routes is not None:
+            routes += tp_routes(log_)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_counts()
@@ -6525,6 +6666,19 @@ def tp_measured_prefill(cfg, step, params, inputs, warm=True):
     peak = torch.cuda.max_memory_allocated()
     return (out.float().cpu(), ms, peak, all_counts(),
             {k: dict(v) for k, v in collectives.COLLECTIVES.items()})
+
+
+def tp_routes(log_):
+    """Each routing a :class:`RouteLog` recorded, on the CPU: its experts,
+    its kept slots and each token's gap between its k-th and (k+1)-th
+    router logits (how near a tie its choice of experts is)."""
+    out = []
+    for r in log_.calls:
+        k = r.idx.shape[-1]
+        top = torch.topk(r.logits, k + 1, dim=-1).values
+        out.append((r.idx.cpu(), r.keep.cpu(),
+                    (top[:, k - 1] - top[:, k]).cpu()))
+    return out
 
 
 def tp_cfg(key):
@@ -6539,30 +6693,78 @@ def tp_cfg(key):
 
 def tp_world1():
     """World 1 on the card (no mesh): each TP_RUNS model's prefill and
-    its generate or seeded decode steps, from the seed-TP_SEED weights."""
+    its generate or seeded decode steps (:func:`tp_world1_run`)."""
+    return {key: tp_world1_run(key) for key in TP_RUNS}
+
+
+def tp_world1_run(key, replay=None):
+    """World 1 on the card (no mesh) of TP_RUNS' run ``key``: its prefill
+    and its generate or seeded decode steps, from the seed-TP_SEED
+    weights.  ``replay``: the routings (:func:`tp_routes`) every MoE call
+    takes (:class:`RouteReplay`; the prefill then run once), all of them
+    in the order given."""
+    import contextlib
+
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tr
 
-    out = {}
-    for key, (_, _, (B, S), decode, seed) in TP_RUNS.items():
-        cfg = tp_cfg(key)
-        params = tr.init_lm(torch.Generator(device="cuda").manual_seed(
-            TP_SEED), cfg, device="cuda")
+    _, _, (B, S), decode, seed = TP_RUNS[key]
+    cfg = tp_cfg(key)
+    params = tr.init_lm(torch.Generator(device="cuda").manual_seed(
+        TP_SEED), cfg, device="cuda")
+    routes = []
+    with RouteReplay(replay) if replay is not None else \
+            contextlib.nullcontext() as replayed:
         logits, ms, _, _, _ = tp_measured_prefill(
             cfg, steps.make_prefill_step(cfg), params,
-            tp_prefill_inputs(cfg, B, S, seed))
+            tp_prefill_inputs(cfg, B, S, seed),
+            warm=decode != "recurrent" and replay is None, routes=routes)
         r = dict(prefill=logits, prefill_ms=ms)
         if decode == "generate":
             r["tokens"], log_, _, _ = tp_serve(cfg, params, None, seed + 200)
             r["step_logits"], r["step_ms"] = log_.logits, log_.ms
         else:
-            r["step_logits"], r["step_ms"], _ = tp_seeded_steps(
-                cfg, params, None, steps.make_decode_step(cfg),
-                tp_seeded_state(cfg))
-        out[key] = r
-        del params
-        torch.cuda.empty_cache()
-    return out
+            with RouteLog() as log_:
+                r["step_logits"], r["step_ms"], _ = tp_seeded_steps(
+                    cfg, params, None, steps.make_decode_step(cfg),
+                    *tp_decode_from(cfg, decode))
+            routes += tp_routes(log_)
+    if replay is not None and replayed.used != len(replay):
+        raise AssertionError(f"tensor_parallel {key}: {replayed.used} MoE "
+                             f"calls replayed of {len(replay)}")
+    r["routes"] = routes
+    del params
+    torch.cuda.empty_cache()
+    return r
+
+
+def tp_replays(key, world1, results):
+    """World 1's run ``key`` (an MoE in bf16) and its f32 copy's, again on
+    each rank's routing (:func:`tp_world1_run` with ``replay``; a rank
+    whose routing equals an earlier one's shares its runs), after a
+    replay of world 1's own routing gave world 1's logits bit for bit.
+    Returns per rank (the bf16 run, the f32 copy's run or None)."""
+    def same(a, b):
+        return len(a) == len(b) and all(
+            torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+            for x, y in zip(a, b))
+
+    w1, f32_key = world1[key], f"{key}_f32"
+    own = tp_world1_run(key, w1["routes"])
+    if not (torch.equal(own["prefill"], w1["prefill"]) and all(
+            torch.equal(a, b) for a, b in zip(own["step_logits"],
+                                              w1["step_logits"]))):
+        raise AssertionError(f"tensor_parallel {key}: world 1 on its own "
+                             "replayed routing moved its logits")
+    runs = []
+    for res in results:
+        routes = res["tp"][key]["routes"]
+        runs.append(next((run for r, run in zip(results, runs)
+                          if same(r["tp"][key]["routes"], routes)), None)
+                    or (tp_world1_run(key, routes),
+                        tp_world1_run(f32_key, routes)
+                        if f32_key in TP_RUNS else None))
+    return runs
 
 
 def tp_predicted(step, *args):
@@ -6582,9 +6784,10 @@ def tp_rank(mesh):
     peak above the allocations before the weights; SmolLM-360M's again
     with ``attn_seq_shards=2``), then the generate (an encoder-decoder's
     against its own encode) or the decode steps from its block of the
-    seeded state.  Each step's exchanges are first predicted: the step
-    run on the meta structs of the rank's blocks that its setup gives
-    (:func:`tp_predicted`)."""
+    seeded (or initial) state.  The exchanges its steps count are held
+    to :func:`tp_predict`'s, made in the main process while the kernels
+    build (nothing runs beside the ranks): the same steps on meta structs
+    of rank 0's blocks (rank 1's have the same shapes)."""
     from repro_torch.configs import InputShape
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import steps
@@ -6598,9 +6801,9 @@ def tp_rank(mesh):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
-        step, p_args, (p_specs, _), _ = steps.prefill_setup(
+        step, _, (p_specs, _), _ = steps.prefill_setup(
             cfg, InputShape("tp", S, B, "prefill"), mesh)
-        r = dict(prefill_predicted=tp_predicted(step, *p_args))
+        r = {}
         ranks = tp.serve_block(mesh, B, p_specs)
         t0 = time.perf_counter()
         params = tr.init_lm(torch.Generator(device="cuda")
@@ -6613,8 +6816,10 @@ def tp_rank(mesh):
         whole = tp_prefill_inputs(cfg, B, S, seed)
         inputs = {k: v[ranks.clients()].contiguous()
                   for k, v in whole.items()}
+        routes = []
         logits, ms, peak, counts, exchanged = tp_measured_prefill(
-            cfg, step, params, inputs)
+            cfg, step, params, inputs, warm=decode != "recurrent",
+            routes=routes)
         r.update(prefill=logits, prefill_ms=ms, prefill_peak=peak - base,
                  prefill_launches=counts, prefill_exchanged=exchanged,
                  held_bytes=held, init_s=init_s, rank=ranks.model.rank)
@@ -6627,29 +6832,25 @@ def tp_rank(mesh):
                 "seq_exchanged"] = tp_measured_prefill(
                     seq_cfg, seq_step, params, whole, warm=False)
         if decode == "generate":
-            n = len(TP_PROMPTS)
-            d_step, d_args, _, _ = steps.decode_setup(
-                cfg, InputShape("tp", TP_GEN_CACHE, n, "decode"), mesh)
-            r["step_predicted"] = tp_predicted(d_step, *d_args[:3], 0)
-            eng_ranks = tp.serve_block(mesh, n, p_specs)
+            eng_ranks = tp.serve_block(mesh, len(TP_PROMPTS), p_specs)
             r["tokens"], log_, r["gen_launches"], r["partial_len"] = \
                 tp_serve(cfg, params, eng_ranks, seed + 200)
             r["step_logits"], r["step_ms"] = log_.logits, log_.ms
             r["step_exchanged"] = log_.exchanged
         else:
-            d_step, d_args, (_, s_specs, _, _), _ = steps.decode_setup(
+            _, _, (_, s_specs, _, _), _ = steps.decode_setup(
                 cfg, InputShape("tp", TP_CACHE, 1, "decode"), mesh)
-            r["step_predicted"] = tp_predicted(d_step, *d_args[:3],
-                                               TP_GEMMA_FROM)
             dranks = tp.serve_block(mesh, 1, p_specs, s_specs)
             reset_all_counts()
-            with PartialLengths() as lens:
+            with PartialLengths() as lens, RouteLog() as log_:
                 r["step_logits"], r["step_ms"], r["step_exchanged"] = \
                     tp_seeded_steps(cfg, params, dranks,
                                     steps.make_decode_step(cfg, 0, dranks),
-                                    tp_seeded_state(cfg, dranks))
+                                    *tp_decode_from(cfg, decode, dranks))
             torch.cuda.synchronize()
             r["gen_launches"], r["partial_len"] = all_counts(), lens.longest
+            routes += tp_routes(log_)
+        r["routes"] = routes
         out[key] = r
         del params
         torch.cuda.empty_cache()
@@ -6657,20 +6858,30 @@ def tp_rank(mesh):
 
 
 def tp_predict(key):
-    """The meta prediction of a rank's prefill on a 1 x 2 fake mesh: the
-    roofline report (its peak: the rank's weights and rows, outputs and
-    temporaries)."""
+    """The meta prediction of a rank's steps as rank 0 of a 1 x 2 fake
+    mesh (nothing sent or launched): the prefill's roofline report (its
+    peak: the rank's weights and rows, outputs and temporaries) and the
+    exchanges it counts, and those of one decode step (the generate's or
+    the seeded steps' shape)."""
     from repro_torch.configs import InputShape
+    from repro_torch.distributed import collectives
     from repro_torch.launch import dryrun, steps
 
     cfg = tp_cfg(key)
-    _, _, (B, S), _, _ = TP_RUNS[key]
+    _, _, (B, S), decode, _ = TP_RUNS[key]
     shape = InputShape("tp", S, B, "prefill")
+    n, L, pos = (len(TP_PROMPTS), TP_GEN_CACHE, 0) if decode == "generate" \
+        else (1, TP_CACHE, TP_GEMMA_FROM)
     with dryrun.fake_mesh((1, 2), ("data", "model")) as mesh:
         step, args, _, _ = steps.prefill_setup(cfg, shape, mesh,
                                                rank_local=True)
-        return predict_step(f"tensor_parallel {key} rank", step, args, cfg,
-                            shape)
+        collectives.reset_collective_counts()
+        report, _ = predict_step(f"tensor_parallel {key} rank", step, args,
+                                 cfg, shape)
+        prefill = {k: dict(v) for k, v in collectives.COLLECTIVES.items()}
+        d_step, d_args, _, _ = steps.decode_setup(
+            cfg, InputShape("tp", L, n, "decode"), mesh, rank_local=True)
+        return report, prefill, tp_predicted(d_step, *d_args[:3], pos)
 
 
 def tp_flips(got, want, logits):
@@ -6716,7 +6927,7 @@ def tp_want(cfg, S, n_steps):
     layer of a step."""
     from repro_torch.configs import base
 
-    L = cfg.n_layers
+    L = sum(k in (base.ATTN, base.SWA, base.HYMBA) for k in cfg.pattern())
     cross = L if cfg.n_enc_layers else 0
     mamba = sum(k in (base.HYMBA, base.MAMBA) for k in cfg.pattern())
     return ({"flash_attention": cfg.n_enc_layers + L + cross,
@@ -6725,25 +6936,112 @@ def tp_want(cfg, S, n_steps):
              "decode_attention": cross * n_steps})
 
 
+def tp_route_hold(label, got, want, exact, parts):
+    """A rank's routings (:func:`tp_routes`) against world 1's, call by
+    call in the order made: the same number of calls; ``exact`` (an f32
+    run) the same experts and kept slots bit for bit (a token's experts
+    compared as a set: two swapped in its top-k order give every pair the
+    same slot and position, the k slots summed in another order).  Else
+    (bf16: the rank's hidden states are world 1's to one rounding of the
+    row-parallel sums, so a near-tie may flip, and then every later
+    choice it reaches: trap S) in each of ``parts``, runs of calls
+    ``(start, end)`` that no other part reaches (the prefill; the decode
+    steps from their seeded state), the first entry that differs must
+    be a token's experts at a near-tie of world 1's (its k-th and
+    (k+1)-th router logits within TP_ROUTE_TIE).  Returns (each part's
+    first call that differs, or None; the (token, slot) entries that
+    differ)."""
+    if len(got) != len(want):
+        raise AssertionError(f"tensor_parallel {label}: {len(got)} "
+                             f"routings, world 1 {len(want)}")
+
+    def by_expert(r):               # a token's experts as a set
+        order = r[0].argsort(-1)
+        return r[0].gather(-1, order), r[1].gather(-1, order)
+
+    firsts, off = [], 0
+    for start, end in parts:
+        first = None
+        for c in range(start, end):
+            (ia, ka), (ib, kb), b = by_expert(got[c]), by_expert(want[c]), \
+                want[c]
+            experts = (ia != ib).any(-1)
+            n = int((ia != ib).sum() + (ka != kb).sum())
+            off += n
+            if n and first is None:
+                first = c
+                t = int((experts | (ka != kb).any(-1)).nonzero()[0])
+                gap = float(b[2][t])
+                if exact or not bool(experts[t]) or gap >= TP_ROUTE_TIE:
+                    raise AssertionError(
+                        f"tensor_parallel {label}: routing call {c} "
+                        f"differs from world 1's first at token {t} "
+                        f"(experts {bool(experts[t])}, world 1's gap "
+                        f"{gap:.3e})")
+        firsts.append(first)
+    return firsts, off
+
+
+def tp_f32_tol(key, world1):
+    """The bound of an f32 run's max |TP - world 1| logits: TP_LOGIT_TOL;
+    for the f32 copy of a model whose world 1 bf16 logits lie past
+    TP_CHAOS of their RMS from the copy's (it amplifies rounding: xLSTM),
+    TP_CHAOS_TOL of the copy's world 1 prefill logits' RMS where that is
+    larger."""
+    f32, bf16 = world1[key], world1.get(key[:-len("_f32")]) \
+        if key.endswith("_f32") else None
+    if bf16 is None or not tp_chaotic(bf16, f32):
+        return TP_LOGIT_TOL
+    rms = float(f32["prefill"].float().pow(2).mean().sqrt())
+    return max(TP_LOGIT_TOL, TP_CHAOS_TOL * rms)
+
+
+def tp_chaotic(bf16, f32):
+    """Whether world 1's bf16 prefill logits lie past TP_CHAOS of their
+    RMS from its f32 copy's (the model amplifies rounding: xLSTM)."""
+    a, b = bf16["prefill"].float(), f32["prefill"].float()
+    return float((a - b).pow(2).mean().sqrt()) > TP_CHAOS * float(
+        b.pow(2).mean().sqrt())
+
+
+def tp_bf16_within(w1, f32, sblock):
+    """Whether world 1's bf16 logits (prefill and steps) lie within
+    :func:`tp_bf16_hold`'s bounds of its f32 copy's."""
+    try:
+        tp_bf16_hold("world 1 vs f32", w1["prefill"], f32["prefill"])
+        for a, b in zip(w1["step_logits"], f32["step_logits"]):
+            tp_bf16_hold("world 1 vs f32", sblock(a), sblock(b))
+    except AssertionError:
+        return False
+    return True
+
+
 def tp_bf16_margin(label, got, w1, f32):
     """A bf16 TP run's logits ``got`` held through the f32 copy's world 1
     logits ``f32``: their difference's RMS and max (over f32's RMS) no
     more than TP_BF16_MARGIN times world 1's bf16 logits' ``w1``.
     Returns both pairs."""
-    def off(a):
-        d = a.float() - f32.float()
-        rms = float(f32.float().pow(2).mean().sqrt())
-        return (float(d.pow(2).mean().sqrt()) / rms,
-                float(d.abs().max()) / rms)
-
-    tp_off, w1_off = off(got), off(w1)
+    tp_off, w1_off = tp_offsets(got, w1, f32)
     if any(a > TP_BF16_MARGIN * b for a, b in zip(tp_off, w1_off)):
         raise AssertionError(f"tensor_parallel {label}: RMS/max {tp_off} "
                              f"from the f32 copy, world 1's bf16 {w1_off}")
     return tp_off, w1_off
 
 
-def tensor_parallel(report, errs):
+def tp_offsets(got, w1, f32):
+    """((RMS, max) of ``got`` - ``f32``, the same of ``w1`` - ``f32``),
+    each over the RMS of ``f32``."""
+    rms = float(f32.float().pow(2).mean().sqrt())
+
+    def off(a):
+        d = a.float() - f32.float()
+        return (float(d.pow(2).mean().sqrt()) / rms,
+                float(d.abs().max()) / rms)
+
+    return off(got), off(w1)
+
+
+def tensor_parallel(report, errs, pred):
     """(a) :func:`tp_kernels`; (b) over a 1 x 2 gloo mesh on the card (two
     rank processes, world 1 in this one), at full width, each TP_RUNS
     run against world 1: SmolLM-360M (f32) the TP_PREFILL prefill
@@ -6755,21 +7053,30 @@ def tensor_parallel(report, errs):
     with B6 on the rank's channels, its f32 copy within TP_LOGIT_TOL,
     its bf16 run through the f32 copy (:func:`tp_bf16_margin`);
     SeamlessM4T-medium (f32) a prefill over 1,500 frames and the
-    generate against each rank's encode, as SmolLM's.  Each rank's
+    generate against each rank's encode, as SmolLM's; Granite-MoE-3B-
+    a800m as Gemma, its f32 copy routing as world 1 exactly
+    (:func:`tp_route_hold`) within TP_LOGIT_TOL, its bf16 run's first
+    flips near-ties and its logits held by tp_bf16_hold to world 1 run
+    on the rank's routing (:func:`tp_replays`); xLSTM-1.3B's f32 copy
+    within :func:`tp_f32_tol`, its bf16 run (chaotic, :func:`tp_chaotic`)
+    only finite.  Each rank's
     launches (:func:`tp_want`), its exchanges against the meta
     prediction exactly, the longest block its partial was handed
     (non-empty on every rank), ms per step, its prefill's peak against
-    the meta prediction (within TP_PEAK_SHARE).
+    the meta prediction (within TP_PEAK_SHARE).  ``pred``: each run's
+    :func:`tp_predict`, made beside the kernels' build.
     Returns (the partial's kernels-line row, the ranks' other launches)."""
     import tempfile
 
     rows, err = tp_kernels(report, errs)
     world1 = tp_world1()
-    pred = {key: tp_predict(key) for key in TP_RUNS}
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp"))
     t0 = time.perf_counter()
-    ranks = dp_spawn(2, [("tp", (1, 2))], tmp)
+    ranks = dp_spawn(2, [("tp", (1, 2))], tmp, TP_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
+    replays = {key: tp_replays(key, world1, ranks) for key in TP_RUNS
+               if world1[key]["routes"]
+               and tp_cfg(key).compute_dtype == "bfloat16"}
     partial_launches, out_rows = 0, []
     other = collections.Counter()
     for r, res in enumerate(ranks):
@@ -6799,23 +7106,23 @@ def tensor_parallel(report, errs):
                 if set(ex) != {"model"}:
                     raise AssertionError(f"tensor_parallel {key}: "
                                          f"exchanges {ex}")
-            if got["prefill_exchanged"] != got["prefill_predicted"] or any(
-                    ex != got["step_predicted"]
+            p, p_pre, p_step = pred[key]
+            if got["prefill_exchanged"] != p_pre or any(
+                    ex != p_step
                     for ex in got["step_exchanged"]):
                 raise AssertionError(
                     f"tensor_parallel {key} rank {r}: counted "
                     f"{got['prefill_exchanged']} / "
                     f"{got['step_exchanged']} != the predicted "
-                    f"{got['prefill_predicted']} / "
-                    f"{got['step_predicted']}")
+                    f"{p_pre} / {p_step}")
             # every rank's block of cache positions was reached
             L_r = (TP_GEN_CACHE if decode == "generate" else TP_CACHE) // M
-            if not 0 < got["partial_len"] <= L_r:
+            if want_dec["decode_attention_partial"] and not \
+                    0 < got["partial_len"] <= L_r:
                 raise AssertionError(
                     f"tensor_parallel {key} rank {r}: the partial's "
                     f"longest block {got['partial_len']} of {L_r}")
             want = block(w1["prefill"])
-            p, _ = pred[key]
             share = got["prefill_peak"] / p.bytes_per_device - 1.0
             if abs(share) > TP_PEAK_SHARE:
                 raise AssertionError(
@@ -6835,27 +7142,67 @@ def tensor_parallel(report, errs):
                            "prefill_launches"].items() if v},
                        step_launches={k: v for k, v in got[
                            "gen_launches"].items() if v})
+            if w1["routes"]:
+                # the prefill's L calls, then L a decode step (from the
+                # seeded state, which no prefill flip reaches)
+                L = cfg.n_layers
+                (pre_flip, step_flip), row["route_pairs_off"] = \
+                    tp_route_hold(f"{key} rank {r}", got["routes"],
+                                  w1["routes"],
+                                  cfg.compute_dtype == "float32",
+                                  [(0, L), (L, len(w1["routes"]))])
+                row["route_first_calls"] = (pre_flip, step_flip)
+            # a bf16 run is held to world 1 and its f32 copy; an MoE's (in
+            # bf16) to both run on this rank's routing (tp_replays), so
+            # that a near-tie flip moves neither side alone
             f32 = world1.get(f"{key}_f32")
-            if f32 is not None:            # bf16, through its f32 copy
+            ref1, f32 = replays[key][r] if key in replays else (w1, f32)
+            on = " (world 1 on this rank's routing)" if key in replays else ""
+            want = block(ref1["prefill"])
+            if f32 is not None and tp_chaotic(ref1, f32):
+                # world 1's own bf16 lies past TP_CHAOS of its f32 copy
+                # (xLSTM): no bound on these logits would tell a fault from
+                # rounding, so they are not held, only finite; the f32
+                # copy holds the path.  Their distance is recorded.
+                if not all(bool(torch.isfinite(t).all()) for t in
+                           [got["prefill"]] + got["step_logits"]):
+                    raise AssertionError(f"tensor_parallel {key} rank {r}: "
+                                         "logits not finite")
+                row["prefill_off"] = tp_offsets(got["prefill"], want,
+                                                block(f32["prefill"]))
+                row["step_off"] = [tp_offsets(a, sblock(b), sblock(c))
+                                   for a, b, c in zip(got["step_logits"],
+                                                      ref1["step_logits"],
+                                                      f32["step_logits"])]
+                row["bf16_held_by"] = "not held (chaotic): finite only"
+                held = (f"not held (world 1's bf16 past {TP_CHAOS} of the "
+                        f"f32 copy): RMS/max over the f32 copy's logits' "
+                        f"RMS, this rank's and world 1's bf16: prefill "
+                        f"{row['prefill_off']}, steps {row['step_off']}")
+            elif f32 is not None and not tp_bf16_within(ref1, f32, sblock):
+                # bf16 whose world 1 lies past tp_bf16_hold's bounds of its
+                # f32 copy: held through the f32 copy
                 row["prefill_off"] = tp_bf16_margin(
                     f"{key} prefill rank {r}", got["prefill"], want,
                     block(f32["prefill"]))
                 row["step_off"] = [tp_bf16_margin(
                     f"{key} step {t} rank {r}", a, sblock(b), sblock(c))
                     for t, (a, b, c) in enumerate(zip(
-                        got["step_logits"], w1["step_logits"],
+                        got["step_logits"], ref1["step_logits"],
                         f32["step_logits"]))]
                 held = (f"RMS/max over the f32 copy's logits' RMS, this "
-                        f"rank's and world 1's bf16: prefill "
+                        f"rank's and world 1's bf16{on}: prefill "
                         f"{row['prefill_off']}, steps {row['step_off']}")
+                row["bf16_held_by"] = "the f32 copy" + on
             elif cfg.compute_dtype == "bfloat16":
+                row["bf16_held_by"] = "tp_bf16_hold" + on
                 row["prefill_rms_max"] = tp_bf16_hold(
                     f"{key} prefill rank {r}", got["prefill"], want)
                 row["step_rms_max"] = [tp_bf16_hold(
                     f"{key} step {t} rank {r}", a, b) for t, (a, b) in
-                    enumerate(zip(got["step_logits"], w1["step_logits"]))]
-                held = (f"RMS/max of the difference over the logits' RMS: "
-                        f"prefill {row['prefill_rms_max']}, steps "
+                    enumerate(zip(got["step_logits"], ref1["step_logits"]))]
+                held = (f"RMS/max of the difference over the logits' "
+                        f"RMS{on}: prefill {row['prefill_rms_max']}, steps "
                         f"{row['step_rms_max']}")
             else:
                 row["prefill_max_diff"] = max_abs_err(got["prefill"], want)
@@ -6886,10 +7233,16 @@ def tensor_parallel(report, errs):
                                              f"{got['seq_predicted']}")
                     held += (f"; seq shards prefill {row['seq_ms']:.1f} ms, "
                              f"max |diff| {row['seq_max_diff']:.3e}")
+                row["f32_tol"] = tp_f32_tol(key, world1)
+                held += f" (bound {row['f32_tol']:.3e})"
                 if max(worst, row["prefill_max_diff"],
-                       row.get("seq_max_diff", 0.0)) > TP_LOGIT_TOL:
+                       row.get("seq_max_diff", 0.0)) > row["f32_tol"]:
                     raise AssertionError(f"tensor_parallel {key} rank {r}: "
                                          f"{row}")
+            if "route_pairs_off" in row:
+                held += (f"; routing off world 1's at "
+                         f"{row['route_pairs_off']} (token, slot) entries "
+                         f"of {len(got['routes'])} calls")
             out_rows.append(row)
             log(f"tensor_parallel {key} rank {r}/2 (1 x 2, gloo): prefill "
                 f"{row['prefill_ms']:.1f} ms (world 1 "
@@ -6918,7 +7271,7 @@ def tensor_parallel(report, errs):
     return row, other
 
 
-def main() -> int:
+def main(prefill_32k: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -6932,10 +7285,21 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
-    report = {"card": card}
+    report = {"card": card, "long_shapes": prefill_32k}
 
     t_start = time.perf_counter()
-    build_kernels(report)
+    # the tensor_parallel ranks' meta predictions (host only) while nvcc
+    # builds, so that nothing runs beside the ranks' timed steps
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(build_kernels, report)
+        t0 = time.perf_counter()
+        tp_pred = {key: tp_predict(key) for key in TP_RUNS}
+        report["tp_predict_s"] = time.perf_counter() - t0
+        built.result()
+    log(f"tensor_parallel: the ranks' meta predictions "
+        f"{report['tp_predict_s']:.1f} s, beside the build")
     # B4's kernels at head dim 64, as dispatched: name and tiles
     b4 = {fn: kernel_label(report, fn, 64)
           for fn in ("dispatch_f32", "dispatch_bf16")}
@@ -7146,7 +7510,7 @@ def main() -> int:
     # a 1 x 2 gloo mesh on the card against world 1, each rank's exchanges
     # against the plan's count and its peak against meta
     t0 = time.perf_counter()
-    tp_row, tp_launches = tensor_parallel(report, errs)
+    tp_row, tp_launches = tensor_parallel(report, errs, tp_pred)
     for name, n in tp_launches.items():
         launches[name] = launches.get(name, 0) + n
     report["tensor_parallel_phase_s"] = time.perf_counter() - t0
@@ -7267,7 +7631,7 @@ def main() -> int:
         long_rows=report["long_row"],
         tp_rank_heads=report["tp_rank_heads"]["flash_attention"],
         prefill_32k={name: {k: r[k] for k in ("B", "S", "ms", "launches")}
-                     for name, r in report["prefill_32k"].items()})
+                     for name, r in report.get("prefill_32k", {}).items()})
     # B4's backward: its kernels (dq, the per-head dK/dV, their sum) with
     # registers and spills, at head dim 64 the call's ms and each kernel's
     # at the training shape, and for f32 at SeamlessM4T's decoder and cross
@@ -7361,4 +7725,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:          # one rank of data_parallel
         sys.exit(dp_rank_main(sys.argv[2], int(sys.argv[3]),
                               int(sys.argv[4])))
-    sys.exit(main())
+    sys.exit(main(prefill_32k="--long-shapes" in sys.argv[1:]))

@@ -1,7 +1,9 @@
 """Ambient mesh registry (the port of the JAX package's
 ``distributed/context.py``): launch code registers the active mesh so
-that model code can read it (``moe_group_shard``) without threading a
-mesh through every call.
+that code can read it without threading a mesh through every call.  In
+one program the mesh knobs (``moe_group_shard``, ``attn_seq_shards``)
+change no value whatever mesh is registered; they act in a rank's step
+(``ranks=``, ``distributed/tensor_parallel.py``).
 
 The mesh is a torch ``DeviceMesh`` or a ``sharding.MeshShape``; either
 names its axes in ``mesh_dim_names`` and sizes them in ``shape``.  This
@@ -26,23 +28,3 @@ def get_mesh():
 def clear_mesh() -> None:
     global _MESH
     _MESH = None
-
-
-def check_model_axis(knob: str) -> None:
-    """The rule of a knob that places work on the ``"model"`` mesh axis
-    from the ambient mesh (``moe_group_shard``; ``attn_seq_shards`` reads
-    the rank's block instead, ``models/attention.py``).  Under no mesh,
-    or one whose ``"model"`` axis has one device, the placement is the
-    identity, as XLA's sharding constraint is on the reference's host
-    mesh: return.  Over a larger axis the experts would have to be placed
-    over ranks, which the port does not do yet: raise, naming 7(b) step
-    3b."""
-    mesh = get_mesh()
-    if mesh is None:
-        return
-    size = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))).get("model", 1)
-    if size > 1:
-        raise NotImplementedError(
-            f"{knob} over a 'model' mesh axis of {size} devices needs "
-            "multi-device execution, which is not yet ported to repro_torch "
-            "(ROADMAP Queue A item 7(b) step 3b)")

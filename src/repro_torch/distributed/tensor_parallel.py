@@ -37,6 +37,10 @@ without the mask over the encoder's memory, or B5 whole over it).  The
 Mamba mixer (``models/ssm.py``) runs on a rank's block of its ``d_in``
 channels (:func:`channels`, :func:`leaf_block`): B6 on them, ``x_proj``
 and ``out_proj`` row-parallel sums, its decode state the rank's channels.
+The mLSTM runs on the rank's block of each head's v rows (where the plan
+puts its state ``C``), the sLSTM on the rank's channels of each of its
+four gates (:func:`chunk_channels`), the MoE FFN on the rank's experts
+(:func:`experts`) or on its block of ``d_ff`` (``models/moe.py``).
 
 The rank's place travels as ``ranks=`` (a ``data_parallel.RankBlock``
 whose ``specs`` are the plan's specs of the parameters at hand).  A
@@ -49,9 +53,11 @@ layer functions: :func:`at` gives them None, and with None every helper
 here is world 1's op (the product ``x @ w``, the leaf as it is, no
 exchange).
 
-Every family serves this way but the MoE families and xLSTM:
-:func:`check_family` refuses those over a ``"model"`` axis of more than
-one device.
+Every family serves this way.  What still raises ``NotImplementedError``
+names its ROADMAP item: training under the plan's ``"model"`` placements
+(:data:`STEP3C`), a dim split over ``"model"`` together with another
+axis or a decode state split off the dims a layer computes on
+(:data:`STEP3D`).
 """
 from __future__ import annotations
 
@@ -64,14 +70,18 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed.data_parallel import RankBlock, rank_block
 from repro_torch.distributed.sharding import map_leaves
 
-STEP3B = ("ROADMAP Queue A 7(b) step 3b (the MoE families' expert "
-          "placement and moe_group_shard, xLSTM)")
 STEP3C = ("ROADMAP Queue A 7(b) step 3c (training under the default plan's "
           "'model' placements)")
 STEP3D = ("ROADMAP Queue A 7(b) step 3d (mode B's FSDP over a real 'data' "
           "axis, long_500k's head_dim split)")
 Q_CHUNK = 256          # the reference's query chunk (models/attention.py)
 _HALF = (torch.bfloat16, torch.float16)
+
+
+def split(ranks: Optional[RankBlock]) -> bool:
+    """Whether a serving step runs over several ranks at all: its rows
+    over ``"data"``, its layers over ``"model"``, or both."""
+    return ranks is not None and ranks.specs is not None and ranks.world > 1
 
 
 def active(ranks: Optional[RankBlock]) -> bool:
@@ -88,10 +98,19 @@ def at(ranks: Optional[RankBlock], *keys) -> Optional[RankBlock]:
     return ranks.at(*keys) if active(ranks) else None
 
 
+def split_at(ranks: Optional[RankBlock], *keys) -> Optional[RankBlock]:
+    """:func:`at` for a layer that couples the batch's rows (the MoE's
+    capacity): the block wherever the step is :func:`split`, a ``"data"``
+    axis of several ranks alone included; None at world 1."""
+    return ranks.at(*keys) if split(ranks) else None
+
+
 def layer(ranks: Optional[RankBlock], i: int) -> Optional[RankBlock]:
     """Layer ``i``'s block: its parameter specs and, where the block
-    carries the decode state's, the layer's state specs."""
-    r = at(ranks, "layers", i)
+    carries the decode state's, the layer's state specs (None at world
+    1; over ``"data"`` alone, a block whose sub-layers :func:`at` gives
+    None but :func:`split_at` does not)."""
+    r = split_at(ranks, "layers", i)
     if r is None or ranks.state_specs is None:
         return r
     return dataclasses.replace(r, state_specs=ranks.state_specs["layers"][i])
@@ -201,23 +220,6 @@ def serve_block(mesh, batch: int, specs, state_specs=None) -> RankBlock:
                                state_specs=state_specs)
 
 
-def check_family(cfg) -> None:
-    """Refuse, naming 7(b) step 3b, a config whose layers are not split
-    over ``"model"`` yet: the xLSTM block kinds, an MoE FFN."""
-    from repro_torch.configs.base import FFN_MOE, MLSTM, SLSTM
-
-    kinds = sorted(set(cfg.pattern()) & {MLSTM, SLSTM})
-    why = []
-    if kinds:
-        why.append(f"block kinds {kinds}")
-    if cfg.ffn_kind == FFN_MOE:
-        why.append("an MoE FFN")
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name} over a 'model' axis of more than one device "
-            f"({', '.join(why)}): {STEP3B}")
-
-
 # ---------------------------------------------------------------------------
 # exchanges (the identity at world 1)
 def reduce_sum(t: torch.Tensor, ranks: Optional[RankBlock]) -> torch.Tensor:
@@ -239,6 +241,14 @@ def gather(t: torch.Tensor, ranks: Optional[RankBlock], dim: int
     if ranks is None:
         return t
     return collectives.all_gather(t, ranks.model, dim)
+
+
+def gather_rows(t: torch.Tensor, ranks: Optional[RankBlock]) -> torch.Tensor:
+    """The ``"data"`` ranks' rows of ``t`` (dim 0) concatenated in rank
+    order: the whole batch's, on every rank."""
+    if ranks is None:
+        return t
+    return collectives.all_gather(t, ranks.data, 0)
 
 
 def gather_leaf(w: torch.Tensor, spec, ranks: Optional[RankBlock]
@@ -264,6 +274,36 @@ def channels(t: torch.Tensor, ranks: Optional[RankBlock], dim: int = -1
     return t.narrow(dim, ranks.model.rank * m, m)
 
 
+def chunk_channels(t: torch.Tensor, k: int, ranks: Optional[RankBlock],
+                   dim: int = -1) -> torch.Tensor:
+    """This rank's channels of each of the ``k`` equal chunks of dim
+    ``dim`` of a whole ``t``, concatenated in chunk order (the sLSTM's
+    z|i|f|o gates: a rank's d-channels of each), or ``t`` at world 1."""
+    if ranks is None:
+        return t
+    return torch.cat([channels(c, ranks, dim) for c in t.chunk(k, dim)],
+                     dim=dim)
+
+
+def model_block(t: torch.Tensor, spec, ranks: Optional[RankBlock]
+                ) -> torch.Tensor:
+    """The inverse of :func:`gather_leaf`: a whole ``t`` narrowed to this
+    rank's block along the dim ``spec`` splits over ``"model"`` (``t``
+    where it splits none)."""
+    d = model_dim(spec, ranks)
+    return t if d is None else channels(t, ranks, d)
+
+
+def experts(spec, ranks: Optional[RankBlock], n: int) -> tuple:
+    """``(e0, e1)``: the experts ``[e0, e1)`` this rank holds of an expert
+    leaf (its experts on dim 0) that ``spec`` places, all ``n`` where it
+    is not split on them."""
+    if model_dim(spec, ranks) != 0:
+        return 0, n
+    per = n // ranks.model.size
+    return ranks.model.rank * per, (ranks.model.rank + 1) * per
+
+
 def leaf_block(w: torch.Tensor, spec, ranks: Optional[RankBlock],
                dim: int = -1) -> torch.Tensor:
     """This rank's block of a leaf along ``dim``: the leaf as the rank
@@ -277,13 +317,18 @@ def leaf_block(w: torch.Tensor, spec, ranks: Optional[RankBlock],
 # ---------------------------------------------------------------------------
 # products
 def _partial(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """A rank's term of a row-parallel product, ``xb @ w``: in f32 for a
-    half type, so that the sum over ranks rounds to it once, as world
-    1's product does (a half-precision term would round before the sum
-    too); in ``xb``'s dtype otherwise."""
+    """A rank's term of a row-parallel product, ``xb @ w`` with ``w`` in
+    ``xb``'s dtype (as world 1's product casts it): in f32 for a half
+    type, so that the sum over ranks rounds to it once, as world 1's
+    product does (a half-precision term would round before the sum too);
+    in ``xb``'s dtype otherwise.  The weight is rounded to the half type
+    before it widens: an f32 leaf used as it is would move ~40 % of a
+    bf16 output off world 1's bits (and flip an MoE's routing at gaps
+    far from a tie)."""
+    w = w.to(xb.dtype)
     if xb.dtype in _HALF:
         return xb.float() @ w.float()
-    return xb @ w.to(xb.dtype)
+    return xb @ w
 
 
 def _row_sum(xb: torch.Tensor, w: torch.Tensor, ranks: RankBlock

@@ -37,9 +37,9 @@ collective term comes from their bytes and the link model of
 ``roofline.kernel_cost`` (NVLink within a node of 8, InfiniBand between).
 The row is written as ``{arch}__{shape}__16x16.json`` or
 ``__2x16x16.json``.  Their serving rows (``prefill_32k``, ``decode_32k``)
-of the mode-A families but the MoE families and xLSTM (SmolLM-360M,
-Gemma-7B, Hymba-1.5B, SeamlessM4T-medium) run the same way under the
-default plan, tensor-parallel over ``"model"``
+of every mode-A family (SmolLM-360M, Gemma-7B, Hymba-1.5B,
+SeamlessM4T-medium, Granite-MoE-3B-a800m, OLMoE-1B-7B, xLSTM-1.3B) run
+the same way under the default plan, tensor-parallel over ``"model"``
 (``distributed/tensor_parallel.py``; ``steps.prefill_setup`` /
 ``decode_setup(rank_local=True)``: rank 0's rows and blocks, at
 ``decode_32k`` on (16, 16) 8 rows x 2,048 cache positions), with a
@@ -47,8 +47,9 @@ default plan, tensor-parallel over ``"model"``
 ``NotImplementedError``, naming its ROADMAP item (:func:`check_mesh`):
 training without ``inner_dp`` (7(b) step 3c), mode B (step 3d: FSDP over
 a real ``"data"`` axis), ``long_500k``'s decode (B = 1: the plan puts
-``"model"`` on head_dim, step 3d), and the MoE families and xLSTM
-(step 3b).
+``"model"`` on head_dim, step 3d).  xLSTM's ``prefill_32k`` row runs an
+eager sLSTM loop of one step a position (150.8 s on meta at 4,096
+positions), so it is run with ``--smoke`` or a ``cut`` of its length.
 """
 from __future__ import annotations
 
@@ -75,15 +76,14 @@ PRODUCTION = {False: ("16x16", ("data", "model"), (16, 16)),
 
 
 def check_mesh(multi_pod: Optional[bool], kind: str = "train",
-               inner_dp: bool = False, fed_mode: str = "A", cfg=None,
+               inner_dp: bool = False, fed_mode: str = "A",
                batch: int = 0) -> None:
     """The rows the port runs: every row on the host mesh (``multi_pod``
     None); on the production meshes the training rows of mode-A configs
-    under ``inner_dp`` and the serving rows of mode-A configs but the MoE
-    families and xLSTM (``cfg``; a decode row of ``batch`` > 1).  Any other raises
-    ``NotImplementedError`` naming its ROADMAP Queue A 7(b) step: 3c
-    (training under the default plan), 3d (mode B; ``long_500k``'s
-    head_dim split), 3b (``tensor_parallel.check_family``)."""
+    under ``inner_dp`` and the serving rows of mode-A configs (a decode
+    row of ``batch`` > 1).  Any other raises ``NotImplementedError``
+    naming its ROADMAP Queue A 7(b) step: 3c (training under the default
+    plan), 3d (mode B; ``long_500k``'s head_dim split)."""
     from repro_torch.distributed import tensor_parallel as tp
 
     if multi_pod is None:
@@ -98,8 +98,6 @@ def check_mesh(multi_pod: Optional[bool], kind: str = "train",
         return
     if kind == "decode" and batch == 1:
         raise NotImplementedError(f"{row} of one sequence: {tp.STEP3D}")
-    if cfg is not None:
-        tp.check_family(cfg)
 
 
 @contextlib.contextmanager
@@ -185,7 +183,7 @@ def run_one(arch_name: str, shape_name: str,
         cfg, fed_base, setup_kwargs = get_variant(variant).apply(cfg)
         arch_name = f"{arch_name}+{variant}"
     check_mesh(multi_pod, shape.kind, setup_kwargs.get("inner_dp", False),
-               cfg.fed_mode, cfg, shape.global_batch)
+               cfg.fed_mode, shape.global_batch)
     mesh_name = MESH_NAME if multi_pod is None else PRODUCTION[multi_pod][0]
 
     t0 = time.time()
@@ -270,7 +268,7 @@ def main(argv=None) -> int:
                     help="host: the 1 x 1 host mesh; single / multi: the "
                          "reference's (16, 16) / (2, 16, 16) meshes, as "
                          "rank 0 (training rows under inner_dp, the "
-                         "dense decoders' serving rows)")
+                         "mode-A families' serving rows)")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--variant", default="",
                     help="named hillclimb variant (launch/variants.py)")
@@ -293,7 +291,7 @@ def main(argv=None) -> int:
             for s in shapes:
                 try:
                     check_mesh(multi_pod, INPUT_SHAPES[s].kind, inner_dp,
-                               get_arch(a).fed_mode, get_arch(a),
+                               get_arch(a).fed_mode,
                                INPUT_SHAPES[s].global_batch)
                 except NotImplementedError as e:
                     refusals.append(e)

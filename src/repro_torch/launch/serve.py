@@ -15,10 +15,11 @@ with, as the reference's engine does; a VLM serves its text.
 Started by ``torchrun`` with ``--mesh RxM`` it serves as one rank of an R
 x M ("data", "model") mesh (``launch/mesh.registered_mesh``; one process
 group a process), tensor-parallel over ``"model"`` under the default
-plan (``distributed/tensor_parallel.py``: every family but the MoE
-families and xLSTM, which raise naming ROADMAP 7(b) step 3b: Hymba's
-Mamba heads on a rank's channels, SeamlessM4T's encoder and
-cross-attention on its heads), the requests'
+plan (``distributed/tensor_parallel.py``: every family; Hymba's Mamba
+heads on a rank's channels, SeamlessM4T's encoder and cross-attention
+on its heads, the MoE FFN on a rank's experts or its block of d_ff,
+xLSTM's mLSTM on its v rows of each head and sLSTM on its channels of
+each gate), the requests'
 rows split over ``"data"``; each rank draws its blocks of the seed-0
 weights (``transformer.init_lm`` with ``tensor_parallel.keep_blocks``)
 and rank 0 prints::
@@ -27,8 +28,9 @@ and rank 0 prints::
         -m repro_torch.launch.serve --arch smollm-360m --mesh 1x2 \
         --backend gloo
 
-(also ``--arch hymba-1.5b`` or ``seamless-m4t-medium``; add ``--smoke
---device cpu`` on the CPU).
+(also ``--arch hymba-1.5b``, ``seamless-m4t-medium``,
+``granite-moe-3b-a800m``, ``olmoe-1b-7b`` or ``xlstm-1.3b``; add
+``--smoke --device cpu`` on the CPU).
 
 ``--backend``: ``gloo`` where the ranks share one card (NCCL refuses
 that) or on the CPU, ``nccl`` where each rank has a card of its own
@@ -86,8 +88,6 @@ def main(argv=None) -> int:
         if mesh is not None:
             ranks = tp.serve_block(mesh, args.requests,
                                    serving_specs(cfg, mesh))
-            if tp.active(ranks):
-                tp.check_family(cfg)
             params = tr.init_lm(gen, cfg, keep=tp.keep_blocks(ranks, dev))
         else:
             params = tr.init_lm(gen, cfg, device=dev)

@@ -431,8 +431,7 @@ def check_placements(plan, kind: str = "train") -> None:
     or ``"decode"``): the default plan over any ``"data"`` x ``"model"``
     mesh for mode A, for mode B where ``"data"`` has one device (else
     step 3d); over a ``"model"`` axis of more than one device every
-    family but the MoE families and xLSTM (``tensor_parallel.
-    check_family``: step 3b)."""
+    family."""
     if mesh_size(plan.mesh) == 1:
         return
     sizes = dict(zip(plan.mesh.mesh_dim_names, tuple(plan.mesh.shape)))
@@ -443,11 +442,9 @@ def check_placements(plan, kind: str = "train") -> None:
             "devices")
     if plan.cfg.fed_mode != "A" and data > 1:
         raise NotImplementedError(f"{what}: {tp.STEP3D}")
-    if kind == "train":
-        if plan.cfg.fed_mode != "A" or (model > 1 and not plan.inner_dp):
-            raise NotImplementedError(f"{what}: {tp.STEP3C}")
-    elif model > 1:
-        tp.check_family(plan.cfg)
+    if kind == "train" and (plan.cfg.fed_mode != "A"
+                            or (model > 1 and not plan.inner_dp)):
+        raise NotImplementedError(f"{what}: {tp.STEP3C}")
 
 
 def runs_ranks(mesh) -> bool:

@@ -36,6 +36,24 @@ contract.  ``jax.nn.log_sigmoid`` is ``-softplus(-x)``
 (:func:`log_sigmoid`), not ``F.logsigmoid``.  When ``torch.profiler`` is
 on, each mLSTM and sLSTM call is labelled ``ssm.mlstm`` / ``ssm.slstm``
 (``XLSTM_SPANS``).
+
+Under ``ranks`` the mLSTM runs on the rank's block of each head's **v
+rows**, where the plan puts its state ``C`` ([v, k]): ``up_proj``'s and
+the q/k/v products gathered whole (u and g are its halves, a rank's
+column block is not its channels of either), v narrowed to the rank's
+rows of each head; the gates from the row-parallel ``w_igate``/
+``w_fgate`` sums; in a decode step ``n`` on the rank's block of its k
+index with the denominator's ``n . q`` a partial dot summed over
+``"model"``, ``m`` whole (gathered where the plan splits it on the
+heads, its block kept); h gathered back to whole heads before
+``down_proj``'s row-parallel sum.  The prefill's chunkwise form needs no
+sum: with k whole on every rank ``n_t`` is whole.  The sLSTM runs on the
+rank's d-channels of each of its four gates
+(``tensor_parallel.chunk_channels`` of ``w_in``'s and, each step, of
+``w_rec``'s gathered product: h all-gathered for it, two exchanges a
+step), its state the rank's channels, ``out_proj`` a
+row-parallel sum over them.  A state the plan splits over ``"model"``
+elsewhere raises, naming 7(b) step 3d.
 """
 from __future__ import annotations
 
@@ -272,34 +290,44 @@ def init_mlstm(gen: torch.Generator, cfg: ArchConfig
     }
 
 
-def _mlstm_qkvif(params, x: torch.Tensor, heads: int):
+def _mlstm_qkvif(params, x: torch.Tensor, heads: int, ranks=None):
     """q, k, v (B, S, heads, hd) in x's dtype (k scaled by 1 / sqrt(hd)
     in that dtype), the gate pre-activations i_pre, f_pre (B, S, heads)
-    summed in x's dtype then cast to f32, and the output gate's input g."""
-    u, g = (x @ params["up_proj"].to(x.dtype)).chunk(2, dim=-1)
+    summed in x's dtype then cast to f32, and the output gate's input g.
+    ``ranks``: everything whole but v, the rank's block of each head's
+    rows (B, S, heads, hd / M)."""
+    sp = lambda n: tp.spec(ranks, n)
+    u, g = tp.linear(x, params["up_proj"], sp("up_proj"), ranks).chunk(
+        2, dim=-1)
     B, S, d_in = u.shape
     hd = d_in // heads
 
-    def proj(w):
-        return (u @ w.to(u.dtype)).reshape(B, S, heads, hd)
+    def proj(name):
+        return tp.linear(u, params[name], sp(name), ranks).reshape(
+            B, S, heads, hd)
 
-    q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+    q, k, v = proj("wq"), proj("wk"), tp.channels(proj("wv"), ranks)
     k = k / torch.sqrt(torch.tensor(hd, dtype=k.dtype, device=k.device))
-    i_pre = (u @ params["w_igate"].to(u.dtype)
-             + params["igate_bias"].to(u.dtype)).float()
-    f_pre = (u @ params["w_fgate"].to(u.dtype)
-             + params["fgate_bias"].to(u.dtype)).float()
-    return q, k, v, i_pre, f_pre, g
+
+    def gate(w, b):
+        bias = tp.gather_leaf(params[b], sp(b), ranks)
+        return (tp.linear(u, params[w], sp(w), ranks)
+                + bias.to(u.dtype)).float()
+
+    return q, k, v, gate("w_igate", "igate_bias"), \
+        gate("w_fgate", "fgate_bias"), g
 
 
 def _mlstm_out(params, h: torch.Tensor, g: torch.Tensor,
-               dtype: torch.dtype) -> torch.Tensor:
+               dtype: torch.dtype, ranks=None) -> torch.Tensor:
     """h (B, S, heads * hd) f32 -> the block's output (B, S, d)."""
     out = h.to(dtype) * F.silu(g)
-    return out @ params["down_proj"].to(out.dtype)
+    return tp.linear(out, params["down_proj"], tp.spec(ranks, "down_proj"),
+                     ranks)
 
 
-def mlstm_scan(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlstm_scan(params, x: torch.Tensor, cfg: ArchConfig,
+               ranks=None) -> torch.Tensor:
     """Prefill mLSTM, the stabilized chunkwise-parallel form.
     x: (B, S, d) -> (B, S, d).
 
@@ -311,17 +339,18 @@ def mlstm_scan(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                 + sum_j exp(B_L - b_j + i_j - m_new) v_j k_j^T
         out_t = (inter + intra) / max(|q_t . n_t|, exp(-m_t))
     L is ``MLSTM_CHUNK``, or gcd(S, MLSTM_CHUNK) where S is not a
-    multiple of it; the carry starts at C = 0, n = 0, m = 0."""
+    multiple of it; the carry starts at C = 0, n = 0, m = 0.  ``ranks``:
+    on the rank's v rows of each head (the module's docstring)."""
     with span("ssm.mlstm"):
         B, S, _ = x.shape
         heads = _mlstm_heads(cfg)
-        q, k, v, i_pre, f_pre, g = _mlstm_qkvif(params, x, heads)
-        hd = q.shape[-1]
+        q, k, v, i_pre, f_pre, g = _mlstm_qkvif(params, x, heads, ranks)
+        hd, hv = q.shape[-1], v.shape[-1]
         L = min(MLSTM_CHUNK, S)
         if S % L:
             L = math.gcd(S, L) or 1
         dev = x.device
-        C = torch.zeros((B, heads, hd, hd), dtype=torch.float32, device=dev)
+        C = torch.zeros((B, heads, hv, hd), dtype=torch.float32, device=dev)
         n = torch.zeros((B, heads, hd), dtype=torch.float32, device=dev)
         m = torch.zeros((B, heads), dtype=torch.float32, device=dev)
         tri = torch.ones((L, L), dtype=torch.bool, device=dev).tril()
@@ -356,14 +385,16 @@ def mlstm_scan(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                 "blhd,blhe->bhde", vt * w_j[..., None], kt)
             n = n * carry[..., None] + torch.einsum("blhd,blh->bhd", kt, w_j)
             m = m_new
-        h = torch.cat(hs, dim=1).reshape(B, S, heads * hd)
-        return _mlstm_out(params, h, g, x.dtype)
+        h = tp.gather(torch.cat(hs, dim=1), ranks, -1).reshape(B, S, -1)
+        return _mlstm_out(params, h, g, x.dtype, ranks)
 
 
-def _mlstm_step(carry, inp):
+def _mlstm_step(carry, inp, ranks=None):
     """One step of the stabilized recurrence: carry (C (B, H, hd, hd),
     n (B, H, hd), m (B, H)), inp (q, k, v (B, H, hd), i, f (B, H) f32).
-    Returns (carry, h (B, H, hd) f32)."""
+    Returns (carry, h (B, H, hd) f32).  ``ranks``: v, C's rows and h the
+    rank's block of each head's v rows, n its block of the k index (the
+    denominator's dot summed over ``"model"``), m whole."""
     C, n, m = carry
     qt, kt, vt, it, ft = inp
     log_f = log_sigmoid(ft)
@@ -373,11 +404,12 @@ def _mlstm_step(carry, inp):
     kf, vf = kt.float(), vt.float()
     C = f_s[..., None] * C \
         + i_s[..., None] * (vf[..., :, None] * kf[..., None, :])
-    n = f_s * n + i_s * kf
+    n = f_s * n + i_s * tp.channels(kf, ranks)
     qf = qt.float()
     num = torch.einsum("bhvk,bhk->bhv", C, qf)
-    den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qf).abs(),
-                        torch.exp(-m_new))
+    dot = tp.reduce_sum(torch.einsum("bhk,bhk->bh", n,
+                                     tp.channels(qf, ranks)), ranks)
+    den = torch.maximum(dot.abs(), torch.exp(-m_new))
     return (C, n, m_new), num / den[..., None]
 
 
@@ -409,19 +441,42 @@ def mlstm_state_init(cfg: ArchConfig, batch: int, dtype: torch.dtype,
             "m": torch.full((batch, heads), -1e9, dtype=f32, device=device)}
 
 
-def mlstm_decode(params, x: torch.Tensor, state, cfg: ArchConfig):
+def _check_state(state, ranks, dims) -> None:
+    """Raise, naming 7(b) step 3d, where the plan splits a state leaf over
+    ``"model"`` on another dim than ``dims[name]`` (None: not at all, or
+    on ``dims`` entry's alternatives)."""
+    if ranks is None:
+        return
+    for name, want in dims.items():
+        got = tp.model_dim(tp.state_spec(ranks, name), ranks)
+        if got not in want:
+            raise NotImplementedError(
+                f"a recurrent state {name} {tuple(state[name].shape)} split "
+                f"over 'model' on dim {got}, not {want}: {tp.STEP3D}")
+
+
+def mlstm_decode(params, x: torch.Tensor, state, cfg: ArchConfig,
+                 ranks=None):
     """One-token decode.  x: (B, 1, d); state {'C', 'n', 'm'}, overwritten
-    in place with the new state.  Returns (out (B, 1, d), state)."""
+    in place with the new state.  Returns (out (B, 1, d), state).
+    ``ranks`` (its ``state_specs`` the state's): C holds the rank's block
+    of the v index, n of the k index, m the rank's heads or all of them
+    (the module's docstring)."""
+    _check_state(state, ranks, {"C": (2,), "n": (2,), "m": (1, None)})
     with span("ssm.mlstm"):
         B = x.shape[0]
-        q, k, v, i_pre, f_pre, g = _mlstm_qkvif(params, x, _mlstm_heads(cfg))
+        q, k, v, i_pre, f_pre, g = _mlstm_qkvif(params, x, _mlstm_heads(cfg),
+                                                ranks)
+        m_spec = tp.state_spec(ranks, "m")
         (C, n, m), h = _mlstm_step(
-            (state["C"], state["n"], state["m"]),
-            (q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0]))
-        out = _mlstm_out(params, h.reshape(B, 1, -1), g, x.dtype)
+            (state["C"], state["n"], tp.gather_leaf(state["m"], m_spec,
+                                                    ranks)),
+            (q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0]), ranks)
+        out = _mlstm_out(params, tp.gather(h, ranks, -1).reshape(B, 1, -1),
+                         g, x.dtype, ranks)
         state["C"].copy_(C)
         state["n"].copy_(n)
-        state["m"].copy_(m)
+        state["m"].copy_(tp.model_block(m, m_spec, ranks))
         return out, state
 
 
@@ -442,11 +497,16 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig
     }
 
 
-def _slstm_step(w_rec: torch.Tensor, carry, pre: torch.Tensor):
+def _slstm_step(w_rec: torch.Tensor, carry, pre: torch.Tensor, ranks=None):
     """One step: carry (h, c, n, m) (B, d) f32, pre (B, 4d) f32, w_rec
-    already in pre's dtype.  Returns (carry, h)."""
+    (the rank's block) already in pre's dtype.  Returns (carry, h).
+    ``ranks``: the carry and h the rank's channels (B, d / M), pre its
+    channels of each gate; h gathered whole, and the recurrent product
+    gathered and narrowed to the rank's channels as ``w_in``'s is."""
     h, c, n, m = carry
-    gates = pre + (h.to(pre.dtype) @ w_rec).float()
+    rec = tp.linear(tp.gather(h, ranks, -1).to(pre.dtype), w_rec,
+                    tp.spec(ranks, "w_rec"), ranks)
+    gates = pre + tp.chunk_channels(rec, 4, ranks).float()
     z_pre, i_pre, f_pre, o_pre = gates.chunk(4, dim=-1)
     z = torch.tanh(z_pre)
     o = torch.sigmoid(o_pre)
@@ -460,45 +520,64 @@ def _slstm_step(w_rec: torch.Tensor, carry, pre: torch.Tensor):
     return (h_new, c, n, m_new), h_new
 
 
-def _slstm_pre(params, x: torch.Tensor) -> torch.Tensor:
-    return (x @ params["w_in"].to(x.dtype)
-            + params["bias"].to(x.dtype)).float()
+def _slstm_pre(params, x: torch.Tensor, ranks=None) -> torch.Tensor:
+    """``x @ w_in + bias`` in f32; under ``ranks`` the product gathered
+    and narrowed to the rank's channels of each gate (B, S, 4d / M)."""
+    pre = tp.linear(x, params["w_in"], tp.spec(ranks, "w_in"), ranks) \
+        + tp.gather_leaf(params["bias"], tp.spec(ranks, "bias"),
+                         ranks).to(x.dtype)
+    return tp.chunk_channels(pre, 4, ranks).float()
 
 
-def slstm_scan(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _slstm_out(params, h: torch.Tensor, ranks=None) -> torch.Tensor:
+    """h (the rank's channels under ``ranks``) in its dtype -> (.., d)."""
+    return tp.linear_from_block(h, params["out_proj"],
+                                tp.spec(ranks, "out_proj"), ranks)
+
+
+def slstm_scan(params, x: torch.Tensor, cfg: ArchConfig,
+               ranks=None) -> torch.Tensor:
     """Prefill sLSTM, one step at a time from h = c = n = 0, m = -1e9.
-    x: (B, S, d) -> (B, S, d)."""
+    x: (B, S, d) -> (B, S, d).  ``ranks``: on the rank's channels (the
+    module's docstring), two all-gathers a step."""
     with span("ssm.slstm"):
         B = x.shape[0]
-        pre = _slstm_pre(params, x)
+        pre = _slstm_pre(params, x, ranks)
         w_rec = params["w_rec"].to(pre.dtype)       # cast once, not per step
-        st = slstm_state_init(cfg, B, x.dtype, device=x.device)
+        st = slstm_state_init(cfg, B, x.dtype, device=x.device,
+                              width=pre.shape[-1] // 4)
         _, hs = scan_chunked(
-            lambda carry, inp: _slstm_step(w_rec, carry, inp[0]),
+            lambda carry, inp: _slstm_step(w_rec, carry, inp[0], ranks),
             (st["h"], st["c"], st["n"], st["m"]), (pre.transpose(0, 1),),
             RECURRENT_CHUNK)
         h = hs.transpose(0, 1).to(x.dtype)
-        return h @ params["out_proj"].to(h.dtype)
+        return _slstm_out(params, h, ranks)
 
 
 def slstm_state_init(cfg: ArchConfig, batch: int, dtype: torch.dtype,
-                     device=None) -> Dict[str, torch.Tensor]:
-    """h, c, n zeros and m at -1e9, (B, d) f32 each, whatever ``dtype``."""
-    shape, f32 = (batch, cfg.d_model), torch.float32
+                     device=None, width: int = 0) -> Dict[str, torch.Tensor]:
+    """h, c, n zeros and m at -1e9, (B, d) f32 each (``width`` channels
+    where given), whatever ``dtype``."""
+    shape, f32 = (batch, width or cfg.d_model), torch.float32
     return {"h": torch.zeros(shape, dtype=f32, device=device),
             "c": torch.zeros(shape, dtype=f32, device=device),
             "n": torch.zeros(shape, dtype=f32, device=device),
             "m": torch.full(shape, -1e9, dtype=f32, device=device)}
 
 
-def slstm_decode(params, x: torch.Tensor, state, cfg: ArchConfig):
+def slstm_decode(params, x: torch.Tensor, state, cfg: ArchConfig,
+                 ranks=None):
     """One-token decode.  x: (B, 1, d); state {'h', 'c', 'n', 'm'},
-    overwritten in place.  Returns (out (B, 1, d), state)."""
+    overwritten in place.  Returns (out (B, 1, d), state).  ``ranks``
+    (its ``state_specs`` the state's): the state holds the rank's
+    channels."""
+    _check_state(state, ranks, dict.fromkeys("hcnm", (1,)))
     with span("ssm.slstm"):
-        pre = _slstm_pre(params, x)[:, 0]
+        pre = _slstm_pre(params, x, ranks)[:, 0]
         carry, h_out = _slstm_step(params["w_rec"].to(pre.dtype),
-                                   tuple(state[n] for n in "hcnm"), pre)
-        out = (h_out.to(x.dtype) @ params["out_proj"].to(x.dtype))[:, None, :]
+                                   tuple(state[n] for n in "hcnm"), pre,
+                                   ranks)
+        out = _slstm_out(params, h_out.to(x.dtype), ranks)[:, None, :]
         for name, t in zip("hcnm", carry):
             state[name].copy_(t)
         return out, state

@@ -33,14 +33,12 @@ the plan's per-layer specs; ``distributed/tensor_parallel.py``): the
 params and the decode state are this rank's blocks and every layer runs
 tensor-parallel (attention on a rank's heads or gathered, a Hymba
 layer's Mamba heads on its channels, an encoder-decoder's encoder and
-cross-attention on its heads); the MoE families and xLSTM raise
-``NotImplementedError`` naming ROADMAP 7(b) step 3b
-(``tensor_parallel.check_family``).  ``moe_group_shard``
-(``models/moe.py``) reads the ambient mesh (``distributed.context``):
-the identity under none or a 1-device ``"model"`` axis,
-``NotImplementedError`` over a larger one; ``attn_seq_shards`` splits
-the prefill's queries over ``"model"`` under ``ranks`` and is the
-identity otherwise (``models/attention.py``).  A
+cross-attention on its heads, an MoE FFN on its experts or its block
+of ``d_ff``, xLSTM's mLSTM on its v rows of each head and sLSTM on its
+channels of each gate).  ``moe_group_shard`` (``models/moe.py``) and
+``attn_seq_shards`` (``models/attention.py``) split the einsum MoE's
+token groups / the prefill's queries over ``"model"`` under ``ranks``
+and are the identity otherwise.  A
 ``moe_impl`` other than ``"scatter"`` or ``"einsum"`` and an unknown
 block kind raise a ``ValueError``.
 
@@ -205,7 +203,9 @@ def _apply_cross_ffn(p, x: torch.Tensor, cfg: ArchConfig,
                     ranks=tp.at(ranks, "ffn"))
     elif "moe" in p:
         y, aux = MOE_IMPLS[cfg.moe_impl](
-            p["moe"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+            p["moe"], rmsnorm(p["ln2"], x, cfg.norm_eps,
+                              ranks=tp.at(ranks, "ln2")), cfg,
+            ranks=tp.split_at(ranks, "moe"))
         x = x + y
     return x, aux
 
@@ -222,9 +222,11 @@ def apply_sublayer(p, kind: str, x: torch.Tensor, cfg: ArchConfig, *,
         mix = ssm_lib.mamba_scan(p["mamba"], h, cfg,
                                  ranks=tp.at(ranks, "mamba"))
     elif kind == MLSTM:
-        mix = ssm_lib.mlstm_scan(p["mlstm"], h, cfg)
+        mix = ssm_lib.mlstm_scan(p["mlstm"], h, cfg,
+                                 ranks=tp.at(ranks, "mlstm"))
     elif kind == SLSTM:
-        mix = ssm_lib.slstm_scan(p["slstm"], h, cfg)
+        mix = ssm_lib.slstm_scan(p["slstm"], h, cfg,
+                                 ranks=tp.at(ranks, "slstm"))
     else:
         mix = attn_lib.self_attention(p["attn"], h, cfg, causal=causal,
                                       window=window,
@@ -276,9 +278,11 @@ def apply_sublayer_decode(p, kind: str, x: torch.Tensor, state, step: int,
         mix, _ = ssm_lib.mamba_decode(p["mamba"], h, state["mamba"], cfg,
                                       ranks=tp.at_state(ranks, "mamba"))
     elif kind == MLSTM:
-        mix, _ = ssm_lib.mlstm_decode(p["mlstm"], h, state["mlstm"], cfg)
+        mix, _ = ssm_lib.mlstm_decode(p["mlstm"], h, state["mlstm"], cfg,
+                                      ranks=tp.at_state(ranks, "mlstm"))
     elif kind == SLSTM:
-        mix, _ = ssm_lib.slstm_decode(p["slstm"], h, state["slstm"], cfg)
+        mix, _ = ssm_lib.slstm_decode(p["slstm"], h, state["slstm"], cfg,
+                                      ranks=tp.at_state(ranks, "slstm"))
     else:
         mix, _ = attn_lib.decode_attention(p["attn"], h, state, step, cfg,
                                            window=window,
@@ -451,8 +455,6 @@ def forward(params, inputs: Dict[str, torch.Tensor], cfg: ArchConfig, *,
     the module's docstring): ``params`` and the inputs' rows are the
     rank's, the hidden states come back whole in d."""
     check_ported(cfg)
-    if tp.active(ranks):
-        tp.check_family(cfg)
     unit, _ = factor_pattern(cfg.pattern())
     x = embed(params["embed"], inputs["tokens"], cfg,
               ranks=tp.at(ranks, "embed"))
@@ -604,8 +606,6 @@ def decode_step(params, state, tokens: torch.Tensor, step: int,
     rank's block of the plan (``ranks.state_specs`` the state's specs):
     ``params``, ``state`` and the tokens' rows are the rank's, and the
     logits its vocabulary block, (B_r, 1, vocab_pad / M)."""
-    if tp.active(ranks):
-        tp.check_family(cfg)
     x = embed(params["embed"], tokens, cfg, ranks=tp.at(ranks, "embed"))
     memory = state.get("memory")
     for i, (p, s, kind) in enumerate(zip(params["layers"], state["layers"],

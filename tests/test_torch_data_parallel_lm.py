@@ -144,10 +144,10 @@ def test_dryrun_production_mesh_counts_its_collectives(jref, multi_pod):
 
 
 # the rows the production meshes still refuse: SmolLM's training round
-# under the default plan (step 3c), a Granite-MoE prefill (step 3b: its
-# experts) and a mode-B decode (step 3d: FSDP over "data"); the other
-# families' serving rows run (tests/test_torch_tensor_parallel*.py)
-REFUSED = {"train_4k": ARCH, "prefill_32k": "granite-moe-3b-a800m",
+# under the default plan (step 3c), a mode-B prefill and a mode-B decode
+# (step 3d: FSDP over "data"); the mode-A families' serving rows run
+# (tests/test_torch_tensor_parallel*.py)
+REFUSED = {"train_4k": ARCH, "prefill_32k": "llava-next-mistral-7b",
            "decode_32k": "phi3-medium-14b"}
 
 

@@ -414,8 +414,9 @@ def test_training_and_cross_attention_raise_not_yet_ported():
     moves the hidden states), and cross-attention is (see
     test_torch_encdec.py); the MoE's group sharding builds and runs
     under no mesh, and over a 'model' mesh axis of two devices (a fake
-    process group) raises ``NotImplementedError``: multi-device execution
-    is not ported.  B4's bf16 backward is ported: on the card a bf16 B4
+    process group) one program's forward is the same bits (its split over
+    "model" runs in a rank's step: test_torch_tensor_parallel_moe_xlstm.
+    py).  B4's bf16 backward is ported: on the card a bf16 B4
     call under autograd is the Function and carries a gradient (that
     half needs a card)."""
     import dataclasses
@@ -434,15 +435,14 @@ def test_training_and_cross_attention_raise_not_yet_ported():
     moe = dataclasses.replace(reduce_for_smoke(get_arch("olmoe-1b-7b")),
                               moe_impl="einsum", moe_group_shard=True)
     moe_params = tr.init_lm(torch.Generator(), moe, device="cpu")
-    tr.forward(moe_params, toks, moe)
+    plain, _ = tr.forward(moe_params, toks, moe)
     with fake_mesh((1, 2), ("data", "model")) as mesh:
         set_mesh(mesh)
         try:
-            with pytest.raises(NotImplementedError,
-                               match="moe_group_shard.*not yet ported"):
-                tr.forward(moe_params, toks, moe)
+            placed, _ = tr.forward(moe_params, toks, moe)
         finally:
             clear_mesh()
+    assert torch.equal(placed, plain)
     if torch.cuda.is_available():
         q = torch.randn((1, 8, 2, 64), device="cuda",
                         dtype=torch.bfloat16).requires_grad_(True)

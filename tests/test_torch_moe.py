@@ -355,6 +355,44 @@ def test_route_positions_follow_token_order():
     torch.testing.assert_close(r.weights.sum(-1), torch.ones(12))
 
 
+def test_route_replay_takes_the_recorded_routing():
+    """``chip_smoke.RouteReplay``, which holds a bf16 tensor-parallel run
+    to world 1 on the rank's routing: a bf16 prefill replaying its own
+    recorded routing gives its logits bit for bit; another token's
+    experts change the logits (at capacity factor 4: nothing drops, so
+    every slot stays kept); and a kept slot that the replayed experts'
+    positions contradict raises."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = dataclasses.replace(
+        _with_factor(reduce_for_smoke(get_arch(ARCHS[0])), 4.0),
+        compute_dtype="bfloat16")
+    params = tr.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    step = make_prefill_step(cfg)
+    with smoke.RouteLog() as log_:
+        want = step(params, {"tokens": tokens})
+    routes = smoke.tp_routes(log_)
+    with smoke.RouteReplay(routes) as replay:
+        got = step(params, {"tokens": tokens})
+    assert replay.used == len(routes) == cfg.n_layers
+    assert torch.equal(got, want)
+    idx, keep, gap = routes[0]
+    moved = idx.clone()
+    moved[0] = (moved[0] + 1) % cfg.moe.n_experts   # still k distinct
+    with smoke.RouteReplay([(moved, keep, gap)] + routes[1:]):
+        assert not torch.equal(step(params, {"tokens": tokens}), want)
+    with pytest.raises(AssertionError, match="kept slots"):
+        with smoke.RouteReplay([(idx, ~keep, gap)] + routes[1:]):
+            step(params, {"tokens": tokens})
+
+
 # ---------------------------------------------------------------------------
 # the model
 @pytest.mark.parametrize("S", [16, 300])
@@ -499,10 +537,11 @@ def test_serve_cli_runs_the_moe_smoke_model_on_the_cpu(arch):
 def test_moe_group_shard_raises_not_yet_ported(impl):
     """``moe_group_shard`` under no mesh: the model and its decode state
     build, and the layer's output is bit for bit the one without it.
-    Over a 'model' mesh axis of two devices (a fake process group) the
-    einsum form raises ``NotImplementedError`` naming it "not yet
-    ported" (multi-device execution); the scatter form does not read the
-    knob, as in the reference."""
+    Over a 'model' mesh axis of two devices (a fake process group) it is
+    still the identity in one program, in both forms (the einsum form
+    splits its groups over "model" only in a rank's step, under
+    ``ranks=``: ``tests/test_torch_tensor_parallel_moe_xlstm.py``); the
+    scatter form does not read the knob, as in the reference."""
     from test_torch_reference import fake_mesh
 
     from repro_torch.distributed.context import clear_mesh, set_mesh
@@ -520,9 +559,8 @@ def test_moe_group_shard_raises_not_yet_ported(impl):
     with fake_mesh((1, 2), ("data", "model")) as mesh:
         set_mesh(mesh)
         try:
-            with pytest.raises(NotImplementedError,
-                               match="moe_group_shard.*not yet ported"):
-                moe.moe_ffn_einsum(params, x, cfg)
+            assert torch.equal(moe.moe_ffn_einsum(params, x, cfg)[0],
+                               moe.moe_ffn_einsum(params, x, plain)[0])
             assert torch.equal(moe.moe_ffn(params, x, cfg)[0],
                                moe.moe_ffn(params, x, plain)[0])
         finally:

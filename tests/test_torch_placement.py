@@ -24,10 +24,10 @@ through ``launch/steps.train_setup`` on placed state, ``launch.train
   a ``with_sharding_constraint`` that needs a JAX context mesh with Auto
   axes (its ``make_host_mesh`` makes Explicit ones, where the constraint
   is an assert), which its run here is given.  Over a 'model' axis of
-  two devices (a fake process group) ``moe_group_shard`` raises
-  ``NotImplementedError``; ``attn_seq_shards`` is the identity in a
-  whole program there (its split runs in a rank's step under
-  ``ranks=``: ``tests/test_torch_tensor_parallel.py``).
+  two devices (a fake process group) both are the identity in a whole
+  program too (their splits run in a rank's step under ``ranks=``:
+  ``tests/test_torch_tensor_parallel.py``,
+  ``tests/test_torch_tensor_parallel_moe_xlstm.py``).
 
 Each test that starts a process group destroys it before it ends
 (``registered_host_mesh``, ``test_torch_reference.fake_mesh``).
@@ -336,14 +336,9 @@ def test_mesh_knobs_are_the_identity_on_one_device(reference, knob):
     with fake_mesh((1, 2), ("data", "model")) as mesh:
         context.set_mesh(mesh)
         try:
-            if knob == "attn_seq_shards":
-                with one_thread():
-                    whole, _ = tr.forward_logits(params, inputs, on)
-                assert torch.equal(whole, plain)
-            else:
-                with pytest.raises(NotImplementedError,
-                                   match=f"{knob}.*not yet ported"):
-                    tr.forward_logits(params, inputs, on)
+            with one_thread():
+                whole, _ = tr.forward_logits(params, inputs, on)
+            assert torch.equal(whole, plain)
             tr.forward_logits(params, inputs, cfg)         # no knob: runs
         finally:
             context.clear_mesh()

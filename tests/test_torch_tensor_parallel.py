@@ -48,8 +48,7 @@ from tp_ranks import SEEDED, SEEDED_L, SEEDED_N, case_cfg, run_case, \
 
 from repro_torch.configs import INPUT_SHAPES, InputShape, get_arch
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.distributed.context import (check_model_axis, clear_mesh,
-                                             set_mesh)
+from repro_torch.distributed.context import clear_mesh, set_mesh
 from repro_torch.distributed.data_parallel import Axis, RankBlock
 from repro_torch.kernels import ref
 from repro_torch.launch import dryrun, steps
@@ -409,11 +408,13 @@ def _fake(shape):
 
 
 LEFT_OUT = {
-    "moe": ("olmoe-1b-7b", "decode_32k", (1, 2), "step 3b"),
-    "moe_prefill": ("granite-moe-3b-a800m", "prefill_32k", (1, 2),
-                    "step 3b"),
-    "xlstm": ("xlstm-1.3b", "prefill_32k", (1, 2), "step 3b"),
-    "xlstm_decode": ("xlstm-1.3b", "decode_32k", (1, 2), "step 3b"),
+    "moe_train_default_plan": ("olmoe-1b-7b", "train_4k", (1, 2),
+                               "step 3c"),
+    "xlstm_train_default_plan": ("xlstm-1.3b", "train_4k", (1, 2),
+                                 "step 3c"),
+    "mode_b_decode_data": ("llava-next-mistral-7b", "decode_32k", (2, 1),
+                           "step 3d"),
+    "mode_b_train_data": ("phi3-medium-14b", "train_4k", (2, 2), "step 3d"),
     "mode_b_data": ("phi3-medium-14b", "prefill_32k", (2, 1), "step 3d"),
     "train_default_plan": ("smollm-360m", "train_4k", (1, 2), "step 3c"),
 }
@@ -431,18 +432,31 @@ def test_what_this_slice_leaves_out_raises_naming_its_item(item):
 def test_long_500k_and_moe_group_shard_still_raise():
     """``long_500k`` (B = 1) puts "model" on head_dim: the production
     mesh's decode row raises naming step 3d, as a cache split there does
-    in the attention; ``moe_group_shard`` over a real "model" axis still
-    raises (``attn_seq_shards`` runs there: the phi3 cases above)."""
+    in the attention.  ``moe_group_shard`` no longer raises: with a fake
+    1 x 2 mesh registered, one program's forward with it equals the one
+    without it bit for bit (its split over "model" runs in a rank's step:
+    ``tests/test_torch_tensor_parallel_moe_xlstm.py``)."""
+    from repro_torch.models import transformer as tr
+
     with pytest.raises(NotImplementedError, match="7\\(b\\) step 3d"):
         dryrun.run_one("smollm-360m", "long_500k", False, out_dir="",
                        verbose=False, smoke=True)
-    with _fake((1, 2)) as m:
-        set_mesh(m)
-        try:
-            with pytest.raises(NotImplementedError, match="step 3b"):
-                check_model_axis("moe_group_shard")
-        finally:
-            clear_mesh()
+    cfg = case_cfg(dict(arch="granite-moe-3b-a800m",
+                        patch=dict(moe_impl="einsum")))
+    on = dataclasses.replace(cfg, moe_group_shard=True)
+    params = tr.init_lm(torch.Generator().manual_seed(3), cfg, device="cpu")
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512),
+                                      generator=torch.Generator()
+                                      .manual_seed(4))}
+    with one_thread():
+        plain, _ = tr.forward_logits(params, inputs, cfg)
+        with _fake((1, 2)) as m:
+            set_mesh(m)
+            try:
+                got, _ = tr.forward_logits(params, inputs, on)
+            finally:
+                clear_mesh()
+    assert torch.equal(got, plain)
 
 
 def test_seq_blocks_follow_the_references_trigger_and_split():

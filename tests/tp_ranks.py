@@ -16,8 +16,9 @@ without one, at world 1, and returns numpy: the prefill's logits (the
 rank's rows and vocabulary block), the embedding, the engine's tokens
 and each step's logits, the exchanges counted per step, the attention
 calls (and B6's, for a config with Mamba layers), the longest block B5's
-partial was given on this rank and the shapes of the rank's weights and
-decode state; on a
+partial was given on this rank, the shapes of the rank's weights and
+decode state and, for an MoE config, every routing the rank made (its
+tokens' experts, positions and kept slots: :class:`Routes`); on a
 mesh also the exchanges predicted before the run, by the same steps
 run first on ``meta`` structs of the rank's blocks from the setups
 (``prefill_setup``/``decode_setup`` with ``rank_local``).  It imports
@@ -73,6 +74,28 @@ class AttentionCalls:
 
         for k, f in self._orig.items():
             setattr(ops, k, f)
+
+
+class Routes:
+    """Records ``models.moe.route``'s routings while entered, as numpy
+    (idx, pos, keep) per call."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real, self.calls = moe, moe.route, []
+
+        def spy(*a, **kw):
+            r = self.real(*a, **kw)
+            self.calls.append(tuple(t.numpy().copy()
+                                    for t in (r.idx, r.pos, r.keep)))
+            return r
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
 
 
 def _exchanged():
@@ -146,9 +169,10 @@ def run_case(case, mesh=None):
     if "enc" in case:                 # an encoder-decoder's frames
         inputs["enc_embeds"] = torch.from_numpy(case["enc"])[rows].contiguous()
     collectives.reset_collective_counts()
-    with AttentionCalls(keys) as calls:
+    with AttentionCalls(keys) as calls, Routes() as routes:
         logits = step(params, inputs)
     out["prefill"] = logits.numpy().copy()
+    out["prefill_routes"] = routes.calls
     out["prefill_calls"] = calls.counts
     out["prefill_exchanged"] = _exchanged()
     out["embed"] = layers.embed(
@@ -176,9 +200,10 @@ def run_case(case, mesh=None):
         return got, state
 
     eng._step = spy
-    with AttentionCalls(keys) as calls:
+    with AttentionCalls(keys) as calls, Routes() as routes:
         toks_out = eng.generate([ServeRequest(prompt=p, max_new=case[
             "max_new"]) for p in case["prompts"]])
+    out["engine_routes"] = routes.calls
     out["tokens"] = [t.copy() for t in toks_out]
     out["step_logits"] = [s[0] for s in seen]
     out["step_exchanged"] = [s[1] for s in seen]
@@ -247,6 +272,47 @@ def seeded_decode(case, mesh=None):
     return out
 
 
+def recurrent_decode(case, mesh=None):
+    """``SEEDED_N`` steps of ``make_decode_step`` for the case's weights
+    from the whole decode state ``case["state"]`` (every leaf of
+    ``init_decode_state``'s list drawn by the test: a recurrent state
+    that is not symmetric, trap X) and tokens ``case["seeded_tokens"]``
+    (B, SEEDED_N), at world 1 or as this rank (its blocks of the weights,
+    its rows and blocks of the state, placed by
+    ``steps.decode_state_specs``): each step's last logits (the rank's
+    vocabulary block) and the state's leaves after them (the rank's
+    blocks)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import (local_tree, map_leaves,
+                                                  place_tree)
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_map
+
+    cfg = case_cfg(case)
+    whole = tr.serving_tree(tr.lm_params_from_numpy(case["weights"], cfg,
+                                                    device="cpu"))
+    state = tree_map(lambda a: torch.from_numpy(a).clone(), case["state"])
+    toks = torch.from_numpy(case["seeded_tokens"])
+    B = toks.shape[0]
+    ranks, params, rows = None, whole, slice(None)
+    if mesh is not None:
+        specs = steps.serving_specs(cfg, mesh)
+        ranks = tp.serve_block(mesh, B, specs, steps.decode_state_specs(
+            cfg, mesh, B, case["cache_len"]))
+        params = local_tree(place_tree(whole, specs, mesh))
+        state = map_leaves(lambda t, sp: tp.block(t, sp, ranks).clone(),
+                           state, ranks.state_specs)
+        rows = ranks.clients()
+    step = steps.make_decode_step(cfg, 0, ranks)
+    logits = []
+    for t in range(SEEDED_N):
+        got, state = step(params, state, toks[rows, t:t + 1].contiguous(), t)
+        logits.append(got[:, -1].numpy().copy())
+    return dict(logits=logits,
+                state=tree_map(lambda t: t.numpy().copy(), state))
+
+
 # a Mamba mixer's leaves placed off their channel dims: x_proj and
 # out_proj on their outputs, dt_proj on its input, A_log on its states,
 # conv_w, conv_b and dt_bias replicated (each gathered at use, or its
@@ -305,7 +371,8 @@ def mixer_off_channels(mesh, seed):
 
 def tp_job(mesh, payload):
     """Every case of ``payload["cases"]``, :func:`seeded_decode` of
-    ``payload["seeded"]`` and :func:`mixer_off_channels` of
+    ``payload["seeded"]``, :func:`recurrent_decode` of
+    ``payload["recurrent"]`` and :func:`mixer_off_channels` of
     ``payload["mixer"]`` (where given) on this rank; with
     ``payload["init_seed"]``, also this rank's blocks drawn by
     ``transformer.init_lm`` with ``tensor_parallel.keep_blocks`` against
@@ -322,6 +389,8 @@ def tp_job(mesh, payload):
            for name, case in payload["cases"].items()}
     if "seeded" in payload:
         out["seeded"] = seeded_decode(payload["seeded"], mesh)
+    if "recurrent" in payload:
+        out["recurrent"] = recurrent_decode(payload["recurrent"], mesh)
     if "mixer" in payload:
         out["mixer"] = mixer_off_channels(mesh, payload["mixer"])
     if payload.get("init_seed") is not None:
